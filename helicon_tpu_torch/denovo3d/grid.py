@@ -1,0 +1,620 @@
+"""Candidate-grid driver: the twist-grouped (twist, rise) search on one
+class average.
+
+Counterpart of ``helicon_tpu/denovo3d/grid.py``. Candidates that share a
+twist form a group of R; each group's stacked operand A_top is built once
+and the group's solves and scores run together (``group_solve``). G groups
+go to the device per launch, G sized from a memory budget. The best
+candidate's volume is then re-solved alone in float32.
+
+The port covers the default configuration (lsq, cosine, nn, tilt = psi
+= 0) on one device; the other arguments raise NotImplementedError naming
+the ROADMAP item that will port them. The host tables (``_candidate_tables``,
+``_group_tables``, ``_copy_block``) are copies of the reference's numpy
+code; ``tests/test_torch_geometry.py`` pins them bit for bit.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
+import math
+import time
+
+import numpy as np
+import torch
+
+from ..angular import set_to_periodic_range
+from ..core.filters import down_scale
+from .geometry import (
+    ReconstructionGeometry,
+    estimate_copy_pair_counts,
+    estimate_n_pair_ops,
+    select_copies,
+    select_pair_ops,
+)
+from .pipeline import _pixel_geometry, auto_sym_oversample, derive_task_geometry, prepare_data
+from .solver import SolveConfig, check_in_slice, regularization_from_algorithm, solve_candidate
+
+__all__ = ["build_candidate_grid", "reconstruct_grid", "GridResult"]
+
+R_MAX = 64  # largest group the scorer batches; bigger twist groups split
+
+
+def build_candidate_grid(
+    twist_min: float,
+    twist_max: float,
+    twist_step: float,
+    rise_min: float,
+    rise_max: float,
+    rise_step: float,
+    handedness: str = "both",
+    tube_length: float = math.inf,
+):
+    """(twist, rise) candidate list with the reference's filters:
+    degenerate twist/rise and rise >= tube_length/2 dropped; handedness
+    forcing for single-twist searches. Returns float32 arrays."""
+    if handedness.startswith("left") and twist_max == twist_min:
+        twists = [-abs(twist_max)]
+    elif handedness.startswith("right") and twist_max == twist_min:
+        twists = [abs(twist_max)]
+    elif twist_min < twist_max:
+        twists = np.arange(twist_min, twist_max + twist_step / 2, twist_step)
+    else:
+        twists = [twist_min]
+    if rise_min < rise_max:
+        rises = np.arange(rise_min, rise_max + rise_step / 2, rise_step)
+    else:
+        rises = [rise_min]
+
+    out_t, out_r = [], []
+    for t in twists:
+        t = round(set_to_periodic_range(float(t), min=-180, max=180), 6)
+        for r in rises:
+            if abs(t) < 0.01 or abs(r) < 0.01 or abs(r) >= tube_length / 2:
+                continue
+            out_t.append(t)
+            out_r.append(float(r))
+    return np.asarray(out_t, np.float32), np.asarray(out_r, np.float32)
+
+
+@dataclasses.dataclass
+class GridResult:
+    twists: np.ndarray
+    rises: np.ndarray
+    scores: np.ndarray
+    geom: ReconstructionGeometry
+    target_apix2d: float
+    target_apix3d: float
+    best_index: int = -1
+    best_volume: np.ndarray | None = None
+    refined_params: dict | None = None
+    cost: dict | None = None
+    # the dispatch actually in effect (path, R, groups per launch, ...)
+    effective: dict | None = None
+    extras: dict | None = None
+
+    def top(self, n: int = 10):
+        """(twist, rise, score) rows of the n best candidates."""
+        order = np.argsort(-self.scores)[:n]
+        return np.stack(
+            [self.twists[order], self.rises[order], self.scores[order]], axis=1
+        )
+
+
+def _candidate_tables(
+    geom, twists, rises, n_copies, n_pairs, n_ops, copy_cache=None
+):
+    """Host-side per-candidate symmetry copy/pair/op tables (padded)."""
+    n = len(twists)
+    ch = np.zeros((n, n_copies), np.int32)
+    cc = np.zeros((n, n_copies), np.int32)
+    cv = np.zeros((n, n_copies), bool)
+    phc = np.zeros((n, n_pairs, 4), np.int32)
+    pv = np.zeros((n, n_pairs), bool)
+    ops_hc = np.zeros((n, n_ops, 2), np.int32)
+    ops_v = np.zeros((n, n_ops), bool)
+    pair_idx = np.zeros((n, n_pairs, 2), np.int32)
+    if copy_cache is None:
+        copy_cache = {}
+    for i in range(n):
+        r = float(rises[i])
+        if r not in copy_cache:
+            copy_cache[r] = select_copies(geom, r, n_copies)
+        ch[i], cc[i], cv[i] = copy_cache[r]
+        ops_hc[i], ops_v[i], pair_idx[i], pv[i] = select_pair_ops(
+            geom, float(twists[i]), r, n_pairs, n_ops
+        )
+        o = ops_hc[i]
+        phc[i, :, 0:2] = o[pair_idx[i, :, 0]]
+        phc[i, :, 2:4] = o[pair_idx[i, :, 1]]
+    return ch, cc, cv, phc, pv, ops_hc, ops_v, pair_idx
+
+
+def _group_tables(
+    geom, twist, rises_pixel, n_copies, n_pairs, n_ops, C_u, R_pad, copy_cache
+):
+    """Canonical-copy multiplicity + canonical pair tables for one
+    twist-group. Returns (rises[R_pad], m[R_pad, C_u], ch_u[C_u],
+    cc_u[C_u], pair_idx[R_pad, n_pairs, 2], pairs_valid[R_pad, n_pairs],
+    rank[R_pad, C_u]); groups smaller than R_pad repeat their last
+    candidate (scores discarded by the caller)."""
+    from .geometry import _pair_table
+
+    R = len(rises_pixel)
+    csym = geom.csym
+    hmax_p = (n_ops // csym - 1) // 2
+    rises_pad, m, ch_u, cc_u, rank = _copy_block(
+        geom, tuple(float(r) for r in rises_pixel),
+        n_copies, C_u, R_pad, copy_cache,
+    )
+    pidx = np.zeros((R_pad, n_pairs, 2), np.int32)
+    pval = np.zeros((R_pad, n_pairs), bool)
+    prev_hm = None
+    for ri, r in enumerate(rises_pixel):
+        # the pair table depends on rise only through hmax
+        hm = geom.hsym_max_pairs(float(r))
+        if hm == prev_hm:
+            pidx[ri] = pidx[ri - 1]
+            pval[ri] = pval[ri - 1]
+            continue
+        prev_hm = hm
+        t = _pair_table(float(twist), float(r), csym, geom.l3)[:n_pairs]
+        if len(t):
+            k1 = (t[:, 0] + hmax_p) * csym + t[:, 1]
+            k2 = (t[:, 2] + hmax_p) * csym + t[:, 3]
+            assert k1.min() >= 0 and k1.max() < n_ops, "op table too small"
+            assert k2.min() >= 0 and k2.max() < n_ops, "op table too small"
+            pidx[ri, : len(t), 0] = k1
+            pidx[ri, : len(t), 1] = k2
+            pval[ri, : len(t)] = True
+    for ri in range(R, R_pad):
+        pidx[ri] = pidx[R - 1]
+        pval[ri] = pval[R - 1]
+    return rises_pad, m, ch_u, cc_u, pidx, pval, rank
+
+
+_COPY_BLOCK_CACHE: collections.OrderedDict = collections.OrderedDict()
+
+
+def _copy_block(geom, rises_key, n_copies, C_u, R_pad, copy_cache):
+    """Rise-only half of the group tables, cached on the rise tuple (copy
+    selection is twist-independent, so every group of a Cartesian grid
+    shares one block). Returned arrays are read-only."""
+    key = (geom, rises_key, n_copies, C_u, R_pad)
+    hit = _COPY_BLOCK_CACHE.get(key)
+    if hit is not None:
+        _COPY_BLOCK_CACHE.move_to_end(key)
+        return hit
+    R = len(rises_key)
+    sels = []
+    for r in rises_key:
+        if r not in copy_cache:
+            copy_cache[r] = select_copies(geom, r, n_copies)
+        sels.append(copy_cache[r])
+    # canonical union copy table, ordered by (|h|, h, c)
+    union = set()
+    for ch, cc, cv in sels:
+        union.update(zip(ch[cv].tolist(), cc[cv].tolist()))
+    keys = sorted(union, key=lambda x: (abs(x[0]), x[0], x[1]))
+    assert len(keys) <= C_u, (len(keys), C_u)
+    col = {k: i for i, k in enumerate(keys)}
+    ch_u = np.zeros(C_u, np.int32)
+    cc_u = np.zeros(C_u, np.int32)
+    for (h, c), i in col.items():
+        ch_u[i], cc_u[i] = h, c
+    m = np.zeros((R_pad, C_u), np.float32)
+    rank = np.full((R_pad, C_u), -1, np.int32)
+    for ri, (ch, cc, cv) in enumerate(sels):
+        for pos, (h, c) in enumerate(zip(ch[cv].tolist(), cc[cv].tolist())):
+            m[ri, col[(h, c)]] += 1.0  # Halton repeats -> multiplicity
+            rank[ri, col[(h, c)]] = pos  # overwritten -> LAST position
+    for ri in range(R, R_pad):
+        m[ri] = m[R - 1]
+        rank[ri] = rank[R - 1]
+    rises_pad = np.concatenate(
+        [np.asarray(rises_key, np.float32),
+         np.full(R_pad - R, rises_key[-1], np.float32)]
+    )
+    out = (rises_pad, m, ch_u, cc_u, rank)
+    for a in out:
+        a.flags.writeable = False
+    while len(_COPY_BLOCK_CACHE) >= 256:
+        _COPY_BLOCK_CACHE.popitem(last=False)
+    _COPY_BLOCK_CACHE[key] = out
+    return out
+
+
+def _group_bytes(geom, C_u: int, n_ops: int, R: int, cdt) -> int:
+    """Device bytes one group holds during a launch: A_top, the two
+    (R*l3, rows) product buffers and the per-candidate tensors."""
+    d3sq, l3 = geom.d3 * geom.d3, geom.l3
+    rows = C_u * geom.d2 + n_ops * d3sq
+    item = torch.empty((), dtype=cdt).element_size()
+    M = R * l3
+    return (
+        rows * d3sq * item
+        + M * rows * (4 + item)
+        + 2 * R * n_ops * l3 * d3sq * 4
+        + R * C_u * l3 * l3 * 4
+        + 8 * M * d3sq * 4
+    )
+
+
+def _groups_per_launch(per_group: int, n_groups: int, device: torch.device) -> int:
+    """G: half the card's free memory (1 GiB on the host) over one group's
+    bytes, at least 1 and at most the number of groups."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        budget = free // 2
+    else:
+        budget = 1 << 30
+    return max(1, min(n_groups, budget // max(1, per_group)))
+
+
+def _grouped_scoring(
+    geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
+    dy_pixel, copy_cache, device,
+):
+    """Score every candidate, G twist groups per solve launch. Returns
+    (scores (n,) float32 numpy, effective dispatch dict)."""
+    from .group_solve import GroupInputs, group_inputs, solve_group
+    from .projector_grouped import build_candidate_tensors_grouped, build_group_shared
+
+    n_cand = len(twists)
+    raw_groups = [(float(t), np.where(twists == t)[0]) for t in np.unique(twists)]
+    max_size = max(len(g) for _, g in raw_groups)
+    # canonical copy table width: the union over ALL distinct rises
+    u_all = set()
+    for r in np.unique(rise_pixels):
+        r = float(r)
+        if r not in copy_cache:
+            copy_cache[r] = select_copies(geom, r, n_copies)
+        ch, cc, cv = copy_cache[r]
+        u_all.update(zip(ch[cv].tolist(), cc[cv].tolist()))
+    C_u = len(u_all)
+    R = min(R_MAX, max_size)
+    groups = [(t, g[s : s + R]) for t, g in raw_groups for s in range(0, len(g), R)]
+    cdt = getattr(torch, cfg.compute_dtype)
+    G = _groups_per_launch(_group_bytes(geom, C_u, n_ops, R, cdt), len(groups), device)
+
+    # canonical op enumeration: k = (h + hmax) * csym + c
+    hmax_p = (n_ops // geom.csym - 1) // 2
+    ops_h = np.repeat(np.arange(-hmax_p, hmax_p + 1), geom.csym).astype(np.int32)
+    ops_c = np.tile(np.arange(geom.csym), 2 * hmax_p + 1).astype(np.int32)
+
+    def to_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    # every host table goes to the device once per launch: a copy from
+    # pageable memory waits for the device, so one per group would
+    # serialise the builds with the device
+    ops_h, ops_c = to_dev(ops_h), to_dev(ops_c)
+    mask, cellok = to_dev(geom.cylindrical_mask()), geom.cell_valid_mask()
+    region_t = to_dev(np.asarray(region, np.float32))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    dev_scores = []
+    build_s = solve_s = 0.0
+    for start in range(0, len(groups), G):
+        t0 = time.perf_counter()
+        batch = groups[start : start + G]
+        tabs = [
+            _group_tables(geom, t, rise_pixels[g], n_copies, n_pairs, n_ops, C_u, R,
+                          copy_cache)[:6]
+            for t, g in batch
+        ]
+        rp, m, ch_u, cc_u, pidx, pval = (to_dev(np.stack(c)) for c in zip(*tabs))
+        twist = to_dev(np.asarray([t for t, _ in batch], np.float32))
+        positive = to_dev(np.stack([
+            _positive(cfg, tab[0], t, geom.l3) for (t, _), tab in zip(batch, tabs)
+        ]))
+        inp = None
+        for gi in range(len(batch)):
+            shared = build_group_shared(
+                geom, twist[gi], ch_u[gi], cc_u[gi], ops_h, ops_c, dy_pixel, "nn",
+                mask, cellok, cdt, device,
+            )
+            tens = build_candidate_tensors_grouped(
+                shared, geom, region_t, rp[gi], torch.sqrt(m[gi]), pidx[gi], pval[gi]
+            )
+            tens["lb"], tens["ub"] = _box_bounds(positive[gi], tens["ub_raw"])
+            one = group_inputs(shared, tens)
+            if inp is None:
+                inp = GroupInputs.empty(len(batch), one)
+            inp.put(gi, one)
+            del shared, tens, one
+        sync()
+        t1 = time.perf_counter()
+        _, s = solve_group(inp, cfg.cg_iters, cfg.fista_iters, cfg.power_iters)
+        sync()
+        build_s += t1 - t0
+        solve_s += time.perf_counter() - t1
+        dev_scores.append(s)
+        del inp
+    s_all = torch.cat(dev_scores).cpu().numpy()  # (n_groups, R)
+    scores = np.zeros(n_cand, np.float32)
+    for i, (_, g) in enumerate(groups):
+        scores[g] = s_all[i, : len(g)]
+    effective = dict(
+        path="grouped", R=int(R), groups_per_launch=int(G), n_groups=len(groups),
+        C_u=int(C_u), n_ops=int(n_ops), compute_dtype=cfg.compute_dtype,
+        pad_fraction=round(1.0 - n_cand / (len(groups) * R), 4),
+        # host seconds of the operator builds and of the solves, each
+        # ended by a device synchronisation
+        build_s=build_s, solve_s=solve_s,
+    )
+    return scores, effective
+
+
+def _positive(cfg, rises_pixel, twist, l3) -> np.ndarray:
+    """Per-candidate positivity: the explicit flag, or auto when the
+    pitch exceeds twice the volume length."""
+    if cfg.positive_constraint > 0:
+        return np.ones(len(rises_pixel), bool)
+    if cfg.positive_constraint < 0:
+        pitch = np.round(
+            np.asarray(rises_pixel, np.float32) * np.float32(360.0)
+            / np.abs(np.float32(twist))
+        )
+        return pitch > 2 * l3
+    return np.zeros(len(rises_pixel), bool)
+
+
+def _box_bounds(positive, ub_raw):
+    """(lb, ub) per candidate: [0, max b] where positive, else unbounded."""
+    pos = torch.as_tensor(positive, device=ub_raw.device)
+    lb = torch.where(pos, 0.0, -torch.inf).to(torch.float32)
+    ub = torch.where(pos, ub_raw, torch.inf).to(torch.float32)
+    return lb, ub
+
+
+def _raise_out_of_slice(**kw) -> None:
+    """NotImplementedError for every argument the port does not cover yet."""
+    checks = [
+        ("low_pass > 0", kw["low_pass"] > 0, "A5 prep options"),
+        ("denoise", bool(kw["denoise"]), "A5 prep options"),
+        ("transpose", kw["transpose"] != 0, "A5 prep options"),
+        ("horizontalize", bool(kw["horizontalize"]), "A5 prep options"),
+        ("tilt or psi != 0", kw["tilt"] != 0.0 or kw["psi"] != 0.0, "A7"),
+        ("refine_tilt_psi_dy_range", bool(kw["refine_tilt_psi_dy_range"]), "A8"),
+        ("progress_callback", kw["progress_callback"] is not None, "A9"),
+        ("should_abort", kw["should_abort"] is not None, "A9"),
+        ("densify_padding", bool(kw["densify_padding"]), "A9"),
+        ("cost_analysis", bool(kw["cost_analysis"]), "A5 port bench"),
+        ("more than one device",
+         kw["devices"] is not None and len(kw["devices"]) > 1, "A10"),
+    ]
+    for name, on, item in checks:
+        if on:
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
+
+
+def _tf32_off(fn):
+    """Run fn with every float32 product in full float32 (the reference's
+    "highest" precision), then restore the caller's TF32 flags."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        flags = torch.backends.cuda.matmul, torch.backends.cudnn
+        saved = [f.allow_tf32 for f in flags]
+        for f in flags:
+            f.allow_tf32 = False
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            for f, on in zip(flags, saved):
+                f.allow_tf32 = on
+
+    return wrapped
+
+
+@_tf32_off
+def reconstruct_grid(
+    image,
+    apix: float,
+    twists,
+    rises,
+    csym: int = 1,
+    tilt: float = 0.0,
+    psi: float = 0.0,
+    dy: float = 0.0,
+    low_pass: float = -1,
+    transpose: int = 0,
+    horizontalize: int = 0,
+    denoise: str = "",
+    target_apix2d: float = -1,
+    target_apix3d: float = -1,
+    tube_diameter: float = -1,
+    tube_diameter_inner: float = 0.0,
+    tube_length: float = -1,
+    reconstruct_length_rise: float = 3.0,
+    thresh_fraction: float = -1,
+    positive_constraint: int = -1,
+    sym_oversample: int = -1,
+    interpolation: str = "nn",
+    algorithm: dict | None = None,
+    score_metric: str = "cosine",
+    fsc_test: int = 0,
+    refine_tilt_psi_dy_range: dict | None = None,
+    refine_top_k: int = 1,
+    refine_mode: str = "topk",
+    cg_iters: int = 120,
+    fista_iters: int = 60,
+    power_iters: int = 8,
+    compute_dtype: str = "auto",
+    batch_size: int | None = None,
+    devices=None,
+    return_best_volume: bool = True,
+    progress_callback=None,
+    should_abort=None,
+    cost_analysis: bool = False,
+    rise_bucket_ratio: float = 1.6,
+    geometry_rise_range: tuple | None = None,
+    densify_padding: bool = False,
+    device="cuda",
+) -> GridResult:
+    """Score every (twist, rise) candidate for one class-average image.
+
+    The reference's signature, plus ``device`` (default "cuda"; the CPU
+    runs the kernels' plain versions). compute_dtype "auto" is bfloat16
+    for the group operators on the card and float32 on the CPU; the
+    best-volume re-solve always runs in float32 (TF32 off). The image
+    prep runs on the host, as in the reference. ``batch_size`` is
+    accepted and not used: the port sizes its launches from the device's
+    free memory. Grids with one candidate per twist score as groups of
+    one (the per-candidate path is not ported). ``refine_top_k`` and
+    ``refine_mode`` matter only with refinement, which raises.
+    """
+    algorithm = algorithm or dict(model="lsq")
+    device = torch.device(device)
+    _raise_out_of_slice(
+        low_pass=low_pass, denoise=denoise, transpose=transpose,
+        horizontalize=horizontalize, tilt=tilt, psi=psi,
+        refine_tilt_psi_dy_range=refine_tilt_psi_dy_range,
+        progress_callback=progress_callback, should_abort=should_abort,
+        densify_padding=densify_padding, cost_analysis=cost_analysis,
+        devices=devices,
+    )
+    twists = np.asarray(twists, np.float32)
+    rises = np.asarray(rises, np.float32)
+    if twists.shape != rises.shape or twists.ndim != 1:
+        raise ValueError("twists and rises must be 1D arrays of equal length")
+    n_cand = len(twists)
+    if n_cand == 0:
+        raise ValueError(
+            "no (twist, rise) candidates to score — check the grid "
+            "ranges/filters (build_candidate_grid drops |twist| < 0.01, "
+            "|rise| < 0.01 and rise >= tube_length/2)"
+        )
+    if geometry_rise_range is None and rise_bucket_ratio > 1 and float(
+        np.max(rises)
+    ) > rise_bucket_ratio * max(float(np.min(rises)), 1e-6):
+        raise NotImplementedError(
+            "rise range wider than rise_bucket_ratio: rise bucketing is not "
+            "ported yet (ROADMAP A9)"
+        )
+    model = algorithm.get("model", "lsq")
+    l1, l2r = regularization_from_algorithm(algorithm, 1)
+    if compute_dtype in ("auto", ""):
+        compute_dtype = "bfloat16" if device.type != "cpu" else "float32"
+    cfg = SolveConfig(
+        interpolation=interpolation,
+        model=model,
+        cg_iters=cg_iters,
+        fista_iters=fista_iters,
+        power_iters=power_iters,
+        fsc_test=int(fsc_test),
+        score_metric=score_metric,
+        thresh_fraction=float(thresh_fraction),
+        positive_constraint=int(positive_constraint),
+        l1_reg=float(l1),
+        l2_reg=float(l2r),
+        reg_per_row=model in ("lasso", "elasticnet"),
+        separable=True,
+        compute_dtype=compute_dtype,
+        ard_prior=float(algorithm.get("alpha", 1e-6)),
+    )
+    check_in_slice(cfg)
+
+    data =prepare_data(image, apix, denoise, low_pass, transpose, horizontalize)
+    ny0, nx0 = data.shape
+    estimated_diameter = None
+    if tube_diameter < 0:
+        from ..core.analysis import estimate_helix_rotation_center_diameter
+
+        _, _, estimated_diameter = estimate_helix_rotation_center_diameter(data)
+
+    if geometry_rise_range is not None:
+        g_rise_lo, g_rise_hi = map(float, geometry_rise_range)
+    else:
+        g_rise_lo, g_rise_hi = float(np.min(rises)), float(np.max(rises))
+    rise_ref = g_rise_hi
+    g = derive_task_geometry(
+        (ny0, nx0),
+        apix,
+        rise_ref,
+        (g_rise_lo, g_rise_hi),
+        (-abs(tilt), abs(tilt)),
+        tube_length,
+        tube_diameter,
+        tube_diameter_inner,
+        reconstruct_length_rise * rise_ref,
+        target_apix2d,
+        target_apix3d,
+        estimated_diameter,
+    )
+    target_apix2d = g["target_apix2d"]
+    data = down_scale(data, target_apix2d, apix).cpu().numpy()
+    ny, nx = data.shape
+    pg = _pixel_geometry(g, (ny, nx), rise_ref)
+    target_apix3d = pg["target_apix3d"]
+    geom = ReconstructionGeometry(
+        d2=pg["d2"],
+        l2=pg["l2"],
+        d3=pg["d3"],
+        l3=pg["l3"],
+        rmin=pg["d3_inner"] / 2,
+        rmax=pg["d3"] // 2 - 1,
+        scale2d_to_3d=target_apix2d / target_apix3d,
+        csym=int(csym),
+    )
+    if sym_oversample <= 0:
+        sym_oversample = auto_sym_oversample(pg["l3"], pg["d3"], pg["d3_inner"])
+    rise_pixels = rises / target_apix3d
+    n_copies, n_pairs = estimate_copy_pair_counts(
+        geom, float(np.min(rise_pixels)), sym_oversample,
+        rise_pixel_max=float(np.max(rise_pixels)),
+    )
+    n_ops = estimate_n_pair_ops(geom, float(np.min(rise_pixels)))
+    region = data[
+        ny // 2 - geom.d2 // 2 : ny // 2 + geom.d2 // 2,
+        nx // 2 - geom.l2 // 2 : nx // 2 + geom.l2 // 2,
+    ]
+    copy_cache: dict = {}
+    dy_pixel = np.float32(dy / target_apix2d)
+    scores, effective = _grouped_scoring(
+        geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
+        dy_pixel, copy_cache, device,
+    )
+    result = GridResult(
+        twists=twists,
+        rises=rises,
+        scores=scores,
+        geom=geom,
+        target_apix2d=float(target_apix2d),
+        target_apix3d=float(target_apix3d),
+        effective=effective,
+    )
+    result.best_index = int(np.argmax(scores))
+    if return_best_volume:
+        bi = result.best_index
+        ch, cc, cv, phc, pv, ops_hc, ops_v, pair_idx = _candidate_tables(
+            geom, twists[bi : bi + 1], rise_pixels[bi : bi + 1],
+            n_copies, n_pairs, n_ops, copy_cache,
+        )
+        from .geometry import compute_sym_dedup_mask
+
+        # the re-solve drops duplicate symmetry rows (the reference's nn
+        # dedup); the scoring pass skips it, as the ranking is invariant
+        sym_keep = compute_sym_dedup_mask(
+            geom, float(twists[bi]), float(rise_pixels[bi]), phc[0], pv[0]
+        )
+        out = solve_candidate(
+            geom,
+            cfg._replace(compute_dtype="float32"),
+            region,
+            twists[bi],
+            rise_pixels[bi],
+            ch[0], cc[0], cv[0], phc[0], pv[0],
+            dy_pixel=dy_pixel,
+            pair_ops=(ops_hc[0], ops_v[0], pair_idx[0]),
+            sym_keep=sym_keep,
+            device=device,
+        )
+        result.best_volume = out["rec3d"].cpu().numpy()
+    return result

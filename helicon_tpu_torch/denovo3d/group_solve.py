@@ -1,0 +1,360 @@
+"""Grouped CG / power-iteration / FISTA solve with the in-kernel cosine score.
+
+Counterpart of the v3 half of ``helicon_tpu/denovo3d/pallas_solver.py``
+(``grouped_pallas_inputs`` :662, ``_group_kernel`` :754,
+``solve_group_pallas`` :950) for the lsq + cosine configuration: no l1/l2
+terms, the score computed with the solve.
+
+One twist group of R candidates shares the stacked operand
+A_top = [Wsum; Mxy] (rows x d3^2). The normal-operator matvec for the
+candidate-major block X (R*l3, d3^2) is
+
+    T = X . A_top^T                           (first product)
+    u  = Gz mix of T's data columns           (per candidate and copy)
+    gs = Mz_ops^T L(Mz_ops T's op columns)    (op-axis graph Laplacian)
+    Y  = [u; gs] . A_top * mask               (second product)
+
+Per candidate: CG from 0, a power iteration seeded from rhs (as the TPU
+kernel; the best-volume solve in solver.py seeds from ones), FISTA with
+the box [lb, ub], then cosine = <x, rhs> / (sqrt(<t_d, Gz mix t_d>) |b|).
+
+``solve_group`` takes a ``GroupInputs`` batch of G groups. On CPU tensors
+it runs ``solve_group_reference`` (plain PyTorch); on CUDA tensors it
+runs the hand-written kernels of ``csrc/group_solve.cu`` or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = [
+    "GroupInputs",
+    "group_inputs",
+    "group_inputs_from_numpy",
+    "solve_group",
+    "solve_group_reference",
+    "launches",
+]
+
+# kernel launches made by solve_group on CUDA tensors (each C entry
+# launches one kernel, hts_gemm_xat two in bf16: the cast, then the product)
+launches = 0
+
+L3_MAX = 64  # z extent the kernel's per-thread arrays hold (csrc L3MAX)
+_TILE, _KSTEP = 128, 32  # N tile edge and K slice of the bf16 product kernels
+
+
+@dataclasses.dataclass
+class GroupInputs:
+    """The solve's inputs for G groups of R candidates (candidate-major,
+    unpadded). ``a_top`` is in the compute dtype; the rest is float32."""
+
+    a_top: torch.Tensor  # (G, rows, d3^2), rows = C_u*d2 + O*d3^2
+    gz: torch.Tensor  # (G, R, C_u, l3, l3) multiplicity-weighted z-Gram
+    mz: torch.Tensor  # (G, R, O, l3, l3) per-op z-shift
+    af: torch.Tensor  # (G, R, O, l3, d3^2) op-sample validity
+    cn: torch.Tensor  # (G, R, O, O) pair-count matrix
+    deg: torch.Tensor  # (G, R, O, l3, d3^2) Cn @ af
+    mask: torch.Tensor  # (l3, d3^2) cylindrical mask
+    rhs: torch.Tensor  # (G, R, l3, d3^2)
+    lb: torch.Tensor  # (G, R)
+    ub: torch.Tensor  # (G, R)
+    bn: torch.Tensor  # (G, R) |b_eff|
+    d2: int
+
+    @property
+    def shape(self):
+        """(G, R, C_u, O, l3, d3^2)."""
+        G, R, C_u, l3, _ = self.gz.shape
+        return G, R, C_u, self.mz.shape[2], l3, self.mask.shape[1]
+
+    @classmethod
+    def empty(cls, G: int, like: "GroupInputs"):
+        """Uninitialised inputs for G groups shaped as ``like``'s groups."""
+        kw = {
+            f.name: torch.empty((G,) + getattr(like, f.name).shape[1:],
+                                dtype=getattr(like, f.name).dtype,
+                                device=getattr(like, f.name).device)
+            for f in dataclasses.fields(cls) if f.name not in ("mask", "d2")
+        }
+        return cls(mask=like.mask, d2=like.d2, **kw)
+
+    def put(self, g: int, one: "GroupInputs") -> None:
+        """Copy the single group ``one`` into slot g."""
+        for f in dataclasses.fields(self):
+            if f.name not in ("mask", "d2"):
+                getattr(self, f.name)[g].copy_(getattr(one, f.name)[0])
+
+
+def group_inputs(shared, tens) -> GroupInputs:
+    """The solve's inputs for one group (G = 1) from build_group_shared
+    and build_candidate_tensors_grouped, plus the (R,) box bounds
+    tens["lb"], tens["ub"]. Counterpart of grouped_pallas_inputs. Without
+    "rhs" (the matvec factors alone) rhs, lb, ub and b_norm are zeros."""
+    R = tens["Gz"].shape[0]
+    l3, d3sq = shared["mask_f"].shape[0], shared["A_top"].shape[1]
+    dev = shared["A_top"].device
+    if "rhs" in tens:
+        rhs, lb, ub, bn = (tens[k] for k in ("rhs", "lb", "ub", "b_norm"))
+    else:
+        rhs = torch.zeros((R, l3, d3sq), device=dev)
+        lb = ub = bn = torch.zeros(R, device=dev)
+    return GroupInputs(
+        a_top=shared["A_top"][None],
+        gz=tens["Gz"].float()[None],
+        mz=tens["Mz_ops"].float()[None],
+        af=tens["a_f"].float()[None],
+        cn=tens["Cn"].float()[None],
+        deg=tens["deg"].float()[None],
+        mask=shared["mask_f"].reshape(l3, d3sq),
+        rhs=rhs[None],
+        lb=lb[None],
+        ub=ub[None],
+        bn=bn[None],
+        d2=shared["Wsum"].shape[1],
+    )
+
+
+def group_inputs_from_numpy(shared_np, tens_np):
+    """The same inputs, as float32 CPU tensors, from the JAX package's
+    build_group_shared / build_candidate_tensors_grouped outputs (as numpy;
+    tens_np stacked over the R candidates and holding 'lb'/'ub'), so both
+    solvers can be fed identical operators."""
+
+    def t(x):
+        return torch.as_tensor(np.array(x, np.float32))
+
+    shared = {k: t(shared_np[k]) for k in ("mask_f", "Wsum", "A_top")}
+    return group_inputs(shared, {k: t(v) for k, v in tens_np.items()})
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _data_mix(inp: GroupInputs, t_d: torch.Tensor) -> torch.Tensor:
+    """u[m, c, j] = sum_n Gz[c, m, n] t_d[n, c, j] per candidate."""
+    G, R, C_u, O, l3, d3sq = inp.shape
+    t_d = t_d.reshape(G, R, l3, C_u, inp.d2)
+    return torch.einsum("grcmn,grncj->grmcj", inp.gz, t_d).reshape(G, R, l3, -1)
+
+
+def matvec_reference(inp: GroupInputs, X: torch.Tensor, masked: bool = True) -> torch.Tensor:
+    """NTN(X) for X (G, R, l3, d3^2) float32 (times the mask if masked),
+    with the kernel's rounding points: X and [u; gs] in the compute
+    dtype, every product accumulated in float32."""
+    G, R, C_u, O, l3, d3sq = inp.shape
+    nd = C_u * inp.d2
+    cdt = inp.a_top.dtype
+    A = inp.a_top.float()
+    T = torch.einsum("grmk,gnk->grmn", X.to(cdt).float(), A)
+    u = _data_mix(inp, T[..., :nd])
+    ts = T[..., nd:].reshape(G, R, l3, O, d3sq)
+    vals = torch.einsum("gromn,grnop->gromp", inp.mz, ts)
+    av = inp.af * vals
+    cav = torch.einsum("grox,grxmp->gromp", inp.cn, av)
+    L = (inp.deg * inp.mask) * av - (inp.af * inp.mask) * cav
+    gs = torch.einsum("gromn,gromp->grnop", inp.mz, L).reshape(G, R, l3, O * d3sq)
+    Gm = torch.cat([u, gs], dim=-1).to(cdt).float()
+    Y = torch.einsum("grmn,gnd->grmd", Gm, A)
+    return Y * inp.mask if masked else Y
+
+
+def _margin(power_iters: int) -> float:
+    return 1.2 if power_iters >= 4 else (1.5 if power_iters >= 2 else 1.8)
+
+
+def _fista_coefs(fista_iters: int) -> list:
+    """(t - 1) / t_new of FISTA's data-independent t sequence, in float32."""
+    out, t = [], np.float32(1.0)
+    for _ in range(fista_iters):
+        t_new = np.float32(0.5) * (np.float32(1.0) + np.sqrt(np.float32(1.0) + np.float32(4.0) * t * t))
+        out.append(float((t - np.float32(1.0)) / t_new))
+        t = t_new
+    return out
+
+
+def solve_group_reference(
+    inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: int
+):
+    """Plain PyTorch version of the grouped solve. Returns
+    (x (G, R, l3, d3^2) float32, score (G, R) float32)."""
+
+    def mv(v):
+        return matvec_reference(inp, v)
+
+    def csum(a):
+        return a.sum(dim=(-2, -1))
+
+    def col(v):
+        return v[..., None, None]
+
+    rhs = inp.rhs
+    x = torch.zeros_like(rhs)
+    r, p = rhs.clone(), rhs.clone()
+    rs = csum(rhs * rhs)
+    for _ in range(cg_iters):
+        Np = mv(p)
+        pNp = csum(p * Np)
+        alpha = torch.where(pNp > 0, rs / pNp.clamp_min(1e-30), 0.0)
+        x = x + col(alpha) * p
+        r = r - col(alpha) * Np
+        rs_new = csum(r * r)
+        beta = torch.where(rs > 0, rs_new / rs.clamp_min(1e-30), 0.0)
+        p = r + col(beta) * p
+        rs = rs_new
+
+    lb, ub = col(inp.lb), col(inp.ub)
+    if fista_iters > 0:
+        v = rhs / col(torch.sqrt(csum(rhs * rhs)).clamp_min(1e-30))
+        for _ in range(power_iters):
+            w = mv(v)
+            v = w / col(torch.sqrt(csum(w * w)).clamp_min(1e-30))
+        lips = _margin(power_iters) * csum(v * mv(v))
+        eta = col(1.0 / lips.clamp_min(1e-20))
+        x = torch.clamp(x, lb, ub)
+        y = x
+        for coef in _fista_coefs(fista_iters):
+            g = mv(y) - rhs
+            x_new = torch.clamp(y - eta * g, lb, ub)
+            y = x_new + coef * (x_new - x)
+            x = x_new
+    else:
+        x = torch.clamp(x, lb, ub)
+    x = x * inp.mask
+
+    # cosine without the reprojection: <P x, b> = <x, rhs>,
+    # |P x|^2 = <t_d, Gz mix t_d> (data columns of the first product)
+    nd = inp.gz.shape[2] * inp.d2
+    cdt = inp.a_top.dtype
+    t_d = torch.einsum("grmk,gnk->grmn", x.to(cdt).float(), inp.a_top[:, :nd].float())
+    den2 = csum(t_d * _data_mix(inp, t_d))
+    num = csum(x * rhs)
+    den = torch.sqrt(den2.clamp_min(0.0)) * inp.bn
+    score = torch.where(den > 0, num / den.clamp_min(1e-30), 0.0)
+    return x, score
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel path
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda_inputs(inp: GroupInputs) -> None:
+    G, R, C_u, O, l3, d3sq = inp.shape
+    dev = inp.a_top.device
+    if inp.a_top.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"a_top must be float32 or bfloat16, got {inp.a_top.dtype}")
+    if l3 > L3_MAX:
+        raise ValueError(f"l3 = {l3} exceeds the kernel's {L3_MAX}")
+    for f in dataclasses.fields(inp):
+        t = getattr(inp, f.name)
+        if f.name == "d2":
+            continue
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{f.name} must be a contiguous tensor on {dev}")
+        if f.name != "a_top" and t.dtype != torch.float32:
+            raise TypeError(f"{f.name} must be float32, got {t.dtype}")
+    if inp.a_top.shape != (G, C_u * inp.d2 + O * d3sq, d3sq):
+        raise ValueError(f"a_top shape {tuple(inp.a_top.shape)} does not match the group")
+    if inp.a_top.dtype == torch.bfloat16 and (d3sq % 2 or inp.d2 % 2):
+        raise ValueError("the bf16 kernel copies element pairs: d3^2 and d2 must be even")
+
+
+def _launch(fn, *args, kernels: int = 1) -> None:
+    """Call one C entry of the kernel library, which launches ``kernels``
+    kernels; it returns cudaGetLastError."""
+    global launches
+    err = fn(*args)
+    launches += kernels
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
+
+
+def solve_group(inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: int):
+    """Grouped solve and score. CPU tensors run the plain version; CUDA
+    tensors run the kernels of csrc/group_solve.cu (never the plain
+    version). Returns (x (G, R, l3, d3^2), score (G, R)), float32."""
+    if inp.a_top.device.type == "cpu":
+        return solve_group_reference(inp, cg_iters, fista_iters, power_iters)
+    if inp.a_top.device.type != "cuda":
+        raise ValueError(f"solve_group runs on cpu or cuda, not {inp.a_top.device}")
+    from .._build import load_kernels
+
+    _check_cuda_inputs(inp)
+    lib = load_kernels()
+    G, R, C_u, O, l3, d3sq = inp.shape
+    nd = C_u * inp.d2
+    rows = inp.a_top.shape[1]
+    M = R * l3
+    ncand = G * R
+    n = l3 * d3sq
+    bf16 = int(inp.a_top.dtype == torch.bfloat16)
+    dev = inp.a_top.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    # split the second product's K = rows so that G * tiles * splits
+    # fills the card twice over; each split covers >= 8 K slices
+    tiles = G * -(-M // _TILE) * -(-d3sq // _TILE)  # (the float32 tiles are 4x more)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    k_tiles = -(-rows // _KSTEP)
+    nsplit = max(1, min(-(-2 * n_sm // tiles), k_tiles // 8))
+    kchunk = -(-k_tiles // nsplit) * _KSTEP
+    nsplit = -(-rows // kchunk)
+
+    T = torch.empty((G, M, rows), **f32)
+    Gm = torch.empty((G, M, rows), dtype=inp.a_top.dtype, device=dev)
+    xb = torch.empty((G, M, d3sq), dtype=inp.a_top.dtype, device=dev) if bf16 else T
+    part = torch.empty((nsplit, G, M, d3sq), **f32)
+    x, r, p, q, w = (torch.empty((G, R, l3, d3sq), **f32) for _ in range(5))
+    rs, eta, score = (torch.empty((G, R), **f32) for _ in range(3))
+    P = ctypes.c_void_p
+
+    def ptr(t):
+        return P(t.data_ptr())
+
+    def matvec(src, dst):
+        _launch(lib.hts_gemm_xat, ptr(src), ptr(inp.a_top), ptr(T), ptr(xb),
+                G, M, rows, d3sq, rows, bf16, stream, kernels=1 + bf16)
+        _launch(lib.hts_glue_data, ptr(T), ptr(inp.gz), ptr(Gm),
+                G, R, l3, C_u, inp.d2, rows, bf16, stream)
+        _launch(lib.hts_glue_sym, ptr(T), ptr(inp.mz), ptr(inp.af), ptr(inp.cn),
+                ptr(inp.deg), ptr(inp.mask), ptr(Gm), G, R, l3, nd, O, d3sq, rows,
+                bf16, stream)
+        _launch(lib.hts_gemm_ga, ptr(Gm), ptr(inp.a_top), ptr(part),
+                G, M, d3sq, rows, kchunk, nsplit, bf16, stream)
+        _launch(lib.hts_reduce_mask, ptr(part), ptr(inp.mask), ptr(dst),
+                nsplit, G, M, d3sq, l3, stream)
+
+    _launch(lib.hts_cg_init, ptr(inp.rhs), ptr(x), ptr(r), ptr(p), ptr(rs), ncand, n, stream)
+    for _ in range(cg_iters):
+        matvec(p, q)
+        _launch(lib.hts_cg_step, ptr(x), ptr(r), ptr(p), ptr(q), ptr(rs), ncand, n, stream)
+    if fista_iters > 0:
+        _launch(lib.hts_normalize, ptr(r), ptr(inp.rhs), ncand, n, stream)  # v in r
+        for _ in range(power_iters):
+            matvec(r, w)
+            _launch(lib.hts_normalize, ptr(r), ptr(w), ncand, n, stream)
+        matvec(r, w)
+        _launch(lib.hts_rayleigh, ptr(r), ptr(w), ptr(eta),
+                ctypes.c_float(_margin(power_iters)), ncand, n, stream)
+        _launch(lib.hts_fista_init, ptr(x), ptr(p), ptr(inp.lb), ptr(inp.ub), ncand, n, stream)
+        for coef in _fista_coefs(fista_iters):  # y in p
+            matvec(p, q)
+            _launch(lib.hts_fista_step, ptr(x), ptr(p), ptr(q), ptr(inp.rhs), ptr(eta),
+                    ptr(inp.lb), ptr(inp.ub), ctypes.c_float(coef), ncand, n, stream)
+    else:
+        _launch(lib.hts_fista_init, ptr(x), ptr(p), ptr(inp.lb), ptr(inp.ub), ncand, n, stream)
+    _launch(lib.hts_apply_mask, ptr(x), ptr(inp.mask), ncand, n, stream)
+    # score: the data columns of the first product, then the Gz mix
+    _launch(lib.hts_gemm_xat, ptr(x), ptr(inp.a_top), ptr(T), ptr(xb),
+            G, M, nd, d3sq, rows, bf16, stream, kernels=1 + bf16)
+    _launch(lib.hts_score, ptr(T), ptr(inp.gz), ptr(x), ptr(inp.rhs), ptr(inp.bn),
+            ptr(score), G, R, l3, C_u, inp.d2, rows, n, stream)
+    return x, score

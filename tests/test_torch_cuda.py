@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here needs an NVIDIA GPU with the CUDA toolkit and skips
+without one. The file imports no JAX, so it runs on a machine without it:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+(--noconftest: tests/conftest.py configures JAX for the other tests.)
+Tolerances: float32 scores 1e-4 and x 1e-3 relative (the kernel sums in
+another order than cuBLAS); bf16 A_top scores 1e-3 and x 5e-3 relative
+(both versions round to bf16 at the same points; a sum in another order
+can still flip one rounding).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from helicon_tpu_torch.denovo3d import grid
+from helicon_tpu_torch.denovo3d import group_solve as gs
+from helicon_tpu_torch.denovo3d.geometry import (
+    ReconstructionGeometry,
+    estimate_copy_pair_counts,
+    estimate_n_pair_ops,
+    select_copies,
+)
+from helicon_tpu_torch.denovo3d.projector_grouped import (
+    build_candidate_tensors_grouped,
+    build_group_shared,
+)
+from helicon_tpu_torch.denovo3d.solver import SolveConfig
+
+pytestmark = pytest.mark.cuda
+ITERS = (10, 16, 2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _group(device, cdt, csym, n_rises, twist, dy, positive_constraint, seed):
+    """One twist group built by the port from a seeded random region."""
+    geom = ReconstructionGeometry(d2=24, l2=64, d3=20, l3=8, rmin=2.0, rmax=9.0,
+                                  scale2d_to_3d=0.8, csym=csym)
+    region = np.random.default_rng(seed).random((geom.d2, geom.l2)).astype(np.float32)
+    rises = np.linspace(1.6, 2.0, n_rises).astype(np.float32)
+    n_copies, n_pairs = estimate_copy_pair_counts(
+        geom, float(rises.min()), 8, rise_pixel_max=float(rises.max())
+    )
+    n_ops = estimate_n_pair_ops(geom, float(rises.min()))
+    u = set()
+    for r in rises:
+        ch, cc, cv = select_copies(geom, float(r), n_copies)
+        u.update(zip(ch[cv].tolist(), cc[cv].tolist()))
+    rp, m, ch_u, cc_u, pidx, pval, _ = grid._group_tables(
+        geom, twist, rises, n_copies, n_pairs, n_ops, len(u), n_rises, {}
+    )
+    hmax = (n_ops // csym - 1) // 2
+    ops_h = np.repeat(np.arange(-hmax, hmax + 1), csym).astype(np.int32)
+    ops_c = np.tile(np.arange(csym), 2 * hmax + 1).astype(np.int32)
+    shared = build_group_shared(geom, np.float32(twist), ch_u, cc_u, ops_h, ops_c,
+                                np.float32(dy), "nn", geom.cylindrical_mask(),
+                                geom.cell_valid_mask(), cdt, device)
+    tens = build_candidate_tensors_grouped(shared, geom, region, rp, np.sqrt(m), pidx, pval)
+    tens["lb"], tens["ub"] = grid._box_bounds(
+        grid._positive(SolveConfig(positive_constraint=positive_constraint), rp, twist,
+                       geom.l3),
+        tens["ub_raw"],
+    )
+    return gs.group_inputs(shared, tens)
+
+
+# (csym, candidates, twist, dy px, positive_constraint)
+CASES = [(1, 13, 29.4, 0.0, -1), (2, 5, -61.0, 0.7, -1), (3, 33, 12.5, 0.0, 0),
+         (1, 64, 2.0, 0.0, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"csym{c[0]}_R{c[1]}")
+def test_kernel_matches_plain(cuda, dtype, case):
+    inp = _group(cuda, getattr(torch, dtype), *case, seed=0)
+    launches = gs.launches
+    x_k, s_k = gs.solve_group(inp, *ITERS)
+    assert gs.launches > launches
+    x_p, s_p = gs.solve_group_reference(inp, *ITERS)
+    assert bool(torch.isfinite(s_k).all()) and bool(torch.isfinite(x_k).all())
+    if dtype == "float32":
+        assert float((s_k - s_p).abs().max()) <= 1e-4
+        assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= 1e-3
+    else:
+        assert float((s_k - s_p).abs().max()) <= 1e-3
+        assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= 5e-3
+
+
+def test_kernel_batch_of_groups(cuda):
+    """Groups of one launch are independent: G distinct twist groups give
+    each group's result alone, and the plain version's on the batch."""
+    csym, n_rises, _, dy, positive_constraint = CASES[1]
+    twists = (-61.0, -45.5, -20.25, 10.0, 33.0, 58.5, 75.0)
+    ones = [_group(cuda, torch.bfloat16, csym, n_rises, t, dy, positive_constraint, seed=1)
+            for t in twists]
+    many = gs.GroupInputs.empty(len(ones), ones[0])
+    for g, one in enumerate(ones):
+        many.put(g, one)
+    x_k, s_k = gs.solve_group(many, *ITERS)
+    assert torch.unique(s_k[:, 0]).numel() == len(twists)
+    for g, one in enumerate(ones):
+        _, s1 = gs.solve_group(one, *ITERS)
+        assert float((s_k[g] - s1[0]).abs().max()) <= 1e-3
+    x_p, s_p = gs.solve_group_reference(many, *ITERS)
+    assert float((s_k - s_p).abs().max()) <= 1e-3
+    assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= 5e-3
+
+
+def test_reconstruct_grid_cuda_matches_cpu(cuda):
+    """The whole search in float32 on the card against the CPU run."""
+    img = np.load(__file__.rsplit("/", 1)[0] + "/data/class_avg_amyloid.npy")
+    tw = np.repeat(np.asarray([2.0, 2.25], np.float32), 3)
+    ri = np.tile(np.asarray([4.6, 4.75, 4.9], np.float32), 2)
+    kw = dict(apix=2.0, twists=tw, rises=ri, tube_diameter=110.0, cg_iters=10,
+              fista_iters=16, power_iters=2, compute_dtype="float32")
+    on_card = grid.reconstruct_grid(img, device=cuda, **kw)
+    on_host = grid.reconstruct_grid(img, device="cpu", **kw)
+    np.testing.assert_allclose(on_card.scores, on_host.scores, atol=1e-4)
+    assert on_card.best_index == on_host.best_index
+    rel = np.abs(on_card.best_volume - on_host.best_volume).max() / np.abs(
+        on_host.best_volume).max()
+    assert rel < 1e-3, rel

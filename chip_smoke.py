@@ -1,34 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's grid search once on one CUDA GPU.
+"""Drive the PyTorch port's grid search and kernels once on one CUDA GPU.
 
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs four phases and fails (non-zero exit) if any fails:
+checkout, then runs six phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
-2. the grouped-solve kernel against its plain PyTorch version on the same
-   CUDA tensors, one twist group at the amyloid class average's own pixel
-   size (float32: scores within 1e-4, x within 1e-3 relative; bfloat16
-   A_top: scores within 1e-3, x within 5e-3 relative), then phase 4's 179
-   distinct twist groups in one bfloat16 call, with both times per call;
+2. the grouped-solve kernel (B1) against its plain PyTorch version on the
+   same CUDA tensors, one twist group at the amyloid class average's own
+   pixel size (float32: scores within 1e-4, x within 1e-3 relative;
+   bfloat16 A_top: scores within 1e-3, x within 5e-3 relative), then phase
+   4's 179 distinct twist groups in one bfloat16 call, with both times per
+   call and cuBLAS's time for the two products of its matvecs;
 3. the 45-candidate amyloid golden search in float32 and bfloat16: the
    top candidate must be (2.0 deg, 4.75 A);
 4. the amyloid search at 2 A/px on a 2,327-candidate grid with the
    best-volume re-solve: every score finite, the volume finite and of
    shape (l3, d3, d3), the kernel launched, and its groups shaped as
-   phase 2's batch; wall time, candidates/s and peak device memory.
+   phase 2's batch; wall time, candidates/s and peak device memory;
+5. the single-candidate kernels: validate_on_gpu() at its tiny geometry,
+   then B2 (solve_candidate, l2 = 0.01, l1 = 0.001, on nearest-neighbour
+   and on linear factors) and B3 (score_candidate) on the top 8
+   candidates of phase 4 at full width, each against its plain version in
+   float32 (score within 1e-4, x within 1e-3 relative) and bfloat16 (1e-3,
+   5e-3), B3's built W2 and Mxy bit-identical to the plain build, and B3's
+   float32 scores within 1e-4 of solver.solve_candidate's;
+6. the phase-4 search with linear interpolation (finite scores, B1
+   launched, wall time and candidates/s), then the 45-candidate golden in
+   linear: in float32 its top candidate must be the JAX package's linear
+   top-1, (2.0 deg, 4.75 A); in bfloat16 every score must lie within 5e-3
+   of float32's and its top-1 within 3e-4 of the float32 best.
 
 The last two lines of standard output are the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them lists each
-kernel with its launches in phase 4, its error against the plain version
-and both times. It imports nothing of JAX.
+kernel with its launches on its own path (phase 4 for B1, phase 5 for B2
+and B3), its error against the plain version, its time, the plain
+version's time and the least time the card could take for the same work.
+It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,8 +53,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 AMYLOID = ROOT / "tests" / "data" / "class_avg_amyloid.npy"
-KERNEL_SOURCE = "helicon_tpu_torch/denovo3d/csrc/group_solve.cu"
-KERNEL_REPLACES = "helicon_tpu/denovo3d/pallas_solver.py:754"
+CSRC = "helicon_tpu_torch/denovo3d/csrc/"
+ITERS = (10, 16, 2)  # cg / fista / power, the bench's budget (bench.py:302-306)
+# the JAX package's top-1 of the linear golden (tests/test_torch_candidate_solve.py)
+LINEAR_GOLDEN_TOP1 = (2.0, 4.75)
+# peak rates of one H100 SXM (dense): bf16 tensor cores, float32 outside
+# them, device memory
+PEAK_BF16, PEAK_F32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 
 
 def _card_line() -> str:
@@ -65,6 +86,23 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _bound(nbytes, mma_flops, simt_flops, bf16) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type (the products'
+    on the tensor cores in bf16, all else on the float32 units)."""
+    t_ops = mma_flops / (PEAK_BF16 if bf16 else PEAK_F32) + simt_flops / PEAK_F32
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _matvecs(cg, fista, power) -> int:
+    return cg + (power + 1 + fista if fista > 0 else 0)
+
+
 def _real_size_grid():
     """Phase 4's (twists, rises): 179 twists x 13 rises, left-handed."""
     from helicon_tpu_torch.denovo3d import build_candidate_grid
@@ -72,27 +110,19 @@ def _real_size_grid():
     return build_candidate_grid(0.5, 45.0, 0.25, 4.0, 5.0, 0.08, handedness="left")
 
 
-def _amyloid_groups(device, cdt, twists):
-    """Solve inputs of phase 4's twist groups for ``twists`` (one group
-    each, G = len(twists)), built by the port on ``device`` as
-    reconstruct_grid builds them: the amyloid at 2 A/px, tube 110 A, the
-    grid's rises, default solver settings."""
+def _amyloid_setup():
+    """Phase 4's geometry and tables as reconstruct_grid derives them: the
+    amyloid at 2 A/px, tube 110 A, the grid's rises, default settings."""
     import numpy as np
 
     from helicon_tpu_torch.core.filters import down_scale
-    from helicon_tpu_torch.denovo3d import grid as G
     from helicon_tpu_torch.denovo3d.geometry import (
         ReconstructionGeometry, estimate_copy_pair_counts, estimate_n_pair_ops,
         select_copies,
     )
-    from helicon_tpu_torch.denovo3d.group_solve import GroupInputs, group_inputs
     from helicon_tpu_torch.denovo3d.pipeline import (
         _pixel_geometry, auto_sym_oversample, derive_task_geometry,
     )
-    from helicon_tpu_torch.denovo3d.projector_grouped import (
-        build_candidate_tensors_grouped, build_group_shared,
-    )
-    from helicon_tpu_torch.denovo3d.solver import SolveConfig
 
     tw_all, ri_all = _real_size_grid()
     img = np.load(AMYLOID).astype(np.float32)
@@ -114,16 +144,36 @@ def _amyloid_groups(device, cdt, twists):
     for r in np.unique(rp_all):
         ch, cc, cv = select_copies(geom, float(r), n_copies)
         u.update(zip(ch[cv].tolist(), cc[cv].tolist()))
-    hmax = (n_ops - 1) // 2
-    ops_h = np.arange(-hmax, hmax + 1).astype(np.int32)
     ny, nx = img.shape
     region = img[ny // 2 - geom.d2 // 2 : ny // 2 + geom.d2 // 2,
                  nx // 2 - geom.l2 // 2 : nx // 2 + geom.l2 // 2]
+    return dict(geom=geom, region=region, tw_all=tw_all, rp_all=rp_all, n_copies=n_copies,
+                n_pairs=n_pairs, n_ops=n_ops, C_u=len(u))
+
+
+def _amyloid_groups(device, cdt, twists):
+    """Solve inputs of phase 4's twist groups for ``twists`` (one group
+    each, G = len(twists)), built by the port on ``device`` as
+    reconstruct_grid builds them."""
+    import numpy as np
+
+    from helicon_tpu_torch.denovo3d import grid as G
+    from helicon_tpu_torch.denovo3d.group_solve import GroupInputs, group_inputs
+    from helicon_tpu_torch.denovo3d.projector_grouped import (
+        build_candidate_tensors_grouped, build_group_shared,
+    )
+    from helicon_tpu_torch.denovo3d.solver import SolveConfig
+
+    a = _amyloid_setup()
+    geom, region, tw_all, rp_all = a["geom"], a["region"], a["tw_all"], a["rp_all"]
+    n_copies, n_pairs, n_ops = a["n_copies"], a["n_pairs"], a["n_ops"]
+    hmax = (n_ops - 1) // 2
+    ops_h = np.arange(-hmax, hmax + 1).astype(np.int32)
     inp = None
     for gi, twist in enumerate(twists):
         rp = rp_all[tw_all == np.float32(twist)]
         rpad, m, ch_u, cc_u, pidx, pval, _ = G._group_tables(
-            geom, float(twist), rp, n_copies, n_pairs, n_ops, len(u), len(rp), {}
+            geom, float(twist), rp, n_copies, n_pairs, n_ops, a["C_u"], len(rp), {}
         )
         shared = build_group_shared(geom, np.float32(twist), ch_u, cc_u, ops_h,
                                     np.zeros_like(ops_h), np.float32(0.0), "nn",
@@ -138,19 +188,35 @@ def _amyloid_groups(device, cdt, twists):
             inp = GroupInputs.empty(len(twists), one)
         inp.put(gi, one)
         del shared, tens, one
-    return geom, len(u), inp
+    return geom, a["C_u"], inp
+
+
+def _group_work(inp, iters) -> tuple:
+    """(bytes, product FLOP, other FLOP) the grouped solve needs: each
+    input read once, x and the scores written once; two products per
+    matvec and the score's data-column product; the z-Gram mix, the
+    op-axis glue and the vector updates."""
+    G, R, C_u, O, l3, d3sq = inp.shape
+    M, rows, nd = R * l3, inp.a_top.shape[1], C_u * inp.d2
+    nm = _matvecs(*iters)
+    mma = G * (nm * 2 * 2 * M * rows * d3sq + 2 * M * nd * d3sq)
+    simt = G * ((nm + 1) * 2 * M * l3 * nd + nm * R * d3sq * O * l3 * (4 * l3 + 2 * O + 4)
+                + nm * 10 * M * d3sq)
+    ins = (inp.a_top, inp.gz, inp.mz, inp.af, inp.cn, inp.deg, inp.mask, inp.rhs, inp.lb,
+           inp.ub, inp.bn)
+    return _nbytes(*ins) + 4 * G * (M * d3sq + R), mma, simt
 
 
 def phase_kernel_vs_plain(device) -> dict:
     """Phase 2: the kernel and its plain version on the same CUDA tensors:
     one group (twist 2.0 deg) in float32 and in bfloat16, then all 179
-    distinct twist groups of phase 4 in one bfloat16 call (its G)."""
+    distinct twist groups of phase 4 in one bfloat16 call (its G), with
+    cuBLAS's time for the two products of one of its matvecs."""
     import numpy as np
     import torch
 
     from helicon_tpu_torch.denovo3d import group_solve as gs
 
-    iters = (10, 16, 2)
     row = {}
     main_twists = np.unique(_real_size_grid()[0])
     # (name, dtype, score abs limit, x relative limit, twists)
@@ -160,55 +226,99 @@ def phase_kernel_vs_plain(device) -> dict:
     for name, cdt, score_tol, x_tol, twists in cases:
         geom, C_u, inp = _amyloid_groups(device, cdt, twists)
         G = len(twists)
-        x_k, s_k = gs.solve_group(inp, *iters)
-        x_p, s_p = gs.solve_group_reference(inp, *iters)
+        x_k, s_k = gs.solve_group(inp, *ITERS)
+        x_p, s_p = gs.solve_group_reference(inp, *ITERS)
         torch.cuda.synchronize()
         score_err = float((s_k - s_p).abs().max())
         x_rel = float((x_k - x_p).abs().max() / x_p.abs().max().clamp_min(1e-30))
-        del x_k, x_p
         reps = 5 if G == 1 else 2
-        ms_k = _time_ms(lambda: gs.solve_group(inp, *iters), reps)
-        ms_p = _time_ms(lambda: gs.solve_group_reference(inp, *iters), reps)
+        ms_k = _time_ms(lambda: gs.solve_group(inp, *ITERS), reps)
+        ms_p = _time_ms(lambda: gs.solve_group_reference(inp, *ITERS), reps)
         _, R, _, O, l3, d3sq = inp.shape
+        bound_ms, bound_by = _bound(*_group_work(inp, ITERS), bf16=cdt == torch.bfloat16)
         print(f"phase 2 [{name}, G={G} distinct twist groups] d3={geom.d3} l3={l3} "
               f"C_u={C_u} O={O} R={R} A_top={tuple(inp.a_top.shape[1:])}: score abs err "
               f"{score_err:.3e} (limit {score_tol:g}), x rel err {x_rel:.3e} (limit "
-              f"{x_tol:g}), kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms per call", flush=True)
+              f"{x_tol:g}), kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms per call, bound "
+              f"{bound_ms:.3f} ms ({bound_by})", flush=True)
         if not (score_err <= score_tol):
             raise AssertionError(f"{name} kernel scores differ from plain by {score_err}")
         if not (x_rel <= x_tol):
             raise AssertionError(f"{name} kernel x differs from plain by {x_rel} relative")
         row[(name, G)] = dict(max_abs_err=score_err, x_rel_err=x_rel, ms=ms_k, plain_ms=ms_p,
-                              groups=(G, R, C_u, O))
+                              bound_ms=bound_ms, bound_by=bound_by, groups=(G, R, C_u, O))
+        if cdt == torch.bfloat16 and G == 1:
+            # bf16's own noise: the plain version with A_top in float32
+            x_f, s_f = gs.solve_group_reference(dataclasses.replace(inp, a_top=inp.a_top.float()),
+                                                *ITERS)
+            print(f"phase 2 [{name}, G={G}]: plain bf16 against plain float32: score abs diff "
+                  f"{float((s_p - s_f).abs().max()):.3e}, x rel diff "
+                  f"{float((x_p - x_f).abs().max() / x_f.abs().max()):.3e}", flush=True)
+            del x_f
+        del x_k, x_p
+        if G > 1:
+            # the yardstick of a redesign: cuBLAS's two products of one
+            # matvec at these shapes (no PyTorch call computes the solve)
+            X = torch.randn((G, R * l3, d3sq), device=device).to(cdt)
+            At = inp.a_top
+            mv_ms = _time_ms(lambda: torch.bmm(torch.bmm(X, At.transpose(1, 2)), At), 3)
+            row[(name, G)]["cublas_matvec_ms"] = mv_ms
+            print(f"phase 2 [{name}, G={G}]: cuBLAS's two products of one matvec {mv_ms:.3f} ms, "
+                  f"x {_matvecs(*ITERS)} matvecs = {mv_ms * _matvecs(*ITERS):.3f} ms", flush=True)
+            del X
         del inp
         torch.cuda.empty_cache()
     return row
 
 
-def phase_golden(device) -> None:
-    """Phase 3: the 45-candidate amyloid golden through reconstruct_grid."""
+def phase_golden(device, interpolation="nn", top1=(2.0, 4.75)) -> None:
+    """Phase 3 (and 6): the 45-candidate amyloid golden through
+    reconstruct_grid in float32 and bfloat16. The float32 top-1 must be
+    ``top1``. For nn the bf16 top-1 must be too; for linear, whose two best
+    candidates lie 1.1e-4 apart in float32, under the bf16 solve's own
+    noise (PERF.md, ROADMAP C9), the bf16 run is held to the reference's bf16
+    contract: every score within 5e-3 of float32's, and its top-1 a
+    candidate within 3e-4 of the float32 best (the reference's measured
+    bf16 score delta, helicon_tpu/denovo3d/grid.py:1061-1064)."""
     import numpy as np
 
     from helicon_tpu_torch.denovo3d import build_candidate_grid, reconstruct_grid
 
     img = np.load(AMYLOID)
     tw, ri = build_candidate_grid(1.0, 3.0, 0.25, 4.45, 5.06, 0.15, handedness="left")
+    phase = 3 if interpolation == "nn" else 6
+    f32 = None
     for dtype in ("float32", "auto"):
         t0 = time.perf_counter()
         res = reconstruct_grid(img, apix=2.0, twists=tw, rises=ri, tube_diameter=110.0,
                                cg_iters=10, fista_iters=16, power_iters=2,
-                               compute_dtype=dtype, return_best_volume=False, device=device)
+                               compute_dtype=dtype, return_best_volume=False,
+                               interpolation=interpolation, device=device)
         best_tw, best_ri, best_s = res.top(1)[0]
-        print(f"phase 3 [{res.effective['compute_dtype']}] {len(tw)} candidates in "
-              f"{time.perf_counter() - t0:.2f} s, top-1 ({best_tw}, {best_ri}) "
-              f"score {best_s:.6f}", flush=True)
-        if (float(best_tw), float(best_ri)) != (2.0, 4.75):
-            raise AssertionError(f"golden top-1 is ({best_tw}, {best_ri}), not (2.0, 4.75)")
+        print(f"phase {phase} [{interpolation}, {res.effective['compute_dtype']}] {len(tw)} "
+              f"candidates in {time.perf_counter() - t0:.2f} s, top-1 ({best_tw}, {best_ri}) "
+              f"score {best_s:.6f}; top-3 {res.top(3).tolist()}", flush=True)
+        if f32 is None:
+            f32 = res.scores
+        elif interpolation != "nn":
+            delta = float(np.abs(res.scores - f32).max())
+            gap = float(f32.max() - f32[res.best_index])
+            print(f"phase {phase} [{interpolation}, bfloat16]: max |score - float32's| "
+                  f"{delta:.3e} (limit 5e-3); its top-1 lies {gap:.3e} below the float32 "
+                  f"best (limit 3e-4); top-1 {'equals' if (float(best_tw), float(best_ri)) == top1 else 'differs from'} "
+                  f"the JAX package's float32 top-1 {top1}", flush=True)
+            if not (delta <= 5e-3 and gap <= 3e-4):
+                raise AssertionError(f"{interpolation} bf16 golden off its float32 run: "
+                                     f"delta {delta}, gap {gap}")
+            continue
+        if (float(best_tw), float(best_ri)) != top1:
+            raise AssertionError(f"{interpolation} golden top-1 is ({best_tw}, {best_ri}), "
+                                 f"not {top1}")
 
 
-def phase_real_size(device) -> int:
-    """Phase 4: the amyloid search at its own pixel size; returns the
-    kernel launches of the run."""
+def phase_real_size(device, interpolation="nn"):
+    """Phase 4 (and 6): the amyloid search at its own pixel size; returns
+    the result and the group-solve kernel launches of the run."""
     import numpy as np
     import torch
 
@@ -222,12 +332,13 @@ def phase_real_size(device) -> int:
     t0 = time.perf_counter()
     res = reconstruct_grid(img, apix=2.0, twists=tw, rises=ri, tube_diameter=110.0,
                            cg_iters=10, fista_iters=16, power_iters=2,
-                           return_best_volume=True, device=device)
+                           return_best_volume=True, interpolation=interpolation, device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = group_solve.launches
     geom, eff = res.geom, res.effective
-    print(f"phase 4: {len(tw)} candidates, {eff['n_groups']} groups of R={eff['R']}, "
+    print(f"phase {4 if interpolation == 'nn' else 6} [{interpolation}]: {len(tw)} candidates, "
+          f"{eff['n_groups']} groups of R={eff['R']}, "
           f"G={eff['groups_per_launch']} groups per launch, C_u={eff['C_u']}, "
           f"d2={geom.d2} l2={geom.l2} d3={geom.d3} l3={geom.l3}, {eff['compute_dtype']}: "
           f"{wall:.3f} s wall incl. best volume, {len(tw) / wall:.1f} candidates/s, "
@@ -241,7 +352,172 @@ def phase_real_size(device) -> int:
     bv = res.best_volume
     if bv is None or bv.shape != (geom.l3, geom.d3, geom.d3) or not np.all(np.isfinite(bv)):
         raise AssertionError("best volume missing, misshapen or non-finite")
-    return launches, (eff["n_groups"], eff["R"], eff["C_u"], eff["n_ops"])
+    return res, launches
+
+
+def _top_candidates(device, res, n: int):
+    """The n best candidates of phase 4, each built as the best-volume
+    re-solve builds it (grid.py: _candidate_tables, the nn dedup mask,
+    build_problem_separable), in float32, for both interpolations."""
+    import numpy as np
+
+    from helicon_tpu_torch.denovo3d import grid as G
+    from helicon_tpu_torch.denovo3d.geometry import compute_sym_dedup_mask
+    from helicon_tpu_torch.denovo3d.projector_separable import build_problem_separable
+    from helicon_tpu_torch.denovo3d.solver import SolveConfig, _positive
+
+    a = _amyloid_setup()
+    geom, region = a["geom"], a["region"]
+    if not np.array_equal(res.twists, a["tw_all"]):
+        raise AssertionError("phase 4's grid is not the one rebuilt here")
+    idx = np.argsort(-res.scores)[:n]
+    tw, rp = a["tw_all"][idx], a["rp_all"][idx]
+    cfg = SolveConfig(cg_iters=ITERS[0], fista_iters=ITERS[1], power_iters=ITERS[2],
+                      separable=True)
+    out = []
+    for i in range(n):
+        tabs = G._candidate_tables(geom, tw[i : i + 1], rp[i : i + 1], a["n_copies"],
+                                   a["n_pairs"], a["n_ops"])
+        ch, cc, cv, phc, pv, ops_hc, ops_v, pidx = (t[0] for t in tabs)
+        keep = compute_sym_dedup_mask(geom, float(tw[i]), float(rp[i]), phc, pv)
+        cand = dict(geom=geom, region=region, twist=tw[i], rise=rp[i], cfg=cfg, keep=keep,
+                    tables=(ch, cc, cv, phc, pv), pair_ops=(ops_hc, ops_v, pidx))
+        for interp in ("nn", "linear"):
+            ops = build_problem_separable(
+                geom, region, tw[i], rp[i], ch, cc, cv, phc, pv, np.float32(0.0), interp,
+                geom.cylindrical_mask(), geom.cell_valid_mask(), compute_dtype=None,
+                pair_ops=(ops_hc, ops_v, pidx), sym_keep=keep if interp == "nn" else None,
+                device=device,
+            )
+            b_eff = ops["b"][None] * ops["row_valid"].float()
+            box = ((0.0, float(b_eff.max()))
+                   if _positive(cfg, float(rp[i]), float(tw[i]), geom.l3)
+                   else (-float("inf"), float("inf")))
+            cand[interp] = dict(ops=ops, rhs=ops["PT"](b_eff) * ops["mask"].float(), box=box)
+        out.append(cand)
+    return out
+
+
+def _single_work(inp) -> tuple:
+    """(bytes, product FLOP, other FLOP) of B2 on CandidateInputs, or of
+    B3 on FullInputs (its build, rhs product and the score's data term
+    too): each input read once, x (and the score) written once."""
+    import torch
+
+    k, C, O, l3, d3sq = inp.shape
+    nd, PL = C * inp.d2, inp.b1.shape[1]
+    rows = nd + O * d3sq
+    nm = _matvecs(*ITERS)
+    mma = k * nm * 2 * 2 * l3 * rows * d3sq
+    simt = k * nm * (2 * l3 * l3 * nd + 4 * PL * O * l3 * d3sq + 13 * l3 * d3sq)
+    fields = (getattr(inp, f.name) for f in dataclasses.fields(inp))
+    nbytes = _nbytes(*(t for t in fields if isinstance(t, torch.Tensor))) + 4 * k * l3 * d3sq
+    if hasattr(inp, "theta"):  # B3
+        mma += k * 3 * 2 * l3 * nd * d3sq
+        simt += k * (2 * l3 * l3 * nd + nd * d3sq * (14 + 6 * (2 * inp.n_taps + 1))
+                     + O * d3sq * (8 + d3sq))
+        nbytes += 4 * k
+    return nbytes, mma, simt
+
+
+def phase_single_candidate(device, res) -> dict:
+    """Phase 5: validate_on_gpu, then B2 and B3 at full width on the top 8
+    candidates of phase 4. The kernels run once with the launch counts
+    set to 0 (the path these kernels serve), then their plain versions,
+    the checks and the times."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs
+    from helicon_tpu_torch.denovo3d.solver import solve_candidate
+
+    v = cs.validate_on_gpu()
+    print(f"phase 5: validate_on_gpu {json.dumps(v)}", flush=True)
+    if not v["ok"]:
+        raise AssertionError(f"validate_on_gpu failed: {v}")
+    cands = _top_candidates(device, res, 8)
+    geom = cands[0]["geom"]
+    inputs = {}
+    for cdt in (torch.float32, torch.bfloat16):
+        name = "float32" if cdt == torch.float32 else "bfloat16"
+        for interp in ("nn", "linear"):
+            inputs[("solve_candidate", interp, name)] = cs.CandidateInputs.stack([
+                cs.candidate_inputs(c[interp]["ops"]["factors"], cdt, c[interp]["rhs"],
+                                    (0.01, 0.001) + c[interp]["box"]) for c in cands])
+        inputs[("score_candidate", "nn", name)] = cs.FullInputs.stack([
+            cs.full_kernel_inputs(geom, c["nn"]["ops"], c["twist"], c["rise"], *c["tables"][:3],
+                                  c["pair_ops"][0], cdt, scal=(0.0, 0.0) + c["nn"]["box"])
+            for c in cands])
+
+    def run(key, kernel):
+        inp = inputs[key]
+        if key[0] == "solve_candidate":
+            f = cs.solve_candidate_kernel if kernel else cs.solve_candidate_reference
+            return f(inp, *ITERS), None
+        f = cs.score_candidate_kernel if kernel else cs.score_candidate_reference
+        return f(inp, *ITERS)
+
+    # the kernels' own path: every launch counted
+    for k in cs.launches:
+        cs.launches[k] = 0
+    torch.cuda.synchronize()
+    out_k = {key: run(key, True) for key in inputs}
+    torch.cuda.synchronize()
+    launches = dict(cs.launches)
+    print(f"phase 5: kernel launches {launches}", flush=True)
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"phase 5 did not launch {k}")
+
+    rows = {}
+    for key, (x_k, s_k) in out_k.items():
+        kind, interp, name = key
+        x_p, s_p = run(key, False)
+        torch.cuda.synchronize()
+        x_rel = float((x_k - x_p).abs().max() / x_p.abs().max().clamp_min(1e-30))
+        x_abs = float((x_k - x_p).abs().max())
+        score_err = None if s_k is None else float((s_k - s_p).abs().max())
+        score_tol, x_tol = (1e-4, 1e-3) if name == "float32" else (1e-3, 5e-3)
+        if not bool(torch.isfinite(x_k).all()) or not (x_rel <= x_tol):
+            raise AssertionError(f"{key}: x differs from plain by {x_rel} relative")
+        if score_err is not None and not (score_err <= score_tol):
+            raise AssertionError(f"{key}: scores differ from plain by {score_err}")
+        inp = inputs[key]
+        reps = 3
+        ms_k = _time_ms(lambda: run(key, True), reps)
+        ms_p = _time_ms(lambda: run(key, False), reps)
+        bound_ms, bound_by = _bound(*_single_work(inp), bf16=name == "bfloat16")
+        print(f"phase 5 [{kind}, {interp}, {name}, k={inp.shape[0]} candidates, C={inp.shape[1]} "
+              f"O={inp.shape[2]} l3={inp.shape[3]} d3^2={inp.shape[4]}]: x rel err {x_rel:.3e} "
+              f"(limit {x_tol:g})"
+              + ("" if score_err is None else f", score abs err {score_err:.3e} (limit "
+                 f"{score_tol:g})")
+              + f", kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms per call, bound {bound_ms:.3f} ms "
+              f"({bound_by})", flush=True)
+        rows[key] = dict(max_abs_err=x_abs if score_err is None else score_err, ms=ms_k,
+                         plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by)
+
+    for name in ("float32", "bfloat16"):
+        fin = inputs[("score_candidate", "nn", name)]
+        if not torch.equal(cs.build_operators(fin), cs.build_operators_reference(fin)):
+            raise AssertionError(f"B3's built W2 / Mxy ({name}) differ from the plain build")
+    print("phase 5: B3's built W2 and Mxy are bit-identical to the plain build "
+          "(float32 and bfloat16)", flush=True)
+
+    # B3's float32 scores against the port's closure path
+    s_b3 = out_k[("score_candidate", "nn", "float32")][1].cpu().numpy()
+    s_cl = []
+    for c in cands:
+        r = solve_candidate(geom, c["cfg"], c["region"], c["twist"], c["rise"], *c["tables"],
+                            dy_pixel=np.float32(0.0), pair_ops=c["pair_ops"], sym_keep=c["keep"],
+                            device=device)
+        s_cl.append(float(r["score"]))
+    err = float(np.abs(s_b3 - np.asarray(s_cl)).max())
+    print(f"phase 5: B3 float32 scores vs solver.solve_candidate: max abs err {err:.3e} "
+          f"(limit 1e-4); scores {np.round(s_b3, 6).tolist()}", flush=True)
+    if not (err <= 1e-4):
+        raise AssertionError(f"B3 scores differ from solve_candidate's by {err}")
+    return dict(launches=launches, rows=rows)
 
 
 def main() -> int:
@@ -267,16 +543,34 @@ def main() -> int:
 
     cmp = phase_kernel_vs_plain(device)
     phase_golden(device)
-    launches, groups = phase_real_size(device)
+    res, b1_launches = phase_real_size(device)
     k = cmp[("bfloat16", 179)]
+    groups = tuple(res.effective[f] for f in ("n_groups", "R", "C_u", "n_ops"))
     if k["groups"] != groups:
         raise AssertionError(f"phase 2 solved groups {k['groups']}, phase 4 {groups} "
                              "(n_groups, R, C_u, n_ops)")
-    print(json.dumps({"kernels": [{
-        "name": "group_solve", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
-    }]}))
+    single = phase_single_candidate(device, res)
+    del res
+    phase_real_size(device, interpolation="linear")
+    phase_golden(device, interpolation="linear", top1=LINEAR_GOLDEN_TOP1)
+
+    def entry(name, src, replaces, launches, r, **extra):
+        return dict(name=name, route="cuda", source=CSRC + src, replaces=replaces,
+                    launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=None, **extra)
+
+    rows = single["rows"]
+    print(json.dumps({"kernels": [
+        entry("group_solve", "group_solve.cu", "helicon_tpu/denovo3d/pallas_solver.py:754",
+              b1_launches, k, cublas_matvec_ms=k["cublas_matvec_ms"]),
+        entry("solve_candidate", "candidate_solve.cu", "helicon_tpu/denovo3d/pallas_solver.py:100",
+              single["launches"]["solve_candidate"],
+              rows[("solve_candidate", "nn", "float32")]),
+        entry("score_candidate", "candidate_solve.cu",
+              "helicon_tpu/denovo3d/pallas_solver.py:335",
+              single["launches"]["score_candidate"], rows[("score_candidate", "nn", "float32")]),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,8 @@ and the group's solves and scores run together (``group_solve``). G groups
 go to the device per launch, G sized from a memory budget. The best
 candidate's volume is then re-solved alone in float32.
 
-The port covers the default configuration (lsq, cosine, nn, tilt = psi
-= 0) on one device; the other arguments raise NotImplementedError naming
+The port covers the default configuration (lsq, cosine, tilt = psi = 0)
+with nearest-neighbour or linear interpolation on one device; the other arguments raise NotImplementedError naming
 the ROADMAP item that will port them. The host tables (``_candidate_tables``,
 ``_group_tables``, ``_copy_block``) are copies of the reference's numpy
 code; ``tests/test_torch_geometry.py`` pins them bit for bit.
@@ -316,8 +316,8 @@ def _grouped_scoring(
         inp = None
         for gi in range(len(batch)):
             shared = build_group_shared(
-                geom, twist[gi], ch_u[gi], cc_u[gi], ops_h, ops_c, dy_pixel, "nn",
-                mask, cellok, cdt, device,
+                geom, twist[gi], ch_u[gi], cc_u[gi], ops_h, ops_c, dy_pixel,
+                cfg.interpolation, mask, cellok, cdt, device,
             )
             tens = build_candidate_tensors_grouped(
                 shared, geom, region_t, rp[gi], torch.sqrt(m[gi]), pidx[gi], pval[gi]
@@ -599,11 +599,13 @@ def reconstruct_grid(
         )
         from .geometry import compute_sym_dedup_mask
 
-        # the re-solve drops duplicate symmetry rows (the reference's nn
+        # the nn re-solve drops duplicate symmetry rows (the reference's nn
         # dedup); the scoring pass skips it, as the ranking is invariant
-        sym_keep = compute_sym_dedup_mask(
-            geom, float(twists[bi]), float(rise_pixels[bi]), phc[0], pv[0]
-        )
+        sym_keep = None
+        if cfg.interpolation == "nn":
+            sym_keep = compute_sym_dedup_mask(
+                geom, float(twists[bi]), float(rise_pixels[bi]), phc[0], pv[0]
+            )
         out = solve_candidate(
             geom,
             cfg._replace(compute_dtype="float32"),

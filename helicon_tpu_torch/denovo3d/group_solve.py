@@ -25,7 +25,6 @@ runs the hand-written kernels of ``csrc/group_solve.cu`` or raises.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
@@ -266,14 +265,21 @@ def _check_cuda_inputs(inp: GroupInputs) -> None:
         raise ValueError("the bf16 kernel copies element pairs: d3^2 and d2 must be even")
 
 
-def _launch(fn, *args, kernels: int = 1) -> None:
-    """Call one C entry of the kernel library, which launches ``kernels``
-    kernels; it returns cudaGetLastError."""
+def _count(kernels: int) -> None:
     global launches
-    err = fn(*args)
     launches += kernels
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
+
+
+def k_split(G: int, M: int, K: int, N: int, dev: torch.device):
+    """(kchunk, nsplit) of the second product (G groups of M x K by K x N):
+    K is split so that G * tiles * splits fills the card twice over, each
+    split covering >= 8 K slices."""
+    tiles = G * -(-M // _TILE) * -(-N // _TILE)  # (the float32 tiles are 4x more)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    k_tiles = -(-K // _KSTEP)
+    nsplit = max(1, min(-(-2 * n_sm // tiles), k_tiles // 8))
+    kchunk = -(-k_tiles // nsplit) * _KSTEP
+    return kchunk, -(-K // kchunk)
 
 
 def solve_group(inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: int):
@@ -284,10 +290,9 @@ def solve_group(inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: 
         return solve_group_reference(inp, cg_iters, fista_iters, power_iters)
     if inp.a_top.device.type != "cuda":
         raise ValueError(f"solve_group runs on cpu or cuda, not {inp.a_top.device}")
-    from .._build import load_kernels
+    from .._build import Launcher
 
     _check_cuda_inputs(inp)
-    lib = load_kernels()
     G, R, C_u, O, l3, d3sq = inp.shape
     nd = C_u * inp.d2
     rows = inp.a_top.shape[1]
@@ -297,64 +302,44 @@ def solve_group(inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: 
     bf16 = int(inp.a_top.dtype == torch.bfloat16)
     dev = inp.a_top.device
     f32 = dict(dtype=torch.float32, device=dev)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    run = Launcher(dev, _count)
 
-    # split the second product's K = rows so that G * tiles * splits
-    # fills the card twice over; each split covers >= 8 K slices
-    tiles = G * -(-M // _TILE) * -(-d3sq // _TILE)  # (the float32 tiles are 4x more)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    k_tiles = -(-rows // _KSTEP)
-    nsplit = max(1, min(-(-2 * n_sm // tiles), k_tiles // 8))
-    kchunk = -(-k_tiles // nsplit) * _KSTEP
-    nsplit = -(-rows // kchunk)
-
+    kchunk, nsplit = k_split(G, M, rows, d3sq, dev)
     T = torch.empty((G, M, rows), **f32)
     Gm = torch.empty((G, M, rows), dtype=inp.a_top.dtype, device=dev)
-    xb = torch.empty((G, M, d3sq), dtype=inp.a_top.dtype, device=dev) if bf16 else T
+    xb = torch.empty((G, M, d3sq), dtype=inp.a_top.dtype, device=dev) if bf16 else None
     part = torch.empty((nsplit, G, M, d3sq), **f32)
     x, r, p, q, w = (torch.empty((G, R, l3, d3sq), **f32) for _ in range(5))
     rs, eta, score = (torch.empty((G, R), **f32) for _ in range(3))
-    P = ctypes.c_void_p
-
-    def ptr(t):
-        return P(t.data_ptr())
 
     def matvec(src, dst):
-        _launch(lib.hts_gemm_xat, ptr(src), ptr(inp.a_top), ptr(T), ptr(xb),
-                G, M, rows, d3sq, rows, bf16, stream, kernels=1 + bf16)
-        _launch(lib.hts_glue_data, ptr(T), ptr(inp.gz), ptr(Gm),
-                G, R, l3, C_u, inp.d2, rows, bf16, stream)
-        _launch(lib.hts_glue_sym, ptr(T), ptr(inp.mz), ptr(inp.af), ptr(inp.cn),
-                ptr(inp.deg), ptr(inp.mask), ptr(Gm), G, R, l3, nd, O, d3sq, rows,
-                bf16, stream)
-        _launch(lib.hts_gemm_ga, ptr(Gm), ptr(inp.a_top), ptr(part),
-                G, M, d3sq, rows, kchunk, nsplit, bf16, stream)
-        _launch(lib.hts_reduce_mask, ptr(part), ptr(inp.mask), ptr(dst),
-                nsplit, G, M, d3sq, l3, stream)
+        run("hts_gemm_xat", src, inp.a_top, T, xb, G, M, rows, d3sq, rows, bf16,
+            kernels=1 + bf16)
+        run("hts_glue_data", T, inp.gz, Gm, G, R, l3, C_u, inp.d2, rows, bf16)
+        run("hts_glue_sym", T, inp.mz, inp.af, inp.cn, inp.deg, inp.mask, Gm,
+            G, R, l3, nd, O, d3sq, rows, bf16)
+        run("hts_gemm_ga", Gm, inp.a_top, part, G, M, d3sq, rows, kchunk, nsplit, bf16)
+        run("hts_reduce_mask", part, inp.mask, dst, nsplit, G, M, d3sq, l3)
 
-    _launch(lib.hts_cg_init, ptr(inp.rhs), ptr(x), ptr(r), ptr(p), ptr(rs), ncand, n, stream)
+    run("hts_cg_init", inp.rhs, x, r, p, rs, ncand, n)
     for _ in range(cg_iters):
         matvec(p, q)
-        _launch(lib.hts_cg_step, ptr(x), ptr(r), ptr(p), ptr(q), ptr(rs), ncand, n, stream)
+        run("hts_cg_step", x, r, p, q, rs, ncand, n)
     if fista_iters > 0:
-        _launch(lib.hts_normalize, ptr(r), ptr(inp.rhs), ncand, n, stream)  # v in r
+        run("hts_normalize", r, inp.rhs, ncand, n)  # v in r
         for _ in range(power_iters):
             matvec(r, w)
-            _launch(lib.hts_normalize, ptr(r), ptr(w), ncand, n, stream)
+            run("hts_normalize", r, w, ncand, n)
         matvec(r, w)
-        _launch(lib.hts_rayleigh, ptr(r), ptr(w), ptr(eta),
-                ctypes.c_float(_margin(power_iters)), ncand, n, stream)
-        _launch(lib.hts_fista_init, ptr(x), ptr(p), ptr(inp.lb), ptr(inp.ub), ncand, n, stream)
+        run("hts_rayleigh", r, w, eta, _margin(power_iters), ncand, n)
+        run("hts_fista_init", x, p, inp.lb, inp.ub, ncand, n)
         for coef in _fista_coefs(fista_iters):  # y in p
             matvec(p, q)
-            _launch(lib.hts_fista_step, ptr(x), ptr(p), ptr(q), ptr(inp.rhs), ptr(eta),
-                    ptr(inp.lb), ptr(inp.ub), ctypes.c_float(coef), ncand, n, stream)
+            run("hts_fista_step", x, p, q, inp.rhs, eta, inp.lb, inp.ub, coef, ncand, n)
     else:
-        _launch(lib.hts_fista_init, ptr(x), ptr(p), ptr(inp.lb), ptr(inp.ub), ncand, n, stream)
-    _launch(lib.hts_apply_mask, ptr(x), ptr(inp.mask), ncand, n, stream)
+        run("hts_fista_init", x, p, inp.lb, inp.ub, ncand, n)
+    run("hts_apply_mask", x, inp.mask, ncand, n)
     # score: the data columns of the first product, then the Gz mix
-    _launch(lib.hts_gemm_xat, ptr(x), ptr(inp.a_top), ptr(T), ptr(xb),
-            G, M, nd, d3sq, rows, bf16, stream, kernels=1 + bf16)
-    _launch(lib.hts_score, ptr(T), ptr(inp.gz), ptr(x), ptr(inp.rhs), ptr(inp.bn),
-            ptr(score), G, R, l3, C_u, inp.d2, rows, n, stream)
+    run("hts_gemm_xat", x, inp.a_top, T, xb, G, M, nd, d3sq, rows, bf16, kernels=1 + bf16)
+    run("hts_score", T, inp.gz, x, inp.rhs, inp.bn, score, G, R, l3, C_u, inp.d2, rows, n)
     return x, score

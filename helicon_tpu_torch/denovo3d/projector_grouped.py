@@ -15,7 +15,8 @@ exactly (A'^T A' = A^T M A, A'^T b' = A^T M b).
 The reference vmaps one candidate; here the group axis R is a batch axis
 of every per-candidate tensor. Only A_top takes the compute dtype (bf16 on
 the card: its nn entries are small integer counts and 0/1, exact in bf16);
-the per-candidate tensors and the rhs stay float32. The reference's XLA
+the per-candidate tensors and the rhs stay float32 (linear weights are
+not exact in bf16: ROADMAP C7). The reference's XLA
 path also rounds the sqrt(m)-weighted z-factors and the rhs's
 intermediates to the compute dtype; on the amyloid golden that rounding
 alone moves the bf16 top-1 from 4.75 to 4.9 A. The fused normal operator ``NTN`` is the
@@ -25,13 +26,12 @@ invariant NTN == PTP + ST(S(.)) checks the kernel's plain version too.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .projector_separable import (
     _as,
     _mm,
-    _no_linear,
+    _linear_plane_ok,
     _op_angles,
     _z_interp_matrix,
     make_copy_wsum,
@@ -57,23 +57,28 @@ def build_group_shared(
     mask=None,
     cellok=None,
     compute_dtype=None,
-    device="cpu",
+    device="cuda",
 ):
-    """The twist-only tensors shared by every candidate of a group.
+    """The twist-only tensors shared by every candidate of a group, on
+    ``device``.
 
     copies_h_u/copies_c_u (C_u,): the group's canonical copy table;
     ops_h_u/ops_c_u (O,): the canonical symmetry-op enumeration.
     ``Wsum`` and ``Mxy_ops`` are views into ``A_top`` (one copy in
-    memory, in the compute dtype).
+    memory, in the compute dtype). mask (numpy or a tensor already on
+    ``device``) and cellok (numpy) are the geometry's cylindrical and
+    cell-valid masks.
     """
     linear = interpolation.startswith("linear")
-    _no_linear(linear)
     d2, d3 = geom.d2, geom.d3
     d3sq = d3 * d3
     cdt = compute_dtype or torch.float32
     dev = torch.device(device)
-    mask_t = _as(mask, dev, torch.bool)  # numpy or a tensor already on dev
-    plane_ok_flat = mask_t.any(dim=0).reshape(-1).to(torch.float32)
+    mask_t = _as(mask, dev, torch.bool)
+    if linear:
+        plane_ok_flat = _as(_linear_plane_ok(cellok, geom.l3).reshape(-1), dev, torch.float32)
+    else:
+        plane_ok_flat = mask_t.any(dim=0).reshape(-1).to(torch.float32)
     twist = _as(twist_degree, dev, torch.float32)
     ch_u = _as(copies_h_u, dev)
     oh_u = _as(ops_h_u, dev)
@@ -108,6 +113,7 @@ def build_group_shared(
 def _candidate_factors(shared, geom, rise_pixels, sqrt_m, pair_idx, pairs_valid):
     """Batched per-candidate factors of a group (leading axis R)."""
     l2, l3 = geom.l2, geom.l3
+    linear = shared["linear"]
     dev = shared["A_top"].device
     rise = _as(rise_pixels, dev, torch.float32)  # (R,)
     sqrt_m = _as(sqrt_m, dev, torch.float32)  # (R, C_u)
@@ -120,7 +126,7 @@ def _candidate_factors(shared, geom, rise_pixels, sqrt_m, pair_idx, pairs_valid)
     ic = torch.arange(l2, dtype=torch.float32, device=dev) - l2 // 2
     dz_u = h_u[None] * rise[:, None]  # (R, C_u)
     Mz_raw = _z_interp_matrix(
-        geom.scale2d_to_3d * ic - dz_u[..., None] + l3 // 2, l3, False
+        geom.scale2d_to_3d * ic - dz_u[..., None] + l3 // 2, l3, linear
     )  # (R, C_u, l2, l3)
     z_ok = Mz_raw.sum(dim=3) > 0  # (R, C_u, l2)
     sel = sqrt_m > 0
@@ -133,7 +139,7 @@ def _candidate_factors(shared, geom, rise_pixels, sqrt_m, pair_idx, pairs_valid)
 
     z_pos0 = torch.arange(l3, dtype=torch.float32, device=dev)
     Mz_ops = _z_interp_matrix(
-        z_pos0 + ops_h[None, :, None] * rise[:, None, None], l3, False
+        z_pos0 + ops_h[None, :, None] * rise[:, None, None], l3, linear
     )  # (R, O, l3, l3)
     z_ok_ops = Mz_ops.sum(dim=3) > 0  # (R, O, l3)
     a_f = (z_ok_ops[..., None] & shared["xy_ok_ops"][None, :, None, :]).to(

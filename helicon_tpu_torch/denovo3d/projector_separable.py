@@ -1,4 +1,4 @@
-"""Separable projection/symmetry operators (tilt = psi = 0), nearest-neighbour.
+"""Separable projection/symmetry operators (tilt = psi = 0).
 
 Counterpart of ``helicon_tpu/denovo3d/projector_separable.py``. With no
 out-of-plane tilt or in-plane psi, one symmetry copy of the projection
@@ -10,10 +10,11 @@ with Mz_t (l2, l3) the z-interpolation matrix and Wsum_t (d2, d3*d3) the
 in-plane matrix summed over the ray. The symmetry ops factorize the same
 way: a z-shift (l3, l3) times an in-plane rotation (d3^2, d3^2).
 
-The port covers nearest-neighbour interpolation and the dense symmetry-op
-form (``pair_ops``), which the best-volume re-solve uses; linear
-interpolation raises (ROADMAP A6). The reference's vjp closures ``PT`` and
-``ST`` are written here as explicit transposes of ``P`` and ``S``.
+The port covers nearest-neighbour and linear interpolation (1-tap round,
+or 2-tap floor/ceil along z and 4-tap bilinear in-plane, valid where the
+base cell is in the cell-valid mask) and the dense symmetry-op form
+(``pair_ops``). The reference's vjp closures ``PT`` and ``ST`` are written
+here as explicit transposes of ``P`` and ``S``.
 """
 
 from __future__ import annotations
@@ -24,13 +25,6 @@ import torch
 __all__ = ["build_problem_separable", "make_copy_wsum", "plane_shift_tables"]
 
 
-def _no_linear(linear: bool) -> None:
-    if linear:
-        raise NotImplementedError(
-            "linear interpolation is not ported yet (ROADMAP A6)"
-        )
-
-
 def _mm(eq: str, *ops) -> torch.Tensor:
     """einsum with float32 accumulation (inputs of the compute dtype are
     widened exactly, as ``preferred_element_type=float32``)."""
@@ -38,10 +32,19 @@ def _mm(eq: str, *ops) -> torch.Tensor:
 
 
 def _z_interp_matrix(z_pos: torch.Tensor, l3: int, linear: bool) -> torch.Tensor:
-    """(..., n_z_out, l3) nn interpolation matrix for positions z_pos:
-    1-tap round, valid when the rounded index lies in [0, l3-1]."""
-    _no_linear(linear)
+    """(..., n_z_out, l3) interpolation matrix for positions z_pos.
+
+    linear: 2-tap floor/ceil weights, valid when the floor lies in
+    [0, l3-2]; nn: 1-tap round, valid when the rounded index lies in
+    [0, l3-1]."""
     cols = torch.arange(l3, device=z_pos.device)
+    if linear:
+        zf = torch.floor(z_pos)
+        zi = zf.to(torch.int64)[..., None]
+        wz = (z_pos - zf)[..., None]
+        ok = (zi >= 0) & (zi <= l3 - 2)
+        m = (cols == zi) * (1.0 - wz) + (cols == zi + 1) * wz
+        return m * ok
     zi = torch.round(z_pos).to(torch.int64)[..., None]
     ok = (zi >= 0) & (zi <= l3 - 1)
     return ((cols == zi) & ok).to(torch.float32)
@@ -49,7 +52,8 @@ def _z_interp_matrix(z_pos: torch.Tensor, l3: int, linear: bool) -> torch.Tensor
 
 def plane_shift_tables(plane_ok_2d: np.ndarray) -> dict:
     """Statically shifted copies of the in-plane validity cross-section
-    (the linear Wsum's base-cell lookup)."""
+    (the reference's base-cell lookup of its linear receiving-cell Wsum;
+    the port's scatter form reads the base cell directly)."""
     d3 = plane_ok_2d.shape[0]
     tbl = {}
     for oy in (0, 1):
@@ -72,13 +76,14 @@ def make_copy_wsum(
     the (C, d2, d3*d3) in-plane deposit matrices summed over the ray
     parameter, without the copy-validity factor.
 
-    Each ray sample k of row j lands in the cell nearest to
-    C_j + k * D (|D| = s) and deposits 1 there if the cell is in the mask.
-    The reference evaluates the same sum per receiving cell over a window
-    of k around the cell's projection (TPU scatters serialize); both visit
-    the same samples with the same coordinates, so the counts are equal.
+    Each ray sample k of row j sits at C_j + k * D (|D| = s). nn: it
+    deposits 1 in the nearest cell if that cell is in the mask. linear: it
+    deposits the bilinear weights max(0, 1 - |X - gx|) max(0, 1 - |Y - gy|)
+    in the four cells of its base cell (floor X, floor Y) if the base cell
+    is valid. The reference evaluates the same sums per receiving cell over
+    a window of k around the cell's projection (TPU scatters serialize);
+    both visit the same samples with the same coordinates and weights.
     """
-    _no_linear(linear)
     dev = plane_ok_flat.device
     plane_ok = plane_ok_flat > 0.5
     jc_rows = torch.arange(d2, dtype=torch.float32, device=dev) - d2 // 2
@@ -90,27 +95,60 @@ def make_copy_wsum(
         y0j = (s * jc_rows - dy_pixel)[None, :, None]  # (1, d2, 1)
         cx = y0j * sn + d3 // 2  # (C, d2, 1) X at k = 0
         cy = y0j * cs + d3 // 2
-        xi = torch.round(cx + k_ray * dx).to(torch.int64)  # (C, d2, d2)
-        yi = torch.round(cy + k_ray * dy_).to(torch.int64)
-        inb = (xi >= 0) & (xi <= d3 - 1) & (yi >= 0) & (yi <= d3 - 1)
-        idx = yi.clamp(0, d3 - 1) * d3 + xi.clamp(0, d3 - 1)
-        ok = inb & plane_ok[idx]
-        Wsum = torch.zeros((th.shape[0], d2, d3 * d3), dtype=torch.float32, device=dev)
-        return Wsum.scatter_add_(2, idx, ok.to(torch.float32))
+        X = cx + k_ray * dx  # (C, d2, d2) sample positions
+        Y = cy + k_ray * dy_
+        shape = (th.shape[0], d2, d3 * d3)
+        if not linear:
+            xi = torch.round(X).to(torch.int64)
+            yi = torch.round(Y).to(torch.int64)
+            inb = (xi >= 0) & (xi <= d3 - 1) & (yi >= 0) & (yi <= d3 - 1)
+            idx = yi.clamp(0, d3 - 1) * d3 + xi.clamp(0, d3 - 1)
+            ok = inb & plane_ok[idx]
+            Wsum = torch.zeros(shape, dtype=torch.float32, device=dev)
+            return Wsum.scatter_add_(2, idx, ok.to(torch.float32))
+        xi = torch.floor(X).to(torch.int64)
+        yi = torch.floor(Y).to(torch.int64)
+        inb = (xi >= 0) & (xi <= d3 - 2) & (yi >= 0) & (yi <= d3 - 2)
+        xi, yi = xi.clamp(0, d3 - 2), yi.clamp(0, d3 - 2)
+        ok = (inb & plane_ok[yi * d3 + xi]).to(torch.float32)
+        # the float32 weights summed in float64, where the few per cell add
+        # exactly: the sum does not depend on the order of the device's
+        # atomic adds, so the build (and a bf16 rounding of it) repeats
+        W64 = torch.zeros(shape, dtype=torch.float64, device=dev)
+        for oy in (0, 1):
+            wy = torch.clamp_min(1.0 - torch.abs(Y - (yi + oy)), 0.0)
+            for ox in (0, 1):
+                wx = torch.clamp_min(1.0 - torch.abs(X - (xi + ox)), 0.0)
+                W64.scatter_add_(2, (yi + oy) * d3 + xi + ox, (wx * wy * ok).double())
+        return W64.float()
 
     return wsum_of_theta
 
 
 def _xy_interp_matrix(X, Y, d3: int, plane_ok_flat: torch.Tensor, linear: bool):
-    """(..., n_pts, d3*d3) nn in-plane interpolation matrix at (X, Y),
-    and the per-point validity (..., n_pts)."""
-    _no_linear(linear)
+    """(..., n_pts, d3*d3) in-plane interpolation matrix at (X, Y), and the
+    per-point validity (..., n_pts). plane_ok_flat is the cross-section of
+    the mask (nn) or of the cell-valid mask (linear: the base cell's test)."""
+    cols = torch.arange(d3 * d3, device=X.device)
+    if linear:
+        xf, yf = torch.floor(X), torch.floor(Y)
+        wx, wy = (X - xf)[..., None], (Y - yf)[..., None]
+        xi, yi = xf.to(torch.int64), yf.to(torch.int64)
+        inb = (xi >= 0) & (xi <= d3 - 2) & (yi >= 0) & (yi <= d3 - 2)
+        base = (yi.clamp(0, d3 - 2) * d3 + xi.clamp(0, d3 - 2))[..., None]
+        ok = inb.to(torch.float32) * plane_ok_flat[base[..., 0]]
+        m = (
+            (cols == base) * (1 - wy) * (1 - wx)
+            + (cols == base + 1) * (1 - wy) * wx
+            + (cols == base + d3) * wy * (1 - wx)
+            + (cols == base + d3 + 1) * wy * wx
+        )
+        return m * ok[..., None], ok > 0
     xi = torch.round(X).to(torch.int64)
     yi = torch.round(Y).to(torch.int64)
     inb = (xi >= 0) & (xi <= d3 - 1) & (yi >= 0) & (yi <= d3 - 1)
     idx = yi.clamp(0, d3 - 1) * d3 + xi.clamp(0, d3 - 1)
     ok = inb & (plane_ok_flat[idx] > 0.5)
-    cols = torch.arange(d3 * d3, device=X.device)
     return ((cols == idx[..., None]) & ok[..., None]).to(torch.float32), ok
 
 
@@ -130,6 +168,14 @@ def op_xy_matrices(twist_degree, ops_h, ops_c, csym, d3, plane_ok_flat, linear):
     Xp = (pX0 * cs - pY0 * sn) + d3 // 2
     Yp = (pX0 * sn + pY0 * cs) + d3 // 2
     return _xy_interp_matrix(Xp, Yp, d3, plane_ok_flat, linear)
+
+
+def _linear_plane_ok(cellok, l3: int) -> np.ndarray:
+    """(d3, d3) in-plane validity cross-section a linear sample's base cell
+    is tested against: the cell-valid mask over the planes a base cell can
+    take (nn reads the mask's cross-section; both are z-independent inside
+    the volume)."""
+    return np.asarray(cellok, bool)[: max(1, l3 - 1)].any(axis=0)
 
 
 def _as(x, device, dtype=None) -> torch.Tensor:
@@ -155,18 +201,20 @@ def build_problem_separable(
     compute_dtype=None,
     pair_ops=None,
     sym_keep=None,
-    device="cpu",
+    device="cuda",
 ):
-    """Assemble (P, PT, PTP, S, ST, b, row_valid, mask) for one candidate.
+    """Assemble (P, PT, PTP, S, ST, b, row_valid, mask, factors) for one
+    candidate on ``device``.
 
     pair_ops (ops_hc [O, 2], ops_valid [O], pair_idx [P, 2]) from
     geometry.select_pair_ops is required: the port has the dense
     symmetry-op form only (the reference falls back to a gather form past
     32 MB of op matrices; both give the same rows). sym_keep: optional
     (P, l3, d3, d3) bool from geometry.compute_sym_dedup_mask.
+    ``factors`` holds the tensors the closures close over, as the
+    reference's does (the inputs of ``candidate_solve``).
     """
     linear = interpolation.startswith("linear")
-    _no_linear(linear)
     if pair_ops is None:
         raise NotImplementedError(
             "build_problem_separable needs pair_ops: the gather form of the "
@@ -179,7 +227,8 @@ def build_problem_separable(
     dev = torch.device(device)
 
     mask_np = np.asarray(mask, bool)
-    plane_ok_flat = _as(mask_np.any(axis=0).reshape(-1), dev, torch.float32)
+    plane_ok = _linear_plane_ok(cellok, l3) if linear else mask_np.any(axis=0)
+    plane_ok_flat = _as(plane_ok.reshape(-1), dev, torch.float32)
     mask_f = _as(mask_np, dev, torch.float32)
     twist = _as(twist_degree, dev, torch.float32)
     rise = _as(rise_pixel, dev, torch.float32)
@@ -264,4 +313,15 @@ def build_problem_separable(
         b=_as(image_region, dev, torch.float32).T,
         row_valid=row_valid,
         mask=mask_f > 0.5,
+        factors=dict(
+            Wsum=Wsum_c,  # (C, d2, d3^2) compute dtype
+            Gz=Gz,  # (C, l3, l3) z-Gram per copy, compute dtype
+            Mz=Mz,  # (C, l2, l3) float32 z-interpolation per copy
+            Mz_ops=Mz_ops,  # (O, l3, l3) compute dtype
+            Mxy_ops=Mxy_ops,  # (O, d3^2, d3^2) compute dtype
+            pair_idx=pair_idx,  # (P, 2)
+            pair_ok=pair_ok_f,  # (P, l3, d3, d3) float32
+            mask=mask_f,  # (l3, d3, d3) float32
+            plane_ok=plane_ok_flat,  # (d3^2,) float32 in-plane cell mask
+        ),
     )

@@ -5,7 +5,8 @@ the grid search's best-volume re-solve runs: the lsq model (CG on the
 normal equations, then FISTA with the box [0, max b] or unbounded), the
 cosine score, the separable operators (tilt = psi = 0). The power
 iteration is seeded from ones, as the reference's XLA path. The grouped
-scoring solve lives in ``group_solve``.
+scoring solve lives in ``group_solve``, the fused single-candidate solve
+in ``candidate_solve``. Both interpolations are ported.
 
 Other models, score metrics and fsc half-set splits raise
 NotImplementedError (ROADMAP A6, A7).
@@ -64,8 +65,8 @@ def check_in_slice(cfg: SolveConfig) -> None:
     bad = []
     if not cfg.separable:
         bad.append("tilt or psi != 0 (ROADMAP A7)")
-    if cfg.interpolation != "nn":
-        bad.append(f"interpolation={cfg.interpolation!r} (ROADMAP A6)")
+    if not cfg.interpolation.startswith(("nn", "linear")):
+        bad.append(f"interpolation={cfg.interpolation!r}")
     if cfg.model != "lsq" or cfg.l1_reg or cfg.l2_reg:
         bad.append(f"model={cfg.model!r} (ROADMAP A6)")
     if cfg.score_metric != "cosine":
@@ -195,11 +196,12 @@ def solve_candidate(
     key=None,
     pair_ops=None,
     sym_keep=None,
-    device="cpu",
+    device="cuda",
 ):
     """Reconstruct and score one candidate (the separable branch of the
-    reference's _solve_candidate_impl). Returns dict(rec3d (l3, d3, d3),
-    score, scores) on ``device``."""
+    reference's _solve_candidate_impl) on ``device`` (the card unless the
+    caller asks for "cpu"). Returns dict(rec3d (l3, d3, d3), score,
+    scores) there."""
     check_in_slice(cfg)
     if tilt_degree != 0.0 or psi_degree != 0.0:
         raise NotImplementedError("tilt or psi != 0 is not ported yet (ROADMAP A7)")

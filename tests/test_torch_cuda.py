@@ -16,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from helicon_tpu_torch.denovo3d import candidate_solve as cs
 from helicon_tpu_torch.denovo3d import grid
 from helicon_tpu_torch.denovo3d import group_solve as gs
 from helicon_tpu_torch.denovo3d.geometry import (
     ReconstructionGeometry,
+    compute_sym_dedup_mask,
     estimate_copy_pair_counts,
     estimate_n_pair_ops,
     select_copies,
@@ -28,6 +30,7 @@ from helicon_tpu_torch.denovo3d.projector_grouped import (
     build_candidate_tensors_grouped,
     build_group_shared,
 )
+from helicon_tpu_torch.denovo3d.projector_separable import build_problem_separable
 from helicon_tpu_torch.denovo3d.solver import SolveConfig
 
 pytestmark = pytest.mark.cuda
@@ -130,3 +133,78 @@ def test_reconstruct_grid_cuda_matches_cpu(cuda):
     rel = np.abs(on_card.best_volume - on_host.best_volume).max() / np.abs(
         on_host.best_volume).max()
     assert rel < 1e-3, rel
+
+
+def _candidates(device, interpolation, twists, rise=1.7, csym=2, seed=0):
+    """build_problem_separable outputs of a few candidates of one shape,
+    with the tables and the dedup mask the best-volume re-solve uses."""
+    geom = ReconstructionGeometry(d2=24, l2=64, d3=20, l3=8, rmin=2.0, rmax=9.0,
+                                  scale2d_to_3d=0.8, csym=csym)
+    region = np.random.default_rng(seed).random((geom.d2, geom.l2)).astype(np.float32)
+    n_copies, n_pairs = estimate_copy_pair_counts(geom, rise, 8)
+    n_ops = estimate_n_pair_ops(geom, rise)
+    tw = np.asarray(twists, np.float32)
+    tabs = grid._candidate_tables(geom, tw, np.full(len(tw), rise, np.float32), n_copies,
+                                  n_pairs, n_ops)
+    out = []
+    for i, t in enumerate(tw):
+        ch, cc, cv, phc, pv, ops_hc, ops_v, pidx = (a[i] for a in tabs)
+        keep = compute_sym_dedup_mask(geom, float(t), rise, phc, pv) if interpolation == "nn" else None
+        ops = build_problem_separable(geom, region, t, np.float32(rise), ch, cc, cv, phc, pv, 0.0,
+                                      interpolation, geom.cylindrical_mask(),
+                                      geom.cell_valid_mask(), pair_ops=(ops_hc, ops_v, pidx),
+                                      sym_keep=keep, device=device)
+        out.append((geom, float(t), rise, ops, (ch, cc, cv, ops_hc)))
+    return out
+
+
+def _rhs_scal(ops, l2_reg, l1_reg):
+    rowv = ops["row_valid"].float()
+    b_eff = ops["b"][None] * rowv
+    return ops["PT"](b_eff) * ops["mask"].float(), (l2_reg, l1_reg, 0.0, float(b_eff.max()))
+
+
+@pytest.mark.parametrize("interpolation", ["nn", "linear"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_solve_candidate_kernel_matches_plain(cuda, dtype, interpolation):
+    cdt = getattr(torch, dtype)
+    items = []
+    for _, _, _, ops, _ in _candidates(cuda, interpolation, (-61.0, 12.5, 33.0)):
+        rhs, scal = _rhs_scal(ops, 0.01, 0.001)
+        items.append(cs.candidate_inputs(ops["factors"], cdt, rhs, scal))
+    inp = cs.CandidateInputs.stack(items)
+    before = cs.launches["solve_candidate"]
+    x_k = cs.solve_candidate_kernel(inp, *ITERS)
+    assert cs.launches["solve_candidate"] > before
+    x_p = cs.solve_candidate_reference(inp, *ITERS)
+    assert bool(torch.isfinite(x_k).all())
+    rel = float((x_k - x_p).abs().max() / x_p.abs().max())
+    assert rel <= (1e-3 if dtype == "float32" else 5e-3), rel
+    one = cs.solve_candidate_kernel(items[1], *ITERS)
+    assert float((one[0] - x_k[1]).abs().max() / x_p.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_score_candidate_kernel_matches_plain(cuda, dtype):
+    cdt = getattr(torch, dtype)
+    fins = []
+    for geom, t, rise, ops, (ch, cc, cv, ops_hc) in _candidates(cuda, "nn", (-61.0, 12.5, 33.0)):
+        _, scal = _rhs_scal(ops, 0.0, 0.0)
+        fins.append(cs.full_kernel_inputs(geom, ops, t, rise, ch, cc, cv, ops_hc, cdt, scal=scal))
+    fin = cs.FullInputs.stack(fins)
+    assert torch.equal(cs.build_operators(fin), cs.build_operators_reference(fin))
+    before = cs.launches["score_candidate"]
+    x_k, s_k = cs.score_candidate_kernel(fin, *ITERS)
+    assert cs.launches["score_candidate"] > before
+    x_p, s_p = cs.score_candidate_reference(fin, *ITERS)
+    assert bool(torch.isfinite(s_k).all()) and bool(torch.isfinite(x_k).all())
+    rel = float((x_k - x_p).abs().max() / x_p.abs().max())
+    if dtype == "float32":
+        assert float((s_k - s_p).abs().max()) <= 1e-4 and rel <= 1e-3, (s_k, s_p, rel)
+    else:
+        assert float((s_k - s_p).abs().max()) <= 1e-3 and rel <= 5e-3, (s_k, s_p, rel)
+
+
+def test_validate_on_gpu(cuda):
+    out = cs.validate_on_gpu()
+    assert out["ok"], out

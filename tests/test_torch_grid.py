@@ -91,7 +91,6 @@ OUT_OF_SLICE = dict(
     tilt=dict(tilt=2.0),
     psi=dict(psi=1.0),
     refine=dict(refine_tilt_psi_dy_range=dict(tilt=5.0, psi=2.0, dy=1.0)),
-    linear=dict(interpolation="linear"),
     ridge=dict(algorithm=dict(model="ridge", alpha=0.1)),
     ssim=dict(score_metric="ssim"),
     fsc=dict(fsc_test=2),
@@ -130,5 +129,6 @@ def test_tf32_off_during_search_and_restored_after():
 
 
 def test_port_imports_no_jax():
-    code = "import helicon_tpu_torch.denovo3d, sys; assert 'jax' not in sys.modules"
+    code = ("import helicon_tpu_torch.denovo3d, helicon_tpu_torch.denovo3d.candidate_solve, sys; "
+            "assert 'jax' not in sys.modules and 'helicon_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)

@@ -145,7 +145,7 @@ def separable_case(request):
     port_ops = port_ps.build_problem_separable(
         pg, region, np.float32(twist), np.float32(rise), ch, cc, cv, phc, pv_ops, 0.0, "nn",
         mask, cellok, compute_dtype=torch.float32, pair_ops=(ops_hc, ops_v, pidx),
-        sym_keep=keep,
+        sym_keep=keep, device="cpu",
     )
     return pg, ref_ops, port_ops
 
@@ -185,9 +185,13 @@ def test_plane_shift_tables():
 
 
 def test_linear_interpolation_raises():
+    """Linear builds are ported (tests/test_torch_candidate_solve.py); the
+    in-kernel nearest-neighbour build of B3 still raises on linear, before
+    it reads anything, as the reference does (ROADMAP C4)."""
+    from helicon_tpu_torch.denovo3d.candidate_solve import full_kernel_inputs
+
     pg = port_geo.ReconstructionGeometry(csym=1, **GEOM)
+    c = np.zeros(2, np.int32)
     with pytest.raises(NotImplementedError):
-        port_pg.build_group_shared(
-            pg, 10.0, np.zeros(2, np.int32), np.zeros(2, np.int32), np.zeros(1, np.int32),
-            np.zeros(1, np.int32), 0.0, "linear", pg.cylindrical_mask(), pg.cell_valid_mask(),
-        )
+        full_kernel_inputs(pg, None, 10.0, 1.0, c, c, c > -1, np.zeros((1, 2), np.int32),
+                           torch.float32, interpolation="linear")

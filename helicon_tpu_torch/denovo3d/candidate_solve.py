@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .grid import _tf32_off
-from .group_solve import L3_MAX, _fista_coefs, _margin, k_split
+from .group_solve import L3_MAX, _fista_coefs, _ga, _margin, _xat, k_split
 from .projector_separable import _as, _op_angles
 
 __all__ = [
@@ -457,11 +457,13 @@ def _solve_cuda(run, A, gz, b1, pok, mask, rhs, scal, d2, cg_iters, fista_iters,
     x, r, p, q, w = (torch.empty((k, l3, d3sq), **f32) for _ in range(5))
     rs, eta = (torch.empty(k, **f32) for _ in range(2))
 
+    # T, Gm and xb keep unpadded pitches (rows, d3^2): B2's operand A is
+    # unpadded, so the products copy it in 8-byte pieces anyway
     def matvec(src, dst):
-        run("hts_gemm_xat", src, A, T, xb, k, l3, rows, d3sq, rows, bf16, kernels=1 + bf16)
-        run("hts_glue_data", T, gz, Gm, k, 1, l3, C, d2, rows, bf16)
+        _xat(run, src, A, T, xb, rows)
+        run("hts_glue_data", T, gz, Gm, k, 1, l3, C, d2, rows, rows, bf16)
         run("hcs_sym_fold", T, b1, pok, Gm, k, l3, O * l3, PL, nd, d3sq, rows, bf16)
-        run("hts_gemm_ga", Gm, A, part, k, l3, d3sq, rows, kchunk, nsplit, bf16)
+        _ga(run, Gm, A, part, kchunk, nsplit)
         run("hcs_reduce_l2_mask", part, src, scal, mask, dst, nsplit, k, n)
 
     run("hts_cg_init", rhs, x, r, p, rs, k, n)
@@ -554,7 +556,7 @@ def score_candidate_kernel(fin: FullInputs, cg_iters: int, fista_iters: int, pow
     rhs = torch.empty((k, l3, d3sq), dtype=torch.float32, device=dev)
     # rhs = (u W2) * mask: u in the data columns, zeros in the op columns
     run("hcs_pack_cols", fin.u, Gm, k, l3, nd, rows, bf16)
-    run("hts_gemm_ga", Gm, A, part, k, l3, d3sq, rows, kchunk, nsplit, bf16)
+    _ga(run, Gm, A, part, kchunk, nsplit)
     run("hts_reduce_mask", part, fin.mask, rhs, nsplit, k, l3, d3sq, l3)
     x, buf = _solve_cuda(run, A, fin.gz, fin.b1, fin.pok, fin.mask, rhs, fin.scal, fin.d2,
                          cg_iters, fista_iters, power_iters)
@@ -562,10 +564,10 @@ def score_candidate_kernel(fin: FullInputs, cg_iters: int, fista_iters: int, pow
     # mix, zeros in the op columns, the second product (x is masked, so
     # the mask the reduction applies changes no sum)
     T, dt = buf["T"], buf["q"]
-    run("hts_gemm_xat", x, A, T, buf["xb"], k, l3, nd, d3sq, rows, bf16, kernels=1 + bf16)
-    run("hts_glue_data", T, fin.gz, Gm, k, 1, l3, C, fin.d2, rows, bf16)
+    _xat(run, x, A, T, buf["xb"], nd)
+    run("hts_glue_data", T, fin.gz, Gm, k, 1, l3, C, fin.d2, rows, rows, bf16)
     run("hcs_pack_cols", None, Gm, k, l3, nd, rows, bf16)
-    run("hts_gemm_ga", Gm, A, part, k, l3, d3sq, rows, kchunk, nsplit, bf16)
+    _ga(run, Gm, A, part, kchunk, nsplit)
     run("hts_reduce_mask", part, fin.mask, dt, nsplit, k, l3, d3sq, l3)
     score = torch.empty(k, dtype=torch.float32, device=dev)
     run("hcs_score", x, rhs, dt, fin.b_norm, score, k, n)

@@ -50,16 +50,16 @@ __device__ __forceinline__ void stf(__nv_bfloat16* p, float v) { *p = __float2bf
 
 // float32 products on the FMA units (TF32 stays off).
 // out[g, m, n] = sum_k X[g, m, k] * A[g, n, k] for n < N.
-// X (G, M, K); A has ld rows of K per group; out row stride ld.
+// X (G, M, K); A has ld rows per group, lda elements apart; out row stride ld.
 __global__ void __launch_bounds__(NT) gemm_xat_kernel(
     const float* __restrict__ X, const float* __restrict__ A, float* __restrict__ out,
-    int M, int N, int K, int ld) {
+    int M, int N, int K, int ld, int lda) {
   __shared__ float xs[BK][BM + 4];
   __shared__ float as[BK][BN + 4];
   const int g = blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   X += (size_t)g * M * K;
-  A += (size_t)g * ld * K;
+  A += (size_t)g * ld * lda;
   out += (size_t)g * M * ld;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   float acc[4][4];
@@ -72,7 +72,7 @@ __global__ void __launch_bounds__(NT) gemm_xat_kernel(
       const int row = e / BK, kk = e % BK, k = k0 + kk;
       const int m = m0 + row, n = n0 + row;
       xs[kk][row] = (m < M && k < K) ? X[(size_t)m * K + k] : 0.f;
-      as[kk][row] = (n < N && k < K) ? A[(size_t)n * K + k] : 0.f;
+      as[kk][row] = (n < N && k < K) ? A[(size_t)n * lda + k] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -102,10 +102,10 @@ __global__ void __launch_bounds__(NT) gemm_xat_kernel(
 }
 
 // part[s, g, m, n] = sum_{k in split s} Gm[g, m, k] * A[g, k, n];
-// Gm (G, M, K), A (G, K, N).
+// Gm (G, M, K) with rows ldg apart, A (G, K, N) with rows lda apart.
 __global__ void __launch_bounds__(NT) gemm_ga_kernel(
     const float* __restrict__ Gm, const float* __restrict__ A, float* __restrict__ part,
-    int M, int N, int K, int kchunk, int nsplit, int ngroups) {
+    int M, int N, int K, int ldg, int lda, int kchunk, int nsplit, int ngroups) {
   __shared__ float gs[BK][BM + 4];
   __shared__ float as[BK][BN + 4];
   const int g = blockIdx.z;
@@ -113,8 +113,8 @@ __global__ void __launch_bounds__(NT) gemm_ga_kernel(
   const int m0 = mt * BM, n0 = blockIdx.x * BN;
   const int kbeg = s * kchunk;
   const int kend = min(K, kbeg + kchunk);
-  Gm += (size_t)g * M * K;
-  A += (size_t)g * K * N;
+  Gm += (size_t)g * M * ldg;
+  A += (size_t)g * K * lda;
   part += ((size_t)s * ngroups + g) * M * N;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   float acc[4][4];
@@ -125,9 +125,9 @@ __global__ void __launch_bounds__(NT) gemm_ga_kernel(
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
     for (int e = tid; e < BM * BK; e += NT) {
       const int row = e / BK, kk = e % BK, k = k0 + kk, m = m0 + row;
-      gs[kk][row] = (m < M && k < kend) ? Gm[(size_t)m * K + k] : 0.f;
+      gs[kk][row] = (m < M && k < kend) ? Gm[(size_t)m * ldg + k] : 0.f;
       const int kk2 = e / BN, col = e % BN, k2 = k0 + kk2, n = n0 + col;
-      as[kk2][col] = (n < N && k2 < kend) ? A[(size_t)k2 * N + n] : 0.f;
+      as[kk2][col] = (n < N && k2 < kend) ? A[(size_t)k2 * lda + n] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -171,20 +171,22 @@ __global__ void reduce_mask_kernel(const float* __restrict__ part, const float* 
 }
 
 // Data columns: u[r, m, col] = sum_n Gz[r, c, m, n] T[r, n, col], c = col / d2.
+// T's rows are rows elements apart, Gm's ldg.
 template <typename T>
 __global__ void glue_data_kernel(const float* __restrict__ Tm, const float* __restrict__ gz,
-                                 T* __restrict__ Gm, int R, int l3, int C_u, int d2, int rows) {
+                                 T* __restrict__ Gm, int R, int l3, int C_u, int d2, int rows,
+                                 int ldg) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= C_u * d2) return;
   const size_t cand = (size_t)blockIdx.z * R + blockIdx.y;
-  const size_t base = cand * l3 * rows + col;
+  const size_t base = cand * l3 * rows + col, gbase = cand * l3 * ldg + col;
   const float* gzc = gz + (cand * C_u + col / d2) * l3 * l3;
   float tn[L3MAX];
   for (int n = 0; n < l3; ++n) tn[n] = Tm[base + (size_t)n * rows];
   for (int m = 0; m < l3; ++m) {
     float u = gzc[m * l3] * tn[0];
     for (int n = 1; n < l3; ++n) u += gzc[m * l3 + n] * tn[n];
-    stf(Gm + base + (size_t)m * rows, u);
+    stf(Gm + gbase + (size_t)m * ldg, u);
   }
 }
 
@@ -193,16 +195,17 @@ __global__ void glue_data_kernel(const float* __restrict__ Tm, const float* __re
 //   cav[o, m]  = sum_o2 Cn[o, o2] av[o2, m]
 //   L[o, m]    = deg*mask * av - af*mask * cav
 //   gs[o, n]   = sum_m Mz[o, m, n] L[o, m]
+// T's rows are rows elements apart, Gm's ldg.
 template <typename T>
 __global__ void glue_sym_kernel(float* __restrict__ Tm, const float* __restrict__ mz,
                                 const float* __restrict__ af, const float* __restrict__ cn,
                                 const float* __restrict__ deg, const float* __restrict__ mask,
                                 T* __restrict__ Gm, int R, int l3, int nd, int O, int d3sq,
-                                int rows) {
+                                int rows, int ldg) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= d3sq) return;
   const size_t cand = (size_t)blockIdx.z * R + blockIdx.y;
-  const size_t base = cand * l3 * rows + nd + p;
+  const size_t base = cand * l3 * rows + nd + p, gbase = cand * l3 * ldg + nd + p;
   const float* mzc = mz + cand * O * l3 * l3;
   const float* afc = af + cand * O * l3 * d3sq + p;
   const float* degc = deg + cand * O * l3 * d3sq + p;
@@ -231,7 +234,7 @@ __global__ void glue_sym_kernel(float* __restrict__ Tm, const float* __restrict_
     for (int n = 0; n < l3; ++n) {
       float gsv = 0.f;
       for (int m = 0; m < l3; ++m) gsv += mzc[(o * l3 + m) * l3 + n] * lv[m];
-      stf(Gm + c0 + (size_t)n * rows, gsv);
+      stf(Gm + gbase + (size_t)o * d3sq + (size_t)n * ldg, gsv);
     }
   }
 }
@@ -439,11 +442,13 @@ __device__ __forceinline__ void wmma_store(FragC (&acc)[2][4], float* stage, flo
     }
 }
 
-// y = bf16(x): the reference's cast of X to the compute type
-__global__ void cast_bf16_kernel(const float* __restrict__ x, bf16_t* __restrict__ y, size_t n) {
+// y[r, k] = bf16(x[r, k]) for rows of K, y's ldy apart: the reference's
+// cast of X to the compute type
+__global__ void cast_bf16_kernel(const float* __restrict__ x, bf16_t* __restrict__ y, size_t n,
+                                 int K, int ldy) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x)
-    y[i] = __float2bfloat16(x[i]);
+    y[(i / K) * ldy + i % K] = __float2bfloat16(x[i]);
 }
 
 // The shared K loop of both products: acc += A_tile . B_tile over the K
@@ -495,25 +500,25 @@ __device__ __forceinline__ void wmma_k_loop(FragC (&acc)[2][4], bf16_t* smem, in
 // out[g, m, n] = sum_k Xb[g, m, k] * A[g, n, k] for n < N, all bf16.
 __global__ void __launch_bounds__(WNT) gemm_xat_wmma_kernel(
     const bf16_t* __restrict__ Xb, const bf16_t* __restrict__ A, float* __restrict__ out,
-    int M, int N, int K, int ld) {
+    int M, int N, int K, int ld, int lda, int ldx) {
   constexpr int A_ELEMS = WBM * LDS_K, STAGE = A_ELEMS + WBN * LDS_K;
   __shared__ __align__(128) bf16_t smem[2 * STAGE];
   const int g = blockIdx.z, m0 = blockIdx.y * WBM, n0 = blockIdx.x * WBN;
-  Xb += (size_t)g * M * K;
-  A += (size_t)g * ld * K;
+  Xb += (size_t)g * M * ldx;
+  A += (size_t)g * ld * lda;
   out += (size_t)g * M * ld;
   const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
-  const bool vec4 = runs_of_4(Xb, K) && runs_of_4(A, K);
+  const bool vec4 = runs_of_4(Xb, ldx) && runs_of_4(A, lda);
   FragC acc[2][4];
   wmma_k_loop(
       acc, smem, STAGE, A_ELEMS, 0, K,
       [&](bf16_t* d, int k0) {
-        if (vec4) load_tile_async<WBM, WBK, 4>(d, LDS_K, Xb, K, m0, M, k0, K);
-        else load_tile_async<WBM, WBK, 2>(d, LDS_K, Xb, K, m0, M, k0, K);
+        if (vec4) load_tile_async<WBM, WBK, 4>(d, LDS_K, Xb, ldx, m0, M, k0, K);
+        else load_tile_async<WBM, WBK, 2>(d, LDS_K, Xb, ldx, m0, M, k0, K);
       },
       [&](bf16_t* d, int k0) {
-        if (vec4) load_tile_async<WBN, WBK, 4>(d, LDS_K, A, K, n0, N, k0, K);
-        else load_tile_async<WBN, WBK, 2>(d, LDS_K, A, K, n0, N, k0, K);
+        if (vec4) load_tile_async<WBN, WBK, 4>(d, LDS_K, A, lda, n0, N, k0, K);
+        else load_tile_async<WBN, WBK, 2>(d, LDS_K, A, lda, n0, N, k0, K);
       },
       [&](const bf16_t* b_tile, int kk, int j) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16_t, wmma::col_major> b;
@@ -528,29 +533,29 @@ __global__ void __launch_bounds__(WNT) gemm_xat_wmma_kernel(
 // part[s, g, m, n] = sum_{k in split s} Gm[g, m, k] * A[g, k, n], all bf16.
 __global__ void __launch_bounds__(WNT) gemm_ga_wmma_kernel(
     const bf16_t* __restrict__ Gm, const bf16_t* __restrict__ A, float* __restrict__ part,
-    int M, int N, int K, int kchunk, int nsplit, int ngroups) {
+    int M, int N, int K, int ldg, int lda, int kchunk, int nsplit, int ngroups) {
   constexpr int A_ELEMS = WBM * LDS_K, STAGE = A_ELEMS + WBK * LDS_N;
   __shared__ __align__(128) bf16_t smem[2 * STAGE];
   const int g = blockIdx.z;
   const int mt = blockIdx.y / nsplit, s = blockIdx.y % nsplit;
   const int m0 = mt * WBM, n0 = blockIdx.x * WBN;
   const int kbeg = s * kchunk, kend = min(K, kbeg + kchunk);
-  Gm += (size_t)g * M * K;
-  A += (size_t)g * K * N;
+  Gm += (size_t)g * M * ldg;
+  A += (size_t)g * K * lda;
   part += ((size_t)s * ngroups + g) * M * N;
   const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
   // K slices start at multiples of 32 and the N tile at multiples of 128
-  const bool vec_g = runs_of_4(Gm, K), vec_a = runs_of_4(A, N);
+  const bool vec_g = runs_of_4(Gm, ldg), vec_a = runs_of_4(A, lda);
   FragC acc[2][4];
   wmma_k_loop(
       acc, smem, STAGE, A_ELEMS, kbeg, kend,
       [&](bf16_t* d, int k0) {
-        if (vec_g) load_tile_async<WBM, WBK, 4>(d, LDS_K, Gm, K, m0, M, k0, kend);
-        else load_tile_async<WBM, WBK, 2>(d, LDS_K, Gm, K, m0, M, k0, kend);
+        if (vec_g) load_tile_async<WBM, WBK, 4>(d, LDS_K, Gm, ldg, m0, M, k0, kend);
+        else load_tile_async<WBM, WBK, 2>(d, LDS_K, Gm, ldg, m0, M, k0, kend);
       },
       [&](bf16_t* d, int k0) {
-        if (vec_a) load_tile_async<WBK, WBN, 4>(d, LDS_N, A, N, k0, kend, n0, N);
-        else load_tile_async<WBK, WBN, 2>(d, LDS_N, A, N, k0, kend, n0, N);
+        if (vec_a) load_tile_async<WBK, WBN, 4>(d, LDS_N, A, lda, k0, kend, n0, N);
+        else load_tile_async<WBK, WBN, 2>(d, LDS_N, A, lda, k0, kend, n0, N);
       },
       [&](const bf16_t* b_tile, int kk, int j) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16_t, wmma::row_major> b;
@@ -561,61 +566,334 @@ __global__ void __launch_bounds__(WNT) gemm_ga_wmma_kernel(
              M, N, N);
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 streaming products: mma.sync m16n8k16 from ldmatrix, fed by a ring
+// of STAGES K slices copied with cp.async.
+//
+// Both products are out^T[w, m] = sum_k Aw[w, k] B[m, k]: w runs over the
+// wide side (A_top's rows for T = X . A_top^T; its d3^2 columns for
+// Y = Gm . A_top, whose tile arrives [k][w] and goes to the tensor cores
+// through ldmatrix.trans), m over the NW candidate rows (a multiple of 8,
+// the mma's n side), k over the K slice. A block takes SW = 256 of the
+// wide side and NW candidate rows; its 8 warps take 32 wide rows each and
+// all NW columns.
+constexpr int SW = 256, SK = 64, SNT = 256, STAGES = 4;
+constexpr int PK = SK + 8;  // bf16 pitch of K-contiguous tiles (+16 B against bank conflicts)
+constexpr int PW = SW + 8;  // bf16 pitch of the [k][w] tile
+constexpr int PO = SW + 4;  // float pitch of the output staging tile
+
+template <bool TRANS>
+constexpr int a_tile_elems() { return TRANS ? SK * PW : SW * PK; }
+template <int NW, bool TRANS>
+constexpr size_t stream_smem_bytes() { return (size_t)STAGES * (a_tile_elems<TRANS>() + NW * PK) * 2; }
+
+// global -> shared copy of BYTES (4, 8 or 16); bytes < BYTES zero-fills the rest
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(BYTES),
+                 "r"(bytes));
+}
+
+// Start copying dst[r, c] = src[(r0 + r) * lds + c0 + c] for the ROWS x COLS
+// tile, zero where r0 + r >= rend or c0 + c >= cend. Runs of VEC elements
+// (8, 4 or 2) move as one copy, so lds, c0 and src are VEC-aligned.
+template <int ROWS, int COLS, int VEC>
+__device__ __forceinline__ void load_rows(bf16_t* dst, int ldd, const bf16_t* src, size_t lds,
+                                          int r0, int rend, int c0, int cend) {
+  constexpr int RUNS = COLS / VEC;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * RUNS; e += SNT) {
+    const int r = e / RUNS, c = (e % RUNS) * VEC, gr = r0 + r, gc = c0 + c;
+    const bf16_t* p = src;
+    int bytes = 0;
+    if (gr < rend && gc < cend) {
+      p = src + (size_t)gr * lds + gc;
+      bytes = 2 * min(VEC, cend - gc);
+    }
+    cp_async_zfill<2 * VEC>(dst + r * ldd + c, p, bytes);
+  }
+}
+
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_rows(int vec, bf16_t* dst, int ldd, const bf16_t* src,
+                                          size_t lds, int r0, int rend, int c0, int cend) {
+  if (vec == 8) load_rows<ROWS, COLS, 8>(dst, ldd, src, lds, r0, rend, c0, cend);
+  else if (vec == 4) load_rows<ROWS, COLS, 4>(dst, ldd, src, lds, r0, rend, c0, cend);
+  else load_rows<ROWS, COLS, 2>(dst, ldd, src, lds, r0, rend, c0, cend);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const bf16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+// c += a . b for one 16 x 8 x 16 tile, bf16 in, float32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// out[s, g, m, w] = sum_{k in split s} B[g, m, k] Aw[g, w, k] for w < N and
+// m < M, with Aw[w, k] = A[w * lda + k] (TRANS false) or A[k * lda + w]
+// (TRANS true); A's groups a_group elements apart, B's rows ldb apart,
+// out's rows ld_out apart; va / vb: the copy width (elements) of A / B;
+// vo: out takes float4 stores. K splits of kchunk (a multiple of SK) take
+// blockIdx.y % nsplit, candidate tiles of NW rows blockIdx.y / nsplit.
+template <int NW, bool TRANS>
+__global__ void __launch_bounds__(SNT, 1) stream_product_kernel(
+    const bf16_t* __restrict__ A, const bf16_t* __restrict__ B, float* __restrict__ out, int M,
+    int N, int K, int lda, int ldb, int ld_out, size_t a_group, int kchunk, int nsplit, int va,
+    int vb, int vo, int ngroups) {
+  constexpr int AE = a_tile_elems<TRANS>(), STAGE = AE + NW * PK, NJ = NW / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16_t* smem = reinterpret_cast<bf16_t*>(smem_raw);
+  const int g = blockIdx.z;
+  const int mt = blockIdx.y / nsplit, s = blockIdx.y % nsplit;
+  const int m0 = mt * NW, w0 = blockIdx.x * SW;
+  const int kbeg = s * kchunk, kend = min(K, kbeg + kchunk);
+  A += (size_t)g * a_group;
+  B += (size_t)g * M * ldb;
+  out += ((size_t)s * ngroups + g) * M * ld_out;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  auto load = [&](int stage, int k0) {
+    bf16_t* a = smem + stage * STAGE;
+    if (TRANS) load_rows<SK, SW>(va, a, PW, A, lda, k0, kend, w0, N);
+    else load_rows<SW, SK>(va, a, PK, A, lda, w0, N, k0, kend);
+    load_rows<NW, SK>(vb, a + AE, PK, B, ldb, m0, M, k0, kend);
+  };
+
+  float acc[2][NJ][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  const int nk = (kend - kbeg + SK - 1) / SK;
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load(st, kbeg + st * SK);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<STAGES - 2>();  // slice t has landed
+    __syncthreads();              // and every warp is done with slice t - 1
+    if (t + STAGES - 1 < nk) load((t + STAGES - 1) % STAGES, kbeg + (t + STAGES - 1) * SK);
+    cp_async_commit();
+    const bf16_t* a = smem + (t % STAGES) * STAGE;
+    const bf16_t* b = a + AE;
+#pragma unroll
+    for (int kk = 0; kk < SK; kk += 16) {
+      unsigned bf[NJ][2];
+#pragma unroll
+      for (int j = 0; j + 1 < NJ; j += 2) {
+        unsigned r[4];
+        const int q = lane >> 3;
+        ldsm_x4(r, b + (8 * j + (lane & 7) + (q >> 1) * 8) * PK + kk + (q & 1) * 8);
+        bf[j][0] = r[0];
+        bf[j][1] = r[1];
+        bf[j + 1][0] = r[2];
+        bf[j + 1][1] = r[3];
+      }
+      if (NJ & 1) {
+        unsigned r[2];
+        const int l = lane & 15;
+        ldsm_x2(r, b + (8 * (NJ - 1) + (l & 7)) * PK + kk + (l >> 3) * 8);
+        bf[NJ - 1][0] = r[0];
+        bf[NJ - 1][1] = r[1];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        unsigned af[4];
+        const int wb = warp * 32 + i * 16;
+        if (TRANS) {
+          const int q = lane >> 3;
+          ldsm_x4_trans(af, a + (kk + (lane & 7) + (q >> 1) * 8) * PW + wb + (q & 1) * 8);
+        } else {
+          ldsm_x4(af, a + (wb + (lane & 15)) * PK + kk + (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma_bf16(acc[i][j], af, bf[j][0], bf[j][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // out^T through shared memory, so that the stores run along w, 16 B each
+  float* stg = reinterpret_cast<float*>(smem_raw);
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int w = warp * 32 + i * 16 + gq, m = 8 * j + 2 * tq;
+      stg[m * PO + w] = acc[i][j][0];
+      stg[(m + 1) * PO + w] = acc[i][j][1];
+      stg[m * PO + w + 8] = acc[i][j][2];
+      stg[(m + 1) * PO + w + 8] = acc[i][j][3];
+    }
+  __syncthreads();
+  for (int e = threadIdx.x; e < NW * (SW / 4); e += SNT) {
+    const int m = e / (SW / 4), w = (e % (SW / 4)) * 4, gm = m0 + m, gw = w0 + w;
+    if (gm >= M || gw >= N) continue;
+    float* o = out + (size_t)gm * ld_out + gw;
+    const float* sv = stg + m * PO + w;
+    if (vo && gw + 4 <= N)
+      *reinterpret_cast<float4*>(o) = *reinterpret_cast<const float4*>(sv);
+    else
+      for (int q = 0; q < 4 && gw + q < N; ++q) o[q] = sv[q];
+  }
+}
+
 inline unsigned cdiv(size_t a, size_t b) { return (unsigned)((a + b - 1) / b); }
+
+// the widest copy (8, 4 or 2 elements) that rows lds apart from p allow; 0 if none
+inline int copy_width(const void* p, size_t lds) {
+  for (int v = 8; v >= 2; v /= 2)
+    if (lds % v == 0 && reinterpret_cast<uintptr_t>(p) % (2 * v) == 0) return v;
+  return 0;
+}
+
+// the candidate tile width NW for M rows, and the number of tiles
+constexpr int NWS[] = {8, 16, 32, 48, 80, 128};
+inline int pick_width(int M, int* ntiles) {
+  *ntiles = (int)cdiv(M, 128);
+  const int per = (int)cdiv(M, *ntiles);
+  for (int w : NWS)
+    if (w >= per) return w;
+  return 128;
+}
+
+struct StreamArgs {
+  const bf16_t* A;
+  const bf16_t* B;
+  float* out;
+  int M, N, K, lda, ldb, ld_out;
+  size_t a_group;
+  int kchunk, nsplit, G;
+};
+
+template <int NW, bool TRANS>
+cudaError_t launch_stream(const StreamArgs& a, int ny, cudaStream_t s) {
+  constexpr size_t bytes = stream_smem_bytes<NW, TRANS>();
+  static_assert(bytes <= 232448 && (size_t)NW * PO * 4 <= bytes, "shared memory");
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(stream_product_kernel<NW, TRANS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  const int va = copy_width(a.A, a.lda), vb = copy_width(a.B, a.ldb);
+  if (!va || !vb) return cudaErrorInvalidValue;
+  const int vo = a.ld_out % 4 == 0 && reinterpret_cast<uintptr_t>(a.out) % 16 == 0;
+  stream_product_kernel<NW, TRANS><<<dim3(cdiv(a.N, SW), ny * a.nsplit, a.G), SNT, bytes, s>>>(
+      a.A, a.B, a.out, a.M, a.N, a.K, a.lda, a.ldb, a.ld_out, a.a_group, a.kchunk, a.nsplit, va,
+      vb, vo, a.G);
+  return cudaGetLastError();
+}
+
+template <bool TRANS>
+cudaError_t stream_product(const StreamArgs& a, cudaStream_t s) {
+  int ny;
+  switch (pick_width(a.M, &ny)) {
+    case 8: return launch_stream<8, TRANS>(a, ny, s);
+    case 16: return launch_stream<16, TRANS>(a, ny, s);
+    case 32: return launch_stream<32, TRANS>(a, ny, s);
+    case 48: return launch_stream<48, TRANS>(a, ny, s);
+    case 80: return launch_stream<80, TRANS>(a, ny, s);
+    default: return launch_stream<128, TRANS>(a, ny, s);
+  }
+}
 
 }  // namespace
 
 extern "C" {
 
-// xb: scratch for bf16(X), G * M * K elements (bf16 mode only)
+// out[g, m, n] = sum_k X[g, m, k] A[g, n, k] for n < N: X (G, M, K)
+// float32; A has rows rows per group, lda elements apart; out's rows are
+// rows elements apart. xb: scratch for bf16(X), rows ldx elements apart
+// (bf16 mode only).
 int hts_gemm_xat(const float* X, const void* A, float* out, void* xb, int G, int M, int N, int K,
-                 int ld, int bf16, void* stream) {
+                 int rows, int lda, int ldx, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
     const size_t n = (size_t)G * M * K;
-    cast_bf16_kernel<<<cdiv(n, 256) < 8192u ? cdiv(n, 256) : 8192u, 256, 0, s>>>(X, (bf16_t*)xb, n);
+    cast_bf16_kernel<<<cdiv(n, 256) < 8192u ? cdiv(n, 256) : 8192u, 256, 0, s>>>(X, (bf16_t*)xb, n,
+                                                                               K, ldx);
     gemm_xat_wmma_kernel<<<dim3(cdiv(N, WBN), cdiv(M, WBM), G), WNT, 0, s>>>(
-        (const bf16_t*)xb, (const bf16_t*)A, out, M, N, K, ld);
+        (const bf16_t*)xb, (const bf16_t*)A, out, M, N, K, rows, lda, ldx);
   } else
     gemm_xat_kernel<<<dim3(cdiv(N, BN), cdiv(M, BM), G), NT, 0, s>>>(X, (const float*)A, out, M,
-                                                                     N, K, ld);
+                                                                     N, K, rows, lda);
   return (int)cudaGetLastError();
 }
 
+// T's rows are rows elements apart, Gm's ldg (also below)
 int hts_glue_data(const float* Tm, const float* gz, void* Gm, int G, int R, int l3, int C_u,
-                  int d2, int rows, int bf16, void* stream) {
+                  int d2, int rows, int ldg, int bf16, void* stream) {
   const dim3 grid(cdiv((size_t)C_u * d2, 128), R, G);
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    glue_data_kernel<__nv_bfloat16><<<grid, 128, 0, s>>>(Tm, gz, (__nv_bfloat16*)Gm, R, l3, C_u, d2, rows);
+    glue_data_kernel<bf16_t><<<grid, 128, 0, s>>>(Tm, gz, (bf16_t*)Gm, R, l3, C_u, d2, rows, ldg);
   else
-    glue_data_kernel<float><<<grid, 128, 0, s>>>(Tm, gz, (float*)Gm, R, l3, C_u, d2, rows);
+    glue_data_kernel<float><<<grid, 128, 0, s>>>(Tm, gz, (float*)Gm, R, l3, C_u, d2, rows, ldg);
   return (int)cudaGetLastError();
 }
 
 int hts_glue_sym(float* Tm, const float* mz, const float* af, const float* cn, const float* deg,
                  const float* mask, void* Gm, int G, int R, int l3, int nd, int O, int d3sq,
-                 int rows, int bf16, void* stream) {
+                 int rows, int ldg, int bf16, void* stream) {
   const dim3 grid(cdiv(d3sq, 128), R, G);
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    glue_sym_kernel<__nv_bfloat16><<<grid, 128, 0, s>>>(Tm, mz, af, cn, deg, mask, (__nv_bfloat16*)Gm,
-                                                        R, l3, nd, O, d3sq, rows);
+    glue_sym_kernel<bf16_t><<<grid, 128, 0, s>>>(Tm, mz, af, cn, deg, mask, (bf16_t*)Gm, R, l3, nd,
+                                                 O, d3sq, rows, ldg);
   else
     glue_sym_kernel<float><<<grid, 128, 0, s>>>(Tm, mz, af, cn, deg, mask, (float*)Gm, R, l3, nd, O,
-                                                d3sq, rows);
+                                                d3sq, rows, ldg);
   return (int)cudaGetLastError();
 }
 
-int hts_gemm_ga(const void* Gm, const void* A, float* part, int G, int M, int N, int K,
-                int kchunk, int nsplit, int bf16, void* stream) {
+// part[s, g, m, n] = sum_{k in split s} Gm[g, m, k] A[g, k, n]: Gm (G, M, K)
+// with rows ldg elements apart, A (G, K, N) with rows lda apart.
+int hts_gemm_ga(const void* Gm, const void* A, float* part, int G, int M, int N, int K, int ldg,
+                int lda, int kchunk, int nsplit, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     gemm_ga_wmma_kernel<<<dim3(cdiv(N, WBN), cdiv(M, WBM) * nsplit, G), WNT, 0, s>>>(
-        (const bf16_t*)Gm, (const bf16_t*)A, part, M, N, K, kchunk, nsplit, G);
+        (const bf16_t*)Gm, (const bf16_t*)A, part, M, N, K, ldg, lda, kchunk, nsplit, G);
   else
     gemm_ga_kernel<<<dim3(cdiv(N, BN), cdiv(M, BM) * nsplit, G), NT, 0, s>>>(
-        (const float*)Gm, (const float*)A, part, M, N, K, kchunk, nsplit, G);
+        (const float*)Gm, (const float*)A, part, M, N, K, ldg, lda, kchunk, nsplit, G);
   return (int)cudaGetLastError();
 }
 

@@ -21,6 +21,11 @@ the box [lb, ub], then cosine = <x, rhs> / (sqrt(<t_d, Gz mix t_d>) |b|).
 ``solve_group`` takes a ``GroupInputs`` batch of G groups. On CPU tensors
 it runs ``solve_group_reference`` (plain PyTorch); on CUDA tensors it
 runs the hand-written kernels of ``csrc/group_solve.cu`` or raises.
+``gemm_xat`` and ``gemm_ga`` run the two products alone.
+
+``GroupInputs.empty`` gives ``a_top`` rows a pitch of a multiple of 8
+elements (16 bytes of bf16): ``a_top`` is the ``[..., :d3^2]`` view of a
+(G, rows, pitch) buffer, so that the products copy it in 16-byte pieces.
 """
 
 from __future__ import annotations
@@ -36,6 +41,9 @@ __all__ = [
     "group_inputs_from_numpy",
     "solve_group",
     "solve_group_reference",
+    "gemm_xat",
+    "gemm_ga",
+    "padded_pitch",
     "launches",
 ]
 
@@ -45,6 +53,13 @@ launches = 0
 
 L3_MAX = 64  # z extent the kernel's per-thread arrays hold (csrc L3MAX)
 _TILE, _KSTEP = 128, 32  # N tile edge and K slice of the bf16 product kernels
+_PITCH = 8  # elements a padded row pitch is a multiple of (16 bytes of bf16)
+
+
+def padded_pitch(n: int) -> int:
+    """n rounded up to a multiple of 8: the row pitch of the buffers the
+    bf16 products copy in 16-byte pieces."""
+    return -(-n // _PITCH) * _PITCH
 
 
 @dataclasses.dataclass
@@ -52,7 +67,7 @@ class GroupInputs:
     """The solve's inputs for G groups of R candidates (candidate-major,
     unpadded). ``a_top`` is in the compute dtype; the rest is float32."""
 
-    a_top: torch.Tensor  # (G, rows, d3^2), rows = C_u*d2 + O*d3^2
+    a_top: torch.Tensor  # (G, rows, d3^2), rows = C_u*d2 + O*d3^2; rows may be padded
     gz: torch.Tensor  # (G, R, C_u, l3, l3) multiplicity-weighted z-Gram
     mz: torch.Tensor  # (G, R, O, l3, l3) per-op z-shift
     af: torch.Tensor  # (G, R, O, l3, d3^2) op-sample validity
@@ -72,15 +87,21 @@ class GroupInputs:
         return G, R, C_u, self.mz.shape[2], l3, self.mask.shape[1]
 
     @classmethod
-    def empty(cls, G: int, like: "GroupInputs"):
-        """Uninitialised inputs for G groups shaped as ``like``'s groups."""
+    def empty(cls, G: int, like: "GroupInputs", pitch: int | None = None):
+        """Uninitialised inputs for G groups shaped as ``like``'s groups.
+        ``a_top`` is the [..., :d3^2] view of a (G, rows, pitch) buffer
+        whose padding is zero; pitch defaults to padded_pitch(d3^2)."""
         kw = {
             f.name: torch.empty((G,) + getattr(like, f.name).shape[1:],
                                 dtype=getattr(like, f.name).dtype,
                                 device=getattr(like, f.name).device)
-            for f in dataclasses.fields(cls) if f.name not in ("mask", "d2")
+            for f in dataclasses.fields(cls) if f.name not in ("mask", "d2", "a_top")
         }
-        return cls(mask=like.mask, d2=like.d2, **kw)
+        _, rows, d3sq = like.a_top.shape
+        buf = torch.empty((G, rows, padded_pitch(d3sq) if pitch is None else pitch),
+                          dtype=like.a_top.dtype, device=like.a_top.device)
+        buf[..., d3sq:].zero_()
+        return cls(a_top=buf[..., :d3sq], mask=like.mask, d2=like.d2, **kw)
 
     def put(self, g: int, one: "GroupInputs") -> None:
         """Copy the single group ``one`` into slot g."""
@@ -244,6 +265,17 @@ def solve_group_reference(
 # ---------------------------------------------------------------------------
 
 
+def _rows_layout_ok(a: torch.Tensor) -> bool:
+    """a (G, rows, n) is contiguous, or the [..., :n] view of rows whose
+    pitch is a multiple of 8 elements."""
+    if a.is_contiguous():
+        return True
+    G, rows, n = a.shape
+    P = a.stride(1)
+    return (a.stride(2) == 1 and P % _PITCH == 0 and P >= n
+            and (G == 1 or a.stride(0) == rows * P))
+
+
 def _check_cuda_inputs(inp: GroupInputs) -> None:
     G, R, C_u, O, l3, d3sq = inp.shape
     dev = inp.a_top.device
@@ -253,14 +285,17 @@ def _check_cuda_inputs(inp: GroupInputs) -> None:
         raise ValueError(f"l3 = {l3} exceeds the kernel's {L3_MAX}")
     for f in dataclasses.fields(inp):
         t = getattr(inp, f.name)
-        if f.name == "d2":
+        if f.name in ("d2", "a_top"):
             continue
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{f.name} must be a contiguous tensor on {dev}")
-        if f.name != "a_top" and t.dtype != torch.float32:
+        if t.dtype != torch.float32:
             raise TypeError(f"{f.name} must be float32, got {t.dtype}")
     if inp.a_top.shape != (G, C_u * inp.d2 + O * d3sq, d3sq):
         raise ValueError(f"a_top shape {tuple(inp.a_top.shape)} does not match the group")
+    if not _rows_layout_ok(inp.a_top):
+        raise ValueError(f"a_top (strides {inp.a_top.stride()}) must be contiguous or the "
+                         "[..., :d3^2] view of rows whose pitch is a multiple of 8 elements")
     if inp.a_top.dtype == torch.bfloat16 and (d3sq % 2 or inp.d2 % 2):
         raise ValueError("the bf16 kernel copies element pairs: d3^2 and d2 must be even")
 
@@ -270,16 +305,91 @@ def _count(kernels: int) -> None:
     launches += kernels
 
 
-def k_split(G: int, M: int, K: int, N: int, dev: torch.device):
+def k_split(G: int, M: int, K: int, N: int, dev: torch.device, nsplit: int | None = None):
     """(kchunk, nsplit) of the second product (G groups of M x K by K x N):
     K is split so that G * tiles * splits fills the card twice over, each
-    split covering >= 8 K slices."""
-    tiles = G * -(-M // _TILE) * -(-N // _TILE)  # (the float32 tiles are 4x more)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    split covering >= 8 K slices; or into ``nsplit`` parts if given."""
     k_tiles = -(-K // _KSTEP)
-    nsplit = max(1, min(-(-2 * n_sm // tiles), k_tiles // 8))
-    kchunk = -(-k_tiles // nsplit) * _KSTEP
+    if nsplit is None:
+        tiles = G * -(-M // _TILE) * -(-N // _TILE)  # (the float32 tiles are 4x more)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        nsplit = max(1, min(-(-2 * n_sm // tiles), k_tiles // 8))
+    kchunk = -(-k_tiles // max(1, min(nsplit, k_tiles))) * _KSTEP
     return kchunk, -(-K // kchunk)
+
+
+def _xat(run, X, A, out, xb, N: int) -> None:
+    """Launch out[g, m, n] = sum_k X[g, m, k] A[g, n, k] for n < N (the
+    first product): X (G, M, d3^2) float32 contiguous (or (G, R, l3,
+    d3^2)), A (G, rows, d3^2)
+    with unit last stride, out (G, M, rows) float32, xb the (G, M, ldx)
+    scratch for bf16(X) (None in float32)."""
+    G, K = A.shape[0], A.shape[2]
+    M = X.numel() // (G * K)
+    bf16 = int(A.dtype == torch.bfloat16)
+    run("hts_gemm_xat", X, A, out, xb, G, M, N, K, A.shape[1], A.stride(1),
+        xb.stride(1) if bf16 else K, bf16, kernels=1 + bf16)
+
+
+def _ga(run, Gm, A, part, kchunk: int, nsplit: int) -> None:
+    """Launch part[s, g, m, n] = sum_{k in split s} Gm[g, m, k] A[g, k, n]
+    (the second product): Gm (G, M, >= rows) in A's dtype, A (G, rows,
+    d3^2), both with unit last stride; part (nsplit, G, M, d3^2) float32."""
+    G, M, _ = Gm.shape
+    rows, d3sq = A.shape[1:]
+    run("hts_gemm_ga", Gm, A, part, G, M, d3sq, rows, Gm.stride(1), A.stride(1), kchunk, nsplit,
+        int(A.dtype == torch.bfloat16))
+
+
+def _check_product(A: torch.Tensor, *others) -> None:
+    if A.dtype not in (torch.float32, torch.bfloat16) or not _rows_layout_ok(A):
+        raise ValueError("A must be float32 or bfloat16, contiguous or a view of rows whose "
+                         "pitch is a multiple of 8 elements")
+    for t in (A,) + others:
+        if t.device != A.device or t.stride(-1) != 1 or (A.dtype == torch.bfloat16
+                                                         and t.stride(1) % 2):
+            raise ValueError("the products take tensors on one device with unit last stride "
+                             "(and even row pitches in bf16)")
+
+
+def gemm_xat(X: torch.Tensor, A: torch.Tensor, N: int | None = None) -> torch.Tensor:
+    """The first product alone: T (G, M, N) float32 = X . A[:, :N]^T, with X
+    (G, M, d3^2) float32 rounded to A's dtype and A (G, rows, d3^2) (N
+    defaults to rows). CPU tensors run the plain version; CUDA tensors the
+    kernel (never the plain version)."""
+    rows = A.shape[1]
+    N = rows if N is None else N
+    if A.device.type == "cpu":
+        return torch.einsum("gmk,gnk->gmn", X.to(A.dtype).float(), A[:, :N].float())
+    _check_product(A, X)
+    from .._build import Launcher
+
+    G, M, K = X.shape
+    out = torch.empty((G, M, rows), dtype=torch.float32, device=A.device)
+    xb = (torch.empty((G, M, padded_pitch(K)), dtype=A.dtype, device=A.device)
+          if A.dtype == torch.bfloat16 else None)
+    _xat(Launcher(A.device, _count), X.float().contiguous(), A, out, xb, N)
+    return out[..., :N]
+
+
+def gemm_ga(Gm: torch.Tensor, A: torch.Tensor, nsplit: int | None = None) -> torch.Tensor:
+    """The second product alone, before its split reduction: part
+    (nsplit, G, M, d3^2) float32 whose sum over the splits, in order, is
+    Gm . A, for Gm (G, M, rows) and A (G, rows, d3^2) in one dtype. nsplit
+    defaults to solve_group's choice. CPU tensors run the plain version
+    (one split); CUDA tensors the kernel."""
+    if A.device.type == "cpu":
+        return torch.einsum("gmr,grd->gmd", Gm.float(), A.float())[None]
+    _check_product(A, Gm)
+    if Gm.dtype != A.dtype:
+        raise TypeError(f"Gm ({Gm.dtype}) and A ({A.dtype}) must share a dtype")
+    from .._build import Launcher
+
+    G, M, rows = Gm.shape
+    kchunk, nsplit = k_split(G, M, rows, A.shape[2], A.device, nsplit)
+    part = torch.empty((nsplit, G, M, A.shape[2]), dtype=torch.float32, device=A.device)
+    _ga(Launcher(A.device, _count), Gm, A, part, kchunk, nsplit)
+    return part
 
 
 def solve_group(inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: int):
@@ -306,19 +416,20 @@ def solve_group(inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: 
 
     kchunk, nsplit = k_split(G, M, rows, d3sq, dev)
     T = torch.empty((G, M, rows), **f32)
-    Gm = torch.empty((G, M, rows), dtype=inp.a_top.dtype, device=dev)
-    xb = torch.empty((G, M, d3sq), dtype=inp.a_top.dtype, device=dev) if bf16 else None
+    # [u; gs] and bf16(X) with 16-byte row pitches
+    Gm = torch.empty((G, M, padded_pitch(rows)), dtype=inp.a_top.dtype, device=dev)
+    xb = torch.empty((G, M, padded_pitch(d3sq)), dtype=inp.a_top.dtype, device=dev) if bf16 else None
     part = torch.empty((nsplit, G, M, d3sq), **f32)
     x, r, p, q, w = (torch.empty((G, R, l3, d3sq), **f32) for _ in range(5))
     rs, eta, score = (torch.empty((G, R), **f32) for _ in range(3))
+    ldg = Gm.stride(1)
 
     def matvec(src, dst):
-        run("hts_gemm_xat", src, inp.a_top, T, xb, G, M, rows, d3sq, rows, bf16,
-            kernels=1 + bf16)
-        run("hts_glue_data", T, inp.gz, Gm, G, R, l3, C_u, inp.d2, rows, bf16)
+        _xat(run, src, inp.a_top, T, xb, rows)
+        run("hts_glue_data", T, inp.gz, Gm, G, R, l3, C_u, inp.d2, rows, ldg, bf16)
         run("hts_glue_sym", T, inp.mz, inp.af, inp.cn, inp.deg, inp.mask, Gm,
-            G, R, l3, nd, O, d3sq, rows, bf16)
-        run("hts_gemm_ga", Gm, inp.a_top, part, G, M, d3sq, rows, kchunk, nsplit, bf16)
+            G, R, l3, nd, O, d3sq, rows, ldg, bf16)
+        _ga(run, Gm, inp.a_top, part, kchunk, nsplit)
         run("hts_reduce_mask", part, inp.mask, dst, nsplit, G, M, d3sq, l3)
 
     run("hts_cg_init", inp.rhs, x, r, p, rs, ncand, n)
@@ -340,6 +451,6 @@ def solve_group(inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: 
         run("hts_fista_init", x, p, inp.lb, inp.ub, ncand, n)
     run("hts_apply_mask", x, inp.mask, ncand, n)
     # score: the data columns of the first product, then the Gz mix
-    run("hts_gemm_xat", x, inp.a_top, T, xb, G, M, nd, d3sq, rows, bf16, kernels=1 + bf16)
+    _xat(run, x, inp.a_top, T, xb, nd)
     run("hts_score", T, inp.gz, x, inp.rhs, inp.bn, score, G, R, l3, C_u, inp.d2, rows, n)
     return x, score

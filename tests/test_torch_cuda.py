@@ -45,9 +45,9 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _group(device, cdt, csym, n_rises, twist, dy, positive_constraint, seed):
+def _group(device, cdt, csym, n_rises, twist, dy, positive_constraint, seed, d3=20):
     """One twist group built by the port from a seeded random region."""
-    geom = ReconstructionGeometry(d2=24, l2=64, d3=20, l3=8, rmin=2.0, rmax=9.0,
+    geom = ReconstructionGeometry(d2=24, l2=64, d3=d3, l3=8, rmin=2.0, rmax=d3 // 2 - 1,
                                   scale2d_to_3d=0.8, csym=csym)
     region = np.random.default_rng(seed).random((geom.d2, geom.l2)).astype(np.float32)
     rises = np.linspace(1.6, 2.0, n_rises).astype(np.float32)
@@ -208,3 +208,72 @@ def test_score_candidate_kernel_matches_plain(cuda, dtype):
 def test_validate_on_gpu(cuda):
     out = cs.validate_on_gpu()
     assert out["ok"], out
+
+
+def _product_operands(device, M, padded, seed, G=3, rows=1004, d3sq=300):
+    """bf16 operands of the two products, rows and d3^2 not multiples of
+    any tile: A (G, rows, d3^2) and Gm (G, M, rows) as views of rows with
+    16-byte pitches (padded) or as contiguous tensors whose pitches allow
+    8-byte copies only; X (G, M, d3^2) float32."""
+    rng = np.random.default_rng(seed)
+
+    def bf16(shape, pitch):
+        buf = torch.zeros(shape[:-1] + (pitch,), dtype=torch.bfloat16, device=device)
+        buf[..., : shape[-1]] = torch.from_numpy(rng.standard_normal(shape, np.float32))
+        return buf[..., : shape[-1]]
+
+    pad = gs.padded_pitch if padded else (lambda n: n)
+    A = bf16((G, rows, d3sq), pad(d3sq))
+    Gm = bf16((G, M, rows), pad(rows))
+    X = torch.from_numpy(rng.standard_normal((G, M, d3sq), np.float32)).to(device)
+    assert (A.stride(1) % 8 == 0) == padded and (Gm.stride(1) % 8 == 0) == padded
+    return A, Gm, X
+
+
+def _assert_float64_close(got, a, b):
+    """got against the float64 product a @ b of the same bf16 values: each
+    entry within 1e-4 of the sum of the magnitudes of its terms, far above
+    float32 accumulation over these depths (<= 1,004 terms) and far below
+    what a wrong row, column or slice would give."""
+    want = torch.matmul(a.double(), b.double())
+    scale = torch.matmul(a.double().abs(), b.double().abs())
+    err = (got.double() - want).abs()
+    assert bool((err <= 1e-4 * scale).all()), float((err / scale).max())
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["pitch16B", "pitch8B"])
+@pytest.mark.parametrize("M", [6, 13, 78, 80, 130])
+def test_first_product_matches_float64(cuda, M, padded):
+    A, _, X = _product_operands(cuda, M, padded, seed=M)
+    before = gs.launches
+    T = gs.gemm_xat(X, A)
+    assert gs.launches == before + 2  # the cast, then the product
+    assert torch.equal(T, gs.gemm_xat(X, A))  # repeats bit for bit
+    _assert_float64_close(T, X.to(torch.bfloat16), A.transpose(1, 2))
+    assert torch.equal(gs.gemm_xat(X, A, N=333), T[..., :333])
+
+
+@pytest.mark.parametrize("nsplit", [1, 4])
+@pytest.mark.parametrize("padded", [True, False], ids=["pitch16B", "pitch8B"])
+@pytest.mark.parametrize("M", [6, 13, 78, 80, 130])
+def test_second_product_matches_float64(cuda, M, padded, nsplit):
+    A, Gm, _ = _product_operands(cuda, M, padded, seed=M + 1)
+    before = gs.launches
+    part = gs.gemm_ga(Gm, A, nsplit=nsplit)
+    assert gs.launches == before + 1 and part.shape == (nsplit,) + Gm.shape[:2] + A.shape[2:]
+    assert torch.equal(part, gs.gemm_ga(Gm, A, nsplit=nsplit))  # no atomics: bit for bit
+    _assert_float64_close(part.double().sum(0), Gm, A)
+
+
+def test_padded_a_top_gives_the_contiguous_result(cuda):
+    """The padded a_top of GroupInputs.empty (16-byte copies) and the
+    contiguous one of group_inputs (8-byte copies: d3^2 = 324) give the
+    same solve, bit for bit."""
+    one = _group(cuda, torch.bfloat16, *CASES[0], seed=2, d3=18)
+    pad = gs.GroupInputs.empty(1, one)
+    pad.put(0, one)
+    assert one.a_top.is_contiguous() and one.a_top.stride(1) % 8 == 4
+    assert pad.a_top.stride(1) == 328
+    x1, s1 = gs.solve_group(one, *ITERS)
+    x2, s2 = gs.solve_group(pad, *ITERS)
+    assert torch.equal(x1, x2) and torch.equal(s1, s2)

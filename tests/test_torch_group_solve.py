@@ -14,6 +14,8 @@ The kernel itself is compared with the plain version on the card by
 tests/test_torch_cuda.py and by chip_smoke.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -177,3 +179,72 @@ def test_solve_group_refuses_other_devices():
     )
     with pytest.raises(ValueError):
         gs.solve_group(one, 1, 1, 1)
+
+
+def _padded(one, pitch=None):
+    """one's inputs in a GroupInputs.empty buffer of the given pitch."""
+    out = gs.GroupInputs.empty(1, one, pitch=pitch)
+    out.put(0, one)
+    return out
+
+
+@pytest.mark.parametrize("extra", [None, 8, 24])
+def test_padded_pitch_gives_the_contiguous_result(case, extra):
+    """GroupInputs.empty / put on a padded row pitch: a_top is a view of
+    the padded buffer, zero in the padding, and the plain solve gives the
+    contiguous inputs' result."""
+    one = _port_inputs_from_numpy(case)
+    d3sq = one.a_top.shape[2]
+    pitch = None if extra is None else d3sq + extra
+    pad = _padded(one, pitch)
+    want = gs.padded_pitch(d3sq) if pitch is None else pitch
+    assert pad.a_top.shape == one.a_top.shape and pad.a_top.stride(1) == want
+    assert want % 8 == 0 and torch.equal(pad.a_top, one.a_top)
+    buf = pad.a_top.as_strided((1, pad.a_top.shape[1], want), pad.a_top.stride())
+    assert not bool(buf[..., d3sq:].any())
+    gs._check_cuda_inputs(pad)
+    x1, s1 = gs.solve_group_reference(one, **ITERS)
+    x2, s2 = gs.solve_group_reference(pad, **ITERS)
+    np.testing.assert_allclose(s2.numpy(), s1.numpy(), rtol=0, atol=1e-7)
+    np.testing.assert_allclose(x2.numpy(), x1.numpy(), rtol=0, atol=1e-6 * float(x1.abs().max()))
+
+
+@pytest.mark.parametrize("extra", [1, 3, 4, 6])
+def test_check_cuda_inputs_rejects_other_pitches(case, extra):
+    """A row pitch that is not a multiple of 8 elements, and a buffer
+    whose groups are not rows x pitch apart, are refused."""
+    one = _port_inputs_from_numpy(case)
+    d3sq = one.a_top.shape[2]
+    with pytest.raises(ValueError, match="pitch"):
+        gs._check_cuda_inputs(_padded(one, d3sq + extra))
+    two = gs.GroupInputs.empty(3, one, pitch=gs.padded_pitch(d3sq + 1))
+    gs._check_cuda_inputs(two)
+    gap = gs.GroupInputs.empty(6, one, pitch=gs.padded_pitch(d3sq + 1))
+    with pytest.raises(ValueError, match="pitch"):
+        gs._check_cuda_inputs(dataclasses.replace(two, a_top=gap.a_top[::2]))
+
+
+@pytest.mark.parametrize("pitch", [300, 304, 320])
+def test_product_plain_versions_on_a_padded_view(pitch):
+    """gemm_xat / gemm_ga on CPU tensors: the plain products, on a padded
+    A as on a contiguous one, against float64 sums of the same values."""
+    rng = np.random.default_rng(3)
+    G, M, rows, d3sq = 2, 13, 1004, 300
+    buf = torch.zeros((G, rows, pitch), dtype=torch.bfloat16)
+    buf[..., :d3sq] = torch.from_numpy(rng.standard_normal((G, rows, d3sq), np.float32))
+    A = buf[..., :d3sq]
+    X = torch.from_numpy(rng.standard_normal((G, M, d3sq), np.float32))
+    Gm = torch.from_numpy(rng.standard_normal((G, M, rows), np.float32)).to(torch.bfloat16)
+    A64 = A.double().numpy()
+    t_want = np.einsum("gmk,gnk->gmn", X.to(torch.bfloat16).double().numpy(), A64)
+    y_want = np.einsum("gmr,grd->gmd", Gm.double().numpy(), A64)
+    T = gs.gemm_xat(X, A)
+    T_nd = gs.gemm_xat(X, A, N=100)
+    Y = gs.gemm_ga(Gm, A)
+    assert T.shape == (G, M, rows) and T_nd.shape == (G, M, 100) and Y.shape == (1, G, M, d3sq)
+    np.testing.assert_allclose(T.numpy(), t_want, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(T_nd.numpy(), t_want[..., :100], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(Y[0].numpy(), y_want, rtol=0, atol=1e-3)
+    launches = gs.launches
+    assert torch.equal(T, gs.gemm_xat(X, A.contiguous()))
+    assert gs.launches == launches  # CPU tensors never reach the kernel

@@ -14,7 +14,8 @@ checkout, then runs six phases and fails (non-zero exit) if any fails:
    pixel size (float32: scores within 1e-4, x within 1e-3 relative;
    bfloat16 A_top: scores within 1e-3, x within 5e-3 relative), then phase
    4's 179 distinct twist groups in one bfloat16 call, with both times per
-   call and cuBLAS's time for the two products of its matvecs;
+   call, and each bfloat16 product alone (ms, and TB/s of A_top) beside
+   cuBLAS's bmm for the same product;
 3. the 45-candidate amyloid golden search in float32 and bfloat16: the
    top candidate must be (2.0 deg, 4.75 A);
 4. the amyloid search at 2 A/px on a 2,327-candidate grid with the
@@ -38,7 +39,8 @@ The last two lines of standard output are the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them lists each
 kernel with its launches on its own path (phase 4 for B1, phase 5 for B2
 and B3), its error against the plain version, its time, the plain
-version's time and the least time the card could take for the same work.
+version's time and the least time the card could take for the same work
+(inputs larger than the 50 MB L2 counted once per matvec that reads them).
 It imports nothing of JAX.
 """
 
@@ -60,6 +62,7 @@ LINEAR_GOLDEN_TOP1 = (2.0, 4.75)
 # peak rates of one H100 SXM (dense): bf16 tensor cores, float32 outside
 # them, device memory
 PEAK_BF16, PEAK_F32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+L2_BYTES = 50e6  # an input larger than this is streamed from memory by each pass
 
 
 def _card_line() -> str:
@@ -191,20 +194,32 @@ def _amyloid_groups(device, cdt, twists):
     return geom, a["C_u"], inp
 
 
-def _group_work(inp, iters) -> tuple:
+def _streamed(t, passes: int) -> int:
+    """Bytes of t read by ``passes`` passes: each pass streams it from
+    memory if it exceeds the L2, else it is read once."""
+    n = _nbytes(t)
+    return n * passes if n > L2_BYTES else n
+
+
+def _group_work(inp, iters, a_passes: int = 1) -> tuple:
     """(bytes, product FLOP, other FLOP) the grouped solve needs: each
-    input read once, x and the scores written once; two products per
-    matvec and the score's data-column product; the z-Gram mix, the
-    op-axis glue and the vector updates."""
+    input read once, except those larger than the L2 (A_top, af, deg at
+    phase 4's size), read once per matvec (A_top ``a_passes`` times: 2 for
+    a design whose two products each stream it); the score pass reads
+    A_top's data rows once more; x and the scores written once. Two
+    products per matvec and the score's data-column product; the z-Gram
+    mix, the op-axis glue and the vector updates."""
     G, R, C_u, O, l3, d3sq = inp.shape
     M, rows, nd = R * l3, inp.a_top.shape[1], C_u * inp.d2
     nm = _matvecs(*iters)
     mma = G * (nm * 2 * 2 * M * rows * d3sq + 2 * M * nd * d3sq)
     simt = G * ((nm + 1) * 2 * M * l3 * nd + nm * R * d3sq * O * l3 * (4 * l3 + 2 * O + 4)
                 + nm * 10 * M * d3sq)
-    ins = (inp.a_top, inp.gz, inp.mz, inp.af, inp.cn, inp.deg, inp.mask, inp.rhs, inp.lb,
-           inp.ub, inp.bn)
-    return _nbytes(*ins) + 4 * G * (M * d3sq + R), mma, simt
+    small = (inp.gz, inp.mz, inp.cn, inp.mask, inp.rhs, inp.lb, inp.ub, inp.bn)
+    nbytes = (_streamed(inp.a_top, a_passes * nm) + _streamed(inp.af, nm)
+              + _streamed(inp.deg, nm) + _nbytes(*small)
+              + G * nd * d3sq * inp.a_top.element_size() + 4 * G * (M * d3sq + R))
+    return nbytes, mma, simt
 
 
 def phase_kernel_vs_plain(device) -> dict:
@@ -235,18 +250,22 @@ def phase_kernel_vs_plain(device) -> dict:
         ms_k = _time_ms(lambda: gs.solve_group(inp, *ITERS), reps)
         ms_p = _time_ms(lambda: gs.solve_group_reference(inp, *ITERS), reps)
         _, R, _, O, l3, d3sq = inp.shape
-        bound_ms, bound_by = _bound(*_group_work(inp, ITERS), bf16=cdt == torch.bfloat16)
+        bf16 = cdt == torch.bfloat16
+        bound_ms, bound_by = _bound(*_group_work(inp, ITERS), bf16=bf16)
+        two_pass_ms, _ = _bound(*_group_work(inp, ITERS, a_passes=2), bf16=bf16)
         print(f"phase 2 [{name}, G={G} distinct twist groups] d3={geom.d3} l3={l3} "
-              f"C_u={C_u} O={O} R={R} A_top={tuple(inp.a_top.shape[1:])}: score abs err "
-              f"{score_err:.3e} (limit {score_tol:g}), x rel err {x_rel:.3e} (limit "
-              f"{x_tol:g}), kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms per call, bound "
-              f"{bound_ms:.3f} ms ({bound_by})", flush=True)
+              f"C_u={C_u} O={O} R={R} A_top={tuple(inp.a_top.shape[1:])} (row pitch "
+              f"{inp.a_top.stride(1)}): score abs err {score_err:.3e} (limit {score_tol:g}), "
+              f"x rel err {x_rel:.3e} (limit {x_tol:g}), kernel {ms_k:.3f} ms, plain "
+              f"{ms_p:.3f} ms per call, bound {bound_ms:.3f} ms ({bound_by}; {two_pass_ms:.3f} "
+              f"ms if each product streams A_top)", flush=True)
         if not (score_err <= score_tol):
             raise AssertionError(f"{name} kernel scores differ from plain by {score_err}")
         if not (x_rel <= x_tol):
             raise AssertionError(f"{name} kernel x differs from plain by {x_rel} relative")
         row[(name, G)] = dict(max_abs_err=score_err, x_rel_err=x_rel, ms=ms_k, plain_ms=ms_p,
-                              bound_ms=bound_ms, bound_by=bound_by, groups=(G, R, C_u, O))
+                              bound_ms=bound_ms, bound_by=bound_by, groups=(G, R, C_u, O),
+                              bound_two_pass_ms=two_pass_ms)
         if cdt == torch.bfloat16 and G == 1:
             # bf16's own noise: the plain version with A_top in float32
             x_f, s_f = gs.solve_group_reference(dataclasses.replace(inp, a_top=inp.a_top.float()),
@@ -257,18 +276,46 @@ def phase_kernel_vs_plain(device) -> dict:
             del x_f
         del x_k, x_p
         if G > 1:
-            # the yardstick of a redesign: cuBLAS's two products of one
-            # matvec at these shapes (no PyTorch call computes the solve)
-            X = torch.randn((G, R * l3, d3sq), device=device).to(cdt)
-            At = inp.a_top
-            mv_ms = _time_ms(lambda: torch.bmm(torch.bmm(X, At.transpose(1, 2)), At), 3)
-            row[(name, G)]["cublas_matvec_ms"] = mv_ms
-            print(f"phase 2 [{name}, G={G}]: cuBLAS's two products of one matvec {mv_ms:.3f} ms, "
-                  f"x {_matvecs(*ITERS)} matvecs = {mv_ms * _matvecs(*ITERS):.3f} ms", flush=True)
-            del X
+            row[(name, G)]["products"] = _time_products(inp, name, G)
         del inp
         torch.cuda.empty_cache()
     return row
+
+
+def _time_products(inp, name, G) -> dict:
+    """Each bf16 product of one matvec alone, at the solve's shapes and
+    pitches (A_top and Gm padded), in ms and in TB/s of A_top, beside
+    cuBLAS's bmm for the same product (the yardstick of a redesign: no
+    PyTorch call computes the solve). The first product includes its
+    float32 -> bf16 cast of X, the second stops before its split sum."""
+    import torch
+
+    from helicon_tpu_torch.denovo3d import group_solve as gs
+
+    _, R, _, _, l3, d3sq = inp.shape
+    At, M, rows = inp.a_top, R * l3, inp.a_top.shape[1]
+    gen = torch.Generator(device=At.device).manual_seed(0)
+    X = torch.randn((G, M, d3sq), device=At.device, generator=gen)
+    Xb = X.to(At.dtype)
+    Gm = torch.empty((G, M, gs.padded_pitch(rows)), dtype=At.dtype, device=At.device)[..., :rows]
+    Gm.copy_(torch.randn((G, M, rows), device=At.device, generator=gen))
+    tb_s = lambda ms: _nbytes(At) / (ms * 1e-3) / 1e12  # noqa: E731
+    out = {}
+    for key, kernel, library in (
+        ("first (T = X . A_top^T)", lambda: gs.gemm_xat(X, At),
+         lambda: torch.bmm(Xb, At.transpose(1, 2))),
+        ("second (Y = Gm . A_top)", lambda: gs.gemm_ga(Gm, At), lambda: torch.bmm(Gm, At)),
+    ):
+        ms, lib_ms = _time_ms(kernel, 10), _time_ms(library, 10)
+        out[key.split()[0]] = dict(ms=ms, tb_s=tb_s(ms), cublas_ms=lib_ms, cublas_tb_s=tb_s(lib_ms))
+        print(f"phase 2 [{name}, G={G}]: {key} product alone {ms:.3f} ms = {tb_s(ms):.3f} TB/s "
+              f"of A_top; cuBLAS bmm {lib_ms:.3f} ms = {tb_s(lib_ms):.3f} TB/s", flush=True)
+    mv = sum(v["ms"] for v in out.values())
+    mv_lib = sum(v["cublas_ms"] for v in out.values())
+    print(f"phase 2 [{name}, G={G}]: the two products of one matvec {mv:.3f} ms (cuBLAS "
+          f"{mv_lib:.3f} ms), x {_matvecs(*ITERS)} matvecs = {mv * _matvecs(*ITERS):.3f} ms "
+          f"(cuBLAS {mv_lib * _matvecs(*ITERS):.3f} ms)", flush=True)
+    return out
 
 
 def phase_golden(device, interpolation="nn", top1=(2.0, 4.75)) -> None:
@@ -401,7 +448,10 @@ def _top_candidates(device, res, n: int):
 def _single_work(inp) -> tuple:
     """(bytes, product FLOP, other FLOP) of B2 on CandidateInputs, or of
     B3 on FullInputs (its build, rhs product and the score's data term
-    too): each input read once, x (and the score) written once."""
+    too): each input read once, except one larger than the L2 (B2's
+    stacked operand), read once per matvec; B3's built operand written
+    once and read as B2's, its data rows read once more by the rhs pass
+    and once by the score; x (and the score) written once."""
     import torch
 
     k, C, O, l3, d3sq = inp.shape
@@ -411,12 +461,16 @@ def _single_work(inp) -> tuple:
     mma = k * nm * 2 * 2 * l3 * rows * d3sq
     simt = k * nm * (2 * l3 * l3 * nd + 4 * PL * O * l3 * d3sq + 13 * l3 * d3sq)
     fields = (getattr(inp, f.name) for f in dataclasses.fields(inp))
-    nbytes = _nbytes(*(t for t in fields if isinstance(t, torch.Tensor))) + 4 * k * l3 * d3sq
+    nbytes = sum(_streamed(t, nm) for t in fields if isinstance(t, torch.Tensor))
+    nbytes += 4 * k * l3 * d3sq
     if hasattr(inp, "theta"):  # B3
         mma += k * 3 * 2 * l3 * nd * d3sq
         simt += k * (2 * l3 * l3 * nd + nd * d3sq * (14 + 6 * (2 * inp.n_taps + 1))
                      + O * d3sq * (8 + d3sq))
-        nbytes += 4 * k
+        el = torch.empty((), dtype=inp.cdt).element_size()
+        a_bytes = k * rows * d3sq * el
+        nbytes += a_bytes + (a_bytes * nm if a_bytes > L2_BYTES else 0)
+        nbytes += 2 * k * nd * d3sq * el + 4 * k
     return nbytes, mma, simt
 
 
@@ -563,7 +617,8 @@ def main() -> int:
     rows = single["rows"]
     print(json.dumps({"kernels": [
         entry("group_solve", "group_solve.cu", "helicon_tpu/denovo3d/pallas_solver.py:754",
-              b1_launches, k, cublas_matvec_ms=k["cublas_matvec_ms"]),
+              b1_launches, k, bound_two_pass_ms=k["bound_two_pass_ms"],
+              products=k["products"]),
         entry("solve_candidate", "candidate_solve.cu", "helicon_tpu/denovo3d/pallas_solver.py:100",
               single["launches"]["solve_candidate"],
               rows[("solve_candidate", "nn", "float32")]),

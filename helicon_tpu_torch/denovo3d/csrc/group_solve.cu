@@ -584,9 +584,9 @@ constexpr int PW = SW + 8;  // bf16 pitch of the [k][w] tile
 constexpr int PO = SW + 4;  // float pitch of the output staging tile
 
 template <bool TRANS>
-constexpr int a_tile_elems() { return TRANS ? SK * PW : SW * PK; }
+__host__ __device__ constexpr int a_tile_elems() { return TRANS ? SK * PW : SW * PK; }
 template <int NW, bool TRANS>
-constexpr size_t stream_smem_bytes() { return (size_t)STAGES * (a_tile_elems<TRANS>() + NW * PK) * 2; }
+__host__ __device__ constexpr size_t stream_smem_bytes() { return (size_t)STAGES * (a_tile_elems<TRANS>() + NW * PK) * 2; }
 
 // global -> shared copy of BYTES (4, 8 or 16); bytes < BYTES zero-fills the rest
 template <int BYTES>
@@ -849,8 +849,11 @@ int hts_gemm_xat(const float* X, const void* A, float* out, void* xb, int G, int
     const size_t n = (size_t)G * M * K;
     cast_bf16_kernel<<<cdiv(n, 256) < 8192u ? cdiv(n, 256) : 8192u, 256, 0, s>>>(X, (bf16_t*)xb, n,
                                                                                K, ldx);
-    gemm_xat_wmma_kernel<<<dim3(cdiv(N, WBN), cdiv(M, WBM), G), WNT, 0, s>>>(
-        (const bf16_t*)xb, (const bf16_t*)A, out, M, N, K, rows, lda, ldx);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const StreamArgs a{(const bf16_t*)A, (const bf16_t*)xb, out, M, N, K, lda, ldx, rows,
+                       (size_t)rows * lda, K, 1, G};
+    return (int)stream_product<false>(a, s);
   } else
     gemm_xat_kernel<<<dim3(cdiv(N, BN), cdiv(M, BM), G), NT, 0, s>>>(X, (const float*)A, out, M,
                                                                      N, K, rows, lda);

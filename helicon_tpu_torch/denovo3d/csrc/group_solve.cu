@@ -891,10 +891,11 @@ int hts_glue_sym(float* Tm, const float* mz, const float* af, const float* cn, c
 int hts_gemm_ga(const void* Gm, const void* A, float* part, int G, int M, int N, int K, int ldg,
                 int lda, int kchunk, int nsplit, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    gemm_ga_wmma_kernel<<<dim3(cdiv(N, WBN), cdiv(M, WBM) * nsplit, G), WNT, 0, s>>>(
-        (const bf16_t*)Gm, (const bf16_t*)A, part, M, N, K, ldg, lda, kchunk, nsplit, G);
-  else
+  if (bf16) {
+    const StreamArgs a{(const bf16_t*)A, (const bf16_t*)Gm, part, M, N, K, lda, ldg, N,
+                       (size_t)K * lda, kchunk, nsplit, G};
+    return (int)stream_product<true>(a, s);
+  } else
     gemm_ga_kernel<<<dim3(cdiv(N, BN), cdiv(M, BM) * nsplit, G), NT, 0, s>>>(
         (const float*)Gm, (const float*)A, part, M, N, K, ldg, lda, kchunk, nsplit, G);
   return (int)cudaGetLastError();

@@ -52,7 +52,9 @@ __all__ = [
 launches = 0
 
 L3_MAX = 64  # z extent the kernel's per-thread arrays hold (csrc L3MAX)
-_TILE, _KSTEP = 128, 32  # N tile edge and K slice of the bf16 product kernels
+# the bf16 products' tiles: 256 of the wide side (A_top's rows or columns)
+# by up to 128 candidate rows, K slices of 64
+_WIDE, _NARROW, _KSTEP = 256, 128, 64
 _PITCH = 8  # elements a padded row pitch is a multiple of (16 bytes of bf16)
 
 
@@ -307,11 +309,12 @@ def _count(kernels: int) -> None:
 
 def k_split(G: int, M: int, K: int, N: int, dev: torch.device, nsplit: int | None = None):
     """(kchunk, nsplit) of the second product (G groups of M x K by K x N):
-    K is split so that G * tiles * splits fills the card twice over, each
-    split covering >= 8 K slices; or into ``nsplit`` parts if given."""
+    K is split so that G * tiles * splits fills the card (one bf16 tile
+    per SM at a time) twice over, each split covering >= 8 K slices; or
+    into ``nsplit`` parts if given."""
     k_tiles = -(-K // _KSTEP)
     if nsplit is None:
-        tiles = G * -(-M // _TILE) * -(-N // _TILE)  # (the float32 tiles are 4x more)
+        tiles = G * -(-M // _NARROW) * -(-N // _WIDE)  # (the float32 tiles are 8x more)
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         nsplit = max(1, min(-(-2 * n_sm // tiles), k_tiles // 8))
     kchunk = -(-k_tiles // max(1, min(nsplit, k_tiles))) * _KSTEP

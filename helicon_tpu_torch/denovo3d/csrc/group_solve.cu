@@ -4,39 +4,49 @@
 // Replaces helicon_tpu/denovo3d/pallas_solver.py::_group_kernel (the v3
 // grouped Pallas kernel) for the lsq + cosine configuration.
 //
-// What bounds it on the card: every matvec streams the group's stacked
-// operand A_top = [Wsum; Mxy] (rows x d3^2) twice, once per product
-// (T = X . A_top^T, then Y = [u; gs] . A_top), and a solve makes
-// cg + power + 1 + fista matvecs plus one product for the score (29
-// matvecs and one product at the bench's cg/power/fista budget of
-// 10/2/16). At the amyloid geometry A_top is 21,084 x
-// 1,444 (61 MB in bf16), larger than the 50 MB L2 and far larger than a
-// block's 227 KB of shared memory, so the TPU design (both orientations
-// resident in one core's VMEM for the whole solve) does not carry over.
+// What bounds it on the card: every matvec is two products against the
+// group's stacked operand A_top = [Wsum; Mxy] (rows x d3^2), T = X . A_top^T
+// and Y = [u; gs] . A_top, with glue between, and a solve makes cg +
+// power + 1 + fista matvecs plus one product for the score (29 matvecs and
+// one product at the bench's cg/power/fista budget of 10/2/16). At the
+// amyloid geometry A_top is 21,084 x 1,444: 61 MB in bf16 per group, 10.9
+// GB for a launch of 179 groups, larger than the 50 MB L2 and far larger
+// than a block's 227 KB of shared memory, so each product streams it from
+// device memory (the TPU design, both orientations resident in one core's
+// VMEM for the whole solve, does not carry over). Each bf16 A_top element
+// feeds R*l3 = 78 multiply-adds for a group of 13 candidates of l3 = 6,
+// so 78 FLOP per byte, far below the card's ~295 FLOP/B ridge: the bf16
+// products are bound by the HBM bytes of A_top, not by the tensor cores.
 //
-// What this design does about it: A_top stays in device memory in one
-// orientation and each product streams it through shared-memory tiles.
-// With a bf16 A_top (the default on the card) the products run on the
-// tensor cores (wmma, 128 x 128 output tiles, so one tile spans the
-// R*l3 = 78 rows of a 13-candidate group and A_top is read once per
-// product); float32 runs on the FMA units (64 x 64 tiles, 4 x 4 outputs
-// per thread), as TF32 would lose the float32 contract. One launch
-// covers G groups (blockIdx.z = group) so that the tiles of all groups
-// fill the card; the second product splits its K = rows axis and a
-// deterministic second pass sums the splits and applies the mask. The
-// glue between the products (the per-candidate z-Gram mix, the per-op
-// z-shift mixes and the op-axis Laplacian) and the vector updates of
-// CG / power / FISTA are separate small kernels; per-candidate scalars
-// (rs, eta, score) stay in device memory, and the host loop only
-// launches. Layout: every per-candidate tensor is candidate-major and
-// unpadded, and the kernels mask ragged tile edges.
+// What this design does about it: the bf16 products stream A_top as close
+// to the memory rate as a block ring allows. A_top's rows (first product)
+// or columns (second) lie on the wide side of a block's tile, 256 of them;
+// the candidate rows lie on the narrow side in n8 tiles, rounded up to a
+// multiple of 8 (80 for 78, 8 for B2/B3's 6), so the tensor cores waste
+// little work. A_top, bf16(X) and [u; gs] have row pitches of 16 bytes'
+// multiples (the wrapper pads them), so a ring of 4 K slices of 64 in
+// 16-byte cp.async copies keeps ~100 KB per SM in flight (an unpadded
+// operand takes the same kernel with 8- or 4-byte copies). The products
+// are mma.sync m16n8k16 from ldmatrix (.trans for the second product's
+// [k][d3^2] tiles of A_top), accumulated in float32, and the output goes
+// through a shared-memory transpose into 16-byte stores. float32 runs on
+// the FMA units (64 x 64 tiles, 4 x 4 outputs per thread), as TF32 would
+// lose the float32 contract. One launch covers G groups (blockIdx.z =
+// group); the second product splits its K = rows axis only when the
+// groups alone do not fill the card, and a deterministic second pass sums
+// the splits in order and applies the mask (no atomics, so a solve
+// repeats bit for bit). The glue between the products (the per-candidate
+// z-Gram mix, the per-op z-shift mixes and the op-axis Laplacian) and the
+// vector updates of CG / power / FISTA are separate small kernels;
+// per-candidate scalars (rs, eta, score) stay in device memory, and the
+// host loop only launches. Layout: every per-candidate tensor is
+// candidate-major, and the kernels mask ragged tile edges.
 //
 // Every C entry launches on the given stream, allocates nothing, and
 // returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #define L3MAX 64
@@ -44,9 +54,10 @@
 namespace {
 
 constexpr int BM = 64, BN = 64, BK = 16, NT = 256;
+using bf16_t = __nv_bfloat16;
 
 __device__ __forceinline__ void stf(float* p, float v) { *p = v; }
-__device__ __forceinline__ void stf(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void stf(bf16_t* p, float v) { *p = __float2bfloat16(v); }
 
 // float32 products on the FMA units (TF32 stays off).
 // out[g, m, n] = sum_k X[g, m, k] * A[g, n, k] for n < N.
@@ -370,78 +381,6 @@ __global__ void score_kernel(const float* __restrict__ Tm, const float* __restri
   }
 }
 
-
-// bf16 products on the tensor cores (mma through nvcuda::wmma, 16x16x16
-// fragments, float32 accumulation). A block computes a 128 x 128 output
-// tile with 8 warps of 2 x 4 fragments. K slices of 32 of both operands
-// stream into shared memory with cp.async (8-byte copies where the row
-// pitch allows, else 4-byte), two slices in flight, so the loads of the
-// next slice overlap the products of this one. Each warp
-// writes its fragments out through a 16 x 16 staging tile so that ragged
-// edges are masked. One 128-row tile spans a group's R*l3 rows (78 for 13
-// candidates of l3 = 6), so A_top is read once per product. The copies
-// move at least bf16 pairs, so the wrapper requires even d3^2 and d2.
-constexpr int WBM = 128, WBN = 128, WBK = 32, WNT = 256;
-constexpr int LDS_K = WBK + 8;  // bf16 row pitch of K-contiguous tiles
-constexpr int LDS_N = WBN + 8;  // bf16 row pitch of N-contiguous tiles
-using bf16_t = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16_t, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// global -> shared copy of BYTES (4 or 8); bytes < BYTES zero-fills the rest
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(BYTES),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Start copying dst[r, c] = src[r0 + r, c0 + c] for the ROWS x COLS tile,
-// zero where the row is >= nrow or the column >= cend; src rows are lds
-// elements apart. Runs of VEC elements (2 or 4 bf16) move as one copy, so
-// lds, c0 and src must be VEC-aligned.
-template <int ROWS, int COLS, int VEC>
-__device__ __forceinline__ void load_tile_async(bf16_t* dst, int ldd, const bf16_t* src,
-                                                size_t lds, int r0, int nrow, int c0, int cend) {
-  constexpr int RUNS = COLS / VEC;
-  for (int e = threadIdx.x; e < ROWS * RUNS; e += WNT) {
-    const int r = e / RUNS, c = (e % RUNS) * VEC, gr = r0 + r, gc = c0 + c;
-    const bf16_t* p = src;
-    int bytes = 0;
-    if (gr < nrow && gc < cend) {
-      p = src + (size_t)gr * lds + gc;
-      bytes = 2 * min(VEC, cend - gc);
-    }
-    cp_async<2 * VEC>(dst + r * ldd + c, p, bytes);
-  }
-}
-
-// the widest run (4 or 2 elements) that rows lds apart starting at src allow
-__device__ __forceinline__ bool runs_of_4(const bf16_t* src, size_t lds) {
-  return lds % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 8 == 0;
-}
-
-__device__ __forceinline__ void wmma_store(FragC (&acc)[2][4], float* stage, float* out,
-                                           int m_base, int n_base, int M, int N, size_t ld) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = m_base + i * 16 + e / 16, n = n_base + j * 16 + e % 16;
-        if (m < M && n < N) out[(size_t)m * ld + n] = stage[e];
-      }
-      __syncwarp();
-    }
-}
-
 // y[r, k] = bf16(x[r, k]) for rows of K, y's ldy apart: the reference's
 // cast of X to the compute type
 __global__ void cast_bf16_kernel(const float* __restrict__ x, bf16_t* __restrict__ y, size_t n,
@@ -450,122 +389,6 @@ __global__ void cast_bf16_kernel(const float* __restrict__ x, bf16_t* __restrict
        i += (size_t)gridDim.x * blockDim.x)
     y[(i / K) * ldy + i % K] = __float2bfloat16(x[i]);
 }
-
-// The shared K loop of both products: acc += A_tile . B_tile over the K
-// slices [kbeg, kend). LoadA/LoadB(stage, k0) start one slice's copies;
-// FragB reads B from its stage tile at (kk, warp column j).
-template <typename LoadA, typename LoadB, typename ReadB>
-__device__ __forceinline__ void wmma_k_loop(FragC (&acc)[2][4], bf16_t* smem, int stage_elems,
-                                            int a_elems, int kbeg, int kend, LoadA load_a,
-                                            LoadB load_b, ReadB read_b) {
-  const int wm = (threadIdx.x >> 5) >> 1;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const int nk = (kend - kbeg + WBK - 1) / WBK;
-  if (nk <= 0) return;
-  load_a(smem, kbeg);
-  load_b(smem + a_elems, kbeg);
-  cp_async_commit();
-  for (int t = 0; t < nk; ++t) {
-    bf16_t* cur = smem + (t & 1) * stage_elems;
-    if (t + 1 < nk) {
-      bf16_t* nxt = smem + ((t + 1) & 1) * stage_elems;
-      load_a(nxt, kbeg + (t + 1) * WBK);
-      load_b(nxt + a_elems, kbeg + (t + 1) * WBK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WBK; kk += 16) {
-      FragA a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], cur + (wm * 32 + i * 16) * LDS_K + kk, LDS_K);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        auto b = read_b(cur + a_elems, kk, j);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// out[g, m, n] = sum_k Xb[g, m, k] * A[g, n, k] for n < N, all bf16.
-__global__ void __launch_bounds__(WNT) gemm_xat_wmma_kernel(
-    const bf16_t* __restrict__ Xb, const bf16_t* __restrict__ A, float* __restrict__ out,
-    int M, int N, int K, int ld, int lda, int ldx) {
-  constexpr int A_ELEMS = WBM * LDS_K, STAGE = A_ELEMS + WBN * LDS_K;
-  __shared__ __align__(128) bf16_t smem[2 * STAGE];
-  const int g = blockIdx.z, m0 = blockIdx.y * WBM, n0 = blockIdx.x * WBN;
-  Xb += (size_t)g * M * ldx;
-  A += (size_t)g * ld * lda;
-  out += (size_t)g * M * ld;
-  const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
-  const bool vec4 = runs_of_4(Xb, ldx) && runs_of_4(A, lda);
-  FragC acc[2][4];
-  wmma_k_loop(
-      acc, smem, STAGE, A_ELEMS, 0, K,
-      [&](bf16_t* d, int k0) {
-        if (vec4) load_tile_async<WBM, WBK, 4>(d, LDS_K, Xb, ldx, m0, M, k0, K);
-        else load_tile_async<WBM, WBK, 2>(d, LDS_K, Xb, ldx, m0, M, k0, K);
-      },
-      [&](bf16_t* d, int k0) {
-        if (vec4) load_tile_async<WBN, WBK, 4>(d, LDS_K, A, lda, n0, N, k0, K);
-        else load_tile_async<WBN, WBK, 2>(d, LDS_K, A, lda, n0, N, k0, K);
-      },
-      [&](const bf16_t* b_tile, int kk, int j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16_t, wmma::col_major> b;
-        wmma::load_matrix_sync(b, b_tile + (wn * 64 + j * 16) * LDS_K + kk, LDS_K);
-        return b;
-      });
-  // the K loop ends synchronised: its shared memory now stages the output
-  wmma_store(acc, reinterpret_cast<float*>(smem) + warp * 256, out, m0 + wm * 32, n0 + wn * 64,
-             M, N, ld);
-}
-
-// part[s, g, m, n] = sum_{k in split s} Gm[g, m, k] * A[g, k, n], all bf16.
-__global__ void __launch_bounds__(WNT) gemm_ga_wmma_kernel(
-    const bf16_t* __restrict__ Gm, const bf16_t* __restrict__ A, float* __restrict__ part,
-    int M, int N, int K, int ldg, int lda, int kchunk, int nsplit, int ngroups) {
-  constexpr int A_ELEMS = WBM * LDS_K, STAGE = A_ELEMS + WBK * LDS_N;
-  __shared__ __align__(128) bf16_t smem[2 * STAGE];
-  const int g = blockIdx.z;
-  const int mt = blockIdx.y / nsplit, s = blockIdx.y % nsplit;
-  const int m0 = mt * WBM, n0 = blockIdx.x * WBN;
-  const int kbeg = s * kchunk, kend = min(K, kbeg + kchunk);
-  Gm += (size_t)g * M * ldg;
-  A += (size_t)g * K * lda;
-  part += ((size_t)s * ngroups + g) * M * N;
-  const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
-  // K slices start at multiples of 32 and the N tile at multiples of 128
-  const bool vec_g = runs_of_4(Gm, ldg), vec_a = runs_of_4(A, lda);
-  FragC acc[2][4];
-  wmma_k_loop(
-      acc, smem, STAGE, A_ELEMS, kbeg, kend,
-      [&](bf16_t* d, int k0) {
-        if (vec_g) load_tile_async<WBM, WBK, 4>(d, LDS_K, Gm, ldg, m0, M, k0, kend);
-        else load_tile_async<WBM, WBK, 2>(d, LDS_K, Gm, ldg, m0, M, k0, kend);
-      },
-      [&](bf16_t* d, int k0) {
-        if (vec_a) load_tile_async<WBK, WBN, 4>(d, LDS_N, A, lda, k0, kend, n0, N);
-        else load_tile_async<WBK, WBN, 2>(d, LDS_N, A, lda, k0, kend, n0, N);
-      },
-      [&](const bf16_t* b_tile, int kk, int j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16_t, wmma::row_major> b;
-        wmma::load_matrix_sync(b, b_tile + kk * LDS_N + wn * 64 + j * 16, LDS_N);
-        return b;
-      });
-  wmma_store(acc, reinterpret_cast<float*>(smem) + warp * 256, part, m0 + wm * 32, n0 + wn * 64,
-             M, N, N);
-}
-
 
 // ---------------------------------------------------------------------------
 // bf16 streaming products: mma.sync m16n8k16 from ldmatrix, fed by a ring
@@ -586,17 +409,24 @@ constexpr int PO = SW + 4;  // float pitch of the output staging tile
 template <bool TRANS>
 __host__ __device__ constexpr int a_tile_elems() { return TRANS ? SK * PW : SW * PK; }
 template <int NW, bool TRANS>
-__host__ __device__ constexpr size_t stream_smem_bytes() { return (size_t)STAGES * (a_tile_elems<TRANS>() + NW * PK) * 2; }
+__host__ __device__ constexpr size_t stream_smem_bytes() {
+  return (size_t)STAGES * (a_tile_elems<TRANS>() + NW * PK) * 2;
+}
 
 // global -> shared copy of BYTES (4, 8 or 16); bytes < BYTES zero-fills the rest
 template <int BYTES>
-__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, int bytes) {
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   if constexpr (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(BYTES),
                  "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Start copying dst[r, c] = src[(r0 + r) * lds + c0 + c] for the ROWS x COLS
@@ -615,7 +445,7 @@ __device__ __forceinline__ void load_rows(bf16_t* dst, int ldd, const bf16_t* sr
       p = src + (size_t)gr * lds + gc;
       bytes = 2 * min(VEC, cend - gc);
     }
-    cp_async_zfill<2 * VEC>(dst + r * ldd + c, p, bytes);
+    cp_async<2 * VEC>(dst + r * ldd + c, p, bytes);
   }
 }
 

@@ -635,13 +635,10 @@ template <int NW, bool TRANS>
 cudaError_t launch_stream(const StreamArgs& a, int ny, cudaStream_t s) {
   constexpr size_t bytes = stream_smem_bytes<NW, TRANS>();
   static_assert(bytes <= 232448 && (size_t)NW * PO * 4 <= bytes, "shared memory");
-  static bool sized = false;
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(stream_product_kernel<NW, TRANS>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return e;
-    sized = true;
-  }
+  // above 48 KB only once allowed (per device, so on every launch)
+  const cudaError_t e = cudaFuncSetAttribute(stream_product_kernel<NW, TRANS>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
   const int va = copy_width(a.A, a.lda), vb = copy_width(a.B, a.ldb);
   if (!va || !vb) return cudaErrorInvalidValue;
   const int vo = a.ld_out % 4 == 0 && reinterpret_cast<uintptr_t>(a.out) % 16 == 0;

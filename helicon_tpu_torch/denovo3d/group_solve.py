@@ -66,10 +66,11 @@ def padded_pitch(n: int) -> int:
 
 @dataclasses.dataclass
 class GroupInputs:
-    """The solve's inputs for G groups of R candidates (candidate-major,
-    unpadded). ``a_top`` is in the compute dtype; the rest is float32."""
+    """The solve's inputs for G groups of R candidates (candidate-major).
+    ``a_top`` is in the compute dtype, its rows contiguous or with a
+    padded pitch; the rest is float32 and contiguous."""
 
-    a_top: torch.Tensor  # (G, rows, d3^2), rows = C_u*d2 + O*d3^2; rows may be padded
+    a_top: torch.Tensor  # (G, rows, d3^2), rows = C_u*d2 + O*d3^2
     gz: torch.Tensor  # (G, R, C_u, l3, l3) multiplicity-weighted z-Gram
     mz: torch.Tensor  # (G, R, O, l3, l3) per-op z-shift
     af: torch.Tensor  # (G, R, O, l3, d3^2) op-sample validity
@@ -89,10 +90,10 @@ class GroupInputs:
         return G, R, C_u, self.mz.shape[2], l3, self.mask.shape[1]
 
     @classmethod
-    def empty(cls, G: int, like: "GroupInputs", pitch: int | None = None):
+    def empty(cls, G: int, like: "GroupInputs"):
         """Uninitialised inputs for G groups shaped as ``like``'s groups.
-        ``a_top`` is the [..., :d3^2] view of a (G, rows, pitch) buffer
-        whose padding is zero; pitch defaults to padded_pitch(d3^2)."""
+        ``a_top`` is the [..., :d3^2] view of a (G, rows, padded_pitch(d3^2))
+        buffer whose padding is zero."""
         kw = {
             f.name: torch.empty((G,) + getattr(like, f.name).shape[1:],
                                 dtype=getattr(like, f.name).dtype,
@@ -100,8 +101,8 @@ class GroupInputs:
             for f in dataclasses.fields(cls) if f.name not in ("mask", "d2", "a_top")
         }
         _, rows, d3sq = like.a_top.shape
-        buf = torch.empty((G, rows, padded_pitch(d3sq) if pitch is None else pitch),
-                          dtype=like.a_top.dtype, device=like.a_top.device)
+        buf = torch.empty((G, rows, padded_pitch(d3sq)), dtype=like.a_top.dtype,
+                          device=like.a_top.device)
         buf[..., d3sq:].zero_()
         return cls(a_top=buf[..., :d3sq], mask=like.mask, d2=like.d2, **kw)
 
@@ -323,10 +324,9 @@ def k_split(G: int, M: int, K: int, N: int, dev: torch.device, nsplit: int | Non
 
 def _xat(run, X, A, out, xb, N: int) -> None:
     """Launch out[g, m, n] = sum_k X[g, m, k] A[g, n, k] for n < N (the
-    first product): X (G, M, d3^2) float32 contiguous (or (G, R, l3,
-    d3^2)), A (G, rows, d3^2)
-    with unit last stride, out (G, M, rows) float32, xb the (G, M, ldx)
-    scratch for bf16(X) (None in float32)."""
+    first product): X (G, M, d3^2) or (G, R, l3, d3^2) float32 contiguous,
+    A (G, rows, d3^2) with unit last stride, out (G, M, rows) float32, xb
+    the (G, M, ldx) scratch for bf16(X) (None in float32)."""
     G, K = A.shape[0], A.shape[2]
     M = X.numel() // (G * K)
     bf16 = int(A.dtype == torch.bfloat16)
@@ -421,7 +421,8 @@ def solve_group(inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: 
     T = torch.empty((G, M, rows), **f32)
     # [u; gs] and bf16(X) with 16-byte row pitches
     Gm = torch.empty((G, M, padded_pitch(rows)), dtype=inp.a_top.dtype, device=dev)
-    xb = torch.empty((G, M, padded_pitch(d3sq)), dtype=inp.a_top.dtype, device=dev) if bf16 else None
+    xb = (torch.empty((G, M, padded_pitch(d3sq)), dtype=inp.a_top.dtype, device=dev)
+          if bf16 else None)
     part = torch.empty((nsplit, G, M, d3sq), **f32)
     x, r, p, q, w = (torch.empty((G, R, l3, d3sq), **f32) for _ in range(5))
     rs, eta, score = (torch.empty((G, R), **f32) for _ in range(3))

@@ -181,27 +181,23 @@ def test_solve_group_refuses_other_devices():
         gs.solve_group(one, 1, 1, 1)
 
 
-def _padded(one, pitch=None):
-    """one's inputs in a GroupInputs.empty buffer of the given pitch."""
-    out = gs.GroupInputs.empty(1, one, pitch=pitch)
-    out.put(0, one)
-    return out
+def _with_pitch(one, pitch):
+    """one's inputs with a_top as the [..., :d3^2] view of rows ``pitch``
+    elements apart, zero in the padding."""
+    G, rows, d3sq = one.a_top.shape
+    buf = torch.zeros((G, rows, pitch), dtype=one.a_top.dtype)
+    buf[..., :d3sq] = one.a_top
+    return dataclasses.replace(one, a_top=buf[..., :d3sq])
 
 
-@pytest.mark.parametrize("extra", [None, 8, 24])
+@pytest.mark.parametrize("extra", [8, 24])
 def test_padded_pitch_gives_the_contiguous_result(case, extra):
-    """GroupInputs.empty / put on a padded row pitch: a_top is a view of
-    the padded buffer, zero in the padding, and the plain solve gives the
-    contiguous inputs' result."""
+    """A padded row pitch of a_top (a multiple of 8 elements) passes the
+    kernel path's layout check, and the plain solve gives the contiguous
+    inputs' result."""
     one = _port_inputs_from_numpy(case)
-    d3sq = one.a_top.shape[2]
-    pitch = None if extra is None else d3sq + extra
-    pad = _padded(one, pitch)
-    want = gs.padded_pitch(d3sq) if pitch is None else pitch
-    assert pad.a_top.shape == one.a_top.shape and pad.a_top.stride(1) == want
-    assert want % 8 == 0 and torch.equal(pad.a_top, one.a_top)
-    buf = pad.a_top.as_strided((1, pad.a_top.shape[1], want), pad.a_top.stride())
-    assert not bool(buf[..., d3sq:].any())
+    pad = _with_pitch(one, one.a_top.shape[2] + extra)
+    assert not pad.a_top.is_contiguous() and pad.a_top.stride(1) % 8 == 0
     gs._check_cuda_inputs(pad)
     x1, s1 = gs.solve_group_reference(one, **ITERS)
     x2, s2 = gs.solve_group_reference(pad, **ITERS)
@@ -214,14 +210,57 @@ def test_check_cuda_inputs_rejects_other_pitches(case, extra):
     """A row pitch that is not a multiple of 8 elements, and a buffer
     whose groups are not rows x pitch apart, are refused."""
     one = _port_inputs_from_numpy(case)
-    d3sq = one.a_top.shape[2]
+    G, rows, d3sq = one.a_top.shape
     with pytest.raises(ValueError, match="pitch"):
-        gs._check_cuda_inputs(_padded(one, d3sq + extra))
-    two = gs.GroupInputs.empty(3, one, pitch=gs.padded_pitch(d3sq + 1))
+        gs._check_cuda_inputs(_with_pitch(one, d3sq + extra))
+    two = gs.GroupInputs.empty(2, one)
     gs._check_cuda_inputs(two)
-    gap = gs.GroupInputs.empty(6, one, pitch=gs.padded_pitch(d3sq + 1))
+    gap = torch.zeros((4, rows, gs.padded_pitch(d3sq + extra)))[::2, :, :d3sq]
     with pytest.raises(ValueError, match="pitch"):
-        gs._check_cuda_inputs(dataclasses.replace(two, a_top=gap.a_top[::2]))
+        gs._check_cuda_inputs(dataclasses.replace(two, a_top=gap))
+
+
+def _random_inputs(rng, G, d3sq, R=2, C_u=3, O=2, l3=4, d2=5):
+    """GroupInputs of random values at small shapes (any d3^2)."""
+
+    def r(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32))
+
+    return gs.GroupInputs(
+        a_top=r(G, C_u * d2 + O * d3sq, d3sq), gz=r(G, R, C_u, l3, l3), mz=r(G, R, O, l3, l3),
+        af=r(G, R, O, l3, d3sq).abs(), cn=r(G, R, O, O), deg=r(G, R, O, l3, d3sq).abs(),
+        mask=(r(l3, d3sq) > -1).float(), rhs=r(G, R, l3, d3sq), lb=torch.zeros((G, R)),
+        ub=torch.ones((G, R)), bn=torch.ones((G, R)), d2=d2,
+    )
+
+
+@pytest.mark.parametrize("d3sq", [30, 36, 44])
+def test_group_inputs_empty_pads_a_top(d3sq):
+    """GroupInputs.empty gives a_top a pitch of a multiple of 8 elements,
+    zero in the padding; put fills it, and the plain matvec and solve give
+    the contiguous inputs' results."""
+    src = _random_inputs(np.random.default_rng(d3sq), 2, d3sq)
+    pad = gs.GroupInputs.empty(2, src)
+    for g in range(2):
+        one = gs.GroupInputs(**{f.name: getattr(src, f.name)[g : g + 1]
+                                if f.name not in ("mask", "d2") else getattr(src, f.name)
+                                for f in dataclasses.fields(src)})
+        pad.put(g, one)
+    P = gs.padded_pitch(d3sq)
+    assert P % 8 == 0 and d3sq < P < d3sq + 8
+    assert pad.a_top.shape == src.a_top.shape and pad.a_top.stride() == (
+        src.a_top.shape[1] * P, P, 1)
+    assert torch.equal(pad.a_top, src.a_top)
+    buf = torch.as_strided(pad.a_top, (2, src.a_top.shape[1], P), pad.a_top.stride())
+    assert not bool(buf[..., d3sq:].any())
+    gs._check_cuda_inputs(pad)
+    X = torch.from_numpy(np.random.default_rng(1).standard_normal(src.rhs.shape, np.float32))
+    np.testing.assert_allclose(gs.matvec_reference(pad, X).numpy(),
+                               gs.matvec_reference(src, X).numpy(), rtol=1e-6, atol=1e-5)
+    _, s1 = gs.solve_group_reference(src, 2, 2, 1)
+    _, s2 = gs.solve_group_reference(pad, 2, 2, 1)
+    assert bool(torch.isfinite(s1).all())
+    np.testing.assert_allclose(s2.numpy(), s1.numpy(), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("pitch", [300, 304, 320])

@@ -14,8 +14,8 @@ checkout, then runs six phases and fails (non-zero exit) if any fails:
    pixel size (float32: scores within 1e-4, x within 1e-3 relative;
    bfloat16 A_top: scores within 1e-3, x within 5e-3 relative), then phase
    4's 179 distinct twist groups in one bfloat16 call, with both times per
-   call, and each bfloat16 product alone (ms, and TB/s of A_top) beside
-   cuBLAS's bmm for the same product;
+   call, and each product alone (ms, and TB/s of A_top) beside cuBLAS's
+   bmm for the same product: float32 at one group, bfloat16 at 179;
 3. the 45-candidate amyloid golden search in float32 and bfloat16: the
    top candidate must be (2.0 deg, 4.75 A);
 4. the amyloid search at 2 A/px on a 2,327-candidate grid with the
@@ -28,7 +28,11 @@ checkout, then runs six phases and fails (non-zero exit) if any fails:
    candidates of phase 4 at full width, each against its plain version in
    float32 (score within 1e-4, x within 1e-3 relative) and bfloat16 (1e-3,
    5e-3), B3's built W2 and Mxy bit-identical to the plain build, and B3's
-   float32 scores within 1e-4 of solver.solve_candidate's;
+   float32 scores within 1e-4 of solver.solve_candidate's; for B2 (nn)
+   the device time of each launch group summed over one solve (CUDA
+   events: first product, glue_data, sym_fold, second product,
+   reduce_l2_mask, vector updates), and in float32 each product alone
+   beside cuBLAS's bmm;
 6. the phase-4 search with linear interpolation (finite scores, B1
    launched, wall time and candidates/s), then the 45-candidate golden in
    linear: in float32 its top candidate must be the JAX package's linear
@@ -40,7 +44,8 @@ limit, and {"ok": true, "device": {...}}; the line before them lists each
 kernel with its launches on its own path (phase 4 for B1, phase 5 for B2
 and B3), its error against the plain version, its time, the plain
 version's time and the least time the card could take for the same work
-(inputs larger than the 50 MB L2 counted once per matvec that reads them).
+(inputs larger than the 50 MB L2 counted once per matvec that reads them;
+bound_two_pass_ms counts the stacked operand once per product).
 It imports nothing of JAX.
 """
 
@@ -275,44 +280,47 @@ def phase_kernel_vs_plain(device) -> dict:
                   f"{float((x_p - x_f).abs().max() / x_f.abs().max()):.3e}", flush=True)
             del x_f
         del x_k, x_p
-        if G > 1:
-            row[(name, G)]["products"] = _time_products(inp, name, G)
+        if G > 1 or not bf16:
+            row[(name, G)]["products"] = _time_products(
+                inp.a_top, R * l3, f"phase 2 [{name}, G={G}]",
+                gs.padded_pitch(inp.a_top.shape[1]))
         del inp
         torch.cuda.empty_cache()
     return row
 
 
-def _time_products(inp, name, G) -> dict:
-    """Each bf16 product of one matvec alone, at the solve's shapes and
-    pitches (A_top and Gm padded), in ms and in TB/s of A_top, beside
-    cuBLAS's bmm for the same product (the yardstick of a redesign: no
+def _time_products(A, M: int, label: str, gm_pitch: int) -> dict:
+    """Each product of one matvec alone, at the solve's shapes and pitches
+    (A (G, rows, d3^2) as the solve holds it, Gm's rows gm_pitch elements
+    apart), in ms and in TB/s of A, beside cuBLAS's bmm for the same
+    product in A's dtype, TF32 off (the yardstick of a redesign: no
     PyTorch call computes the solve). The first product includes its
-    float32 -> bf16 cast of X, the second stops before its split sum."""
+    float32 -> bf16 cast of X in bf16, the second stops before its split
+    sum."""
     import torch
 
     from helicon_tpu_torch.denovo3d import group_solve as gs
 
-    _, R, _, _, l3, d3sq = inp.shape
-    At, M, rows = inp.a_top, R * l3, inp.a_top.shape[1]
-    gen = torch.Generator(device=At.device).manual_seed(0)
-    X = torch.randn((G, M, d3sq), device=At.device, generator=gen)
-    Xb = X.to(At.dtype)
-    Gm = torch.empty((G, M, gs.padded_pitch(rows)), dtype=At.dtype, device=At.device)[..., :rows]
-    Gm.copy_(torch.randn((G, M, rows), device=At.device, generator=gen))
-    tb_s = lambda ms: _nbytes(At) / (ms * 1e-3) / 1e12  # noqa: E731
+    G, rows, d3sq = A.shape
+    gen = torch.Generator(device=A.device).manual_seed(0)
+    X = torch.randn((G, M, d3sq), device=A.device, generator=gen)
+    Xb = X.to(A.dtype)
+    Gm = torch.empty((G, M, gm_pitch), dtype=A.dtype, device=A.device)[..., :rows]
+    Gm.copy_(torch.randn((G, M, rows), device=A.device, generator=gen))
+    tb_s = lambda ms: _nbytes(A) / (ms * 1e-3) / 1e12  # noqa: E731
     out = {}
     for key, kernel, library in (
-        ("first (T = X . A_top^T)", lambda: gs.gemm_xat(X, At),
-         lambda: torch.bmm(Xb, At.transpose(1, 2))),
-        ("second (Y = Gm . A_top)", lambda: gs.gemm_ga(Gm, At), lambda: torch.bmm(Gm, At)),
+        ("first (T = X . A^T)", lambda: gs.gemm_xat(X, A),
+         lambda: torch.bmm(Xb, A.transpose(1, 2))),
+        ("second (Y = Gm . A)", lambda: gs.gemm_ga(Gm, A), lambda: torch.bmm(Gm, A)),
     ):
         ms, lib_ms = _time_ms(kernel, 10), _time_ms(library, 10)
         out[key.split()[0]] = dict(ms=ms, tb_s=tb_s(ms), cublas_ms=lib_ms, cublas_tb_s=tb_s(lib_ms))
-        print(f"phase 2 [{name}, G={G}]: {key} product alone {ms:.3f} ms = {tb_s(ms):.3f} TB/s "
-              f"of A_top; cuBLAS bmm {lib_ms:.3f} ms = {tb_s(lib_ms):.3f} TB/s", flush=True)
+        print(f"{label}: {key} product alone (M={M}) {ms:.3f} ms = {tb_s(ms):.3f} TB/s of A; "
+              f"cuBLAS bmm {lib_ms:.3f} ms = {tb_s(lib_ms):.3f} TB/s", flush=True)
     mv = sum(v["ms"] for v in out.values())
     mv_lib = sum(v["cublas_ms"] for v in out.values())
-    print(f"phase 2 [{name}, G={G}]: the two products of one matvec {mv:.3f} ms (cuBLAS "
+    print(f"{label}: the two products of one matvec {mv:.3f} ms (cuBLAS "
           f"{mv_lib:.3f} ms), x {_matvecs(*ITERS)} matvecs = {mv * _matvecs(*ITERS):.3f} ms "
           f"(cuBLAS {mv_lib * _matvecs(*ITERS):.3f} ms)", flush=True)
     return out
@@ -445,11 +453,12 @@ def _top_candidates(device, res, n: int):
     return out
 
 
-def _single_work(inp) -> tuple:
+def _single_work(inp, a_passes: int = 1) -> tuple:
     """(bytes, product FLOP, other FLOP) of B2 on CandidateInputs, or of
     B3 on FullInputs (its build, rhs product and the score's data term
     too): each input read once, except one larger than the L2 (B2's
-    stacked operand), read once per matvec; B3's built operand written
+    stacked operand), read once per matvec (``a_passes`` times: 2 for a
+    design whose two products each stream it); B3's built operand written
     once and read as B2's, its data rows read once more by the rhs pass
     and once by the score; x (and the score) written once."""
     import torch
@@ -460,8 +469,10 @@ def _single_work(inp) -> tuple:
     nm = _matvecs(*ITERS)
     mma = k * nm * 2 * 2 * l3 * rows * d3sq
     simt = k * nm * (2 * l3 * l3 * nd + 4 * PL * O * l3 * d3sq + 13 * l3 * d3sq)
-    fields = (getattr(inp, f.name) for f in dataclasses.fields(inp))
-    nbytes = sum(_streamed(t, nm) for t in fields if isinstance(t, torch.Tensor))
+    fields = [getattr(inp, f.name) for f in dataclasses.fields(inp)]
+    a_top = getattr(inp, "a_top", None)  # B2's operand; B3 builds its own (below)
+    nbytes = sum(_streamed(t, nm * (a_passes if t is a_top else 1)) for t in fields
+                 if isinstance(t, torch.Tensor))
     nbytes += 4 * k * l3 * d3sq
     if hasattr(inp, "theta"):  # B3
         mma += k * 3 * 2 * l3 * nd * d3sq
@@ -469,9 +480,46 @@ def _single_work(inp) -> tuple:
                      + O * d3sq * (8 + d3sq))
         el = torch.empty((), dtype=inp.cdt).element_size()
         a_bytes = k * rows * d3sq * el
-        nbytes += a_bytes + (a_bytes * nm if a_bytes > L2_BYTES else 0)
+        nbytes += a_bytes + (a_bytes * a_passes * nm if a_bytes > L2_BYTES else 0)
         nbytes += 2 * k * nd * d3sq * el + 4 * k
     return nbytes, mma, simt
+
+
+# the launch groups of one B2 solve, by C entry; every other entry is a
+# vector update (CG, power iteration, FISTA, the mask)
+_B2_GROUPS = {"hts_gemm_xat": "first product", "hts_glue_data": "glue_data",
+              "hcs_sym_fold": "sym_fold", "hts_gemm_ga": "second product",
+              "hcs_reduce_l2_mask": "reduce_l2_mask"}
+
+
+def _b2_breakdown(inp) -> dict:
+    """Device ms of each launch group of one B2 call, summed over the
+    solve: CUDA events around every C entry call, after a warm-up call.
+    The events cost host time between launches, so the sum is the
+    kernels' own time, not the call's."""
+    import torch
+
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs
+
+    launch = cs._launcher("solve_candidate", inp.a_top.device)
+    events = []
+
+    def run(name, *args, kernels=1):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        launch(name, *args, kernels=kernels)
+        end.record()
+        events.append((_B2_GROUPS.get(name, "vector updates"), start, end))
+
+    args = (inp.a_top, inp.gz, inp.b1, inp.pok, inp.mask, inp.rhs, inp.scal, inp.d2, *ITERS)
+    for _ in range(2):  # warm-up, then the measured call
+        events.clear()
+        cs._solve_cuda(run, *args)
+    torch.cuda.synchronize()
+    out = {g: 0.0 for g in list(_B2_GROUPS.values()) + ["vector updates"]}
+    for g, start, end in events:
+        out[g] += start.elapsed_time(end)
+    return out
 
 
 def phase_single_candidate(device, res) -> dict:
@@ -540,16 +588,30 @@ def phase_single_candidate(device, res) -> dict:
         reps = 3
         ms_k = _time_ms(lambda: run(key, True), reps)
         ms_p = _time_ms(lambda: run(key, False), reps)
-        bound_ms, bound_by = _bound(*_single_work(inp), bf16=name == "bfloat16")
-        print(f"phase 5 [{kind}, {interp}, {name}, k={inp.shape[0]} candidates, C={inp.shape[1]} "
-              f"O={inp.shape[2]} l3={inp.shape[3]} d3^2={inp.shape[4]}]: x rel err {x_rel:.3e} "
-              f"(limit {x_tol:g})"
+        bf16 = name == "bfloat16"
+        bound_ms, bound_by = _bound(*_single_work(inp), bf16=bf16)
+        two_pass_ms, _ = _bound(*_single_work(inp, a_passes=2), bf16=bf16)
+        label = (f"phase 5 [{kind}, {interp}, {name}, k={inp.shape[0]} candidates, "
+                 f"C={inp.shape[1]} O={inp.shape[2]} l3={inp.shape[3]} d3^2={inp.shape[4]}]")
+        print(f"{label}: x rel err {x_rel:.3e} (limit {x_tol:g})"
               + ("" if score_err is None else f", score abs err {score_err:.3e} (limit "
                  f"{score_tol:g})")
               + f", kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms per call, bound {bound_ms:.3f} ms "
-              f"({bound_by})", flush=True)
+              f"({bound_by}; {two_pass_ms:.3f} ms if each product streams A)", flush=True)
         rows[key] = dict(max_abs_err=x_abs if score_err is None else score_err, ms=ms_k,
-                         plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by)
+                         plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
+                         bound_two_pass_ms=two_pass_ms)
+        if kind == "solve_candidate" and interp == "nn":
+            parts = _b2_breakdown(inp)
+            total = sum(parts.values())
+            print(f"{label}: device time by launch group, summed over one solve: "
+                  + ", ".join(f"{g} {t:.3f} ms ({100 * t / total:.1f} %)"
+                              for g, t in parts.items())
+                  + f"; sum {total:.3f} ms", flush=True)
+            rows[key]["breakdown_ms"] = parts
+            if not bf16:
+                rows[key]["products"] = _time_products(inp.a_top, inp.shape[3], label,
+                                                       inp.a_top.shape[1])
 
     for name in ("float32", "bfloat16"):
         fin = inputs[("score_candidate", "nn", name)]
@@ -615,16 +677,23 @@ def main() -> int:
                     library_ms=None, **extra)
 
     rows = single["rows"]
+    b2, b3 = rows[("solve_candidate", "nn", "float32")], rows[("score_candidate", "nn", "float32")]
+    f32 = cmp[("float32", 1)]
     print(json.dumps({"kernels": [
         entry("group_solve", "group_solve.cu", "helicon_tpu/denovo3d/pallas_solver.py:754",
               b1_launches, k, bound_two_pass_ms=k["bound_two_pass_ms"],
-              products=k["products"]),
+              products=k["products"],
+              float32_one_group=dict(ms=f32["ms"], plain_ms=f32["plain_ms"],
+                                     bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
+                                     products=f32["products"])),
         entry("solve_candidate", "candidate_solve.cu", "helicon_tpu/denovo3d/pallas_solver.py:100",
-              single["launches"]["solve_candidate"],
-              rows[("solve_candidate", "nn", "float32")]),
+              single["launches"]["solve_candidate"], b2,
+              bound_two_pass_ms=b2["bound_two_pass_ms"], products=b2["products"],
+              breakdown_ms=b2["breakdown_ms"]),
         entry("score_candidate", "candidate_solve.cu",
               "helicon_tpu/denovo3d/pallas_solver.py:335",
-              single["launches"]["score_candidate"], rows[("score_candidate", "nn", "float32")]),
+              single["launches"]["score_candidate"], b3,
+              bound_two_pass_ms=b3["bound_two_pass_ms"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

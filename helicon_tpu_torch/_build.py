@@ -37,7 +37,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry (all return int): group_solve.cu's
 # hts_*, then candidate_solve.cu's hcs_*
 _SIGNATURES = {
-    "hts_gemm_xat": [_P] * 4 + [_I] * 8 + [_P],
+    "hts_gemm_xat": [_P] * 4 + [_I] * 10 + [_P],
     "hts_glue_data": [_P] * 3 + [_I] * 8 + [_P],
     "hts_glue_sym": [_P] * 7 + [_I] * 9 + [_P],
     "hts_gemm_ga": [_P] * 3 + [_I] * 9 + [_P],

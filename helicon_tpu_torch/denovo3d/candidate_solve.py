@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .grid import _tf32_off
-from .group_solve import L3_MAX, _fista_coefs, _ga, _margin, _xat, k_split
+from .group_solve import L3_MAX, _fista_coefs, _ga, _margin, _xat, k_split, sm_count
 from .projector_separable import _as, _op_angles
 
 __all__ = [
@@ -56,14 +56,16 @@ __all__ = [
     "score_candidate_kernel",
     "score_candidate_reference",
     "validate_on_gpu",
+    "pair_fold",
     "launches",
 ]
 
 # kernel launches made on CUDA tensors, by entry (each C entry launches one
-# kernel; hts_gemm_xat two in bf16: the cast, then the product)
+# kernel; hts_gemm_xat two in bf16: the cast, then the product; a split
+# float32 first product adds its ordered sum)
 launches = {"solve_candidate": 0, "score_candidate": 0}
 
-OL_MAX = 256  # O * l3 the pair fold's per-thread arrays hold (csrc OLMAX)
+OL_MAX = 256  # O * l3 the pair fold's per-thread ubar registers hold (csrc OLMAX)
 
 
 @dataclasses.dataclass
@@ -266,20 +268,27 @@ def _data_term(A, gz, v, cdt, nd):
     return torch.einsum("kmr,krd->kmd", z.to(cdt).float(), W2)
 
 
+def _pair_fold_plain(t_ops, b1, pok, cdt):
+    """[B1^T (pok * B1 tmp)] on the op columns t_ops (k, l3, O*d3^2) of the
+    first product, rounded to cdt: (k, l3, O*d3^2) float32."""
+    k, l3, _ = t_ops.shape
+    O = b1.shape[2] // l3
+    d3sq = pok.shape[2]
+    tmp = t_ops.reshape(k, l3, O, d3sq).transpose(1, 2).reshape(k, O * l3, d3sq)
+    diff = torch.bmm(b1, tmp) * pok
+    ubar = torch.bmm(b1.transpose(1, 2), diff).to(cdt).float()
+    return ubar.reshape(k, O, l3, d3sq).transpose(1, 2).reshape(k, l3, O * d3sq)
+
+
 def _matvec_plain(A, gz, b1, pok, mask, l2, v, cdt, nd):
     """The matvec of pallas_solver.py::_kernel for v (k, l3, d3^2), with
     its rounding points: v, the Gz mix and ubar in the compute dtype, tmp
     and the pair fold in float32."""
     k, C, l3, _ = gz.shape
-    d3sq = mask.shape[1]
-    O = b1.shape[2] // l3
     Af = A.float()
     T = torch.einsum("kmd,krd->kmr", v.to(cdt).float(), Af)  # (k, l3, rows)
     z = torch.einsum("kcmn,kncj->kmcj", gz, T[..., :nd].reshape(k, l3, C, -1))
-    tmp = T[..., nd:].reshape(k, l3, O, d3sq).transpose(1, 2).reshape(k, O * l3, d3sq)
-    diff = torch.bmm(b1, tmp) * pok
-    ubar = torch.bmm(b1.transpose(1, 2), diff).to(cdt).float()
-    ubar = ubar.reshape(k, O, l3, d3sq).transpose(1, 2).reshape(k, l3, O * d3sq)
+    ubar = _pair_fold_plain(T[..., nd:], b1, pok, cdt)
     Gm = torch.cat([z.reshape(k, l3, nd).to(cdt).float(), ubar], dim=-1)
     out = torch.einsum("kmr,krd->kmd", Gm, Af)
     return (out + _col(l2) * v) * mask
@@ -449,7 +458,7 @@ def _solve_cuda(run, A, gz, b1, pok, mask, rhs, scal, d2, cg_iters, fista_iters,
     bf16 = int(A.dtype == torch.bfloat16)
     dev = A.device
     f32 = dict(dtype=torch.float32, device=dev)
-    kchunk, nsplit = k_split(k, l3, rows, d3sq, dev)
+    kchunk, nsplit = k_split(k, l3, rows, d3sq, sm_count(dev))
     T = torch.empty((k, l3, rows), **f32)
     Gm = torch.empty((k, l3, rows), dtype=A.dtype, device=dev)
     xb = torch.empty((k, l3, d3sq), dtype=A.dtype, device=dev) if bf16 else None
@@ -483,6 +492,24 @@ def _solve_cuda(run, A, gz, b1, pok, mask, rhs, scal, d2, cg_iters, fista_iters,
             run("hcs_fista_step", x, p, q, rhs, eta, scal, coef, k, n)
     run("hts_apply_mask", x, mask, k, n)
     return x, dict(T=T, Gm=Gm, xb=xb, part=part, q=q)
+
+
+def pair_fold(T: torch.Tensor, b1: torch.Tensor, pok: torch.Tensor, nd: int,
+              cdt: torch.dtype) -> torch.Tensor:
+    """B2's pair fold alone: [B1^T (pok * B1 tmp)] on the op columns of the
+    first product's T (k, l3, rows) float32 (columns nd on), for b1 (k,
+    P*l3, O*l3) and pok (k, P*l3, d3^2), rounded to cdt; (k, l3, O*d3^2)
+    float32. CPU tensors run the plain version; CUDA tensors the kernel."""
+    if _device_of(T, "pair_fold") == "cpu":
+        return _pair_fold_plain(T[..., nd:], b1, pok, cdt)
+    k, l3, rows = T.shape
+    pl, ol = b1.shape[1:]
+    d3sq = pok.shape[2]
+    _check_cuda(dict(T=T, b1=b1, pok=pok), T.device, cdt, (k, 0, ol // l3, l3, d3sq), 0)
+    Gm = torch.empty((k, l3, rows), dtype=cdt, device=T.device)
+    _launcher("solve_candidate", T.device)("hcs_sym_fold", T, b1, pok, Gm, k, l3, ol, pl, nd,
+                                           d3sq, rows, int(cdt == torch.bfloat16))
+    return Gm[..., nd:].float()
 
 
 def _device_of(t: torch.Tensor, what: str) -> str:
@@ -550,7 +577,7 @@ def score_candidate_kernel(fin: FullInputs, cg_iters: int, fista_iters: int, pow
     bf16 = int(fin.cdt == torch.bfloat16)
     A = _build_cuda(run, fin)
     rows = A.shape[1]
-    kchunk, nsplit = k_split(k, l3, rows, d3sq, dev)
+    kchunk, nsplit = k_split(k, l3, rows, d3sq, sm_count(dev))
     Gm = torch.empty((k, l3, rows), dtype=fin.cdt, device=dev)
     part = torch.empty((nsplit, k, l3, d3sq), dtype=torch.float32, device=dev)
     rhs = torch.empty((k, l3, d3sq), dtype=torch.float32, device=dev)

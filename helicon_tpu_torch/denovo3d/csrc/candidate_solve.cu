@@ -18,16 +18,26 @@
 // for the whole solve) does not carry over.
 //
 // What this design does about it: the matvec is B1's two-product shape,
-// so the wrapper (candidate_solve.py) launches group_solve.cu's product
-// kernels on it with one candidate per blockIdx.z (k candidates of one
-// shape per launch), and B1's per-copy z-Gram mix (glue_data: its gz is
-// per candidate and copy, which with R = 1 is B2's per-copy Gz mix). This
-// file holds what B1 lacks: the B1 / pok / B1^T pair fold over the O*l3
-// op rows, the l2 term and the mask after the second product, the power
-// iteration's ones seed, FISTA's l1 soft-threshold, the W2 and Mxy build
-// kernels of B3, the copy of B3's data-column operand and its score. A
-// simple kernel that is right comes first here; wgmma, TMA and fusing
-// the glue into the products are later work.
+// so the wrapper (candidate_solve.py) launches group_solve.cu's streaming
+// product kernels on it with one candidate per blockIdx.z (k candidates
+// of one shape per launch): A on the 256-wide side of a block, the 6
+// candidate rows in an 8-wide tile, a cp.async ring, in bf16 on the
+// tensor cores or in float32 on the FMA units, so that both types stream
+// A near the memory rate; and B1's per-copy z-Gram mix (glue_data: its gz
+// is per candidate and copy, which with R = 1 is B2's per-copy Gz mix).
+// This file holds what B1 lacks: the B1 / pok / B1^T pair fold over the
+// O*l3 op rows, the l2 term and the mask after the second product, the
+// power iteration's ones seed, FISTA's l1 soft-threshold, the W2 and Mxy
+// build kernels of B3, the copy of B3's data-column operand and its
+// score. Beside the products only the pair fold does real work (2 * P*l3
+// * O*l3 multiply-adds per cell, on data of a few MB): it runs as small
+// shared-memory products in blocks of 32 cells, so that its 8 x 46
+// blocks fill the card at k = 8 (a thread per cell with 256-float local
+// arrays took 0.29 ms per matvec on an H100, 36 % of the bf16 solve at
+// k = 8 of the amyloid geometry). The rest (the vector updates, the
+// z-Gram mix, the l2 + mask pass) is below 6 % of a solve and stays
+// simple. Fusing the two products so that A streams once per matvec is
+// later work.
 //
 // Traps of the B3 build, each kept here:
 // - jnp.round rounds half to even: rintf / __float2int_rn, never roundf.
@@ -47,7 +57,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define OLMAX 256  // O * l3 the pair fold's per-thread arrays hold
+#define OLMAX 256  // O * l3 the pair fold's per-thread ubar registers hold (8 warps x 32)
 
 namespace {
 
@@ -73,38 +83,106 @@ __device__ float block_sum(float v) {
   return t;
 }
 
-// The symmetry term's glue for candidate blockIdx.y at in-plane cell q
-// (one thread each), on the op columns of the first product:
-//   tmp[o*l3 + n] = T[n, nd + o*d3sq + q]          (v . Mxy_o^T)
-//   diff[r]       = pok[r, q] * sum_c b1[r, c] tmp[c]
-//   ubar[c]       = sum_r b1[r, c] diff[r]          (B1^T diff)
-//   Gm[m, nd + o*d3sq + q] = ubar[o*l3 + m]  (in the compute type)
+// The pair fold: one block of NT threads per candidate (blockIdx.y) and
+// tile of FQ = 32 in-plane cells q = blockIdx.x * FQ + lane, on the op
+// columns of the first product:
+//   tmp[c, q]  = T[n, nd + o*d3sq + q], c = o*l3 + n    (v . Mxy_o^T)
+//   diff[r, q] = pok[r, q] * sum_c b1[r, c] tmp[c, q]
+//   ubar[c, q] = sum_r b1[r, c] diff[r, q]               (B1^T diff)
+//   Gm[m, nd + o*d3sq + q] = ubar[o*l3 + m, q]  (in the compute type)
+// tmp (olp x FQ), FR rows of b1 at a time (FR x olp) and their diff
+// (FR x FQ) sit in shared memory, zero past ol and pl (olp: ol rounded up
+// to 4); the two small products run with lanes on cells (T, pok and Gm
+// move in 128-byte rows, conflict-free) and warps on rows of b1 or on
+// quads of its columns c = 4 (warp + 8 i) + u, both read as float4
+// broadcasts; ubar stays in registers (OLMAX / 8 a thread, so O*l3 <=
+// OLMAX). Every sum runs in order in one thread, as the per-cell kernel
+// before it did, so a solve repeats bit for bit.
+constexpr int FQ = 32, FR = 32, NWARP = NT / 32;
+
+__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
+inline size_t fold_smem_bytes(int ol) {
+  return (size_t)(pad4(ol) * FQ + FR * pad4(ol) + FR * FQ) * sizeof(float);
+}
+
 template <typename T>
-__global__ void sym_fold_kernel(const float* __restrict__ Tm, const float* __restrict__ b1,
-                                const float* __restrict__ pok, T* __restrict__ Gm, int l3,
-                                int ol, int pl, int nd, int d3sq, int rows) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= d3sq) return;
+__global__ void __launch_bounds__(NT) sym_fold_kernel(const float* __restrict__ Tm,
+                                                      const float* __restrict__ b1,
+                                                      const float* __restrict__ pok,
+                                                      T* __restrict__ Gm, int l3, int ol, int pl,
+                                                      int nd, int d3sq, int rows) {
+  extern __shared__ __align__(16) float fsm[];
+  const int olp = pad4(ol);
+  float* st = fsm;             // tmp[c][cell]
+  float* sb = st + olp * FQ;   // b1[r0 + r][c]
+  float* sd = sb + FR * olp;   // diff[r0 + r][cell]
   const size_t cand = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = blockIdx.x * FQ + lane;
+  const bool in = q < d3sq;
   const size_t base = cand * l3 * rows + nd + q;
   const float* b1c = b1 + cand * pl * ol;
   const float* pokc = pok + cand * pl * d3sq + q;
-  float tmp[OLMAX], ubar[OLMAX];
-  for (int c = 0; c < ol; ++c) {
-    const int o = c / l3, n = c % l3;
-    tmp[c] = Tm[base + (size_t)n * rows + (size_t)o * d3sq];
-    ubar[c] = 0.f;
+  for (int c = warp; c < olp; c += NWARP)
+    st[c * FQ + lane] =
+        in && c < ol ? Tm[base + (size_t)(c % l3) * rows + (size_t)(c / l3) * d3sq] : 0.f;
+  const int nqd = (olp / 4 - warp + NWARP - 1) / NWARP;  // this warp's column quads
+  float4 ub[OLMAX / 4 / NWARP];
+#pragma unroll
+  for (int i = 0; i < OLMAX / 4 / NWARP; ++i) ub[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int r0 = 0; r0 < pl; r0 += FR) {
+    __syncthreads();  // tmp is in place, the previous rows are used up
+    for (int r = warp; r < FR; r += NWARP)
+      for (int c = lane; c < olp; c += 32)
+        sb[r * olp + c] = r0 + r < pl && c < ol ? b1c[(size_t)(r0 + r) * ol + c] : 0.f;
+    __syncthreads();
+    float d[FR / NWARP];  // rows r0 + warp + 8 j
+#pragma unroll
+    for (int j = 0; j < FR / NWARP; ++j) d[j] = 0.f;
+    for (int c = 0; c < olp; c += 4) {
+      const float t0 = st[c * FQ + lane], t1 = st[(c + 1) * FQ + lane];
+      const float t2 = st[(c + 2) * FQ + lane], t3 = st[(c + 3) * FQ + lane];
+#pragma unroll
+      for (int j = 0; j < FR / NWARP; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(sb + (warp + NWARP * j) * olp + c);
+        d[j] = fmaf(b.x, t0, d[j]);
+        d[j] = fmaf(b.y, t1, d[j]);
+        d[j] = fmaf(b.z, t2, d[j]);
+        d[j] = fmaf(b.w, t3, d[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < FR / NWARP; ++j) {
+      const int r = warp + NWARP * j;
+      sd[r * FQ + lane] = (in && r0 + r < pl) ? d[j] * pokc[(size_t)(r0 + r) * d3sq] : 0.f;
+    }
+    __syncthreads();
+    const int nr = min(FR, pl - r0);
+    for (int r = 0; r < nr; ++r) {
+      const float dv = sd[r * FQ + lane];
+      const float* row = sb + r * olp + 4 * warp;
+#pragma unroll
+      for (int i = 0; i < OLMAX / 4 / NWARP; ++i) {
+        if (i >= nqd) break;
+        const float4 b = *reinterpret_cast<const float4*>(row + 4 * NWARP * i);
+        ub[i].x = fmaf(b.x, dv, ub[i].x);
+        ub[i].y = fmaf(b.y, dv, ub[i].y);
+        ub[i].z = fmaf(b.z, dv, ub[i].z);
+        ub[i].w = fmaf(b.w, dv, ub[i].w);
+      }
+    }
   }
-  for (int r = 0; r < pl; ++r) {
-    const float* row = b1c + (size_t)r * ol;
-    float d = 0.f;
-    for (int c = 0; c < ol; ++c) d += row[c] * tmp[c];
-    d *= pokc[(size_t)r * d3sq];
-    for (int c = 0; c < ol; ++c) ubar[c] += row[c] * d;
-  }
-  for (int c = 0; c < ol; ++c) {
-    const int o = c / l3, m = c % l3;
-    stf(Gm + base + (size_t)m * rows + (size_t)o * d3sq, ubar[c]);
+  if (!in) return;
+#pragma unroll
+  for (int i = 0; i < OLMAX / 4 / NWARP; ++i) {
+    if (i >= nqd) break;
+    const float u[4] = {ub[i].x, ub[i].y, ub[i].z, ub[i].w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = 4 * (warp + NWARP * i) + k;
+      if (c < ol) stf(Gm + base + (size_t)(c % l3) * rows + (size_t)(c / l3) * d3sq, u[k]);
+    }
   }
 }
 
@@ -278,13 +356,26 @@ extern "C" {
 
 int hcs_sym_fold(const float* Tm, const float* b1, const float* pok, void* Gm, int ncand, int l3,
                  int ol, int pl, int nd, int d3sq, int rows, int bf16, void* stream) {
-  const dim3 grid(cdiv(d3sq, 128), ncand);
+  if (ol > OLMAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid(cdiv(d3sq, FQ), ncand);
+  const size_t bytes = fold_smem_bytes(ol);
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    sym_fold_kernel<bf16_t><<<grid, 128, 0, s>>>(Tm, b1, pok, (bf16_t*)Gm, l3, ol, pl, nd, d3sq, rows);
-  else
-    sym_fold_kernel<float><<<grid, 128, 0, s>>>(Tm, b1, pok, (float*)Gm, l3, ol, pl, nd, d3sq, rows);
-  return (int)cudaGetLastError();
+  // above 48 KB only once allowed (per device, so on every launch)
+  cudaError_t e;
+  if (bf16) {
+    e = cudaFuncSetAttribute(sym_fold_kernel<bf16_t>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+    if (e == cudaSuccess)
+      sym_fold_kernel<bf16_t><<<grid, NT, bytes, s>>>(Tm, b1, pok, (bf16_t*)Gm, l3, ol, pl, nd,
+                                                      d3sq, rows);
+  } else {
+    e = cudaFuncSetAttribute(sym_fold_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+    if (e == cudaSuccess)
+      sym_fold_kernel<float><<<grid, NT, bytes, s>>>(Tm, b1, pok, (float*)Gm, l3, ol, pl, nd, d3sq,
+                                                     rows);
+  }
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 int hcs_reduce_l2_mask(const float* part, const float* v, const float* scal, const float* mask,

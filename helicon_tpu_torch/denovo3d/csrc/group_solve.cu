@@ -17,8 +17,12 @@
 // feeds R*l3 = 78 multiply-adds for a group of 13 candidates of l3 = 6,
 // so 78 FLOP per byte, far below the card's ~295 FLOP/B ridge: the bf16
 // products are bound by the HBM bytes of A_top, not by the tensor cores.
+// In float32 (the converged search, and B2/B3's float32 solve) the same
+// 78 multiply-adds per 4-byte element run on the FMA units (67 TFLOP/s):
+// 39 FLOP per byte against a ridge of 20, so B1's float32 products are
+// bound by the FMA units, while B2/B3's (6 rows) are bound by the bytes.
 //
-// What this design does about it: the bf16 products stream A_top as close
+// What this design does about it: the products stream A_top as close
 // to the memory rate as a block ring allows. A_top's rows (first product)
 // or columns (second) lie on the wide side of a block's tile, 256 of them;
 // the candidate rows lie on the narrow side in n8 tiles, rounded up to a
@@ -29,15 +33,20 @@
 // operand takes the same kernel with 8- or 4-byte copies). The products
 // are mma.sync m16n8k16 from ldmatrix (.trans for the second product's
 // [k][d3^2] tiles of A_top), accumulated in float32, and the output goes
-// through a shared-memory transpose into 16-byte stores. float32 runs on
-// the FMA units (64 x 64 tiles, 4 x 4 outputs per thread), as TF32 would
-// lose the float32 contract. One launch covers G groups (blockIdx.z =
-// group); the second product splits its K = rows axis only when the
-// groups alone do not fill the card, and a deterministic second pass sums
-// the splits in order and applies the mask (no atomics, so a solve
-// repeats bit for bit). The glue between the products (the per-candidate
-// z-Gram mix, the per-op z-shift mixes and the op-axis Laplacian) and the
-// vector updates of CG / power / FISTA are separate small kernels;
+// through a shared-memory transpose into 16-byte stores. float32 takes the
+// same tiles, ring and epilogue on the FMA units, in full float32 (TF32
+// would lose the float32 contract): K slices of 32 floats, each thread 4
+// or 8 wide values x its share of the candidate rows in registers, the
+// candidate slice read as float4 broadcasts, so that at 6 rows the ring
+// keeps the bytes moving and at 78 rows the FMA units stay busy. One
+// launch covers G groups (blockIdx.z = group); the second product splits
+// its K = rows axis, and the float32 first product its K = d3^2 axis,
+// only when the groups alone do not fill the card (one float32 group has
+// 83 wide tiles for 132 SMs), and a deterministic second pass sums the
+// splits in order (and applies the mask after the second product; no
+// atomics, so a solve repeats bit for bit). The glue between the
+// products (the per-candidate z-Gram mix, the per-op z-shift mixes and
+// the op-axis Laplacian) and the vector updates of CG / power / FISTA are separate small kernels;
 // per-candidate scalars (rs, eta, score) stay in device memory, and the
 // host loop only launches. Layout: every per-candidate tensor is
 // candidate-major, and the kernels mask ragged tile edges.
@@ -53,121 +62,14 @@
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16, NT = 256;
+constexpr int NT = 256;
 using bf16_t = __nv_bfloat16;
 
 __device__ __forceinline__ void stf(float* p, float v) { *p = v; }
 __device__ __forceinline__ void stf(bf16_t* p, float v) { *p = __float2bfloat16(v); }
 
-// float32 products on the FMA units (TF32 stays off).
-// out[g, m, n] = sum_k X[g, m, k] * A[g, n, k] for n < N.
-// X (G, M, K); A has ld rows per group, lda elements apart; out row stride ld.
-__global__ void __launch_bounds__(NT) gemm_xat_kernel(
-    const float* __restrict__ X, const float* __restrict__ A, float* __restrict__ out,
-    int M, int N, int K, int ld, int lda) {
-  __shared__ float xs[BK][BM + 4];
-  __shared__ float as[BK][BN + 4];
-  const int g = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  X += (size_t)g * M * K;
-  A += (size_t)g * ld * lda;
-  out += (size_t)g * M * ld;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int row = e / BK, kk = e % BK, k = k0 + kk;
-      const int m = m0 + row, n = n0 + row;
-      xs[kk][row] = (m < M && k < K) ? X[(size_t)m * K + k] : 0.f;
-      as[kk][row] = (n < N && k < K) ? A[(size_t)n * lda + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = as[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) out[(size_t)m * ld + n] = acc[i][j];
-    }
-  }
-}
-
-// part[s, g, m, n] = sum_{k in split s} Gm[g, m, k] * A[g, k, n];
-// Gm (G, M, K) with rows ldg apart, A (G, K, N) with rows lda apart.
-__global__ void __launch_bounds__(NT) gemm_ga_kernel(
-    const float* __restrict__ Gm, const float* __restrict__ A, float* __restrict__ part,
-    int M, int N, int K, int ldg, int lda, int kchunk, int nsplit, int ngroups) {
-  __shared__ float gs[BK][BM + 4];
-  __shared__ float as[BK][BN + 4];
-  const int g = blockIdx.z;
-  const int mt = blockIdx.y / nsplit, s = blockIdx.y % nsplit;
-  const int m0 = mt * BM, n0 = blockIdx.x * BN;
-  const int kbeg = s * kchunk;
-  const int kend = min(K, kbeg + kchunk);
-  Gm += (size_t)g * M * ldg;
-  A += (size_t)g * K * lda;
-  part += ((size_t)s * ngroups + g) * M * N;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int row = e / BK, kk = e % BK, k = k0 + kk, m = m0 + row;
-      gs[kk][row] = (m < M && k < kend) ? Gm[(size_t)m * ldg + k] : 0.f;
-      const int kk2 = e / BN, col = e % BN, k2 = k0 + kk2, n = n0 + col;
-      as[kk2][col] = (n < N && k2 < kend) ? A[(size_t)k2 * lda + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = gs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = as[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) part[(size_t)m * N + n] = acc[i][j];
-    }
-  }
-}
-
 // out[g, m, n] = mask[m % l3, n] * sum_s part[s, g, m, n], splits in order
+// (no mask when mask is null)
 __global__ void reduce_mask_kernel(const float* __restrict__ part, const float* __restrict__ mask,
                                    float* __restrict__ out, int nsplit, size_t total, int M,
                                    int N, int l3) {
@@ -177,7 +79,7 @@ __global__ void reduce_mask_kernel(const float* __restrict__ part, const float* 
     for (int k = 0; k < nsplit; ++k) s += part[(size_t)k * total + i];
     const size_t n = i % N;
     const size_t m = (i / N) % M;
-    out[i] = s * mask[(m % l3) * N + n];
+    out[i] = mask ? s * mask[(m % l3) * N + n] : s;
   }
 }
 
@@ -430,31 +332,51 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Start copying dst[r, c] = src[(r0 + r) * lds + c0 + c] for the ROWS x COLS
-// tile, zero where r0 + r >= rend or c0 + c >= cend. Runs of VEC elements
-// (8, 4 or 2) move as one copy, so lds, c0 and src are VEC-aligned.
-template <int ROWS, int COLS, int VEC>
-__device__ __forceinline__ void load_rows(bf16_t* dst, int ldd, const bf16_t* src, size_t lds,
-                                          int r0, int rend, int c0, int cend) {
+// tile of E (bf16 or float), zero where r0 + r >= rend or c0 + c >= cend.
+// Runs of VEC elements (16, 8 or 4 bytes) move as one copy, so lds, c0 and
+// src are VEC-aligned.
+template <typename E, int ROWS, int COLS, int VEC>
+__device__ __forceinline__ void load_rows(E* dst, int ldd, const E* src, size_t lds, int r0,
+                                          int rend, int c0, int cend) {
   constexpr int RUNS = COLS / VEC;
 #pragma unroll 4
   for (int e = threadIdx.x; e < ROWS * RUNS; e += SNT) {
     const int r = e / RUNS, c = (e % RUNS) * VEC, gr = r0 + r, gc = c0 + c;
-    const bf16_t* p = src;
+    const E* p = src;
     int bytes = 0;
     if (gr < rend && gc < cend) {
       p = src + (size_t)gr * lds + gc;
-      bytes = 2 * min(VEC, cend - gc);
+      bytes = (int)sizeof(E) * min(VEC, cend - gc);
     }
-    cp_async<2 * VEC>(dst + r * ldd + c, p, bytes);
+    cp_async<(int)sizeof(E) * VEC>(dst + r * ldd + c, p, bytes);
   }
 }
 
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_rows(int vec, bf16_t* dst, int ldd, const bf16_t* src,
-                                          size_t lds, int r0, int rend, int c0, int cend) {
-  if (vec == 8) load_rows<ROWS, COLS, 8>(dst, ldd, src, lds, r0, rend, c0, cend);
-  else if (vec == 4) load_rows<ROWS, COLS, 4>(dst, ldd, src, lds, r0, rend, c0, cend);
-  else load_rows<ROWS, COLS, 2>(dst, ldd, src, lds, r0, rend, c0, cend);
+template <typename E, int ROWS, int COLS>
+__device__ __forceinline__ void load_rows(int vec, E* dst, int ldd, const E* src, size_t lds,
+                                          int r0, int rend, int c0, int cend) {
+  constexpr int V16 = 16 / (int)sizeof(E);
+  if (vec == V16) load_rows<E, ROWS, COLS, V16>(dst, ldd, src, lds, r0, rend, c0, cend);
+  else if (vec == V16 / 2) load_rows<E, ROWS, COLS, V16 / 2>(dst, ldd, src, lds, r0, rend, c0, cend);
+  else load_rows<E, ROWS, COLS, V16 / 4>(dst, ldd, src, lds, r0, rend, c0, cend);
+}
+
+// out[m0 + m, w0 + w] = stg[m * PO + w] for the NW x SW tile staged in
+// shared memory (m < M, w < N): the stores run along w, 16 B each where
+// vo allows.
+template <int NW>
+__device__ __forceinline__ void store_tile(const float* stg, float* out, int m0, int w0, int M,
+                                           int N, int ld_out, int vo) {
+  for (int e = threadIdx.x; e < NW * (SW / 4); e += SNT) {
+    const int m = e / (SW / 4), w = (e % (SW / 4)) * 4, gm = m0 + m, gw = w0 + w;
+    if (gm >= M || gw >= N) continue;
+    float* o = out + (size_t)gm * ld_out + gw;
+    const float* sv = stg + m * PO + w;
+    if (vo && gw + 4 <= N)
+      *reinterpret_cast<float4*>(o) = *reinterpret_cast<const float4*>(sv);
+    else
+      for (int q = 0; q < 4 && gw + q < N; ++q) o[q] = sv[q];
+  }
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -513,9 +435,9 @@ __global__ void __launch_bounds__(SNT, 1) stream_product_kernel(
 
   auto load = [&](int stage, int k0) {
     bf16_t* a = smem + stage * STAGE;
-    if (TRANS) load_rows<SK, SW>(va, a, PW, A, lda, k0, kend, w0, N);
-    else load_rows<SW, SK>(va, a, PK, A, lda, w0, N, k0, kend);
-    load_rows<NW, SK>(vb, a + AE, PK, B, ldb, m0, M, k0, kend);
+    if (TRANS) load_rows<bf16_t, SK, SW>(va, a, PW, A, lda, k0, kend, w0, N);
+    else load_rows<bf16_t, SW, SK>(va, a, PK, A, lda, w0, N, k0, kend);
+    load_rows<bf16_t, NW, SK>(vb, a + AE, PK, B, ldb, m0, M, k0, kend);
   };
 
   float acc[2][NJ][4];
@@ -591,24 +513,156 @@ __global__ void __launch_bounds__(SNT, 1) stream_product_kernel(
       stg[(m + 1) * PO + w + 8] = acc[i][j][3];
     }
   __syncthreads();
-  for (int e = threadIdx.x; e < NW * (SW / 4); e += SNT) {
-    const int m = e / (SW / 4), w = (e % (SW / 4)) * 4, gm = m0 + m, gw = w0 + w;
-    if (gm >= M || gw >= N) continue;
-    float* o = out + (size_t)gm * ld_out + gw;
-    const float* sv = stg + m * PO + w;
-    if (vo && gw + 4 <= N)
-      *reinterpret_cast<float4*>(o) = *reinterpret_cast<const float4*>(sv);
-    else
-      for (int q = 0; q < 4 && gw + q < N; ++q) o[q] = sv[q];
+  store_tile<NW>(stg, out, m0, w0, M, N, ld_out, vo);
+}
+
+// ---------------------------------------------------------------------------
+// float32 streaming products on the FMA units: the bf16 kernel's shape
+// (the same out^T[w, m], SW = 256 of the wide side per block, NW candidate
+// rows, a ring of STAGES K slices in cp.async copies, the output through
+// the shared-memory transpose), with full float32 fmaf in place of the
+// tensor cores (TF32 would lose the float32 contract, ROADMAP C3).
+//
+// K slices are FK = 32 floats (128 B a row). Thread t owns W wide x NW/NG
+// narrow outputs in registers: W = 4 wide values (NG = 4 narrow groups of
+// 64 threads) for tiles narrower than 48 candidate rows, W = 8 (NG = 8
+// groups of 32) from 48 on. Its narrow group is t / (SW / W), so the 32
+// lanes of a warp share it and read the candidate slice as float4
+// broadcasts; its wide values are t % (SW / W) + (SW / W) i in the first
+// product (float4 reads along k of the [w][k] rows, 144 B apart, so 8
+// lanes hit 8 distinct 16-byte bank groups) and runs of 4 from 4 (t %
+// (SW / W)) on in the second (float4 reads along w of the [k][w] tile,
+// one per k and run). Per 4 k a thread makes W + NJ float4 reads for
+// 4 W NJ fmaf (NJ = NW / NG). A float4 read holds the warp's shared-memory
+// port for 4 cycles even as a broadcast, so at 80 rows W = 8 makes 18
+// reads per 320 fmaf where W = 4 would make 24, which kept the second
+// product ~10 % slower; at 8 rows W = 4 keeps the reads of A, which the
+// ring has to keep pace with, at 4 per 4 k. Each output is one fmaf
+// chain in k order, so a product repeats bit for bit.
+constexpr int FK = 32;
+constexpr int FPK = FK + 4;  // float pitch of K-contiguous tiles
+constexpr int FPW = SW + 4;  // float pitch of the [k][w] tile
+
+template <bool TRANS>
+__host__ __device__ constexpr int f32_tile_elems() { return TRANS ? FK * FPW : SW * FPK; }
+template <int NW, bool TRANS>
+__host__ __device__ constexpr size_t f32_smem_bytes() {
+  return (size_t)STAGES * (f32_tile_elems<TRANS>() + NW * FPK) * 4;
+}
+
+// The float32 counterpart of stream_product_kernel, with the same
+// arguments (va / vb: copy widths of 4, 2 or 1 floats).
+template <int NW, bool TRANS>
+__global__ void __launch_bounds__(SNT, 1) stream_product_f32_kernel(
+    const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ out, int M,
+    int N, int K, int lda, int ldb, int ld_out, size_t a_group, int kchunk, int nsplit, int va,
+    int vb, int vo, int ngroups) {
+  constexpr int W = NW >= 48 ? 8 : 4, WL = SW / W, NJ = NW * WL / SNT;
+  constexpr int AE = f32_tile_elems<TRANS>(), STAGE = AE + NW * FPK;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int g = blockIdx.z;
+  const int mt = blockIdx.y / nsplit, s = blockIdx.y % nsplit;
+  const int m0 = mt * NW, w0 = blockIdx.x * SW;
+  const int kbeg = s * kchunk, kend = min(K, kbeg + kchunk);
+  A += (size_t)g * a_group;
+  B += (size_t)g * M * ldb;
+  out += ((size_t)s * ngroups + g) * M * ld_out;
+  const int wl = threadIdx.x % WL, nq = threadIdx.x / WL;
+
+  auto load = [&](int stage, int k0) {
+    float* a = smem + stage * STAGE;
+    if (TRANS) load_rows<float, FK, SW>(va, a, FPW, A, lda, k0, kend, w0, N);
+    else load_rows<float, SW, FK>(va, a, FPK, A, lda, w0, N, k0, kend);
+    load_rows<float, NW, FK>(vb, a + AE, FPK, B, ldb, m0, M, k0, kend);
+  };
+
+  float acc[W][NJ];
+#pragma unroll
+  for (int i = 0; i < W; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+
+  const int nk = (kend - kbeg + FK - 1) / FK;
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load(st, kbeg + st * FK);
+    cp_async_commit();
   }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<STAGES - 2>();  // slice t has landed
+    __syncthreads();              // and every warp is done with slice t - 1
+    if (t + STAGES - 1 < nk) load((t + STAGES - 1) % STAGES, kbeg + (t + STAGES - 1) * FK);
+    cp_async_commit();
+    const float* a = smem + (t % STAGES) * STAGE;
+    const float* b = a + AE + nq * NJ * FPK;
+#pragma unroll 2
+    for (int kk = 0; kk < FK; kk += 4) {
+      float av[W][4];  // av[i][q]: wide value i at k = kk + q
+      if (TRANS) {
+#pragma unroll
+        for (int h = 0; h < W / 4; ++h)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(a + (kk + q) * FPW + 4 * wl + 4 * WL * h);
+            av[4 * h][q] = v.x;
+            av[4 * h + 1][q] = v.y;
+            av[4 * h + 2][q] = v.z;
+            av[4 * h + 3][q] = v.w;
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(a + (wl + WL * i) * FPK + kk);
+          av[i][0] = v.x;
+          av[i][1] = v.y;
+          av[i][2] = v.z;
+          av[i][3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 bv = *reinterpret_cast<const float4*>(b + j * FPK + kk);
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          acc[i][j] = fmaf(av[i][0], bv.x, acc[i][j]);
+          acc[i][j] = fmaf(av[i][1], bv.y, acc[i][j]);
+          acc[i][j] = fmaf(av[i][2], bv.z, acc[i][j]);
+          acc[i][j] = fmaf(av[i][3], bv.w, acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // out^T through shared memory, so that the stores run along w, 16 B each
+  float* stg = smem;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    float* r = stg + (nq * NJ + j) * PO;
+    if (TRANS) {
+#pragma unroll
+      for (int h = 0; h < W / 4; ++h)
+        *reinterpret_cast<float4*>(r + 4 * wl + 4 * WL * h) = make_float4(
+            acc[4 * h][j], acc[4 * h + 1][j], acc[4 * h + 2][j], acc[4 * h + 3][j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < W; ++i) r[wl + WL * i] = acc[i][j];
+    }
+  }
+  __syncthreads();
+  store_tile<NW>(stg, out, m0, w0, M, N, ld_out, vo);
 }
 
 inline unsigned cdiv(size_t a, size_t b) { return (unsigned)((a + b - 1) / b); }
 
-// the widest copy (8, 4 or 2 elements) that rows lds apart from p allow; 0 if none
-inline int copy_width(const void* p, size_t lds) {
-  for (int v = 8; v >= 2; v /= 2)
-    if (lds % v == 0 && reinterpret_cast<uintptr_t>(p) % (2 * v) == 0) return v;
+// the widest copy (16, 8 or 4 bytes) that rows lds elements of esize bytes
+// apart from p allow, in elements; 0 if none
+inline int copy_width(const void* p, size_t lds, int esize) {
+  for (int b = 16; b >= 4; b /= 2)
+    if ((lds * esize) % b == 0 && reinterpret_cast<uintptr_t>(p) % b == 0) return b / esize;
   return 0;
 }
 
@@ -622,34 +676,41 @@ inline int pick_width(int M, int* ntiles) {
   return 128;
 }
 
+// the operands of one streaming product; E is bf16_t or float
+template <typename E>
 struct StreamArgs {
-  const bf16_t* A;
-  const bf16_t* B;
+  const E* A;
+  const E* B;
   float* out;
   int M, N, K, lda, ldb, ld_out;
   size_t a_group;
   int kchunk, nsplit, G;
 };
 
-template <int NW, bool TRANS>
-cudaError_t launch_stream(const StreamArgs& a, int ny, cudaStream_t s) {
-  constexpr size_t bytes = stream_smem_bytes<NW, TRANS>();
+template <int NW, bool TRANS, typename E>
+cudaError_t launch_stream(const StreamArgs<E>& a, int ny, cudaStream_t s) {
+  constexpr bool F32 = sizeof(E) == 4;
+  constexpr size_t bytes = F32 ? f32_smem_bytes<NW, TRANS>() : stream_smem_bytes<NW, TRANS>();
   static_assert(bytes <= 232448 && (size_t)NW * PO * 4 <= bytes, "shared memory");
+  void (*kernel)(const E*, const E*, float*, int, int, int, int, int, int, size_t, int, int, int,
+                 int, int, int);
+  if constexpr (F32) kernel = stream_product_f32_kernel<NW, TRANS>;
+  else kernel = stream_product_kernel<NW, TRANS>;
   // above 48 KB only once allowed (per device, so on every launch)
-  const cudaError_t e = cudaFuncSetAttribute(stream_product_kernel<NW, TRANS>,
+  const cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  const int va = copy_width(a.A, a.lda), vb = copy_width(a.B, a.ldb);
+  const int va = copy_width(a.A, a.lda, sizeof(E)), vb = copy_width(a.B, a.ldb, sizeof(E));
   if (!va || !vb) return cudaErrorInvalidValue;
   const int vo = a.ld_out % 4 == 0 && reinterpret_cast<uintptr_t>(a.out) % 16 == 0;
-  stream_product_kernel<NW, TRANS><<<dim3(cdiv(a.N, SW), ny * a.nsplit, a.G), SNT, bytes, s>>>(
+  kernel<<<dim3(cdiv(a.N, SW), ny * a.nsplit, a.G), SNT, bytes, s>>>(
       a.A, a.B, a.out, a.M, a.N, a.K, a.lda, a.ldb, a.ld_out, a.a_group, a.kchunk, a.nsplit, va,
       vb, vo, a.G);
   return cudaGetLastError();
 }
 
-template <bool TRANS>
-cudaError_t stream_product(const StreamArgs& a, cudaStream_t s) {
+template <bool TRANS, typename E>
+cudaError_t stream_product(const StreamArgs<E>& a, cudaStream_t s) {
   int ny;
   switch (pick_width(a.M, &ny)) {
     case 8: return launch_stream<8, TRANS>(a, ny, s);
@@ -665,12 +726,13 @@ cudaError_t stream_product(const StreamArgs& a, cudaStream_t s) {
 
 extern "C" {
 
-// out[g, m, n] = sum_k X[g, m, k] A[g, n, k] for n < N: X (G, M, K)
-// float32; A has rows rows per group, lda elements apart; out's rows are
-// rows elements apart. xb: scratch for bf16(X), rows ldx elements apart
-// (bf16 mode only).
+// out[s, g, m, n] = sum_{k in split s} X[g, m, k] A[g, n, k] for n < N: X
+// (G, M, K) float32, rows ldx elements apart in float32; A has rows rows
+// per group, lda elements apart; out's rows are rows elements apart, its
+// nsplit K splits of kchunk (a multiple of 64) G * M * rows apart. xb:
+// scratch for bf16(X), rows ldx elements apart (bf16 mode only).
 int hts_gemm_xat(const float* X, const void* A, float* out, void* xb, int G, int M, int N, int K,
-                 int rows, int lda, int ldx, int bf16, void* stream) {
+                 int rows, int lda, int ldx, int kchunk, int nsplit, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
     const size_t n = (size_t)G * M * K;
@@ -678,13 +740,13 @@ int hts_gemm_xat(const float* X, const void* A, float* out, void* xb, int G, int
                                                                                K, ldx);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    const StreamArgs a{(const bf16_t*)A, (const bf16_t*)xb, out, M, N, K, lda, ldx, rows,
-                       (size_t)rows * lda, K, 1, G};
+    const StreamArgs<bf16_t> a{(const bf16_t*)A, (const bf16_t*)xb, out, M, N, K, lda, ldx,
+                               rows, (size_t)rows * lda, kchunk, nsplit, G};
     return (int)stream_product<false>(a, s);
-  } else
-    gemm_xat_kernel<<<dim3(cdiv(N, BN), cdiv(M, BM), G), NT, 0, s>>>(X, (const float*)A, out, M,
-                                                                     N, K, rows, lda);
-  return (int)cudaGetLastError();
+  }
+  const StreamArgs<float> a{(const float*)A, X, out, M, N, K, lda, ldx, rows,
+                            (size_t)rows * lda, kchunk, nsplit, G};
+  return (int)stream_product<false>(a, s);
 }
 
 // T's rows are rows elements apart, Gm's ldg (also below)
@@ -719,13 +781,13 @@ int hts_gemm_ga(const void* Gm, const void* A, float* part, int G, int M, int N,
                 int lda, int kchunk, int nsplit, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
-    const StreamArgs a{(const bf16_t*)A, (const bf16_t*)Gm, part, M, N, K, lda, ldg, N,
-                       (size_t)K * lda, kchunk, nsplit, G};
+    const StreamArgs<bf16_t> a{(const bf16_t*)A, (const bf16_t*)Gm, part, M, N, K, lda, ldg, N,
+                               (size_t)K * lda, kchunk, nsplit, G};
     return (int)stream_product<true>(a, s);
-  } else
-    gemm_ga_kernel<<<dim3(cdiv(N, BN), cdiv(M, BM) * nsplit, G), NT, 0, s>>>(
-        (const float*)Gm, (const float*)A, part, M, N, K, ldg, lda, kchunk, nsplit, G);
-  return (int)cudaGetLastError();
+  }
+  const StreamArgs<float> a{(const float*)A, (const float*)Gm, part, M, N, K, lda, ldg, N,
+                            (size_t)K * lda, kchunk, nsplit, G};
+  return (int)stream_product<true>(a, s);
 }
 
 int hts_reduce_mask(const float* part, const float* mask, float* out, int nsplit, int G, int M,

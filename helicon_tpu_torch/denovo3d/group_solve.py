@@ -24,8 +24,10 @@ runs the hand-written kernels of ``csrc/group_solve.cu`` or raises.
 ``gemm_xat`` and ``gemm_ga`` run the two products alone.
 
 ``GroupInputs.empty`` gives ``a_top`` rows a pitch of a multiple of 8
-elements (16 bytes of bf16): ``a_top`` is the ``[..., :d3^2]`` view of a
-(G, rows, pitch) buffer, so that the products copy it in 16-byte pieces.
+elements (16 bytes of bf16, 32 of float32): ``a_top`` is the
+``[..., :d3^2]`` view of a (G, rows, pitch) buffer, so that the products
+copy it in 16-byte pieces. Both dtypes run one streaming product kernel
+shape: bf16 on the tensor cores, float32 on the FMA units in full float32.
 """
 
 from __future__ import annotations
@@ -48,13 +50,15 @@ __all__ = [
 ]
 
 # kernel launches made by solve_group on CUDA tensors (each C entry
-# launches one kernel, hts_gemm_xat two in bf16: the cast, then the product)
+# launches one kernel, hts_gemm_xat two in bf16: the cast, then the
+# product; a split float32 first product adds its ordered sum)
 launches = 0
 
 L3_MAX = 64  # z extent the kernel's per-thread arrays hold (csrc L3MAX)
-# the bf16 products' tiles: 256 of the wide side (A_top's rows or columns)
-# by up to 128 candidate rows, K slices of 64
-_WIDE, _NARROW, _KSTEP = 256, 128, 64
+# the products' tiles, in both dtypes: 256 of the wide side (A_top's rows
+# or columns) by up to 128 candidate rows; K slices of 64 (bf16) or 32
+# (float32)
+_WIDE, _NARROW, _KSTEP, _KSTEP_F32 = 256, 128, 64, 32
 _PITCH = 8  # elements a padded row pitch is a multiple of (16 bytes of bf16)
 
 
@@ -308,17 +312,43 @@ def _count(kernels: int) -> None:
     launches += kernels
 
 
-def k_split(G: int, M: int, K: int, N: int, dev: torch.device, nsplit: int | None = None):
-    """(kchunk, nsplit) of the second product (G groups of M x K by K x N):
-    K is split so that G * tiles * splits fills the card (one bf16 tile
-    per SM at a time) twice over, each split covering >= 8 K slices; or
-    into ``nsplit`` parts if given."""
+def sm_count(dev: torch.device) -> int:
+    """The number of SMs of the CUDA device dev."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def k_split(G: int, M: int, K: int, N: int, n_sm: int, nsplit: int | None = None):
+    """(kchunk, nsplit) of the second product (G groups of M x K by K x N)
+    on a card of n_sm SMs: K is split so that G * tiles * splits fills the
+    card (one tile per SM at a time, in either dtype) twice over, each
+    split covering >= 8 K slices of 64; or into ``nsplit`` parts if
+    given. kchunk is a multiple of 64 (of both dtypes' K slices)."""
     k_tiles = -(-K // _KSTEP)
     if nsplit is None:
-        tiles = G * -(-M // _NARROW) * -(-N // _WIDE)  # (the float32 tiles are 8x more)
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        tiles = G * -(-M // _NARROW) * -(-N // _WIDE)
         nsplit = max(1, min(-(-2 * n_sm // tiles), k_tiles // 8))
     kchunk = -(-k_tiles // max(1, min(nsplit, k_tiles))) * _KSTEP
+    return kchunk, -(-K // kchunk)
+
+
+def x_split(G: int, M: int, N: int, K: int, n_sm: int):
+    """(kchunk, nsplit) of the float32 first product (G groups of M x K by
+    K x N) on a card of n_sm SMs: no split while G * tiles fills the card;
+    else K (d3^2) is split into the number of parts, each >= 8 K slices of
+    32, whose blocks fill the card's waves best (the fewest on a tie), so
+    that a short launch (one group: 83 tiles on 132 SMs) does not leave
+    SMs idle. kchunk is a multiple of 64."""
+    tiles = G * -(-M // _NARROW) * -(-N // _WIDE)
+    k_slices = -(-K // _KSTEP_F32)
+    if tiles >= n_sm or k_slices < 16:
+        return K, 1
+
+    def fill(s):
+        blocks = tiles * s
+        return blocks / (-(-blocks // n_sm) * n_sm)
+
+    s = max(range(1, k_slices // 8 + 1), key=lambda s: (fill(s), -s))
+    kchunk = -(-K // (s * _KSTEP)) * _KSTEP
     return kchunk, -(-K // kchunk)
 
 
@@ -326,12 +356,19 @@ def _xat(run, X, A, out, xb, N: int) -> None:
     """Launch out[g, m, n] = sum_k X[g, m, k] A[g, n, k] for n < N (the
     first product): X (G, M, d3^2) or (G, R, l3, d3^2) float32 contiguous,
     A (G, rows, d3^2) with unit last stride, out (G, M, rows) float32, xb
-    the (G, M, ldx) scratch for bf16(X) (None in float32)."""
-    G, K = A.shape[0], A.shape[2]
+    the (G, M, ldx) scratch for bf16(X) (None in float32). A float32
+    product that x_split splits goes through a (nsplit, G, M, rows) buffer
+    and an ordered sum into out (no atomics: it repeats bit for bit)."""
+    G, rows, K = A.shape
     M = X.numel() // (G * K)
     bf16 = int(A.dtype == torch.bfloat16)
-    run("hts_gemm_xat", X, A, out, xb, G, M, N, K, A.shape[1], A.stride(1),
-        xb.stride(1) if bf16 else K, bf16, kernels=1 + bf16)
+    kchunk, nsplit = (K, 1) if bf16 else x_split(G, M, N, K, sm_count(A.device))
+    part = out if nsplit == 1 else torch.empty((nsplit, G, M, rows), dtype=torch.float32,
+                                               device=A.device)
+    run("hts_gemm_xat", X, A, part, xb, G, M, N, K, rows, A.stride(1),
+        xb.stride(1) if bf16 else K, kchunk, nsplit, bf16, kernels=1 + bf16)
+    if nsplit > 1:
+        run("hts_reduce_mask", part, None, out, nsplit, G, M, rows, 1)
 
 
 def _ga(run, Gm, A, part, kchunk: int, nsplit: int) -> None:
@@ -389,7 +426,7 @@ def gemm_ga(Gm: torch.Tensor, A: torch.Tensor, nsplit: int | None = None) -> tor
     from .._build import Launcher
 
     G, M, rows = Gm.shape
-    kchunk, nsplit = k_split(G, M, rows, A.shape[2], A.device, nsplit)
+    kchunk, nsplit = k_split(G, M, rows, A.shape[2], sm_count(A.device), nsplit)
     part = torch.empty((nsplit, G, M, A.shape[2]), dtype=torch.float32, device=A.device)
     _ga(Launcher(A.device, _count), Gm, A, part, kchunk, nsplit)
     return part
@@ -417,7 +454,7 @@ def solve_group(inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: 
     f32 = dict(dtype=torch.float32, device=dev)
     run = Launcher(dev, _count)
 
-    kchunk, nsplit = k_split(G, M, rows, d3sq, dev)
+    kchunk, nsplit = k_split(G, M, rows, d3sq, sm_count(dev))
     T = torch.empty((G, M, rows), **f32)
     # [u; gs] and bf16(X) with 16-byte row pitches
     Gm = torch.empty((G, M, padded_pitch(rows)), dtype=inp.a_top.dtype, device=dev)

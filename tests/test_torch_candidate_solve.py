@@ -197,6 +197,31 @@ def test_entry_points_refuse_other_devices(small):
         cs.solve_candidate_kernel(inp, 1, 1, 1)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_pair_fold_plain_matches_its_definition(dtype):
+    """pair_fold on CPU tensors (the plain fold of _matvec_plain, which the
+    fold kernel is held against on the card) against its definition, cell
+    by cell in float64: tmp[o*l3 + n] = T[n, nd + o*d3^2 + q], ubar =
+    B1^T (pok[:, q] * B1 tmp), out[m, o*d3^2 + q] = ubar[o*l3 + m]; within
+    float32 rounding (bf16: one bf16 rounding of each value more)."""
+    rng = np.random.default_rng(3)
+    k, O, l3, P, d3sq, nd = 2, 3, 4, 5, 7, 6
+    T = rng.standard_normal((k, l3, nd + O * d3sq)).astype(np.float32)
+    b1 = rng.standard_normal((k, P * l3, O * l3)).astype(np.float32)
+    pok = (rng.random((k, P * l3, d3sq)) < 0.6).astype(np.float32)
+    got = cs.pair_fold(*map(torch.from_numpy, (T, b1, pok)), nd, dtype).numpy()
+    want = np.zeros((k, l3, O * d3sq))
+    for b in range(k):
+        B1 = b1[b].astype(np.float64)
+        for q in range(d3sq):
+            tmp = np.array([T[b, c % l3, nd + (c // l3) * d3sq + q] for c in range(O * l3)])
+            ubar = B1.T @ (pok[b, :, q] * (B1 @ tmp))
+            for c in range(O * l3):
+                want[b, c % l3, (c // l3) * d3sq + q] = ubar[c]
+    tol = 1e-5 * np.abs(want).max() + (2.0**-8 * np.abs(want) if dtype == torch.bfloat16 else 0)
+    assert np.all(np.abs(got - want) <= tol), np.abs(got - want).max()
+
+
 def test_validate_on_gpu_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):

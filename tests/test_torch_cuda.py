@@ -176,6 +176,7 @@ def test_solve_candidate_kernel_matches_plain(cuda, dtype, interpolation):
     before = cs.launches["solve_candidate"]
     x_k = cs.solve_candidate_kernel(inp, *ITERS)
     assert cs.launches["solve_candidate"] > before
+    assert torch.equal(x_k, cs.solve_candidate_kernel(inp, *ITERS))  # repeats bit for bit
     x_p = cs.solve_candidate_reference(inp, *ITERS)
     assert bool(torch.isfinite(x_k).all())
     rel = float((x_k - x_p).abs().max() / x_p.abs().max())
@@ -210,59 +211,115 @@ def test_validate_on_gpu(cuda):
     assert out["ok"], out
 
 
-def _product_operands(device, M, padded, seed, G=3, rows=1004, d3sq=300):
-    """bf16 operands of the two products, rows and d3^2 not multiples of
-    any tile: A (G, rows, d3^2) and Gm (G, M, rows) as views of rows with
-    16-byte pitches (padded) or as contiguous tensors whose pitches allow
-    8-byte copies only; X (G, M, d3^2) float32."""
+def _product_operands(device, M, padded, seed, dtype, G=3, d3sq=None):
+    """Operands of the two products in dtype, rows and d3^2 not multiples
+    of any tile: A (G, rows, d3^2) and Gm (G, M, rows) as views of rows
+    with 16-byte pitches (padded) or as contiguous tensors whose pitches
+    allow only 8-byte copies (bf16: rows 1,004, d3^2 300) or 4-byte copies
+    (float32: rows 1,005, d3^2 301); X (G, M, d3^2) float32."""
     rng = np.random.default_rng(seed)
+    rows, n = (1004, 300) if dtype == torch.bfloat16 else (1005, 301)
+    d3sq = d3sq or n
 
-    def bf16(shape, pitch):
-        buf = torch.zeros(shape[:-1] + (pitch,), dtype=torch.bfloat16, device=device)
+    def make(shape, pitch):
+        buf = torch.zeros(shape[:-1] + (pitch,), dtype=dtype, device=device)
         buf[..., : shape[-1]] = torch.from_numpy(rng.standard_normal(shape, np.float32))
         return buf[..., : shape[-1]]
 
     pad = gs.padded_pitch if padded else (lambda n: n)
-    A = bf16((G, rows, d3sq), pad(d3sq))
-    Gm = bf16((G, M, rows), pad(rows))
+    A = make((G, rows, d3sq), pad(d3sq))
+    Gm = make((G, M, rows), pad(rows))
     X = torch.from_numpy(rng.standard_normal((G, M, d3sq), np.float32)).to(device)
     assert (A.stride(1) % 8 == 0) == padded and (Gm.stride(1) % 8 == 0) == padded
     return A, Gm, X
 
 
 def _assert_float64_close(got, a, b):
-    """got against the float64 product a @ b of the same bf16 values: each
-    entry within 1e-4 of the sum of the magnitudes of its terms, far above
-    float32 accumulation over these depths (<= 1,004 terms) and far below
-    what a wrong row, column or slice would give."""
+    """got against the float64 product a @ b of the same bf16 or float32
+    values: each entry within 1e-4 of the sum of the magnitudes of its
+    terms, far above float32 accumulation over these depths (<= 1,005
+    terms) and far below what a wrong row, column or slice would give."""
     want = torch.matmul(a.double(), b.double())
     scale = torch.matmul(a.double().abs(), b.double().abs())
     err = (got.double() - want).abs()
     assert bool((err <= 1e-4 * scale).all()), float((err / scale).max())
 
 
-@pytest.mark.parametrize("padded", [True, False], ids=["pitch16B", "pitch8B"])
-@pytest.mark.parametrize("M", [6, 13, 78, 80, 130])
-def test_first_product_matches_float64(cuda, M, padded):
-    A, _, X = _product_operands(cuda, M, padded, seed=M)
+DTYPES = [torch.bfloat16, torch.float32]
+# candidate rows: every tile width (8, 16, 32, 48, 80, 128) and two tiles (130)
+M_CASES = [6, 13, 30, 40, 78, 80, 100, 130]
+PITCHES = dict(argvalues=[True, False], ids=["pitch16B", "pitch8B_bf16_4B_f32"])
+
+
+@pytest.mark.parametrize("padded", **PITCHES)
+@pytest.mark.parametrize("M", M_CASES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bfloat16", "float32"])
+def test_first_product_matches_float64(cuda, dtype, M, padded):
+    A, _, X = _product_operands(cuda, M, padded, seed=M, dtype=dtype)
     before = gs.launches
     T = gs.gemm_xat(X, A)
-    assert gs.launches == before + 2  # the cast, then the product
+    # bf16: the cast, then the product
+    assert gs.launches == before + (2 if dtype == torch.bfloat16 else 1)
     assert torch.equal(T, gs.gemm_xat(X, A))  # repeats bit for bit
-    _assert_float64_close(T, X.to(torch.bfloat16), A.transpose(1, 2))
+    _assert_float64_close(T, X.to(dtype), A.transpose(1, 2))
     assert torch.equal(gs.gemm_xat(X, A, N=333), T[..., :333])
 
 
+def test_first_product_k_split_matches_float64(cuda):
+    """A float32 first product too short to fill the card (one group, 4
+    wide tiles) splits its K (5 splits of 320) and sums the splits in
+    order: the product and the sum launch, the result repeats bit for
+    bit and holds against float64."""
+    A, _, X = _product_operands(cuda, 78, True, seed=7, dtype=torch.float32, G=1, d3sq=1444)
+    assert gs.x_split(1, 78, A.shape[1], 1444, gs.sm_count(cuda)) == (320, 5)
+    before = gs.launches
+    T = gs.gemm_xat(X, A)
+    assert gs.launches == before + 2
+    assert torch.equal(T, gs.gemm_xat(X, A))
+    _assert_float64_close(T, X, A.transpose(1, 2))
+
+
 @pytest.mark.parametrize("nsplit", [1, 4])
-@pytest.mark.parametrize("padded", [True, False], ids=["pitch16B", "pitch8B"])
-@pytest.mark.parametrize("M", [6, 13, 78, 80, 130])
-def test_second_product_matches_float64(cuda, M, padded, nsplit):
-    A, Gm, _ = _product_operands(cuda, M, padded, seed=M + 1)
+@pytest.mark.parametrize("padded", **PITCHES)
+@pytest.mark.parametrize("M", M_CASES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bfloat16", "float32"])
+def test_second_product_matches_float64(cuda, dtype, M, padded, nsplit):
+    A, Gm, _ = _product_operands(cuda, M, padded, seed=M + 1, dtype=dtype)
     before = gs.launches
     part = gs.gemm_ga(Gm, A, nsplit=nsplit)
     assert gs.launches == before + 1 and part.shape == (nsplit,) + Gm.shape[:2] + A.shape[2:]
     assert torch.equal(part, gs.gemm_ga(Gm, A, nsplit=nsplit))  # no atomics: bit for bit
     _assert_float64_close(part.double().sum(0), Gm, A)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("case", [(7, 6, 21, 1444), (32, 8, 5, 38)], ids=["amyloid", "OL_MAX"])
+def test_pair_fold_matches_plain(cuda, dtype, case):
+    """The pair fold kernel against the plain fold of _matvec_plain on the
+    same tensors: at the amyloid's O*l3 = 42 over 1,444 cells (45 tiles of
+    32 and a ragged 4; 126 rows of b1, ragged at 32 rows a chunk) and at
+    O*l3 = OL_MAX over 38 cells. float32 within 1e-5 of the largest value
+    (sums in another order than cuBLAS's bmm); bf16 within one bf16
+    rounding of each value more; repeats bit for bit."""
+    O, l3, P, d3sq = case
+    assert O * l3 == cs.OL_MAX or (O * l3, d3sq % 32, P * l3 % 32) == (42, 4, 30)
+    rng = np.random.default_rng(O)
+    k, nd = 3, 10
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(cuda)
+
+    T = rand(k, l3, nd + O * d3sq)
+    b1 = rand(k, P * l3, O * l3)
+    pok = torch.from_numpy((rng.random((k, P * l3, d3sq)) < 0.7).astype(np.float32)).to(cuda)
+    before = cs.launches["solve_candidate"]
+    got = cs.pair_fold(T, b1, pok, nd, dtype)
+    assert cs.launches["solve_candidate"] == before + 1
+    assert torch.equal(got, cs.pair_fold(T, b1, pok, nd, dtype))
+    ref = cs._pair_fold_plain(T[..., nd:], b1, pok, torch.float32)
+    scale = float(ref.abs().max())
+    tol = 1e-5 * scale + (2.0**-8 * ref.abs() if dtype == torch.bfloat16 else 0.0)
+    assert bool(((got - ref).abs() <= tol).all()), float((got - ref).abs().max())
 
 
 def test_padded_a_top_gives_the_contiguous_result(cuda):

@@ -263,6 +263,43 @@ def test_group_inputs_empty_pads_a_top(d3sq):
     np.testing.assert_allclose(s2.numpy(), s1.numpy(), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape,n_sm,want", [
+    ((179, 78, 21084, 1444), 132, 1),  # B1's bf16 search launch: the groups fill the card
+    ((1, 78, 21084, 1444), 132, 37),  # B1 at one group: 9 K slices a split
+    ((8, 6, 21140, 1444), 132, 6),  # B2 / B3 at k = 8
+    ((3, 130, 1004, 300), 132, 2),  # few K slices: at least 8 a split
+])
+def test_k_split_fills_the_card(shape, n_sm, want):
+    """The second product's K split, the same for both dtypes (their tiles
+    are the same): about 2 tiles per SM, each split >= 8 K slices of 64,
+    the splits covering K once."""
+    G, M, K, N = shape
+    for nsplit_arg, expect in ((None, want), (4, None)):
+        kchunk, nsplit = gs.k_split(G, M, K, N, n_sm, nsplit_arg)
+        assert nsplit == (expect or nsplit_arg)
+        assert kchunk % 64 == 0 and (nsplit - 1) * kchunk < K <= nsplit * kchunk
+        if nsplit_arg is None and nsplit > 1:
+            assert kchunk >= 8 * 64
+
+
+@pytest.mark.parametrize("shape,n_sm,want", [
+    ((1, 78, 21084, 1444), 132, (512, 3)),  # B1 float32 at one group: 83 tiles -> 249 blocks
+    ((1, 78, 11032, 1444), 132, (512, 3)),  # its score pass (data columns): 44 tiles -> 132
+    ((8, 6, 21140, 1444), 132, (1444, 1)),  # B2 / B3 at k = 8: 664 tiles fill the card
+    ((179, 78, 21084, 1444), 132, (1444, 1)),  # the search's launch
+    ((1, 78, 1005, 301), 132, (301, 1)),  # fewer than 16 K slices: never split
+])
+def test_x_split_fills_the_waves(shape, n_sm, want):
+    """The float32 first product's K split: none while the tiles fill the
+    card; else the split count (each >= 8 K slices of 32) whose blocks
+    fill whole waves best, the splits covering K once."""
+    G, M, N, K = shape
+    kchunk, nsplit = gs.x_split(G, M, N, K, n_sm)
+    assert (kchunk, nsplit) == want
+    assert (nsplit - 1) * kchunk < K <= nsplit * kchunk
+    assert nsplit == 1 or (kchunk % 64 == 0 and kchunk >= 8 * 32)
+
+
 @pytest.mark.parametrize("pitch", [300, 304, 320])
 def test_product_plain_versions_on_a_padded_view(pitch):
     """gemm_xat / gemm_ga on CPU tensors: the plain products, on a padded

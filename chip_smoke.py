@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs six phases and fails (non-zero exit) if any fails:
+checkout, then runs seven phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
@@ -37,7 +37,22 @@ checkout, then runs six phases and fails (non-zero exit) if any fails:
    launched, wall time and candidates/s), then the 45-candidate golden in
    linear: in float32 its top candidate must be the JAX package's linear
    top-1, (2.0 deg, 4.75 A); in bfloat16 every score must lie within 5e-3
-   of float32's and its top-1 within 3e-4 of the float32 best.
+   of float32's and its top-1 within 3e-4 of the float32 best;
+7. the grouped solver envelope: validate_grouped_on_gpu() (eight
+   configurations, kernel route against plain route under 5e-3); B1's
+   options against its plain version on one amyloid group in float32 and
+   bf16 (phase 2's gates): l1 + l2 columns without the score, and an fsc
+   half-set's j-dependent z-Gram; the time per call at G = 179 in bf16 of
+   the lsq solve beside the solve with an l2 column, with l1 + l2, and an
+   fsc half-set solve; then phase 4's search under ridge, lasso,
+   elasticnet, lreg, thresh_fraction 0.1, the four other score metrics
+   and fsc mode 2 (wall, candidates/s, build / solve / score seconds,
+   retry rounds, B1 launches, peak memory, top-1; every score and the
+   best volume finite, B1 launched), each beside its 45-candidate golden
+   in float32 and bf16 (every bf16 score within 5e-3 of float32's); and a
+   report for ROADMAP C10: float32 searches of phase 4, phase 6 and the
+   elasticnet and ssim searches beside their bf16 runs (top-10 overlap,
+   Spearman, largest delta against the reference's bf16 contract).
 
 The last two lines of standard output are the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them lists each
@@ -118,6 +133,13 @@ def _real_size_grid():
     return build_candidate_grid(0.5, 45.0, 0.25, 4.0, 5.0, 0.08, handedness="left")
 
 
+def _golden_grid():
+    """Phases 3, 6 and 7's 45-candidate golden grid (twists x rises)."""
+    from helicon_tpu_torch.denovo3d import build_candidate_grid
+
+    return build_candidate_grid(1.0, 3.0, 0.25, 4.45, 5.06, 0.15, handedness="left")
+
+
 def _amyloid_setup():
     """Phase 4's geometry and tables as reconstruct_grid derives them: the
     amyloid at 2 A/px, tube 110 A, the grid's rises, default settings."""
@@ -159,11 +181,14 @@ def _amyloid_setup():
                 n_pairs=n_pairs, n_ops=n_ops, C_u=len(u))
 
 
-def _amyloid_groups(device, cdt, twists):
+def _amyloid_groups(device, cdt, twists, pid_mask=None):
     """Solve inputs of phase 4's twist groups for ``twists`` (one group
     each, G = len(twists)), built by the port on ``device`` as
-    reconstruct_grid builds them."""
+    reconstruct_grid builds them (with pid_mask (l2, d2): an fsc half-set's
+    inputs), and each candidate's data-row count (G, R), the scale of a
+    per-row regularization (grid.py)."""
     import numpy as np
+    import torch
 
     from helicon_tpu_torch.denovo3d import grid as G
     from helicon_tpu_torch.denovo3d.group_solve import GroupInputs, group_inputs
@@ -177,7 +202,7 @@ def _amyloid_groups(device, cdt, twists):
     n_copies, n_pairs, n_ops = a["n_copies"], a["n_pairs"], a["n_ops"]
     hmax = (n_ops - 1) // 2
     ops_h = np.arange(-hmax, hmax + 1).astype(np.int32)
-    inp = None
+    inp, rows = None, []
     for gi, twist in enumerate(twists):
         rp = rp_all[tw_all == np.float32(twist)]
         rpad, m, ch_u, cc_u, pidx, pval, _ = G._group_tables(
@@ -188,7 +213,8 @@ def _amyloid_groups(device, cdt, twists):
                                     geom.cylindrical_mask(), geom.cell_valid_mask(), cdt,
                                     device)
         tens = build_candidate_tensors_grouped(shared, geom, region, rpad, np.sqrt(m),
-                                               pidx, pval)
+                                               pidx, pval, pid_mask=pid_mask)
+        rows.append(np.maximum(m.sum(axis=1), 1.0) * np.float32(geom.d2 * geom.l2))
         tens["lb"], tens["ub"] = G._box_bounds(
             G._positive(SolveConfig(), rpad, float(twist), geom.l3), tens["ub_raw"])
         one = group_inputs(shared, tens)
@@ -196,7 +222,7 @@ def _amyloid_groups(device, cdt, twists):
             inp = GroupInputs.empty(len(twists), one)
         inp.put(gi, one)
         del shared, tens, one
-    return geom, a["C_u"], inp
+    return geom, a["C_u"], inp, torch.from_numpy(np.stack(rows).astype(np.float32)).to(device)
 
 
 def _streamed(t, passes: int) -> int:
@@ -206,24 +232,26 @@ def _streamed(t, passes: int) -> int:
     return n * passes if n > L2_BYTES else n
 
 
-def _group_work(inp, iters, a_passes: int = 1) -> tuple:
+def _group_work(inp, iters, a_passes: int = 1, with_score: bool = True) -> tuple:
     """(bytes, product FLOP, other FLOP) the grouped solve needs: each
     input read once, except those larger than the L2 (A_top, af, deg at
     phase 4's size), read once per matvec (A_top ``a_passes`` times: 2 for
-    a design whose two products each stream it); the score pass reads
-    A_top's data rows once more; x and the scores written once. Two
-    products per matvec and the score's data-column product; the z-Gram
-    mix, the op-axis glue and the vector updates."""
+    a design whose two products each stream it); with the score, its pass
+    reads A_top's data rows once more; x and the scores written once. Two
+    products per matvec and, with the score, its data-column product; the
+    z-Gram mix (once more for the score), the op-axis glue and the vector
+    updates."""
     G, R, C_u, O, l3, d3sq = inp.shape
     M, rows, nd = R * l3, inp.a_top.shape[1], C_u * inp.d2
     nm = _matvecs(*iters)
-    mma = G * (nm * 2 * 2 * M * rows * d3sq + 2 * M * nd * d3sq)
-    simt = G * ((nm + 1) * 2 * M * l3 * nd + nm * R * d3sq * O * l3 * (4 * l3 + 2 * O + 4)
+    sc = int(with_score)
+    mma = G * (nm * 2 * 2 * M * rows * d3sq + sc * 2 * M * nd * d3sq)
+    simt = G * ((nm + sc) * 2 * M * l3 * nd + nm * R * d3sq * O * l3 * (4 * l3 + 2 * O + 4)
                 + nm * 10 * M * d3sq)
     small = (inp.gz, inp.mz, inp.cn, inp.mask, inp.rhs, inp.lb, inp.ub, inp.bn)
     nbytes = (_streamed(inp.a_top, a_passes * nm) + _streamed(inp.af, nm)
               + _streamed(inp.deg, nm) + _nbytes(*small)
-              + G * nd * d3sq * inp.a_top.element_size() + 4 * G * (M * d3sq + R))
+              + sc * G * nd * d3sq * inp.a_top.element_size() + 4 * G * (M * d3sq + R))
     return nbytes, mma, simt
 
 
@@ -244,7 +272,7 @@ def phase_kernel_vs_plain(device) -> dict:
              ("bfloat16", torch.bfloat16, 1e-3, 5e-3, [2.0]),
              ("bfloat16", torch.bfloat16, 1e-3, 5e-3, main_twists))
     for name, cdt, score_tol, x_tol, twists in cases:
-        geom, C_u, inp = _amyloid_groups(device, cdt, twists)
+        geom, C_u, inp, _ = _amyloid_groups(device, cdt, twists)
         G = len(twists)
         x_k, s_k = gs.solve_group(inp, *ITERS)
         x_p, s_p = gs.solve_group_reference(inp, *ITERS)
@@ -337,10 +365,10 @@ def phase_golden(device, interpolation="nn", top1=(2.0, 4.75)) -> None:
     bf16 score delta, helicon_tpu/denovo3d/grid.py:1061-1064)."""
     import numpy as np
 
-    from helicon_tpu_torch.denovo3d import build_candidate_grid, reconstruct_grid
+    from helicon_tpu_torch.denovo3d import reconstruct_grid
 
     img = np.load(AMYLOID)
-    tw, ri = build_candidate_grid(1.0, 3.0, 0.25, 4.45, 5.06, 0.15, handedness="left")
+    tw, ri = _golden_grid()
     phase = 3 if interpolation == "nn" else 6
     f32 = None
     for dtype in ("float32", "auto"):
@@ -375,39 +403,34 @@ def phase_real_size(device, interpolation="nn"):
     """Phase 4 (and 6): the amyloid search at its own pixel size; returns
     the result and the group-solve kernel launches of the run."""
     import numpy as np
-    import torch
 
-    from helicon_tpu_torch.denovo3d import group_solve, reconstruct_grid
-
-    img = np.load(AMYLOID)
     tw, ri = _real_size_grid()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    group_solve.launches = 0
-    t0 = time.perf_counter()
-    res = reconstruct_grid(img, apix=2.0, twists=tw, rises=ri, tube_diameter=110.0,
-                           cg_iters=10, fista_iters=16, power_iters=2,
-                           return_best_volume=True, interpolation=interpolation, device=device)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = group_solve.launches
+    res, launches, wall, peak = _search(device, tw, ri, return_best_volume=True,
+                                        interpolation=interpolation)
     geom, eff = res.geom, res.effective
     print(f"phase {4 if interpolation == 'nn' else 6} [{interpolation}]: {len(tw)} candidates, "
           f"{eff['n_groups']} groups of R={eff['R']}, "
           f"G={eff['groups_per_launch']} groups per launch, C_u={eff['C_u']}, "
           f"d2={geom.d2} l2={geom.l2} d3={geom.d3} l3={geom.l3}, {eff['compute_dtype']}: "
           f"{wall:.3f} s wall incl. best volume, {len(tw) / wall:.1f} candidates/s, "
-          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"{launches} kernel launches; operator build {eff['build_s']:.3f} s, solve "
+          f"peak {peak:.2f} GiB, {launches} kernel launches; operator build {eff['build_s']:.3f} s, solve "
           f"{eff['solve_s']:.3f} s; top-1 {tuple(float(v) for v in res.top(1)[0])}", flush=True)
-    if launches <= 0:
-        raise AssertionError("the search did not launch the group-solve kernel")
-    if not np.all(np.isfinite(res.scores)):
-        raise AssertionError("non-finite scores")
-    bv = res.best_volume
-    if bv is None or bv.shape != (geom.l3, geom.d3, geom.d3) or not np.all(np.isfinite(bv)):
-        raise AssertionError("best volume missing, misshapen or non-finite")
+    _check_search(res, launches, interpolation)
     return res, launches
+
+
+def _check_search(res, launches: int, label: str) -> None:
+    """A search's result: B1 launched, every score finite, the best volume
+    finite and of shape (l3, d3, d3)."""
+    import numpy as np
+
+    geom, bv = res.geom, res.best_volume
+    if launches <= 0:
+        raise AssertionError(f"{label}: the search did not launch the group-solve kernel")
+    if not np.all(np.isfinite(res.scores)):
+        raise AssertionError(f"{label}: non-finite scores")
+    if bv is None or bv.shape != (geom.l3, geom.d3, geom.d3) or not np.all(np.isfinite(bv)):
+        raise AssertionError(f"{label}: best volume missing, misshapen or non-finite")
 
 
 def _top_candidates(device, res, n: int):
@@ -636,6 +659,186 @@ def phase_single_candidate(device, res) -> dict:
     return dict(launches=launches, rows=rows)
 
 
+# phase 7's full-width configurations (reconstruct_grid keyword arguments)
+ENVELOPE = (
+    ("ridge", dict(algorithm=dict(model="ridge"))),
+    ("lasso", dict(algorithm=dict(model="lasso"))),
+    ("elasticnet", dict(algorithm=dict(model="elasticnet"))),
+    ("lreg", dict(algorithm=dict(model="lreg"))),
+    ("thresh", dict(thresh_fraction=0.1)),
+    ("ssim", dict(score_metric="ssim")),
+    ("ms_ssim", dict(score_metric="ms_ssim")),
+    ("mutual_information", dict(score_metric="mutual_information")),
+    ("composite", dict(score_metric="composite")),
+    ("fsc2", dict(fsc_test=2)),
+)
+# elasticnet's per-row coefficients at regularization_from_algorithm's
+# defaults (alpha 1e-4, l1_ratio 0.5): l1 = l2 = 5e-5 per data row
+EN_PER_ROW = 5e-5
+
+
+def phase_envelope_kernel(device) -> dict:
+    """Phase 7 (a)-(b): validate_grouped_on_gpu, then B1's options against
+    the plain version on the same CUDA tensors, on one amyloid group
+    (twist 2.0 deg) in float32 and bf16 (phase 2's gates): l1 + l2 columns
+    (elasticnet's defaults) without the score, and an fsc half-set's
+    j-dependent z-Gram (mode 2's first half) with it; then, at phase 4's G
+    = 179 in bf16, the time per call of the lsq solve, of the solve with
+    an l2 column, with l1 + l2, and of an fsc half-set solve."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.denovo3d import group_solve as gs
+    from helicon_tpu_torch.denovo3d.solver import _pid_split_masks
+
+    v = gs.validate_grouped_on_gpu()
+    print(f"phase 7: validate_grouped_on_gpu {json.dumps(v)}", flush=True)
+    if not v["ok"]:
+        raise AssertionError(f"validate_grouped_on_gpu failed: {v}")
+    half = _pid_split_masks(_amyloid_setup()["geom"], 2)[0][0]
+    out = {}
+    for name, cdt, score_tol, x_tol in (("float32", torch.float32, 1e-4, 1e-3),
+                                        ("bfloat16", torch.bfloat16, 1e-3, 5e-3)):
+        for option in ("l1_l2_no_score", "fsc_half"):
+            fsc = option == "fsc_half"
+            _, _, inp, rows = _amyloid_groups(device, cdt, [2.0], pid_mask=half if fsc else None)
+            kw = {} if fsc else dict(l1=rows * EN_PER_ROW, l2=rows * EN_PER_ROW, with_score=False)
+            x_k, s_k = gs.solve_group(inp, *ITERS, **kw)
+            x_p, s_p = gs.solve_group_reference(inp, *ITERS, **kw)
+            torch.cuda.synchronize()
+            score_err = float((s_k - s_p).abs().max())
+            x_rel = float((x_k - x_p).abs().max() / x_p.abs().max().clamp_min(1e-30))
+            print(f"phase 7 [{option}, {name}, G=1]: score abs err {score_err:.3e} (limit "
+                  f"{score_tol:g}), x rel err {x_rel:.3e} (limit {x_tol:g}), |x| max "
+                  f"{float(x_k.abs().max()):.4g}", flush=True)
+            if not bool(torch.isfinite(x_k).all()) or not (score_err <= score_tol
+                                                            and x_rel <= x_tol):
+                raise AssertionError(f"B1 {option} ({name}) differs from plain: scores "
+                                     f"{score_err}, x {x_rel} relative")
+            out[(option, name)] = dict(score_abs_err=score_err, x_rel_err=x_rel)
+            del inp, x_k, x_p
+
+    twists = np.unique(_real_size_grid()[0])
+    _, _, inp, rows = _amyloid_groups(device, torch.bfloat16, twists)
+    G, R, C_u, O, l3, d3sq = inp.shape
+    l1c = l2c = rows * EN_PER_ROW
+    ms_lsq = _time_ms(lambda: gs.solve_group(inp, *ITERS), 2)
+    ms_l2 = _time_ms(lambda: gs.solve_group(inp, *ITERS, l2=l2c, with_score=False), 2)
+    ms_en = _time_ms(lambda: gs.solve_group(inp, *ITERS, l1=l1c, l2=l2c, with_score=False), 2)
+    plain_en = _time_ms(
+        lambda: gs.solve_group_reference(inp, *ITERS, l1=l1c, l2=l2c, with_score=False), 1)
+    nbytes, mma, simt = _group_work(inp, ITERS, with_score=False)
+    # the ridge term reads x once more per matvec
+    nm = _matvecs(*ITERS)
+    en_bound, en_by = _bound(nbytes + nm * 4 * G * R * l3 * d3sq, mma, simt, bf16=True)
+    del inp
+    torch.cuda.empty_cache()
+    _, _, inp_h, _ = _amyloid_groups(device, torch.bfloat16, twists, pid_mask=half)
+    ms_half = _time_ms(lambda: gs.solve_group(inp_h, *ITERS), 2)
+    nbytes, mma, simt = _group_work(inp_h, ITERS)
+    # the j-dependent z-Gram (larger than the L2) is read by every matvec
+    nbytes += _streamed(inp_h.gz, nm + 1) - _nbytes(inp_h.gz)
+    half_bound, half_by = _bound(nbytes, mma, simt, bf16=True)
+    gz_gb = _nbytes(inp_h.gz) / 1e9
+    del inp_h
+    torch.cuda.empty_cache()
+    print(f"phase 7 [bfloat16, G={G}]: lsq {ms_lsq:.3f} ms, with an l2 column {ms_l2:.3f} ms, "
+          f"with l1 + l2 {ms_en:.3f} ms (plain {plain_en:.3f} ms, bound {en_bound:.3f} ms, "
+          f"{en_by}) per call; an fsc half-set solve {ms_half:.3f} ms (bound {half_bound:.3f} "
+          f"ms, {half_by}; its z-Gram {gz_gb:.2f} GB)", flush=True)
+    out["timing"] = dict(lsq_ms=ms_lsq, l2_ms=ms_l2, ms=ms_en, plain_ms=plain_en,
+                         bound_ms=en_bound, bound_by=en_by, fsc_half_ms=ms_half,
+                         fsc_half_bound_ms=half_bound, fsc_half_bound_by=half_by)
+    return out
+
+
+def _search(device, tw, ri, **kw):
+    """One reconstruct_grid on the amyloid with B1's launches counted:
+    returns (result, launches, wall s, peak GiB)."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.denovo3d import group_solve, reconstruct_grid
+
+    img = np.load(AMYLOID)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    group_solve.launches = 0
+    t0 = time.perf_counter()
+    res = reconstruct_grid(img, apix=2.0, twists=tw, rises=ri, tube_diameter=110.0,
+                           cg_iters=10, fista_iters=16, power_iters=2, device=device, **kw)
+    torch.cuda.synchronize()
+    return (res, group_solve.launches, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_envelope_search(device) -> dict:
+    """Phase 7 (c): phase 4's 2,327-candidate search (bf16, best-volume
+    re-solve) under each configuration of ENVELOPE, with its times, retry
+    rounds, B1 launches, peak memory and top-1; every score and the volume
+    finite and B1 launched. Then the 45-candidate golden grid of the same
+    configuration in float32 and bf16: every bf16 score within 5e-3 of
+    float32's. Returns each configuration's full-width result."""
+    import numpy as np
+
+    tw, ri = _real_size_grid()
+    gtw, gri = _golden_grid()
+    out = {}
+    for name, kw in ENVELOPE:
+        res, launches, wall, peak = _search(device, tw, ri, return_best_volume=True, **kw)
+        e = res.effective
+        print(f"phase 7 [{name}]: {len(tw)} candidates, {wall:.3f} s wall incl. best volume, "
+              f"{len(tw) / wall:.1f} candidates/s; build {e['build_s']:.3f} s, solve "
+              f"{e['solve_s']:.3f} s, score {e['score_s']:.3f} s (in kernel: "
+              f"{e['score_in_kernel']}); retry rounds {e['retry_rounds']}; {launches} B1 "
+              f"launches; peak {peak:.2f} GiB; top-1 "
+              f"{tuple(float(v) for v in res.top(1)[0])}", flush=True)
+        _check_search(res, launches, name)
+        g = [_search(device, gtw, gri, return_best_volume=False, compute_dtype=d, **kw)[0]
+             for d in ("float32", "auto")]
+        delta = float(np.abs(g[1].scores - g[0].scores).max())
+        print(f"phase 7 [{name}] golden: max |bf16 - float32| {delta:.3e} (limit 5e-3); "
+              f"top-1 float32 {tuple(float(v) for v in g[0].top(1)[0][:2])}, bf16 "
+              f"{tuple(float(v) for v in g[1].top(1)[0][:2])}", flush=True)
+        if not (delta <= 5e-3):
+            raise AssertionError(f"{name}: golden bf16 scores {delta} off float32's")
+        out[name] = dict(res=res, launches=launches, wall=wall, peak=peak, golden_delta=delta)
+    return out
+
+
+def phase_c10(device, bf16_runs) -> dict:
+    """ROADMAP C10: float32 runs of the full-width searches of
+    ``bf16_runs`` ({name: (bf16 scores, reconstruct_grid kwargs)}) beside
+    their bf16 runs: top-10 overlap, Spearman's rho and the largest score
+    delta, against the reference's bf16 contract (its grid.py:1061-1064:
+    identical top-10, Spearman > 0.9999, max delta ~3e-4). A report: the
+    result is printed, not gated."""
+    import numpy as np
+    from scipy.stats import spearmanr
+
+    tw, ri = _real_size_grid()
+    out = {}
+    for name, (s_bf, kw) in bf16_runs.items():
+        res, launches, wall, peak = _search(device, tw, ri, return_best_volume=False,
+                                            compute_dtype="float32", **kw)
+        s32 = res.scores
+        if not np.all(np.isfinite(s32)):
+            raise AssertionError(f"C10 {name}: non-finite float32 scores")
+        top = lambda s: set(np.argsort(-s)[:10].tolist())  # noqa: E731
+        overlap = len(top(s32) & top(s_bf))
+        rho = float(spearmanr(s32, s_bf)[0])
+        delta = float(np.abs(s32 - s_bf).max())
+        met = overlap == 10 and rho > 0.9999 and delta <= 3e-4
+        print(f"C10 [{name}]: float32 search {wall:.3f} s ({len(tw) / wall:.1f} candidates/s, "
+              f"G={res.effective['groups_per_launch']}, peak {peak:.2f} GiB); against bf16: "
+              f"top-10 overlap {overlap}/10, Spearman {rho:.6f}, max |delta| {delta:.3e}; "
+              f"float32 top-1 {tuple(float(v) for v in res.top(1)[0][:2])}; the reference's "
+              f"bf16 contract {'met' if met else 'NOT met'}", flush=True)
+        out[name] = dict(overlap=overlap, spearman=rho, max_delta=delta, met=met,
+                         wall=wall)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -666,9 +869,18 @@ def main() -> int:
         raise AssertionError(f"phase 2 solved groups {k['groups']}, phase 4 {groups} "
                              "(n_groups, R, C_u, n_ops)")
     single = phase_single_candidate(device, res)
+    nn_scores = res.scores
     del res
-    phase_real_size(device, interpolation="linear")
+    lin, _ = phase_real_size(device, interpolation="linear")
     phase_golden(device, interpolation="linear", top1=LINEAR_GOLDEN_TOP1)
+    env_kernel = phase_envelope_kernel(device)
+    env = phase_envelope_search(device)
+    c10 = phase_c10(device, {
+        "nn": (nn_scores, {}), "linear": (lin.scores, dict(interpolation="linear")),
+        "elasticnet": (env["elasticnet"]["res"].scores, dict(ENVELOPE)["elasticnet"]),
+        "ssim": (env["ssim"]["res"].scores, dict(ENVELOPE)["ssim"]),
+    })
+    t7 = env_kernel["timing"]
 
     def entry(name, src, replaces, launches, r, **extra):
         return dict(name=name, route="cuda", source=CSRC + src, replaces=replaces,
@@ -685,7 +897,21 @@ def main() -> int:
               products=k["products"],
               float32_one_group=dict(ms=f32["ms"], plain_ms=f32["plain_ms"],
                                      bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
-                                     products=f32["products"])),
+                                     products=f32["products"]),
+              # phase 7: elasticnet's l1 + l2 call at G = 179 (launches on
+              # its full-width search, retry rounds included), an fsc
+              # half-set call, and the options' errors against plain
+              regularized=dict(config="elasticnet", ms=t7["ms"], plain_ms=t7["plain_ms"],
+                               bound_ms=t7["bound_ms"], bound_by=t7["bound_by"],
+                               l2_only_ms=t7["l2_ms"], lsq_ms=t7["lsq_ms"],
+                               launches=env["elasticnet"]["launches"],
+                               retry_rounds=env["elasticnet"]["res"].effective["retry_rounds"],
+                               x_rel_err=env_kernel[("l1_l2_no_score", "float32")]["x_rel_err"]),
+              fsc=dict(half_ms=t7["fsc_half_ms"], bound_ms=t7["fsc_half_bound_ms"],
+                       bound_by=t7["fsc_half_bound_by"], launches=env["fsc2"]["launches"],
+                       score_abs_err=env_kernel[("fsc_half", "float32")]["score_abs_err"]),
+              c10={k: {f: v[f] for f in ("overlap", "spearman", "max_delta", "met")}
+                   for k, v in c10.items()}),
         entry("solve_candidate", "candidate_solve.cu", "helicon_tpu/denovo3d/pallas_solver.py:100",
               single["launches"]["solve_candidate"], b2,
               bound_two_pass_ms=b2["bound_two_pass_ms"], products=b2["products"],

@@ -38,18 +38,18 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # hts_*, then candidate_solve.cu's hcs_*
 _SIGNATURES = {
     "hts_gemm_xat": [_P] * 4 + [_I] * 10 + [_P],
-    "hts_glue_data": [_P] * 3 + [_I] * 8 + [_P],
+    "hts_glue_data": [_P] * 3 + [_I] * 9 + [_P],
     "hts_glue_sym": [_P] * 7 + [_I] * 9 + [_P],
     "hts_gemm_ga": [_P] * 3 + [_I] * 9 + [_P],
-    "hts_reduce_mask": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "hts_reduce_mask": [_P] * 5 + [_I] * 5 + [_P],
     "hts_cg_init": [_P] * 5 + [_I, _I, _P],
     "hts_cg_step": [_P] * 5 + [_I, _I, _P],
     "hts_normalize": [_P, _P, _I, _I, _P],
     "hts_rayleigh": [_P, _P, _P, _F, _I, _I, _P],
     "hts_fista_init": [_P] * 4 + [_I, _I, _P],
-    "hts_fista_step": [_P] * 7 + [_F, _I, _I, _P],
+    "hts_fista_step": [_P] * 8 + [_F, _I, _I, _P],
     "hts_apply_mask": [_P, _P, _I, _I, _P],
-    "hts_score": [_P] * 6 + [_I] * 7 + [_P],
+    "hts_score": [_P] * 6 + [_I] * 8 + [_P],
     "hcs_sym_fold": [_P] * 4 + [_I] * 8 + [_P],
     "hcs_reduce_l2_mask": [_P] * 5 + [_I] * 3 + [_P],
     "hcs_seed_ones": [_P, _I, _I, _P],

@@ -18,10 +18,12 @@ logger = logging.getLogger(__name__)
 
 
 def _gaussian_blur(data: torch.Tensor, sigmas) -> torch.Tensor:
-    """Separable FFT-domain Gaussian blur (anti-alias prefilter)."""
+    """Separable FFT-domain Gaussian blur (anti-alias prefilter) over the
+    trailing len(sigmas) axes; leading axes are a batch."""
     data = torch.as_tensor(data, dtype=torch.float32)
-    fft = torch.fft.fftn(data)
-    for ax, sigma in enumerate(sigmas):
+    axes = tuple(range(data.ndim - len(sigmas), data.ndim))
+    fft = torch.fft.fftn(data, dim=axes)
+    for ax, sigma in zip(axes, sigmas):
         if sigma <= 0:
             continue
         f = np.fft.fftfreq(data.shape[ax]).astype(np.float32)
@@ -29,7 +31,7 @@ def _gaussian_blur(data: torch.Tensor, sigmas) -> torch.Tensor:
         shape = [1] * data.ndim
         shape[ax] = -1
         fft = fft * torch.as_tensor(g, device=data.device).reshape(shape)
-    return torch.fft.ifftn(fft).real
+    return torch.fft.ifftn(fft, dim=axes).real
 
 
 def down_scale(data, target_apix: float, apix_orig: float) -> torch.Tensor:

@@ -470,7 +470,7 @@ def _solve_cuda(run, A, gz, b1, pok, mask, rhs, scal, d2, cg_iters, fista_iters,
     # unpadded, so the products copy it in 8-byte pieces anyway
     def matvec(src, dst):
         _xat(run, src, A, T, xb, rows)
-        run("hts_glue_data", T, gz, Gm, k, 1, l3, C, d2, rows, rows, bf16)
+        run("hts_glue_data", T, gz, Gm, k, 1, l3, C, d2, rows, rows, 1, bf16)
         run("hcs_sym_fold", T, b1, pok, Gm, k, l3, O * l3, PL, nd, d3sq, rows, bf16)
         _ga(run, Gm, A, part, kchunk, nsplit)
         run("hcs_reduce_l2_mask", part, src, scal, mask, dst, nsplit, k, n)
@@ -584,7 +584,7 @@ def score_candidate_kernel(fin: FullInputs, cg_iters: int, fista_iters: int, pow
     # rhs = (u W2) * mask: u in the data columns, zeros in the op columns
     run("hcs_pack_cols", fin.u, Gm, k, l3, nd, rows, bf16)
     _ga(run, Gm, A, part, kchunk, nsplit)
-    run("hts_reduce_mask", part, fin.mask, rhs, nsplit, k, l3, d3sq, l3)
+    run("hts_reduce_mask", part, fin.mask, None, None, rhs, nsplit, k, l3, d3sq, l3)
     x, buf = _solve_cuda(run, A, fin.gz, fin.b1, fin.pok, fin.mask, rhs, fin.scal, fin.d2,
                          cg_iters, fista_iters, power_iters)
     # the data term of x: the data columns of the first product, the Gz
@@ -592,10 +592,10 @@ def score_candidate_kernel(fin: FullInputs, cg_iters: int, fista_iters: int, pow
     # the mask the reduction applies changes no sum)
     T, dt = buf["T"], buf["q"]
     _xat(run, x, A, T, buf["xb"], nd)
-    run("hts_glue_data", T, fin.gz, Gm, k, 1, l3, C, fin.d2, rows, rows, bf16)
+    run("hts_glue_data", T, fin.gz, Gm, k, 1, l3, C, fin.d2, rows, rows, 1, bf16)
     run("hcs_pack_cols", None, Gm, k, l3, nd, rows, bf16)
     _ga(run, Gm, A, part, kchunk, nsplit)
-    run("hts_reduce_mask", part, fin.mask, dt, nsplit, k, l3, d3sq, l3)
+    run("hts_reduce_mask", part, fin.mask, None, None, dt, nsplit, k, l3, d3sq, l3)
     score = torch.empty(k, dtype=torch.float32, device=dev)
     run("hcs_score", x, rhs, dt, fin.b_norm, score, k, n)
     return x, score
@@ -662,7 +662,7 @@ def validate_on_gpu() -> dict:
 
     x = _cg(N2, rhs, CG)
     x2 = _fista(N2, rhs, x, lb, ub, 0.0, FI, _power_iteration(N2, rhs, PW)) * mask_f
-    score_ref = float(_cosine((ops["P"](x2) * rowv).ravel(), b_eff.ravel()))
+    score_ref = float(_cosine((ops["P"](x2) * rowv)[None], b_eff[None])[0])
     fin = full_kernel_inputs(geom, ops, 30.0, 2.5, ch, cc, cv, ops_hc, torch.float32,
                              scal=(0.0, 0.0, lb, ub))
     x2_k, sc = score_candidate_kernel(fin, CG, FI, PW)

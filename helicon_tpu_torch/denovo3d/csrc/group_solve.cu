@@ -2,7 +2,11 @@
 // denovo3d grid search, with the cosine score, for Hopper (sm_90a).
 //
 // Replaces helicon_tpu/denovo3d/pallas_solver.py::_group_kernel (the v3
-// grouped Pallas kernel) for the lsq + cosine configuration.
+// grouped Pallas kernel) with its options: an optional per-candidate l2
+// column (the ridge term of every matvec, added in the reduction after the
+// second product), an optional l1 column (the soft-threshold of FISTA's
+// prox), the score or none, and a j-dependent z-Gram for the fsc half-set
+// solves (an element stride js in the data glue and the score).
 //
 // What bounds it on the card: every matvec is two products against the
 // group's stacked operand A_top = [Wsum; Mxy] (rows x d3^2), T = X . A_top^T
@@ -69,36 +73,49 @@ __device__ __forceinline__ void stf(float* p, float v) { *p = v; }
 __device__ __forceinline__ void stf(bf16_t* p, float v) { *p = __float2bfloat16(v); }
 
 // out[g, m, n] = mask[m % l3, n] * sum_s part[s, g, m, n], splits in order
-// (no mask when mask is null)
+// (no mask when mask is null). With an l2 column (one value per candidate
+// of l3 rows) the ridge term comes in before the mask:
+// out = (sum + l2[cand] * x[g, m, n]) * mask, x in float32.
 __global__ void reduce_mask_kernel(const float* __restrict__ part, const float* __restrict__ mask,
+                                   const float* __restrict__ x, const float* __restrict__ l2,
                                    float* __restrict__ out, int nsplit, size_t total, int M,
                                    int N, int l3) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int k = 0; k < nsplit; ++k) s += part[(size_t)k * total + i];
+    if (l2) s = __fadd_rn(s, __fmul_rn(l2[i / ((size_t)l3 * N)], x[i]));
     const size_t n = i % N;
     const size_t m = (i / N) % M;
     out[i] = mask ? s * mask[(m % l3) * N + n] : s;
   }
 }
 
-// Data columns: u[r, m, col] = sum_n Gz[r, c, m, n] T[r, n, col], c = col / d2.
-// T's rows are rows elements apart, Gm's ldg.
+// The z-Gram of candidate cand, copy c, at in-copy column j: element (m, n)
+// lies at [(m * l3 + n) * js]. js = 1: Gz (.., C_u, l3, l3), the same for
+// every j; js = d2: the j-dependent Gz (.., C_u, l3, l3, d2) of an fsc
+// half-set solve.
+__device__ __forceinline__ const float* gram_at(const float* gz, size_t cand, int C_u, int c,
+                                                int j, int l3, int js) {
+  return gz + (cand * C_u + c) * l3 * l3 * (size_t)js + (js > 1 ? j : 0);
+}
+
+// Data columns: u[r, m, col] = sum_n Gz[r, c, m, n(, j)] T[r, n, col],
+// c = col / d2, j = col % d2. T's rows are rows elements apart, Gm's ldg.
 template <typename T>
 __global__ void glue_data_kernel(const float* __restrict__ Tm, const float* __restrict__ gz,
                                  T* __restrict__ Gm, int R, int l3, int C_u, int d2, int rows,
-                                 int ldg) {
+                                 int ldg, int js) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= C_u * d2) return;
   const size_t cand = (size_t)blockIdx.z * R + blockIdx.y;
   const size_t base = cand * l3 * rows + col, gbase = cand * l3 * ldg + col;
-  const float* gzc = gz + (cand * C_u + col / d2) * l3 * l3;
+  const float* gzc = gram_at(gz, cand, C_u, col / d2, col % d2, l3, js);
   float tn[L3MAX];
   for (int n = 0; n < l3; ++n) tn[n] = Tm[base + (size_t)n * rows];
   for (int m = 0; m < l3; ++m) {
-    float u = gzc[m * l3] * tn[0];
-    for (int n = 1; n < l3; ++n) u += gzc[m * l3 + n] * tn[n];
+    float u = gzc[(size_t)m * l3 * js] * tn[0];
+    for (int n = 1; n < l3; ++n) u += gzc[(size_t)(m * l3 + n) * js] * tn[n];
     stf(Gm + gbase + (size_t)m * ldg, u);
   }
 }
@@ -235,16 +252,23 @@ __global__ void fista_init_kernel(float* x, float* y, const float* __restrict__ 
   }
 }
 
-// x_new = clip(y - eta (N y - rhs)); y = x_new + coef (x_new - x); x = x_new
+// x_new = clip(y - eta (N y - rhs)); y = x_new + coef (x_new - x); x = x_new.
+// With an l1 column the prox soft-thresholds by eta * l1 before the clip.
 __global__ void fista_step_kernel(float* x, float* y, const float* __restrict__ Ny,
                                   const float* __restrict__ rhs, const float* __restrict__ eta,
                                   const float* __restrict__ lb, const float* __restrict__ ub,
-                                  float coef, int n) {
+                                  const float* __restrict__ l1, float coef, int n) {
   const size_t o = (size_t)blockIdx.x * n;
   const float e = eta[blockIdx.x], lo = lb[blockIdx.x], hi = ub[blockIdx.x];
+  const float t = l1 ? __fmul_rn(e, l1[blockIdx.x]) : 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const float g = Ny[o + i] - rhs[o + i];
-    const float xn = clip(y[o + i] - e * g, lo, hi);
+    float v = y[o + i] - e * g;
+    if (l1) {
+      const float a = fmaxf(__fsub_rn(fabsf(v), t), 0.f);
+      v = v > 0.f ? a : (v < 0.f ? -a : 0.f);
+    }
+    const float xn = clip(v, lo, hi);
     y[o + i] = xn + coef * (xn - x[o + i]);
     x[o + i] = xn;
   }
@@ -259,17 +283,16 @@ __global__ void apply_mask_kernel(float* x, const float* __restrict__ mask, int 
 __global__ void score_kernel(const float* __restrict__ Tm, const float* __restrict__ gz,
                              const float* __restrict__ x, const float* __restrict__ rhs,
                              const float* __restrict__ bn, float* score, int l3, int C_u,
-                             int d2, int rows, int n) {
+                             int d2, int rows, int n, int js) {
   const size_t cand = blockIdx.x;
   const int nd = C_u * d2;
   const float* tc = Tm + cand * l3 * rows;
-  const float* gzc = gz + cand * C_u * l3 * l3;
   float acc = 0.f;
   for (int e = threadIdx.x; e < l3 * nd; e += blockDim.x) {
     const int m = e / nd, col = e % nd;
-    const float* z = gzc + ((size_t)(col / d2) * l3 + m) * l3;
+    const float* z = gram_at(gz, cand, C_u, col / d2, col % d2, l3, js) + (size_t)m * l3 * js;
     float u = 0.f;
-    for (int k = 0; k < l3; ++k) u += z[k] * tc[(size_t)k * rows + col];
+    for (int k = 0; k < l3; ++k) u += z[(size_t)k * js] * tc[(size_t)k * rows + col];
     acc += tc[(size_t)m * rows + col] * u;
   }
   const float den2 = block_sum(acc);
@@ -750,14 +773,17 @@ int hts_gemm_xat(const float* X, const void* A, float* out, void* xb, int G, int
 }
 
 // T's rows are rows elements apart, Gm's ldg (also below)
+// js: Gz's element stride, 1 (j-independent) or d2 (j-dependent; also below)
 int hts_glue_data(const float* Tm, const float* gz, void* Gm, int G, int R, int l3, int C_u,
-                  int d2, int rows, int ldg, int bf16, void* stream) {
+                  int d2, int rows, int ldg, int js, int bf16, void* stream) {
   const dim3 grid(cdiv((size_t)C_u * d2, 128), R, G);
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    glue_data_kernel<bf16_t><<<grid, 128, 0, s>>>(Tm, gz, (bf16_t*)Gm, R, l3, C_u, d2, rows, ldg);
+    glue_data_kernel<bf16_t><<<grid, 128, 0, s>>>(Tm, gz, (bf16_t*)Gm, R, l3, C_u, d2, rows, ldg,
+                                                  js);
   else
-    glue_data_kernel<float><<<grid, 128, 0, s>>>(Tm, gz, (float*)Gm, R, l3, C_u, d2, rows, ldg);
+    glue_data_kernel<float><<<grid, 128, 0, s>>>(Tm, gz, (float*)Gm, R, l3, C_u, d2, rows, ldg,
+                                                 js);
   return (int)cudaGetLastError();
 }
 
@@ -790,11 +816,13 @@ int hts_gemm_ga(const void* Gm, const void* A, float* part, int G, int M, int N,
   return (int)stream_product<true>(a, s);
 }
 
-int hts_reduce_mask(const float* part, const float* mask, float* out, int nsplit, int G, int M,
-                    int N, int l3, void* stream) {
+// x and l2 both null (no ridge term) or both set
+int hts_reduce_mask(const float* part, const float* mask, const float* x, const float* l2,
+                    float* out, int nsplit, int G, int M, int N, int l3, void* stream) {
   const size_t total = (size_t)G * M * N;
   const unsigned blocks = cdiv(total, 256) < 8192u ? cdiv(total, 256) : 8192u;
-  reduce_mask_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(part, mask, out, nsplit, total, M, N, l3);
+  reduce_mask_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(part, mask, x, l2, out, nsplit,
+                                                               total, M, N, l3);
   return (int)cudaGetLastError();
 }
 
@@ -827,9 +855,12 @@ int hts_fista_init(float* x, float* y, const float* lb, const float* ub, int nca
   return (int)cudaGetLastError();
 }
 
+// l1: null (no soft-threshold) or one value per candidate
 int hts_fista_step(float* x, float* y, const float* Ny, const float* rhs, const float* eta,
-                   const float* lb, const float* ub, float coef, int ncand, int n, void* stream) {
-  fista_step_kernel<<<ncand, NT, 0, (cudaStream_t)stream>>>(x, y, Ny, rhs, eta, lb, ub, coef, n);
+                   const float* lb, const float* ub, const float* l1, float coef, int ncand, int n,
+                   void* stream) {
+  fista_step_kernel<<<ncand, NT, 0, (cudaStream_t)stream>>>(x, y, Ny, rhs, eta, lb, ub, l1, coef,
+                                                            n);
   return (int)cudaGetLastError();
 }
 
@@ -839,10 +870,10 @@ int hts_apply_mask(float* x, const float* mask, int ncand, int n, void* stream) 
 }
 
 int hts_score(const float* Tm, const float* gz, const float* x, const float* rhs, const float* bn,
-              float* score, int G, int R, int l3, int C_u, int d2, int rows, int n,
+              float* score, int G, int R, int l3, int C_u, int d2, int rows, int n, int js,
               void* stream) {
   score_kernel<<<G * R, NT, 0, (cudaStream_t)stream>>>(Tm, gz, x, rhs, bn, score, l3, C_u, d2,
-                                                       rows, n);
+                                                       rows, n, js);
   return (int)cudaGetLastError();
 }
 

@@ -7,11 +7,15 @@ and the group's solves and scores run together (``group_solve``). G groups
 go to the device per launch, G sized from a memory budget. The best
 candidate's volume is then re-solved alone in float32.
 
-The port covers the default configuration (lsq, cosine, tilt = psi = 0)
-with nearest-neighbour or linear interpolation on one device; the other arguments raise NotImplementedError naming
-the ROADMAP item that will port them. The host tables (``_candidate_tables``,
-``_group_tables``, ``_copy_block``) are copies of the reference's numpy
-code; ``tests/test_torch_geometry.py`` pins them bit for bit.
+The port covers tilt = psi = 0 with nearest-neighbour or linear
+interpolation on one device, the models lsq, lreg, ridge, lasso and
+elasticnet (l1 / l2 columns of the kernel and the alpha-decay retry),
+every score metric, thresh_fraction, and fsc modes 2-4 (three kernel
+solves, with lsq + cosine as the reference's kernel); the other arguments
+raise NotImplementedError naming the ROADMAP item that will port them.
+The host tables (``_candidate_tables``, ``_group_tables``,
+``_copy_block``) are copies of the reference's numpy code;
+``tests/test_torch_geometry.py`` pins them bit for bit.
 """
 
 from __future__ import annotations
@@ -226,19 +230,23 @@ def _copy_block(geom, rises_key, n_copies, C_u, R_pad, copy_cache):
     return out
 
 
-def _group_bytes(geom, C_u: int, n_ops: int, R: int, cdt) -> int:
+def _group_bytes(geom, C_u: int, n_ops: int, R: int, cdt, fsc: bool = False) -> int:
     """Device bytes one group holds during a launch: A_top, the two
-    (R*l3, rows) product buffers and the per-candidate tensors."""
+    (R*l3, rows) product buffers and the per-candidate tensors; with fsc
+    also the two half-set solves' j-dependent z-Grams (d2 times Gz) and
+    their rhs."""
     d3sq, l3 = geom.d3 * geom.d3, geom.l3
     rows = C_u * geom.d2 + n_ops * d3sq
     item = torch.empty((), dtype=cdt).element_size()
     M = R * l3
+    gz = R * C_u * l3 * l3 * 4
     return (
         rows * d3sq * item
         + M * rows * (4 + item)
         + 2 * R * n_ops * l3 * d3sq * 4
-        + R * C_u * l3 * l3 * 4
+        + gz
         + 8 * M * d3sq * 4
+        + (2 * (gz * geom.d2 + M * d3sq * 4) if fsc else 0)
     )
 
 
@@ -253,15 +261,71 @@ def _groups_per_launch(per_group: int, n_groups: int, device: torch.device) -> i
     return max(1, min(n_groups, budget // max(1, per_group)))
 
 
+def _nonzero(x: torch.Tensor) -> torch.Tensor:
+    """(G, R): does each candidate's volume of x (G, R, l3, d3^2) hold a
+    nonzero voxel."""
+    return (x != 0).flatten(2).any(dim=2)
+
+
+def _retry_all_zero(solve, inp, x, l1, l2, iters):
+    """The alpha-decay retry of the reference (solver.py:842-862) as a host
+    loop of whole-launch solves: while a candidate's volume is all zero and
+    the scale exceeds 1e-7, the scale drops tenfold (in float32) and the
+    launch is solved again; each candidate keeps its first nonzero
+    solution. Returns (x, rounds)."""
+    from .solver import RETRY_DECAY, RETRY_FLOOR
+
+    found = _nonzero(x)
+    scale, rounds = np.float32(1.0), 0
+    while not bool(found.all()) and scale > RETRY_FLOOR:
+        scale = np.float32(scale * RETRY_DECAY)
+        rounds += 1
+
+        def col(c):
+            return None if c is None else c * float(scale)
+
+        x_new, _ = solve(inp, *iters, l1=col(l1), l2=col(l2), with_score=False)
+        x = torch.where(found[..., None, None], x, x_new)
+        found = found | _nonzero(x_new)
+    return x, rounds
+
+
+def _score_group(cfg, geom, ctx, wsum, rp, m, rank, x, b):
+    """Score one solved group in torch (the reference's score_one,
+    solver.py:880-912): the sqrt(m)-weighted reprojection of x (R, l3,
+    d3^2) masked by the binary rows, the thresh clip, then the cosine and,
+    for a 2D metric, the reprojection image by the group's copy ranks and
+    1/sqrt(m). Returns (cosines (R,), images (R, l2, d2) or None): the 2D
+    metrics run once over a launch's images (solver._image_scores)."""
+    from .projector_grouped import reproject_grouped
+    from .solver import _cosine, _image_of
+
+    sqrt_m = torch.sqrt(m)
+    pred, rowv_bin, rowv_w = reproject_grouped(dict(ctx, Wsum=wsum), geom, rp, sqrt_m, x)
+    pred = pred * rowv_bin
+    if cfg.thresh_fraction >= 0:
+        pred = torch.clamp_min(pred, 0.0)
+    cos = _cosine(pred, b * rowv_w)
+    if cfg.score_metric == "cosine":
+        return cos, None
+    inv_w = torch.where(sqrt_m > 0, 1.0 / sqrt_m.clamp_min(1e-30), 0.0)
+    return cos, _image_of(pred, rowv_w, rank, inv_w)
+
+
 def _grouped_scoring(
     geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
-    dy_pixel, copy_cache, device,
+    dy_pixel, copy_cache, device, solve=None,
 ):
-    """Score every candidate, G twist groups per solve launch. Returns
-    (scores (n,) float32 numpy, effective dispatch dict)."""
+    """Score every candidate, G twist groups per solve launch (the
+    counterpart of the reference's _solve_group_pallas). ``solve`` is the
+    grouped solve (group_solve.solve_group; validate_grouped_on_gpu passes
+    the plain version). Returns (scores (n,) float32 numpy, effective
+    dispatch dict)."""
     from .group_solve import GroupInputs, group_inputs, solve_group
     from .projector_grouped import build_candidate_tensors_grouped, build_group_shared
+    from .solver import _image_scores, _pid_split_masks, seed_lreg
 
+    solve = solve or solve_group
     n_cand = len(twists)
     raw_groups = [(float(t), np.where(twists == t)[0]) for t in np.unique(twists)]
     max_size = max(len(g) for _, g in raw_groups)
@@ -277,7 +341,15 @@ def _grouped_scoring(
     R = min(R_MAX, max_size)
     groups = [(t, g[s : s + R]) for t, g in raw_groups for s in range(0, len(g), R)]
     cdt = getattr(torch, cfg.compute_dtype)
-    G = _groups_per_launch(_group_bytes(geom, C_u, n_ops, R, cdt), len(groups), device)
+    fsc_masks = _pid_split_masks(geom, cfg.fsc_test) if cfg.fsc_test else None
+    G = _groups_per_launch(_group_bytes(geom, C_u, n_ops, R, cdt, fsc_masks is not None),
+                           len(groups), device)
+    regularized = cfg.l1_reg > 0 or cfg.l2_reg > 0
+    # the kernel's cosine holds for the plain lsq solve; everything else
+    # scores the returned volumes in torch
+    score_in_kernel = (cfg.score_metric == "cosine" and cfg.thresh_fraction < 0
+                       and not regularized and cfg.model != "lreg")
+    iters = (cfg.cg_iters, cfg.fista_iters, cfg.power_iters)
 
     # canonical op enumeration: k = (h + hmax) * csym + c
     hmax_p = (n_ops // geom.csym - 1) // 2
@@ -293,49 +365,96 @@ def _grouped_scoring(
     ops_h, ops_c = to_dev(ops_h), to_dev(ops_c)
     mask, cellok = to_dev(geom.cylindrical_mask()), geom.cell_valid_mask()
     region_t = to_dev(np.asarray(region, np.float32))
+    b2d = region_t.T
+    row_scale = np.float32(geom.d2 * geom.l2)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     dev_scores = []
-    build_s = solve_s = 0.0
+    build_s = solve_s = score_s = 0.0
+    rounds = 0
     for start in range(0, len(groups), G):
         t0 = time.perf_counter()
         batch = groups[start : start + G]
         tabs = [
-            _group_tables(geom, t, rise_pixels[g], n_copies, n_pairs, n_ops, C_u, R,
-                          copy_cache)[:6]
+            _group_tables(geom, t, rise_pixels[g], n_copies, n_pairs, n_ops, C_u, R, copy_cache)
             for t, g in batch
         ]
-        rp, m, ch_u, cc_u, pidx, pval = (to_dev(np.stack(c)) for c in zip(*tabs))
+        rp, m, ch_u, cc_u, pidx, pval, rank = (to_dev(np.stack(c)) for c in zip(*tabs))
         twist = to_dev(np.asarray([t for t, _ in batch], np.float32))
         positive = to_dev(np.stack([
             _positive(cfg, tab[0], t, geom.l3) for (t, _), tab in zip(batch, tabs)
         ]))
-        inp = None
+        inp, halves, ctx = None, None, []
         for gi in range(len(batch)):
             shared = build_group_shared(
                 geom, twist[gi], ch_u[gi], cc_u[gi], ops_h, ops_c, dy_pixel,
                 cfg.interpolation, mask, cellok, cdt, device,
             )
-            tens = build_candidate_tensors_grouped(
-                shared, geom, region_t, rp[gi], torch.sqrt(m[gi]), pidx[gi], pval[gi]
-            )
+            args = (shared, geom, region_t, rp[gi], torch.sqrt(m[gi]), pidx[gi], pval[gi])
+            tens = build_candidate_tensors_grouped(*args)
             tens["lb"], tens["ub"] = _box_bounds(positive[gi], tens["ub_raw"])
             one = group_inputs(shared, tens)
             if inp is None:
                 inp = GroupInputs.empty(len(batch), one)
             inp.put(gi, one)
+            if fsc_masks is not None:
+                # the half-set solves differ from the full one only in the
+                # j-dependent z-Gram, the rhs and |b|
+                for h, w in enumerate(fsc_masks):
+                    th = build_candidate_tensors_grouped(*args, pid_mask=w[0])
+                    th["lb"], th["ub"] = tens["lb"], tens["ub"]
+                    oh = group_inputs(shared, th)
+                    if halves is None:
+                        halves = [{k: torch.empty((len(batch),) + getattr(oh, k).shape[1:],
+                                                  device=device) for k in ("gz", "rhs", "bn")}
+                                  for _ in fsc_masks]
+                    for k in ("gz", "rhs", "bn"):
+                        halves[h][k][gi].copy_(getattr(oh, k)[0])
+                    del th, oh
+            if not score_in_kernel:
+                ctx.append({k: shared[k] for k in ("copies_h_u", "xy_any", "linear")})
             del shared, tens, one
         sync()
         t1 = time.perf_counter()
-        _, s = solve_group(inp, cfg.cg_iters, cfg.fista_iters, cfg.power_iters)
+        if fsc_masks is not None:
+            _, s = solve(inp, *iters)
+            s1, s2 = (solve(dataclasses.replace(inp, **hv), *iters)[1] for hv in halves)
+            s = s / 2 + (s1 + s2) / 4
+        else:
+            l1 = l2 = None
+            if regularized:
+                reg = (torch.clamp_min(m.sum(dim=2), 1.0) * float(row_scale)
+                       if cfg.reg_per_row else torch.ones(m.shape[:2], device=device))
+                l1 = reg * float(np.float32(cfg.l1_reg)) if cfg.l1_reg else None
+                l2 = reg * float(np.float32(cfg.l2_reg)) if cfg.l2_reg else None
+            x, s = solve(inp, *iters, l1=l1, l2=l2, with_score=score_in_kernel)
+            if regularized:
+                x, r = _retry_all_zero(solve, inp, x, l1, l2, iters)
+                rounds = max(rounds, r)
+            elif cfg.model == "lreg":
+                x = seed_lreg(x, 2)
         sync()
+        t2 = time.perf_counter()
+        if not score_in_kernel:
+            nd = C_u * geom.d2
+            cos, img = zip(*(
+                _score_group(cfg, geom, ctx[gi], inp.a_top[gi, :nd].reshape(C_u, geom.d2, -1),
+                             rp[gi], m[gi], rank[gi], x[gi], b2d)
+                for gi in range(len(batch))
+            ))
+            s = torch.stack(cos)
+            if cfg.score_metric != "cosine":
+                s = _image_scores(cfg.score_metric, s.flatten(), torch.cat(img), b2d)
+                s = s.reshape(len(batch), -1)
+            sync()
         build_s += t1 - t0
-        solve_s += time.perf_counter() - t1
+        solve_s += t2 - t1
+        score_s += time.perf_counter() - t2
         dev_scores.append(s)
-        del inp
+        del inp, halves
     s_all = torch.cat(dev_scores).cpu().numpy()  # (n_groups, R)
     scores = np.zeros(n_cand, np.float32)
     for i, (_, g) in enumerate(groups):
@@ -344,9 +463,12 @@ def _grouped_scoring(
         path="grouped", R=int(R), groups_per_launch=int(G), n_groups=len(groups),
         C_u=int(C_u), n_ops=int(n_ops), compute_dtype=cfg.compute_dtype,
         pad_fraction=round(1.0 - n_cand / (len(groups) * R), 4),
-        # host seconds of the operator builds and of the solves, each
-        # ended by a device synchronisation
-        build_s=build_s, solve_s=solve_s,
+        score_in_kernel=score_in_kernel,
+        # the alpha-decay retry's extra rounds of solves (0: none needed)
+        retry_rounds=int(rounds),
+        # host seconds of the operator builds, the solves and the torch
+        # scoring, each ended by a device synchronisation
+        build_s=build_s, solve_s=solve_s, score_s=score_s,
     )
     return scores, effective
 
@@ -519,9 +641,9 @@ def reconstruct_grid(
         compute_dtype=compute_dtype,
         ard_prior=float(algorithm.get("alpha", 1e-6)),
     )
-    check_in_slice(cfg)
+    check_in_slice(cfg, grouped=True)
 
-    data =prepare_data(image, apix, denoise, low_pass, transpose, horizontalize)
+    data = prepare_data(image, apix, denoise, low_pass, transpose, horizontalize)
     ny0, nx0 = data.shape
     estimated_diameter = None
     if tube_diameter < 0:

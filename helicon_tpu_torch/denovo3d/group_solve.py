@@ -2,8 +2,10 @@
 
 Counterpart of the v3 half of ``helicon_tpu/denovo3d/pallas_solver.py``
 (``grouped_pallas_inputs`` :662, ``_group_kernel`` :754,
-``solve_group_pallas`` :950) for the lsq + cosine configuration: no l1/l2
-terms, the score computed with the solve.
+``solve_group_pallas`` :950, ``validate_grouped_on_device`` :1014) with
+its options: per-candidate l2 (a ridge term in every matvec) and l1 (a
+soft-threshold in FISTA's prox) columns, the score or none
+(``with_score``), and a j-dependent z-Gram for the fsc half-set solves.
 
 One twist group of R candidates shares the stacked operand
 A_top = [Wsum; Mxy] (rows x d3^2). The normal-operator matvec for the
@@ -47,6 +49,7 @@ __all__ = [
     "gemm_ga",
     "padded_pitch",
     "launches",
+    "validate_grouped_on_gpu",
 ]
 
 # kernel launches made by solve_group on CUDA tensors (each C entry
@@ -75,7 +78,9 @@ class GroupInputs:
     padded pitch; the rest is float32 and contiguous."""
 
     a_top: torch.Tensor  # (G, rows, d3^2), rows = C_u*d2 + O*d3^2
-    gz: torch.Tensor  # (G, R, C_u, l3, l3) multiplicity-weighted z-Gram
+    # (G, R, C_u, l3, l3) multiplicity-weighted z-Gram, or (.., l3, l3, d2)
+    # j-dependent (the fsc half-set solves: the pixel-id split inside)
+    gz: torch.Tensor
     mz: torch.Tensor  # (G, R, O, l3, l3) per-op z-shift
     af: torch.Tensor  # (G, R, O, l3, d3^2) op-sample validity
     cn: torch.Tensor  # (G, R, O, O) pair-count matrix
@@ -90,8 +95,13 @@ class GroupInputs:
     @property
     def shape(self):
         """(G, R, C_u, O, l3, d3^2)."""
-        G, R, C_u, l3, _ = self.gz.shape
+        G, R, C_u, l3 = self.gz.shape[:4]
         return G, R, C_u, self.mz.shape[2], l3, self.mask.shape[1]
+
+    @property
+    def gz_stride(self) -> int:
+        """The z-Gram's element stride: 1, or d2 where it depends on j."""
+        return self.d2 if self.gz.dim() == 6 else 1
 
     @classmethod
     def empty(cls, G: int, like: "GroupInputs"):
@@ -165,16 +175,23 @@ def group_inputs_from_numpy(shared_np, tens_np):
 
 
 def _data_mix(inp: GroupInputs, t_d: torch.Tensor) -> torch.Tensor:
-    """u[m, c, j] = sum_n Gz[c, m, n] t_d[n, c, j] per candidate."""
+    """u[m, c, j] = sum_n Gz[c, m, n(, j)] t_d[n, c, j] per candidate."""
     G, R, C_u, O, l3, d3sq = inp.shape
     t_d = t_d.reshape(G, R, l3, C_u, inp.d2)
-    return torch.einsum("grcmn,grncj->grmcj", inp.gz, t_d).reshape(G, R, l3, -1)
+    eq = "grcmnj,grncj->grmcj" if inp.gz.dim() == 6 else "grcmn,grncj->grmcj"
+    return torch.einsum(eq, inp.gz, t_d).reshape(G, R, l3, -1)
 
 
-def matvec_reference(inp: GroupInputs, X: torch.Tensor, masked: bool = True) -> torch.Tensor:
-    """NTN(X) for X (G, R, l3, d3^2) float32 (times the mask if masked),
-    with the kernel's rounding points: X and [u; gs] in the compute
-    dtype, every product accumulated in float32."""
+def _col(v: torch.Tensor) -> torch.Tensor:
+    return v[..., None, None]
+
+
+def matvec_reference(inp: GroupInputs, X: torch.Tensor, masked: bool = True,
+                     l2: torch.Tensor | None = None) -> torch.Tensor:
+    """(NTN(X) + l2 X) for X (G, R, l3, d3^2) float32 (times the mask if
+    masked; l2 a (G, R) column or None), with the kernel's rounding points:
+    X and [u; gs] in the compute dtype, every product accumulated in
+    float32, the ridge term on X in float32."""
     G, R, C_u, O, l3, d3sq = inp.shape
     nd = C_u * inp.d2
     cdt = inp.a_top.dtype
@@ -189,6 +206,8 @@ def matvec_reference(inp: GroupInputs, X: torch.Tensor, masked: bool = True) -> 
     gs = torch.einsum("gromn,gromp->grnop", inp.mz, L).reshape(G, R, l3, O * d3sq)
     Gm = torch.cat([u, gs], dim=-1).to(cdt).float()
     Y = torch.einsum("grmn,gnd->grmd", Gm, A)
+    if l2 is not None:
+        Y = Y + _col(l2) * X
     return Y * inp.mask if masked else Y
 
 
@@ -207,19 +226,26 @@ def _fista_coefs(fista_iters: int) -> list:
 
 
 def solve_group_reference(
-    inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: int
+    inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: int,
+    l1: torch.Tensor | None = None, l2: torch.Tensor | None = None,
+    with_score: bool = True,
 ):
-    """Plain PyTorch version of the grouped solve. Returns
-    (x (G, R, l3, d3^2) float32, score (G, R) float32)."""
+    """Plain PyTorch version of the grouped solve, with optional (G, R)
+    float32 l1 / l2 columns. Returns (x (G, R, l3, d3^2) float32, score
+    (G, R) float32; zero without ``with_score``)."""
 
     def mv(v):
-        return matvec_reference(inp, v)
+        return matvec_reference(inp, v, l2=l2)
 
     def csum(a):
         return a.sum(dim=(-2, -1))
 
-    def col(v):
-        return v[..., None, None]
+    col = _col
+
+    def prox(v):  # the soft-threshold (with l1), then the box
+        if l1 is not None:
+            v = torch.sign(v) * torch.clamp_min(torch.abs(v) - eta * col(l1), 0.0)
+        return torch.clamp(v, lb, ub)
 
     rhs = inp.rhs
     x = torch.zeros_like(rhs)
@@ -248,12 +274,14 @@ def solve_group_reference(
         y = x
         for coef in _fista_coefs(fista_iters):
             g = mv(y) - rhs
-            x_new = torch.clamp(y - eta * g, lb, ub)
+            x_new = prox(y - eta * g)
             y = x_new + coef * (x_new - x)
             x = x_new
     else:
         x = torch.clamp(x, lb, ub)
     x = x * inp.mask
+    if not with_score:
+        return x, torch.zeros_like(inp.bn)
 
     # cosine without the reprojection: <P x, b> = <x, rhs>,
     # |P x|^2 = <t_d, Gz mix t_d> (data columns of the first product)
@@ -290,6 +318,9 @@ def _check_cuda_inputs(inp: GroupInputs) -> None:
         raise TypeError(f"a_top must be float32 or bfloat16, got {inp.a_top.dtype}")
     if l3 > L3_MAX:
         raise ValueError(f"l3 = {l3} exceeds the kernel's {L3_MAX}")
+    gz_shapes = ((G, R, C_u, l3, l3), (G, R, C_u, l3, l3, inp.d2))
+    if tuple(inp.gz.shape) not in gz_shapes:
+        raise ValueError(f"gz shape {tuple(inp.gz.shape)} is neither of {gz_shapes}")
     for f in dataclasses.fields(inp):
         t = getattr(inp, f.name)
         if f.name in ("d2", "a_top"):
@@ -368,7 +399,7 @@ def _xat(run, X, A, out, xb, N: int) -> None:
     run("hts_gemm_xat", X, A, part, xb, G, M, N, K, rows, A.stride(1),
         xb.stride(1) if bf16 else K, kchunk, nsplit, bf16, kernels=1 + bf16)
     if nsplit > 1:
-        run("hts_reduce_mask", part, None, out, nsplit, G, M, rows, 1)
+        run("hts_reduce_mask", part, None, None, None, out, nsplit, G, M, rows, 1)
 
 
 def _ga(run, Gm, A, part, kchunk: int, nsplit: int) -> None:
@@ -432,17 +463,28 @@ def gemm_ga(Gm: torch.Tensor, A: torch.Tensor, nsplit: int | None = None) -> tor
     return part
 
 
-def solve_group(inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: int):
-    """Grouped solve and score. CPU tensors run the plain version; CUDA
-    tensors run the kernels of csrc/group_solve.cu (never the plain
-    version). Returns (x (G, R, l3, d3^2), score (G, R)), float32."""
+def solve_group(
+    inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: int,
+    l1: torch.Tensor | None = None, l2: torch.Tensor | None = None,
+    with_score: bool = True,
+):
+    """Grouped solve and score. l1 / l2: optional (G, R) float32 columns
+    (FISTA's soft-threshold; the ridge term of every matvec); without
+    ``with_score`` the score is zero and its product is skipped. CPU
+    tensors run the plain version; CUDA tensors run the kernels of
+    csrc/group_solve.cu (never the plain version). Returns (x (G, R, l3,
+    d3^2), score (G, R)), float32."""
     if inp.a_top.device.type == "cpu":
-        return solve_group_reference(inp, cg_iters, fista_iters, power_iters)
+        return solve_group_reference(inp, cg_iters, fista_iters, power_iters, l1, l2, with_score)
     if inp.a_top.device.type != "cuda":
         raise ValueError(f"solve_group runs on cpu or cuda, not {inp.a_top.device}")
     from .._build import Launcher
 
     _check_cuda_inputs(inp)
+    for name, c in (("l1", l1), ("l2", l2)):
+        if c is not None and (c.shape != inp.lb.shape or c.dtype != torch.float32
+                              or c.device != inp.a_top.device or not c.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (G, R) float32 column on the card")
     G, R, C_u, O, l3, d3sq = inp.shape
     nd = C_u * inp.d2
     rows = inp.a_top.shape[1]
@@ -464,14 +506,16 @@ def solve_group(inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: 
     x, r, p, q, w = (torch.empty((G, R, l3, d3sq), **f32) for _ in range(5))
     rs, eta, score = (torch.empty((G, R), **f32) for _ in range(3))
     ldg = Gm.stride(1)
+    js = inp.gz_stride
 
     def matvec(src, dst):
         _xat(run, src, inp.a_top, T, xb, rows)
-        run("hts_glue_data", T, inp.gz, Gm, G, R, l3, C_u, inp.d2, rows, ldg, bf16)
+        run("hts_glue_data", T, inp.gz, Gm, G, R, l3, C_u, inp.d2, rows, ldg, js, bf16)
         run("hts_glue_sym", T, inp.mz, inp.af, inp.cn, inp.deg, inp.mask, Gm,
             G, R, l3, nd, O, d3sq, rows, ldg, bf16)
         _ga(run, Gm, inp.a_top, part, kchunk, nsplit)
-        run("hts_reduce_mask", part, inp.mask, dst, nsplit, G, M, d3sq, l3)
+        run("hts_reduce_mask", part, inp.mask, None if l2 is None else src, l2, dst, nsplit, G,
+            M, d3sq, l3)
 
     run("hts_cg_init", inp.rhs, x, r, p, rs, ncand, n)
     for _ in range(cg_iters):
@@ -487,11 +531,75 @@ def solve_group(inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: 
         run("hts_fista_init", x, p, inp.lb, inp.ub, ncand, n)
         for coef in _fista_coefs(fista_iters):  # y in p
             matvec(p, q)
-            run("hts_fista_step", x, p, q, inp.rhs, eta, inp.lb, inp.ub, coef, ncand, n)
+            run("hts_fista_step", x, p, q, inp.rhs, eta, inp.lb, inp.ub, l1, coef, ncand, n)
     else:
         run("hts_fista_init", x, p, inp.lb, inp.ub, ncand, n)
     run("hts_apply_mask", x, inp.mask, ncand, n)
+    if not with_score:
+        return x, score.zero_()
     # score: the data columns of the first product, then the Gz mix
     _xat(run, x, inp.a_top, T, xb, nd)
-    run("hts_score", T, inp.gz, x, inp.rhs, inp.bn, score, G, R, l3, C_u, inp.d2, rows, n)
+    run("hts_score", T, inp.gz, x, inp.rhs, inp.bn, score, G, R, l3, C_u, inp.d2, rows, n, js)
     return x, score
+
+
+# ---------------------------------------------------------------------------
+# the standing check of the grouped envelope on the card
+# ---------------------------------------------------------------------------
+
+# the configurations of validate_grouped_on_device (pallas_solver.py:1058)
+VALIDATE_CONFIGS = dict(
+    default=dict(),
+    fsc=dict(fsc_test=2),
+    ridge=dict(model="ridge", l2_reg=0.05),
+    lasso=dict(model="lasso", l1_reg=1e-4, reg_per_row=True),
+    elasticnet=dict(model="elasticnet", l1_reg=5e-5, l2_reg=5e-5, reg_per_row=True),
+    lreg=dict(model="lreg"),
+    thresh=dict(thresh_fraction=0.1),
+    ssim=dict(score_metric="ssim"),
+)
+
+
+def validate_grouped_on_gpu(device="cuda") -> dict:
+    """Score one small self-contained twist group (the reference's
+    validate_grouped_on_device: a simulated image, d2 = 14, l2 = 32,
+    d3 = 12, l3 = 4, eight rises, cg / fista / power 6 / 8 / 2, float32)
+    under each configuration of VALIDATE_CONFIGS twice on the card: the
+    kernel route (solve_group) and the plain route (solve_group_reference
+    on the same CUDA tensors), through the grid's grouped scorer. Returns
+    one ``v3_<name>_abs_err`` per configuration (``v3_score_abs_err`` for
+    the default), and ok: every error under 5e-3. Raises without a card."""
+    from ..helix import simulate_helical_projection
+    from . import grid
+    from .geometry import ReconstructionGeometry, estimate_copy_pair_counts, estimate_n_pair_ops
+    from .solver import SolveConfig
+
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError("validate_grouped_on_gpu needs a CUDA device")
+    img = simulate_helical_projection(
+        n=1, twist=29.4, rise=4.75, csym=1, helical_diameter=100.0, ball_radius=6.0,
+        polymer=0, planarity=1.0, ny=64, nx=128, apix=2.0, rng=0, device=device,
+    )
+    geom = ReconstructionGeometry(d2=14, l2=32, d3=12, l3=4, rmin=0.0, rmax=5.0,
+                                  scale2d_to_3d=0.858, csym=1)
+    region = img[: geom.d2, : geom.l2].astype(np.float32)
+    rises = np.asarray([1.0, 1.05, 1.1, 1.15, 1.2, 1.25, 1.3, 1.35], np.float32)
+    twists = np.full(len(rises), 29.4, np.float32)
+    n_copies, n_pairs = estimate_copy_pair_counts(geom, float(rises.min()), 8,
+                                                  rise_pixel_max=float(rises.max()))
+    n_ops = estimate_n_pair_ops(geom, float(rises.min()))
+    out = {"device": torch.cuda.get_device_name(device)}
+    ok = True
+    for name, kw in VALIDATE_CONFIGS.items():
+        cfg = SolveConfig(interpolation="nn", cg_iters=6, fista_iters=8, power_iters=2,
+                          separable=True, compute_dtype="float32", **kw)
+        s = [grid._tf32_off(grid._grouped_scoring)(
+                geom, cfg, twists, rises, n_copies, n_pairs, n_ops, region, np.float32(0.0), {},
+                device, solve=f)[0]
+             for f in (solve_group, solve_group_reference)]
+        err = float(np.abs(s[0] - s[1]).max())
+        out["v3_score_abs_err" if name == "default" else f"v3_{name}_abs_err"] = err
+        ok = ok and bool(np.all(np.isfinite(s[0]))) and err < 5e-3
+    out["ok"] = bool(ok)
+    return out

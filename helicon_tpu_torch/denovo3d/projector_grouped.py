@@ -42,6 +42,7 @@ __all__ = [
     "build_group_shared",
     "build_candidate_problem_grouped",
     "build_candidate_tensors_grouped",
+    "reproject_grouped",
 ]
 
 
@@ -110,30 +111,41 @@ def build_group_shared(
     )
 
 
-def _candidate_factors(shared, geom, rise_pixels, sqrt_m, pair_idx, pairs_valid):
-    """Batched per-candidate factors of a group (leading axis R)."""
+def _data_factors(shared, geom, rise_pixels, sqrt_m):
+    """The data rows' per-candidate factors of a group (leading axis R):
+    the sqrt(m)-weighted z-factor Mz_w (R, C_u, l2, l3) and the binary row
+    validity rowv_bin (R, C_u, l2, d2). shared needs Wsum, copies_h_u,
+    xy_any and linear."""
     l2, l3 = geom.l2, geom.l3
-    linear = shared["linear"]
-    dev = shared["A_top"].device
+    dev = shared["Wsum"].device
     rise = _as(rise_pixels, dev, torch.float32)  # (R,)
     sqrt_m = _as(sqrt_m, dev, torch.float32)  # (R, C_u)
-    pair_idx = _as(pair_idx, dev).long()  # (R, P, 2)
-    pv = _as(pairs_valid, dev, torch.bool)  # (R, P)
     h_u = shared["copies_h_u"].float()
-    ops_h = shared["ops_h_u"].float()
-    O = ops_h.shape[0]
-
     ic = torch.arange(l2, dtype=torch.float32, device=dev) - l2 // 2
     dz_u = h_u[None] * rise[:, None]  # (R, C_u)
     Mz_raw = _z_interp_matrix(
-        geom.scale2d_to_3d * ic - dz_u[..., None] + l3 // 2, l3, linear
+        geom.scale2d_to_3d * ic - dz_u[..., None] + l3 // 2, l3, shared["linear"]
     )  # (R, C_u, l2, l3)
     z_ok = Mz_raw.sum(dim=3) > 0  # (R, C_u, l2)
     sel = sqrt_m > 0
     rowv_bin = (
         z_ok[..., None] & shared["xy_any"][None, :, None, :] & sel[..., None, None]
     ).to(torch.float32)  # (R, C_u, l2, d2)
-    Mz_w = Mz_raw * sqrt_m[..., None, None]
+    return dict(Mz_w=Mz_raw * sqrt_m[..., None, None], rowv_bin=rowv_bin, sqrt_m=sqrt_m,
+                rise=rise)
+
+
+def _candidate_factors(shared, geom, rise_pixels, sqrt_m, pair_idx, pairs_valid):
+    """Batched per-candidate factors of a group (leading axis R)."""
+    l3 = geom.l3
+    linear = shared["linear"]
+    dev = shared["A_top"].device
+    pair_idx = _as(pair_idx, dev).long()  # (R, P, 2)
+    pv = _as(pairs_valid, dev, torch.bool)  # (R, P)
+    ops_h = shared["ops_h_u"].float()
+    O = ops_h.shape[0]
+    df = _data_factors(shared, geom, rise_pixels, sqrt_m)
+    Mz_w, rowv_bin, sqrt_m, rise = df["Mz_w"], df["rowv_bin"], df["sqrt_m"], df["rise"]
     # z-Gram per copy carries the multiplicity weight m = sqrt_m^2
     Gz = torch.einsum("rcim,rcin->rcmn", Mz_w, Mz_w)  # (R, C_u, l3, l3)
 
@@ -236,19 +248,31 @@ def build_candidate_problem_grouped(
 
 
 def build_candidate_tensors_grouped(
-    shared, geom, image_region, rise_pixels, sqrt_m, pair_idx, pairs_valid
+    shared, geom, image_region, rise_pixels, sqrt_m, pair_idx, pairs_valid, pid_mask=None
 ):
     """The per-candidate tensors of the grouped solve, batched over R:
     the fused matvec's factors plus the rhs, the box bound and |b|. The
-    rhs goes through the same weighted P^T as the closures."""
+    rhs goes through the same weighted P^T as the closures.
+
+    pid_mask (l2, d2) 0/1 (optional): a data-row pixel-id split (the fsc
+    half-set weighting). The z-Gram then depends on the in-copy column j,
+        Gz[r, c, m, n, j] = sum_i w[i, j] Mz_w[r, c, i, m] Mz_w[r, c, i, n],
+    and the rhs and |b| are taken on the masked rows; the box bound stays
+    the full rows' (the halves reuse the full ub)."""
     l3, d3 = geom.l3, geom.d3
+    dev = shared["A_top"].device
     f = _candidate_factors(shared, geom, rise_pixels, sqrt_m, pair_idx, pairs_valid)
     _, PT = _projections(shared, f, l3, d3)
-    b = _as(image_region, shared["A_top"].device, torch.float32).T  # (l2, d2)
+    b = _as(image_region, dev, torch.float32).T  # (l2, d2)
     b_eff = b * (f["rowv_bin"] * f["sqrt_m"][..., None, None])  # (R, C_u, l2, d2)
+    gz = f["Gz"]
+    if pid_mask is not None:
+        w = _as(pid_mask, dev, torch.float32).reshape(geom.l2, geom.d2)
+        b_eff = b_eff * w
+        gz = torch.einsum("rcim,rcin,ij->rcmnj", f["Mz_w"], f["Mz_w"], w)
     rhs = (PT(b_eff) * shared["mask_f"]).reshape(-1, l3, d3 * d3)
     return dict(
-        Gz=f["Gz"],
+        Gz=gz,
         Mz_ops=f["Mz_ops"],
         a_f=f["a_f"],
         Cn=f["Cn"],
@@ -259,3 +283,15 @@ def build_candidate_tensors_grouped(
         ub_raw=(b * f["rowv_bin"]).amax(dim=(1, 2, 3)),
         b_norm=torch.sqrt((b_eff * b_eff).sum(dim=(1, 2, 3))),
     )
+
+
+def reproject_grouped(shared, geom, rise_pixels, sqrt_m, x):
+    """The sqrt(m)-weighted reprojection P(x) (R, C_u, l2, d2) of the R
+    candidates' volumes x (R, l3, d3^2), with the binary row validity
+    rowv_bin and the weighted one (rowv_bin * sqrt(m)), each (R, C_u, l2,
+    d2). shared needs Wsum (C_u, d2, d3^2), copies_h_u, xy_any and linear:
+    what scoring a solved group needs of build_group_shared."""
+    df = _data_factors(shared, geom, rise_pixels, sqrt_m)
+    P, _ = _projections(shared, df, geom.l3, geom.d3)
+    rowv_bin = df["rowv_bin"]
+    return P(x), rowv_bin, rowv_bin * df["sqrt_m"][..., None, None]

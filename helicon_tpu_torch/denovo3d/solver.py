@@ -1,15 +1,20 @@
 """Matrix-free bounded least-squares solve for one denovo3D candidate.
 
-Counterpart of ``helicon_tpu/denovo3d/solver.py`` for the configuration
-the grid search's best-volume re-solve runs: the lsq model (CG on the
-normal equations, then FISTA with the box [0, max b] or unbounded), the
-cosine score, the separable operators (tilt = psi = 0). The power
-iteration is seeded from ones, as the reference's XLA path. The grouped
-scoring solve lives in ``group_solve``, the fused single-candidate solve
-in ``candidate_solve``. Both interpolations are ported.
+Counterpart of ``helicon_tpu/denovo3d/solver.py`` for what the grid
+search's best-volume re-solve runs on the separable operators (tilt = psi
+= 0): CG on the normal equations, then FISTA with the box [0, max b] or
+unbounded, for the models lsq, lreg (the centre-voxel seed of an all-zero
+fit), ridge, lasso and elasticnet (l2 in every matvec, l1 in the prox,
+the alpha-decay retry of an all-zero fit); the score metrics cosine,
+ssim, ms_ssim, mutual_information and composite (``_candidate_score``,
+which the grouped scorer of ``grid`` shares); the thresh clip of the
+prediction; the fsc half-set splits of modes 2-4. The power iteration is
+seeded from ones, as the reference's XLA path. The grouped scoring solve
+lives in ``group_solve``, the fused single-candidate solve in
+``candidate_solve``. Both interpolations are ported.
 
-Other models, score metrics and fsc half-set splits raise
-NotImplementedError (ROADMAP A6, A7).
+ard (ROADMAP A7) and fsc mode 1 (its split draws a JAX random
+permutation; ROADMAP C2) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,7 +24,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["SolveConfig", "regularization_from_algorithm", "solve_candidate"]
+__all__ = ["SolveConfig", "SCORE_METRICS", "regularization_from_algorithm", "solve_candidate"]
+
+SCORE_METRICS = ("cosine", "ssim", "ms_ssim", "mutual_information", "composite")
+MODELS = ("lsq", "lreg", "ridge", "lasso", "elasticnet")
 
 
 def regularization_from_algorithm(algorithm: dict, n_rows: int):
@@ -60,33 +68,125 @@ class SolveConfig(NamedTuple):
     ard_prior: float = 1e-6
 
 
-def check_in_slice(cfg: SolveConfig) -> None:
-    """Raise for every configuration the port does not cover yet."""
+def check_in_slice(cfg: SolveConfig, grouped: bool = False) -> None:
+    """Raise for every configuration the port does not cover yet
+    (NotImplementedError naming its ROADMAP item), and for an unknown score
+    metric (ValueError, as the reference). ``grouped``: the grid search's
+    grouped scorer, where fsc rides the kernel only with lsq + cosine and
+    no thresh clip, as the reference's kernel does (its grid.py:590-608);
+    the single-candidate solve takes fsc with every model."""
+    if cfg.score_metric not in SCORE_METRICS:
+        raise ValueError(f"Unknown score_metric {cfg.score_metric!r}; supported: {SCORE_METRICS}")
     bad = []
     if not cfg.separable:
         bad.append("tilt or psi != 0 (ROADMAP A7)")
     if not cfg.interpolation.startswith(("nn", "linear")):
         bad.append(f"interpolation={cfg.interpolation!r}")
-    if cfg.model != "lsq" or cfg.l1_reg or cfg.l2_reg:
-        bad.append(f"model={cfg.model!r} (ROADMAP A6)")
-    if cfg.score_metric != "cosine":
-        bad.append(f"score_metric={cfg.score_metric!r} (ROADMAP A6)")
-    if cfg.fsc_test:
-        bad.append("fsc_test (ROADMAP A6)")
-    if cfg.thresh_fraction >= 0:
-        bad.append("thresh_fraction >= 0 (ROADMAP A6)")
+    if cfg.model == "ard":
+        bad.append("model='ard' (ROADMAP A7)")
+    elif cfg.model not in MODELS:
+        bad.append(f"model={cfg.model!r}")
+    if cfg.fsc_test == 1:
+        bad.append("fsc_test=1: its random split draws a JAX permutation (ROADMAP C2)")
+    if grouped and cfg.fsc_test:
+        if cfg.l1_reg or cfg.l2_reg:
+            bad.append("fsc_test with l1/l2 regularization: the reference scores it per "
+                       "candidate (ROADMAP A7)")
+        elif cfg.model != "lsq" or cfg.score_metric != "cosine" or cfg.thresh_fraction >= 0:
+            bad.append("fsc_test with a model other than lsq, a 2D score metric or "
+                       "thresh_fraction: the reference scores it on its grouped XLA path, "
+                       "not the kernel (ROADMAP A6.6b)")
     if bad:
         raise NotImplementedError("not ported yet: " + "; ".join(bad))
 
 
+def _cosine(a, b):
+    """Cosine of each pair of rows of a, b (B, ...), 0 where a norm is 0."""
+    a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    num = (a * b).sum(dim=1)
+    den = torch.linalg.vector_norm(a, dim=1) * torch.linalg.vector_norm(b, dim=1)
+    return torch.where(den > 0, num / den.clamp_min(1e-30), 0.0)
+
+
+def _candidate_score(pred, b_eff, b2d, rowv, cfg: SolveConfig, copy_rank=None, inv_w=None):
+    """Score B reprojections per cfg.score_metric: pred, b_eff and rowv
+    (B, C, l2, d2), b2d (l2, d2) the image region; returns (B,).
+
+    cosine compares the row stacks. The 2D metrics compare the image
+    region with one reprojection image, each pixel taken from the last
+    valid copy of the candidate's Halton-ordered copy list: the last valid
+    row without copy_rank; with the grouped scorer's canonical copy table,
+    copy_rank (B, C) gives each copy's last Halton position (-1 unselected)
+    and inv_w (B, C) = 1/sqrt(m) undoes the row weighting. composite is
+    the mean of cosine and the three 2D metrics."""
+    cos = _cosine(pred, b_eff)
+    if cfg.score_metric == "cosine":
+        return cos
+    return _image_scores(cfg.score_metric, cos, _image_of(pred, rowv, copy_rank, inv_w), b2d)
+
+
+def _image_of(pred, rowv, copy_rank=None, inv_w=None):
+    """The reprojection image (B, l2, d2) the 2D metrics compare: each
+    pixel from the last valid copy (see _candidate_score), 0 where no row
+    is valid."""
+    valid = rowv > 0
+    if copy_rank is None:
+        C = rowv.shape[1]
+        c_last = (C - 1) - torch.argmax(valid.flip(1).to(torch.int32), dim=1)
+    else:
+        rank = torch.as_tensor(copy_rank, device=pred.device).to(torch.int32)
+        eff = torch.where(valid, rank[:, :, None, None], -1)
+        c_last = torch.argmax(eff, dim=1)
+    src = pred if inv_w is None else pred * inv_w[:, :, None, None]
+    return torch.gather(src.float(), 1, c_last[:, None])[:, 0] * valid.any(dim=1)
+
+
+def _image_scores(metric: str, cos, pred2d, b2d):
+    """The 2D metric (or composite, with the cosines cos) of each image of
+    pred2d (B, l2, d2) against the region b2d (l2, d2)."""
+    from ..core.analysis import (
+        ms_ssim_score_traced,
+        mutual_information_score_traced,
+        ssim_score_traced,
+    )
+
+    ref2d = b2d.float()
+    if metric == "ssim":
+        return ssim_score_traced(pred2d, ref2d)
+    if metric == "ms_ssim":
+        return ms_ssim_score_traced(pred2d, ref2d)
+    if metric == "mutual_information":
+        return mutual_information_score_traced(pred2d, ref2d)
+    parts = torch.stack([
+        cos,
+        ssim_score_traced(pred2d, ref2d),
+        ms_ssim_score_traced(pred2d, ref2d),
+        mutual_information_score_traced(pred2d, ref2d),
+    ])
+    return parts.mean(dim=0)
+
+
+def _pid_split_masks(geom, mode: int):
+    """Data-row pixel-id split masks (1, l2, d2) float32 numpy of fsc
+    modes 2 (even/odd), 3 (halves) and 4 (outer thirds against the
+    centre); pid = i * d2 + j."""
+    l2, d2 = geom.l2, geom.d2
+    n = l2 * d2
+    pid = np.arange(n).reshape(l2, d2)
+    if mode == 1:
+        raise NotImplementedError(
+            "fsc_test=1: its random split draws a JAX permutation (ROADMAP C2)")
+    if mode == 2:
+        set1 = pid % 2 == 0
+    elif mode == 3:
+        set1 = pid < n // 2
+    else:
+        set1 = (pid < n // 3) | (pid >= 2 * n // 3)
+    return set1[None].astype(np.float32), (~set1[None]).astype(np.float32)
+
+
 def _vdot(a, b):
     return torch.sum(a * b)
-
-
-def _cosine(a, b):
-    num = _vdot(a, b)
-    den = torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)
-    return torch.where(den > 0, num / den.clamp_min(1e-30), 0.0)
 
 
 def _cg_from(N, rhs, x0, iters: int, x0_is_zero: bool = False):
@@ -157,26 +257,74 @@ def _positive(cfg: SolveConfig, rise_pixel: float, twist_degree: float, l3: int)
     return False
 
 
-def _solve_one_weighting(ops, rowv, mask_f, cfg: SolveConfig, positive: bool, ub_val):
-    """lsq + cosine solve with the full data rows; returns (x, score)."""
+# the alpha-decay retry of an all-zero regularized fit: scale *= 0.1 in
+# float32 while the scale exceeds this (the reference's bound)
+RETRY_DECAY, RETRY_FLOOR = np.float32(0.1), np.float32(1e-7)
+
+
+def seed_lreg(x: torch.Tensor, vol_dims: int) -> torch.Tensor:
+    """x with each all-zero volume (its last vol_dims axes) replaced by
+    the lreg seed: 1 at the centre voxel (flat index n // 2), 0 elsewhere."""
+    flat = x.reshape(*x.shape[: x.dim() - vol_dims], -1)
+    seed = torch.zeros_like(flat)
+    seed[..., flat.shape[-1] // 2] = 1.0
+    return torch.where((flat != 0).any(dim=-1, keepdim=True), flat, seed).reshape(x.shape)
+
+
+def _solve_one_weighting(ops, rowv, mask_f, cfg: SolveConfig, positive: bool, ub_val,
+                         full_rows: bool = True, reg_scale=1.0):
+    """Solve with the data-row weighting rowv; returns (x, score).
+
+    full_rows (rowv is the row-validity mask) lets the data term use the
+    fused P^T P; otherwise it is P^T (P(v) * rowv). reg_scale multiplies
+    the l1 / l2 coefficients (the row count when cfg.reg_per_row)."""
     P, PT, PTP, S, ST = ops["P"], ops["PT"], ops["PTP"], ops["S"], ops["ST"]
     b_eff = ops["b"][None] * rowv
 
-    def N(v):
-        return (PTP(v) + ST(S(v))) * mask_f
+    if full_rows:
+        def N0(v):
+            return (PTP(v) + ST(S(v))) * mask_f
+    else:
+        def N0(v):
+            return (PT(P(v) * rowv) + ST(S(v))) * mask_f
 
+    reg_scale = np.float32(reg_scale)
+    l1_eff = np.float32(cfg.l1_reg) * reg_scale
+    l2_eff = np.float32(cfg.l2_reg) * reg_scale
     rhs = PT(b_eff) * mask_f
     lb = torch.zeros_like(ub_val) if positive else torch.full_like(ub_val, -torch.inf)
     ub = ub_val if positive else torch.full_like(ub_val, torch.inf)
-    x = _cg(N, rhs, cfg.cg_iters) if cfg.cg_iters > 0 else torch.zeros_like(rhs)
-    if cfg.fista_iters > 0:
-        L = _power_iteration(N, rhs, cfg.power_iters)
-        x = _fista(N, rhs, x, lb, ub, 0.0, cfg.fista_iters, L)
-    else:
-        x = torch.clamp(x, lb, ub)
-    x = x * mask_f
+
+    def run(scale):
+        # one CG warm start + FISTA pass at regularization (l1, l2) * scale
+        N = N0
+        if cfg.l2_reg:
+            l2s = float(l2_eff * scale)
+
+            def N(v):
+                return N0(v) + l2s * v * mask_f
+
+        x = _cg(N, rhs, cfg.cg_iters) if cfg.cg_iters > 0 else torch.zeros_like(rhs)
+        if cfg.fista_iters > 0:
+            L = _power_iteration(N, rhs, cfg.power_iters)
+            x = _fista(N, rhs, x, lb, ub, float(l1_eff * scale), cfg.fista_iters, L)
+        else:
+            x = torch.clamp(x, lb, ub)
+        return x * mask_f
+
+    scale = np.float32(1.0)
+    x = run(scale)
+    if cfg.l1_reg > 0 or cfg.l2_reg > 0:
+        while not bool((x != 0).any()) and scale > RETRY_FLOOR:
+            scale = np.float32(scale * RETRY_DECAY)
+            x = run(scale)
+    elif cfg.model == "lreg":
+        x = seed_lreg(x, 3)
     pred = P(x) * rowv
-    return x, _cosine(pred.ravel(), b_eff.ravel())
+    if cfg.thresh_fraction >= 0:
+        pred = torch.clamp_min(pred, 0.0)
+    score = _candidate_score(pred[None], b_eff[None], ops["b"], rowv[None], cfg)[0]
+    return x, score
 
 
 def solve_candidate(
@@ -200,8 +348,10 @@ def solve_candidate(
 ):
     """Reconstruct and score one candidate (the separable branch of the
     reference's _solve_candidate_impl) on ``device`` (the card unless the
-    caller asks for "cpu"). Returns dict(rec3d (l3, d3, d3), score,
-    scores) there."""
+    caller asks for "cpu"). ``key`` is accepted and not used (only ard
+    draws random numbers). Returns dict(rec3d (l3, d3, d3), rec3d_half1,
+    rec3d_half2 (zeros without fsc), score (with fsc, full / 2 + (half1 +
+    half2) / 4), scores (the full solve's, then the halves')) there."""
     check_in_slice(cfg)
     if tilt_degree != 0.0 or psi_degree != 0.0:
         raise NotImplementedError("tilt or psi != 0 is not ported yet (ROADMAP A7)")
@@ -219,5 +369,22 @@ def solve_candidate(
     rowv = ops["row_valid"].to(torch.float32)
     positive = _positive(cfg, float(rise_pixel), float(twist_degree), geom.l3)
     ub_val = torch.amax(ops["b"][None] * rowv)
-    x, score = _solve_one_weighting(ops, rowv, mask_f, cfg, positive, ub_val)
-    return dict(rec3d=x, score=score, scores=score[None])
+    reg_scale = 1.0
+    if cfg.reg_per_row:
+        # the data-row count with the candidate's own valid copies
+        n_valid = max(1, int(np.sum(np.asarray(copies_valid))))
+        reg_scale = np.float32(geom.d2 * geom.l2) * np.float32(n_valid)
+    x, score = _solve_one_weighting(ops, rowv, mask_f, cfg, positive, ub_val,
+                                    reg_scale=reg_scale)
+    scores, halves = [score], [torch.zeros_like(x), torch.zeros_like(x)]
+    combined = score
+    if cfg.fsc_test >= 1:
+        for hi, m in enumerate(_pid_split_masks(geom, cfg.fsc_test)):
+            halves[hi], sh = _solve_one_weighting(
+                ops, rowv * torch.as_tensor(m, device=rowv.device), mask_f, cfg, positive,
+                ub_val, full_rows=False, reg_scale=reg_scale,
+            )
+            scores.append(sh)
+        combined = scores[0] / 2 + (scores[1] + scores[2]) / 4
+    return dict(rec3d=x, rec3d_half1=halves[0], rec3d_half2=halves[1], score=combined,
+                scores=torch.stack(scores))

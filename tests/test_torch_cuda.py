@@ -45,8 +45,10 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _group(device, cdt, csym, n_rises, twist, dy, positive_constraint, seed, d3=20):
-    """One twist group built by the port from a seeded random region."""
+def _group(device, cdt, csym, n_rises, twist, dy, positive_constraint, seed, d3=20,
+           pid_mask=None):
+    """One twist group built by the port from a seeded random region (with
+    pid_mask (l2, d2): an fsc half-set's j-dependent z-Gram, rhs and |b|)."""
     geom = ReconstructionGeometry(d2=24, l2=64, d3=d3, l3=8, rmin=2.0, rmax=d3 // 2 - 1,
                                   scale2d_to_3d=0.8, csym=csym)
     region = np.random.default_rng(seed).random((geom.d2, geom.l2)).astype(np.float32)
@@ -68,7 +70,8 @@ def _group(device, cdt, csym, n_rises, twist, dy, positive_constraint, seed, d3=
     shared = build_group_shared(geom, np.float32(twist), ch_u, cc_u, ops_h, ops_c,
                                 np.float32(dy), "nn", geom.cylindrical_mask(),
                                 geom.cell_valid_mask(), cdt, device)
-    tens = build_candidate_tensors_grouped(shared, geom, region, rp, np.sqrt(m), pidx, pval)
+    tens = build_candidate_tensors_grouped(shared, geom, region, rp, np.sqrt(m), pidx, pval,
+                                           pid_mask=pid_mask)
     tens["lb"], tens["ub"] = grid._box_bounds(
         grid._positive(SolveConfig(positive_constraint=positive_constraint), rp, twist,
                        geom.l3),
@@ -334,3 +337,75 @@ def test_padded_a_top_gives_the_contiguous_result(cuda):
     x1, s1 = gs.solve_group(one, *ITERS)
     x2, s2 = gs.solve_group(pad, *ITERS)
     assert torch.equal(x1, x2) and torch.equal(s1, s2)
+
+
+def _columns(inp, l1, l2, seed=0):
+    """(G, R) l1 / l2 columns of per-candidate values around l1 and l2."""
+    G, R = inp.lb.shape
+    f = torch.from_numpy(np.random.default_rng(seed).uniform(0.5, 1.5, (2, G, R)).astype(
+        np.float32)).to(inp.lb.device)
+    return (None if l1 is None else f[0] * l1), (None if l2 is None else f[1] * l2)
+
+
+# (l1, l2, with_score, fsc half-set): the options of the grouped solve
+OPTIONS = {"l2": (None, 0.05, True, False), "l1_l2_no_score": (0.02, 0.05, False, False),
+           "l1": (0.02, None, True, False), "fsc_half": (None, None, True, True)}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [CASES[0], CASES[2]], ids=lambda c: f"csym{c[0]}_R{c[1]}")
+def test_kernel_options_match_plain(cuda, dtype, case, option):
+    """B1 with l1 / l2 columns, without the score, and with the
+    j-dependent z-Gram of an fsc half-set against its plain version on the
+    same tensors (phase 2's gates)."""
+    l1, l2, with_score, half = OPTIONS[option]
+    pid = None
+    if half:  # fsc mode 2's first half: even pixel ids
+        pid = (np.arange(64 * 24).reshape(64, 24) % 2 == 0).astype(np.float32)
+    inp = _group(cuda, getattr(torch, dtype), *case, seed=3, pid_mask=pid)
+    assert inp.gz_stride == (24 if half else 1)
+    c1, c2 = _columns(inp, l1, l2)
+    launches = gs.launches
+    x_k, s_k = gs.solve_group(inp, *ITERS, l1=c1, l2=c2, with_score=with_score)
+    assert gs.launches > launches
+    x_p, s_p = gs.solve_group_reference(inp, *ITERS, l1=c1, l2=c2, with_score=with_score)
+    assert bool(torch.isfinite(x_k).all()) and bool(x_k.abs().max() > 0)
+    if not with_score:
+        assert not bool(s_k.any()) and not bool(s_p.any())
+    score_tol, x_tol = (1e-4, 1e-3) if dtype == "float32" else (1e-3, 5e-3)
+    assert float((s_k - s_p).abs().max()) <= score_tol
+    assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= x_tol
+
+
+def test_zero_columns_give_the_plain_solve_bit_for_bit(cuda):
+    """l1 = l2 = 0 columns reduce the options to the lsq solve exactly:
+    the ridge term adds 0 * x, the soft-threshold subtracts 0."""
+    inp = _group(cuda, torch.bfloat16, *CASES[0], seed=4)
+    x1, s1 = gs.solve_group(inp, *ITERS)
+    zero = torch.zeros_like(inp.lb)
+    x2, s2 = gs.solve_group(inp, *ITERS, l1=zero, l2=zero)
+    assert torch.equal(x1, x2) and torch.equal(s1, s2)
+
+
+def test_validate_grouped_on_gpu(cuda):
+    out = gs.validate_grouped_on_gpu()
+    assert out["ok"], out
+    assert len([k for k in out if k.startswith("v3_")]) == len(gs.VALIDATE_CONFIGS)
+
+
+@pytest.mark.parametrize("config", ["lasso", "ssim", "fsc"])
+def test_reconstruct_grid_envelope_cuda_matches_cpu(cuda, config):
+    """Envelope searches in float32 on the card against the CPU run."""
+    img = np.load(__file__.rsplit("/", 1)[0] + "/data/class_avg_amyloid.npy")
+    tw = np.repeat(np.asarray([2.0, 2.25], np.float32), 3)
+    ri = np.tile(np.asarray([4.6, 4.75, 4.9], np.float32), 2)
+    kw = dict(apix=2.0, twists=tw, rises=ri, tube_diameter=110.0, cg_iters=10,
+              fista_iters=16, power_iters=2, compute_dtype="float32",
+              **dict(lasso=dict(algorithm=dict(model="lasso", alpha=1e-3)),
+                     ssim=dict(score_metric="ssim"), fsc=dict(fsc_test=2))[config])
+    on_card = grid.reconstruct_grid(img, device=cuda, **kw)
+    on_host = grid.reconstruct_grid(img, device="cpu", **kw)
+    np.testing.assert_allclose(on_card.scores, on_host.scores, atol=1e-4)
+    assert on_card.effective["retry_rounds"] == on_host.effective["retry_rounds"]
+    assert on_card.best_index == on_host.best_index

@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs seven phases and fails (non-zero exit) if any fails:
+checkout, then runs eight phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
@@ -52,20 +52,38 @@ checkout, then runs seven phases and fails (non-zero exit) if any fails:
    in float32 and bf16 (every bf16 score within 5e-3 of float32's); and a
    report for ROADMAP C10: float32 searches of phase 4, phase 6 and the
    elasticnet and ssim searches beside their bf16 runs (top-10 overlap,
-   Spearman, largest delta against the reference's bf16 contract).
+   Spearman, largest delta against the reference's bf16 contract);
+8. the search drivers and the prep: (a) phase 4's twists over rises 2-10
+   A (5,907 candidates, four rise buckets, 593 re-scored at per-candidate
+   geometry, the winner's volume), each pass's times and B1 launches and
+   each bucket's geometry, then the same search with the CLI's prep
+   defaults (transpose -1, horizontalize 1: the prep's seconds by pass);
+   (b) B1 at R = 1, a second-pass call's groups, against its plain version
+   (scores within 1e-3); (c) phase 4's search as the web app calls it,
+   with progress_callback and should_abort and no batch_size (launches of
+   the reference's automatic batch), then aborted after its first launch;
+   (d) (a)'s grid checkpointed in chunks of
+   1,024, stopped after two and resumed (scores within 1e-3 of (a)'s, the
+   same winner); (e) prepare_data (transpose -1, horizontalize 1,
+   low_pass 10) and the denoisers on the card against the CPU, and the
+   golden grid on a transposed, rotated amyloid with the CLI's prep
+   defaults; (f) phase 4's search with fsc_test=1 (three B1 solves a
+   launch).
 
 The last two lines of standard output are the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them lists each
 kernel with its launches on its own path (phase 4 for B1, phase 5 for B2
-and B3), its error against the plain version, its time, the plain
+and B3; B1's on the bucketed path of phase 8 and its R = 1 call too), its error against the plain version, its time, the plain
 version's time and the least time the card could take for the same work
 (inputs larger than the 50 MB L2 counted once per matvec that reads them;
 bound_two_pass_ms counts the stacked operand once per product).
-It imports nothing of JAX.
+The smoke's total time is printed before those two lines. It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -839,6 +857,366 @@ def phase_c10(device, bf16_runs) -> dict:
     return out
 
 
+def _wide_rise_grid():
+    """Phase 8's grid: phase 4's 179 twists over rises 2-10 A, 33 rises."""
+    from helicon_tpu_torch.denovo3d import build_candidate_grid
+
+    return build_candidate_grid(0.5, 45.0, 0.25, 2.0, 10.0, 0.25, handedness="left")
+
+
+# phase 8 (a)'s rise buckets (rise range, candidates) at the default ratio 1.6
+WIDE_BUCKETS = (((2.0, 3.0), 895), ((3.25, 5.0), 1432), ((5.25, 8.25), 2327),
+                ((8.5, 10.0), 1253))
+WIDE_RESCORED = 593
+
+
+@contextlib.contextmanager
+def _recorded_calls():
+    """Every reconstruct_grid call the search drivers make (the bucketed
+    search and the checkpoint call grid.reconstruct_grid by name): yields a
+    list that gains, per call, its twists, rises, whether it solved a best
+    volume, its wall seconds, its prepare_data seconds, B1's launches and
+    its effective dict."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.denovo3d import grid, group_solve
+
+    calls, inner, prep = [], grid.reconstruct_grid, grid.prepare_data
+    prep_s = []
+
+    def timed_prep(*args, **kw):
+        t0 = time.perf_counter()
+        out = prep(*args, **kw)
+        torch.cuda.synchronize()
+        prep_s.append(time.perf_counter() - t0)
+        return out
+
+    def recorded(image, apix, twists, rises, **kw):
+        prep_s.clear()
+        before, t0 = group_solve.launches, time.perf_counter()
+        res = inner(image, apix, twists, rises, **kw)
+        torch.cuda.synchronize()
+        calls.append(dict(twists=np.asarray(twists), rises=np.asarray(rises),
+                          volume=bool(kw.get("return_best_volume")),
+                          wall=time.perf_counter() - t0, prep_s=sum(prep_s),
+                          launches=group_solve.launches - before, effective=res.effective))
+        return res
+
+    grid.reconstruct_grid, grid.prepare_data = recorded, timed_prep
+    try:
+        yield calls
+    finally:
+        grid.reconstruct_grid, grid.prepare_data = inner, prep
+
+
+def _passes(calls) -> dict:
+    """A bucketed search's calls by pass: the first pass (a bucket, several
+    rises), the second (one rise a call), the winner (its best volume)."""
+    import numpy as np
+
+    out = {"first": [], "second": [], "winner": []}
+    for c in calls:
+        kind = ("winner" if c["volume"] else
+                "first" if len(np.unique(c["rises"])) > 1 else "second")
+        out[kind].append(c)
+    return out
+
+
+def _print_passes(label: str, passes) -> dict:
+    """One line per pass: calls, candidates, wall, candidates/s, the prep /
+    build / solve / score seconds and B1 launches; one line per first-pass bucket
+    with its geometry. Returns the per-pass sums."""
+    sums = {}
+    for name, cs in passes.items():
+        n = sum(len(c["twists"]) for c in cs)
+        wall = sum(c["wall"] for c in cs)
+        st = {k: sum(c["effective"][k] for c in cs) for k in ("build_s", "solve_s", "score_s")}
+        sums[name] = dict(calls=len(cs), candidates=n, wall=wall,
+                          prep_s=sum(c["prep_s"] for c in cs),
+                          launches=sum(c["launches"] for c in cs), **st)
+        print(f"{label} [{name} pass]: {len(cs)} calls, {n} candidates, {wall:.3f} s wall, "
+              f"{n / max(wall, 1e-9):.1f} candidates/s, prep {sums[name]['prep_s']:.3f} s, "
+              f"build {st['build_s']:.3f} s, solve {st['solve_s']:.3f} s, score "
+              f"{st['score_s']:.3f} s, {sums[name]['launches']} B1 launches", flush=True)
+    for c in passes["first"]:
+        e = c["effective"]
+        print(f"{label} [bucket {float(c['rises'].min())}-{float(c['rises'].max())} A]: "
+              f"{len(c['twists'])} candidates, d3={e['d3']} l3={e['l3']} C_u={e['C_u']} "
+              f"R={e['R']} {e['n_groups']} groups, G={e['groups_per_launch']}, "
+              f"{c['wall']:.3f} s, {c['launches']} B1 launches", flush=True)
+    return sums
+
+
+def phase_bucketed(device, label="phase 8 (a)", **prep) -> dict:
+    """Phase 8 (a): the wide-rise search (5,907 candidates, four rise
+    buckets, the second pass at per-candidate geometry, the winner's volume)
+    with each pass's times, B1's launches and each bucket's geometry; every
+    score finite, the buckets and the re-scored count as expected, B1
+    launched in every bucket and every second-pass call, the winner among
+    the re-scored and its volume finite. ``prep`` goes to every call
+    (the CLI's transpose / horizontalize)."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.denovo3d import group_solve, reconstruct_grid
+
+    tw, ri = _wide_rise_grid()
+    img = np.load(AMYLOID)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    group_solve.launches = 0
+    t0 = time.perf_counter()
+    with _recorded_calls() as calls:
+        res = reconstruct_grid(img, apix=2.0, twists=tw, rises=ri, tube_diameter=110.0,
+                               cg_iters=10, fista_iters=16, power_iters=2, device=device,
+                               return_best_volume=True, **prep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = group_solve.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    passes = _passes(calls)
+    sums = _print_passes(label, passes)
+    print(f"{label}: {prep or 'no prep'}, {len(tw)} candidates in {res.effective['n_buckets']} buckets, "
+          f"{wall:.3f} s wall incl. best volume, {len(tw) / wall:.1f} candidates/s, "
+          f"{launches} B1 launches, peak {peak:.2f} GiB; top-5 {res.top(5).tolist()}",
+          flush=True)
+    buckets = [((float(c["rises"].min()), float(c["rises"].max())), len(c["twists"]))
+               for c in passes["first"]]
+    rescored = {(float(t), float(r)) for c in passes["second"]
+                for t, r in zip(c["twists"], c["rises"])}
+    bv = res.best_volume
+    checks = {
+        "every score finite": bool(np.all(np.isfinite(res.scores))),
+        f"buckets {WIDE_BUCKETS}": tuple(buckets) == WIDE_BUCKETS,
+        f"{WIDE_RESCORED} re-scored in at most 33 calls":
+            sums["second"]["candidates"] == WIDE_RESCORED and len(passes["second"]) <= 33,
+        "B1 launched in every bucket and second-pass call":
+            all(c["launches"] > 0 for c in passes["first"] + passes["second"]),
+        "winner among the re-scored":
+            (float(tw[res.best_index]), float(ri[res.best_index])) in rescored,
+        "best volume finite": bv is not None and bool(np.all(np.isfinite(bv))),
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"{label}: failed: {what}")
+    print(f"{label}: gates met: {', '.join(checks)}", flush=True)
+    return dict(res=res, calls=calls, sums=sums, launches=launches, wall=wall, peak=peak)
+
+
+def phase_r1(device, bucketed) -> dict:
+    """Phase 8 (b): B1 at R = 1 against its plain version on the same card
+    tensors: the largest second-pass call of (a) scored through the grouped
+    scorer with each solve (phase 2's bf16 gate: scores within 1e-3), then
+    one launch's solve alone timed with both, beside its bound."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.denovo3d import grid, group_solve as gs, reconstruct_grid
+
+    second = [c for c in bucketed["calls"] if not c["volume"] and len(np.unique(c["rises"])) == 1]
+    call = max(second, key=lambda c: len(c["twists"]))
+    captured, scorer = {}, grid._grouped_scoring
+
+    def capture(*args, **kw):
+        captured.update(args=args, kw=kw)
+        return scorer(*args, **kw)
+
+    grid._grouped_scoring = capture
+    try:
+        reconstruct_grid(np.load(AMYLOID), apix=2.0, twists=call["twists"], rises=call["rises"],
+                         tube_diameter=110.0, cg_iters=10, fista_iters=16, power_iters=2,
+                         device=device, return_best_volume=False)
+    finally:
+        grid._grouped_scoring = scorer
+    inputs = []
+
+    def kernel(inp, *a, **k):
+        inputs.append(inp)
+        return gs.solve_group(inp, *a, **k)
+
+    run = grid._tf32_off(scorer)
+    s_k, eff = run(*captured["args"], **dict(captured["kw"], solve=kernel))
+    s_p, _ = run(*captured["args"], **dict(captured["kw"], solve=gs.solve_group_reference))
+    err = float(np.abs(s_k - s_p).max())
+    inp = inputs[0]
+    G, R, C_u, O, l3, d3sq = inp.shape
+    ms_k = _time_ms(lambda: gs.solve_group(inp, *ITERS), 5)
+    ms_p = _time_ms(lambda: gs.solve_group_reference(inp, *ITERS), 5)
+    bound_ms, bound_by = _bound(*_group_work(inp, ITERS), bf16=inp.a_top.dtype == torch.bfloat16)
+    print(f"phase 8 (b) [R={R}, rise {float(call['rises'][0])} A, G={G} groups, d3={eff['d3']} "
+          f"l3={l3} C_u={C_u} O={O}, {eff['compute_dtype']}]: score abs err {err:.3e} (limit "
+          f"1e-3), kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms per call, bound {bound_ms:.3f} ms "
+          f"({bound_by})", flush=True)
+    if R != 1 or not np.all(np.isfinite(s_k)) or not (err <= 1e-3):
+        raise AssertionError(f"phase 8 (b): B1 at R = {R} differs from plain by {err}")
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
+                groups=(G, R, C_u, O))
+
+
+def phase_incremental(device, phase4_scores) -> dict:
+    """Phase 8 (c): phase 4's search as the web app calls it
+    (progress_callback and should_abort, no batch_size): launches of at
+    most the reference's automatic batch of candidates, one progress call
+    per launch, done rising to 2,327, the scores within 1e-3 of phase 4's;
+    its wall beside phase 4's call (memory-sized launches) run just
+    before. Then an abort after the first launch: the unscored candidates
+    -inf, no best volume."""
+    import numpy as np
+
+    tw, ri = _real_size_grid()
+    _, _, wall_one, _ = _search(device, tw, ri, return_best_volume=True)
+    seen = []
+    res, launches, wall, _ = _search(device, tw, ri, return_best_volume=True,
+                                     progress_callback=lambda d, n, s: seen.append(d),
+                                     should_abort=lambda: False)
+    e = res.effective
+    n_launch = -(-e["n_groups"] // e["groups_per_launch"])
+    delta = float(np.abs(res.scores - phase4_scores).max())
+    print(f"phase 8 (c) [the web app's call]: {e['launch_candidates']} candidates a launch "
+          f"(the reference's automatic batch), R={e['R']} G={e['groups_per_launch']} of "
+          f"{e['n_groups']} groups, {n_launch} launches, {len(seen)} progress calls (first "
+          f"{seen[:3]}, last {seen[-1]}), {wall:.3f} s wall ({len(tw) / wall:.1f} candidates/s; "
+          f"phase 4's call just before {wall_one:.3f} s, {len(tw) / wall_one:.1f}/s), build "
+          f"{e['build_s']:.3f} s, solve {e['solve_s']:.3f} s, {launches} B1 launches; max "
+          f"|score - phase 4's| {delta:.3e} (limit 1e-3)", flush=True)
+    if not (len(seen) == n_launch and seen == sorted(seen) and seen[-1] == len(tw)
+            and e["groups_per_launch"] == max(1, e["launch_candidates"] // e["R"])
+            and delta <= 1e-3):
+        raise AssertionError("phase 8 (c): progress protocol or scores off")
+    polls = []
+    part, _, wall_abort, _ = _search(device, tw, ri, return_best_volume=True,
+                                     should_abort=lambda: polls.append(1) or len(polls) > 1)
+    scored = int(np.isfinite(part.scores).sum())
+    print(f"phase 8 (c) [abort after the first launch]: {scored} scored, "
+          f"{int(np.isneginf(part.scores).sum())} at -inf, best volume "
+          f"{'none' if part.best_volume is None else 'solved'}, {wall_abort:.3f} s", flush=True)
+    if not (scored == e["groups_per_launch"] * e["R"]
+            and np.isneginf(part.scores).sum() == len(tw) - scored
+            and part.best_volume is None):
+        raise AssertionError("phase 8 (c): the aborted search is not partial or solved a volume")
+    return dict(launches=n_launch, wall=wall, wall_one=wall_one)
+
+
+def phase_checkpointed(device, bucketed) -> dict:
+    """Phase 8 (d): (a)'s grid through reconstruct_grid_checkpointed(chunk
+    1024) with its shard under build/, stopped after 2 chunks and resumed:
+    the resumed run scores only the missing chunks, its scores lie within
+    1e-3 of (a)'s and its winner is (a)'s."""
+    import numpy as np
+
+    from helicon_tpu_torch.denovo3d import reconstruct_grid_checkpointed
+    from helicon_tpu_torch.denovo3d.grid import global_rise_buckets
+
+    tw, ri = _wide_rise_grid()
+    shard = ROOT / "build" / "smoke_checkpoint.npz"
+    shard.parent.mkdir(exist_ok=True)
+    shard.unlink(missing_ok=True)
+    kw = dict(apix=2.0, twists=tw, rises=ri, checkpoint_path=str(shard), chunk=1024,
+              tube_diameter=110.0, cg_iters=10, fista_iters=16, power_iters=2, device=device)
+    img = np.load(AMYLOID)
+    n_chunks = sum(-(-len(b) // 1024) for b in global_rise_buckets(ri, 1.6))
+    polls = []
+    t0 = time.perf_counter()
+    part = reconstruct_grid_checkpointed(img, should_abort=lambda: polls.append(1) or len(polls) > 2,
+                                         **kw)
+    t1 = time.perf_counter()
+    res = reconstruct_grid_checkpointed(img, **kw)
+    t2 = time.perf_counter()
+    ref = bucketed["res"]
+    delta = float(np.abs(res.scores - ref.scores).max())
+    print(f"phase 8 (d): stopped after {part.effective['chunks_run']} of {n_chunks} chunks "
+          f"({int(np.isfinite(part.scores).sum())} scored, {t1 - t0:.3f} s), resumed with "
+          f"{res.effective['chunks_run']} chunks and the merge ({t2 - t1:.3f} s); max |score - "
+          f"(a)'s| {delta:.3e} (limit 1e-3); winner {tuple(res.top(1)[0][:2].tolist())}, (a)'s "
+          f"({float(tw[ref.best_index])}, {float(ri[ref.best_index])})", flush=True)
+    if not (part.effective["chunks_run"] == 2 and res.effective["chunks_run"] == n_chunks - 2
+            and delta <= 1e-3 and res.best_index == ref.best_index
+            and res.best_volume is not None):
+        raise AssertionError("phase 8 (d): the resumed checkpointed search is off")
+    return dict(wall_stopped=t1 - t0, wall_resumed=t2 - t1, delta=delta)
+
+
+def phase_prep(device) -> dict:
+    """Phase 8 (e): the amyloid transposed and rotated by 3 deg, through
+    prepare_data(transpose=-1, horizontalize=1, low_pass=10) on the card
+    and on the CPU: the recovered angles within 0.05 deg, and the card's
+    image within 1e-4 (relative to its max) of the CPU chain rotated by the
+    card's angle and shift (Nelder-Mead follows float values, so the two
+    searches may stop apart within their xtol); each denoiser on the card
+    against the CPU within 1e-4 relative; then the golden grid with the
+    CLI's prep defaults on that image."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.core.denoise import denoise_image
+    from helicon_tpu_torch.core.transforms import rotate_shift_image
+    from helicon_tpu_torch.denovo3d import reconstruct_grid
+    from helicon_tpu_torch.denovo3d.pipeline import prepare_data
+    from helicon_tpu_torch.helix.orient import auto_horizontalize
+
+    amy = torch.from_numpy(np.load(AMYLOID).astype(np.float32))
+    img = rotate_shift_image(amy.T.contiguous().to(device), angle=3.0).cpu().numpy()
+    kw = dict(transpose=-1, horizontalize=1, low_pass=10.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = prepare_data(img, 2.0, device=device, **kw)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    lowp = {d: prepare_data(img, 2.0, transpose=-1, low_pass=10.0, device=d)
+            for d in (device, "cpu")}
+    (_, th_c, sy_c), (_, th_h, sy_h) = (auto_horizontalize(lowp[d], refine=True)
+                                        for d in (device, "cpu"))
+    host_at_card = rotate_shift_image(lowp["cpu"], angle=th_c, post_shift=(sy_c, 0), order=3)
+    rel = float((card.cpu() - host_at_card).abs().max() / host_at_card.abs().max())
+    print(f"phase 8 (e): prepare_data {kw} on the card {prep_s:.3f} s; recovered angle "
+          f"{th_c:.4f} deg shift {sy_c:.4f} px (CPU {th_h:.4f} deg, {sy_h:.4f} px); image "
+          f"against the CPU chain at the card's angle: {rel:.3e} of max (limit 1e-4)", flush=True)
+    if not (abs(th_c - th_h) <= 0.05 and rel <= 1e-4):
+        raise AssertionError(f"phase 8 (e): the card's prep is off the CPU's ({th_c}, {th_h}, {rel})")
+    errs = {}
+    for method in ("nl_mean", "tv", "wavelet"):
+        a = denoise_image(amy.to(device), method).cpu()
+        b = denoise_image(amy, method)
+        errs[method] = float((a - b).abs().max() / b.abs().max())
+    print(f"phase 8 (e): denoisers, card against CPU (of max; limit 1e-4): {errs}", flush=True)
+    if not all(e <= 1e-4 for e in errs.values()):
+        raise AssertionError(f"phase 8 (e): a denoiser is off on the card: {errs}")
+    tw, ri = _golden_grid()
+    res = reconstruct_grid(img, apix=2.0, twists=tw, rises=ri, tube_diameter=110.0, cg_iters=10,
+                           fista_iters=16, power_iters=2, return_best_volume=False,
+                           transpose=-1, horizontalize=1, device=device)
+    print(f"phase 8 (e): golden grid on the transposed, rotated image with transpose=-1, "
+          f"horizontalize=1: top-5 {res.top(5).tolist()} (the golden's top-1 (2.0, 4.75))",
+          flush=True)
+    if not np.all(np.isfinite(res.scores)):
+        raise AssertionError("phase 8 (e): non-finite scores")
+    return dict(prep_s=prep_s, angle=th_c, shift=sy_c, rel=rel, denoise=errs)
+
+
+def phase_fsc1(device, solve_launches: int) -> dict:
+    """Phase 8 (f): phase 4's search with fsc_test=1 (JAX's random pixel
+    split): finite scores, and three B1 solves a launch, each of
+    ``solve_launches`` kernel launches (phase 4's one-launch count)."""
+    import math
+
+    import torch
+
+    tw, ri = _real_size_grid()
+    torch.cuda.empty_cache()
+    res, launches, wall, peak = _search(device, tw, ri, return_best_volume=True, fsc_test=1)
+    e = res.effective
+    want = 3 * solve_launches * math.ceil(e["n_groups"] / e["groups_per_launch"])
+    print(f"phase 8 (f) [fsc_test=1]: {wall:.3f} s wall, {len(tw) / wall:.1f} candidates/s, "
+          f"G={e['groups_per_launch']}, {launches} B1 launches (three solves of "
+          f"{solve_launches} a launch: {want}), peak {peak:.2f} GiB; top-1 "
+          f"{tuple(float(v) for v in res.top(1)[0])}", flush=True)
+    _check_search(res, launches, "phase 8 (f)")
+    if launches != want:
+        raise AssertionError(f"phase 8 (f): {launches} B1 launches, not {want}")
+    return dict(launches=launches, wall=wall)
+
+
 def main() -> int:
     import torch
 
@@ -851,6 +1229,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from helicon_tpu_torch import _build
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = _card_line()
     print(f"phase 1: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
@@ -864,6 +1243,9 @@ def main() -> int:
     phase_golden(device)
     res, b1_launches = phase_real_size(device)
     k = cmp[("bfloat16", 179)]
+    # kernel launches of one B1 solve call (phase 4 makes one per launch)
+    solve_launches = b1_launches // -(-res.effective["n_groups"]
+                                       // res.effective["groups_per_launch"])
     groups = tuple(res.effective[f] for f in ("n_groups", "R", "C_u", "n_ops"))
     if k["groups"] != groups:
         raise AssertionError(f"phase 2 solved groups {k['groups']}, phase 4 {groups} "
@@ -881,6 +1263,13 @@ def main() -> int:
         "ssim": (env["ssim"]["res"].scores, dict(ENVELOPE)["ssim"]),
     })
     t7 = env_kernel["timing"]
+    bucketed = phase_bucketed(device)
+    phase_bucketed(device, "phase 8 (a) [the CLI's prep]", transpose=-1, horizontalize=1)
+    r1 = phase_r1(device, bucketed)
+    phase_incremental(device, nn_scores)
+    phase_checkpointed(device, bucketed)
+    phase_prep(device)
+    phase_fsc1(device, solve_launches)
 
     def entry(name, src, replaces, launches, r, **extra):
         return dict(name=name, route="cuda", source=CSRC + src, replaces=replaces,
@@ -911,7 +1300,12 @@ def main() -> int:
                        bound_by=t7["fsc_half_bound_by"], launches=env["fsc2"]["launches"],
                        score_abs_err=env_kernel[("fsc_half", "float32")]["score_abs_err"]),
               c10={k: {f: v[f] for f in ("overlap", "spearman", "max_delta", "met")}
-                   for k, v in c10.items()}),
+                   for k, v in c10.items()},
+              # phase 8: launches on the bucketed path by pass, and B1 at R = 1
+              bucketed=dict(launches_first=bucketed["sums"]["first"]["launches"],
+                            launches_second=bucketed["sums"]["second"]["launches"],
+                            launches_winner=bucketed["sums"]["winner"]["launches"],
+                            r1=r1)),
         entry("solve_candidate", "candidate_solve.cu", "helicon_tpu/denovo3d/pallas_solver.py:100",
               single["launches"]["solve_candidate"], b2,
               bound_two_pass_ms=b2["bound_two_pass_ms"], products=b2["products"],
@@ -921,6 +1315,7 @@ def main() -> int:
               single["launches"]["score_candidate"], b3,
               bound_two_pass_ms=b3["bound_two_pass_ms"]),
     ]}))
+    print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

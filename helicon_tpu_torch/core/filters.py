@@ -1,8 +1,11 @@
-"""Anti-aliased down-scaling (Gaussian prefilter on ``torch.fft``, then a
-cubic B-spline resample).
+"""Fourier-space filters on ``torch.fft``: the Gaussian low/high-pass and
+the anti-aliased down-scaling (Gaussian prefilter, then a cubic B-spline
+resample).
 
-Counterpart of ``helicon_tpu/core/filters.py:181`` (``_gaussian_blur``),
-``:195`` (``down_scale``) and ``:224`` (``_down_scale_jit``).
+Counterpart of ``helicon_tpu/core/filters.py:151`` (``_normalized_r2``),
+``:165`` (``low_high_pass_filter``), ``:181`` (``_gaussian_blur``),
+``:195`` (``down_scale``) and ``:224`` (``_down_scale_jit``). Each runs on
+the device of the tensor it is given.
 """
 
 from __future__ import annotations
@@ -12,9 +15,34 @@ import logging
 import numpy as np
 import torch
 
-__all__ = ["down_scale"]
+__all__ = ["low_high_pass_filter", "down_scale"]
 
 logger = logging.getLogger(__name__)
+
+
+def _normalized_r2(shape) -> np.ndarray:
+    """Squared radius grid normalized to the half-axis, centred layout."""
+    axes = [(np.arange(n, dtype=np.float32) - n // 2) / (n // 2) for n in shape]
+    if len(shape) == 2:
+        return axes[0][:, None] ** 2 + axes[1][None, :] ** 2
+    return (axes[0][:, None, None] ** 2 + axes[1][None, :, None] ** 2
+            + axes[2][None, None, :] ** 2)
+
+
+def low_high_pass_filter(data, low_pass_fraction: float = 0, high_pass_fraction: float = 0):
+    """Gaussian low/high-pass of a 2D or 3D image in Fourier space (each
+    fraction of Nyquist; outside (0, 1) that filter is off)."""
+    data = torch.as_tensor(data, dtype=torch.float32)
+    if data.ndim not in (2, 3):
+        raise ValueError("Input data must be a 2D or 3D array.")
+    fft = torch.fft.fftn(data)
+    R2 = _normalized_r2(data.shape)
+    for frac, high in ((low_pass_fraction, False), (high_pass_fraction, True)):
+        if 0 < frac < 1:
+            g = np.exp(-np.float32(np.log(2) / frac**2) * R2)
+            g = np.fft.fftshift(1.0 - g if high else g)
+            fft = fft * torch.as_tensor(g, device=data.device)
+    return torch.fft.ifftn(fft).real
 
 
 def _gaussian_blur(data: torch.Tensor, sigmas) -> torch.Tensor:

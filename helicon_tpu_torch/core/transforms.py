@@ -1,7 +1,9 @@
 """Image transforms the denovo3d prep chain needs: ``transform_image``
-(rotation about the centre) and ``pad_to_size``.
+(rotation about the centre), ``rotate_shift_image`` (rotation about a
+centre with pre/post shifts) and ``pad_to_size``.
 
-Counterpart of ``helicon_tpu/core/transforms.py:261`` and ``:401``.
+Counterpart of ``helicon_tpu/core/transforms.py:261``, ``:326`` and
+``:401``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch.nn.functional as F
 
 from .interp import map_coordinates
 
-__all__ = ["transform_image", "pad_to_size"]
+__all__ = ["transform_image", "rotate_shift_image", "pad_to_size"]
 
 
 def transform_image(image, rotation: float = 0.0, order: int = 1):
@@ -42,6 +44,34 @@ def transform_image(image, rotation: float = 0.0, order: int = 1):
     x_src = float(Minv[0, 0]) * cc + float(Minv[0, 1]) * rr + float(Minv[0, 2])
     y_src = float(Minv[1, 0]) * cc + float(Minv[1, 1]) * rr + float(Minv[1, 2])
     return map_coordinates(image, (y_src, x_src), order=order, mode="constant")
+
+
+def rotate_shift_image(data, angle: float = 0, pre_shift=(0, 0), post_shift=(0, 0),
+                       rotation_center=None, order: int = 1):
+    """Rotate a 2D image by ``angle`` degrees about rotation_center
+    (default (ny // 2, nx // 2)) with (y, x) pre/post shifts: the output
+    samples the input at m @ out + offset, zeros outside."""
+    data = torch.as_tensor(data, dtype=torch.float32)
+    if angle == 0 and tuple(pre_shift) == (0, 0) and tuple(post_shift) == (0, 0):
+        return data * 1.0
+    ny, nx = data.shape
+    if rotation_center is None:
+        rotation_center = np.array([ny // 2, nx // 2], dtype=np.float64)
+    else:
+        rotation_center = np.asarray(rotation_center, dtype=np.float64)
+    ang = math.radians(angle)
+    m = np.array([[math.cos(ang), math.sin(ang)], [-math.sin(ang), math.cos(ang)]])
+    offset = -m @ np.asarray(post_shift, dtype=np.float64)
+    offset += rotation_center - m @ rotation_center
+    offset += -np.asarray(pre_shift, dtype=np.float64)
+    rr, cc = torch.meshgrid(
+        torch.arange(ny, dtype=torch.float32, device=data.device),
+        torch.arange(nx, dtype=torch.float32, device=data.device),
+        indexing="ij",
+    )
+    y_src = float(m[0, 0]) * rr + float(m[0, 1]) * cc + float(offset[0])
+    x_src = float(m[1, 0]) * rr + float(m[1, 1]) * cc + float(offset[1])
+    return map_coordinates(data, (y_src, x_src), order=order, mode="constant")
 
 
 def pad_to_size(data, shape):

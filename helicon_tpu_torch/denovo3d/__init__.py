@@ -10,4 +10,5 @@ from .geometry import (  # noqa: F401
     select_pairs,
     sorted_hsym_csym_pairs,
 )
+from .checkpoint import reconstruct_grid_checkpointed  # noqa: F401
 from .grid import GridResult, build_candidate_grid, reconstruct_grid  # noqa: F401

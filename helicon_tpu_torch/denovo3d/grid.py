@@ -2,20 +2,25 @@
 class average.
 
 Counterpart of ``helicon_tpu/denovo3d/grid.py``. Candidates that share a
-twist form a group of R; each group's stacked operand A_top is built once
-and the group's solves and scores run together (``group_solve``). G groups
-go to the device per launch, G sized from a memory budget. The best
-candidate's volume is then re-solved alone in float32.
+twist form groups of R (the reference's even split); each group's
+stacked operand A_top is built once and the group's solves and scores
+run together (``group_solve``). G groups go to the device per launch, G
+sized from a memory budget. The best candidate's volume is then re-solved
+alone in float32. A rise range wider than ``rise_bucket_ratio`` runs one
+search per rise bucket, then re-scores each bucket's best at
+per-candidate geometry (``_reconstruct_grid_bucketed``).
 
 The port covers tilt = psi = 0 with nearest-neighbour or linear
-interpolation on one device, the models lsq, lreg, ridge, lasso and
-elasticnet (l1 / l2 columns of the kernel and the alpha-decay retry),
-every score metric, thresh_fraction, and fsc modes 2-4 (three kernel
-solves, with lsq + cosine as the reference's kernel); the other arguments
+interpolation on one device, the image prep options, the models lsq,
+lreg, ridge, lasso and elasticnet (l1 / l2 columns of the kernel and the
+alpha-decay retry), every score metric, thresh_fraction, fsc modes 1-4
+(three kernel solves, with lsq + cosine as the reference's kernel),
+incremental progress and abort, and densify_padding; the other arguments
 raise NotImplementedError naming the ROADMAP item that will port them.
 The host tables (``_candidate_tables``, ``_group_tables``,
-``_copy_block``) are copies of the reference's numpy code;
-``tests/test_torch_geometry.py`` pins them bit for bit.
+``_copy_block``) and the bucket helpers are copies of the reference's
+numpy code; ``tests/test_torch_geometry.py`` and
+``tests/test_torch_drivers.py`` pin them.
 """
 
 from __future__ import annotations
@@ -41,9 +46,8 @@ from .geometry import (
 from .pipeline import _pixel_geometry, auto_sym_oversample, derive_task_geometry, prepare_data
 from .solver import SolveConfig, check_in_slice, regularization_from_algorithm, solve_candidate
 
-__all__ = ["build_candidate_grid", "reconstruct_grid", "GridResult"]
-
-R_MAX = 64  # largest group the scorer batches; bigger twist groups split
+__all__ = ["build_candidate_grid", "reconstruct_grid", "GridResult", "global_rise_buckets",
+           "crossbucket_selection"]
 
 
 def build_candidate_grid(
@@ -261,6 +265,19 @@ def _groups_per_launch(per_group: int, n_groups: int, device: torch.device) -> i
     return max(1, min(n_groups, budget // max(1, per_group)))
 
 
+def _dispatch_candidates(geom, n_copies: int, n_ops: int, n_cand: int) -> int:
+    """The reference's automatic batch size on one device (its
+    grid.py:1256-1268): the candidates one call dispatches when the caller
+    names no batch_size,
+    from a budget of 9e9 bytes over its per-candidate operator estimate,
+    clamped to [8, 1024] and to the grid. The port sizes its launches
+    from free memory instead; it uses this only as the progress and abort
+    granularity of incremental mode, the web app's call."""
+    d3sq = geom.d3 * geom.d3
+    per_cand = 5.0 * n_copies * geom.d2 * d3sq + 3.0 * n_ops * d3sq * d3sq
+    return max(1, min(n_cand, max(8, min(1024, int(9e9 / max(per_cand, 1.0))))))
+
+
 def _nonzero(x: torch.Tensor) -> torch.Tensor:
     """(G, R): does each candidate's volume of x (G, R, l3, d3^2) hold a
     nonzero voxel."""
@@ -312,38 +329,89 @@ def _score_group(cfg, geom, ctx, wsum, rp, m, rank, x, b):
     return cos, _image_of(pred, rowv_w, rank, inv_w)
 
 
+def _twist_groups(twists, rise_pixels, geom, copy_cache, n_copies, batch_size,
+                  densify_padding):
+    """The reference's split of the candidates into twist groups of R
+    (its grid.py:746-815): R from a cap of max(16, min(64, 1024 // l3)),
+    capped by the largest twist's candidate count and an explicit
+    batch_size, then an even split of that count. With densify_padding the
+    padded slots of a group whose rises differ become real candidates, the
+    midpoints of its largest rise gaps taken in turn. Returns (groups
+    [(twist, candidate indices, extra rise pixels or None)], R, C_u the
+    width of the canonical copy table, the union over every rise)."""
+    raw_groups = [(float(t), np.where(twists == t)[0]) for t in np.unique(twists)]
+    max_size = max(len(g) for _, g in raw_groups)
+
+    def union(rises, u):
+        for r in rises:
+            r = float(r)
+            if r not in copy_cache:
+                copy_cache[r] = select_copies(geom, r, n_copies)
+            ch, cc, cv = copy_cache[r]
+            u.update(zip(ch[cv].tolist(), cc[cv].tolist()))
+        return u
+
+    u_all = union(np.unique(rise_pixels), set())
+    cap = max(16, min(64, 1024 // max(1, geom.l3)))
+    cap = min(cap, max_size, batch_size or cap)
+    R = -(-max_size // -(-max_size // max(1, cap)))
+    groups = [(t, g[s : s + R], None) for t, g in raw_groups for s in range(0, len(g), R)]
+    if densify_padding:
+        dens = []
+        for t, g, _ in groups:
+            k, ext = R - len(g), None
+            vals = list(np.unique(rise_pixels[g].astype(np.float64)))
+            if k > 0 and len(vals) >= 2:
+                new = []
+                for _ in range(k):
+                    j = int(np.argmax(np.diff(vals)))
+                    mid = 0.5 * (vals[j] + vals[j + 1])
+                    new.append(mid)
+                    vals.insert(j + 1, mid)
+                ext = np.asarray(new, np.float32)
+            dens.append((t, g, ext))
+        groups = dens
+        for _, _, ext in groups:
+            if ext is not None:
+                union(ext, u_all)
+    return groups, R, len(u_all)
+
+
 def _grouped_scoring(
     geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
-    dy_pixel, copy_cache, device, solve=None,
+    dy_pixel, copy_cache, device, solve=None, batch_size=None,
+    progress_callback=None, should_abort=None, densify_padding=False,
 ):
     """Score every candidate, G twist groups per solve launch (the
     counterpart of the reference's _solve_group_pallas). ``solve`` is the
     grouped solve (group_solve.solve_group; validate_grouped_on_gpu passes
-    the plain version). Returns (scores (n,) float32 numpy, effective
-    dispatch dict)."""
+    the plain version).
+
+    Incremental mode (progress_callback or should_abort given): unscored
+    candidates hold -inf, should_abort() is polled before each launch
+    (True stops the search), progress_callback(done, n_cand, scores) runs
+    after each, and a launch holds at most batch_size // R groups, where
+    batch_size is the caller's or, when None, the reference's automatic
+    one (_dispatch_candidates). Returns (scores (n,) float32 numpy,
+    effective dispatch dict, with ``aborted`` and, under densify_padding,
+    ``extras``: the padded slots' twists, rise pixels and scores)."""
     from .group_solve import GroupInputs, group_inputs, solve_group
     from .projector_grouped import build_candidate_tensors_grouped, build_group_shared
     from .solver import _image_scores, _pid_split_masks, seed_lreg
 
     solve = solve or solve_group
     n_cand = len(twists)
-    raw_groups = [(float(t), np.where(twists == t)[0]) for t in np.unique(twists)]
-    max_size = max(len(g) for _, g in raw_groups)
-    # canonical copy table width: the union over ALL distinct rises
-    u_all = set()
-    for r in np.unique(rise_pixels):
-        r = float(r)
-        if r not in copy_cache:
-            copy_cache[r] = select_copies(geom, r, n_copies)
-        ch, cc, cv = copy_cache[r]
-        u_all.update(zip(ch[cv].tolist(), cc[cv].tolist()))
-    C_u = len(u_all)
-    R = min(R_MAX, max_size)
-    groups = [(t, g[s : s + R]) for t, g in raw_groups for s in range(0, len(g), R)]
+    incremental = progress_callback is not None or should_abort is not None
+    groups, R, C_u = _twist_groups(twists, rise_pixels, geom, copy_cache, n_copies,
+                                   batch_size, densify_padding)
     cdt = getattr(torch, cfg.compute_dtype)
     fsc_masks = _pid_split_masks(geom, cfg.fsc_test) if cfg.fsc_test else None
     G = _groups_per_launch(_group_bytes(geom, C_u, n_ops, R, cdt, fsc_masks is not None),
                            len(groups), device)
+    per_launch = None
+    if incremental:
+        per_launch = batch_size or _dispatch_candidates(geom, n_copies, n_ops, n_cand)
+        G = min(G, max(1, per_launch // R))
     regularized = cfg.l1_reg > 0 or cfg.l2_reg > 0
     # the kernel's cosine holds for the plain lsq solve; everything else
     # scores the returned volumes in torch
@@ -372,20 +440,27 @@ def _grouped_scoring(
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    dev_scores = []
+    scores = np.full(n_cand, -np.inf if incremental else 0.0, np.float32)
+    extra_rows = []
     build_s = solve_s = score_s = 0.0
-    rounds = 0
+    rounds = done = 0
+    aborted = False
     for start in range(0, len(groups), G):
+        if should_abort is not None and should_abort():
+            aborted = True
+            break
         t0 = time.perf_counter()
         batch = groups[start : start + G]
         tabs = [
-            _group_tables(geom, t, rise_pixels[g], n_copies, n_pairs, n_ops, C_u, R, copy_cache)
-            for t, g in batch
+            _group_tables(geom, t, rise_pixels[g] if ext is None
+                          else np.concatenate([rise_pixels[g], ext]),
+                          n_copies, n_pairs, n_ops, C_u, R, copy_cache)
+            for t, g, ext in batch
         ]
         rp, m, ch_u, cc_u, pidx, pval, rank = (to_dev(np.stack(c)) for c in zip(*tabs))
-        twist = to_dev(np.asarray([t for t, _ in batch], np.float32))
+        twist = to_dev(np.asarray([t for t, _, _ in batch], np.float32))
         positive = to_dev(np.stack([
-            _positive(cfg, tab[0], t, geom.l3) for (t, _), tab in zip(batch, tabs)
+            _positive(cfg, tab[0], t, geom.l3) for (t, _, _), tab in zip(batch, tabs)
         ]))
         inp, halves, ctx = None, None, []
         for gi in range(len(batch)):
@@ -450,19 +525,27 @@ def _grouped_scoring(
                 s = _image_scores(cfg.score_metric, s.flatten(), torch.cat(img), b2d)
                 s = s.reshape(len(batch), -1)
             sync()
+        s_np = s.cpu().numpy()  # (len(batch), R)
         build_s += t1 - t0
         solve_s += t2 - t1
         score_s += time.perf_counter() - t2
-        dev_scores.append(s)
         del inp, halves
-    s_all = torch.cat(dev_scores).cpu().numpy()  # (n_groups, R)
-    scores = np.zeros(n_cand, np.float32)
-    for i, (_, g) in enumerate(groups):
-        scores[g] = s_all[i, : len(g)]
+        for i, (t, g, ext) in enumerate(batch):
+            scores[g] = s_np[i, : len(g)]
+            done += len(g)
+            if ext is not None:
+                extra_rows.extend((t, float(r), float(s_np[i, len(g) + j]))
+                                  for j, r in enumerate(ext))
+        if progress_callback is not None:
+            progress_callback(done, n_cand, scores)
     effective = dict(
         path="grouped", R=int(R), groups_per_launch=int(G), n_groups=len(groups),
         C_u=int(C_u), n_ops=int(n_ops), compute_dtype=cfg.compute_dtype,
+        d3=int(geom.d3), l3=int(geom.l3),
         pad_fraction=round(1.0 - n_cand / (len(groups) * R), 4),
+        densified=sum(len(e) for _, _, e in groups if e is not None), aborted=aborted,
+        # incremental mode's candidates per launch (None: memory-sized)
+        launch_candidates=per_launch,
         score_in_kernel=score_in_kernel,
         # the alpha-decay retry's extra rounds of solves (0: none needed)
         retry_rounds=int(rounds),
@@ -470,6 +553,9 @@ def _grouped_scoring(
         # scoring, each ended by a device synchronisation
         build_s=build_s, solve_s=solve_s, score_s=score_s,
     )
+    if extra_rows:
+        t, r, sc = (np.asarray(c, np.float32) for c in zip(*extra_rows))
+        effective["extras"] = dict(twists=t, rise_pixels=r, scores=sc)
     return scores, effective
 
 
@@ -495,21 +581,13 @@ def _box_bounds(positive, ub_raw):
     return lb, ub
 
 
-def _raise_out_of_slice(**kw) -> None:
+def _raise_out_of_slice(tilt, psi, refine_tilt_psi_dy_range, cost_analysis, devices) -> None:
     """NotImplementedError for every argument the port does not cover yet."""
     checks = [
-        ("low_pass > 0", kw["low_pass"] > 0, "A5 prep options"),
-        ("denoise", bool(kw["denoise"]), "A5 prep options"),
-        ("transpose", kw["transpose"] != 0, "A5 prep options"),
-        ("horizontalize", bool(kw["horizontalize"]), "A5 prep options"),
-        ("tilt or psi != 0", kw["tilt"] != 0.0 or kw["psi"] != 0.0, "A7"),
-        ("refine_tilt_psi_dy_range", bool(kw["refine_tilt_psi_dy_range"]), "A8"),
-        ("progress_callback", kw["progress_callback"] is not None, "A9"),
-        ("should_abort", kw["should_abort"] is not None, "A9"),
-        ("densify_padding", bool(kw["densify_padding"]), "A9"),
-        ("cost_analysis", bool(kw["cost_analysis"]), "A5 port bench"),
-        ("more than one device",
-         kw["devices"] is not None and len(kw["devices"]) > 1, "A10"),
+        ("tilt or psi != 0", tilt != 0.0 or psi != 0.0, "A7"),
+        ("refine_tilt_psi_dy_range", bool(refine_tilt_psi_dy_range), "A8"),
+        ("cost_analysis", bool(cost_analysis), "A5c"),
+        ("more than one device", devices is not None and len(devices) > 1, "A10"),
     ]
     for name, on, item in checks:
         if on:
@@ -586,22 +664,19 @@ def reconstruct_grid(
     runs the kernels' plain versions). compute_dtype "auto" is bfloat16
     for the group operators on the card and float32 on the CPU; the
     best-volume re-solve always runs in float32 (TF32 off). The image
-    prep runs on the host, as in the reference. ``batch_size`` is
-    accepted and not used: the port sizes its launches from the device's
-    free memory. Grids with one candidate per twist score as groups of
-    one (the per-candidate path is not ported). ``refine_top_k`` and
+    prep runs on ``device``. A rise range wider than rise_bucket_ratio
+    splits into rise buckets (_reconstruct_grid_bucketed) unless
+    geometry_rise_range pins the geometry. The port sizes its launches
+    from the device's free memory; ``batch_size`` caps the group size R,
+    and in incremental mode (progress_callback / should_abort) the
+    candidates per launch, which default there to the reference's
+    automatic batch size. Grids with one candidate per twist score as
+    groups of one (the per-candidate path is not ported). ``refine_top_k`` and
     ``refine_mode`` matter only with refinement, which raises.
     """
     algorithm = algorithm or dict(model="lsq")
     device = torch.device(device)
-    _raise_out_of_slice(
-        low_pass=low_pass, denoise=denoise, transpose=transpose,
-        horizontalize=horizontalize, tilt=tilt, psi=psi,
-        refine_tilt_psi_dy_range=refine_tilt_psi_dy_range,
-        progress_callback=progress_callback, should_abort=should_abort,
-        densify_padding=densify_padding, cost_analysis=cost_analysis,
-        devices=devices,
-    )
+    _raise_out_of_slice(tilt, psi, refine_tilt_psi_dy_range, cost_analysis, devices)
     twists = np.asarray(twists, np.float32)
     rises = np.asarray(rises, np.float32)
     if twists.shape != rises.shape or twists.ndim != 1:
@@ -616,9 +691,26 @@ def reconstruct_grid(
     if geometry_rise_range is None and rise_bucket_ratio > 1 and float(
         np.max(rises)
     ) > rise_bucket_ratio * max(float(np.min(rises)), 1e-6):
-        raise NotImplementedError(
-            "rise range wider than rise_bucket_ratio: rise bucketing is not "
-            "ported yet (ROADMAP A9)"
+        # every argument but those the bucket driver owns (the candidates,
+        # the progress and abort plumbing, return_best_volume, the ratio)
+        fwd = dict(
+            csym=csym, tilt=tilt, psi=psi, dy=dy, low_pass=low_pass,
+            transpose=transpose, horizontalize=horizontalize, denoise=denoise,
+            target_apix2d=target_apix2d, target_apix3d=target_apix3d,
+            tube_diameter=tube_diameter, tube_diameter_inner=tube_diameter_inner,
+            tube_length=tube_length, reconstruct_length_rise=reconstruct_length_rise,
+            thresh_fraction=thresh_fraction, positive_constraint=positive_constraint,
+            sym_oversample=sym_oversample, interpolation=interpolation,
+            algorithm=algorithm, score_metric=score_metric, fsc_test=fsc_test,
+            refine_tilt_psi_dy_range=refine_tilt_psi_dy_range, refine_top_k=refine_top_k,
+            refine_mode=refine_mode, cg_iters=cg_iters, fista_iters=fista_iters,
+            power_iters=power_iters, compute_dtype=compute_dtype, batch_size=batch_size,
+            devices=devices, cost_analysis=cost_analysis,
+            densify_padding=densify_padding, device=device,
+        )
+        return _reconstruct_grid_bucketed(
+            image, apix, twists, rises, rise_bucket_ratio, fwd,
+            return_best_volume, progress_callback, should_abort,
         )
     model = algorithm.get("model", "lsq")
     l1, l2r = regularization_from_algorithm(algorithm, 1)
@@ -643,13 +735,13 @@ def reconstruct_grid(
     )
     check_in_slice(cfg, grouped=True)
 
-    data = prepare_data(image, apix, denoise, low_pass, transpose, horizontalize)
+    data = prepare_data(image, apix, denoise, low_pass, transpose, horizontalize, device=device)
     ny0, nx0 = data.shape
     estimated_diameter = None
     if tube_diameter < 0:
         from ..core.analysis import estimate_helix_rotation_center_diameter
 
-        _, _, estimated_diameter = estimate_helix_rotation_center_diameter(data)
+        _, _, estimated_diameter = estimate_helix_rotation_center_diameter(data.cpu().numpy())
 
     if geometry_rise_range is not None:
         g_rise_lo, g_rise_hi = map(float, geometry_rise_range)
@@ -701,8 +793,16 @@ def reconstruct_grid(
     dy_pixel = np.float32(dy / target_apix2d)
     scores, effective = _grouped_scoring(
         geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
-        dy_pixel, copy_cache, device,
+        dy_pixel, copy_cache, device, batch_size=batch_size,
+        progress_callback=progress_callback, should_abort=should_abort,
+        densify_padding=densify_padding,
     )
+    extras = None
+    if "extras" in effective:
+        ee = effective.pop("extras")
+        # rises in Angstrom, as the caller gave them
+        extras = dict(twists=ee["twists"], rises=ee["rise_pixels"] * np.float32(target_apix3d),
+                      scores=ee["scores"])
     result = GridResult(
         twists=twists,
         rises=rises,
@@ -711,9 +811,11 @@ def reconstruct_grid(
         target_apix2d=float(target_apix2d),
         target_apix3d=float(target_apix3d),
         effective=effective,
+        extras=extras,
     )
     result.best_index = int(np.argmax(scores))
-    if return_best_volume:
+    # partial scores: no re-solve of an arbitrary argmax
+    if return_best_volume and not effective["aborted"]:
         bi = result.best_index
         ch, cc, cv, phc, pv, ops_hc, ops_v, pair_idx = _candidate_tables(
             geom, twists[bi : bi + 1], rise_pixels[bi : bi + 1],
@@ -741,4 +843,158 @@ def reconstruct_grid(
             device=device,
         )
         result.best_volume = out["rec3d"].cpu().numpy()
+    return result
+
+
+def _rise_buckets(rises: np.ndarray, ratio: float):
+    """Partition candidate indices into rise buckets with bounded spread:
+    greedy over ascending rises, a bucket absorbs rises up to ratio * its
+    smallest. Returns a list of index arrays covering range(len(rises))."""
+    order = np.argsort(rises, kind="stable")
+    buckets, cur = [], [int(order[0])]
+    r0 = float(rises[order[0]])
+    for i in order[1:]:
+        if float(rises[i]) <= ratio * r0:
+            cur.append(int(i))
+        else:
+            buckets.append(np.asarray(cur))
+            cur, r0 = [int(i)], float(rises[i])
+    buckets.append(np.asarray(cur))
+    return buckets
+
+
+def global_rise_buckets(rises, ratio) -> list:
+    """The bucket partition reconstruct_grid applies to this whole
+    candidate set ([arange(n)] when no bucketing triggers); a driver that
+    scores subsets (the checkpointed search) reproduces the one-shot
+    geometry by pinning each subset to its bucket's rise range."""
+    rises = np.asarray(rises)
+    n = len(rises)
+    if (n and ratio and ratio > 1
+            and float(np.max(rises)) > ratio * max(float(np.min(rises)), 1e-6)):
+        return _rise_buckets(rises, ratio)
+    return [np.arange(n)]
+
+
+def crossbucket_selection(buckets, scores) -> np.ndarray:
+    """The top 10 % (at least 10) of each bucket: the candidates the
+    bucketed search re-scores at per-candidate geometry."""
+    parts = []
+    for idx in buckets:
+        k = max(10, -(-len(idx) // 10))
+        parts.append(idx[np.argsort(-scores[idx])[: min(k, len(idx))]])
+    return np.unique(np.concatenate(parts))
+
+
+def _rescore_and_pick(score, buckets, rises, scores, should_abort=None):
+    """The second pass of a bucketed search, shared by the one-shot and the
+    checkpointed drivers: each bucket's top 10 % (crossbucket_selection) is
+    re-scored by ``score(indices)``, a reconstruct_grid call at one
+    distinct rise's own geometry, into ``scores`` in place; should_abort is
+    polled between the calls. Bucket scores compare only within a bucket,
+    so the winner is the best re-scored candidate. Returns (winner index,
+    -1 when no call ran; the winner's call result; aborted)."""
+    sel = crossbucket_selection(buckets, scores)
+    best, best_sub, best_score = -1, None, -np.inf
+    for r in np.unique(rises[sel]):
+        if should_abort is not None and should_abort():
+            return best, best_sub, True
+        m = sel[rises[sel] == r]
+        sub = score(m)
+        scores[m] = sub.scores
+        if float(np.max(sub.scores)) > best_score:
+            best_score = float(np.max(sub.scores))
+            best, best_sub = int(m[int(np.argmax(sub.scores))]), sub
+    return best, best_sub, False
+
+
+def _reconstruct_grid_bucketed(
+    image, apix, twists, rises, ratio, kw, return_best_volume, progress_callback, should_abort,
+):
+    """Run reconstruct_grid once per rise bucket, then re-score and merge.
+
+    Each bucket recurses into reconstruct_grid (its rises now within
+    ``ratio``: one geometry) with bucket-local progress and abort plumbing,
+    without a best volume. Bucket scores compare only within a bucket (a
+    longer volume has more unknowns and fits better), so each bucket's top
+    10 % is re-scored at per-candidate geometry, one call per distinct
+    selected rise, and the winner is taken from the re-scored set alone.
+    One single-candidate call then solves the winner's volume. Abort is
+    polled between the re-scoring calls (passing it down would overwrite
+    good coarse scores with a partial launch's -inf)."""
+    n_cand = len(twists)
+    incremental = progress_callback is not None or should_abort is not None
+    scores = np.full(n_cand, -np.inf if incremental else 0.0, np.float32)
+    merged_extras = []
+    best_sub, best_score, best_global_idx = None, -np.inf, -1
+    done_off = 0
+    aborted = False
+    buckets = _rise_buckets(rises, ratio)
+    for idx in buckets:
+        if should_abort is not None and should_abort():
+            aborted = True
+            break
+
+        def cb(done_b, _n_b, scores_b, idx=idx, off=done_off):
+            scores[idx] = scores_b
+            if progress_callback is not None:
+                progress_callback(off + done_b, n_cand, scores)
+
+        sub = reconstruct_grid(
+            image, apix, twists[idx], rises[idx], return_best_volume=False,
+            progress_callback=cb if incremental else None, should_abort=should_abort,
+            rise_bucket_ratio=ratio, **kw,
+        )
+        scores[idx] = sub.scores
+        done_off += len(idx)
+        if sub.extras:
+            merged_extras.append(sub.extras)
+        if sub.effective["aborted"]:
+            aborted = True
+            break
+        if float(np.max(sub.scores)) > best_score:
+            best_score = float(np.max(sub.scores))
+            best_sub, best_global_idx = sub, int(idx[int(np.argmax(sub.scores))])
+
+    if not aborted:
+        # re-scoring known candidates must not mint duplicate extras
+        rkw = dict(kw, refine_tilt_psi_dy_range=None, cost_analysis=False,
+                   densify_padding=False)
+        best, sub, aborted = _rescore_and_pick(
+            lambda m: reconstruct_grid(image, apix, twists[m], rises[m],
+                                       return_best_volume=False, rise_bucket_ratio=ratio, **rkw),
+            buckets, rises, scores, should_abort,
+        )
+        if best >= 0:
+            best_global_idx, best_sub = best, sub
+        if progress_callback is not None:
+            progress_callback(n_cand, n_cand, scores)
+
+    extras = None
+    if merged_extras:
+        extras = {k: np.concatenate([e[k] for e in merged_extras])
+                  for k in ("twists", "rises", "scores")}
+    result = GridResult(
+        twists=twists,
+        rises=rises,
+        scores=scores,
+        geom=best_sub.geom if best_sub is not None else None,
+        target_apix2d=best_sub.target_apix2d if best_sub is not None else -1.0,
+        target_apix3d=best_sub.target_apix3d if best_sub is not None else -1.0,
+        effective=dict(best_sub.effective if best_sub is not None else {},
+                       n_buckets=len(buckets), aborted=aborted),
+        extras=extras,
+    )
+    result.best_index = best_global_idx if best_global_idx >= 0 else int(np.argmax(scores))
+    if return_best_volume and best_sub is not None and not aborted:
+        # one candidate: no caller's batch to cap it, nothing to densify
+        win = reconstruct_grid(
+            image, apix, twists[best_global_idx : best_global_idx + 1],
+            rises[best_global_idx : best_global_idx + 1], return_best_volume=True,
+            rise_bucket_ratio=ratio, **dict(kw, batch_size=None, densify_padding=False),
+        )
+        result.best_volume = win.best_volume
+        result.geom = win.geom
+        result.target_apix2d = win.target_apix2d
+        result.target_apix3d = win.target_apix3d
     return result

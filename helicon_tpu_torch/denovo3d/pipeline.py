@@ -1,14 +1,19 @@
 """Image preparation and size bookkeeping for one grid search.
 
-Counterpart of ``helicon_tpu/denovo3d/pipeline.py``: ``prepare_data`` :26
-(its default path), ``derive_task_geometry`` :60, ``_pixel_geometry``
-:114 and ``auto_sym_oversample`` :159. The last three are host arithmetic,
-copied; ``tests/test_torch_prep.py`` pins them to the originals.
+Counterpart of ``helicon_tpu/denovo3d/pipeline.py``: ``prepare_data`` :26,
+``derive_task_geometry`` :60, ``_pixel_geometry`` :114 and
+``auto_sym_oversample`` :159. The last three are host arithmetic, copied;
+``tests/test_torch_prep.py`` pins them to the originals.
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["prepare_data", "derive_task_geometry", "auto_sym_oversample"]
 
@@ -20,20 +25,33 @@ def prepare_data(
     low_pass: float = -1,
     transpose: int = 0,
     horizontalize: int = 0,
-):
-    """The image as float32. The port covers the default path only: the
-    low-pass filter, denoising, transposing and horizontalizing raise."""
-    for name, on in (
-        ("low_pass > 0", low_pass > 0),
-        ("denoise", bool(denoise)),
-        ("transpose", transpose != 0),
-        ("horizontalize", bool(horizontalize)),
-    ):
-        if on:
-            raise NotImplementedError(
-                f"prepare_data: {name} is not ported yet (ROADMAP A5, prep options)"
-            )
-    return np.asarray(data, np.float32)
+    device="cuda",
+) -> torch.Tensor:
+    """The image as a float32 tensor on ``device``, after the reference's
+    chain: the low-pass (above 2 apix: a Gaussian low-pass to 2 apix /
+    low_pass of Nyquist and a high-pass at 2 / the longer side), the
+    denoiser, the transpose (transpose > 0, or < 0 when the filament is
+    vertical), then with horizontalize the refined auto_horizontalize."""
+    from ..core.filters import low_high_pass_filter
+    from ..helix.orient import auto_horizontalize, is_vertical
+
+    if not isinstance(data, torch.Tensor):
+        data = np.array(data, np.float32)  # a copy: the caller's array may be read-only
+    data = torch.as_tensor(data, dtype=torch.float32, device=device)
+    if low_pass > 2 * apix:
+        data = low_high_pass_filter(data, low_pass_fraction=2 * apix / low_pass,
+                                    high_pass_fraction=2.0 / max(data.shape))
+    if denoise:
+        from ..core.denoise import denoise_image
+
+        data = denoise_image(data, method=denoise)
+    if transpose > 0 or (transpose < 0 and is_vertical(data)):
+        data = data.T.contiguous()
+    if horizontalize:
+        data, theta_best, shift_best = auto_horizontalize(data, refine=True)
+        logger.debug("auto_horizontalize: rotation=%.2f deg shift=%.1f A",
+                     theta_best, shift_best * apix)
+    return data
 
 
 def derive_task_geometry(

@@ -8,13 +8,13 @@ fit), ridge, lasso and elasticnet (l2 in every matvec, l1 in the prox,
 the alpha-decay retry of an all-zero fit); the score metrics cosine,
 ssim, ms_ssim, mutual_information and composite (``_candidate_score``,
 which the grouped scorer of ``grid`` shares); the thresh clip of the
-prediction; the fsc half-set splits of modes 2-4. The power iteration is
-seeded from ones, as the reference's XLA path. The grouped scoring solve
-lives in ``group_solve``, the fused single-candidate solve in
+prediction; the fsc half-set splits of modes 1-4 (mode 1 draws JAX's
+permutation through ``_jax_random``). The power iteration is seeded from
+ones, as the reference's XLA path. The grouped scoring solve lives in
+``group_solve``, the fused single-candidate solve in
 ``candidate_solve``. Both interpolations are ported.
 
-ard (ROADMAP A7) and fsc mode 1 (its split draws a JAX random
-permutation; ROADMAP C2) raise NotImplementedError.
+ard (ROADMAP A7) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -86,8 +86,6 @@ def check_in_slice(cfg: SolveConfig, grouped: bool = False) -> None:
         bad.append("model='ard' (ROADMAP A7)")
     elif cfg.model not in MODELS:
         bad.append(f"model={cfg.model!r}")
-    if cfg.fsc_test == 1:
-        bad.append("fsc_test=1: its random split draws a JAX permutation (ROADMAP C2)")
     if grouped and cfg.fsc_test:
         if cfg.l1_reg or cfg.l2_reg:
             bad.append("fsc_test with l1/l2 regularization: the reference scores it per "
@@ -168,15 +166,19 @@ def _image_scores(metric: str, cos, pred2d, b2d):
 
 def _pid_split_masks(geom, mode: int):
     """Data-row pixel-id split masks (1, l2, d2) float32 numpy of fsc
-    modes 2 (even/odd), 3 (halves) and 4 (outer thirds against the
-    centre); pid = i * d2 + j."""
+    modes 1 (random: the pixels whose rank in JAX's permutation(PRNGKey(0),
+    n) falls in its first half), 2 (even/odd), 3 (halves) and 4 (outer
+    thirds against the centre); pid = i * d2 + j."""
     l2, d2 = geom.l2, geom.d2
     n = l2 * d2
     pid = np.arange(n).reshape(l2, d2)
     if mode == 1:
-        raise NotImplementedError(
-            "fsc_test=1: its random split draws a JAX permutation (ROADMAP C2)")
-    if mode == 2:
+        from .._jax_random import PRNGKey, permutation
+
+        rank = np.empty(n, np.int64)
+        rank[permutation(PRNGKey(0), n)] = np.arange(n)
+        set1 = (rank < n // 2).reshape(l2, d2)
+    elif mode == 2:
         set1 = pid % 2 == 0
     elif mode == 3:
         set1 = pid < n // 2

@@ -328,7 +328,7 @@ def test_seed_lreg_replaces_only_all_zero_volumes():
         np.testing.assert_array_equal(y[g, r].reshape(-1).numpy(), want)
 
 
-@pytest.mark.parametrize("mode", [2, 3, 4])
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
 def test_pid_split_masks_match_reference(mode):
     kw = dict(d2=14, l2=32, d3=12, l3=4, rmin=0.0, rmax=5.0, scale2d_to_3d=0.858, csym=1)
     want = ref_solver._pid_split_masks(ref_geo.ReconstructionGeometry(**kw), mode,
@@ -339,10 +339,16 @@ def test_pid_split_masks_match_reference(mode):
 
 
 def test_pid_split_mode_1_raises():
-    geom = port_geo.ReconstructionGeometry(d2=4, l2=8, d3=6, l3=2, rmin=0.0, rmax=2.0,
-                                           scale2d_to_3d=1.0)
-    with pytest.raises(NotImplementedError, match="C2"):
-        port_solver._pid_split_masks(geom, 1)
+    """Despite its name, which the test list keeps from when mode 1 raised
+    here, this checks that mode 1 matches the reference: its random split
+    is JAX's permutation drawn in numpy, equal at an odd pixel count too."""
+    kw = dict(d2=4, l2=7, d3=6, l3=2, rmin=0.0, rmax=2.0, scale2d_to_3d=1.0)
+    want = ref_solver._pid_split_masks(ref_geo.ReconstructionGeometry(**kw), 1,
+                                       jax.random.PRNGKey(0))
+    got = port_solver._pid_split_masks(port_geo.ReconstructionGeometry(**kw), 1)
+    for w, gt in zip(want, got):
+        np.testing.assert_array_equal(gt, np.asarray(w))
+    assert got[0].sum() == 14 and got[1].sum() == 14
 
 
 def test_solve_candidate_fsc_and_regularization_match_reference(grouped):

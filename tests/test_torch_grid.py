@@ -106,26 +106,19 @@ def test_envelope_matches_reference(amyloid, name):
 
 
 OUT_OF_SLICE = dict(
-    low_pass=dict(low_pass=10.0),
-    denoise=dict(denoise="nl_mean"),
-    transpose=dict(transpose=1),
-    horizontalize=dict(horizontalize=1),
     tilt=dict(tilt=2.0),
     psi=dict(psi=1.0),
     refine=dict(refine_tilt_psi_dy_range=dict(tilt=5.0, psi=2.0, dy=1.0)),
     # ridge, ssim, fsc and thresh are ported; each case keeps its name on
     # a combination that still raises: fsc with l1/l2 (ROADMAP A7), fsc
-    # with a 2D metric or thresh (A6.6b), fsc mode 1 (C2); and ard (A7)
+    # with a 2D metric or thresh (A6.6b); and ard (A7)
     ridge=dict(algorithm=dict(model="ridge", alpha=0.1), fsc_test=2),
     ssim=dict(score_metric="ssim", fsc_test=2),
-    fsc=dict(fsc_test=1),
     thresh=dict(thresh_fraction=0.1, fsc_test=3),
     ard=dict(algorithm=dict(model="ard")),
     fsc_lreg=dict(algorithm=dict(model="lreg"), fsc_test=2),
-    bucketing=dict(rises=np.asarray([4.0, 8.0], np.float32)),
     devices=dict(devices=["cuda:0", "cuda:1"]),
-    progress=dict(progress_callback=lambda *a: None),
-    abort=dict(should_abort=lambda: False),
+    cost_analysis=dict(cost_analysis=True),
 )
 
 
@@ -136,6 +129,67 @@ def test_out_of_slice_arguments_raise(amyloid, name):
     kw.update(OUT_OF_SLICE[name])
     with pytest.raises(NotImplementedError):
         reconstruct_grid(amyloid, **kw)
+
+
+def _record():
+    calls = []
+    return calls, lambda done, n, scores: calls.append((done, n, scores.copy()))
+
+
+# the arguments that raised until the port took the prep options, the
+# search drivers and fsc mode 1; each runs on the 2-candidate amyloid grid
+# against the reference (image: the amyloid, or its transpose)
+PORTED = dict(
+    low_pass=dict(low_pass=10.0),
+    denoise=dict(denoise="nl_mean"),
+    # a vertical filament, transposed back by the CLI's default
+    transpose=dict(transpose=-1, image="transposed"),
+    horizontalize=dict(horizontalize=1),
+    fsc=dict(fsc_test=1),
+    bucketing=dict(rises=np.asarray([4.0, 8.0], np.float32)),
+    progress=dict(progress_callback="record"),
+    # stops before the first launch: every score -inf, no best volume
+    abort=dict(should_abort=lambda: True),
+)
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_formerly_out_of_slice_matches_reference(amyloid, name, monkeypatch):
+    if name == "bucketing":
+        # the reference's calls of one candidate per twist on its grouped
+        # XLA path: its per-candidate path gives the same scores (its
+        # tests/test_grouped_solver.py, 2e-5) at seven times the eager run
+        # time
+        monkeypatch.setenv("HELICON_GRID_GROUPED", "1")
+    kw = dict(GOLDEN, twists=np.asarray([2.0, 2.0], np.float32),
+              rises=np.asarray([4.6, 4.75], np.float32))
+    kw.update(PORTED[name])
+    image = amyloid.T.copy() if kw.pop("image", None) == "transposed" else amyloid
+    calls = {}
+    if kw.get("progress_callback") == "record":
+        (calls["port"], kw["progress_callback"]), (calls["ref"], ref_cb) = _record(), _record()
+    port = reconstruct_grid(image, device="cpu", **kw)
+    if calls:
+        kw["progress_callback"] = ref_cb
+    with jax.disable_jit():
+        ref = ref_reconstruct_grid(image, batch_size=32, devices=jax.devices()[:1], **kw)
+    if name == "abort":
+        assert np.isneginf(port.scores).all() and np.isneginf(ref.scores).all()
+        assert port.best_volume is None and ref.best_volume is None
+        return
+    np.testing.assert_allclose(port.scores, ref.scores, atol=1e-4)
+    assert port.best_index == ref.best_index
+    assert dataclasses.astuple(port.geom) == dataclasses.astuple(ref.geom)
+    rel = np.abs(port.best_volume - ref.best_volume).max() / np.abs(ref.best_volume).max()
+    # horizontalize: the two Nelder-Mead searches follow float values and
+    # stop apart within their xtol (4.4e-5 deg, 2.7e-4 px here), which
+    # moves this volume by 1.8e-4 relative; the scores hold at 1e-4
+    assert rel < (1e-3 if name == "horizontalize" else 1e-4), rel
+    if calls:
+        assert [c[:2] for c in calls["port"]] == [c[:2] for c in calls["ref"]] == [(2, 2)]
+        np.testing.assert_array_equal(calls["port"][-1][2], port.scores)
+    if name == "bucketing":
+        assert port.effective["n_buckets"] == 2
 
 
 def test_tf32_off_during_search_and_restored_after():
@@ -157,6 +211,9 @@ def test_tf32_off_during_search_and_restored_after():
 
 def test_port_imports_no_jax():
     code = ("import helicon_tpu_torch.denovo3d, helicon_tpu_torch.denovo3d.candidate_solve, "
-            "helicon_tpu_torch.helix, helicon_tpu_torch.core.analysis, sys; "
+            "helicon_tpu_torch.denovo3d.checkpoint, helicon_tpu_torch.helix.orient, "
+            "helicon_tpu_torch.core.analysis, helicon_tpu_torch.core.denoise, "
+            "helicon_tpu_torch.core.filters, helicon_tpu_torch._jax_random, "
+            "helicon_tpu_torch.utils.exceptions, sys; "
             "assert 'jax' not in sys.modules and 'helicon_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)

@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs eight phases and fails (non-zero exit) if any fails:
+checkout, then runs nine phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
@@ -28,7 +28,8 @@ checkout, then runs eight phases and fails (non-zero exit) if any fails:
    candidates of phase 4 at full width, each against its plain version in
    float32 (score within 1e-4, x within 1e-3 relative) and bfloat16 (1e-3,
    5e-3), B3's built W2 and Mxy bit-identical to the plain build, and B3's
-   float32 scores within 1e-4 of solver.solve_candidate's; for B2 (nn)
+   float32 scores within 1e-4 of solver.solve_candidate's (B2's float32
+   route); for B2 (nn)
    the device time of each launch group summed over one solve (CUDA
    events: first product, glue_data, sym_fold, second product,
    reduce_l2_mask, vector updates), and in float32 each product alone
@@ -54,12 +55,14 @@ checkout, then runs eight phases and fails (non-zero exit) if any fails:
    elasticnet and ssim searches beside their bf16 runs (top-10 overlap,
    Spearman, largest delta against the reference's bf16 contract);
 8. the search drivers and the prep: (a) phase 4's twists over rises 2-10
-   A (5,907 candidates, four rise buckets, 593 re-scored at per-candidate
-   geometry, the winner's volume), each pass's times and B1 launches and
-   each bucket's geometry, then the same search with the CLI's prep
-   defaults (transpose -1, horizontalize 1: the prep's seconds by pass);
-   (b) B1 at R = 1, a second-pass call's groups, against its plain version
-   (scores within 1e-3); (c) phase 4's search as the web app calls it,
+   A (5,907 candidates, four rise buckets on B1, 593 re-scored at
+   per-candidate geometry on the per-candidate path, B2, the winner's
+   volume), each pass's times and B1 and B2 launches and each bucket's
+   geometry, then the same search with the CLI's prep defaults
+   (transpose -1, horizontalize 1: the prep's seconds by pass); (b) B1
+   at R = 1, the route HELICON_GRID_GROUPED=1 forces on (a)'s largest
+   second-pass call, against its plain version (scores within 1e-3),
+   timed beside its bound; (c) phase 4's search as the web app calls it,
    with progress_callback and should_abort and no batch_size (launches of
    the reference's automatic batch), then aborted after its first launch;
    (d) (a)'s grid checkpointed in chunks of
@@ -68,12 +71,31 @@ checkout, then runs eight phases and fails (non-zero exit) if any fails:
    low_pass 10) and the denoisers on the card against the CPU, and the
    golden grid on a transposed, rotated amyloid with the CLI's prep
    defaults; (f) phase 4's search with fsc_test=1 (three B1 solves a
-   launch).
+   launch);
+9. the per-candidate path: (a) the largest second-pass call of 8 (a)
+   with B2 against its plain version (bfloat16 scores within 1e-3, and
+   the call in float32 within 1e-4), one of its B2 launches timed beside
+   its bound; (b) the golden grid at tilt 3 deg on the gather projector
+   (wall, candidates/s, peak memory, finite scores), the gather P and PT
+   per application, and four golden candidates at tilt 0 on the gather
+   projector against the separable path (float32 scores within 1e-4);
+   (c) ard on the golden grid (B2's matvec entry under the EM loop) with
+   the entry and with its plain version on the same card tensors
+   (bfloat16 scores within 1e-3, float32 within 1e-4), one of the
+   search's matvecs timed with both beside its bound, and the entry
+   against plain on phase 5's float32 inputs (relative 1e-5); (d)
+   elasticnet with fsc_test=2 on the golden grid with B2 and with its
+   plain version (the halves on j-dependent z-Grams; the same gates),
+   one of the search's half solves timed beside its bound, and B2 on an
+   fsc half's j-dependent z-Gram against plain on phase 5's float32
+   inputs (x within 1e-3 relative).
 
 The last two lines of standard output are the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them lists each
 kernel with its launches on its own path (phase 4 for B1, phase 5 for B2
-and B3; B1's on the bucketed path of phase 8 and its R = 1 call too), its error against the plain version, its time, the plain
+and B3; B1's and B2's on the bucketed path of phase 8, B2's on phase 9's
+per-candidate searches too, with its matvec entry and its j-dependent
+z-Gram), its error against the plain version, its time, the plain
 version's time and the least time the card could take for the same work
 (inputs larger than the 50 MB L2 counted once per matvec that reads them;
 bound_two_pass_ms counts the stacked operand once per product).
@@ -494,20 +516,21 @@ def _top_candidates(device, res, n: int):
     return out
 
 
-def _single_work(inp, a_passes: int = 1) -> tuple:
+def _single_work(inp, a_passes: int = 1, nm: int | None = None) -> tuple:
     """(bytes, product FLOP, other FLOP) of B2 on CandidateInputs, or of
     B3 on FullInputs (its build, rhs product and the score's data term
     too): each input read once, except one larger than the L2 (B2's
     stacked operand), read once per matvec (``a_passes`` times: 2 for a
     design whose two products each stream it); B3's built operand written
     once and read as B2's, its data rows read once more by the rhs pass
-    and once by the score; x (and the score) written once."""
+    and once by the score; x (and the score) written once. nm: the
+    matvecs (the solve's by default; 1 for the matvec entry alone)."""
     import torch
 
     k, C, O, l3, d3sq = inp.shape
     nd, PL = C * inp.d2, inp.b1.shape[1]
     rows = nd + O * d3sq
-    nm = _matvecs(*ITERS)
+    nm = _matvecs(*ITERS) if nm is None else nm
     mma = k * nm * 2 * 2 * l3 * rows * d3sq
     simt = k * nm * (2 * l3 * l3 * nd + 4 * PL * O * l3 * d3sq + 13 * l3 * d3sq)
     fields = [getattr(inp, f.name) for f in dataclasses.fields(inp)]
@@ -606,7 +629,7 @@ def phase_single_candidate(device, res) -> dict:
     torch.cuda.synchronize()
     out_k = {key: run(key, True) for key in inputs}
     torch.cuda.synchronize()
-    launches = dict(cs.launches)
+    launches = {k: cs.launches[k] for k in ("solve_candidate", "score_candidate")}
     print(f"phase 5: kernel launches {launches}", flush=True)
     for k, n in launches.items():
         if n <= 0:
@@ -670,11 +693,11 @@ def phase_single_candidate(device, res) -> dict:
                             device=device)
         s_cl.append(float(r["score"]))
     err = float(np.abs(s_b3 - np.asarray(s_cl)).max())
-    print(f"phase 5: B3 float32 scores vs solver.solve_candidate: max abs err {err:.3e} "
+    print(f"phase 5: B3 float32 scores vs solver.solve_candidate (B2): max abs err {err:.3e} "
           f"(limit 1e-4); scores {np.round(s_b3, 6).tolist()}", flush=True)
     if not (err <= 1e-4):
         raise AssertionError(f"B3 scores differ from solve_candidate's by {err}")
-    return dict(launches=launches, rows=rows)
+    return dict(launches=launches, rows=rows, inputs=inputs, cands=cands)
 
 
 # phase 7's full-width configurations (reconstruct_grid keyword arguments)
@@ -876,11 +899,11 @@ def _recorded_calls():
     search and the checkpoint call grid.reconstruct_grid by name): yields a
     list that gains, per call, its twists, rises, whether it solved a best
     volume, its wall seconds, its prepare_data seconds, B1's launches and
-    its effective dict."""
+    its effective dict, and B2's launches."""
     import numpy as np
     import torch
 
-    from helicon_tpu_torch.denovo3d import grid, group_solve
+    from helicon_tpu_torch.denovo3d import candidate_solve, grid, group_solve
 
     calls, inner, prep = [], grid.reconstruct_grid, grid.prepare_data
     prep_s = []
@@ -892,15 +915,19 @@ def _recorded_calls():
         prep_s.append(time.perf_counter() - t0)
         return out
 
+    def b2():
+        return sum(candidate_solve.launches.values())
+
     def recorded(image, apix, twists, rises, **kw):
         prep_s.clear()
-        before, t0 = group_solve.launches, time.perf_counter()
+        before, b2_before, t0 = group_solve.launches, b2(), time.perf_counter()
         res = inner(image, apix, twists, rises, **kw)
         torch.cuda.synchronize()
         calls.append(dict(twists=np.asarray(twists), rises=np.asarray(rises),
                           volume=bool(kw.get("return_best_volume")),
                           wall=time.perf_counter() - t0, prep_s=sum(prep_s),
-                          launches=group_solve.launches - before, effective=res.effective))
+                          launches=group_solve.launches - before, b2_launches=b2() - b2_before,
+                          effective=res.effective, kw=kw))
         return res
 
     grid.reconstruct_grid, grid.prepare_data = recorded, timed_prep
@@ -925,8 +952,9 @@ def _passes(calls) -> dict:
 
 def _print_passes(label: str, passes) -> dict:
     """One line per pass: calls, candidates, wall, candidates/s, the prep /
-    build / solve / score seconds and B1 launches; one line per first-pass bucket
-    with its geometry. Returns the per-pass sums."""
+    build / solve / score seconds, the scoring paths and B1 and B2
+    launches; one line per first-pass bucket with its geometry. Returns the
+    per-pass sums."""
     sums = {}
     for name, cs in passes.items():
         n = sum(len(c["twists"]) for c in cs)
@@ -934,11 +962,15 @@ def _print_passes(label: str, passes) -> dict:
         st = {k: sum(c["effective"][k] for c in cs) for k in ("build_s", "solve_s", "score_s")}
         sums[name] = dict(calls=len(cs), candidates=n, wall=wall,
                           prep_s=sum(c["prep_s"] for c in cs),
-                          launches=sum(c["launches"] for c in cs), **st)
-        print(f"{label} [{name} pass]: {len(cs)} calls, {n} candidates, {wall:.3f} s wall, "
+                          launches=sum(c["launches"] for c in cs),
+                          b2_launches=sum(c["b2_launches"] for c in cs),
+                          paths=sorted({c["effective"]["path"] for c in cs}), **st)
+        print(f"{label} [{name} pass]: {len(cs)} calls ({'/'.join(sums[name]['paths'])}), "
+              f"{n} candidates, {wall:.3f} s wall, "
               f"{n / max(wall, 1e-9):.1f} candidates/s, prep {sums[name]['prep_s']:.3f} s, "
               f"build {st['build_s']:.3f} s, solve {st['solve_s']:.3f} s, score "
-              f"{st['score_s']:.3f} s, {sums[name]['launches']} B1 launches", flush=True)
+              f"{st['score_s']:.3f} s, {sums[name]['launches']} B1 launches, "
+              f"{sums[name]['b2_launches']} B2 launches", flush=True)
     for c in passes["first"]:
         e = c["effective"]
         print(f"{label} [bucket {float(c['rises'].min())}-{float(c['rises'].max())} A]: "
@@ -951,11 +983,12 @@ def _print_passes(label: str, passes) -> dict:
 def phase_bucketed(device, label="phase 8 (a)", **prep) -> dict:
     """Phase 8 (a): the wide-rise search (5,907 candidates, four rise
     buckets, the second pass at per-candidate geometry, the winner's volume)
-    with each pass's times, B1's launches and each bucket's geometry; every
-    score finite, the buckets and the re-scored count as expected, B1
-    launched in every bucket and every second-pass call, the winner among
-    the re-scored and its volume finite. ``prep`` goes to every call
-    (the CLI's transpose / horizontalize)."""
+    with each pass's times, B1's and B2's launches and each bucket's
+    geometry; every score finite, the buckets and the re-scored count as
+    expected, B1 launched in every bucket, every second-pass call on the
+    per-candidate path with B2 launched and no B1, the winner among the
+    re-scored and its volume finite. ``prep`` goes to every call (the
+    CLI's transpose / horizontalize)."""
     import numpy as np
     import torch
 
@@ -991,8 +1024,10 @@ def phase_bucketed(device, label="phase 8 (a)", **prep) -> dict:
         f"buckets {WIDE_BUCKETS}": tuple(buckets) == WIDE_BUCKETS,
         f"{WIDE_RESCORED} re-scored in at most 33 calls":
             sums["second"]["candidates"] == WIDE_RESCORED and len(passes["second"]) <= 33,
-        "B1 launched in every bucket and second-pass call":
-            all(c["launches"] > 0 for c in passes["first"] + passes["second"]),
+        "B1 launched in every bucket": all(c["launches"] > 0 for c in passes["first"]),
+        "every second-pass call per candidate, B2 launched, no B1": all(
+            c["effective"]["path"] == "percand" and c["b2_launches"] > 0 and c["launches"] == 0
+            for c in passes["second"]),
         "winner among the re-scored":
             (float(tw[res.best_index]), float(ri[res.best_index])) in rescored,
         "best volume finite": bv is not None and bool(np.all(np.isfinite(bv))),
@@ -1005,10 +1040,15 @@ def phase_bucketed(device, label="phase 8 (a)", **prep) -> dict:
 
 
 def phase_r1(device, bucketed) -> dict:
-    """Phase 8 (b): B1 at R = 1 against its plain version on the same card
-    tensors: the largest second-pass call of (a) scored through the grouped
-    scorer with each solve (phase 2's bf16 gate: scores within 1e-3), then
-    one launch's solve alone timed with both, beside its bound."""
+    """Phase 8 (b): B1 at R = 1, the route HELICON_GRID_GROUPED=1 forces on
+    a grid of one candidate per twist (the main path sends such grids per
+    candidate since PR 8), against its plain version on the same card
+    tensors: the largest second-pass call of (a) scored through the
+    grouped scorer with each solve (phase 2's bf16 gate: scores within
+    1e-3), then one launch's solve alone timed with both, beside its
+    bound."""
+    import os
+
     import numpy as np
     import torch
 
@@ -1023,12 +1063,14 @@ def phase_r1(device, bucketed) -> dict:
         return scorer(*args, **kw)
 
     grid._grouped_scoring = capture
+    os.environ["HELICON_GRID_GROUPED"] = "1"
     try:
         reconstruct_grid(np.load(AMYLOID), apix=2.0, twists=call["twists"], rises=call["rises"],
                          tube_diameter=110.0, cg_iters=10, fista_iters=16, power_iters=2,
                          device=device, return_best_volume=False)
     finally:
         grid._grouped_scoring = scorer
+        del os.environ["HELICON_GRID_GROUPED"]
     inputs = []
 
     def kernel(inp, *a, **k):
@@ -1041,13 +1083,13 @@ def phase_r1(device, bucketed) -> dict:
     err = float(np.abs(s_k - s_p).max())
     inp = inputs[0]
     G, R, C_u, O, l3, d3sq = inp.shape
-    ms_k = _time_ms(lambda: gs.solve_group(inp, *ITERS), 5)
-    ms_p = _time_ms(lambda: gs.solve_group_reference(inp, *ITERS), 5)
+    ms_k = _time_ms(lambda: gs.solve_group(inp, *ITERS), 3)
+    ms_p = _time_ms(lambda: gs.solve_group_reference(inp, *ITERS), 2)
     bound_ms, bound_by = _bound(*_group_work(inp, ITERS), bf16=inp.a_top.dtype == torch.bfloat16)
-    print(f"phase 8 (b) [R={R}, rise {float(call['rises'][0])} A, G={G} groups, d3={eff['d3']} "
-          f"l3={l3} C_u={C_u} O={O}, {eff['compute_dtype']}]: score abs err {err:.3e} (limit "
-          f"1e-3), kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms per call, bound {bound_ms:.3f} ms "
-          f"({bound_by})", flush=True)
+    print(f"phase 8 (b) [HELICON_GRID_GROUPED=1: R={R}, rise {float(call['rises'][0])} A, G={G} "
+          f"groups, d3={eff['d3']} l3={l3} C_u={C_u} O={O}, {eff['compute_dtype']}]: score abs "
+          f"err {err:.3e} (limit 1e-3), kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms per call, "
+          f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
     if R != 1 or not np.all(np.isfinite(s_k)) or not (err <= 1e-3):
         raise AssertionError(f"phase 8 (b): B1 at R = {R} differs from plain by {err}")
     return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
@@ -1217,6 +1259,333 @@ def phase_fsc1(device, solve_launches: int) -> dict:
     return dict(launches=launches, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the per-candidate path
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _b2_solve(plain: bool = False, record=None):
+    """B2's solve as the per-candidate path calls it, its plain version
+    with ``plain`` (on the same card tensors), every CandidateInputs it is
+    given appended to ``record``."""
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs
+
+    kernel = cs.solve_candidate_kernel
+
+    def solve(inp, *iters):
+        if record is not None:
+            record.append(inp)
+        return (cs.solve_candidate_reference if plain else kernel)(inp, *iters)
+
+    cs.solve_candidate_kernel = solve
+    try:
+        yield
+    finally:
+        cs.solve_candidate_kernel = kernel
+
+
+def _b2_count() -> int:
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs
+
+    return sum(cs.launches.values())
+
+
+def phase_second_pass(device, bucketed) -> dict:
+    """Phase 9 (a): the largest second-pass call of phase 8 (a) again, on
+    the per-candidate path with B2 and with B2's plain version on the same
+    card tensors: bfloat16 scores within 1e-3, and the call in float32
+    within 1e-4; then one of its B2 launches (bfloat16) timed with both,
+    beside its bound."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs, reconstruct_grid
+
+    second = [c for c in bucketed["calls"] if not c["volume"] and len(np.unique(c["rises"])) == 1]
+    call = max(second, key=lambda c: len(c["twists"]))
+    img = np.load(AMYLOID)
+    out, captured = {}, []
+    for dtype, tol in (("auto", 1e-3), ("float32", 1e-4)):
+        s = {}
+        for plain in (False, True):
+            with _b2_solve(plain, captured if dtype == "auto" and not plain else None):
+                res = reconstruct_grid(img, apix=2.0, twists=call["twists"],
+                                       rises=call["rises"], tube_diameter=110.0, cg_iters=10,
+                                       fista_iters=16, power_iters=2, compute_dtype=dtype,
+                                       device=device, return_best_volume=False)
+            s[plain] = res.scores
+        err = float(np.abs(s[False] - s[True]).max())
+        e = res.effective
+        print(f"phase 9 (a) [second-pass call at rise {float(call['rises'][0])} A, "
+              f"{len(call['twists'])} candidates, {e['compute_dtype']}, d3={e['d3']} "
+              f"l3={e['l3']} C={e['n_copies']} O={e['n_ops']}, k={e['batch_size']}]: B2 "
+              f"against plain, score abs err {err:.3e} (limit {tol:g})", flush=True)
+        if e["path"] != "percand" or not np.all(np.isfinite(s[False])) or not (err <= tol):
+            raise AssertionError(f"phase 9 (a): B2 differs from plain by {err} ({dtype})")
+        out[e["compute_dtype"]] = err
+    inp = captured[0]
+    ms_k = _time_ms(lambda: cs.solve_candidate_kernel(inp, *ITERS), 5)
+    ms_p = _time_ms(lambda: cs.solve_candidate_reference(inp, *ITERS), 3)
+    bf16 = inp.a_top.dtype == torch.bfloat16
+    bound_ms, bound_by = _bound(*_single_work(inp), bf16=bf16)
+    k, C, O, l3, d3sq = inp.shape
+    print(f"phase 9 (a) [one B2 launch: k={k} C={C} O={O} l3={l3} d3^2={d3sq}, "
+          f"{inp.a_top.dtype}]: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by})", flush=True)
+    return dict(max_abs_err=out["bfloat16"], float32_err=out["float32"], ms=ms_k,
+                plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by, shape=(k, C, O, l3, d3sq))
+
+
+def _golden_search(device, tw, ri, **kw):
+    """The golden grid's reconstruct_grid on the amyloid (the bench's
+    iterations), with B2's launches counted: (result, B2 launches, wall s,
+    peak GiB)."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.denovo3d import reconstruct_grid
+
+    img = np.load(AMYLOID)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before, t0 = _b2_count(), time.perf_counter()
+    res = reconstruct_grid(img, apix=2.0, twists=tw, rises=ri, tube_diameter=110.0,
+                           cg_iters=10, fista_iters=16, power_iters=2, device=device, **kw)
+    torch.cuda.synchronize()
+    return (res, _b2_count() - before, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _print_golden(label, res, b2, wall, peak, n):
+    """A per-candidate golden search's line; fails unless it went per
+    candidate with finite scores and volume."""
+    import numpy as np
+
+    e = res.effective
+    print(f"{label}: {n} candidates on the {e['path']} path ({e['compute_dtype']}, k="
+          f"{e['batch_size']}, d3={e['d3']} l3={e['l3']} C={e['n_copies']} O={e['n_ops']}), "
+          f"{wall:.3f} s wall incl. best volume, {n / wall:.2f} candidates/s, build "
+          f"{e['build_s']:.3f} s, solve {e['solve_s']:.3f} s, score {e['score_s']:.3f} s, "
+          f"{b2} B2 launches, peak {peak:.2f} GiB; top-3 {res.top(3).tolist()}", flush=True)
+    bv = res.best_volume
+    if (e["path"] != "percand" or not np.all(np.isfinite(res.scores)) or bv is None
+            or not np.all(np.isfinite(bv))):
+        raise AssertionError(f"{label}: not per candidate, or non-finite scores or volume")
+
+
+def phase_tilted(device) -> dict:
+    """Phase 9 (b): the golden grid at tilt 3 deg on the gather projector
+    (wall, candidates/s, peak memory, finite scores); the gather P and PT
+    of its best candidate per application (CUDA events); then four golden
+    candidates at tilt 0, float32, on the gather projector against the
+    separable path (B2): scores within 1e-4."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.denovo3d import grid, reconstruct_grid
+    from helicon_tpu_torch.denovo3d.projector import build_problem
+
+    tw, ri = _golden_grid()
+    res, b2, wall, peak = _golden_search(device, tw, ri, tilt=3.0, return_best_volume=True)
+    _print_golden("phase 9 (b) [tilt 3 deg]", res, b2, wall, peak, len(tw))
+    out = dict(wall=wall, rate=len(tw) / wall, peak=peak, b2_launches=b2,
+               solve_s=res.effective["solve_s"])
+    # the best candidate's gather operators at the golden geometry, tilt 3 deg
+    geom, e, bi = res.geom, res.effective, res.best_index
+    rp = (ri / res.target_apix3d)[bi : bi + 1]
+    tabs = grid._candidate_tables(geom, tw[bi : bi + 1], rp, e["n_copies"], e["n_pairs"],
+                                  e["n_ops"])
+    ch, cc, cv, phc, pv = (t[0] for t in tabs[:5])
+    ops = build_problem(geom, np.zeros((geom.d2, geom.l2), np.float32), tw[bi], rp[0], ch, cc,
+                        cv, phc, pv, 3.0, 0.0, 0.0, "nn", geom.cylindrical_mask(),
+                        geom.cell_valid_mask(), device=device)
+    x = torch.rand(geom.volume_shape, device=device) * ops["mask"]
+    r = torch.rand(ops["row_valid"].shape, device=device)
+    out["P_ms"] = _time_ms(lambda: ops["P"](x), 5)
+    out["PT_ms"] = _time_ms(lambda: ops["PT"](r), 5)
+    n = int(cv.sum()) * geom.l2 * geom.d2 * geom.d2
+    print(f"phase 9 (b) [gather projector, tilt 3 deg, C={len(ch)} copies, {n} samples]: P "
+          f"{out['P_ms']:.3f} ms, PT {out['PT_ms']:.3f} ms per application", flush=True)
+    # tilt 0: the gather projector against the separable path, float32
+    sub = np.float32([2.0, 2.0, 2.25, 2.25]), np.float32([4.75, 4.9, 4.75, 4.9])
+    solve = grid.solve_candidates
+    s = {}
+    os.environ["HELICON_GRID_GROUPED"] = "0"
+    try:
+        for gather in (False, True):
+            if gather:
+                grid.solve_candidates = lambda geom, cfg, *a, **k: solve(
+                    geom, cfg._replace(separable=False), *a, **k)
+            s[gather] = reconstruct_grid(
+                np.load(AMYLOID), apix=2.0, twists=sub[0], rises=sub[1], tube_diameter=110.0,
+                cg_iters=10, fista_iters=16, power_iters=2, compute_dtype="float32",
+                device=device, return_best_volume=False).scores
+    finally:
+        grid.solve_candidates = solve
+        del os.environ["HELICON_GRID_GROUPED"]
+    err = float(np.abs(s[True] - s[False]).max())
+    print(f"phase 9 (b) [tilt 0, float32, 4 golden candidates]: gather projector against the "
+          f"separable path (B2), score abs err {err:.3e} (limit 1e-4)", flush=True)
+    if not (err <= 1e-4):
+        raise AssertionError(f"phase 9 (b): the gather path differs by {err} at tilt 0")
+    out["tilt0_err"] = err
+    return out
+
+
+@contextlib.contextmanager
+def _b2_matvec(plain: bool = False, record=None):
+    """B2's matvec entry as ard's EM loop calls it, its plain version with
+    ``plain`` (on the same card tensors), the first (CandidateInputs, v)
+    it is given with a nonzero v appended to ``record``."""
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs
+
+    kernel = cs.candidate_matvec
+
+    def matvec(inp, v):
+        if record is not None and not record and bool(v.any()):
+            record.append((inp, v.clone()))
+        return (cs.candidate_matvec_reference if plain else kernel)(inp, v)
+
+    cs.candidate_matvec = matvec
+    try:
+        yield
+    finally:
+        cs.candidate_matvec = kernel
+
+
+def _kernel_vs_plain_search(device, label, swap, **kw):
+    """The golden grid's per-candidate search with B2's kernels and with
+    their plain versions (``swap(plain, record)``) on the same card
+    tensors, in bfloat16 (scores within 1e-3) and in float32 (1e-4); the
+    bf16 kernel run counted and timed as a search. Returns (the bf16
+    kernel run's (result, launches, wall, peak), {dtype: max score error},
+    the bf16 kernel run's recorded calls)."""
+    import numpy as np
+
+    tw, ri = _golden_grid()
+    errs, record, run = {}, [], None
+    for dtype, tol in (("auto", 1e-3), ("float32", 1e-4)):
+        s = {}
+        for plain in (False, True):
+            rec = record if dtype == "auto" and not plain else None
+            with swap(plain, rec):
+                got = _golden_search(device, tw, ri, compute_dtype=dtype,
+                                     return_best_volume=not plain, **kw)
+            if rec is not None:
+                run = got
+            s[plain] = got[0].scores
+        e = got[0].effective
+        err = float(np.abs(s[False] - s[True]).max())
+        print(f"{label} [{e['compute_dtype']}, k={e['batch_size']}]: B2 against plain on the "
+              f"search's own inputs, score abs err {err:.3e} (limit {tol:g})", flush=True)
+        if e["path"] != "percand" or not np.all(np.isfinite(s[False])) or not (err <= tol):
+            raise AssertionError(f"{label}: B2 differs from plain by {err} ({e['compute_dtype']})")
+        errs[e["compute_dtype"]] = err
+    return run, errs, record
+
+
+def phase_ard(device, single) -> dict:
+    """Phase 9 (c): ard on the golden grid (B2's matvec entry under the
+    torch EM loop), with the matvec entry and with its plain version on
+    the same card tensors (bf16 scores within 1e-3, float32 1e-4); one of
+    the search's bf16 matvecs timed with both beside its bound; then the
+    entry against plain on phase 5's float32 nn inputs (k = 8): relative
+    1e-5, timed likewise."""
+    import torch
+
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs
+
+    (res, b2, wall, peak), errs, record = _kernel_vs_plain_search(
+        device, "phase 9 (c) [ard]", _b2_matvec, algorithm=dict(model="ard"))
+    _print_golden("phase 9 (c) [ard]", res, b2, wall, peak, len(res.scores))
+    out = dict(wall=wall, launches=b2, max_abs_err=errs["bfloat16"], float32_err=errs["float32"])
+
+    def timed(inp, v, label):
+        got, want = cs.candidate_matvec(inp, v), cs.candidate_matvec_reference(inp, v)
+        torch.cuda.synchronize()
+        rel = float((got - want).abs().max() / want.abs().max())
+        ms_k = _time_ms(lambda: cs.candidate_matvec(inp, v), 20)
+        ms_p = _time_ms(lambda: cs.candidate_matvec_reference(inp, v), 20)
+        bound_ms, bound_by = _bound(*_single_work(inp, nm=1),
+                                    bf16=inp.a_top.dtype == torch.bfloat16)
+        k, C, O, l3, d3sq = inp.shape
+        print(f"phase 9 (c) [{label}: the matvec entry, {inp.a_top.dtype}, k={k} C={C} O={O} "
+              f"l3={l3} d3^2={d3sq}]: rel err {rel:.3e}, kernel {ms_k:.3f} ms, plain "
+              f"{ms_p:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+        return dict(max_abs_err=float((got - want).abs().max()), rel_err=rel, ms=ms_k,
+                    plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by)
+
+    out["search_matvec"] = timed(*record[0], "one of the search's matvecs")
+    inp = single["inputs"][("solve_candidate", "nn", "float32")]
+    extra = timed(inp, torch.rand(inp.rhs.shape, device=device) * inp.mask,
+                  "phase 5's inputs")
+    if not (extra["rel_err"] <= 1e-5):
+        raise AssertionError(f"phase 9 (c): the matvec entry differs from plain by "
+                             f"{extra['rel_err']} on phase 5's inputs")
+    out["k8"] = extra
+    return out
+
+
+def phase_fsc_regularized(device, single) -> dict:
+    """Phase 9 (d): elasticnet with fsc_test=2 on the golden grid (the
+    reference sends it per candidate: three B2 solves a launch, the halves
+    on j-dependent z-Grams), with B2 and with its plain version on the
+    same card tensors (bf16 scores within 1e-3, float32 1e-4); one of the
+    search's bf16 half solves timed with both beside its bound; then B2 on
+    an fsc half's j-dependent z-Gram against plain on phase 5's float32 nn
+    inputs (k = 8): x within 1e-3 relative, timed likewise."""
+    import dataclasses as dc
+
+    import torch
+
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs
+    from helicon_tpu_torch.denovo3d.solver import _pid_split_masks
+
+    (res, b2, wall, peak), errs, record = _kernel_vs_plain_search(
+        device, "phase 9 (d) [elasticnet, fsc_test=2]", _b2_solve,
+        algorithm=dict(model="elasticnet"), fsc_test=2)
+    _print_golden("phase 9 (d) [elasticnet, fsc_test=2]", res, b2, wall, peak, len(res.scores))
+    out = dict(wall=wall, launches=b2, max_abs_err=errs["bfloat16"], float32_err=errs["float32"])
+
+    def timed(inp, label):
+        x_k = cs.solve_candidate_kernel(inp, *ITERS)
+        x_p = cs.solve_candidate_reference(inp, *ITERS)
+        torch.cuda.synchronize()
+        rel = float((x_k - x_p).abs().max() / x_p.abs().max().clamp_min(1e-30))
+        ms_k = _time_ms(lambda: cs.solve_candidate_kernel(inp, *ITERS), 3)
+        ms_p = _time_ms(lambda: cs.solve_candidate_reference(inp, *ITERS), 2)
+        bound_ms, bound_by = _bound(*_single_work(inp), bf16=inp.a_top.dtype == torch.bfloat16)
+        k, C, O, l3, d3sq = inp.shape
+        print(f"phase 9 (d) [{label}: B2 on an fsc half's j-dependent z-Gram "
+              f"{tuple(inp.gz.shape)}, {inp.a_top.dtype}, k={k} O={O}]: x rel err {rel:.3e}, "
+              f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})",
+              flush=True)
+        return dict(max_abs_err=float((x_k - x_p).abs().max()), rel_err=rel, ms=ms_k,
+                    plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
+                    finite=bool(torch.isfinite(x_k).all()))
+
+    half = next(i for i in record if i.gz.dim() == 5)
+    out["search_half"] = timed(half, "one of the search's half solves")
+    inp = single["inputs"][("solve_candidate", "nn", "float32")]
+    geom = single["cands"][0]["geom"]
+    m1 = torch.as_tensor(_pid_split_masks(geom, 2)[0][0], device=device)
+    mz = torch.stack([c["nn"]["ops"]["factors"]["Mz"].float() for c in single["cands"]])
+    gz = torch.einsum("kcim,kcin,ij->kcmnj", mz, mz, m1).contiguous()
+    rhs = torch.stack([
+        (c["nn"]["ops"]["PT"](c["nn"]["ops"]["b"][None] * c["nn"]["ops"]["row_valid"].float()
+                              * m1) * c["nn"]["ops"]["mask"].float()).reshape(inp.rhs.shape[1:])
+        for c in single["cands"]]).contiguous()
+    extra = timed(dc.replace(inp, gz=gz, rhs=rhs), "phase 5's inputs")
+    if not (extra["rel_err"] <= 1e-3) or not extra["finite"]:
+        raise AssertionError(f"phase 9 (d): B2's half solve differs from plain by "
+                             f"{extra['rel_err']} on phase 5's inputs")
+    out["k8"] = extra
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1270,6 +1639,10 @@ def main() -> int:
     phase_checkpointed(device, bucketed)
     phase_prep(device)
     phase_fsc1(device, solve_launches)
+    second = phase_second_pass(device, bucketed)
+    tilted = phase_tilted(device)
+    ard = phase_ard(device, single)
+    fsc_reg = phase_fsc_regularized(device, single)
 
     def entry(name, src, replaces, launches, r, **extra):
         return dict(name=name, route="cuda", source=CSRC + src, replaces=replaces,
@@ -1301,15 +1674,39 @@ def main() -> int:
                        score_abs_err=env_kernel[("fsc_half", "float32")]["score_abs_err"]),
               c10={k: {f: v[f] for f in ("overlap", "spearman", "max_delta", "met")}
                    for k, v in c10.items()},
-              # phase 8: launches on the bucketed path by pass, and B1 at R = 1
+              # phase 8: launches on the bucketed path by pass (the second
+              # pass goes per candidate: B2)
+              # phase 8 (b): the forced route of groups of one
+              # (HELICON_GRID_GROUPED=1), B1 at R = 1 against plain
+              forced_r1={f: r1[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by", "groups")},
               bucketed=dict(launches_first=bucketed["sums"]["first"]["launches"],
                             launches_second=bucketed["sums"]["second"]["launches"],
-                            launches_winner=bucketed["sums"]["winner"]["launches"],
-                            r1=r1)),
+                            launches_winner=bucketed["sums"]["winner"]["launches"])),
         entry("solve_candidate", "candidate_solve.cu", "helicon_tpu/denovo3d/pallas_solver.py:100",
               single["launches"]["solve_candidate"], b2,
               bound_two_pass_ms=b2["bound_two_pass_ms"], products=b2["products"],
-              breakdown_ms=b2["breakdown_ms"]),
+              breakdown_ms=b2["breakdown_ms"],
+              # phase 8 (a) and 9: the per-candidate path's B2 launches
+              # (solves and matvecs), one second-pass launch against plain,
+              # the matvec entry (ard) and the j-dependent z-Gram (fsc halves)
+              percand=dict(
+                  launches_second_pass=bucketed["sums"]["second"]["b2_launches"],
+                  launches_winner=bucketed["sums"]["winner"]["b2_launches"],
+                  launches_ard=ard["launches"], launches_fsc_elasticnet=fsc_reg["launches"],
+                  launches_tilt=tilted["b2_launches"],
+                  second_pass={f: second[f] for f in ("max_abs_err", "float32_err", "ms",
+                                                       "plain_ms", "bound_ms", "bound_by")},
+                  # ard's and elasticnet + fsc 2's golden searches, B2
+                  # against plain (score errors), one of each search's
+                  # launches timed, and phase 5's float32 k = 8 checks
+                  matvec=dict(score_abs_err=ard["max_abs_err"],
+                              float32_score_abs_err=ard["float32_err"],
+                              search=ard["search_matvec"], k8=ard["k8"]),
+                  gz_j=dict(score_abs_err=fsc_reg["max_abs_err"],
+                            float32_score_abs_err=fsc_reg["float32_err"],
+                            search=fsc_reg["search_half"], k8=fsc_reg["k8"]),
+                  gather_projector=dict(P_ms=tilted["P_ms"], PT_ms=tilted["PT_ms"]))),
         entry("score_candidate", "candidate_solve.cu",
               "helicon_tpu/denovo3d/pallas_solver.py:335",
               single["launches"]["score_candidate"], b3,

@@ -1,11 +1,14 @@
 """JAX's default random-number stream in numpy: the threefry2x32 hash,
-``PRNGKey``, ``split``, 32-bit ``random_bits`` and ``permutation``, as
+``PRNGKey``, ``split``, ``fold_in``, 32-bit ``random_bits``,
+``permutation``, float32 ``uniform`` and ``rademacher``, as
 ``jax.random`` computes them with ``jax_threefry_partitionable`` on (the
 default since JAX 0.5).
 
 The port draws the same random numbers as the JAX package where its
 results depend on them: fsc mode 1's pixel split permutes
-``arange(l2 * d2)`` with ``permutation(PRNGKey(0), n)``.
+``arange(l2 * d2)`` with ``permutation(PRNGKey(0), n)``, and the ard
+model counts its symmetry rows with two ``uniform`` volumes and probes
+its posterior diagonal with ``rademacher`` volumes.
 ``tests/test_torch_drivers.py`` holds every function here to
 ``jax.random``.
 """
@@ -16,7 +19,8 @@ import math
 
 import numpy as np
 
-__all__ = ["PRNGKey", "split", "random_bits", "permutation"]
+__all__ = ["PRNGKey", "split", "fold_in", "random_bits", "permutation", "uniform",
+           "rademacher"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -62,10 +66,34 @@ def split(key, num: int = 2) -> np.ndarray:
     return np.stack([b1, b2], axis=1)
 
 
-def random_bits(key, n: int) -> np.ndarray:
-    """n uniformly random uint32 words from key."""
-    b1, b2 = threefry2x32(key, *_counters(n))
-    return b1 ^ b2
+def fold_in(key, data: int) -> np.ndarray:
+    """A new key (2,) uint32 from key and the integer data: the hash of
+    the counter pair (0, data)."""
+    b1, b2 = threefry2x32(key, [0], [np.uint32(data)])
+    return np.concatenate([b1, b2])
+
+
+def random_bits(key, n) -> np.ndarray:
+    """Uniformly random uint32 words from key: n of them, or an array of
+    shape n (the words of its row-major flat index)."""
+    shape = (n,) if np.ndim(n) == 0 else tuple(n)
+    b1, b2 = threefry2x32(key, *_counters(math.prod(shape)))
+    return (b1 ^ b2).reshape(shape)
+
+
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+    """float32 uniform in [minval, maxval) of the given shape: the top 23
+    bits of each word as the mantissa of a number in [1, 2), minus 1,
+    scaled and shifted in float32."""
+    bits = random_bits(key, shape)
+    floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return np.maximum(lo, floats * (hi - lo) + lo)
+
+
+def rademacher(key, shape) -> np.ndarray:
+    """float32 +1 / -1 of the given shape: +1 where uniform(key) < 0.5."""
+    return np.where(uniform(key, shape) < np.float32(0.5), np.float32(1.0), np.float32(-1.0))
 
 
 def permutation(key, n: int) -> np.ndarray:

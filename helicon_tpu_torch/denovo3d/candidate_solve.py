@@ -15,7 +15,12 @@ for either interpolation. Its matvec, for v (l3, d3^2), is
     (W2^T Gzmix(v W2^T) + sum_o [B1^T (pok * B1 (v Mxy_o^T))]_o Mxy_o + l2 v) * mask
 
 and the solve runs CG from 0, a power iteration seeded from ones, then
-FISTA with the l1 soft-threshold and the box [lb, ub]. B3 builds W2 (the
+FISTA with the l1 soft-threshold and the box [lb, ub]. The z-Gram may
+depend on the ray j (k, C, l3, l3, d2): the fsc half-set solves, whose
+pixel-id split weights the data rows. ``candidate_matvec`` runs the
+matvec alone with l2 = 0, the normal operator ard's EM loop applies. The
+per-candidate path of the grid search (``solver.solve_candidates``) solves
+every separable candidate on B2. B3 builds W2 (the
 nearest-neighbour ray deposit) and Mxy (the rotation one-hots) itself from
 per-copy and per-op angles, forms rhs = (u W2) * mask, runs B2's solve and
 returns the cosine score <x, rhs> / (sqrt(<x, data_term(x)>) |b|). B3 is
@@ -53,6 +58,7 @@ __all__ = [
     "build_operators_reference",
     "solve_candidate_kernel",
     "solve_candidate_reference",
+    "candidate_matvec",
     "score_candidate_kernel",
     "score_candidate_reference",
     "validate_on_gpu",
@@ -63,7 +69,7 @@ __all__ = [
 # kernel launches made on CUDA tensors, by entry (each C entry launches one
 # kernel; hts_gemm_xat two in bf16: the cast, then the product; a split
 # float32 first product adds its ordered sum)
-launches = {"solve_candidate": 0, "score_candidate": 0}
+launches = {"solve_candidate": 0, "candidate_matvec": 0, "score_candidate": 0}
 
 OL_MAX = 256  # O * l3 the pair fold's per-thread ubar registers hold (csrc OLMAX)
 
@@ -74,7 +80,9 @@ class CandidateInputs:
     compute dtype; the rest is float32."""
 
     a_top: torch.Tensor  # (k, rows, d3^2) [W2; Mxy_0 .. Mxy_{O-1}], rows = C*d2 + O*d3^2
-    gz: torch.Tensor  # (k, C, l3, l3) per-copy z-Gram
+    # (k, C, l3, l3) per-copy z-Gram, or (.., l3, l3, d2) j-dependent (the
+    # fsc half-set solves: the pixel-id split inside)
+    gz: torch.Tensor
     b1: torch.Tensor  # (k, P*l3, O*l3) pair difference folded with the z-shifts
     pok: torch.Tensor  # (k, P*l3, d3^2) pair validity
     mask: torch.Tensor  # (l3, d3^2)
@@ -85,8 +93,13 @@ class CandidateInputs:
     @property
     def shape(self):
         """(k, C, O, l3, d3^2)."""
-        k, C, l3, _ = self.gz.shape
+        k, C, l3 = self.gz.shape[:3]
         return k, C, self.b1.shape[2] // l3, l3, self.mask.shape[1]
+
+    @property
+    def gz_stride(self) -> int:
+        """The z-Gram's element stride: 1, or d2 where it depends on j."""
+        return self.d2 if self.gz.dim() == 5 else 1
 
     @classmethod
     def stack(cls, items):
@@ -144,40 +157,53 @@ class FullInputs:
 
 
 def _fold_pairs(f) -> torch.Tensor:
-    """B1[p*l3 + m, o*l3 + n] = (e_p0 - e_p1)[o] * Mz_o[m, n]: the pair
-    difference and the per-op z-shift folded into one small matrix."""
-    O, l3, _ = f["Mz_ops"].shape
+    """B1[k, p*l3 + m, o*l3 + n] = (e_p0 - e_p1)[o] * Mz_o[m, n]: the pair
+    difference and the per-op z-shift folded into one small matrix per
+    candidate (factors with a leading k)."""
+    k, O, l3, _ = f["Mz_ops"].shape
     pidx = f["pair_idx"].long()
-    P = pidx.shape[0]
-    de = (torch.nn.functional.one_hot(pidx[:, 0], O).float()
-          - torch.nn.functional.one_hot(pidx[:, 1], O).float())  # (P, O)
-    return torch.einsum("po,omn->pmon", de, f["Mz_ops"].float()).reshape(P * l3, O * l3)
+    P = pidx.shape[1]
+    de = (torch.nn.functional.one_hot(pidx[..., 0], O).float()
+          - torch.nn.functional.one_hot(pidx[..., 1], O).float())  # (k, P, O)
+    return torch.einsum("kpo,komn->kpmon", de, f["Mz_ops"].float()).reshape(k, P * l3, O * l3)
 
 
 def _scal(values, device) -> torch.Tensor:
     return torch.as_tensor([list(map(float, values))], dtype=torch.float32, device=device)
 
 
-def candidate_inputs(factors, cdt, rhs, scal) -> CandidateInputs:
-    """B2's inputs for one candidate (k = 1) from ``ops["factors"]`` of
-    build_problem_separable: the operand [W2; Mxy] in ``cdt``, rhs
-    (l3, d3, d3) or (l3, d3^2) and scal = (l2, l1, lb, ub)."""
+def candidate_inputs(factors, cdt, rhs, scal, gz=None, a_top=None) -> CandidateInputs:
+    """B2's inputs from ``ops["factors"]``: of build_problem_separable for
+    one candidate (k = 1; scal = (l2, l1, lb, ub), rhs (l3, d3, d3) or
+    (l3, d3^2), gz (C, l3, l3[, d2])), or of build_problems_separable for
+    k (a leading k on the factors, rhs, scal (k, 4) and gz). The operand
+    [W2; Mxy] in ``cdt`` is ``a_top`` where given in cdt (the batched
+    build's own, of which Wsum and Mxy_ops are views), else stacked here;
+    gz is the z-Gram in place of the factors' own."""
     f = factors
-    C, d2, d3sq = f["Wsum"].shape
-    O, l3, _ = f["Mz_ops"].shape
-    dev = f["Wsum"].device
-    a_top = torch.cat([f["Wsum"].reshape(C * d2, d3sq).to(cdt),
-                       f["Mxy_ops"].reshape(O * d3sq, d3sq).to(cdt)])
+    if f["Wsum"].dim() == 3:  # one candidate
+        f = {n: t if n in _SHARED_FACTORS else t[None] for n, t in f.items()}
+        scal = _scal(scal, f["Wsum"].device)
+        gz = None if gz is None else gz[None]
+    k, C, d2, d3sq = f["Wsum"].shape
+    O, l3 = f["Mz_ops"].shape[1:3]
+    if a_top is None or a_top.dtype != cdt:
+        a_top = torch.cat([f["Wsum"].reshape(k, C * d2, d3sq).to(cdt),
+                           f["Mxy_ops"].reshape(k, O * d3sq, d3sq).to(cdt)], dim=1)
     return CandidateInputs(
-        a_top=a_top[None],
-        gz=f["Gz"].float().contiguous()[None],
-        b1=_fold_pairs(f).contiguous()[None],
-        pok=f["pair_ok"].float().reshape(1, -1, d3sq).contiguous(),
+        a_top=a_top.contiguous(),
+        gz=(f["Gz"] if gz is None else gz).float().contiguous(),
+        b1=_fold_pairs(f).contiguous(),
+        pok=f["pair_ok"].float().reshape(k, -1, d3sq).contiguous(),
         mask=f["mask"].float().reshape(l3, d3sq).contiguous(),
-        rhs=rhs.float().reshape(1, l3, d3sq).contiguous(),
-        scal=_scal(scal, dev),
+        rhs=rhs.float().reshape(k, l3, d3sq).contiguous(),
+        scal=scal.float().contiguous(),
         d2=d2,
     )
+
+
+# the factors a batch's candidates share (projector_separable.SHARED_FACTORS)
+_SHARED_FACTORS = ("mask", "plane_ok")
 
 
 def factors_from_numpy(factors_np, compute_dtype=torch.float32, device="cpu") -> dict:
@@ -230,7 +256,7 @@ def full_kernel_inputs(geom, ops, twist_degree, rise_pixel, copies_h, copies_c,
         op_theta=op_theta[None],
         gz=f["Gz"].float().contiguous()[None],
         u=u.contiguous()[None],
-        b1=_fold_pairs(f).contiguous()[None],
+        b1=_fold_pairs({n: t[None] for n, t in f.items()}).contiguous(),
         pok=f["pair_ok"].float().reshape(1, -1, d3sq).contiguous(),
         mask=f["mask"].float().reshape(l3, d3sq).contiguous(),
         plane_ok=f["plane_ok"].float().contiguous(),
@@ -283,15 +309,26 @@ def _pair_fold_plain(t_ops, b1, pok, cdt):
 def _matvec_plain(A, gz, b1, pok, mask, l2, v, cdt, nd):
     """The matvec of pallas_solver.py::_kernel for v (k, l3, d3^2), with
     its rounding points: v, the Gz mix and ubar in the compute dtype, tmp
-    and the pair fold in float32."""
-    k, C, l3, _ = gz.shape
+    and the pair fold in float32. gz (k, C, l3, l3) or j-dependent (k, C,
+    l3, l3, d2)."""
+    k, C, l3 = gz.shape[:3]
     Af = A.float()
     T = torch.einsum("kmd,krd->kmr", v.to(cdt).float(), Af)  # (k, l3, rows)
-    z = torch.einsum("kcmn,kncj->kmcj", gz, T[..., :nd].reshape(k, l3, C, -1))
+    eq = "kcmnj,kncj->kmcj" if gz.dim() == 5 else "kcmn,kncj->kmcj"
+    z = torch.einsum(eq, gz, T[..., :nd].reshape(k, l3, C, -1))
     ubar = _pair_fold_plain(T[..., nd:], b1, pok, cdt)
     Gm = torch.cat([z.reshape(k, l3, nd).to(cdt).float(), ubar], dim=-1)
     out = torch.einsum("kmr,krd->kmd", Gm, Af)
     return (out + _col(l2) * v) * mask
+
+
+@_tf32_off
+def candidate_matvec_reference(inp: CandidateInputs, v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of B2's matvec entry (candidate_matvec)."""
+    k, C = inp.shape[:2]
+    zero = torch.zeros(k, dtype=torch.float32, device=v.device)
+    return _matvec_plain(inp.a_top, inp.gz, inp.b1, inp.pok, inp.mask, zero, v,
+                         inp.a_top.dtype, C * inp.d2)
 
 
 def _solve_plain(A, gz, b1, pok, mask, rhs, scal, cdt, nd, cg_iters, fista_iters, power_iters):
@@ -432,6 +469,9 @@ def _launcher(key: str, dev: torch.device):
 
 def _check_cuda(tensors: dict, dev, cdt, shape, d2) -> None:
     k, C, O, l3, d3sq = shape
+    gz = tensors.get("gz")
+    if gz is not None and tuple(gz.shape) not in ((k, C, l3, l3), (k, C, l3, l3, d2)):
+        raise ValueError(f"gz shape {tuple(gz.shape)} is neither (k, C, l3, l3) nor (.., d2)")
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the compute dtype must be float32 or bfloat16, got {cdt}")
     if l3 > L3_MAX or O * l3 > OL_MAX:
@@ -445,35 +485,46 @@ def _check_cuda(tensors: dict, dev, cdt, shape, d2) -> None:
         raise ValueError("the bf16 kernels copy element pairs: d3^2 and d2 must be even")
 
 
-def _solve_cuda(run, A, gz, b1, pok, mask, rhs, scal, d2, cg_iters, fista_iters,
-                power_iters):
-    """B2's solve on the card; returns x (k, l3, d3^2) float32."""
-    k, C, l3, _ = gz.shape
+def _matvec_cuda(run, A, gz, b1, pok, mask, scal, d2):
+    """B2's matvec on the card: returns (matvec(src, dst), its scratch).
+    The z-Gram gz (k, C, l3, l3) or j-dependent (k, C, l3, l3, d2)."""
+    k, C, l3 = gz.shape[:3]
     d3sq = mask.shape[1]
     rows = A.shape[1]
     nd = C * d2
     O = b1.shape[2] // l3
     PL = b1.shape[1]
     n = l3 * d3sq
+    js = d2 if gz.dim() == 5 else 1
     bf16 = int(A.dtype == torch.bfloat16)
     dev = A.device
-    f32 = dict(dtype=torch.float32, device=dev)
     kchunk, nsplit = k_split(k, l3, rows, d3sq, sm_count(dev))
-    T = torch.empty((k, l3, rows), **f32)
+    T = torch.empty((k, l3, rows), dtype=torch.float32, device=dev)
     Gm = torch.empty((k, l3, rows), dtype=A.dtype, device=dev)
     xb = torch.empty((k, l3, d3sq), dtype=A.dtype, device=dev) if bf16 else None
-    part = torch.empty((nsplit, k, l3, d3sq), **f32)
-    x, r, p, q, w = (torch.empty((k, l3, d3sq), **f32) for _ in range(5))
-    rs, eta = (torch.empty(k, **f32) for _ in range(2))
+    part = torch.empty((nsplit, k, l3, d3sq), dtype=torch.float32, device=dev)
 
     # T, Gm and xb keep unpadded pitches (rows, d3^2): B2's operand A is
     # unpadded, so the products copy it in 8-byte pieces anyway
     def matvec(src, dst):
         _xat(run, src, A, T, xb, rows)
-        run("hts_glue_data", T, gz, Gm, k, 1, l3, C, d2, rows, rows, 1, bf16)
+        run("hts_glue_data", T, gz, Gm, k, 1, l3, C, d2, rows, rows, js, bf16)
         run("hcs_sym_fold", T, b1, pok, Gm, k, l3, O * l3, PL, nd, d3sq, rows, bf16)
         _ga(run, Gm, A, part, kchunk, nsplit)
         run("hcs_reduce_l2_mask", part, src, scal, mask, dst, nsplit, k, n)
+
+    return matvec, dict(T=T, Gm=Gm, xb=xb, part=part, kchunk=kchunk, nsplit=nsplit)
+
+
+def _solve_cuda(run, A, gz, b1, pok, mask, rhs, scal, d2, cg_iters, fista_iters,
+                power_iters):
+    """B2's solve on the card; returns x (k, l3, d3^2) float32."""
+    k, l3, d3sq = rhs.shape
+    n = l3 * d3sq
+    f32 = dict(dtype=torch.float32, device=A.device)
+    matvec, buf = _matvec_cuda(run, A, gz, b1, pok, mask, scal, d2)
+    x, r, p, q, w = (torch.empty((k, l3, d3sq), **f32) for _ in range(5))
+    rs, eta = (torch.empty(k, **f32) for _ in range(2))
 
     run("hts_cg_init", rhs, x, r, p, rs, k, n)
     for _ in range(cg_iters):
@@ -491,7 +542,7 @@ def _solve_cuda(run, A, gz, b1, pok, mask, rhs, scal, d2, cg_iters, fista_iters,
             matvec(p, q)
             run("hcs_fista_step", x, p, q, rhs, eta, scal, coef, k, n)
     run("hts_apply_mask", x, mask, k, n)
-    return x, dict(T=T, Gm=Gm, xb=xb, part=part, q=q)
+    return x, dict(buf, q=q)
 
 
 def pair_fold(T: torch.Tensor, b1: torch.Tensor, pok: torch.Tensor, nd: int,
@@ -531,6 +582,30 @@ def solve_candidate_kernel(inp: CandidateInputs, cg_iters: int, fista_iters: int
     x, _ = _solve_cuda(_launcher("solve_candidate", dev), inp.a_top, inp.gz, inp.b1, inp.pok,
                        inp.mask, inp.rhs, inp.scal, inp.d2, cg_iters, fista_iters, power_iters)
     return x
+
+
+def candidate_matvec(inp: CandidateInputs, v: torch.Tensor) -> torch.Tensor:
+    """B2's matvec alone with l2 = 0, (W2^T Gzmix(v W2^T) + pair fold) *
+    mask for v (k, l3, d3^2) float32: the unregularized normal operator
+    (P^T P + S^T S) v * mask of each candidate, the operator ard's EM loop
+    applies. CPU tensors run the plain version; CUDA tensors run the
+    kernels (never the plain version)."""
+    if _device_of(inp.a_top, "candidate_matvec") == "cpu":
+        return candidate_matvec_reference(inp, v)
+    k, C, O, l3, d3sq = inp.shape
+    dev = inp.a_top.device
+    tensors = {f.name: getattr(inp, f.name) for f in dataclasses.fields(inp)
+               if f.name not in ("d2", "rhs", "scal")}
+    tensors["v"] = v
+    _check_cuda(tensors, dev, inp.a_top.dtype, inp.shape, inp.d2)
+    if tuple(v.shape) != (k, l3, d3sq):
+        raise ValueError(f"v must be (k, l3, d3^2) = {(k, l3, d3sq)}, got {tuple(v.shape)}")
+    matvec, _ = _matvec_cuda(_launcher("candidate_matvec", dev), inp.a_top, inp.gz, inp.b1,
+                             inp.pok, inp.mask, torch.zeros((k, 4), dtype=torch.float32,
+                                                            device=dev), inp.d2)
+    out = torch.empty_like(v)
+    matvec(v, out)
+    return out
 
 
 def _build_cuda(run, fin: FullInputs) -> torch.Tensor:

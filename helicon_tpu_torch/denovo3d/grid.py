@@ -1,20 +1,24 @@
-"""Candidate-grid driver: the twist-grouped (twist, rise) search on one
-class average.
+"""Candidate-grid driver: the (twist, rise) search on one class average.
 
-Counterpart of ``helicon_tpu/denovo3d/grid.py``. Candidates that share a
-twist form groups of R (the reference's even split); each group's
-stacked operand A_top is built once and the group's solves and scores
-run together (``group_solve``). G groups go to the device per launch, G
-sized from a memory budget. The best candidate's volume is then re-solved
-alone in float32. A rise range wider than ``rise_bucket_ratio`` runs one
-search per rise bucket, then re-scores each bucket's best at
-per-candidate geometry (``_reconstruct_grid_bucketed``).
+Counterpart of ``helicon_tpu/denovo3d/grid.py``, with its two scoring
+paths and its rule between them (``_use_grouped``). On the twist-grouped
+path, candidates that share a twist form groups of R (the reference's
+even split); each group's stacked operand A_top is built once and the
+group's solves and scores run together (``group_solve``, kernel B1). G
+groups go to the device per launch, G sized from a memory budget. The
+per-candidate path (``_percand_scoring``) solves batches of k candidates
+of one table shape (``solver.solve_candidates``: kernel B2 on the
+separable operators, the gather projector for tilt or psi != 0). The best
+candidate's volume is then re-solved alone in float32. A rise range wider
+than ``rise_bucket_ratio`` runs one search per rise bucket, then re-scores
+each bucket's best at per-candidate geometry
+(``_reconstruct_grid_bucketed``).
 
-The port covers tilt = psi = 0 with nearest-neighbour or linear
+The port covers any (tilt, psi) with nearest-neighbour or linear
 interpolation on one device, the image prep options, the models lsq,
-lreg, ridge, lasso and elasticnet (l1 / l2 columns of the kernel and the
-alpha-decay retry), every score metric, thresh_fraction, fsc modes 1-4
-(three kernel solves, with lsq + cosine as the reference's kernel),
+lreg, ridge, lasso, elasticnet (l1 / l2 and the alpha-decay retry) and
+ard, every score metric, thresh_fraction, fsc modes 1-4 (on the grouped
+path three kernel solves with lsq + cosine, as the reference's kernel),
 incremental progress and abort, and densify_padding; the other arguments
 raise NotImplementedError naming the ROADMAP item that will port them.
 The host tables (``_candidate_tables``, ``_group_tables``,
@@ -29,6 +33,7 @@ import collections
 import dataclasses
 import functools
 import math
+import os
 import time
 
 import numpy as np
@@ -44,7 +49,13 @@ from .geometry import (
     select_pair_ops,
 )
 from .pipeline import _pixel_geometry, auto_sym_oversample, derive_task_geometry, prepare_data
-from .solver import SolveConfig, check_in_slice, regularization_from_algorithm, solve_candidate
+from .solver import (
+    SolveConfig,
+    check_in_slice,
+    regularization_from_algorithm,
+    solve_candidate,
+    solve_candidates,
+)
 
 __all__ = ["build_candidate_grid", "reconstruct_grid", "GridResult", "global_rise_buckets",
            "crossbucket_selection"]
@@ -278,33 +289,18 @@ def _dispatch_candidates(geom, n_copies: int, n_ops: int, n_cand: int) -> int:
     return max(1, min(n_cand, max(8, min(1024, int(9e9 / max(per_cand, 1.0))))))
 
 
-def _nonzero(x: torch.Tensor) -> torch.Tensor:
-    """(G, R): does each candidate's volume of x (G, R, l3, d3^2) hold a
-    nonzero voxel."""
-    return (x != 0).flatten(2).any(dim=2)
-
-
 def _retry_all_zero(solve, inp, x, l1, l2, iters):
-    """The alpha-decay retry of the reference (solver.py:842-862) as a host
-    loop of whole-launch solves: while a candidate's volume is all zero and
-    the scale exceeds 1e-7, the scale drops tenfold (in float32) and the
-    launch is solved again; each candidate keeps its first nonzero
-    solution. Returns (x, rounds)."""
-    from .solver import RETRY_DECAY, RETRY_FLOOR
+    """The alpha-decay retry of the reference (solver.py:842-862) on the
+    grouped solve: solver.retry_all_zero over whole-launch solves, the l1 /
+    l2 columns scaled. Returns (x, rounds)."""
+    from .solver import retry_all_zero
 
-    found = _nonzero(x)
-    scale, rounds = np.float32(1.0), 0
-    while not bool(found.all()) and scale > RETRY_FLOOR:
-        scale = np.float32(scale * RETRY_DECAY)
-        rounds += 1
+    def col(c, scale):
+        return None if c is None else c * float(scale)
 
-        def col(c):
-            return None if c is None else c * float(scale)
-
-        x_new, _ = solve(inp, *iters, l1=col(l1), l2=col(l2), with_score=False)
-        x = torch.where(found[..., None, None], x, x_new)
-        found = found | _nonzero(x_new)
-    return x, rounds
+    return retry_all_zero(
+        lambda scale: solve(inp, *iters, l1=col(l1, scale), l2=col(l2, scale),
+                            with_score=False)[0], x, 2)
 
 
 def _score_group(cfg, geom, ctx, wsum, rp, m, rank, x, b):
@@ -559,6 +555,125 @@ def _grouped_scoring(
     return scores, effective
 
 
+def _group_operator_bytes(geom, n_copies: int, n_ops: int, cfg) -> int:
+    """The reference's estimate of one group's operator bytes (its
+    grid.py:539-551): A_top with the float32 build and the cast copies it
+    is stacked from."""
+    item = 2 if cfg.compute_dtype in ("bfloat16", "float16") else 4
+    rows = n_copies * geom.d2 + n_ops * geom.d3 * geom.d3
+    return rows * geom.d3 * geom.d3 * (4 + 2 * item)
+
+
+def _group_budget_bytes() -> int:
+    """The per-group operator budget, HELICON_GROUP_BUDGET_MB (default
+    1536 MB), as the reference reads it."""
+    return int(os.environ.get("HELICON_GROUP_BUDGET_MB", "1536")) * 1024 * 1024
+
+
+def _use_grouped(cfg, geom, twists, n_copies: int, n_ops: int) -> bool:
+    """The reference's choice of scoring path (its grid.py:1298-1340): the
+    twist-grouped path takes separable poses without ard and without fsc
+    under l1 / l2, when the grid has at least two candidates per twist and
+    one group's operators fit the budget; everything else goes per
+    candidate. HELICON_GRID_GROUPED: -1 (default) that rule, 0 always per
+    candidate, 1 grouped wherever the configuration allows, whatever the
+    number of candidates per twist."""
+    env = int(os.environ.get("HELICON_GRID_GROUPED", "-1"))
+    use = (env != 0 and cfg.separable and cfg.model != "ard"
+           and not (cfg.fsc_test and (cfg.l1_reg or cfg.l2_reg)))
+    if use and env == -1:
+        use = len(twists) >= 2 * len(np.unique(twists))
+    return use and _group_operator_bytes(geom, n_copies, n_ops, cfg) <= _group_budget_bytes()
+
+
+def _candidate_bytes(geom, cfg, n_copies: int, n_pairs: int, n_ops: int) -> int:
+    """Device bytes one candidate holds during a per-candidate launch. On
+    the separable operators: B2's operand [W2; Mxy] twice (once itself,
+    whose views the dense factors are; once for the build's float32
+    chunks, which hold at most projector_separable.BUILD_CHUNK_BYTES), the
+    pair validity twice, the products' (l3, rows) buffers, the z-factors
+    and, with fsc, a half's j-dependent z-Gram. On the gather projector: the ray coordinates and the symmetry
+    pairs' taps."""
+    d3sq, l3, d2 = geom.d3 * geom.d3, geom.l3, geom.d2
+    taps = 8 if cfg.interpolation.startswith("linear") else 1
+    if not cfg.separable:
+        return 3 * geom.l2 * d2 * d2 * 4 + 2 * n_pairs * l3 * d3sq * taps * 12
+    item = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)).element_size()
+    rows = n_copies * d2 + n_ops * d3sq
+    return (2 * rows * d3sq * item + 2 * n_pairs * l3 * d3sq * 4 + l3 * rows * (4 + item)
+            + n_copies * geom.l2 * l3 * 4 + 12 * l3 * d3sq * 4
+            + (n_copies * l3 * l3 * d2 * 4 if cfg.fsc_test else 0))
+
+
+def _percand_scoring(
+    geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region, pose, copy_cache,
+    device, batch_size=None, progress_callback=None, should_abort=None,
+):
+    """Score every candidate in launches of k (the counterpart of the
+    reference's _percand_scoring): each launch builds its candidates' padded
+    tables (_candidate_tables) and solves them together
+    (solver.solve_candidates: B2 on the separable operators, the gather
+    projector for a pose (tilt, psi) != 0; pose = (tilt, psi, dy_pixel)).
+    k is half the free memory over _candidate_bytes, capped by batch_size;
+    in incremental mode (progress_callback or should_abort given) it is
+    the caller's batch_size or the reference's automatic one
+    (_dispatch_candidates), unscored candidates hold -inf, should_abort()
+    is polled before each launch and progress_callback(done, n_cand,
+    scores) runs after each. Returns (scores (n,) float32 numpy, effective
+    dispatch dict)."""
+    from . import candidate_solve
+
+    n_cand = len(twists)
+    incremental = progress_callback is not None or should_abort is not None
+    tilt, psi, dy_pixel = pose
+    per_launch = None
+    if incremental:
+        k = per_launch = batch_size or _dispatch_candidates(geom, n_copies, n_ops, n_cand)
+    else:
+        per = _candidate_bytes(geom, cfg, n_copies, n_pairs, n_ops)
+        k = _groups_per_launch(per, n_cand, device)
+        k = min(k, batch_size or k)
+    k = max(1, min(k, n_cand))
+    b2_before = sum(candidate_solve.launches.values())
+    scores = np.full(n_cand, -np.inf if incremental else 0.0, np.float32)
+    times: dict = {}
+    aborted = False
+    for start in range(0, n_cand, k):
+        if should_abort is not None and should_abort():
+            aborted = True
+            break
+        sl = slice(start, min(start + k, n_cand))
+        ch, cc, cv, phc, pv, ops_hc, ops_v, pair_idx = _candidate_tables(
+            geom, twists[sl], rise_pixels[sl], n_copies, n_pairs, n_ops, copy_cache
+        )
+        out = solve_candidates(
+            geom, cfg, region, twists[sl], rise_pixels[sl], ch, cc, cv, phc, pv, tilt, psi,
+            dy_pixel, pair_ops=(ops_hc, ops_v, pair_idx) if cfg.separable else None,
+            device=device, times=times,
+        )
+        scores[sl] = out["score"].cpu().numpy()
+        if progress_callback is not None:
+            progress_callback(sl.stop, n_cand, scores)
+    effective = dict(
+        path="percand", batch_size=int(k), n_launches=-(-n_cand // k),
+        n_copies=int(n_copies), n_pairs=int(n_pairs), n_ops=int(n_ops),
+        # the gather projector computes in float32, as the reference's
+        compute_dtype=cfg.compute_dtype if cfg.separable else "float32",
+        d3=int(geom.d3), l3=int(geom.l3), separable=bool(cfg.separable), aborted=aborted,
+        # incremental mode's candidates per launch (None: memory-sized)
+        launch_candidates=per_launch,
+        # the alpha-decay retry's extra rounds of solves (0: none needed)
+        retry_rounds=int(times.get("retry_rounds", 0)),
+        # host seconds of the operator builds, the solves and the torch
+        # scoring, each ended by a device synchronisation
+        build_s=times.get("build_s", 0.0), solve_s=times.get("solve_s", 0.0),
+        score_s=times.get("score_s", 0.0),
+        # B2's kernel launches (solves and ard's matvecs) on CUDA tensors
+        b2_launches=sum(candidate_solve.launches.values()) - b2_before,
+    )
+    return scores, effective
+
+
 def _positive(cfg, rises_pixel, twist, l3) -> np.ndarray:
     """Per-candidate positivity: the explicit flag, or auto when the
     pitch exceeds twice the volume length."""
@@ -581,10 +696,9 @@ def _box_bounds(positive, ub_raw):
     return lb, ub
 
 
-def _raise_out_of_slice(tilt, psi, refine_tilt_psi_dy_range, cost_analysis, devices) -> None:
+def _raise_out_of_slice(refine_tilt_psi_dy_range, cost_analysis, devices) -> None:
     """NotImplementedError for every argument the port does not cover yet."""
     checks = [
-        ("tilt or psi != 0", tilt != 0.0 or psi != 0.0, "A7"),
         ("refine_tilt_psi_dy_range", bool(refine_tilt_psi_dy_range), "A8"),
         ("cost_analysis", bool(cost_analysis), "A5c"),
         ("more than one device", devices is not None and len(devices) > 1, "A10"),
@@ -670,13 +784,16 @@ def reconstruct_grid(
     from the device's free memory; ``batch_size`` caps the group size R,
     and in incremental mode (progress_callback / should_abort) the
     candidates per launch, which default there to the reference's
-    automatic batch size. Grids with one candidate per twist score as
-    groups of one (the per-candidate path is not ported). ``refine_top_k`` and
-    ``refine_mode`` matter only with refinement, which raises.
+    automatic batch size. The scoring path follows the reference's rule
+    (``_use_grouped``, with its HELICON_GRID_GROUPED): grids with fewer
+    than two candidates per twist, a pose with tilt or psi != 0, ard and
+    fsc under l1 / l2 go per candidate, in launches sized the same way.
+    ``refine_top_k`` and ``refine_mode`` matter only with refinement, which
+    raises.
     """
     algorithm = algorithm or dict(model="lsq")
     device = torch.device(device)
-    _raise_out_of_slice(tilt, psi, refine_tilt_psi_dy_range, cost_analysis, devices)
+    _raise_out_of_slice(refine_tilt_psi_dy_range, cost_analysis, devices)
     twists = np.asarray(twists, np.float32)
     rises = np.asarray(rises, np.float32)
     if twists.shape != rises.shape or twists.ndim != 1:
@@ -729,11 +846,11 @@ def reconstruct_grid(
         l1_reg=float(l1),
         l2_reg=float(l2r),
         reg_per_row=model in ("lasso", "elasticnet"),
-        separable=True,
+        separable=(tilt == 0.0 and psi == 0.0),
         compute_dtype=compute_dtype,
         ard_prior=float(algorithm.get("alpha", 1e-6)),
     )
-    check_in_slice(cfg, grouped=True)
+    check_in_slice(cfg)
 
     data = prepare_data(image, apix, denoise, low_pass, transpose, horizontalize, device=device)
     ny0, nx0 = data.shape
@@ -791,12 +908,19 @@ def reconstruct_grid(
     ]
     copy_cache: dict = {}
     dy_pixel = np.float32(dy / target_apix2d)
-    scores, effective = _grouped_scoring(
-        geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
-        dy_pixel, copy_cache, device, batch_size=batch_size,
-        progress_callback=progress_callback, should_abort=should_abort,
-        densify_padding=densify_padding,
-    )
+    drive = dict(batch_size=batch_size, progress_callback=progress_callback,
+                 should_abort=should_abort)
+    if _use_grouped(cfg, geom, twists, n_copies, n_ops):
+        check_in_slice(cfg, grouped=True)
+        scores, effective = _grouped_scoring(
+            geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
+            dy_pixel, copy_cache, device, densify_padding=densify_padding, **drive,
+        )
+    else:
+        scores, effective = _percand_scoring(
+            geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
+            (tilt, psi, dy_pixel), copy_cache, device, **drive,
+        )
     extras = None
     if "extras" in effective:
         ee = effective.pop("extras")
@@ -837,8 +961,8 @@ def reconstruct_grid(
             twists[bi],
             rise_pixels[bi],
             ch[0], cc[0], cv[0], phc[0], pv[0],
-            dy_pixel=dy_pixel,
-            pair_ops=(ops_hc[0], ops_v[0], pair_idx[0]),
+            tilt, psi, dy_pixel,
+            pair_ops=(ops_hc[0], ops_v[0], pair_idx[0]) if cfg.separable else None,
             sym_keep=sym_keep,
             device=device,
         )

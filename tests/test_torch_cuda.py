@@ -409,3 +409,74 @@ def test_reconstruct_grid_envelope_cuda_matches_cpu(cuda, config):
     np.testing.assert_allclose(on_card.scores, on_host.scores, atol=1e-4)
     assert on_card.effective["retry_rounds"] == on_host.effective["retry_rounds"]
     assert on_card.best_index == on_host.best_index
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_candidate_matvec_matches_plain(cuda, dtype):
+    """B2's matvec entry (l2 = 0: ard's normal operator) against its plain
+    version: float32 relative 1e-5, bf16 1e-3."""
+    cdt = getattr(torch, dtype)
+    items = []
+    for _, _, _, ops, _ in _candidates(cuda, "nn", (-61.0, 12.5, 33.0)):
+        rhs, scal = _rhs_scal(ops, 0.01, 0.0)
+        items.append(cs.candidate_inputs(ops["factors"], cdt, rhs, scal))
+    inp = cs.CandidateInputs.stack(items)
+    v = torch.rand(inp.rhs.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    before = cs.launches["candidate_matvec"]
+    got = cs.candidate_matvec(inp, v)
+    assert cs.launches["candidate_matvec"] > before
+    k, C = inp.shape[:2]
+    want = cs._matvec_plain(inp.a_top, inp.gz, inp.b1, inp.pok, inp.mask,
+                            torch.zeros(k, device=cuda), v, cdt, C * inp.d2)
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= (1e-5 if dtype == "float32" else 1e-3), rel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_solve_candidate_kernel_j_dependent_gz_matches_plain(cuda, dtype):
+    """B2 on an fsc half's j-dependent z-Gram (k, C, l3, l3, d2) against its
+    plain version, with l1 and l2 (phase 2's gates)."""
+    from helicon_tpu_torch.denovo3d.solver import _pid_split_masks
+
+    cdt = getattr(torch, dtype)
+    cands = _candidates(cuda, "nn", (-61.0, 12.5, 33.0))
+    geom = cands[0][0]
+    m = torch.as_tensor(_pid_split_masks(geom, 2)[1][0], device=cuda)
+    items = []
+    for _, _, _, ops, _ in cands:
+        rowv = ops["row_valid"].float() * m
+        rhs = ops["PT"](ops["b"][None] * rowv) * ops["mask"].float()
+        mz = ops["factors"]["Mz"].float()
+        gz = torch.einsum("cim,cin,ij->cmnj", mz, mz, m)
+        items.append(cs.candidate_inputs(ops["factors"], cdt, rhs,
+                                         (0.01, 0.001, 0.0, float(ops["b"].max())), gz=gz))
+    inp = cs.CandidateInputs.stack(items)
+    assert inp.gz_stride == geom.d2
+    x_k = cs.solve_candidate_kernel(inp, *ITERS)
+    x_p = cs.solve_candidate_reference(inp, *ITERS)
+    assert bool(torch.isfinite(x_k).all())
+    rel = float((x_k - x_p).abs().max() / x_p.abs().max())
+    assert rel <= (1e-3 if dtype == "float32" else 5e-3), rel
+
+
+@pytest.mark.parametrize("config", ["lsq", "tilt", "ard", "elasticnet_fsc"])
+def test_percand_search_cuda_matches_cpu(cuda, config, monkeypatch):
+    """Per-candidate searches (HELICON_GRID_GROUPED=0) in float32 on the
+    card against the CPU run: scores within 1e-4, B2 launched on the card
+    for the separable configurations."""
+    from helicon_tpu_torch.helix import simulate_helical_projection
+
+    monkeypatch.setenv("HELICON_GRID_GROUPED", "0")
+    img = simulate_helical_projection(
+        n=1, twist=30.0, rise=6.0, csym=1, helical_diameter=40.0, ball_radius=5.0, polymer=0,
+        planarity=1.0, ny=48, nx=96, apix=2.0, rng=0, device="cpu")
+    kw = dict(apix=2.0, twists=np.float32([29.5, 31.0]), rises=np.float32([6.0, 6.0]),
+              tube_diameter=44.0, sym_oversample=2, cg_iters=10, fista_iters=16, power_iters=2,
+              compute_dtype="float32", return_best_volume=False,
+              **dict(lsq={}, tilt=dict(tilt=3.0), ard=dict(algorithm=dict(model="ard")),
+                     elasticnet_fsc=dict(algorithm=dict(model="elasticnet"), fsc_test=2))[config])
+    on_card = grid.reconstruct_grid(img, device=cuda, **kw)
+    on_host = grid.reconstruct_grid(img, device="cpu", **kw)
+    assert on_card.effective["path"] == on_host.effective["path"] == "percand"
+    np.testing.assert_allclose(on_card.scores, on_host.scores, atol=1e-4)
+    assert (on_card.effective["b2_launches"] > 0) == (config != "tilt")

@@ -106,16 +106,19 @@ def test_envelope_matches_reference(amyloid, name):
 
 
 OUT_OF_SLICE = dict(
-    tilt=dict(tilt=2.0),
-    psi=dict(psi=1.0),
+    # tilt, psi, ard, ridge, ssim, fsc and thresh are ported (tilt, psi,
+    # ard and fsc with l1/l2 on the per-candidate path: tests/
+    # test_torch_percand.py); each case keeps its name on a combination
+    # that still raises: with refinement (ROADMAP A8), fsc with a 2D metric
+    # or thresh on the grouped path (A6.6b), several devices (A10)
+    tilt=dict(tilt=2.0, refine_tilt_psi_dy_range=dict(tilt=5.0)),
+    psi=dict(psi=1.0, refine_tilt_psi_dy_range=dict(psi=2.0), refine_mode="all"),
     refine=dict(refine_tilt_psi_dy_range=dict(tilt=5.0, psi=2.0, dy=1.0)),
-    # ridge, ssim, fsc and thresh are ported; each case keeps its name on
-    # a combination that still raises: fsc with l1/l2 (ROADMAP A7), fsc
-    # with a 2D metric or thresh (A6.6b); and ard (A7)
-    ridge=dict(algorithm=dict(model="ridge", alpha=0.1), fsc_test=2),
+    ridge=dict(algorithm=dict(model="ridge", alpha=0.1), fsc_test=2,
+               refine_tilt_psi_dy_range=dict(dy=1.0)),
     ssim=dict(score_metric="ssim", fsc_test=2),
     thresh=dict(thresh_fraction=0.1, fsc_test=3),
-    ard=dict(algorithm=dict(model="ard")),
+    ard=dict(algorithm=dict(model="ard"), devices=["cuda:0", "cuda:1"]),
     fsc_lreg=dict(algorithm=dict(model="lreg"), fsc_test=2),
     devices=dict(devices=["cuda:0", "cuda:1"]),
     cost_analysis=dict(cost_analysis=True),

@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs nine phases and fails (non-zero exit) if any fails:
+checkout, then runs ten phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
@@ -88,14 +88,35 @@ checkout, then runs nine phases and fails (non-zero exit) if any fails:
    plain version (the halves on j-dependent z-Grams; the same gates),
    one of the search's half solves timed beside its bound, and B2 on an
    fsc half's j-dependent z-Gram against plain on phase 5's float32
-   inputs (x within 1e-3 relative).
+   inputs (x within 1e-3 relative);
+10. pose refinement on the gather kernels (K1 gather_project, K2
+   gather_backproject, K3 pose_jacobian, K4 sym_normal): (a) each against
+   its plain version at phase 9 (b)'s best golden candidate at tilt 3 deg,
+   nn and linear (P within 1e-5 of its max, PT and ST(S(x)) bit for bit,
+   J^T J and J^T r 1e-4 relative), timed beside its plain version, its
+   bound and a yardstick (grid_sample + the ray sum for P, index_add_ for
+   nn PT), and K4's share of a refine matvec beside the torch S + ST it
+   replaced; (b) phase 9 (b)'s wall on the kernels beside the torch gather
+   projector's; (c) refinement's main path, the CLI's refinement
+   (--refineTiltPsiDy 5 5 2, top-1) on phase 4's search, K1-K4's counts
+   zeroed just before and read just after (the wall split into search,
+   refine and re-solve; the pose inside its bounds), then at the refined
+   candidate's own tables (tilt 0, C = 196) K1-K4 against plain, one
+   Gauss-Newton step (1e-4) and the whole refinement (poses 5e-3, scores
+   5e-4) on the kernels against plain; (d) refine_mode "all" on the golden
+   grid at max_iter 5, twice (scores and poses bit for bit), and the
+   winner's and the furthest mover's whole refinements on the kernels
+   against plain (5e-3 / 5e-4) and against a second run on the kernels
+   (bit for bit). Each line of phase 10 ends with the card's name and
+   power limit.
 
 The last two lines of standard output are the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them lists each
 kernel with its launches on its own path (phase 4 for B1, phase 5 for B2
-and B3; B1's and B2's on the bucketed path of phase 8, B2's on phase 9's
-per-candidate searches too, with its matvec entry and its j-dependent
-z-Gram), its error against the plain version, its time, the plain
+and B3, phase 10 (c) for K1-K4; B1's and B2's on the bucketed path of
+phase 8, B2's on phase 9's per-candidate searches too, with its matvec
+entry and its j-dependent z-Gram; K1-K4's on phases 9 (b) and 10 (d)),
+its error against the plain version, its time, the plain
 version's time and the least time the card could take for the same work
 (inputs larger than the 50 MB L2 counted once per matvec that reads them;
 bound_two_pass_ms counts the stacked operand once per product).
@@ -147,6 +168,23 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Mean host milliseconds per call of reps calls issued back to back,
+    without waiting for the card: near _time_ms's figure, the calls are
+    bound by the host (the card waits for them); far below it, by the
+    card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def _bound(nbytes, mma_flops, simt_flops, bf16) -> tuple:
@@ -1388,11 +1426,14 @@ def phase_tilted(device) -> dict:
     from helicon_tpu_torch.denovo3d import grid, reconstruct_grid
     from helicon_tpu_torch.denovo3d.projector import build_problem
 
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
     tw, ri = _golden_grid()
+    _zero(gk.launches)
     res, b2, wall, peak = _golden_search(device, tw, ri, tilt=3.0, return_best_volume=True)
     _print_golden("phase 9 (b) [tilt 3 deg]", res, b2, wall, peak, len(tw))
     out = dict(wall=wall, rate=len(tw) / wall, peak=peak, b2_launches=b2,
-               solve_s=res.effective["solve_s"])
+               solve_s=res.effective["solve_s"], gather_launches=dict(gk.launches))
     # the best candidate's gather operators at the golden geometry, tilt 3 deg
     geom, e, bi = res.geom, res.effective, res.best_index
     rp = (ri / res.target_apix3d)[bi : bi + 1]
@@ -1404,11 +1445,14 @@ def phase_tilted(device) -> dict:
                         geom.cell_valid_mask(), device=device)
     x = torch.rand(geom.volume_shape, device=device) * ops["mask"]
     r = torch.rand(ops["row_valid"].shape, device=device)
+    out["golden"] = (geom, float(tw[bi]), float(rp[0]), (ch, cc, cv), (phc, pv))
+    out["grid"] = (geom, tw, ri / res.target_apix3d, e["n_copies"], e["n_pairs"], e["n_ops"])
     out["P_ms"] = _time_ms(lambda: ops["P"](x), 5)
     out["PT_ms"] = _time_ms(lambda: ops["PT"](r), 5)
     n = int(cv.sum()) * geom.l2 * geom.d2 * geom.d2
-    print(f"phase 9 (b) [gather projector, tilt 3 deg, C={len(ch)} copies, {n} samples]: P "
-          f"{out['P_ms']:.3f} ms, PT {out['PT_ms']:.3f} ms per application", flush=True)
+    print(f"phase 9 (b) [gather projector (K1 / K2), tilt 3 deg, C={len(ch)} copies, {n} "
+          f"samples]: P {out['P_ms']:.3f} ms, PT {out['PT_ms']:.3f} ms per application",
+          flush=True)
     # tilt 0: the gather projector against the separable path, float32
     sub = np.float32([2.0, 2.0, 2.25, 2.25]), np.float32([4.75, 4.9, 4.75, 4.9])
     solve = grid.solve_candidates
@@ -1586,6 +1630,520 @@ def phase_fsc_regularized(device, single) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: pose refinement on the gather kernels K1-K4
+# ---------------------------------------------------------------------------
+
+# float operations a sample. Every sample of a ray the kernels take (K1 and
+# K2: a ray of the list, which holds a valid sample; K3: a ray it does not
+# prune, a populated copy slot with some sample inside the volume's z
+# range): its coordinates (three 3-term dot products, the copy's turn and
+# shifts: 25).
+# Each valid sample besides: nn K1 one add (the ray's sum), K2 three (the
+# term's scaling and rounding to an integer, the add); linear the fractions
+# and their complements (6) and the eight weights (16), then K1 the
+# weighted sum and the ray's add (16), K2 the eight products, scalings,
+# roundings and adds (32), K3 the weighted sum (16), the trilinear gradient
+# (30), the coordinates' derivatives by tilt and psi (30) and the three
+# dot products with the gradient (30)
+COORD_OPS = 25
+VALID_OPS = {("project", "nn"): 1, ("backproject", "nn"): 3, ("project", "linear"): 38,
+             ("backproject", "linear"): 54, ("jacobian", "linear"): 128}
+# K4, a (pair, voxel) item: every item in the mask with a populated slot
+# its two ops' coordinates (14); each valid one besides: nn the difference
+# and two terms' scaling, rounding and add (7); linear the two samples'
+# fractions, weights and weighted sums (2 x 37), the difference, and
+# sixteen terms' products, scalings, roundings and adds (64)
+SYM_COORD_OPS = 14
+SYM_VALID_OPS = {"nn": 7, "linear": 139}
+# phase 9 (b)'s wall on the torch gather projector the kernels replaced
+# (PERF.md section 5)
+TORCH_GATHER_TILT3_WALL = 41.8
+# the CLI's --refineTiltPsiDy 5 5 2 (refineTopK 1, refineMode topk)
+REFINE_RANGE = dict(tilt=5.0, psi=5.0, dy=2.0)
+
+
+def _zero(counts: dict) -> None:
+    for k in counts:
+        counts[k] = 0
+
+
+@contextlib.contextmanager
+def _plain_gather():
+    """K1-K4's wrappers swapped for their plain versions (on the same CUDA
+    tensors) for the duration."""
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
+    names = ("gather_project", "gather_backproject", "pose_jacobian", "sym_normal")
+    saved = [getattr(gk, n) for n in names]
+    for n in names:
+        setattr(gk, n, getattr(gk, n + "_reference"))
+    try:
+        yield
+    finally:
+        for n, f in zip(names, saved):
+            setattr(gk, n, f)
+
+
+def _samples(tab):
+    """Candidate 0 of tab: (samples of the populated copy slots, samples of
+    the rays the kernels do not prune by z, valid samples, the plain
+    version's coordinates (Z, Y, X) of the populated slots' samples)."""
+    import torch
+
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
+    keep = tab.cvf[0] > 0
+    top = tab.l3 - (2 if tab.linear else 1)
+    n_live = n_valid = 0
+    coords = []
+    for sl, zyx, _, valid in gk._chunks(tab, 0, tab.sampler()):
+        k = keep[sl]
+        z = torch.floor(zyx[0]) if tab.linear else torch.round(zyx[0])
+        n_live += int(((z >= 0) & (z <= top)).any(dim=-1)[k].sum()) * tab.d2
+        n_valid += int(valid[k].sum())
+        coords.append(torch.stack(zyx, dim=-1)[k])
+    coords = torch.cat(coords)
+    n_all = coords.shape[0] * coords.shape[1] * coords.shape[2] * coords.shape[3]
+    return n_all, n_live, n_valid, coords
+
+
+def _sym_items(st):
+    """Candidate 0 of the symmetry tables st: (its (pair, voxel) items in
+    the mask with a populated slot, the valid ones)."""
+    keep = (st.mask.reshape(st.l3, st.d3, st.d3) > 0.5)[None] & (st.pv[0] > 0.5)[:, None,
+                                                                                None, None]
+    if st.keep is not None:
+        keep = keep & st.keep[0]
+    return int(keep.sum()), int(st.taps()[2][0].sum())
+
+
+def _rel(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
+    """K1, K2, K4 and, on linear tables with derivatives, K3 against their
+    plain versions on the same card tensors (tables of one candidate):
+    P within 1e-5 of its max and row_valid equal; P, PT and ST(S(x)) bit
+    for bit (the plain P sums a ray in the kernel's order, PT and ST(S(x))
+    sum exactly), K1 and K2 both testing every ray and on the list of live
+    rays the projector builds; J^T J and J^T r within 1e-4 relative. timed:
+    each kernel (K1, K2 on the list) and its plain version timed by CUDA
+    events beside its bound, and the yardsticks: for P
+    torch.nn.functional.grid_sample (5-D, nearest / bilinear, zero padding)
+    on the same samples plus the sum along the ray; for nn PT one
+    index_add_ of the same valid samples' indices. Returns the rows by
+    (kernel, interpolation)."""
+    import torch
+    import torch.nn.functional as F
+
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
+    interp = "linear" if tab.linear else "nn"
+    rows = {}
+    # K1
+    p_k, rv_k = gk.gather_project(tab, x, row_valid=True)
+    p_p, rv_p = gk.gather_project_reference(tab, x, row_valid=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    listed = gk.with_live_rays(tab, rv_k)
+    list_ms = (time.perf_counter() - t0) * 1e3
+    p_l = gk.gather_project(listed, x)
+    torch.cuda.synchronize()
+    err_p, rv_same = _rel(p_k, p_p), bool((rv_k == rv_p).all())
+    p_same = bool(torch.equal(p_k, p_p) and torch.equal(p_l, p_p))
+    row = dict(max_abs_err=float(max((p_k - p_p).abs().max(), (p_l - p_p).abs().max())),
+               rel_err=err_p, equal=p_same, live_rays=listed.n_max, list_build_ms=list_ms)
+    if not (err_p <= 1e-5 and rv_same and p_same):
+        raise AssertionError(f"{label}: K1 differs from plain ({err_p}, {rv_same}, {p_same})")
+    # K2
+    pt_k, pt_p = gk.gather_backproject(tab, r), gk.gather_backproject_reference(tab, r)
+    pt_l = gk.gather_backproject(listed, r)
+    torch.cuda.synchronize()
+    pt_same = bool(torch.equal(pt_k, pt_p) and torch.equal(pt_l, pt_p))
+    rows[("backproject", interp)] = dict(max_abs_err=float((pt_k - pt_p).abs().max()),
+                                         equal=pt_same)
+    if not pt_same:
+        raise AssertionError(f"{label}: K2 differs from plain by "
+                             f"{float((pt_k - pt_p).abs().max())}")
+    # K4
+    sts_k, sts_p = gk.sym_normal(st, x), gk.sym_normal_reference(st, x)
+    torch.cuda.synchronize()
+    sts_same = bool(torch.equal(sts_k, sts_p))
+    rows[("sym_normal", interp)] = dict(max_abs_err=float((sts_k - sts_p).abs().max()),
+                                        equal=sts_same)
+    if not sts_same:
+        raise AssertionError(f"{label}: K4 differs from plain by "
+                             f"{float((sts_k - sts_p).abs().max())}")
+    # K3
+    errs = None
+    if tab.linear and tab.dR is not None:
+        jk, jp = gk.pose_jacobian(tab, x, b), gk.pose_jacobian_reference(tab, x, b)
+        torch.cuda.synchronize()
+        errs = [_rel(a, c) for a, c in zip(jk, jp)]
+        rows[("jacobian", interp)] = dict(
+            max_abs_err=float(max((a - c).abs().max() for a, c in zip(jk, jp))),
+            rel_err_JtJ=errs[0], rel_err_Jtr=errs[1], rel_err_rtr=errs[2])
+        if not (errs[0] <= 1e-4 and errs[1] <= 1e-4):
+            raise AssertionError(f"{label}: K3 differs from plain ({errs})")
+    rows[("project", interp)] = row
+    k3 = "" if errs is None else (f"; K3 J^T J {errs[0]:.3e}, J^T r {errs[1]:.3e}, r^T r "
+                                  f"{errs[2]:.3e} (limit 1e-4)")
+    print(f"{label}: K1 rel err {err_p:.3e} (limit 1e-5), row_valid "
+          f"{'equal' if rv_same else 'DIFFERS'}; K1, K2 (every ray tested, and on the list of "
+          f"{listed.n_max} live rays, built in {list_ms:.3f} ms) and K4 equal to plain bit for "
+          f"bit{k3}; {card}", flush=True)
+    if not timed:
+        return rows
+
+    n_all, n_live, n_valid, zyx = _samples(tab)
+    # K1 and K2 compute the samples of the listed rays, K3 of the unpruned
+    n_listed = listed.n_max * tab.d2
+    aux_bytes = _nbytes(tab.aux)
+    row.update(samples=n_all, live=n_live, valid=n_valid)
+    geom_shape = (tab.l3, tab.d3, tab.d3)
+
+    def timing(key, kernel, plain, nbytes, ops, lib=None):
+        ms_k, ms_p = _time_ms(kernel, 20), _time_ms(plain, 3)
+        host = _host_ms(kernel, 20)
+        bound = _bound(nbytes, 0, ops, False)
+        rows[key].update(ms=ms_k, plain_ms=ms_p, bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=lib, host_ms=host)
+        return (f"kernel {ms_k:.3f} ms (host {host:.3f} ms a call), plain {ms_p:.3f} ms, bound "
+                f"{bound[0]:.4f} ms ({bound[1]})")
+
+    # the yardstick: grid_sample at the same samples, the populated slots'
+    # (x, y, z) normalized with align_corners
+    size = torch.tensor([tab.d3 - 1, tab.d3 - 1, tab.l3 - 1], device=x.device,
+                        dtype=torch.float32)
+    g = (zyx.flip(-1) / size * 2 - 1).reshape(1, -1, tab.d2, tab.d2, 3).contiguous()
+    src = (x if tab.linear else x * tab.mask.reshape(geom_shape))[:, None]
+    mode = "bilinear" if tab.linear else "nearest"
+    ms_lib = _time_ms(lambda: F.grid_sample(src, g, mode=mode, padding_mode="zeros",
+                                            align_corners=True).sum(-1), 10)
+    del g
+    t1 = timing(("project", interp), lambda: gk.gather_project(listed, x),
+                lambda: gk.gather_project_reference(tab, x), _nbytes(x, p_k) + aux_bytes,
+                COORD_OPS * n_listed + VALID_OPS[("project", interp)] * n_valid, ms_lib)
+    ms_lib = None
+    if not tab.linear:
+        # one index_add_ of the valid samples' padded indices (the plain
+        # version's), each carrying its ray's value
+        idx, val = [], []
+        for sl, _, taps, valid in gk._chunks(tab, 0, tab.sampler()):
+            valid = valid & (tab.cvf[0, sl] > 0)[:, None, None, None]
+            idx.append(taps[0][0][valid])
+            val.append(r[0, sl][..., None].expand(valid.shape)[valid])
+        idx, val = torch.cat(idx), torch.cat(val)
+        acc = tab.sampler().zeros(x.device)
+        ms_lib = _time_ms(lambda: acc.index_add_(0, idx, val), 10)
+        del idx, val
+    t2 = timing(("backproject", interp), lambda: gk.gather_backproject(listed, r),
+                lambda: gk.gather_backproject_reference(tab, r), _nbytes(r, pt_k) + aux_bytes,
+                COORD_OPS * n_listed + VALID_OPS[("backproject", interp)] * n_valid, ms_lib)
+    lib = "" if ms_lib is None else f", index_add_ {ms_lib:.3f} ms"
+    live, valid = _sym_items(st)
+    t4 = timing(("sym_normal", interp), lambda: gk.sym_normal(st, x),
+                lambda: gk.sym_normal_reference(st, x),
+                _nbytes(x, sts_k, st.cs, st.sn, st.dz, st.pv) + aux_bytes,
+                SYM_COORD_OPS * live + SYM_VALID_OPS[interp] * valid)
+    print(f"{label} [{n_all} samples, {n_live} on unpruned rays, {n_valid} valid, "
+          f"{listed.n_max} live rays; "
+          f"{live} symmetry items, {valid} valid]: K1 {t1}, grid_sample ({mode}) + sum "
+          f"{rows[('project', interp)]['library_ms']:.3f} ms; K2 {t2}{lib}; K4 {t4}; {card}",
+          flush=True)
+    if errs is not None:
+        t3 = timing(("jacobian", interp), lambda: gk.pose_jacobian(tab, x, b),
+                    lambda: gk.pose_jacobian_reference(tab, x, b), _nbytes(x, b) + aux_bytes,
+                    COORD_OPS * n_live + VALID_OPS[("jacobian", interp)] * n_valid)
+        print(f"{label}: K3 {t3}; {card}", flush=True)
+    return rows
+
+
+def _one_candidate_tables(device, geom, tw, rp, copies, pairs, pose, interp):
+    """The gather and symmetry tables of one candidate (copies (C,), pairs
+    (P, 4), (P,)) at pose (tilt, psi, dy), with K3's derivatives when
+    linear."""
+    import torch
+
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
+    mask = torch.as_tensor(geom.cylindrical_mask().reshape(-1), dtype=torch.float32,
+                           device=device)
+    cellok = torch.as_tensor(geom.cell_valid_mask().reshape(-1), dtype=torch.float32,
+                             device=device)
+    tab = gk.gather_tables(geom, [tw], [rp], *(c[None] for c in copies), *pose, interp, mask,
+                           cellok, derivatives=interp == "linear")
+    st = gk.sym_tables(geom, [tw], [rp], *(c[None] for c in pairs), interp, mask, cellok)
+    return tab, st
+
+
+def phase_gather_kernels(device, tilted, card) -> dict:
+    """Phase 10 (a): K1-K4 against their plain versions on the same card
+    tensors at phase 9 (b)'s best golden candidate at tilt 3 deg, nn and
+    linear (K3 linear only), each timed beside its plain version, its
+    bound and its yardstick (_hold_gather)."""
+    import torch
+
+    geom, tw, rp, copies, pairs = tilted["golden"]
+    rows = {}
+    for interp in ("nn", "linear"):
+        tab, st = _one_candidate_tables(device, geom, tw, rp, copies, pairs, (3.0, 0.0, 0.0),
+                                        interp)
+        gen = torch.Generator(device=device).manual_seed(10)
+        x = (torch.rand((1,) + geom.volume_shape, device=device, generator=gen)
+             * tab.mask.reshape(geom.volume_shape))
+        r = torch.rand(tab.shape, device=device, generator=gen)
+        b = torch.rand((geom.l2, geom.d2), device=device, generator=gen)
+        rows.update(_hold_gather(
+            f"phase 10 (a) [{interp}, tilt 3 deg, C={int(copies[2].sum())} populated copies, "
+            f"{len(pairs[1])} pair slots]", tab, st, x, r, b, card, timed=True))
+    return rows
+
+
+def phase_sym_share(device, tilted, card) -> dict:
+    """Phase 10 (a), last: the share of the symmetry term in one refine
+    matvec PT(P(x) * rows) + ST(S(x)) at tilt 3 deg (nn) on the golden
+    grid's tables, for one candidate and for the 45 a refine_mode="all"
+    launch takes: K4 (ST(S(x)) in one launch) beside the torch S + ST it
+    replaced (the taps computed at the build)."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.denovo3d import grid
+    from helicon_tpu_torch.denovo3d.projector import build_problems
+
+    geom, tw, rp, n_copies, n_pairs, n_ops = tilted["grid"]
+    tabs = grid._candidate_tables(geom, tw, rp, n_copies, n_pairs, n_ops)[:5]
+    out = {}
+    for k in (1, len(tw)):
+        ops = build_problems(geom, np.zeros((geom.d2, geom.l2), np.float32), tw[:k], rp[:k],
+                             *(t[:k] for t in tabs), 3.0, 0.0, 0.0, "nn",
+                             geom.cylindrical_mask(), geom.cell_valid_mask(), device=device)
+        x = torch.rand((k,) + geom.volume_shape, device=device) * ops["mask"]
+        rows = ops["row_valid"].float()
+        ms_k4 = _time_ms(lambda: ops["STS"](x), 10)
+        ms_torch = _time_ms(lambda: ops["ST"](ops["S"](x)), 10)
+        ms_mv = _time_ms(lambda: ops["PT"](ops["P"](x) * rows) + ops["STS"](x), 10)
+        out[k] = dict(sym_ms=ms_k4, torch_sym_ms=ms_torch, matvec_ms=ms_mv,
+                      share=ms_k4 / ms_mv)
+        print(f"phase 10 (a) [the symmetry term, nn, tilt 3 deg, k={k}, {tabs[3].shape[1]} pair "
+              f"slots]: K4 {ms_k4:.3f} ms of a {ms_mv:.3f} ms refine matvec "
+              f"({100 * ms_k4 / ms_mv:.1f} %); torch S + ST {ms_torch:.3f} ms; {card}",
+              flush=True)
+        del ops
+    return out
+
+
+def phase_tilted_again(tilted, card) -> None:
+    """Phase 10 (b): phase 9 (b)'s golden grid at tilt 3 deg, now on K1 /
+    K2 / K4, beside its wall on the torch gather projector they replaced."""
+    t, launches = tilted, tilted["gather_launches"]
+    print(f"phase 10 (b) [phase 9 (b) again: 45 golden candidates at tilt 3 deg on the gather "
+          f"kernels]: {t['wall']:.3f} s wall incl. best volume ({TORCH_GATHER_TILT3_WALL} s on "
+          f"the torch gather projector), {t['rate']:.2f} candidates/s, peak {t['peak']:.2f} GiB, "
+          f"launches {launches}; {card}", flush=True)
+    if not all(launches[n] > 0 for n in ("gather_project", "gather_backproject", "sym_normal")):
+        raise AssertionError("phase 10 (b): the tilted search did not launch K1 / K2 / K4")
+
+
+def _pose_gate(label, got, want, card, pose_limit=5e-3, score=None) -> tuple:
+    """Poses got / want (3,) within pose_limit (deg / px) and, with score =
+    (kernels', plain's), scores within 5e-4; prints and fails past them."""
+    import numpy as np
+
+    dp = float(np.abs(np.float64(got) - np.float64(want)).max())
+    ds = None if score is None else abs(float(score[0]) - float(score[1]))
+    tail = "" if ds is None else f", |d score| {ds:.3e} (limit 5e-4)"
+    print(f"{label}: kernels {[float(v) for v in got]}, plain {[float(v) for v in want]}, "
+          f"max |d pose| {dp:.3e} (limit {pose_limit:g}){tail}; {card}", flush=True)
+    if not (dp <= pose_limit and (ds is None or ds <= 5e-4)):
+        raise AssertionError(f"{label}: the kernels differ from plain ({dp}, {ds})")
+    return dp, ds
+
+
+def phase_refine_cli(device, phase4_scores, card) -> dict:
+    """Phase 10 (c), refinement's main path: the CLI's refinement
+    (--refineTiltPsiDy 5 5 2, refineTopK 1, topk) on phase 4's 2,327
+    candidates, with K1-K4's counts set to 0 just before and read just
+    after: the wall split into search, refine and re-solve, the refined pose
+    (inside its bounds, its score finite) and the top-1 with and without
+    refinement; fails unless every kernel launched. Then, at the refined
+    candidate's own tables (tilt 0, its copies and pairs): K1-K4 against
+    plain (nn, the solve's; linear, the Gauss-Newton step's); one
+    Gauss-Newton step from the start on the kernels and on plain (new pose
+    within 1e-4, r^T r within 1e-4 relative); and its whole refinement on
+    the kernels and on plain (poses within 5e-3, the scores at them within
+    5e-4)."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+    from helicon_tpu_torch.denovo3d import refine
+    from helicon_tpu_torch.denovo3d.refine import _pose_bounds
+    from helicon_tpu_torch.denovo3d.solver import solve_candidate
+
+    tw, ri = _real_size_grid()
+    calls = []
+    real = refine.refine_tilt_psi_dy
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    refine.refine_tilt_psi_dy = spy
+    _zero(gk.launches)
+    try:
+        res, b1, wall, peak = _search(device, tw, ri, return_best_volume=True,
+                                      refine_tilt_psi_dy_range=REFINE_RANGE)
+    finally:
+        refine.refine_tilt_psi_dy = real
+    launches = dict(gk.launches)
+    e = res.effective
+    ((idx, pose),) = res.refined_params.items()
+    lo, hi = _pose_bounds(REFINE_RANGE)
+    inside = bool(np.all(np.float32(pose) >= lo) and np.all(np.float32(pose) <= hi))
+    plain_top = int(np.argmax(phase4_scores))
+    print(f"phase 10 (c) [the CLI's refinement, {REFINE_RANGE}, top-1 of {len(tw)} candidates]: "
+          f"{wall:.3f} s wall incl. best volume: search {e['search_s']:.3f} s, refine "
+          f"{e['refine_s']:.3f} s, re-solve {e['resolve_s']:.3f} s; peak {peak:.2f} GiB; "
+          f"launches {launches}, B1 {b1}; refined candidate ({float(tw[idx])}, "
+          f"{float(ri[idx])}) pose (tilt, psi, dy px) {tuple(round(v, 5) for v in pose)} "
+          f"{'inside' if inside else 'OUTSIDE'} its bounds, score {float(res.scores[idx]):.6f} "
+          f"(fixed pose {float(phase4_scores[idx]):.6f}); top-1 with refinement "
+          f"({float(tw[res.best_index])}, {float(ri[res.best_index])}), without "
+          f"({float(tw[plain_top])}, {float(ri[plain_top])}); {card}", flush=True)
+    _check_search(res, b1, "phase 10 (c)")
+    if not inside or min(launches.values()) <= 0:
+        raise AssertionError(f"phase 10 (c): pose {pose} outside its bounds or a kernel not "
+                             f"launched ({launches})")
+
+    # the refined candidate's own call
+    ((geom, cfg, region, c_tw, c_rp, copies, pairs, *start, r_range), kw) = calls[0]
+    start = np.float32(start)
+    label = (f"phase 10 (c) [the refined candidate's tables: tilt 0, C={len(copies[0])} copy "
+             f"slots, {len(pairs[1])} pair slots]")
+    sol = solve_candidate(geom, cfg, region, c_tw, c_rp, *copies, *pairs, *start, device=device)
+    x = sol["rec3d"][None].float().contiguous()
+    b = torch.as_tensor(region, dtype=torch.float32, device=device).T.contiguous()
+    for interp in ("nn", "linear"):
+        tab, st = _one_candidate_tables(device, geom, c_tw, c_rp, copies, pairs, tuple(start),
+                                        interp)
+        gen = torch.Generator(device=device).manual_seed(11)
+        r = torch.rand(tab.shape, device=device, generator=gen)
+        _hold_gather(f"{label} {interp}", tab, st, x, r, b, card)
+    # one Gauss-Newton step from the start, at the start's solved volume
+    step = {}
+    for plain in (False, True):
+        with _plain_gather() if plain else contextlib.nullcontext():
+            step[plain] = refine.gn_step(geom, region, np.float32([c_tw]), np.float32([c_rp]),
+                                         tuple(np.asarray(c)[None] for c in copies), x,
+                                         start[None])
+    moved = float(np.abs(step[False][0][0] - start).max())
+    rtr_err = abs(float(step[False][1][0]) - float(step[True][1][0])) / max(
+        abs(float(step[True][1][0])), 1e-30)
+    _pose_gate(f"{label} one Gauss-Newton step from {start.tolist()} (moves {moved:.4f}; r^T r "
+               f"rel err {rtr_err:.3e}, limit 1e-4)", step[False][0][0], step[True][0][0], card,
+               pose_limit=1e-4)
+    if not (rtr_err <= 1e-4 and moved > 0):
+        raise AssertionError(f"phase 10 (c): the Gauss-Newton step's r^T r differs by {rtr_err} "
+                             f"or the step did not move ({moved})")
+    # the whole refinement, and the scores at its poses
+    whole, score = {}, {}
+    t = {}
+    for plain in (False, True):
+        with _plain_gather() if plain else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            whole[plain] = np.float32(real(*calls[0][0], **kw))
+            t[plain] = time.perf_counter() - t0
+            score[plain] = float(solve_candidate(geom, cfg, region, c_tw, c_rp, *copies, *pairs,
+                                                 *whole[plain], device=device)["score"])
+    if not np.array_equal(whole[False], np.float32(pose)):
+        raise AssertionError(f"phase 10 (c): the refinement again gave {whole[False]}, the "
+                             f"search {pose}")
+    _pose_gate(f"{label} the whole refinement ({t[False]:.3f} s on the kernels, {t[True]:.3f} s "
+               f"plain)", whole[False], whole[True], card, score=(score[False], score[True]))
+    return dict(wall=wall, launches=launches, pose=pose, search_s=e["search_s"],
+                refine_s=e["refine_s"], resolve_s=e["resolve_s"], step_moved=moved,
+                kernel_s=t[False], plain_s=t[True])
+
+
+def phase_refine_all(device, card) -> dict:
+    """Phase 10 (d): refine_mode="all" on the 45-candidate golden grid at
+    max_iter 5 (wall, candidates/s, K1-K4 launches), run twice: the scores
+    and poses must repeat bit for bit. Then whole refinements once on the
+    kernels and once on their plain versions on the same card, held to
+    poses within 5e-3 (deg / px) and scores within 5e-4, the reference's
+    engine-vs-JAX bounds: the winner's, and that of the candidate whose
+    pose moved furthest (on the kernels twice: bit for bit)."""
+    import numpy as np
+
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+    from helicon_tpu_torch.denovo3d import refine
+
+    rr = dict(REFINE_RANGE, max_iter=5)
+    tw, ri = _golden_grid()
+    calls = []
+    real = refine.refine_all_candidates
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    runs = []
+    for _ in range(2):
+        refine.refine_all_candidates = spy
+        _zero(gk.launches)
+        try:
+            res, _, wall, peak = _golden_search(device, tw, ri, refine_tilt_psi_dy_range=rr,
+                                                refine_mode="all", return_best_volume=True)
+        finally:
+            refine.refine_all_candidates = real
+        runs.append((res, wall, peak, dict(gk.launches)))
+    res, wall, peak, launches = runs[0]
+    e = res.effective
+    params = [np.float32([r.refined_params[j] for j in range(len(tw))]) for r, *_ in runs]
+    same = bool(np.array_equal(runs[0][0].scores, runs[1][0].scores)
+                and np.array_equal(params[0], params[1]))
+    print(f"phase 10 (d) [refine_mode all, {rr}, {len(tw)} golden candidates]: {wall:.3f} s "
+          f"wall incl. best volume ({runs[1][1]:.3f} s again), {len(tw) / wall:.2f} "
+          f"candidates/s, refine {e['refine_s']:.3f} s, peak {peak:.2f} GiB, launches "
+          f"{launches}; top-3 {res.top(3).tolist()}, again {runs[1][0].top(3).tolist()}: scores "
+          f"and poses {'repeat bit for bit' if same else 'DIFFER'}; best pose "
+          f"{res.refined_params[res.best_index]}; {card}", flush=True)
+    if min(launches.values()) <= 0 or not np.all(np.isfinite(res.scores)) or not same:
+        raise AssertionError("phase 10 (d): a kernel not launched, non-finite scores, or a "
+                             "second run that differs")
+    (geom, cfg, region, twists, rises, tables, *pose0, r_range), kw = calls[0]
+
+    def run(i, plain=False):
+        one = (geom, cfg, region, twists[i : i + 1], rises[i : i + 1],
+               tuple(t[i : i + 1] for t in tables), *pose0, r_range)
+        t0 = time.perf_counter()
+        with _plain_gather() if plain else contextlib.nullcontext():
+            s, p = real(*one, batch_size=1, device=device)
+        return s[0], p[0], time.perf_counter() - t0
+
+    moved = np.abs(params[0] - np.float32(pose0)).max(axis=1)
+    mover = int(np.argmax(moved))
+    out = dict(wall=wall, rate=len(tw) / wall, launches=launches, repeat=same)
+    for name, i in (("the winner", res.best_index), ("the furthest mover", mover)):
+        s_k, p_k, t_k = run(i)
+        s_p, p_p, t_p = run(i, plain=True)
+        dp, ds = _pose_gate(f"phase 10 (d) [{name}'s whole refinement: candidate {i}, moved "
+                            f"{float(moved[i]):.4f}; {t_k:.3f} s on the kernels, {t_p:.3f} s "
+                            f"plain]", p_k, p_p, card, score=(s_k, s_p))
+        s_a, p_a, _ = run(i)
+        if not (np.array_equal(p_a, p_k) and s_a == s_k):
+            raise AssertionError(f"phase 10 (d): {name}'s refinement does not repeat on the "
+                                 f"kernels ({p_k}, {p_a})")
+        out[name] = dict(pose_err=dp, score_err=ds, kernel_s=t_k, plain_s=t_p,
+                         moved=float(moved[i]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1643,12 +2201,26 @@ def main() -> int:
     tilted = phase_tilted(device)
     ard = phase_ard(device, single)
     fsc_reg = phase_fsc_regularized(device, single)
+    gather = phase_gather_kernels(device, tilted, card)
+    sym_share = phase_sym_share(device, tilted, card)
+    phase_tilted_again(tilted, card)
+    cli = phase_refine_cli(device, nn_scores, card)
+    refine_all = phase_refine_all(device, card)
 
     def entry(name, src, replaces, launches, r, **extra):
         return dict(name=name, route="cuda", source=CSRC + src, replaces=replaces,
                     launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=None, **extra)
+                    library_ms=r.get("library_ms"), **extra)
+
+    def other(n, interp):
+        """A gather kernel's launches on phase 9 (b)'s and 10 (d)'s paths,
+        and its linear row of phase 10 (a)."""
+        extra = dict(launches_tilt3=tilted["gather_launches"][n],
+                     launches_refine_all=refine_all["launches"][n])
+        if interp:
+            extra["linear"] = interp
+        return extra
 
     rows = single["rows"]
     b2, b3 = rows[("solve_candidate", "nn", "float32")], rows[("score_candidate", "nn", "float32")]
@@ -1711,6 +2283,25 @@ def main() -> int:
               "helicon_tpu/denovo3d/pallas_solver.py:335",
               single["launches"]["score_candidate"], b3,
               bound_two_pass_ms=b3["bound_two_pass_ms"]),
+        # the gather projector, the pose Jacobian and the symmetry term (no
+        # Pallas kernel: they replace XLA gathers and jax.jacfwd); nn rows,
+        # launches on phase 10 (c), the CLI's refinement
+        entry("gather_project", "gather_projector.cu", "helicon_tpu/denovo3d/projector.py:153",
+              cli["launches"]["gather_project"], gather[("project", "nn")],
+              **other("gather_project", gather[("project", "linear")])),
+        entry("gather_backproject", "gather_projector.cu",
+              "helicon_tpu/denovo3d/projector.py:153", cli["launches"]["gather_backproject"],
+              gather[("backproject", "nn")],
+              **other("gather_backproject", gather[("backproject", "linear")])),
+        entry("pose_jacobian", "gather_projector.cu", "helicon_tpu/denovo3d/refine.py:50",
+              cli["launches"]["pose_jacobian"], gather[("jacobian", "linear")],
+              **other("pose_jacobian", None)),
+        entry("sym_normal", "gather_projector.cu", "helicon_tpu/denovo3d/projector.py:230",
+              cli["launches"]["sym_normal"], gather[("sym_normal", "nn")],
+              **other("sym_normal", gather[("sym_normal", "linear")]),
+              # phase 10 (a): K4 and the torch S + ST it replaced in a
+              # refine matvec, by k
+              share={str(k): v for k, v in sym_share.items()}),
     ]}))
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)

@@ -27,6 +27,7 @@ BUILD_DIR = _PKG.parent / "build" / "helicon_tpu_torch_kernels"
 SOURCES = (
     _PKG / "denovo3d" / "csrc" / "group_solve.cu",
     _PKG / "denovo3d" / "csrc" / "candidate_solve.cu",
+    _PKG / "denovo3d" / "csrc" / "gather_projector.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -35,7 +36,7 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry (all return int): group_solve.cu's
-# hts_*, then candidate_solve.cu's hcs_*
+# hts_*, candidate_solve.cu's hcs_*, then gather_projector.cu's hgp_*
 _SIGNATURES = {
     "hts_gemm_xat": [_P] * 4 + [_I] * 10 + [_P],
     "hts_glue_data": [_P] * 3 + [_I] * 9 + [_P],
@@ -59,6 +60,10 @@ _SIGNATURES = {
     "hcs_build_w2": [_P] * 5 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "hcs_build_mxy": [_P] * 4 + [_I] * 6 + [_P],
     "hcs_score": [_P] * 5 + [_I, _I, _P],
+    "hgp_project": [_P] * 15 + [_I] * 9 + [_P],
+    "hgp_backproject": [_P] * 16 + [_I] * 9 + [_P],
+    "hgp_pose_jacobian": [_P] * 16 + [_I] * 7 + [_P],
+    "hgp_sym_normal": [_P] * 12 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

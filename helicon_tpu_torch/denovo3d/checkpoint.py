@@ -11,9 +11,13 @@ Chunked scoring reproduces the one-shot run because every chunk is scored
 against the global rise-bucket partition (``grid.global_rise_buckets``)
 with ``geometry_rise_range`` pinned to its bucket's range: a chunk's own
 rise extremes never shift the geometry. After the coarse pass, the merge
-stages run as in the one-shot bucketed search: the cross-bucket re-scoring
-pass at per-candidate geometry, then the winner's re-solve. They are a
-small share of the work, so only the coarse pass is checkpointed.
+stages run as in the one-shot bucketed search: the deferred top-k pose
+refinement at bucket geometry (refine_mode "topk"), the cross-bucket
+re-scoring pass at per-candidate geometry, then the winner's re-solve.
+They are a small share of the work, so only the coarse pass is
+checkpointed; refine_mode "all" refines inside every chunk, and the
+refined poses go into the shard beside the scores, as the reference
+writes them.
 """
 
 from __future__ import annotations
@@ -91,20 +95,24 @@ def reconstruct_grid_checkpointed(
     unscored candidates (NaN on disk, so that a resume knows what is
     missing), best_index -1 and no best volume. ``progress_callback(done,
     total, scores)`` runs after every chunk. Every reconstruct_grid keyword
-    is accepted (``device`` defaults to the card there); pose refinement
-    raises, as in reconstruct_grid (ROADMAP A8)."""
+    is accepted (``device`` defaults to the card there). Refinement as in
+    the one-shot call: refine_mode "topk" refines each bucket's top-k after
+    the coarse pass, "all" every candidate inside its chunk, its pose
+    saved with its score."""
     from . import grid
     from .grid import GridResult, _rescore_and_pick, global_rise_buckets
 
-    if kwargs.get("refine_tilt_psi_dy_range"):
-        raise NotImplementedError("refine_tilt_psi_dy_range is not ported yet (ROADMAP A8)")
     twists = np.asarray(twists, np.float32)
     rises = np.asarray(rises, np.float32)
     n = len(twists)
     buckets = global_rise_buckets(rises, float(kwargs.get("rise_bucket_ratio", 1.6)))
     scores, pose, pose_mask, loaded = _load_state(checkpoint_path, twists, rises)
     return_best_volume = kwargs.pop("return_best_volume", True)
+    refine_range = kwargs.get("refine_tilt_psi_dy_range")
+    defer_refine = bool(refine_range) and kwargs.get("refine_mode", "topk") != "all"
     sub_kw = dict(kwargs, return_best_volume=False)
+    if defer_refine:
+        sub_kw["refine_tilt_psi_dy_range"] = None
 
     def run(cand_idx, rise_range, **overrides):
         return grid.reconstruct_grid(image, apix, twists[cand_idx], rises[cand_idx],
@@ -142,6 +150,9 @@ def reconstruct_grid_checkpointed(
             if local_sub.extras:
                 extra_parts.append(tuple(local_sub.extras[k]
                                          for k in ("twists", "rises", "scores")))
+            for i, v in (local_sub.refined_params or {}).items():  # refine_mode "all"
+                pose[m[i]] = v
+                pose_mask[m[i]] = True
             chunks_run += 1
             save()
             if progress_callback is not None:
@@ -151,6 +162,10 @@ def reconstruct_grid_checkpointed(
 
     et, er, es = extras_arrays()
     extras = dict(twists=et, rises=er, scores=es) if len(et) else None
+
+    def refined():
+        return {int(i): tuple(map(float, pose[i])) for i in np.where(pose_mask)[0]} or None
+
     if aborted or np.isnan(scores).any():
         # partial coarse scores: no merge stages, no winner re-solve
         return GridResult(
@@ -161,15 +176,29 @@ def reconstruct_grid_checkpointed(
             target_apix2d=local_sub.target_apix2d if local_sub is not None else -1.0,
             target_apix3d=local_sub.target_apix3d if local_sub is not None else -1.0,
             best_index=-1,
+            refined_params=refined(),
             effective=dict(local_sub.effective if local_sub is not None else {},
                            checkpointed=True, chunks_run=chunks_run, aborted=True),
         )
 
-    # the merge stages change only the in-memory scores: the file keeps
-    # the coarse pass, so a re-run derives the same selection from it
+    # the merge stages change only the in-memory scores and poses: the file
+    # keeps the coarse pass, so a re-run derives the same selection from it
+    if defer_refine:
+        # each bucket's top-k refined alone at the bucket's geometry
+        k = max(1, int(kwargs.get("refine_top_k", 1)))
+        for idx in buckets:
+            rr = (float(np.min(rises[idx])), float(np.max(rises[idx])))
+            for c in idx[np.argsort(-scores[idx])[: min(k, len(idx))]]:
+                sub = run(np.asarray([c]), rr, refine_tilt_psi_dy_range=refine_range,
+                          refine_top_k=1, batch_size=None, densify_padding=False)
+                scores[c] = sub.scores[0]
+                if sub.refined_params:
+                    pose[c] = sub.refined_params[0]
+                    pose_mask[c] = True
     if len(buckets) > 1:
-        best, _, _ = _rescore_and_pick(lambda m: run(m, None, densify_padding=False),
-                                       buckets, rises, scores)
+        best, _, _ = _rescore_and_pick(
+            lambda m: run(m, None, refine_tilt_psi_dy_range=None, densify_padding=False),
+            buckets, rises, scores)
     else:
         best = int(np.argmax(scores)) if n else -1
     win = None
@@ -177,7 +206,7 @@ def reconstruct_grid_checkpointed(
         # one bucket: the winner at the grid's geometry; bucketed: at its own
         win_rr = (float(np.min(rises)), float(np.max(rises))) if len(buckets) == 1 else None
         win = run(np.asarray([best]), win_rr, return_best_volume=True, batch_size=None,
-                  densify_padding=False)
+                  refine_tilt_psi_dy_range=refine_range, densify_padding=False)
     ref_sub = win if win is not None else local_sub
     if ref_sub is None and n:
         # a fully resumed run without a winner re-solve: one single-candidate
@@ -185,7 +214,8 @@ def reconstruct_grid_checkpointed(
         idx0 = buckets[0]
         local_sub = ref_sub = run(idx0[:1], (float(np.min(rises[idx0])),
                                              float(np.max(rises[idx0]))),
-                                  batch_size=None, densify_padding=False)
+                                  batch_size=None, refine_tilt_psi_dy_range=None,
+                                  densify_padding=False)
     return GridResult(
         twists=twists, rises=rises, scores=scores,
         geom=ref_sub.geom if ref_sub is not None else None,
@@ -193,6 +223,7 @@ def reconstruct_grid_checkpointed(
         target_apix3d=ref_sub.target_apix3d if ref_sub is not None else -1.0,
         best_index=best,
         best_volume=win.best_volume if win is not None else None,
+        refined_params=refined(),
         effective=dict(local_sub.effective if local_sub is not None else {},
                        checkpointed=True, chunks_run=chunks_run, n_buckets=len(buckets)),
         extras=extras,

@@ -19,8 +19,9 @@ interpolation on one device, the image prep options, the models lsq,
 lreg, ridge, lasso, elasticnet (l1 / l2 and the alpha-decay retry) and
 ard, every score metric, thresh_fraction, fsc modes 1-4 (on the grouped
 path three kernel solves with lsq + cosine, as the reference's kernel),
-incremental progress and abort, and densify_padding; the other arguments
-raise NotImplementedError naming the ROADMAP item that will port them.
+incremental progress and abort, densify_padding and pose refinement
+(refine_mode "topk" and "all"); cost_analysis and several devices raise
+NotImplementedError naming the ROADMAP item that will port them.
 The host tables (``_candidate_tables``, ``_group_tables``,
 ``_copy_block``) and the bucket helpers are copies of the reference's
 numpy code; ``tests/test_torch_geometry.py`` and
@@ -279,11 +280,13 @@ def _groups_per_launch(per_group: int, n_groups: int, device: torch.device) -> i
 def _dispatch_candidates(geom, n_copies: int, n_ops: int, n_cand: int) -> int:
     """The reference's automatic batch size on one device (its
     grid.py:1256-1268): the candidates one call dispatches when the caller
-    names no batch_size,
-    from a budget of 9e9 bytes over its per-candidate operator estimate,
-    clamped to [8, 1024] and to the grid. The port sizes its launches
-    from free memory instead; it uses this only as the progress and abort
-    granularity of incremental mode, the web app's call."""
+    names no batch_size, from a budget of 9e9 bytes over its per-candidate
+    operator estimate, clamped to [8, 1024] and to the grid. The port
+    sizes its launches from free memory instead; it takes this, as the
+    reference does, as the cap on the twist-group size R (so that the
+    padding and the densify extras are the reference's) and as the
+    progress and abort granularity of incremental mode, the web app's
+    call."""
     d3sq = geom.d3 * geom.d3
     per_cand = 5.0 * n_copies * geom.d2 * d3sq + 3.0 * n_ops * d3sq * d3sq
     return max(1, min(n_cand, max(8, min(1024, int(9e9 / max(per_cand, 1.0))))))
@@ -329,8 +332,9 @@ def _twist_groups(twists, rise_pixels, geom, copy_cache, n_copies, batch_size,
                   densify_padding):
     """The reference's split of the candidates into twist groups of R
     (its grid.py:746-815): R from a cap of max(16, min(64, 1024 // l3)),
-    capped by the largest twist's candidate count and an explicit
-    batch_size, then an even split of that count. With densify_padding the
+    capped by the largest twist's candidate count and batch_size (the
+    caller's, or the automatic one: _grouped_scoring passes it), then an
+    even split of that count. With densify_padding the
     padded slots of a group whose rises differ become real candidates, the
     midpoints of its largest rise gaps taken in turn. Returns (groups
     [(twist, candidate indices, extra rise pixels or None)], R, C_u the
@@ -398,15 +402,17 @@ def _grouped_scoring(
     solve = solve or solve_group
     n_cand = len(twists)
     incremental = progress_callback is not None or should_abort is not None
+    # the reference caps R by the caller's batch or its automatic one
+    auto_batch = batch_size or _dispatch_candidates(geom, n_copies, n_ops, n_cand)
     groups, R, C_u = _twist_groups(twists, rise_pixels, geom, copy_cache, n_copies,
-                                   batch_size, densify_padding)
+                                   auto_batch, densify_padding)
     cdt = getattr(torch, cfg.compute_dtype)
     fsc_masks = _pid_split_masks(geom, cfg.fsc_test) if cfg.fsc_test else None
     G = _groups_per_launch(_group_bytes(geom, C_u, n_ops, R, cdt, fsc_masks is not None),
                            len(groups), device)
     per_launch = None
     if incremental:
-        per_launch = batch_size or _dispatch_candidates(geom, n_copies, n_ops, n_cand)
+        per_launch = auto_batch
         G = min(G, max(1, per_launch // R))
     regularized = cfg.l1_reg > 0 or cfg.l2_reg > 0
     # the kernel's cosine holds for the plain lsq solve; everything else
@@ -592,12 +598,14 @@ def _candidate_bytes(geom, cfg, n_copies: int, n_pairs: int, n_ops: int) -> int:
     whose views the dense factors are; once for the build's float32
     chunks, which hold at most projector_separable.BUILD_CHUNK_BYTES), the
     pair validity twice, the products' (l3, rows) buffers, the z-factors
-    and, with fsc, a half's j-dependent z-Gram. On the gather projector: the ray coordinates and the symmetry
-    pairs' taps."""
+    and, with fsc, a half's j-dependent z-Gram. On the gather projector: a
+    few of the rays' (C, l2, d2) tensors (predictions, residuals,
+    validity), the symmetry pairs' taps and the solve's volumes."""
     d3sq, l3, d2 = geom.d3 * geom.d3, geom.l3, geom.d2
     taps = 8 if cfg.interpolation.startswith("linear") else 1
     if not cfg.separable:
-        return 3 * geom.l2 * d2 * d2 * 4 + 2 * n_pairs * l3 * d3sq * taps * 12
+        return (8 * n_copies * geom.l2 * d2 * 4 + 2 * n_pairs * l3 * d3sq * taps * 12
+                + 16 * l3 * d3sq * 4)
     item = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)).element_size()
     rows = n_copies * d2 + n_ops * d3sq
     return (2 * rows * d3sq * item + 2 * n_pairs * l3 * d3sq * 4 + l3 * rows * (4 + item)
@@ -696,10 +704,9 @@ def _box_bounds(positive, ub_raw):
     return lb, ub
 
 
-def _raise_out_of_slice(refine_tilt_psi_dy_range, cost_analysis, devices) -> None:
+def _raise_out_of_slice(cost_analysis, devices) -> None:
     """NotImplementedError for every argument the port does not cover yet."""
     checks = [
-        ("refine_tilt_psi_dy_range", bool(refine_tilt_psi_dy_range), "A8"),
         ("cost_analysis", bool(cost_analysis), "A5c"),
         ("more than one device", devices is not None and len(devices) > 1, "A10"),
     ]
@@ -781,19 +788,22 @@ def reconstruct_grid(
     prep runs on ``device``. A rise range wider than rise_bucket_ratio
     splits into rise buckets (_reconstruct_grid_bucketed) unless
     geometry_rise_range pins the geometry. The port sizes its launches
-    from the device's free memory; ``batch_size`` caps the group size R,
-    and in incremental mode (progress_callback / should_abort) the
-    candidates per launch, which default there to the reference's
-    automatic batch size. The scoring path follows the reference's rule
-    (``_use_grouped``, with its HELICON_GRID_GROUPED): grids with fewer
-    than two candidates per twist, a pose with tilt or psi != 0, ard and
-    fsc under l1 / l2 go per candidate, in launches sized the same way.
-    ``refine_top_k`` and ``refine_mode`` matter only with refinement, which
-    raises.
+    from the device's free memory; ``batch_size`` (else the reference's
+    automatic batch size) caps the group size R and, in incremental mode
+    (progress_callback / should_abort), the candidates per launch. The
+    scoring path follows the reference's rule (``_use_grouped``, with its
+    HELICON_GRID_GROUPED): grids with fewer than two candidates per twist,
+    a pose with tilt or psi != 0, ard and fsc under l1 / l2 go per
+    candidate, in launches sized the same way. ``refine_tilt_psi_dy_range``
+    refines the pose (``_refine``, ``refine.py``): refine_mode "topk" the
+    refine_top_k best candidates, "all" every candidate (without the
+    fixed-pose pass unless incremental); ``refined_params`` holds the
+    refined (tilt, psi, dy pixels) by candidate index, and the best volume
+    is solved at its candidate's refined pose.
     """
     algorithm = algorithm or dict(model="lsq")
     device = torch.device(device)
-    _raise_out_of_slice(refine_tilt_psi_dy_range, cost_analysis, devices)
+    _raise_out_of_slice(cost_analysis, devices)
     twists = np.asarray(twists, np.float32)
     rises = np.asarray(rises, np.float32)
     if twists.shape != rises.shape or twists.ndim != 1:
@@ -910,7 +920,16 @@ def reconstruct_grid(
     dy_pixel = np.float32(dy / target_apix2d)
     drive = dict(batch_size=batch_size, progress_callback=progress_callback,
                  should_abort=should_abort)
-    if _use_grouped(cfg, geom, twists, n_copies, n_ops):
+    incremental = progress_callback is not None or should_abort is not None
+    refine_all = bool(refine_tilt_psi_dy_range) and refine_mode == "all"
+    t0 = time.perf_counter()
+    if refine_all and not incremental:
+        # every score is replaced by its refined pose's: the fixed-pose
+        # ranking would go unread (it still runs for incremental progress)
+        scores = np.zeros(n_cand, np.float32)
+        effective = dict(path="refine_all", aborted=False, d3=int(geom.d3), l3=int(geom.l3),
+                         n_copies=int(n_copies), n_pairs=int(n_pairs), n_ops=int(n_ops))
+    elif _use_grouped(cfg, geom, twists, n_copies, n_ops):
         check_in_slice(cfg, grouped=True)
         scores, effective = _grouped_scoring(
             geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
@@ -921,6 +940,13 @@ def reconstruct_grid(
             geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
             (tilt, psi, dy_pixel), copy_cache, device, **drive,
         )
+    effective["search_s"] = time.perf_counter() - t0
+    refined_params = None
+    if refine_tilt_psi_dy_range and not effective["aborted"]:
+        scores, refined_params = _refine(
+            geom, cfg, region, twists, rise_pixels, scores, n_copies, n_pairs, n_ops,
+            copy_cache, (tilt, psi, dy_pixel), refine_tilt_psi_dy_range, refine_mode,
+            refine_top_k, batch_size, device, effective)
     extras = None
     if "extras" in effective:
         ee = effective.pop("extras")
@@ -934,6 +960,7 @@ def reconstruct_grid(
         geom=geom,
         target_apix2d=float(target_apix2d),
         target_apix3d=float(target_apix3d),
+        refined_params=refined_params,
         effective=effective,
         extras=extras,
     )
@@ -941,6 +968,11 @@ def reconstruct_grid(
     # partial scores: no re-solve of an arbitrary argmax
     if return_best_volume and not effective["aborted"]:
         bi = result.best_index
+        # the winner's own pose: its refined one where refinement ran
+        pose = refined_params.get(bi, (tilt, psi, dy_pixel)) if refined_params else (
+            tilt, psi, dy_pixel)
+        cfg_best = cfg._replace(compute_dtype="float32",
+                                separable=(pose[0] == 0.0 and pose[1] == 0.0))
         ch, cc, cv, phc, pv, ops_hc, ops_v, pair_idx = _candidate_tables(
             geom, twists[bi : bi + 1], rise_pixels[bi : bi + 1],
             n_copies, n_pairs, n_ops, copy_cache,
@@ -956,18 +988,72 @@ def reconstruct_grid(
             )
         out = solve_candidate(
             geom,
-            cfg._replace(compute_dtype="float32"),
+            cfg_best,
             region,
             twists[bi],
             rise_pixels[bi],
             ch[0], cc[0], cv[0], phc[0], pv[0],
-            tilt, psi, dy_pixel,
-            pair_ops=(ops_hc[0], ops_v[0], pair_idx[0]) if cfg.separable else None,
+            *pose,
+            pair_ops=(ops_hc[0], ops_v[0], pair_idx[0]) if cfg_best.separable else None,
             sym_keep=sym_keep,
             device=device,
         )
         result.best_volume = out["rec3d"].cpu().numpy()
     return result
+
+
+def _refine(geom, cfg, region, twists, rise_pixels, scores, n_copies, n_pairs, n_ops,
+            copy_cache, pose, r_range, refine_mode, refine_top_k, batch_size, device,
+            effective):
+    """The reference's two refine branches (its grid.py:1408-1490), both on
+    its refine_cfg (non-separable, float32). "all": every candidate refined
+    from the grid's pose (refine.refine_all_candidates), its score replaced
+    by its refined pose's. "topk": the refine_top_k best refined one at a
+    time (refine.refine_tilt_psi_dy), each then re-solved at its refined
+    pose for its score. Returns (scores, {index: (tilt, psi, dy)});
+    effective gains the refine and re-solve seconds and the gather
+    kernels' launches."""
+    from . import gather_kernels
+    from .refine import refine_all_candidates, refine_tilt_psi_dy
+
+    refine_cfg = cfg._replace(separable=False, compute_dtype="float32")
+    before = dict(gather_kernels.launches)
+    t0 = time.perf_counter()
+    resolve_s = 0.0
+    if refine_mode == "all":
+        tabs = _candidate_tables(geom, twists, rise_pixels, n_copies, n_pairs, n_ops, copy_cache)
+        # k candidates a launch: half the free memory over one candidate's
+        # bytes on the gather projector, capped by batch_size
+        n = len(twists)
+        per = _candidate_bytes(geom, refine_cfg, n_copies, n_pairs, 0)
+        k = max(1, min(_groups_per_launch(per, n, torch.device(device)), batch_size or n))
+        scores, params = refine_all_candidates(
+            geom, refine_cfg, region, twists, rise_pixels, tabs[:5], *pose, r_range,
+            batch_size=k, device=device)
+        refined = {i: tuple(map(float, params[i])) for i in range(len(twists))}
+    else:
+        scores = scores.copy()
+        refined = {}
+        for idx in np.argsort(-scores)[: max(1, int(refine_top_k))]:
+            idx = int(idx)
+            ch, cc, cv, phc, pv = _candidate_tables(
+                geom, twists[idx : idx + 1], rise_pixels[idx : idx + 1], n_copies, n_pairs,
+                n_ops, copy_cache)[:5]
+            refined[idx] = refine_tilt_psi_dy(
+                geom, refine_cfg, region, float(twists[idx]), float(rise_pixels[idx]),
+                (ch[0], cc[0], cv[0]), (phc[0], pv[0]), *map(float, pose), r_range,
+                device=device)
+            t1 = time.perf_counter()
+            out = solve_candidate(geom, refine_cfg, region, twists[idx], rise_pixels[idx],
+                                  ch[0], cc[0], cv[0], phc[0], pv[0], *refined[idx],
+                                  device=device)
+            scores[idx] = float(out["score"])
+            resolve_s += time.perf_counter() - t1
+    effective.update(
+        refine_mode=refine_mode, refine_s=time.perf_counter() - t0 - resolve_s,
+        resolve_s=resolve_s,
+        gather_launches={k: v - before[k] for k, v in gather_kernels.launches.items()})
+    return scores, refined
 
 
 def _rise_buckets(rises: np.ndarray, ratio: float):
@@ -1049,6 +1135,7 @@ def _reconstruct_grid_bucketed(
     n_cand = len(twists)
     incremental = progress_callback is not None or should_abort is not None
     scores = np.full(n_cand, -np.inf if incremental else 0.0, np.float32)
+    merged_refined: dict = {}
     merged_extras = []
     best_sub, best_score, best_global_idx = None, -np.inf, -1
     done_off = 0
@@ -1073,6 +1160,8 @@ def _reconstruct_grid_bucketed(
         done_off += len(idx)
         if sub.extras:
             merged_extras.append(sub.extras)
+        if sub.refined_params:
+            merged_refined.update({int(idx[k]): v for k, v in sub.refined_params.items()})
         if sub.effective["aborted"]:
             aborted = True
             break
@@ -1105,6 +1194,7 @@ def _reconstruct_grid_bucketed(
         geom=best_sub.geom if best_sub is not None else None,
         target_apix2d=best_sub.target_apix2d if best_sub is not None else -1.0,
         target_apix3d=best_sub.target_apix3d if best_sub is not None else -1.0,
+        refined_params=merged_refined or None,
         effective=dict(best_sub.effective if best_sub is not None else {},
                        n_buckets=len(buckets), aborted=aborted),
         extras=extras,
@@ -1121,4 +1211,8 @@ def _reconstruct_grid_bucketed(
         result.geom = win.geom
         result.target_apix2d = win.target_apix2d
         result.target_apix3d = win.target_apix3d
+        if win.refined_params:
+            # refinement runs again on the winner alone, at its own geometry
+            merged_refined[best_global_idx] = win.refined_params[0]
+            result.refined_params = merged_refined
     return result

@@ -298,8 +298,8 @@ def build_problems_separable(
     O*d3^2, d3^2) in the compute dtype, of which the factors' Wsum and
     Mxy_ops are views; its float32 build runs BUILD_CHUNK_BYTES at a
     time. Without pair_ops, S and ST are
-    the per-pair gathers of ``projector.sym_operator``, a candidate at a
-    time.
+    the per-pair gathers of ``projector.sym_operators``, the k candidates
+    together.
     """
     linear = interpolation.startswith("linear")
     d2, l2, d3, l3 = geom.d2, geom.l2, geom.d3, geom.l3
@@ -386,15 +386,12 @@ def build_problems_separable(
         mask=mask_f > 0.5,
     )
     if not dense:
-        from .projector import sym_operator
+        from .projector import sym_operators
 
         cellok_flat = _as(np.asarray(cellok, np.float32).reshape(-1), dev)
-        sym = [sym_operator(geom, twist[i], rise[i], pairs_hc[i], pairs_valid[i], interpolation,
-                            mask_f.reshape(-1), cellok_flat,
-                            sym_keep=None if sym_keep is None else sym_keep[i])
-               for i in range(k)]
-        ops["S"], ops["ST"] = (
-            (lambda t, j=j: torch.stack([f[j](ti) for f, ti in zip(sym, t)])) for j in (0, 1))
+        ops["S"], ops["ST"] = sym_operators(geom, twist, rise, pairs_hc, pairs_valid,
+                                            interpolation, mask_f.reshape(-1), cellok_flat,
+                                            sym_keep=sym_keep)
         return ops
 
     # --- symmetry pairs through the distinct ops -----------------------

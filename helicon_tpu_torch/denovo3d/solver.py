@@ -17,9 +17,10 @@ seeded from ones, as the reference's XLA path.
 tilt = psi = 0 they solve on the separable operators' dense factors with
 B2 (``candidate_solve``: the kernels on the card, the plain version on the
 CPU), the fsc halves on a j-dependent z-Gram and ard's normal operator on
-B2's matvec entry; any other pose solves in torch on the gather projector
-(``projector``). The grouped scoring solve lives in ``group_solve``. Both
-interpolations are ported.
+B2's matvec entry; any other pose (each candidate may have its own: pose
+refinement) solves in torch on the gather projector (``projector``), whose
+P, PT and symmetry term ST(S(x)) are the kernels K1 / K2 / K4 on the card. The grouped scoring solve
+lives in ``group_solve``. Both interpolations are ported.
 """
 
 from __future__ import annotations
@@ -370,8 +371,9 @@ class _Batch:
     PT, S, ST), b, row_valid (k, C, l2, d2) and mask: of
     build_problems_separable, whose dense factors B2 solves on
     (``candidate_solve``: its kernels on CUDA tensors, its plain version
-    on CPU tensors), or _stacked_ops of the gather projectors, solved on
-    the closures in torch.
+    on CPU tensors), or of the gather projector's build_problems, solved
+    in torch on the closures (P, PT and STS one launch of K1 / K2 / K4
+    each on the card).
     ``w`` is a data-row weighting: None for the full rows, else the fsc
     half's pixel-id mask (1, l2, d2)."""
 
@@ -426,7 +428,7 @@ class _Batch:
 
         def N0(v):
             vol = v.reshape((k,) + self.vol)
-            out = ops["PT"](ops["P"](vol) * rows) + ops["ST"](ops["S"](vol))
+            out = ops["PT"](ops["P"](vol) * rows) + ops["STS"](vol)
             return out.reshape(v.shape) * self.mask
         return N0
 
@@ -456,16 +458,6 @@ class _Batch:
         else:
             x = torch.clamp(x, _bcol(lb, 2), _bcol(ub, 2))
         return x * self.mask
-
-
-def _stacked_ops(ops) -> dict:
-    """One batch of per-candidate operator dicts (the gather projector's):
-    closures over the leading candidate axis, a candidate at a time."""
-    def each(name):
-        return lambda t: torch.stack([o[name](ti) for o, ti in zip(ops, t)])
-
-    return dict(P=each("P"), PT=each("PT"), S=each("S"), ST=each("ST"), b=ops[0]["b"],
-                row_valid=torch.stack([o["row_valid"] for o in ops]), mask=ops[0]["mask"])
 
 
 def _tick(times, name, t0):
@@ -558,6 +550,7 @@ def solve_candidates(
     sym_keep=None,
     device="cuda",
     times: dict | None = None,
+    clamp_ub: bool = False,
 ):
     """Reconstruct and score k candidates of one table shape: the
     reference's _solve_candidate_impl for each (its vmap over a batch).
@@ -568,8 +561,11 @@ def solve_candidates(
     cfg.separable (tilt = psi = 0) builds the separable operators of the
     k candidates together in the dense symmetry form (pair_ops is
     required), so that B2 solves every candidate (and ard's normal
-    operator runs on its matvec entry). A non-separable pose builds the
-    gather projector, a candidate at a time. ``key`` (a raw JAX key, default
+    operator runs on its matvec entry). Otherwise the gather projector
+    serves the k candidates together, each at its own pose (tilt, psi and
+    dy a number or (k,)). ``clamp_ub`` clamps positivity's upper bound
+    max(b) at 0, as the reference's refine engine does (ROADMAP C5).
+    ``key`` (a raw JAX key, default
     PRNGKey(0)) feeds ard's probes. ``times`` accumulates the host
     seconds of the builds (build_s), the solves (solve_s) and the scoring
     (score_s), each ended by a device synchronisation, and the retry's
@@ -577,11 +573,12 @@ def solve_candidates(
     rec3d_half1, rec3d_half2 (zeros without fsc), score (k,) (with fsc,
     full / 2 + (half1 + half2) / 4), scores (k, 1 or 3)) on ``device``."""
     from .._jax_random import PRNGKey, fold_in
-    from .projector import build_problem
+    from .projector import build_problems
     from .projector_separable import build_problems_separable
 
     check_in_slice(cfg)
-    if cfg.separable and (tilt_degree != 0.0 or psi_degree != 0.0):
+    if cfg.separable and (np.any(np.asarray(tilt_degree) != 0)
+                          or np.any(np.asarray(psi_degree) != 0)):
         raise ValueError("the separable operators need tilt = psi = 0")
     dev = torch.device(device)
     if cfg.separable and pair_ops is None:
@@ -601,16 +598,16 @@ def solve_candidates(
             cellok, compute_dtype=cdt, sym_keep=keep, device=dev,
             pair_ops=tuple(_stacked(a, k) for a in pair_ops))
     else:
-        ops = _stacked_ops([
-            build_problem(geom, image_region, twists[i], rises_pixel[i], *(t[i] for t in tabs),
-                          tilt_degree, psi_degree, dy_pixel, cfg.interpolation, mask, cellok,
-                          sym_keep=None if keep is None else keep[i], device=dev)
-            for i in range(k)])
+        ops = build_problems(geom, image_region, twists, rises_pixel, *tabs, tilt_degree,
+                             psi_degree, dy_pixel, cfg.interpolation, mask, cellok,
+                             sym_keep=keep, device=dev)
     batch = _Batch(ops, cfg, geom)
     positive = torch.as_tensor(
         [_positive(cfg, float(r), float(t), geom.l3) for t, r in zip(twists, rises_pixel)],
         device=dev)
     ub_val = torch.amax((batch.b[None, None] * batch.rowv).flatten(1), dim=1)
+    if clamp_ub:
+        ub_val = ub_val.clamp_min(0.0)
     reg_scale = np.ones(k, np.float32)
     if cfg.reg_per_row:
         # the data-row count with each candidate's own valid copies

@@ -480,3 +480,178 @@ def test_percand_search_cuda_matches_cpu(cuda, config, monkeypatch):
     assert on_card.effective["path"] == on_host.effective["path"] == "percand"
     np.testing.assert_allclose(on_card.scores, on_host.scores, atol=1e-4)
     assert (on_card.effective["b2_launches"] > 0) == (config != "tilt")
+
+
+# ---------------------------------------------------------------------------
+# the gather projector's kernels K1 / K2 / K4 and the pose Jacobian K3
+# ---------------------------------------------------------------------------
+
+# (name, geometry fields, candidates): small; the production d3 = 64, l3 =
+# 18 volume (295 KB, past the kernels' shared memory); the amyloid's
+GATHER_GEOMS = [
+    ("small", dict(d2=24, l2=48, d3=20, l3=8, rmax=9, scale2d_to_3d=0.8, csym=2), 3),
+    ("big_volume", dict(d2=32, l2=64, d3=64, l3=18, rmax=31, scale2d_to_3d=1.0, csym=1), 2),
+    ("amyloid", dict(d2=56, l2=256, d3=38, l3=6, rmax=18, scale2d_to_3d=2 / 3, csym=1), 1),
+]
+
+
+def _gather_case(device, fields, k, interpolation, seed, twists=None, pose=None,
+                 sym: bool = False):
+    """k candidates' gather tables at random poses (or the given ones), a
+    masked random volume each and random ray values, on device; with sym
+    also their symmetry tables (last)."""
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
+    geom = ReconstructionGeometry(rmin=0.0, **fields)
+    rng = np.random.default_rng(seed)
+    tw = rng.uniform(-3, 3, k).astype(np.float32) if twists is None else np.float32(twists)
+    ri = rng.uniform(1.4, 1.7, k).astype(np.float32)
+    n_copies, n_pairs = estimate_copy_pair_counts(geom, float(ri.min()), 8,
+                                                  rise_pixel_max=float(ri.max()))
+    ch, cc, cv = grid._candidate_tables(geom, tw, ri, n_copies, n_pairs, 5)[:3]
+    mask = torch.as_tensor(geom.cylindrical_mask().reshape(-1), dtype=torch.float32,
+                           device=device)
+    cellok = torch.as_tensor(geom.cell_valid_mask().reshape(-1), dtype=torch.float32,
+                             device=device)
+    if pose is None:
+        pose = (rng.uniform(2, 4, k), rng.uniform(-2, 2, k), rng.uniform(-1, 1, k))
+    tab = gk.gather_tables(geom, tw, ri, ch, cc, cv, *(np.float32(p) for p in pose),
+                           interpolation, mask, cellok, derivatives=interpolation == "linear")
+    x = torch.rand((k,) + geom.volume_shape, device=device) * mask.reshape(geom.volume_shape)
+    r = torch.rand(tab.shape, device=device)
+    b = torch.rand((geom.l2, geom.d2), device=device)
+    if not sym:
+        return tab, x, r, b
+    phc, pv = grid._candidate_tables(geom, tw, ri, n_copies, n_pairs, 5)[3:5]
+    st = gk.sym_tables(geom, tw, ri, phc, pv, interpolation, mask, cellok)
+    return tab, x, r, b, st
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("interpolation", ["nn", "linear"])
+@pytest.mark.parametrize("case", GATHER_GEOMS, ids=lambda c: c[0])
+def test_gather_kernels_match_plain(cuda, case, interpolation):
+    """K1, K2 and K4 (P, row_valid, PT and ST(S(x)) bit for bit: the plain
+    P sums each ray in the kernel's order, PT and ST(S(x)) sum exactly) and,
+    linear, K3 (J^T J, J^T r within 1e-4 relative) against their plain
+    versions on the same card tensors."""
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
+    _, fields, k = case
+    tab, x, r, b, st = _gather_case(cuda, fields, k, interpolation, seed=1, sym=True)
+    before = dict(gk.launches)
+    p_k, rv_k = gk.gather_project(tab, x, row_valid=True)
+    p_p, rv_p = gk.gather_project_reference(tab, x, row_valid=True)
+    pt_k, pt_p = gk.gather_backproject(tab, r), gk.gather_backproject_reference(tab, r)
+    sts_k, sts_p = gk.sym_normal(st, x), gk.sym_normal_reference(st, x)
+    torch.cuda.synchronize()
+    assert bool((rv_k == rv_p).all()) and bool(rv_p.any())
+    assert _rel(p_k, p_p) <= 1e-5 and torch.equal(p_k, p_p)
+    assert torch.equal(pt_k, pt_p) and bool(pt_p.abs().max() > 0)
+    # on the list of the live rays, as the projector launches them
+    listed = gk.with_live_rays(tab, rv_k)
+    assert listed.n_max > 0 and int(listed.rptr[-1]) == int(rv_p.sum())
+    assert torch.equal(gk.gather_project(listed, x), p_p)
+    assert torch.equal(gk.gather_backproject(listed, r), pt_p)
+    assert torch.equal(sts_k, sts_p) and bool(sts_p.abs().max() > 0)
+    assert gk.launches["sym_normal"] - before["sym_normal"] == 1
+    if interpolation == "linear":
+        got, want = gk.pose_jacobian(tab, x, b), gk.pose_jacobian_reference(tab, x, b)
+        torch.cuda.synchronize()
+        assert _rel(got[0], want[0]) <= 1e-4 and _rel(got[1], want[1]) <= 1e-4
+        assert _rel(got[2], want[2]) <= 1e-4
+    assert gk.launches["gather_project"] - before["gather_project"] == 2
+    assert gk.launches["gather_backproject"] - before["gather_backproject"] == 2
+
+
+@pytest.mark.parametrize("interpolation", ["nn", "linear"])
+def test_gather_kernels_without_shared_memory(cuda, interpolation, monkeypatch):
+    """The kernels' device-memory branch (the one a volume past their
+    shared memory takes) on the small geometry: the same results."""
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
+    tab, x, r, b, st = _gather_case(cuda, GATHER_GEOMS[0][1], 3, interpolation, seed=2,
+                                    sym=True)
+    listed = gk.with_live_rays(tab, gk.gather_project(tab, None, row_valid=True)[1])
+    runs = []
+    for limit in (gk.SMEM_LIMIT, 0):
+        monkeypatch.setattr(gk, "SMEM_LIMIT", limit)
+        runs.append([gk.gather_project(tab, x), gk.gather_backproject(tab, r), gk.sym_normal(st, x),
+                     gk.gather_project(listed, x), gk.gather_backproject(listed, r)])
+    torch.cuda.synchronize()
+    staged, direct = runs
+    assert _rel(direct[0], staged[0]) <= 1e-5
+    assert all(torch.equal(a, c) for a, c in zip(direct, staged))
+    if interpolation == "linear":
+        got, want = gk.pose_jacobian(tab, x, b), gk.pose_jacobian_reference(tab, x, b)
+        assert _rel(got[0], want[0]) <= 1e-4 and _rel(got[1], want[1]) <= 1e-4
+
+
+@pytest.mark.parametrize("interpolation", ["nn", "linear"])
+def test_gather_kernels_repeat_bit_for_bit(cuda, interpolation):
+    """Launched again on the same inputs, K2, K3 and K4 give the same bits
+    (exact integer sums, K3's block sums added in block order), at the
+    amyloid's geometry and at k = 3 on the small one."""
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
+    for (_, fields, k), seed in ((GATHER_GEOMS[2], 5), (GATHER_GEOMS[0], 6)):
+        tab, x, r, b, st = _gather_case(cuda, fields, k, interpolation, seed=seed, sym=True)
+        first = [gk.gather_backproject(tab, r), gk.sym_normal(st, x)]
+        if interpolation == "linear":
+            first += list(gk.pose_jacobian(tab, x, b))
+        for _ in range(3):
+            again = [gk.gather_backproject(tab, r), gk.sym_normal(st, x)]
+            if interpolation == "linear":
+                again += list(gk.pose_jacobian(tab, x, b))
+            assert all(torch.equal(a, c) for a, c in zip(again, first))
+
+
+def test_gather_project_half_way_ties_at_twist_30(cuda):
+    """Twist 30 deg at tilt = psi = 0 and scale 1 puts nearest-neighbour
+    samples exactly half-way between voxels (the centre column's y is kc / 2
+    on a copy turned by 30 deg): the kernel rounds each as the plain
+    version does (half to even, no fused multiply-add)."""
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
+    fields = dict(d2=24, l2=48, d3=20, l3=8, rmax=9, scale2d_to_3d=1.0, csym=1)
+    tab, x, _, _ = _gather_case(cuda, fields, 2, "nn", seed=3, twists=[30.0, 30.0],
+                                pose=(np.zeros(2), np.zeros(2), np.zeros(2)))
+    sampler = tab.sampler()
+    ties = sum(int(((Y - torch.floor(Y)) == 0.5).sum())
+               for _, (_, Y, _), _, _ in gk._chunks(tab, 0, sampler))
+    assert ties > 0
+    p_k, rv_k = gk.gather_project(tab, x, row_valid=True)
+    p_p, rv_p = gk.gather_project_reference(tab, x, row_valid=True)
+    torch.cuda.synchronize()
+    assert bool((rv_k == rv_p).all())
+    assert _rel(p_k, p_p) <= 1e-5
+
+
+def test_refine_on_card_matches_cpu(cuda):
+    """refine_all_candidates on the card (K1-K4 and the solve's torch ops)
+    against the CPU (the plain versions) on the small tilted helix: poses
+    within 5e-3, scores within 5e-4 (the reference's engine bounds)."""
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+    from helicon_tpu_torch.denovo3d import refine
+    from helicon_tpu_torch.denovo3d.solver import SolveConfig
+
+    geom = ReconstructionGeometry(d2=22, l2=94, d3=22, l3=10, rmin=0.0, rmax=10,
+                                  scale2d_to_3d=1.0, csym=1)
+    rng = np.random.default_rng(4)
+    region = rng.random((geom.d2, geom.l2)).astype(np.float32)
+    tw, ri = np.float32([28.0, 30.0, 32.0]), np.float32([2.9, 3.0, 3.1])
+    n_copies, n_pairs = estimate_copy_pair_counts(geom, 2.9, 8, rise_pixel_max=3.1)
+    tabs = grid._candidate_tables(geom, tw, ri, n_copies, n_pairs, 5)[:5]
+    cfg = SolveConfig(cg_iters=8, fista_iters=10, power_iters=2)
+    rr = dict(tilt=8.0, psi=3.0, dy=1.0, max_iter=2)
+    before = dict(gk.launches)
+    s_c, p_c = refine.refine_all_candidates(geom, cfg, region, tw, ri, tabs, 0.5, 0.0, 0.0, rr,
+                                            device=cuda)
+    assert all(gk.launches[n] > before[n] for n in gk.launches)
+    s_h, p_h = refine.refine_all_candidates(geom, cfg, region, tw, ri, tabs, 0.5, 0.0, 0.0, rr,
+                                            device="cpu")
+    np.testing.assert_allclose(p_c, p_h, atol=5e-3)
+    np.testing.assert_allclose(s_c, s_h, atol=5e-4)

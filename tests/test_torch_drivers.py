@@ -115,6 +115,68 @@ def test_twist_groups_split_evenly():
     assert R == 14 and [len(g) for _, g, _ in groups] == [14] * 5
 
 
+class _Stop(Exception):
+    pass
+
+
+def _first_groups(module, n_groups):
+    """A stand-in for module._group_tables that records the first n_groups
+    calls' (rises with the densify extras, R) and then stops the search."""
+    calls = []
+    real = module._group_tables
+
+    def spy(geom, twist, rises_pixel, n_copies, n_pairs, n_ops, C_u, R_pad, copy_cache):
+        calls.append((float(twist), np.asarray(rises_pixel, np.float32).copy(), int(R_pad)))
+        if len(calls) == n_groups:
+            raise _Stop
+        return real(geom, twist, rises_pixel, n_copies, n_pairs, n_ops, C_u, R_pad, copy_cache)
+
+    return calls, spy
+
+
+def test_group_size_capped_by_automatic_batch(monkeypatch):
+    """With batch_size=None the reference caps the twist-group size R by its
+    automatic batch (its grid.py:753 and :1256-1268); at the production
+    geometry of bench.py's large workload (d3 = 64, l3 = 18, 1.75 A/px) that
+    batch binds, and the port's R, groups and densify extras equal the
+    reference's. Twists of 32 and 27 rises: both packages stop the search at
+    its third group, before any solve (bf16 operators, as the bench's: in
+    float32 one group's operators exceed the grouped path's budget)."""
+    from helicon_tpu_torch.helix import simulate_helical_projection
+
+    image = simulate_helical_projection(n=1, twist=29.4, rise=4.75, csym=1,
+                                        helical_diameter=100.0, ball_radius=4.0, polymer=0,
+                                        planarity=1.0, ny=256, nx=512, apix=1.0, rng=0,
+                                        device="cpu")
+    image = np.asarray(image, np.float32)
+    rises = np.float32(4.0 + 0.0323 * np.arange(32))
+    tw = np.float32([0.5] * 27 + [0.55] * 32)
+    ri = np.concatenate([rises[:27], rises])
+    kw = dict(apix=1.0, target_apix2d=1.75, target_apix3d=1.75, tube_diameter=110.0,
+              reconstruct_length_rise=6.0, interpolation="linear", cg_iters=2, fista_iters=2,
+              power_iters=1, compute_dtype="bfloat16", return_best_volume=False,
+              densify_padding=True, batch_size=None)
+    got, spy = _first_groups(port_grid, 3)
+    monkeypatch.setattr(port_grid, "_group_tables", spy)
+    with pytest.raises(_Stop):
+        reconstruct_grid(image, twists=tw, rises=ri, device="cpu", **kw)
+    want, spy = _first_groups(ref_grid, 3)
+    monkeypatch.setattr(ref_grid, "_group_tables", spy)
+    with pytest.raises(_Stop):
+        ref_reconstruct_grid(image, twists=tw, rises=ri, devices=jax.devices()[:1], **kw)
+    R = want[0][2]
+    assert R < 27  # the automatic batch binds: uncapped, R would be 32
+    assert {c[2] for c in got} == {c[2] for c in want} == {R}
+    # the reference builds its group tables on a producer thread, which may
+    # get ahead of the stop: match the groups by twist and first rise
+    want = {(c[0], float(c[1][0])): c[1] for c in want}
+    assert len(got) == 3
+    for t, rises_g, _ in got:
+        np.testing.assert_array_equal(rises_g, want[(t, float(rises_g[0]))])
+    # the twist of 27 rises ends in a short group, densified in both
+    assert any(len(r) > len(set(r.tolist()) & set(ri.tolist())) for _, r, _ in got)
+
+
 # ---------------------------------------------------------------------------
 # rise bucketing
 # ---------------------------------------------------------------------------

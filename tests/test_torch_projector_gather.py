@@ -2,7 +2,8 @@
 the separable build against the JAX package.
 
 The reference's PT and ST are jax.vjp's of P and S; the port's are
-explicit transposes (index_add_ of the same samples). Operators are held at
+explicit transposes (index_add_ of the same samples; PT and ST(S(x)) summed
+exactly, in 64-bit integers). Operators are held at
 atol 1e-5 (PARITY.md section 1), sums of many terms at 1e-5 relative to
 their largest value, and the transposes by the adjoint identities
 <P x, r> == <x, PT r>, <S x, q> == <x, ST q>. The JAX side runs eagerly
@@ -21,6 +22,7 @@ import jax.numpy as jnp
 from helicon_tpu.denovo3d import geometry as ref_geo
 from helicon_tpu.denovo3d import projector as ref_pr
 from helicon_tpu.denovo3d import projector_separable as ref_ps
+from helicon_tpu_torch.denovo3d import gather_kernels as port_gk
 from helicon_tpu_torch.denovo3d import geometry as port_geo
 from helicon_tpu_torch.denovo3d import projector as port_pr
 from helicon_tpu_torch.denovo3d import projector_separable as port_ps
@@ -101,6 +103,76 @@ def test_posed_operators_match_reference(posed):
     _close(port["S"](xt), s_r)
     _close(port["ST"](torch.from_numpy(q)), st_r, rel=True)
     _close(port["b"], ref["b"])
+
+
+def test_posed_sym_normal_matches_reference(posed):
+    """STS, the normal operator's symmetry term (K4's plain version, summed
+    exactly), against the reference's ST(S(x)) and the port's own float
+    ST(S(x))."""
+    ref, port, x, _, _ = posed
+    with jax.disable_jit():
+        sts_r = ref["ST"](ref["S"](jnp.asarray(x)))
+    xt = torch.from_numpy(x)
+    _close(port["STS"](xt), sts_r, rel=True)
+    _close(port["STS"](xt), port["ST"](port["S"](xt)), rel=True)
+
+
+@pytest.mark.parametrize("interpolation", ["nn", "linear"])
+def test_exact_transposes_do_not_depend_on_order(interpolation, monkeypatch):
+    """PT and STS sum in 64-bit integers: another order of the terms (one
+    copy a chunk instead of all; the symmetry pairs reversed) gives the
+    same bits, within float32 rounding of a float64 sum."""
+    pg = port_geo.ReconstructionGeometry(csym=2, **GEOM)
+    rng = np.random.default_rng(11)
+    tabs, _ = _tables(pg, 2)
+    mask = torch.from_numpy(pg.cylindrical_mask().reshape(-1))
+    cellok = torch.from_numpy(pg.cell_valid_mask().reshape(-1))
+    tab = port_gk.gather_tables(pg, [TWIST], [RISE], *(t[None] for t in tabs[:3]), 3.0, 1.0,
+                                0.5, interpolation, mask, cellok)
+    r = torch.from_numpy(rng.standard_normal(tab.shape).astype(np.float32))
+    pt = port_gk.gather_backproject(tab, r)
+    monkeypatch.setattr(port_gk, "_CHUNK_SAMPLES", pg.l2 * pg.d2 * pg.d2)
+    np.testing.assert_array_equal(_np(port_gk.gather_backproject(tab, r)), _np(pt))
+    sampler = tab.sampler()
+    acc = torch.zeros(sampler.size, dtype=torch.float64)
+    for sl, _, taps, _ in port_gk._chunks(tab, 0, sampler):
+        rv = (r[0, sl] * tab.cvf[0, sl, None, None])[..., None]
+        for idx, w in taps:
+            v = rv.expand(idx.shape) if w is None else w * rv
+            acc.index_add_(0, idx.reshape(-1), v.reshape(-1).double())
+    _close(pt[0], sampler.result(acc)[0], atol=1e-6, rel=True)
+
+    x = (torch.from_numpy(rng.random((1,) + pg.volume_shape).astype(np.float32)) - 0.3
+         ) * mask.reshape(pg.volume_shape)
+    phc, pv = tabs[3][None], tabs[4][None]
+    sts = port_gk.sym_normal(port_gk.sym_tables(pg, [TWIST], [RISE], phc, pv, interpolation,
+                                                mask, cellok), x)
+    rev = port_gk.sym_tables(pg, [TWIST], [RISE], phc[:, ::-1].copy(), pv[:, ::-1].copy(),
+                             interpolation, mask, cellok)
+    np.testing.assert_array_equal(_np(port_gk.sym_normal(rev, x)), _np(sts))
+    S, ST = port_pr.sym_operators(pg, [TWIST], [RISE], phc, pv, interpolation, mask, cellok)
+    _close(sts, ST(S(x).double().float()), atol=1e-6, rel=True)
+
+
+def test_live_rays_list_the_valid_rows():
+    """with_live_rays lists, per candidate and in order, the rays of
+    row_valid: the rays K1 and K2 take on the card."""
+    pg = port_geo.ReconstructionGeometry(csym=2, **GEOM)
+    tabs, _ = _tables(pg, 2)
+    ch, cc, cv = (np.stack([t, t]) for t in tabs[:3])
+    cv[1, ::2] = False
+    tab = port_gk.gather_tables(pg, [TWIST, TWIST + 1], [RISE, RISE], ch, cc, cv,
+                                [3.0, -2.0], [1.0, 0.0], [0.5, 0.0], "nn",
+                                torch.from_numpy(pg.cylindrical_mask().reshape(-1)),
+                                torch.from_numpy(pg.cell_valid_mask().reshape(-1)))
+    _, rowv = port_gk.gather_project(tab, None, row_valid=True)
+    listed = port_gk.with_live_rays(tab, rowv)
+    flat = rowv.reshape(2, -1)
+    for q in range(2):
+        got = listed.ridx[int(listed.rptr[q]):int(listed.rptr[q + 1])]
+        np.testing.assert_array_equal(_np(got), np.flatnonzero(_np(flat[q])))
+    assert listed.n_max == int(flat.sum(dim=1).max()) > 0
+    assert listed.ridx.dtype == listed.rptr.dtype == torch.int32
 
 
 def test_posed_transposes_are_adjoint(posed):

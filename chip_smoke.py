@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs ten phases and fails (non-zero exit) if any fails:
+checkout, then runs eleven phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
@@ -108,7 +108,26 @@ checkout, then runs ten phases and fails (non-zero exit) if any fails:
    winner's and the furthest mover's whole refinements on the kernels
    against plain (5e-3 / 5e-4) and against a second run on the kernels
    (bit for bit). Each line of phase 10 ends with the card's name and
-   power limit.
+   power limit;
+11. the batch CLI as a user runs it, a subprocess on a two-image .mrcs
+   stack of the amyloid written with the port's write_mrc, with the CLI's
+   own defaults: (a) phase 4's grid, its .csv against reconstruct_grid
+   called in this process with exactly the CLI's keyword arguments (the
+   same order, scores within 1e-5), with the subprocess's wall, the
+   search's wall inside it, the first-call costs, candidates/s, top-1 and
+   the kernels' launches from its verbose effective line; (b) the same
+   with --refineTiltPsiDy 5 5 2, its refined pose equal to the call in
+   process, and at that refined candidate's tables K1-K4, one
+   Gauss-Newton step and the whole refinement against plain (phase 10
+   (c)'s gates); (c) --imageIndex 0: .batch.json with two equal rows; (d)
+   phase 8 (a)'s wide-rise grid at its iterations in two processes on the
+   one card, with the environment torchrun sets, against one process: in
+   float32 (the same top-10, scores within 1e-4) and in the CLI's default
+   bfloat16 (the same top-10, scores within 1e-3), each rank's wall,
+   candidates, launches, peak memory and exchange time; and the one
+   process's float32 search in this process with its first B1 launch
+   and first B2 launch held against plain (scores within 1e-4, x within
+   1e-3 relative).
 
 The last two lines of standard output are the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them lists each
@@ -116,8 +135,9 @@ kernel with its launches on its own path (phase 4 for B1, phase 5 for B2
 and B3, phase 10 (c) for K1-K4; B1's and B2's on the bucketed path of
 phase 8, B2's on phase 9's per-candidate searches too, with its matvec
 entry and its j-dependent z-Gram; K1-K4's on phases 9 (b) and 10 (d)),
-its error against the plain version, its time, the plain
-version's time and the least time the card could take for the same work
+and on phase 11's CLI runs (launches_cli; B1's and B2's first float32
+launches of (d) against plain, cli_wide_float32), its error against the
+plain version, its time, the plain version's time and the least time the card could take for the same work
 (inputs larger than the 50 MB L2 counted once per matvec that reads them;
 bound_two_pass_ms counts the stacked operand once per product).
 The smoke's total time is printed before those two lines. It imports
@@ -1978,28 +1998,15 @@ def phase_refine_cli(device, phase4_scores, card) -> dict:
     the kernels and on plain (poses within 5e-3, the scores at them within
     5e-4)."""
     import numpy as np
-    import torch
 
     from helicon_tpu_torch.denovo3d import gather_kernels as gk
-    from helicon_tpu_torch.denovo3d import refine
     from helicon_tpu_torch.denovo3d.refine import _pose_bounds
-    from helicon_tpu_torch.denovo3d.solver import solve_candidate
 
     tw, ri = _real_size_grid()
-    calls = []
-    real = refine.refine_tilt_psi_dy
-
-    def spy(*args, **kw):
-        calls.append((args, kw))
-        return real(*args, **kw)
-
-    refine.refine_tilt_psi_dy = spy
     _zero(gk.launches)
-    try:
+    with _spied_refinements() as calls:
         res, b1, wall, peak = _search(device, tw, ri, return_best_volume=True,
                                       refine_tilt_psi_dy_range=REFINE_RANGE)
-    finally:
-        refine.refine_tilt_psi_dy = real
     launches = dict(gk.launches)
     e = res.effective
     ((idx, pose),) = res.refined_params.items()
@@ -2020,10 +2027,46 @@ def phase_refine_cli(device, phase4_scores, card) -> dict:
         raise AssertionError(f"phase 10 (c): pose {pose} outside its bounds or a kernel not "
                              f"launched ({launches})")
 
-    # the refined candidate's own call
-    ((geom, cfg, region, c_tw, c_rp, copies, pairs, *start, r_range), kw) = calls[0]
+    held = _hold_refine_call(device, calls[0], pose, "phase 10 (c)", card)
+    return dict(wall=wall, launches=launches, pose=pose, search_s=e["search_s"],
+                refine_s=e["refine_s"], resolve_s=e["resolve_s"], **held)
+
+
+@contextlib.contextmanager
+def _spied_refinements():
+    """Every refine.refine_tilt_psi_dy call (its arguments) made inside."""
+    from helicon_tpu_torch.denovo3d import refine
+
+    calls, real = [], refine.refine_tilt_psi_dy
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    refine.refine_tilt_psi_dy = spy
+    try:
+        yield calls
+    finally:
+        refine.refine_tilt_psi_dy = real
+
+
+def _hold_refine_call(device, call, pose, phase: str, card) -> dict:
+    """At the tables of one refine_tilt_psi_dy call (its arguments, as a
+    search made it; tilt 0, the refined candidate's copies and pairs):
+    K1-K4 against plain (nn, the solve's; linear, the Gauss-Newton step's);
+    one Gauss-Newton step from the start on the kernels and on plain (new
+    pose within 1e-4, r^T r within 1e-4 relative); and the whole
+    refinement on the kernels (equal to the search's ``pose``) and on plain
+    (poses within 5e-3, the scores at them within 5e-4)."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.denovo3d import refine
+    from helicon_tpu_torch.denovo3d.solver import solve_candidate
+
+    ((geom, cfg, region, c_tw, c_rp, copies, pairs, *start, r_range), kw) = call
     start = np.float32(start)
-    label = (f"phase 10 (c) [the refined candidate's tables: tilt 0, C={len(copies[0])} copy "
+    label = (f"{phase} [the refined candidate's tables: tilt 0, C={len(copies[0])} copy "
              f"slots, {len(pairs[1])} pair slots]")
     sol = solve_candidate(geom, cfg, region, c_tw, c_rp, *copies, *pairs, *start, device=device)
     x = sol["rec3d"][None].float().contiguous()
@@ -2048,7 +2091,7 @@ def phase_refine_cli(device, phase4_scores, card) -> dict:
                f"rel err {rtr_err:.3e}, limit 1e-4)", step[False][0][0], step[True][0][0], card,
                pose_limit=1e-4)
     if not (rtr_err <= 1e-4 and moved > 0):
-        raise AssertionError(f"phase 10 (c): the Gauss-Newton step's r^T r differs by {rtr_err} "
+        raise AssertionError(f"{phase}: the Gauss-Newton step's r^T r differs by {rtr_err} "
                              f"or the step did not move ({moved})")
     # the whole refinement, and the scores at its poses
     whole, score = {}, {}
@@ -2056,18 +2099,16 @@ def phase_refine_cli(device, phase4_scores, card) -> dict:
     for plain in (False, True):
         with _plain_gather() if plain else contextlib.nullcontext():
             t0 = time.perf_counter()
-            whole[plain] = np.float32(real(*calls[0][0], **kw))
+            whole[plain] = np.float32(refine.refine_tilt_psi_dy(*call[0], **kw))
             t[plain] = time.perf_counter() - t0
             score[plain] = float(solve_candidate(geom, cfg, region, c_tw, c_rp, *copies, *pairs,
                                                  *whole[plain], device=device)["score"])
     if not np.array_equal(whole[False], np.float32(pose)):
-        raise AssertionError(f"phase 10 (c): the refinement again gave {whole[False]}, the "
+        raise AssertionError(f"{phase}: the refinement again gave {whole[False]}, the "
                              f"search {pose}")
     _pose_gate(f"{label} the whole refinement ({t[False]:.3f} s on the kernels, {t[True]:.3f} s "
                f"plain)", whole[False], whole[True], card, score=(score[False], score[True]))
-    return dict(wall=wall, launches=launches, pose=pose, search_s=e["search_s"],
-                refine_s=e["refine_s"], resolve_s=e["resolve_s"], step_moved=moved,
-                kernel_s=t[False], plain_s=t[True])
+    return dict(step_moved=moved, kernel_s=t[False], plain_s=t[True])
 
 
 def phase_refine_all(device, card) -> dict:
@@ -2144,6 +2185,322 @@ def phase_refine_all(device, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the batch CLI as a user runs it, and two processes on one card
+# ---------------------------------------------------------------------------
+
+CLI = [sys.executable, "-m", "helicon_tpu_torch.commands.denovo3d_cli"]
+# phase 4's grid (2,327 candidates) and phase 8 (a)'s (5,907) as CLI flags
+CLI_GRID = "--apix 2 --twist 0.5 45 0.25 --rise 4 5 0.08 --handedness left --tubeDiameter 110"
+# phase 11 (d) at phase 8 (a)'s iterations (the bench's), not the CLI's
+# 100 / 40; in float32 and in the CLI's default bfloat16: a process's slice
+# of a bucket holds other twist groups (fewer rises each) than the
+# one-process run, and bf16 sums of other shapes move scores by ~2e-4 (C9;
+# 2.65e-4 with the same top-10 on the card), so the split itself is held
+# at 1e-4 in float32 and bf16 at its own 1e-3
+CLI_WIDE = ("--apix 2 --twist 0.5 45 0.25 --rise 2 10 0.25 --handedness left --tubeDiameter 110 "
+            "--cgIters 10 --fistaIters 16")
+GATHER_KERNELS = ("gather_project", "gather_backproject", "pose_jacobian", "sym_normal")
+
+
+def _cli(workdir: Path, argv: str, env=None, timeout=900):
+    """Run the port's CLI in workdir as a user does; fails (printing its
+    output) unless it exits 0. Returns (wall s, stdout, the verbose
+    effective line as a dict)."""
+    import os
+
+    t0 = time.perf_counter()
+    out = subprocess.run([*CLI, *argv.split()], cwd=workdir, capture_output=True, text=True,
+                         timeout=timeout, env=dict(os.environ, PYTHONPATH=str(ROOT), **(env or {})))
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        print(out.stdout[-6000:], out.stderr[-6000:], sep="\n", flush=True)
+        raise AssertionError(f"phase 11: the CLI exited {out.returncode}: {argv}")
+    return wall, out.stdout, _effective(out.stdout)
+
+
+def _effective(stdout: str) -> dict:
+    """The CLI's verbose effective line (the last search's)."""
+    line = [x for x in stdout.splitlines() if x.startswith("effective: ")][-1]
+    return json.loads(line[len("effective: "):])
+
+
+def _csv_rows(path: Path):
+    rows = [x.split(",") for x in path.read_text().splitlines()[1:]]
+    return [(r[0], r[1]) for r in rows], [float(r[2]) for r in rows]
+
+
+def _in_process(stack: Path, argv: str, device):
+    """reconstruct_grid with exactly the keyword arguments the CLI passes
+    for argv (its own plan and keywords), on the first image; returns
+    (result, wall s)."""
+    import argparse
+
+    import torch
+
+    from helicon_tpu_torch.commands import denovo3d_cli
+    from helicon_tpu_torch.denovo3d import reconstruct_grid
+    from helicon_tpu_torch.io.mrc import read_image_2d
+
+    args = denovo3d_cli.add_args(argparse.ArgumentParser()).parse_args(
+        [str(stack), "unused", *argv.split()])
+    apix, indices, tw, ri, rr = denovo3d_cli.search_plan(args)
+    kw = denovo3d_cli.search_kwargs(args, apix, tw, ri, rr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = reconstruct_grid(read_image_2d(stack, indices[0] - 1), **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _csv_text(res) -> str:
+    """The CLI's .csv of a result (its format)."""
+    import numpy as np
+
+    return "".join(f"{res.twists[i]:.4f},{res.rises[i]:.4f},{res.scores[i]:.6f}\n"
+                   for i in np.argsort(-res.scores))
+
+
+def phase_cli(device, card) -> dict:
+    """Phase 11 (a)-(c): the port's CLI as a subprocess on a two-image
+    .mrcs stack (the amyloid twice, 2 A/px, the port's write_mrc), with the
+    CLI's own defaults beyond the grid flags: (a) phase 4's grid, its .csv
+    against an in-process reconstruct_grid with exactly the CLI's keyword
+    arguments (the same order, scores within 1e-5; whether bit for bit is
+    printed), with the subprocess's wall, the search's wall inside it, the
+    first-call costs, candidates/s, top-1 and the kernels' launches; (b)
+    the same with --refineTiltPsiDy 5 5 2, its refined poses (its verbose
+    line) equal to the in-process call's, and the .json's the winner's;
+    (c) --imageIndex 0: .batch.json with two equal rows."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.io.mrc import write_mrc
+
+    work = ROOT / "build" / "phase11"
+    work.mkdir(parents=True, exist_ok=True)
+    stack = work / "amyloid2.mrcs"
+    img = np.load(AMYLOID).astype(np.float32)
+    write_mrc(stack, np.stack([img, img]), apix=2.0)
+    torch.cuda.empty_cache()
+    out = {}
+    for key, extra in (("a", ""), ("b", "--refineTiltPsiDy 5 5 2")):
+        argv = f"{stack.name} out_{key} --imageIndex 1 {CLI_GRID} {extra}".strip()
+        wall, stdout, eff = _cli(work, argv)
+        # twice: the first call in this process pays this configuration's
+        # first-call costs too (the prep's), the second is warm
+        _, first = _in_process(stack, argv.split(" ", 2)[2], device)
+        with _spied_refinements() as refine_calls:
+            res, warm = _in_process(stack, argv.split(" ", 2)[2], device)
+        order, scores = _csv_rows(work / f"out_{key}.csv")
+        want_order = [(f"{res.twists[i]:.4f}", f"{res.rises[i]:.4f}")
+                      for i in np.argsort(-res.scores)]
+        want = [float(f"{res.scores[i]:.6f}") for i in np.argsort(-res.scores)]
+        err = float(np.abs(np.float64(scores) - np.float64(want)).max())
+        bits = (work / f"out_{key}.csv").read_text() == (
+            "twist_degree,rise_angstrom,score\n" + _csv_text(res))
+        summary = json.loads((work / f"out_{key}.json").read_text())
+        n = summary["n_candidates"]
+        la = eff["launches"]
+        b2 = la["solve_candidate"] + la["candidate_matvec"]
+        print(f"phase 11 ({key}) [the CLI, {n} candidates{', ' + extra if extra else ''}]: "
+              f"subprocess {wall:.3f} s start to exit, search {eff['wall_s']:.3f} s inside it "
+              f"(Timer), {n / eff['wall_s']:.1f} candidates/s; the same call in process "
+              f"{first:.3f} s, again {warm:.3f} s (warm), so first-call costs "
+              f"{eff['wall_s'] - warm:.3f} s in the "
+              f"search and {wall - eff['wall_s']:.3f} s around it (imports, CUDA context, the "
+              f"kernel library, the files); peak {eff['peak_gib']:.2f} GiB; launches B1 "
+              f"{la['group_solve']}, B2 {b2}, K1-K4 {[la[k] for k in GATHER_KERNELS]}; G "
+              f"{eff.get('groups_per_launch')} (in process "
+              f"{res.effective.get('groups_per_launch')}); top-1 ({summary['best_twist']}, "
+              f"{summary['best_rise']}) score {summary['best_score']:.6f}; .csv against the "
+              f"in-process call: max |d score| {err:.2e} (limit 1e-5), "
+              f"{'bit for bit as printed' if bits else 'NOT bit for bit'}; {card}", flush=True)
+        if order != want_order or err > 1e-5 or la["group_solve"] <= 0:
+            raise AssertionError(f"phase 11 ({key}): the CLI's ranking differs from the call "
+                                 f"in process (max {err}) or B1 did not launch")
+        out[key] = dict(wall=wall, search_s=eff["wall_s"], warm_s=warm, launches=la,
+                        rate=n / eff["wall_s"], bits=bits, err=err, summary=summary)
+        if extra:
+            # every refined candidate's pose, from the verbose line (the
+            # .json holds the winner's, when the winner was refined)
+            got = {int(k): v for k, v in eff["refined"].items()}
+            want = {int(k): [float(x) for x in v] for k, v in res.refined_params.items()}
+            in_json = [summary.get(k) for k in ("refined_tilt", "refined_psi",
+                                                "refined_dy_pixel")]
+            ok = got == want and (in_json == want.get(res.best_index, [None] * 3))
+            print(f"phase 11 (b): the CLI's refined poses {got}, in process {want}: "
+                  f"{'equal' if ok else 'DIFFER'}; the winner "
+                  f"{'was' if res.best_index in want else 'was not'} refined (.json pose "
+                  f"{in_json}); {card}", flush=True)
+            if not ok or min(la[k] for k in GATHER_KERNELS) <= 0:
+                raise AssertionError("phase 11 (b): the refined poses differ from the call in "
+                                     "process, or a gather kernel did not launch")
+            # K1-K4 and the Gauss-Newton step against plain at the tables
+            # of this run's refined candidate
+            ((idx, pose),) = res.refined_params.items()
+            out[key]["held"] = _hold_refine_call(device, refine_calls[0], pose, "phase 11 (b)",
+                                                 card)
+    wall, _, _ = _cli(work, f"{stack.name} out_c --imageIndex 0 {CLI_GRID}")
+    rows = json.loads((work / "out_c.batch.json").read_text())
+    same = len(rows) == 2 and all(rows[0][k] == rows[1][k] for k in rows[0] if k != "image_index")
+    print(f"phase 11 (c) [--imageIndex 0, two equal images]: {wall:.3f} s; .batch.json rows "
+          f"{rows}: {'equal' if same else 'DIFFER'}; {card}", flush=True)
+    if not same or [r["image_index"] for r in rows] != [1, 2]:
+        raise AssertionError("phase 11 (c): the batch rows differ")
+    return out
+
+
+def _two_processes(work: Path, tail: str, dtype: str, limit: float, card) -> dict:
+    """The CLI with ``tail`` (after the stack and the output name) in one
+    process and in two on the one card, with the environment torchrun sets
+    (both LOCAL_RANKs map to cuda:0, so each sizes its launches from half
+    the free memory it sees over the two): rank 0's .csv with the one
+    process's top-10 and every score within ``limit``, both ranks exiting
+    0. Prints each rank's wall, candidates, B1 / B2 launches, peak memory
+    and exchange time."""
+    import os
+    import socket
+
+    import numpy as np
+
+    one_wall, _, one_eff = _cli(work, f"amyloid2.mrcs wide_{dtype}_one {tail}")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    argv = [*CLI, "amyloid2.mrcs", f"wide_{dtype}_two", *tail.split()]
+    procs, walls, t0 = [], [None, None], time.perf_counter()
+    paths = [work / f"wide_{dtype}_two.rank{rank}.log" for rank in range(2)]
+    try:
+        for rank in range(2):
+            env = dict(os.environ, PYTHONPATH=str(ROOT), RANK=str(rank), LOCAL_RANK=str(rank),
+                       WORLD_SIZE="2", LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port))
+            with open(paths[rank], "w") as f:
+                procs.append(subprocess.Popen(argv, cwd=work, env=env, stdout=f,
+                                              stderr=subprocess.STDOUT))
+        while None in walls and time.perf_counter() - t0 < 900:
+            for rank, p in enumerate(procs):
+                if walls[rank] is None and p.poll() is not None:
+                    walls[rank] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    logs = [x.read_text() for x in paths]
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-8000:], flush=True)
+            raise AssertionError(f"phase 11 (d) [{dtype}]: rank {rank} exited {p.returncode}")
+    effs = [_effective(log) for log in logs]
+    order1, s1 = _csv_rows(work / f"wide_{dtype}_one.csv")
+    order2, s2 = _csv_rows(work / f"wide_{dtype}_two.csv")
+    err = float(np.abs(np.float64(s1) - np.float64(s2)).max()) if len(s1) == len(s2) else np.inf
+    top_same = order1[:10] == order2[:10]
+    print(f"phase 11 (d) [{dtype}, one process, {len(s1)} candidates]: {one_wall:.3f} s start "
+          f"to exit, search {one_eff['wall_s']:.3f} s, peak {one_eff['peak_gib']:.2f} GiB, "
+          f"launches B1 {one_eff['launches']['group_solve']}, B2 "
+          f"{one_eff['launches']['solve_candidate']}; {card}", flush=True)
+    for rank, e in enumerate(effs):
+        la = e["launches"]
+        print(f"phase 11 (d) [{dtype}, rank {rank} of 2 on cuda:0, {e['card_processes']} "
+              f"processes on its card]: {walls[rank]:.3f} s start to exit, search "
+              f"{e['wall_s']:.3f} s, {e['scored']} candidates scored, launches B1 "
+              f"{la['group_solve']}, B2 {la['solve_candidate']}, peak {e['peak_gib']:.2f} GiB, "
+              f"{e['exchanges']} exchanges {e['exchange_s'] * 1e3:.2f} ms (waiting for the "
+              f"other rank included); {card}", flush=True)
+    print(f"phase 11 (d) [{dtype}]: rank 0's .csv against one process: top-10 "
+          f"{'the same' if top_same else 'DIFFERENT'}, max |d score| {err:.2e} (limit "
+          f"{limit:g}); peaks together {sum(e['peak_gib'] for e in effs):.2f} GiB; {card}",
+          flush=True)
+    if (not top_same or err > limit or min(e["launches"]["group_solve"] for e in effs) <= 0
+            or any(e["card_processes"] != 2 for e in effs)):
+        raise AssertionError(f"phase 11 (d) [{dtype}]: two processes differ from one, a rank "
+                             "did not launch B1, or the ranks did not share the card's memory")
+    return dict(one=one_eff, ranks=effs, walls=walls, err=err)
+
+
+@contextlib.contextmanager
+def _first_call(module, name: str):
+    """module.name wrapped: yields a dict that holds its first call's
+    arguments (args, kw)."""
+    real, first = getattr(module, name), {}
+
+    def wrapped(*args, **kw):
+        if not first:
+            first.update(args=args, kw=kw)
+        return real(*args, **kw)
+
+    setattr(module, name, wrapped)
+    try:
+        yield first
+    finally:
+        setattr(module, name, real)
+
+
+def _hold_wide_launches(device, work: Path, tail: str, card) -> dict:
+    """The one-process float32 search of (d) in this process, with exactly
+    the CLI's keyword arguments, its first B1 launch (a first-pass bucket's,
+    G groups) and its first B2 launch (a second-pass call's) each held
+    against its plain version on the same card tensors: scores within 1e-4
+    and x within 1e-3 relative (phase 2's and phase 5's float32 gates)."""
+    import torch
+
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs
+    from helicon_tpu_torch.denovo3d import group_solve as gs
+
+    with _first_call(gs, "solve_group") as b1, _first_call(cs, "solve_candidate_kernel") as b2:
+        res, wall = _in_process(work / "amyloid2.mrcs", tail, device)
+    out = {}
+    for name, first, kernel, plain in (("B1", b1, gs.solve_group, gs.solve_group_reference),
+                                       ("B2", b2, cs.solve_candidate_kernel,
+                                        cs.solve_candidate_reference)):
+        if not first:
+            raise AssertionError(f"phase 11 (d): the float32 search made no {name} launch")
+        inp, args, kw = first["args"][0], first["args"][1:], first["kw"]
+        if name == "B1":  # (x, scores; None unless the kernel scores)
+            (x_k, s_k), (x_p, s_p) = kernel(inp, *args, **kw), plain(inp, *args, **kw)
+        else:
+            x_k, x_p = kernel(inp, *args, **kw), plain(inp, *args, **kw)
+            s_k = s_p = None
+        torch.cuda.synchronize()
+        x_rel = float((x_k - x_p).abs().max() / x_p.abs().max().clamp_min(1e-30))
+        s_err = None if s_k is None else float((s_k - s_p).abs().max())
+        if name == "B1" and s_err is None:
+            raise AssertionError("phase 11 (d): the float32 B1 launch returned no scores")
+        print(f"phase 11 (d) [float32, in process, {wall:.3f} s: its first {name} launch, "
+              f"{inp.a_top.dtype}, shape {tuple(inp.shape)}]: against plain x rel err "
+              f"{x_rel:.3e} (limit 1e-3)"
+              + ("" if s_err is None else f", score abs err {s_err:.3e} (limit 1e-4)")
+              + f"; {card}", flush=True)
+        if (inp.a_top.dtype != torch.float32 or not bool(torch.isfinite(x_k).all())
+                or not (x_rel <= 1e-3) or (s_err is not None and not (s_err <= 1e-4))):
+            raise AssertionError(f"phase 11 (d): the float32 {name} launch differs from plain "
+                                 f"({x_rel}, {s_err})")
+        out[name] = dict(x_rel_err=x_rel, score_abs_err=s_err, shape=tuple(inp.shape))
+        del x_k, x_p
+    del b1["args"], b2["args"], res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cli_two_processes(device, card) -> dict:
+    """Phase 11 (d): the CLI on phase 8 (a)'s wide-rise grid (5,907
+    candidates, four rise buckets; its iterations, CLI_WIDE) in two
+    processes on the one card against one process: in float32 (limit 1e-4)
+    and in the CLI's default bfloat16 (limit 1e-3, phase 2's bf16 gate),
+    then the float32 search's first B1 and B2 launches against plain."""
+    work = ROOT / "build" / "phase11"
+    f32 = f"--imageIndex 1 {CLI_WIDE} --computeDtype float32"
+    out = dict(float32=_two_processes(work, f32, "float32", 1e-4, card),
+               bfloat16=_two_processes(work, f"--imageIndex 1 {CLI_WIDE}", "bfloat16", 1e-3,
+                                       card))
+    out["held"] = _hold_wide_launches(device, work, f32, card)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2206,6 +2563,8 @@ def main() -> int:
     phase_tilted_again(tilted, card)
     cli = phase_refine_cli(device, nn_scores, card)
     refine_all = phase_refine_all(device, card)
+    cli_runs = phase_cli(device, card)
+    wide = phase_cli_two_processes(device, card)
 
     def entry(name, src, replaces, launches, r, **extra):
         return dict(name=name, route="cuda", source=CSRC + src, replaces=replaces,
@@ -2214,10 +2573,11 @@ def main() -> int:
                     library_ms=r.get("library_ms"), **extra)
 
     def other(n, interp):
-        """A gather kernel's launches on phase 9 (b)'s and 10 (d)'s paths,
-        and its linear row of phase 10 (a)."""
+        """A gather kernel's launches on phase 9 (b)'s and 10 (d)'s paths and
+        on phase 11 (b)'s CLI run, and its linear row of phase 10 (a)."""
         extra = dict(launches_tilt3=tilted["gather_launches"][n],
-                     launches_refine_all=refine_all["launches"][n])
+                     launches_refine_all=refine_all["launches"][n],
+                     launches_cli=cli_runs["b"]["launches"][n])
         if interp:
             extra["linear"] = interp
         return extra
@@ -2254,7 +2614,11 @@ def main() -> int:
                                             "bound_by", "groups")},
               bucketed=dict(launches_first=bucketed["sums"]["first"]["launches"],
                             launches_second=bucketed["sums"]["second"]["launches"],
-                            launches_winner=bucketed["sums"]["winner"]["launches"])),
+                            launches_winner=bucketed["sums"]["winner"]["launches"]),
+              # phase 11 (a): the CLI's run of phase 4's grid; (d): the
+              # first float32 launch of the wide-rise search against plain
+              launches_cli=cli_runs["a"]["launches"]["group_solve"],
+              cli_wide_float32=wide["held"]["B1"]),
         entry("solve_candidate", "candidate_solve.cu", "helicon_tpu/denovo3d/pallas_solver.py:100",
               single["launches"]["solve_candidate"], b2,
               bound_two_pass_ms=b2["bound_two_pass_ms"], products=b2["products"],
@@ -2278,7 +2642,11 @@ def main() -> int:
                   gz_j=dict(score_abs_err=fsc_reg["max_abs_err"],
                             float32_score_abs_err=fsc_reg["float32_err"],
                             search=fsc_reg["search_half"], k8=fsc_reg["k8"]),
-                  gather_projector=dict(P_ms=tilted["P_ms"], PT_ms=tilted["PT_ms"]))),
+                  gather_projector=dict(P_ms=tilted["P_ms"], PT_ms=tilted["PT_ms"])),
+              # phase 11 (a): the CLI's best-volume re-solve; (d): the
+              # first float32 launch of the wide-rise search against plain
+              launches_cli=cli_runs["a"]["launches"]["solve_candidate"],
+              cli_wide_float32=wide["held"]["B2"]),
         entry("score_candidate", "candidate_solve.cu",
               "helicon_tpu/denovo3d/pallas_solver.py:335",
               single["launches"]["score_candidate"], b3,

@@ -157,16 +157,17 @@ def _ray_sum(v):
     lane l of a warp adds samples l, l + 32, ... to zero in turn, then the
     32 lanes' sums meet by the butterfly of xor shuffles (16, 8, 4, 2, 1);
     lane 0 holds the result. Zeros stand for the samples past d2, which
-    leave a sum unchanged."""
+    leave a sum unchanged. Only the lanes below o reach lane 0 after the
+    shuffle by o, and for them lane ^ o = lane + o: each step adds the
+    upper half of the lanes it keeps to the lower."""
     d2 = v.shape[-1]
     n = -(-d2 // 32)
     v = torch.nn.functional.pad(v, (0, 32 * n - d2)).reshape(v.shape[:-1] + (n, 32))
     acc = torch.zeros(v.shape[:-2] + (32,), dtype=v.dtype, device=v.device)
     for c in range(n):
         acc = acc + v[..., c, :]
-    lanes = torch.arange(32, device=v.device)
     for o in (16, 8, 4, 2, 1):
-        acc = acc + acc[..., lanes ^ o]
+        acc = acc[..., :o] + acc[..., o : 2 * o]
     return acc[..., 0]
 
 
@@ -361,17 +362,62 @@ def _chunks(tab: GatherTables, q: int, sampler: _Sampler, base=None):
     """(copy slice, (Z, Y, X), taps, valid) of each chunk of candidate q's
     copies, in the reference's order of float32 operations."""
     bx, by, bz = _base(tab, q) if base is None else base
+    for sl in _copy_chunks(tab, sampler):
+        Z, Y, X = _sample_coords(tab, q, sl, bx[None], by[None], bz[None])
+        yield (sl, (Z, Y, X), *sampler.taps(Z, Y, X))
+
+
+def _sample_coords(tab: GatherTables, q: int, ci, bx, by, bz):
+    """(Z, Y, X) of candidate q's copies ci at the ray coordinates (bx, by,
+    bz), whose leading axis runs with ci or has length 1: the volume index
+    of every sample, in the reference's order of float32 operations. Both
+    chunk iterators take it, so that the blocks _live_chunks keeps are
+    _chunks' samples, bit for bit."""
+    shape = (-1,) + (1,) * (bx.dim() - 1)
+    c = tab.cs[q, ci].reshape(shape)
+    sn = tab.sn[q, ci].reshape(shape)
+    # inverse z-rotation: (x, y) -> (x c + y s, -x s + y c)
+    X = (bx * c + by * sn) + tab.d3 // 2
+    Y = (by * c - bx * sn) + tab.d3 // 2
+    Z = (bz - tab.dz[q, ci].reshape(shape)) + tab.l3 // 2
+    return Z, Y, X
+
+
+def _copy_chunks(tab: GatherTables, sampler: _Sampler):
+    """Slices of the copies, each of at most _CHUNK_SAMPLES samples (taps)."""
     k, C, l2, d2 = tab.shape
     step = max(1, _CHUNK_SAMPLES // ((8 if sampler.linear else 1) * l2 * d2 * d2))
-    for a in range(0, C, step):
-        sl = slice(a, min(a + step, C))
-        c = tab.cs[q, sl, None, None, None]
-        sn = tab.sn[q, sl, None, None, None]
-        # inverse z-rotation: (x, y) -> (x c + y s, -x s + y c)
-        X = (bx * c + by * sn) + tab.d3 // 2
-        Y = (by * c - bx * sn) + tab.d3 // 2
-        Z = (bz - tab.dz[q, sl, None, None, None]) + tab.l3 // 2
-        yield (sl, (Z, Y, X), *sampler.taps(Z, Y, X))
+    return [slice(a, min(a + step, C)) for a in range(0, C, step)]
+
+
+def _live_chunks(tab: GatherTables, q: int, sampler: _Sampler, every: bool = False):
+    """(copy indices, row indices, (Z, Y, X), taps, valid) of candidate q's
+    live row blocks, chunk by chunk: the (copy, row) pairs some sample of which lies
+    in the volume's z range, each block (n, d2, d2) with _chunks' samples
+    (_sample_coords). Z is monotone (rounding is) along a ray and
+    across the columns of a row, so its values at a block's four corners
+    bound every sample's; a sample of a block outside the range reads and
+    writes nothing of the volume (nn: the zero padding; linear: weight 0),
+    so that its rays sum to +0 and add 0 to the transpose, as the blocks
+    left out here. ``every`` keeps every block (the tests hold the pruned
+    sums to it)."""
+    bx, by, bz = _base(tab, q)
+    corners = bz[:, [0, -1]][:, :, [0, -1]].reshape(1, -1, 4)
+    # a sample is valid only at z in [0, l3 - 1]: nn rounds half to even,
+    # linear takes the cell below
+    z_lo, z_hi = (0.0, tab.l3 - 1.0) if sampler.linear else (-0.5, tab.l3 - 0.5)
+    for sl in _copy_chunks(tab, sampler):
+        Zc = (corners - tab.dz[q, sl, None, None]) + tab.l3 // 2
+        lo, hi = Zc.amin(dim=2), Zc.amax(dim=2)
+        live = (hi >= z_lo) & ((lo < z_hi) if sampler.linear else (lo <= z_hi))
+        if every:
+            live = torch.ones_like(live)
+        ci, ii = torch.nonzero(live, as_tuple=True)
+        if not len(ci):
+            continue
+        ci = ci + sl.start
+        Z, Y, X = _sample_coords(tab, q, ci, bx[ii], by[ii], bz[ii])
+        yield (ci, ii, (Z, Y, X), *sampler.taps(Z, Y, X))
 
 
 def gather_project_reference(tab: GatherTables, x=None, row_valid: bool = False):
@@ -382,16 +428,16 @@ def gather_project_reference(tab: GatherTables, x=None, row_valid: bool = False)
     k, C, l2, d2 = tab.shape
     dev = tab.mask.device
     sampler = tab.sampler()
-    pred = None if x is None else torch.empty((k, C, l2, d2), dtype=torch.float32, device=dev)
-    rowv = torch.empty((k, C, l2, d2), dtype=torch.bool, device=dev) if row_valid else None
+    pred = None if x is None else torch.zeros((k, C, l2, d2), dtype=torch.float32, device=dev)
+    rowv = torch.zeros((k, C, l2, d2), dtype=torch.bool, device=dev) if row_valid else None
     for q in range(k):
         xf = None if x is None else sampler.source(x[q])
         cv = tab.cvf[q]
-        for sl, _, taps, valid in _chunks(tab, q, sampler):
+        for ci, ii, _, taps, valid in _live_chunks(tab, q, sampler):
             if pred is not None:
-                pred[q, sl] = _ray_sum(_gather(xf, taps)) * cv[sl, None, None]
+                pred[q, ci, ii] = _ray_sum(_gather(xf, taps)) * cv[ci, None]
             if rowv is not None:
-                rowv[q, sl] = valid.any(dim=3) & (cv[sl, None, None] > 0)
+                rowv[q, ci, ii] = valid.any(dim=2) & (cv[ci, None] > 0)
     return (pred, rowv) if row_valid else pred
 
 
@@ -407,8 +453,8 @@ def gather_backproject_reference(tab: GatherTables, r) -> torch.Tensor:
     for q in range(k):
         acc = torch.zeros(sampler.size, dtype=torch.int64, device=r.device)
         cv = tab.cvf[q]
-        for sl, _, taps, _ in _chunks(tab, q, sampler):
-            _scatter_fixed(acc, taps, (r[q, sl] * cv[sl, None, None])[..., None], scale[q])
+        for ci, ii, _, taps, _ in _live_chunks(tab, q, sampler):
+            _scatter_fixed(acc, taps, (r[q, ci, ii] * cv[ci, None])[..., None], scale[q])
         out.append(sampler.result(_from_fixed(acc, scale[q]))[0])
     return torch.stack(out)
 
@@ -417,8 +463,9 @@ def pose_jacobian_reference(tab: GatherTables, x, b):
     """The plain K3 (linear tables with derivatives): for each candidate
     the residual r = (P(x) - b) over the valid rows and its Jacobian J by
     (tilt, psi, dy), each ray's derivative the trilinear gradient at each
-    sample dotted with the sample's coordinate derivatives. Returns (J^T J
-    (k, 3, 3), J^T r (k, 3), r^T r (k,)) float64."""
+    sample dotted with the sample's coordinate derivatives, over the live
+    row blocks (_live_chunks: the others add 0). Returns (J^T J (k, 3, 3),
+    J^T r (k, 3), r^T r (k,)) float64."""
     if not tab.linear or tab.dR is None:
         raise ValueError("pose_jacobian needs linear tables with derivatives")
     k, C, l2, d2 = tab.shape
@@ -435,9 +482,9 @@ def pose_jacobian_reference(tab: GatherTables, x, b):
         dbase = [[tab.dR[q, p, a, 0] * x0 + tab.dR[q, p, a, 1] * y0 + tab.dR[q, p, a, 2] * z0
                   for a in range(3)] for p in range(2)]
         dbase.append([-R[0, 1], -R[1, 1], -R[2, 1]])
-        for sl, (Z, Y, X), taps, valid in _chunks(tab, q, sampler):
-            c = tab.cs[q, sl, None, None, None]
-            sn = tab.sn[q, sl, None, None, None]
+        for ci, ii, (Z, Y, X), taps, valid in _live_chunks(tab, q, sampler):
+            c = tab.cs[q, ci, None, None]
+            sn = tab.sn[q, ci, None, None]
             vf = valid.to(torch.float32)
             base = taps[0][0]
             v = [xf[base + off] for off in (0, 1, tab.d3, tab.d3 + 1, dzs, dzs + 1,
@@ -451,15 +498,18 @@ def pose_jacobian_reference(tab: GatherTables, x, b):
             gY = ((c01 - c00) * uz + (c11 - c10) * wz) * vf
             gX = (((v[1] - v[0]) * uy + (v[3] - v[2]) * wy) * uz
                   + ((v[5] - v[4]) * uy + (v[7] - v[6]) * wy) * wz) * vf
-            pred = _gather(xf, taps).sum(dim=3)
+            pred = _gather(xf, taps).sum(dim=2)
+            # the blocks' rows of the coordinates' derivatives (dy's are
+            # numbers)
+            dblk = [[d[ii] if d.dim() == 3 else d for d in p] for p in dbase]
             J = torch.stack([
-                (gX * (dx * c + dy * sn) + gY * (dy * c - dx * sn) + gZ * dz).sum(dim=3)
-                for dx, dy, dz in dbase])  # (3, copies, l2, d2)
-            rows = (valid.any(dim=3) & (tab.cvf[q, sl, None, None] > 0)).double()
-            r = (pred.double() - b.double()[None]) * rows
+                (gX * (dx * c + dy * sn) + gY * (dy * c - dx * sn) + gZ * dz).sum(dim=2)
+                for dx, dy, dz in dblk])  # (3, blocks, d2)
+            rows = (valid.any(dim=2) & (tab.cvf[q, ci, None] > 0)).double()
+            r = (pred.double() - b.double()[ii]) * rows
             J = J.double() * rows
-            JtJ[q] += torch.einsum("pcij,qcij->pq", J, J)
-            Jtr[q] += torch.einsum("pcij,cij->p", J, r)
+            JtJ[q] += torch.einsum("pnj,qnj->pq", J, J)
+            Jtr[q] += torch.einsum("pnj,nj->p", J, r)
             rtr[q] += (r * r).sum()
     return JtJ, Jtr, rtr
 

@@ -266,12 +266,14 @@ def _group_bytes(geom, C_u: int, n_ops: int, R: int, cdt, fsc: bool = False) -> 
     )
 
 
-def _groups_per_launch(per_group: int, n_groups: int, device: torch.device) -> int:
-    """G: half the card's free memory (1 GiB on the host) over one group's
-    bytes, at least 1 and at most the number of groups."""
+def _groups_per_launch(per_group: int, n_groups: int, device: torch.device,
+                       card_processes: int = 1) -> int:
+    """G: half the card's free memory (1 GiB on the host), shared by the
+    card_processes processes that size their launches on this card at once,
+    over one group's bytes, at least 1 and at most the number of groups."""
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
-        budget = free // 2
+        budget = free // 2 // max(1, int(card_processes))
     else:
         budget = 1 << 30
     return max(1, min(n_groups, budget // max(1, per_group)))
@@ -380,7 +382,7 @@ def _twist_groups(twists, rise_pixels, geom, copy_cache, n_copies, batch_size,
 def _grouped_scoring(
     geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
     dy_pixel, copy_cache, device, solve=None, batch_size=None,
-    progress_callback=None, should_abort=None, densify_padding=False,
+    progress_callback=None, should_abort=None, densify_padding=False, card_processes=1,
 ):
     """Score every candidate, G twist groups per solve launch (the
     counterpart of the reference's _solve_group_pallas). ``solve`` is the
@@ -409,7 +411,7 @@ def _grouped_scoring(
     cdt = getattr(torch, cfg.compute_dtype)
     fsc_masks = _pid_split_masks(geom, cfg.fsc_test) if cfg.fsc_test else None
     G = _groups_per_launch(_group_bytes(geom, C_u, n_ops, R, cdt, fsc_masks is not None),
-                           len(groups), device)
+                           len(groups), device, card_processes)
     per_launch = None
     if incremental:
         per_launch = auto_batch
@@ -615,7 +617,7 @@ def _candidate_bytes(geom, cfg, n_copies: int, n_pairs: int, n_ops: int) -> int:
 
 def _percand_scoring(
     geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region, pose, copy_cache,
-    device, batch_size=None, progress_callback=None, should_abort=None,
+    device, batch_size=None, progress_callback=None, should_abort=None, card_processes=1,
 ):
     """Score every candidate in launches of k (the counterpart of the
     reference's _percand_scoring): each launch builds its candidates' padded
@@ -639,7 +641,7 @@ def _percand_scoring(
         k = per_launch = batch_size or _dispatch_candidates(geom, n_copies, n_ops, n_cand)
     else:
         per = _candidate_bytes(geom, cfg, n_copies, n_pairs, n_ops)
-        k = _groups_per_launch(per, n_cand, device)
+        k = _groups_per_launch(per, n_cand, device, card_processes)
         k = min(k, batch_size or k)
     k = max(1, min(k, n_cand))
     b2_before = sum(candidate_solve.launches.values())
@@ -708,7 +710,7 @@ def _raise_out_of_slice(cost_analysis, devices) -> None:
     """NotImplementedError for every argument the port does not cover yet."""
     checks = [
         ("cost_analysis", bool(cost_analysis), "A5c"),
-        ("more than one device", devices is not None and len(devices) > 1, "A10"),
+        ("more than one device", devices is not None and len(devices) > 1, "A10b"),
     ]
     for name, on, item in checks:
         if on:
@@ -778,6 +780,7 @@ def reconstruct_grid(
     geometry_rise_range: tuple | None = None,
     densify_padding: bool = False,
     device="cuda",
+    card_processes: int = 1,
 ) -> GridResult:
     """Score every (twist, rise) candidate for one class-average image.
 
@@ -788,7 +791,9 @@ def reconstruct_grid(
     prep runs on ``device``. A rise range wider than rise_bucket_ratio
     splits into rise buckets (_reconstruct_grid_bucketed) unless
     geometry_rise_range pins the geometry. The port sizes its launches
-    from the device's free memory; ``batch_size`` (else the reference's
+    from half the device's free memory, a card_processes-th of it where
+    that many processes share the card and size theirs at once (the
+    process-sharded search passes it); ``batch_size`` (else the reference's
     automatic batch size) caps the group size R and, in incremental mode
     (progress_callback / should_abort), the candidates per launch. The
     scoring path follows the reference's rule (``_use_grouped``, with its
@@ -833,7 +838,7 @@ def reconstruct_grid(
             refine_mode=refine_mode, cg_iters=cg_iters, fista_iters=fista_iters,
             power_iters=power_iters, compute_dtype=compute_dtype, batch_size=batch_size,
             devices=devices, cost_analysis=cost_analysis,
-            densify_padding=densify_padding, device=device,
+            densify_padding=densify_padding, device=device, card_processes=card_processes,
         )
         return _reconstruct_grid_bucketed(
             image, apix, twists, rises, rise_bucket_ratio, fwd,
@@ -919,7 +924,7 @@ def reconstruct_grid(
     copy_cache: dict = {}
     dy_pixel = np.float32(dy / target_apix2d)
     drive = dict(batch_size=batch_size, progress_callback=progress_callback,
-                 should_abort=should_abort)
+                 should_abort=should_abort, card_processes=card_processes)
     incremental = progress_callback is not None or should_abort is not None
     refine_all = bool(refine_tilt_psi_dy_range) and refine_mode == "all"
     t0 = time.perf_counter()
@@ -946,7 +951,7 @@ def reconstruct_grid(
         scores, refined_params = _refine(
             geom, cfg, region, twists, rise_pixels, scores, n_copies, n_pairs, n_ops,
             copy_cache, (tilt, psi, dy_pixel), refine_tilt_psi_dy_range, refine_mode,
-            refine_top_k, batch_size, device, effective)
+            refine_top_k, batch_size, device, effective, card_processes)
     extras = None
     if "extras" in effective:
         ee = effective.pop("extras")
@@ -1004,7 +1009,7 @@ def reconstruct_grid(
 
 def _refine(geom, cfg, region, twists, rise_pixels, scores, n_copies, n_pairs, n_ops,
             copy_cache, pose, r_range, refine_mode, refine_top_k, batch_size, device,
-            effective):
+            effective, card_processes=1):
     """The reference's two refine branches (its grid.py:1408-1490), both on
     its refine_cfg (non-separable, float32). "all": every candidate refined
     from the grid's pose (refine.refine_all_candidates), its score replaced
@@ -1026,7 +1031,8 @@ def _refine(geom, cfg, region, twists, rise_pixels, scores, n_copies, n_pairs, n
         # bytes on the gather projector, capped by batch_size
         n = len(twists)
         per = _candidate_bytes(geom, refine_cfg, n_copies, n_pairs, 0)
-        k = max(1, min(_groups_per_launch(per, n, torch.device(device)), batch_size or n))
+        k = max(1, min(_groups_per_launch(per, n, torch.device(device), card_processes),
+                       batch_size or n))
         scores, params = refine_all_candidates(
             geom, refine_cfg, region, twists, rise_pixels, tabs[:5], *pose, r_range,
             batch_size=k, device=device)

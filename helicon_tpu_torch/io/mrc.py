@@ -1,0 +1,170 @@
+"""MRC2014 reader and writer for the port (no mrcfile dependency).
+
+A copy of the part of ``helicon_tpu/io/mrc.py`` that the port's CLI and
+its smoke use: the 1024-byte header (modes 0/1/2/4/6/12, voxel size from
+the cell and mx), one image of a stack, and the writer.
+tests/test_torch_io.py pins the copy to the original in both directions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import struct
+
+import numpy as np
+
+__all__ = ["MrcHeader", "mrc_header", "read_image_2d", "write_mrc"]
+
+_MODE_DTYPES = {
+    0: np.dtype(np.int8),
+    1: np.dtype(np.int16),
+    2: np.dtype(np.float32),
+    4: np.dtype(np.complex64),
+    6: np.dtype(np.uint16),
+    12: np.dtype(np.float16),
+}
+_DTYPE_MODES = {v: k for k, v in _MODE_DTYPES.items()}
+
+
+@dataclasses.dataclass
+class MrcHeader:
+    nx: int
+    ny: int
+    nz: int
+    mode: int
+    nxstart: int = 0
+    nystart: int = 0
+    nzstart: int = 0
+    mx: int = 0
+    my: int = 0
+    mz: int = 0
+    xlen: float = 0.0
+    ylen: float = 0.0
+    zlen: float = 0.0
+    alpha: float = 90.0
+    beta: float = 90.0
+    gamma: float = 90.0
+    mapc: int = 1
+    mapr: int = 2
+    maps: int = 3
+    dmin: float = 0.0
+    dmax: float = 0.0
+    dmean: float = 0.0
+    ispg: int = 0
+    nsymbt: int = 0
+    origin: tuple = (0.0, 0.0, 0.0)
+    rms: float = 0.0
+    nlabl: int = 0
+
+    @property
+    def voxel_size(self):
+        """(apix_x, apix_y, apix_z); 0 when the cell is unset."""
+        mx = self.mx or self.nx
+        my = self.my or self.ny
+        mz = self.mz or self.nz
+        return (
+            self.xlen / mx if mx else 0.0,
+            self.ylen / my if my else 0.0,
+            self.zlen / mz if mz else 0.0,
+        )
+
+    @property
+    def apix(self) -> float:
+        return float(self.voxel_size[0])
+
+    @property
+    def dtype(self):
+        return _MODE_DTYPES[self.mode]
+
+    @property
+    def shape(self):
+        return (self.nz, self.ny, self.nx)
+
+    @property
+    def data_offset(self) -> int:
+        return 1024 + self.nsymbt
+
+
+def mrc_header(path) -> MrcHeader:
+    """Parse the fixed 1024-byte header."""
+    with open(path, "rb") as f:
+        raw = f.read(1024)
+    if len(raw) < 1024:
+        raise ValueError(f"{path}: truncated MRC header ({len(raw)} bytes)")
+    ints = struct.unpack("<10i", raw[0:40])
+    cella = struct.unpack("<3f", raw[40:52])
+    cellb = struct.unpack("<3f", raw[52:64])
+    mapc, mapr, maps = struct.unpack("<3i", raw[64:76])
+    dmin, dmax, dmean = struct.unpack("<3f", raw[76:88])
+    ispg, nsymbt = struct.unpack("<2i", raw[88:96])
+    origin = struct.unpack("<3f", raw[196:208])
+    rms = struct.unpack("<f", raw[216:220])[0]
+    nlabl = struct.unpack("<i", raw[220:224])[0]
+    h = MrcHeader(
+        nx=ints[0], ny=ints[1], nz=ints[2], mode=ints[3],
+        nxstart=ints[4], nystart=ints[5], nzstart=ints[6],
+        mx=ints[7], my=ints[8], mz=ints[9],
+        xlen=cella[0], ylen=cella[1], zlen=cella[2],
+        alpha=cellb[0], beta=cellb[1], gamma=cellb[2],
+        mapc=mapc, mapr=mapr, maps=maps,
+        dmin=dmin, dmax=dmax, dmean=dmean,
+        ispg=ispg, nsymbt=nsymbt, origin=origin, rms=rms, nlabl=nlabl,
+    )
+    if h.mode not in _MODE_DTYPES:
+        raise ValueError(f"{path}: unsupported MRC mode {h.mode}")
+    return h
+
+
+def write_mrc(path, data, apix: float = 1.0, is_stack: bool | None = None):
+    """Write (nz, ny, nx) or (ny, nx) data as MRC2014 (mode from the dtype;
+    other dtypes as float32). is_stack marks an image stack (ispg 0, mz 1);
+    by default a ``.mrcs`` suffix does."""
+    data = np.asarray(data)
+    if data.ndim == 2:
+        data = data[None]
+    if data.ndim != 3:
+        raise ValueError(f"write_mrc: expected 2 or 3 dimensions, got {data.ndim}")
+    dt = data.dtype.newbyteorder("=")
+    if np.dtype(dt) not in _DTYPE_MODES:
+        data = data.astype(np.float32)
+        dt = data.dtype
+    mode = _DTYPE_MODES[np.dtype(dt)]
+    nz, ny, nx = data.shape
+    if is_stack is None:
+        is_stack = str(path).endswith(".mrcs")
+    mz = 1 if is_stack else nz
+
+    dmin = float(np.min(data.real)) if data.size else 0.0
+    dmax = float(np.max(data.real)) if data.size else 0.0
+    dmean = float(np.mean(data.real)) if data.size else 0.0
+    rms = float(np.std(data.real)) if data.size else 0.0
+
+    hdr = bytearray(1024)
+    struct.pack_into("<10i", hdr, 0, nx, ny, nz, mode, 0, 0, 0, nx, ny, mz)
+    struct.pack_into("<3f", hdr, 40, nx * apix, ny * apix, mz * apix)
+    struct.pack_into("<3f", hdr, 52, 90.0, 90.0, 90.0)
+    struct.pack_into("<3i", hdr, 64, 1, 2, 3)
+    struct.pack_into("<3f", hdr, 76, dmin, dmax, dmean)
+    struct.pack_into("<2i", hdr, 88, 0 if is_stack else 1, 0)
+    struct.pack_into("<3f", hdr, 196, 0.0, 0.0, 0.0)
+    hdr[208:212] = b"MAP "
+    hdr[212:216] = bytes([0x44, 0x44, 0x00, 0x00])  # little-endian machst
+    struct.pack_into("<f", hdr, 216, rms)
+    struct.pack_into("<i", hdr, 220, 1)
+    label = b"helicon-tpu"
+    hdr[224 : 224 + len(label)] = label
+    with open(path, "wb") as f:
+        f.write(bytes(hdr))
+        data.astype(dt, copy=False).tofile(f)
+
+
+def read_image_2d(path, index: int = 0) -> np.ndarray:
+    """One 2D image (0-based index) of a stack, as float32, without
+    reading the rest."""
+    h = mrc_header(path)
+    if not 0 <= index < h.nz:
+        raise IndexError(f"{path}: image {index} out of range (nz={h.nz})")
+    n = h.nx * h.ny
+    offset = h.data_offset + index * n * h.dtype.itemsize
+    img = np.fromfile(path, dtype=h.dtype, count=n, offset=offset)
+    return img.reshape(h.ny, h.nx).astype(np.float32)

@@ -655,3 +655,42 @@ def test_refine_on_card_matches_cpu(cuda):
                                             device="cpu")
     np.testing.assert_allclose(p_c, p_h, atol=5e-3)
     np.testing.assert_allclose(s_c, s_h, atol=5e-4)
+
+
+def test_cli_matches_the_call_in_process(cuda, tmp_path):
+    """The port's CLI as a subprocess on the card (a tiny grid on the
+    amyloid class average) writes the .csv of reconstruct_grid called in
+    process with the CLI's own keyword arguments (scores within 1e-5 as
+    printed), and launched B1."""
+    import argparse
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    from helicon_tpu_torch.commands import denovo3d_cli
+    from helicon_tpu_torch.io.mrc import read_image_2d, write_mrc
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    img = np.load(root / "tests" / "data" / "class_avg_amyloid.npy").astype(np.float32)
+    write_mrc(tmp_path / "stack.mrcs", img, apix=2.0)
+    argv = ["stack.mrcs", "out", "--twist", "1", "3", "0.5", "--rise", "4.6", "4.9", "0.15",
+            "--tubeDiameter", "110", "--cgIters", "10", "--fistaIters", "16"]
+    out = subprocess.run([sys.executable, "-m", "helicon_tpu_torch.commands.denovo3d_cli",
+                          *argv], cwd=tmp_path, capture_output=True, text=True, timeout=600,
+                         env=dict(__import__("os").environ, PYTHONPATH=str(root)))
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    eff = json.loads([x for x in out.stdout.splitlines()
+                      if x.startswith("effective: ")][-1][len("effective: "):])
+    assert eff["launches"]["group_solve"] > 0
+    args = denovo3d_cli.add_args(argparse.ArgumentParser()).parse_args(
+        [str(tmp_path / "stack.mrcs"), "unused", *argv[2:]])
+    apix, _, tw, ri, rr = denovo3d_cli.search_plan(args)
+    res = grid.reconstruct_grid(read_image_2d(tmp_path / "stack.mrcs", 0),
+                                **denovo3d_cli.search_kwargs(args, apix, tw, ri, rr))
+    rows = [x.split(",") for x in (tmp_path / "out.csv").read_text().splitlines()[1:]]
+    order = np.argsort(-res.scores)
+    assert [(float(r[0]), float(r[1])) for r in rows] == [
+        (round(float(res.twists[i]), 4), round(float(res.rises[i]), 4)) for i in order]
+    np.testing.assert_allclose([float(r[2]) for r in rows], res.scores[order], rtol=0,
+                               atol=1e-5)

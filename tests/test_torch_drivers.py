@@ -1,7 +1,8 @@
 """The PyTorch port's search drivers against the JAX package: the rise
-bucketing and its re-scoring pass, incremental progress and abort,
-densify_padding, the checkpointed search, the bucket helpers, the copy of
-the exceptions module and the numpy copy of JAX's permutation.
+bucketing and its re-scoring pass (also with pose refinement), incremental
+progress and abort, densify_padding, the checkpointed search, the bucket
+helpers, the copy of the exceptions module and the numpy copy of JAX's
+permutation.
 
 The JAX searches run under jax.disable_jit() with one device, as in
 tests/test_torch_grid.py, on the small two-process multi-host workload of
@@ -192,6 +193,32 @@ def test_bucketed_tiny_workload_matches_reference(tiny_bucketed):
     np.testing.assert_allclose(port.scores, ref.scores, rtol=0, atol=1e-4)
     assert port.best_index == ref.best_index
     assert port.effective["n_buckets"] == len(ref_grid._rise_buckets(ri, 1.6)) == 2
+
+
+def test_bucketed_search_merges_refined_poses(monkeypatch, tmp_path_factory):
+    """Pose refinement on the bucketed search: two rise buckets, each
+    refining its top candidate; the second pass runs without refinement;
+    the winner is refined again alone, its pose merged. The second pass's
+    calls of one candidate per twist take the grouped route in both
+    packages (HELICON_GRID_GROUPED=1; the eager per-candidate path of the
+    reference costs seven times as much, with the same scores:
+    tests/test_torch_grid.py). The bounds of tests/test_torch_refine_grid.py."""
+    from test_torch_refine_grid import RANGE, _same_refined
+
+    monkeypatch.setenv("HELICON_GRID_GROUPED", "1")
+    monkeypatch.setenv("HELICON_NATIVE_CACHE", str(tmp_path_factory.getbasetemp() / "native"))
+    image, tw, ri, kw = _tiny(bucketed=True)
+    kw = dict(kw, refine_tilt_psi_dy_range=dict(RANGE, max_iter=1), return_best_volume=True)
+    # three candidates, rises 3.0, 3.2 and 5.6 A: two buckets
+    tw, ri = tw[[0, 2, 4]], ri[[0, 2, 4]]
+    port, ref = _port(image, tw, ri, **kw), _ref(image, tw, ri, **kw)
+    assert port.effective["n_buckets"] == 2
+    _same_refined(port, ref)
+    np.testing.assert_allclose(port.scores, ref.scores, rtol=0, atol=5e-4)
+    assert port.best_index == ref.best_index
+    assert port.best_index in port.refined_params
+    rel = np.abs(port.best_volume - ref.best_volume).max() / np.abs(ref.best_volume).max()
+    assert rel < 1e-4, rel
 
 
 N_A, N_B = 3, 14  # bucket sizes: B > 10, so the re-scoring pass leaves out 4 of B

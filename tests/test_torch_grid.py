@@ -107,10 +107,11 @@ def test_envelope_matches_reference(amyloid, name):
 
 OUT_OF_SLICE = dict(
     # tilt, psi, ard, ridge, ssim, fsc, thresh and refinement are ported
-    # (the refine rows: test_refine_rows_match_reference below); each case
+    # (the refine rows: tests/test_torch_refine.py's
+    # test_refine_rows_match_reference); each case
     # keeps its name on a combination that still raises: fsc with a 2D
     # metric or thresh on the grouped path (ROADMAP A6.6b), several devices
-    # (A10), cost_analysis (A5c)
+    # (A10b), cost_analysis (A5c)
     ssim=dict(score_metric="ssim", fsc_test=2),
     thresh=dict(thresh_fraction=0.1, fsc_test=3),
     ard=dict(algorithm=dict(model="ard"), devices=["cuda:0", "cuda:1"]),
@@ -127,51 +128,6 @@ def test_out_of_slice_arguments_raise(amyloid, name):
     kw.update(OUT_OF_SLICE[name])
     with pytest.raises(NotImplementedError):
         reconstruct_grid(amyloid, **kw)
-
-
-# the rows that raised until refinement was ported (ROADMAP A8), each
-# against the reference on the true candidate of the small workload of
-# tests/_mh_worker.py (a grid of one goes per candidate in both packages)
-# with six CG and FISTA iterations and one outer iteration: the reference's
-# engine takes the lsq + cosine rows (poses 5e-3, refined scores 5e-4: its
-# own bounds against its JAX loop), its Python loop the ridge row (1e-3 /
-# 1e-4). The reference runs eager (jitted, XLA's fused multiply-adds move
-# nn samples at tilt 0: ROADMAP C6) only in the refine row: its eager
-# solves at a tilted pose cost minutes, so the tilted rows run it jitted,
-# and the ridge row in linear interpolation, whose samples do not jump
-REFINE_ROWS = dict(
-    tilt=dict(tilt=2.0, refine_tilt_psi_dy_range=dict(tilt=5.0, max_iter=1)),
-    psi=dict(psi=1.0, refine_tilt_psi_dy_range=dict(psi=2.0, max_iter=1), refine_mode="all"),
-    refine=dict(refine_tilt_psi_dy_range=dict(tilt=5.0, psi=2.0, dy=1.0, max_iter=1)),
-    ridge=dict(algorithm=dict(model="ridge", alpha=0.1), fsc_test=2, interpolation="linear",
-               refine_tilt_psi_dy_range=dict(dy=1.0, max_iter=1)),
-)
-
-
-@pytest.mark.parametrize("name", sorted(REFINE_ROWS))
-def test_refine_rows_match_reference(name):
-    import contextlib
-
-    from _mh_worker import tiny_workload
-
-    image, tw, ri, kw = tiny_workload()
-    image = np.array(image, np.float32)
-    kw = dict(kw, return_best_volume=True, cg_iters=6, fista_iters=6, **REFINE_ROWS[name])
-    tw, ri = tw[4:5], ri[4:5]
-    port = reconstruct_grid(image, twists=tw, rises=ri, device="cpu", **kw)
-    with jax.disable_jit() if name == "refine" else contextlib.nullcontext():
-        ref = ref_reconstruct_grid(image, twists=tw, rises=ri, devices=jax.devices()[:1], **kw)
-    assert sorted(port.refined_params) == sorted(ref.refined_params)
-    atol = 1e-3 if name == "ridge" else 5e-3
-    for k, v in ref.refined_params.items():
-        np.testing.assert_allclose(port.refined_params[k], v, rtol=0, atol=atol)
-    refined = np.isin(np.arange(len(tw)), list(ref.refined_params))
-    np.testing.assert_allclose(port.scores[refined], ref.scores[refined], rtol=0,
-                               atol=1e-4 if name == "ridge" else 5e-4)
-    np.testing.assert_allclose(port.scores[~refined], ref.scores[~refined], rtol=0, atol=1e-4)
-    assert port.best_index == ref.best_index
-    rel = np.abs(port.best_volume - ref.best_volume).max() / np.abs(ref.best_volume).max()
-    assert rel < 1e-4, rel
 
 
 def _record():
@@ -258,6 +214,9 @@ def test_port_imports_no_jax():
             "helicon_tpu_torch.denovo3d.gather_kernels, helicon_tpu_torch.helix.orient, "
             "helicon_tpu_torch.core.analysis, helicon_tpu_torch.core.denoise, "
             "helicon_tpu_torch.core.filters, helicon_tpu_torch._jax_random, "
-            "helicon_tpu_torch.utils.exceptions, sys; "
+            "helicon_tpu_torch.utils.exceptions, helicon_tpu_torch.utils.logging, "
+            "helicon_tpu_torch.io.mrc, helicon_tpu_torch.parallel, "
+            "helicon_tpu_torch.parallel.multihost, helicon_tpu_torch.commands.helicon, "
+            "helicon_tpu_torch.commands.denovo3d_cli, sys; "
             "assert 'jax' not in sys.modules and 'helicon_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)

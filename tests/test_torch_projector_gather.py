@@ -10,6 +10,8 @@ their largest value, and the transposes by the adjoint identities
 (jax.disable_jit()), where XLA evaluates each float32 operation alone, as
 the port does."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -152,6 +154,55 @@ def test_exact_transposes_do_not_depend_on_order(interpolation, monkeypatch):
     np.testing.assert_array_equal(_np(port_gk.sym_normal(rev, x)), _np(sts))
     S, ST = port_pr.sym_operators(pg, [TWIST], [RISE], phc, pv, interpolation, mask, cellok)
     _close(sts, ST(S(x).double().float()), atol=1e-6, rel=True)
+
+
+@pytest.mark.parametrize("interpolation", ["nn", "linear"])
+@pytest.mark.parametrize("pose", [(3.0, 1.0, 0.5), (-7.5, 2.25, -1.0), (12.0, -4.0, 2.0)])
+def test_pruned_plain_kernels_equal_every_block(interpolation, pose, monkeypatch):
+    """The plain K1, K2 and K3 take only the (copy, row) blocks that reach
+    the volume's z range (_live_chunks): their projection, row validity and
+    transpose equal, bit for bit, the sums over every block of every copy,
+    and K3's float64 sums agree to 1e-12 relative, at tilted, psi and dy
+    poses; and the blocks are _chunks' samples."""
+    pg = port_geo.ReconstructionGeometry(csym=2, **GEOM)
+    rng = np.random.default_rng(5)
+    tabs, _ = _tables(pg, 2)
+    mask = torch.from_numpy(pg.cylindrical_mask().reshape(-1))
+    cellok = torch.from_numpy(pg.cell_valid_mask().reshape(-1))
+    tab = port_gk.gather_tables(pg, [TWIST], [RISE], *(t[None] for t in tabs[:3]), *pose,
+                                interpolation, mask, cellok, derivatives=True)
+    x = torch.from_numpy(rng.random((1,) + pg.volume_shape).astype(np.float32))
+    r = torch.from_numpy(rng.standard_normal(tab.shape).astype(np.float32))
+    b = torch.from_numpy(rng.random(tab.shape[2:]).astype(np.float32))
+    sampler = tab.sampler()
+    k, C, l2, d2 = tab.shape
+    live = sum(len(ci) for ci, *_ in port_gk._live_chunks(tab, 0, sampler))
+    assert 0 < live < C * l2  # some blocks left out, some kept
+
+    def plain():
+        out = port_gk.gather_project_reference(tab, x, row_valid=True)
+        out += (port_gk.gather_backproject_reference(tab, r),)
+        return out + (port_gk.pose_jacobian_reference(tab, x, b) if tab.linear else ())
+
+    pruned = plain()
+    every = functools.partial(port_gk._live_chunks, every=True)
+    monkeypatch.setattr(port_gk, "_live_chunks", every)
+    full = plain()
+    for got, want in zip(pruned[:3], full[:3]):
+        np.testing.assert_array_equal(_np(got), _np(want))
+    for got, want in zip(pruned[3:], full[3:]):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12, atol=0)
+    # every block holds _chunks' samples, bit for bit
+    zyx = {}
+    for ci, ii, (Z, Y, X), _, _ in every(tab, 0, sampler):
+        for n, (c, i) in enumerate(zip(ci.tolist(), ii.tolist())):
+            zyx[c, i] = (Z[n], Y[n], X[n])
+    for sl, (Z, Y, X), _, _ in port_gk._chunks(tab, 0, sampler):
+        for c in range(sl.start, sl.stop):
+            for i in range(l2):
+                for got, want in zip(zyx[c, i], (Z[c - sl.start, i], Y[c - sl.start, i],
+                                                 X[c - sl.start, i])):
+                    assert torch.equal(got, want)
 
 
 def test_live_rays_list_the_valid_rows():

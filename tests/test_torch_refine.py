@@ -14,6 +14,11 @@ against jax.jacfwd's new pose 1e-4 and r^T r 1e-4 relative. The JAX loops
 run jitted with linear interpolation, whose samples do not jump where
 XLA's fused multiply-adds move a coordinate (nearest-neighbour ties do:
 ROADMAP C6); the engine's route and the Gauss-Newton step run nn too.
+
+At the end, reconstruct_grid's refinement rows on the small workload of
+tests/_mh_worker.py, and the checkpointed search with refinement (the
+bucketed one: tests/test_torch_drivers.py; the one-shot search:
+tests/test_torch_refine_grid.py).
 """
 
 import dataclasses
@@ -29,10 +34,13 @@ import jax.numpy as jnp
 
 import helicon_tpu.denovo3d.refine as ref_refine
 from helicon_tpu.denovo3d import build_candidate_grid
+from helicon_tpu.denovo3d import checkpoint as ref_checkpoint
 from helicon_tpu.denovo3d.grid import reconstruct_grid as ref_reconstruct_grid
 from helicon_tpu.helix import simulate_helical_projection
 from helicon_tpu.native import load_refine_engine
 from helicon_tpu_torch.denovo3d import geometry as port_geometry
+from helicon_tpu_torch.denovo3d import reconstruct_grid as port_reconstruct_grid
+from helicon_tpu_torch.denovo3d import reconstruct_grid_checkpointed
 from helicon_tpu_torch.denovo3d import refine as port_refine
 from helicon_tpu_torch.denovo3d import solver as port_solver
 
@@ -221,3 +229,81 @@ def test_all_negative_region_clamps_upper_bound(problem):
     np.testing.assert_array_equal(s, s_ref)
     np.testing.assert_allclose(p, p_ref, rtol=0, atol=5e-3)
     np.testing.assert_allclose(p, np.broadcast_to(np.float32(start), p.shape), atol=1e-6)
+
+
+# the rows that raised until refinement was ported (ROADMAP A8), each
+# against the reference on the true candidate of the small workload of
+# tests/_mh_worker.py (a grid of one goes per candidate in both packages)
+# with six CG and FISTA iterations and one outer iteration: the reference's
+# engine takes the lsq + cosine rows (poses 5e-3, refined scores 5e-4: its
+# own bounds against its JAX loop), its Python loop the ridge row (1e-3 /
+# 1e-4). The reference runs eager (jitted, XLA's fused multiply-adds move
+# nn samples at tilt 0: ROADMAP C6) only in the refine row: its eager
+# solves at a tilted pose cost minutes, so the tilted rows run it jitted,
+# and the ridge row in linear interpolation, whose samples do not jump
+REFINE_ROWS = dict(
+    tilt=dict(tilt=2.0, refine_tilt_psi_dy_range=dict(tilt=5.0, max_iter=1)),
+    psi=dict(psi=1.0, refine_tilt_psi_dy_range=dict(psi=2.0, max_iter=1), refine_mode="all"),
+    refine=dict(refine_tilt_psi_dy_range=dict(tilt=5.0, psi=2.0, dy=1.0, max_iter=1)),
+    ridge=dict(algorithm=dict(model="ridge", alpha=0.1), fsc_test=2, interpolation="linear",
+               refine_tilt_psi_dy_range=dict(dy=1.0, max_iter=1)),
+)
+
+
+@pytest.mark.parametrize("name", sorted(REFINE_ROWS))
+def test_refine_rows_match_reference(name):
+    """reconstruct_grid with pose refinement, row by row."""
+    import contextlib
+
+    from _mh_worker import tiny_workload
+
+    image, tw, ri, kw = tiny_workload()
+    image = np.array(image, np.float32)
+    kw = dict(kw, return_best_volume=True, cg_iters=6, fista_iters=6, **REFINE_ROWS[name])
+    tw, ri = tw[4:5], ri[4:5]
+    port = port_reconstruct_grid(image, twists=tw, rises=ri, device="cpu", **kw)
+    with jax.disable_jit() if name == "refine" else contextlib.nullcontext():
+        ref = ref_reconstruct_grid(image, twists=tw, rises=ri, devices=jax.devices()[:1], **kw)
+    assert sorted(port.refined_params) == sorted(ref.refined_params)
+    atol = 1e-3 if name == "ridge" else 5e-3
+    for k, v in ref.refined_params.items():
+        np.testing.assert_allclose(port.refined_params[k], v, rtol=0, atol=atol)
+    refined = np.isin(np.arange(len(tw)), list(ref.refined_params))
+    np.testing.assert_allclose(port.scores[refined], ref.scores[refined], rtol=0,
+                               atol=1e-4 if name == "ridge" else 5e-4)
+    np.testing.assert_allclose(port.scores[~refined], ref.scores[~refined], rtol=0, atol=1e-4)
+    assert port.best_index == ref.best_index
+    rel = np.abs(port.best_volume - ref.best_volume).max() / np.abs(ref.best_volume).max()
+    assert rel < 1e-4, rel
+
+
+@pytest.mark.parametrize("mode", ["topk", "all"])
+def test_checkpointed_refine_matches_reference(mode, tmp_path, tmp_path_factory, monkeypatch):
+    """The checkpointed search with pose refinement (the pattern of
+    tests/test_checkpoint.py) on tests/test_torch_refine_grid.py's small
+    workload and bounds: scores, refined poses and winner as the
+    reference's, and the shard's poses as the reference writes them (topk:
+    the coarse pass only, no poses; all: every chunk's: top-k deferred to
+    bucket geometry, "all" inside each chunk). No best volume: the
+    winner's re-solve is the one-shot search's (tests/test_torch_drivers.py)."""
+    from test_torch_refine_grid import ALL, RANGE as GRID_RANGE, _same_refined, _same_scores, \
+        _tiny
+
+    monkeypatch.setenv("HELICON_NATIVE_CACHE", str(tmp_path_factory.getbasetemp() / "native"))
+    image, tw, ri, kw = _tiny(refine_tilt_psi_dy_range=dict(GRID_RANGE, max_iter=1),
+                              **(dict(refine_top_k=2) if mode == "topk" else ALL))
+    tw, ri = tw[2:6], ri[2:6]
+    with jax.disable_jit():
+        ref = ref_checkpoint.reconstruct_grid_checkpointed(
+            image, twists=tw, rises=ri, checkpoint_path=str(tmp_path / "ref.npz"), chunk=2,
+            devices=jax.devices()[:1], **kw)
+    port = reconstruct_grid_checkpointed(image, twists=tw, rises=ri,
+                                         checkpoint_path=str(tmp_path / "port.npz"), chunk=2,
+                                         device="cpu", **kw)
+    _same_refined(port, ref)
+    _same_scores(port, ref)
+    assert port.best_index == ref.best_index
+    z_ref, z_port = np.load(tmp_path / "ref.npz"), np.load(tmp_path / "port.npz")
+    np.testing.assert_array_equal(z_port["pose_mask"], z_ref["pose_mask"])
+    np.testing.assert_allclose(z_port["pose"], z_ref["pose"], rtol=0, atol=5e-3)
+    assert z_port["pose_mask"].all() == (mode == "all")

@@ -1,7 +1,7 @@
 """The PyTorch port's grid search with pose refinement against the JAX
 package: reconstruct_grid with refine_mode "topk" and "all" on both of the
-reference's refine routes (tests/test_torch_refine_drivers.py holds the
-bucketed and the checkpointed searches).
+reference's refine routes (tests/test_torch_drivers.py holds the bucketed
+search with refinement, tests/test_torch_refine.py the checkpointed one).
 
 The small workload of tests/_mh_worker.py, its JAX searches eager
 (jax.disable_jit(), one device) as in tests/test_torch_drivers.py. The

@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs eleven phases and fails (non-zero exit) if any fails:
+checkout, then runs twelve phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
@@ -127,7 +127,26 @@ checkout, then runs eleven phases and fails (non-zero exit) if any fails:
    candidates, launches, peak memory and exchange time; and the one
    process's float32 search in this process with its first B1 launch
    and first B2 launch held against plain (scores within 1e-4, x within
-   1e-3 relative).
+   1e-3 relative);
+12. the denovo3D web app's compute path: (a) process_one_task at the
+   golden's top-1 (2.0 deg, 4.75 A) on the amyloid at 2 A/px in float32,
+   at tilt 0 (lsq_reconstruct on B2) and with the app's refinement
+   (refine_tilt 5: K1-K4): at the bench's iterations (set as SolveConfig's
+   defaults) held against the same task with device="cpu" (tilt 0) or on
+   plain K1-K4 and B2 on the card (the refinement): score 1e-4, rec3d and
+   the three display images 1e-3 relative; then at the app's own budget
+   (120 / 120 / 8), timed only and checked finite; each run with its wall
+   and parts (lsq_reconstruct's tables, refine, pair tables and solve with
+   its build / solve / score, the re-symmetrization, transform_map, and the
+   rest: prep and display; timed by wrapping those functions), then
+   apply_helical_symmetry's shape, copies and time and transform_map's
+   (CUDA events); (b) the workflow's run_grid_incremental on phase 4's grid:
+   every snapshot best-first, the scores within 1e-6 of phase 8 (c)'s same
+   call, then an abort after the first launch ranking only scored rows;
+   (c) the simulation mode, symmetrize_projection of (a)'s volume at the
+   app's defaults, a finite (1, 128, 256) stack; (d) fsc 2 with lreg and
+   with ssim on B1's grouped path (halves scored in torch) on 260
+   candidates of phase 4, against the plain B1 (float32 1e-4, bf16 1e-3).
 
 The last two lines of standard output are the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them lists each
@@ -136,7 +155,8 @@ and B3, phase 10 (c) for K1-K4; B1's and B2's on the bucketed path of
 phase 8, B2's on phase 9's per-candidate searches too, with its matvec
 entry and its j-dependent z-Gram; K1-K4's on phases 9 (b) and 10 (d)),
 and on phase 11's CLI runs (launches_cli; B1's and B2's first float32
-launches of (d) against plain, cli_wide_float32), its error against the
+launches of (d) against plain, cli_wide_float32) and phase 12's
+(launches_webapp), its error against the
 plain version, its time, the plain version's time and the least time the card could take for the same work
 (inputs larger than the 50 MB L2 counted once per matvec that reads them;
 bound_two_pass_ms counts the stacked operand once per product).
@@ -1195,7 +1215,7 @@ def phase_incremental(device, phase4_scores) -> dict:
             and np.isneginf(part.scores).sum() == len(tw) - scored
             and part.best_volume is None):
         raise AssertionError("phase 8 (c): the aborted search is not partial or solved a volume")
-    return dict(launches=n_launch, wall=wall, wall_one=wall_one)
+    return dict(launches=n_launch, wall=wall, wall_one=wall_one, scores=res.scores)
 
 
 def phase_checkpointed(device, bucketed) -> dict:
@@ -2501,6 +2521,362 @@ def phase_cli_two_processes(device, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the web app's compute path
+# ---------------------------------------------------------------------------
+
+# the golden's top-1 as one web-app task on the amyloid at its own pixel
+# size (tube 110 A, the geometry and oversampling derived as the app does)
+WEBAPP_TASK = dict(ti=0, ntasks=1, imageFile="class_avg_amyloid.npy", imageIndex=1, twist=2.0,
+                   rise=4.75, rise_range=(4.75, 4.75), csym=1, tilt=0.0, tilt_range=(0.0, 0.0),
+                   psi=0.0, psi_range=0.0, dy=0.0, dy_range=0.0, apix2d_orig=2.0, denoise="",
+                   low_pass=-1, transpose=0, horizontalize=0, target_apix3d=-1,
+                   target_apix2d=2.0, thresh_fraction=-1, positive_constraint=-1,
+                   tube_length=-1, tube_diameter=110.0, tube_diameter_inner=0.0,
+                   reconstruct_length=-1, sym_oversample=-1, interpolation="nn", fsc_test=0,
+                   return_3d=True, score_metric="cosine", algorithm=dict(model="lsq"),
+                   verbose=0)
+
+
+def _counts() -> dict:
+    """Every kernel's launch count (B1, B2 / B3's entries, K1-K4)."""
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs, gather_kernels as gk
+    from helicon_tpu_torch.denovo3d import group_solve as gs
+
+    return dict(group_solve=gs.launches, **cs.launches, **gk.launches)
+
+
+def _zero_counts() -> None:
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs, gather_kernels as gk
+    from helicon_tpu_torch.denovo3d import group_solve as gs
+
+    gs.launches = 0
+    _zero(cs.launches)
+    _zero(gk.launches)
+
+
+@contextlib.contextmanager
+def _solve_budget(cg: int, fista: int, power: int):
+    """SolveConfig's iteration defaults set to (cg, fista, power) for the
+    duration (the web app sends none of its own: it solves at the
+    defaults, 120 / 120 / 8)."""
+    from helicon_tpu_torch.denovo3d.solver import SolveConfig
+
+    saved = SolveConfig.__new__.__defaults__
+    defaults, names = list(saved), list(SolveConfig._fields)
+    for name, v in (("cg_iters", cg), ("fista_iters", fista), ("power_iters", power)):
+        defaults[names.index(name)] = v
+    SolveConfig.__new__.__defaults__ = tuple(defaults)
+    try:
+        yield
+    finally:
+        SolveConfig.__new__.__defaults__ = saved
+
+
+@contextlib.contextmanager
+def _timed_parts(parts: dict):
+    """process_one_task's parts timed for the duration: the functions it
+    calls by module attribute, each wrapped to add its host seconds (the
+    card synchronised before and after) to ``parts``: lsq_reconstruct's
+    setup (geometry, copy and pair tables, region; "tables"), its pose
+    refinement ("refine") and its refine-and-solve step ("refine_solve");
+    the final solve_candidates call ("solve", with its build_s / solve_s /
+    score_s; the refinement's own solves are not counted there);
+    apply_helical_symmetry ("sym") and transform_map ("xform")."""
+    import torch
+
+    from helicon_tpu_torch.core import transforms
+    from helicon_tpu_torch.denovo3d import refine, solver
+
+    in_refine = []
+
+    def timed(fn, key, with_times=False):
+        def run(*args, **kw):
+            if with_times and not in_refine:
+                kw["times"] = parts
+            if key == "refine":
+                in_refine.append(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                if key == "refine":
+                    in_refine.pop()
+                if not (with_times and in_refine):
+                    parts[key] = parts.get(key, 0.0) + time.perf_counter() - t0
+        return run
+
+    spots = ((solver, "_one_candidate", "tables", False),
+             (solver, "_refine_and_solve", "refine_solve", False),
+             (refine, "refine_tilt_psi_dy", "refine", False),
+             (solver, "solve_candidates", "solve", True),
+             (transforms, "apply_helical_symmetry", "sym", False),
+             (transforms, "transform_map", "xform", False))
+    saved = [getattr(mod, name) for mod, name, _, _ in spots]
+    for mod, name, key, with_times in spots:
+        setattr(mod, name, timed(getattr(mod, name), key, with_times))
+    try:
+        yield
+    finally:
+        for (mod, name, _, _), fn in zip(spots, saved):
+            setattr(mod, name, fn)
+
+
+def _run_task(task, device) -> tuple:
+    """One process_one_task call on the card, its counts set to 0 just
+    before and read just after: (result, wall s, parts, launches, refined
+    pose)."""
+    import torch
+
+    from helicon_tpu_torch.denovo3d import process_one_task, solver
+
+    parts = {}
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _timed_parts(parts):
+        got = process_one_task(**task, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return got, wall, parts, _counts(), dict(solver.lsq_reconstruct._refined_params)
+
+
+def _parts_text(wall, parts) -> str:
+    refine = parts.get("refine", 0.0)
+    pair_tables = parts["refine_solve"] - refine - parts["solve"]
+    rest = wall - parts["tables"] - parts["refine_solve"] - parts["sym"] - parts["xform"]
+    return (f"task wall {wall:.3f} s; lsq_reconstruct tables {parts['tables']:.3f} s, refine "
+            f"{refine:.3f} s, pair tables {pair_tables:.3f} s, solve {parts['solve']:.3f} s "
+            f"(build {parts['build_s']:.3f}, solve {parts['solve_s']:.3f}, score "
+            f"{parts['score_s']:.3f}); re-symmetrization {parts['sym']:.3f} s, transform_map "
+            f"{parts['xform']:.3f} s; prep and display (the rest) {rest:.3f} s")
+
+
+def _task_errors(got, want) -> dict:
+    """A task's score error and the relative errors of rec3d and the three
+    display images (x / y projections, z sections) against another run."""
+    import numpy as np
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    errs = dict(score=abs(got[0] - want[0]), rec3d=rel(got[1][3][0], want[1][3][0]))
+    for name, g, w in zip(("x_proj", "y_proj", "z_sections"), got[1][:3], want[1][:3]):
+        errs[name] = rel(g, w)
+    return errs
+
+
+def phase_webapp_task(device, card) -> dict:
+    """Phase 12 (a): process_one_task at the golden's top-1 in float32, at
+    tilt 0 (lsq_reconstruct on B2) and with the app's refinement
+    (refine_tilt 5: K1-K4). Each runs at the bench's iterations (ITERS,
+    set as SolveConfig's defaults), held against the same task with
+    device="cpu" (tilt 0) or on the card with K1-K4 and B2 swapped for
+    their plain versions (the refinement, whose gather solves on the CPU
+    take minutes): score 1e-4, rec3d and the display images 1e-3 relative;
+    then at the app's own budget (SolveConfig's defaults, 120 / 120 / 8),
+    timed only and checked finite. Each run is driven with every count set
+    to 0 just before and read just after, and prints the task's wall (host
+    clock, synchronised) and its parts (_timed_parts); then
+    apply_helical_symmetry and transform_map alone on the task's volume
+    (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.core.transforms import apply_helical_symmetry, transform_map
+    from helicon_tpu_torch.denovo3d import process_one_task
+
+    img = np.load(AMYLOID)
+    out = {}
+    for label, over in (("tilt 0", {}), ("refine_tilt 5", dict(tilt_range=(-5.0, 5.0)))):
+        task = dict(WEBAPP_TASK, data=img, **over)
+        with _solve_budget(*ITERS):
+            got, wall, parts, launches, pose = _run_task(task, device)
+            if over:
+                with _plain_gather(), _b2_solve(plain=True):
+                    want = process_one_task(**task, device=device)
+                against = "plain K1-K4 and B2 on the card"
+            else:
+                want = process_one_task(**task, device="cpu")
+                against = 'device="cpu" (plain)'
+        errs = _task_errors(got, want)
+        app, wall_app, parts_app, launches_app, pose_app = _run_task(task, device)
+        # the re-symmetrization and the transform alone, on the task's volume
+        (score, (x_proj, _, _, vols, d2, d3, l2, l3), meta) = got
+        rec3d = torch.as_tensor(vols[0], device=device)
+        ny, new_length = x_proj.shape
+        sym_kw = dict(apix=meta[3], twist_degree=task["twist"], rise_angstrom=task["rise"],
+                      csym=task["csym"], new_size=(new_length, ny, ny),
+                      new_apix=task["apix2d_orig"])
+        n_hsym = max(1, int(new_length * task["apix2d_orig"] / task["rise"]))
+        copies = (2 * n_hsym + 1) * task["csym"]
+        ms_sym = _time_ms(lambda: apply_helical_symmetry(rec3d, **sym_kw), 3)
+        vol = apply_helical_symmetry(rec3d, **sym_kw)
+        viz = dict(tilt=pose.get("tilt", task["tilt"]), psi=pose.get("psi", task["psi"]),
+                   dy=pose.get("dy", task["dy"]) / task["apix2d_orig"])
+        identity = not any(viz.values())
+        ms_xf = _time_ms(lambda: transform_map(vol, **viz), 3)
+        print(f"phase 12 (a) [{label}, float32, iterations {ITERS}]: {_parts_text(wall, parts)}; "
+              f"d2={d2} d3={d3} l2={l2} l3={l3}, score {score:.6f}, refined pose "
+              f"{pose or 'none'}; launches {launches}; {card}", flush=True)
+        print(f"phase 12 (a) [{label}, float32, the app's iterations (120, 120, 8), timing "
+              f"only]: {_parts_text(wall_app, parts_app)}; l3={app[1][7]}, score "
+              f"{app[0]:.6f}, refined pose {pose_app or 'none'}; launches {launches_app}; "
+              f"{card}", flush=True)
+        print(f"phase 12 (a) [{label}]: apply_helical_symmetry {tuple(rec3d.shape)} -> "
+              f"{tuple(vol.shape)}, {copies} copies, {ms_sym:.3f} ms; transform_map "
+              f"{tuple(vol.shape)} at {viz}{' (the identity)' if identity else ''} "
+              f"{ms_xf:.3f} ms (CUDA events, 3 calls); {card}", flush=True)
+        print(f"phase 12 (a) [{label}]: against {against}: score abs err {errs['score']:.3e} "
+              f"(limit 1e-4), rel err rec3d {errs['rec3d']:.3e}, x {errs['x_proj']:.3e}, y "
+              f"{errs['y_proj']:.3e}, z {errs['z_sections']:.3e} (limit 1e-3)", flush=True)
+        need = (("gather_project", "gather_backproject", "pose_jacobian", "sym_normal") if over
+                else ("solve_candidate",))
+        if any(n[k] <= 0 for n in (launches, launches_app) for k in need):
+            raise AssertionError(f"phase 12 (a) [{label}]: a kernel of the path did not launch "
+                                 f"({launches}, {launches_app})")
+        finite = all(np.all(np.isfinite(a)) for r in (got, app) for a in (*r[1][:3], r[1][3][0]))
+        if not (finite and errs["score"] <= 1e-4
+                and max(v for k, v in errs.items() if k != "score") <= 1e-3):
+            raise AssertionError(f"phase 12 (a) [{label}]: finite {finite}, {errs}")
+        out[label] = dict(wall=wall, parts=parts, launches=launches, errs=errs, ms_sym=ms_sym,
+                          ms_xform=ms_xf, copies=copies, shape=tuple(vol.shape), vol=vol,
+                          task=task, wall_app=wall_app, parts_app=parts_app,
+                          launches_app=launches_app)
+    return out
+
+
+def phase_webapp_grid(device, incremental_scores) -> dict:
+    """Phase 12 (b): the workflow's run_grid_incremental on phase 4's 2,327
+    candidates (no batch_size: the reference's automatic batch a launch),
+    counts set to 0 just before and read just after: every snapshot
+    best-first and of finite scores, done rising to 2,327, the final scores
+    within 1e-6 of phase 8 (c)'s reconstruct_grid call with the same
+    incremental arguments; then aborted after the first launch: its final
+    snapshot aborted, done below the total, ranking only scored rows."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.webApps.denovo3D.workflow import run_grid_incremental
+
+    tw, ri = _real_size_grid()
+    img = np.load(AMYLOID)
+    kw = dict(tube_diameter=110.0, cg_iters=10, fista_iters=16, power_iters=2, device=device,
+              return_best_volume=True)
+    snaps = []
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_grid_incremental(img, 2.0, tw, ri, on_progress=snaps.append, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    ordered = all([r[2] for r in p.ranked] == sorted((r[2] for r in p.ranked), reverse=True)
+                  and all(np.isfinite(r[2]) for r in p.ranked) for p in snaps)
+    done = [p.done for p in snaps]
+    delta = float(np.abs(res.scores - incremental_scores).max())
+    polls = []
+    part_snaps = []
+    run_grid_incremental(img, 2.0, tw, ri, on_progress=part_snaps.append,
+                         should_abort=lambda: polls.append(1) or len(polls) > 1, **kw)
+    final = part_snaps[-1]
+    print(f"phase 12 (b) [run_grid_incremental, {len(tw)} candidates]: {wall:.3f} s wall, "
+          f"{len(snaps)} snapshots (done {done[:3]} ... {done[-1]}), every snapshot best-first: "
+          f"{ordered}, top-1 {snaps[-1].ranked[0]}; max |score - phase 8 (c)'s| {delta:.3e} "
+          f"(limit 1e-6); launches {launches}; aborted after the first launch: "
+          f"{len(part_snaps)} snapshots, final done {final.done} of {final.total}, "
+          f"{len(final.ranked)} ranked rows, aborted {final.aborted}", flush=True)
+    if not (ordered and done == sorted(done) and done[-1] == len(tw) and delta <= 1e-6
+            and launches["group_solve"] > 0 and final.aborted and final.done < final.total
+            and all(np.isfinite(r[2]) for r in final.ranked)
+            and len(final.ranked) == min(final.done, 200)):
+        raise AssertionError("phase 12 (b): the incremental grid's snapshots or scores are off")
+    return dict(wall=wall, launches=launches, delta=delta, snapshots=len(snaps))
+
+
+def phase_webapp_simulate(device, task) -> dict:
+    """Phase 12 (c): the app's simulation mode, symmetrize_projection of
+    (a)'s re-symmetrized volume at the app's defaults (output 5 A/px, 256 x
+    128 x 128, no rotation, tilt or noise) with the volume's own twist and
+    rise: a finite (1, 128, 256) stack."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.webApps.denovo3D.workflow import symmetrize_projection
+
+    vol = task["vol"].cpu().numpy()
+    kw = dict(apix=task["task"]["apix2d_orig"], twist_degree=task["task"]["twist"],
+              rise_angstrom=task["task"]["rise"], csym=1, new_size=(256, 128, 128), new_apix=5.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proj, apix = symmetrize_projection(vol, device=device, **kw)
+    wall = time.perf_counter() - t0
+    print(f"phase 12 (c) [symmetrize_projection {vol.shape} at {kw}]: stack {proj.shape} "
+          f"{proj.dtype}, {apix} A/px, finite {bool(np.all(np.isfinite(proj)))}, max "
+          f"{float(proj.max()):.4f}, {wall:.3f} s", flush=True)
+    if proj.shape != (1, 128, 256) or not np.all(np.isfinite(proj)) or not proj.max() > 0:
+        raise AssertionError("phase 12 (c): the simulated stack is misshapen or not finite")
+    return dict(wall=wall)
+
+
+def phase_webapp_grouped_fsc(device) -> dict:
+    """Phase 12 (d): fsc 2 with lreg and with ssim on the grouped path (B1's
+    three solves a launch, the halves scored in torch: ROADMAP A6.6b) on 20
+    twists of phase 4's grid (260 candidates), counts set to 0 just before
+    and read just after the kernel run; each grouped scorer call rerun with
+    the plain B1 on the same card tensors: float32 scores within 1e-4,
+    bf16 within 1e-3. (elasticnet with fsc goes per candidate by the
+    reference's rule: phase 9 (d) holds it on B2.)"""
+    import numpy as np
+
+    from helicon_tpu_torch.denovo3d import grid, group_solve as gs, reconstruct_grid
+
+    tw, ri = _real_size_grid()
+    sub = np.isin(tw, np.unique(tw)[:20])
+    tw, ri = tw[sub], ri[sub]
+    out, total = {}, 0
+    for name, opt in (("lreg", dict(algorithm=dict(model="lreg"))),
+                      ("ssim", dict(score_metric="ssim"))):
+        for dtype, tol in (("float32", 1e-4), ("bfloat16", 1e-3)):
+            captured, scorer = {}, grid._grouped_scoring
+
+            def capture(*args, **kw):
+                captured.update(args=args, kw=kw)
+                return scorer(*args, **kw)
+
+            grid._grouped_scoring = capture
+            _zero_counts()
+            try:
+                res = reconstruct_grid(np.load(AMYLOID), apix=2.0, twists=tw, rises=ri,
+                                       tube_diameter=110.0, cg_iters=10, fista_iters=16,
+                                       power_iters=2, fsc_test=2, compute_dtype=dtype,
+                                       device=device, return_best_volume=False, **opt)
+            finally:
+                grid._grouped_scoring = scorer
+            launches = _counts()["group_solve"]
+            total += launches
+            run = grid._tf32_off(scorer)
+            s_p, _ = run(*captured["args"], **dict(captured["kw"],
+                                                   solve=gs.solve_group_reference))
+            err = float(np.abs(res.scores - s_p).max())
+            e = res.effective
+            print(f"phase 12 (d) [fsc 2, {name}, {dtype}, {len(tw)} candidates, path "
+                  f"{e['path']}, score in kernel {e['score_in_kernel']}]: B1 {launches} launches, "
+                  f"build {e['build_s']:.3f} s, solve {e['solve_s']:.3f} s, score "
+                  f"{e['score_s']:.3f} s; score abs err against plain B1 {err:.3e} "
+                  f"(limit {tol:g})", flush=True)
+            if (e["path"] != "grouped" or e["score_in_kernel"] or launches <= 0
+                    or not np.all(np.isfinite(res.scores)) or not err <= tol):
+                raise AssertionError(f"phase 12 (d) [{name}, {dtype}]: B1 differs from plain "
+                                     f"by {err} or did not run the grouped path")
+            out[(name, dtype)] = dict(max_abs_err=err, launches=launches)
+    out["launches"] = total
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2550,7 +2926,7 @@ def main() -> int:
     bucketed = phase_bucketed(device)
     phase_bucketed(device, "phase 8 (a) [the CLI's prep]", transpose=-1, horizontalize=1)
     r1 = phase_r1(device, bucketed)
-    phase_incremental(device, nn_scores)
+    incremental = phase_incremental(device, nn_scores)
     phase_checkpointed(device, bucketed)
     phase_prep(device)
     phase_fsc1(device, solve_launches)
@@ -2565,12 +2941,22 @@ def main() -> int:
     refine_all = phase_refine_all(device, card)
     cli_runs = phase_cli(device, card)
     wide = phase_cli_two_processes(device, card)
+    t12 = time.perf_counter()
+    webapp = phase_webapp_task(device, card)
+    webapp_grid = phase_webapp_grid(device, incremental["scores"])
+    phase_webapp_simulate(device, webapp["tilt 0"])
+    webapp_fsc = phase_webapp_grouped_fsc(device)
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+    webapp_launches = {k: sum(d["launches"][k] for d in (*webapp.values(), webapp_grid))
+                       + sum(d["launches_app"][k] for d in webapp.values()) for k in _counts()}
+    webapp_launches["group_solve"] += webapp_fsc["launches"]
 
     def entry(name, src, replaces, launches, r, **extra):
         return dict(name=name, route="cuda", source=CSRC + src, replaces=replaces,
                     launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=r.get("library_ms"), **extra)
+                    library_ms=r.get("library_ms"), launches_webapp=webapp_launches[name],
+                    **extra)
 
     def other(n, interp):
         """A gather kernel's launches on phase 9 (b)'s and 10 (d)'s paths and

@@ -1,11 +1,11 @@
-"""Fourier-space filters on ``torch.fft``: the Gaussian low/high-pass and
-the anti-aliased down-scaling (Gaussian prefilter, then a cubic B-spline
-resample).
+"""Filters on tensors: the threshold clip, and on ``torch.fft`` the
+Gaussian low/high-pass and the anti-aliased down-scaling (Gaussian
+prefilter, then a cubic B-spline resample).
 
-Counterpart of ``helicon_tpu/core/filters.py:151`` (``_normalized_r2``),
-``:165`` (``low_high_pass_filter``), ``:181`` (``_gaussian_blur``),
-``:195`` (``down_scale``) and ``:224`` (``_down_scale_jit``). Each runs on
-the device of the tensor it is given.
+Counterpart of ``helicon_tpu/core/filters.py:139`` (``threshold_data``),
+``:151`` (``_normalized_r2``), ``:165`` (``low_high_pass_filter``),
+``:181`` (``_gaussian_blur``), ``:195`` (``down_scale``) and ``:224``
+(``_down_scale_jit``). Each runs on the device of the tensor it is given.
 """
 
 from __future__ import annotations
@@ -15,9 +15,24 @@ import logging
 import numpy as np
 import torch
 
-__all__ = ["low_high_pass_filter", "down_scale"]
+__all__ = ["low_high_pass_filter", "down_scale", "threshold_data"]
 
 logger = logging.getLogger(__name__)
+
+
+def threshold_data(data, thresh_fraction=None, thresh_value=None):
+    """Clip values below a threshold (thresh_fraction >= 0: that fraction of
+    the maximum; else thresh_value) and shift so the threshold maps to 0;
+    neither given: the data unchanged (counterpart of
+    ``helicon_tpu/core/filters.py:139``)."""
+    data = torch.as_tensor(data)
+    if thresh_fraction is not None and thresh_fraction >= 0:
+        thresh = data.max() * thresh_fraction
+    elif thresh_value is not None:
+        thresh = torch.as_tensor(thresh_value, dtype=data.dtype, device=data.device)
+    else:
+        return data
+    return torch.clamp_min(data, thresh) - thresh
 
 
 def _normalized_r2(shape) -> np.ndarray:

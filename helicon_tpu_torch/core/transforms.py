@@ -1,9 +1,12 @@
-"""Image transforms the denovo3d prep chain needs: ``transform_image``
-(rotation about the centre), ``rotate_shift_image`` (rotation about a
-centre with pre/post shifts) and ``pad_to_size``.
+"""Image and volume transforms: ``transform_image`` (rotation about the
+centre), ``rotate_shift_image`` (rotation about a centre with pre/post
+shifts), ``pad_to_size``, the centre crops, the helical symmetrization
+``apply_helical_symmetry`` and the cubic volume transform
+``transform_map``.
 
-Counterpart of ``helicon_tpu/core/transforms.py:261``, ``:326`` and
-``:401``.
+Counterpart of ``helicon_tpu/core/transforms.py:261``, ``:326``, ``:401``,
+``:370`` / ``:378`` (the crops), ``:143`` with ``_helical_sym_accumulate``
+:65, and ``:219``. Each runs on the device of the tensor it is given.
 """
 
 from __future__ import annotations
@@ -14,9 +17,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import rotation
 from .interp import map_coordinates
 
-__all__ = ["transform_image", "rotate_shift_image", "pad_to_size"]
+__all__ = ["transform_image", "rotate_shift_image", "pad_to_size", "crop_center",
+           "crop_center_z", "apply_helical_symmetry", "transform_map"]
 
 
 def transform_image(image, rotation: float = 0.0, order: int = 1):
@@ -94,3 +99,166 @@ def pad_to_size(data, shape):
     if isinstance(data, torch.Tensor):
         return F.pad(data, [p for pair in reversed(pads) for p in pair])
     return np.pad(data, pads)
+
+
+def crop_center_z(data, n: int):
+    """Keep n central z slices; the end is nz // 2 + n // 2 + n, as the
+    reference's (so up to n // 2 more than n)."""
+    if data.ndim != 3:
+        raise ValueError("crop_center_z takes a 3D array")
+    nz = data.shape[0]
+    return data[nz // 2 - n // 2 : nz // 2 + n // 2 + n]
+
+
+def crop_center(data, shape, center_offset=None):
+    """The central region of shape ``shape`` of a 2D or 3D array or tensor,
+    optionally offset from the centre (clipped at the edges)."""
+    if data.ndim not in (2, 3) or data.ndim != len(shape):
+        raise ValueError("crop_center takes a 2D or 3D array and a shape of its rank")
+    if tuple(data.shape) == tuple(shape):
+        return data
+    offset = center_offset if center_offset is not None else (0,) * data.ndim
+    sl = []
+    for n, m, d in zip(data.shape, shape, offset):
+        lo = max(0, n // 2 + d - m // 2)
+        sl.append(slice(lo, min(n, lo + m)))
+    return data[tuple(sl)]
+
+
+# elements of one symmetry-copy chunk's work tensors (each temporary of
+# apply_helical_symmetry holds chunk x work-volume values)
+SYM_CHUNK_ELEMS = 1 << 24
+
+
+def _sym_z_range(data, fraction: float) -> tuple[int, int]:
+    """[z0, z1) of the source's slices above 1 % of its peak z-profile,
+    shrunk about their middle to ``fraction`` of nz."""
+    nz0 = data.shape[0]
+    profile = data.sum(dim=(1, 2))
+    nonzero = (profile > 0.01 * profile.max()).cpu().numpy()
+    idx = np.flatnonzero(nonzero)
+    z0 = int(idx.min()) if idx.size else nz0
+    z1 = int(idx.max()) if idx.size else -1
+    zmid = (z0 + z1) // 2 + (z0 + z1) % 2
+    half = int(nz0 * fraction + 0.5) // 2
+    return max(z0, zmid - half), min(z1, zmid + half)
+
+
+def _sym_accumulate(data, twist_degree, rise_pixel_src, scale, z0, z1, csym, n_hsym,
+                    work_shape):
+    """Average the symmetry copies onto the work grid: for each output voxel
+    and each (hsym, csym) copy, hsym major, the trilinear sample of the
+    source, counted where the copy lands inside the z-range and the in-plane
+    bounds (the test on the unclamped floors; the +1 neighbours clamped).
+    Returns acc / max(wsum, 1) where wsum > 0, else acc.
+
+    A copy's z coordinate depends on the output slice only and its (y, x)
+    on the output column only, so each copy first samples every source
+    plane bilinearly at its (y, x), then interpolates between two of those
+    planes per output slice: the reference's eight-tap sum, grouped
+    (1 - wk) * (the floor plane's four taps) + wk * (the ceiling plane's).
+    The copies run a chunk at a time and are added to the accumulator one
+    by one in the reference's order."""
+    dev = data.device
+    nz, ny, nx = work_shape
+    nz0, ny0, nx0 = data.shape
+    f32 = dict(dtype=torch.float32, device=dev)
+    K = torch.arange(nz, **f32)[:, None] - nz // 2
+    J = torch.arange(ny, **f32)[:, None] - ny // 2
+    I = torch.arange(nx, **f32)[None, :] - nx / 2
+    hs = np.repeat(np.arange(-n_hsym, n_hsym + 1, dtype=np.float32), csym)
+    cs = np.tile(np.arange(csym, dtype=np.float32), 2 * n_hsym + 1)
+    planes = data.reshape(nz0, ny0 * nx0)
+    acc = torch.zeros(work_shape, **f32)
+    wsum = torch.zeros(work_shape, **f32)
+    chunk = max(1, SYM_CHUNK_ELEMS // (nz * ny * nx))
+    for s in range(0, len(hs), chunk):
+        hi = torch.as_tensor(hs[s : s + chunk], device=dev)[:, None, None]
+        ci = torch.as_tensor(cs[s : s + chunk], device=dev)[:, None, None]
+        n = len(hi)
+        k2 = (K * scale + hi * rise_pixel_src) + nz0 // 2  # (n, nz, 1)
+        rot = (twist_degree * hi + 360.0 * ci / csym) * float(np.float32(np.pi / 180))
+        c, sn = rotation.cos_sin(rot)
+        j2 = (c * J + sn * I) * scale + ny0 // 2  # (n, ny, nx)
+        i2 = (-sn * J + c * I) * scale + nx0 // 2
+        kf, jf, if_ = torch.floor(k2), torch.floor(j2), torch.floor(i2)
+        wk, wj, wi = k2 - kf, j2 - jf, i2 - if_
+        valid = (((k2 >= z0) & (k2 < z1))[:, :, :, None]
+                 & ((jf >= 0) & (jf < ny0 - 1) & (if_ >= 0) & (if_ < nx0 - 1))[:, None])
+        jf_i = jf.to(torch.int64).clamp(0, ny0 - 1)
+        if_i = if_.to(torch.int64).clamp(0, nx0 - 1)
+        j_b = (jf_i * nx0, (jf_i + 1).clamp(0, ny0 - 1) * nx0)
+        i_b = (if_i, (if_i + 1).clamp(0, nx0 - 1))
+
+        def taps(b, d):
+            idx = (j_b[b] + i_b[d]).reshape(n, 1, ny * nx).expand(n, nz0, ny * nx)
+            return torch.gather(planes.expand(n, nz0, ny0 * nx0), 2, idx)
+
+        wjs, wis = ((1 - wj).reshape(n, 1, -1), wj.reshape(n, 1, -1)), \
+            ((1 - wi).reshape(n, 1, -1), wi.reshape(n, 1, -1))
+        plane_val = None  # (n, nz0, ny * nx): every source plane at the copy's (y, x)
+        for b in (0, 1):
+            for d in (0, 1):
+                term = wjs[b] * wis[d] * taps(b, d)
+                plane_val = term if plane_val is None else plane_val + term
+        kf_i = kf.to(torch.int64).clamp(0, nz0 - 1)  # (n, nz, 1)
+        kc_i = (kf_i + 1).clamp(0, nz0 - 1)
+        lo = torch.gather(plane_val, 1, kf_i.expand(n, nz, ny * nx))
+        hi_ = torch.gather(plane_val, 1, kc_i.expand(n, nz, ny * nx))
+        val = ((1 - wk) * lo + wk * hi_).reshape(n, nz, ny, nx)
+        val = torch.where(valid, val, 0.0)
+        for v in val:
+            acc += v
+        wsum += valid.to(torch.float32).sum(dim=0)
+    return torch.where(wsum > 0, acc / torch.clamp_min(wsum, 1.0), acc)
+
+
+def apply_helical_symmetry(data, apix: float, twist_degree: float, rise_angstrom: float,
+                           csym: int = 1, fraction: float = 1.0, new_size=None,
+                           new_apix: float | None = None, cpu: int = 1) -> torch.Tensor:
+    """Symmetrize a 3D map by averaging its helical and cyclic symmetry
+    copies, optionally resampled to new_apix and new_size (a work grid of
+    the larger of the two sizes per axis, centre-cropped to new_size). The
+    copies span hsym in [-n, n], n = max(1, int(nz * new_apix / rise)),
+    and csym; the source's z-range is its slices above 1 % of the peak
+    profile, shrunk to ``fraction``. ``cpu`` is accepted and ignored."""
+    data = torch.as_tensor(data, dtype=torch.float32)
+    nz0, ny0, nx0 = data.shape
+    new_apix = apix if new_apix is None else new_apix
+    new_size = tuple(int(v) for v in (data.shape if new_size is None else new_size))
+    if new_size != tuple(data.shape):
+        work_shape = tuple(max(a, b) for a, b in zip(data.shape, new_size))
+    else:
+        work_shape = (nz0, ny0, nx0)
+    n_hsym = max(1, int(work_shape[0] * new_apix / rise_angstrom))
+    z0, z1 = _sym_z_range(data, fraction)
+    out = _sym_accumulate(
+        data, float(np.float32(twist_degree)), float(np.float32(rise_angstrom / apix)),
+        float(np.float32(new_apix / apix)), float(z0), float(z1), int(csym), n_hsym,
+        work_shape)
+    if work_shape != new_size:
+        out = out[tuple(slice(n // 2 - m // 2, n // 2 + m // 2)
+                        for n, m in zip(work_shape, new_size))]
+    return out
+
+
+def transform_map(data, scale: float = 1.0, rot: float = 0, tilt: float = 0, psi: float = 0,
+                  dx: float = 0, dy: float = 0, dz: float = 0):
+    """Scale, rotate (intrinsic ZYZ: rot, tilt, psi in degrees) and shift a
+    3D volume: each output voxel's centred coordinates, scaled and rotated
+    forward, sampled from the input by cubic B-spline with zeros outside.
+    The identity returns the data as given."""
+    if scale == 1 and rot == 0 and tilt == 0 and psi == 0 and dx == 0 and dy == 0 and dz == 0:
+        return torch.as_tensor(data)
+    data = torch.as_tensor(data, dtype=torch.float32)
+    nz, ny, nx = data.shape
+    f32 = dict(dtype=torch.float32, device=data.device)
+    Z, Y, X = torch.meshgrid(torch.arange(nz, **f32) - nz // 2, torch.arange(ny, **f32) - ny // 2,
+                             torch.arange(nx, **f32) - nx // 2, indexing="ij")
+    if scale != 1.0:
+        Z, Y, X = Z * scale, Y * scale, X * scale
+    R = rotation.euler_matrix("ZYZ", [rot, tilt, psi]).tolist()
+    x = (X * R[0][0] + Y * R[0][1] + Z * R[0][2]) + nx // 2 - dx
+    y = (X * R[1][0] + Y * R[1][1] + Z * R[1][2]) + ny // 2 - dy
+    z = (X * R[2][0] + Y * R[2][1] + Z * R[2][2]) + nz // 2 - dz
+    return map_coordinates(data, (z, y, x), order=3, mode="constant")

@@ -12,3 +12,5 @@ from .geometry import (  # noqa: F401
 )
 from .checkpoint import reconstruct_grid_checkpointed  # noqa: F401
 from .grid import GridResult, build_candidate_grid, reconstruct_grid  # noqa: F401
+from .pipeline import process_one_task  # noqa: F401
+from .solver import lsq_reconstruct  # noqa: F401

@@ -18,7 +18,9 @@ The port covers any (tilt, psi) with nearest-neighbour or linear
 interpolation on one device, the image prep options, the models lsq,
 lreg, ridge, lasso, elasticnet (l1 / l2 and the alpha-decay retry) and
 ard, every score metric, thresh_fraction, fsc modes 1-4 (on the grouped
-path three kernel solves with lsq + cosine, as the reference's kernel),
+path three B1 solves a launch, scored in the kernel for lsq + cosine, as
+the reference's kernel, and in torch for lreg, a 2D metric or thresh, as
+its grouped XLA path),
 incremental progress and abort, densify_padding and pose refinement
 (refine_mode "topk" and "all"); cost_analysis and several devices raise
 NotImplementedError naming the ROADMAP item that will port them.
@@ -308,18 +310,22 @@ def _retry_all_zero(solve, inp, x, l1, l2, iters):
                             with_score=False)[0], x, 2)
 
 
-def _score_group(cfg, geom, ctx, wsum, rp, m, rank, x, b):
+def _score_group(cfg, geom, ctx, wsum, rp, m, rank, x, b, w=None):
     """Score one solved group in torch (the reference's score_one,
     solver.py:880-912): the sqrt(m)-weighted reprojection of x (R, l3,
     d3^2) masked by the binary rows, the thresh clip, then the cosine and,
     for a 2D metric, the reprojection image by the group's copy ranks and
-    1/sqrt(m). Returns (cosines (R,), images (R, l2, d2) or None): the 2D
-    metrics run once over a launch's images (solver._image_scores)."""
+    1/sqrt(m). With w (1, l2, d2), an fsc half's pixel-id mask, both row
+    masks take it, as the reference's half solves score (solver.py:667).
+    Returns (cosines (R,), images (R, l2, d2) or None): the 2D metrics run
+    once over a launch's images (solver._image_scores)."""
     from .projector_grouped import reproject_grouped
     from .solver import _cosine, _image_of
 
     sqrt_m = torch.sqrt(m)
     pred, rowv_bin, rowv_w = reproject_grouped(dict(ctx, Wsum=wsum), geom, rp, sqrt_m, x)
+    if w is not None:
+        rowv_bin, rowv_w = rowv_bin * w, rowv_w * w
     pred = pred * rowv_bin
     if cfg.thresh_fraction >= 0:
         pred = torch.clamp_min(pred, 0.0)
@@ -498,7 +504,8 @@ def _grouped_scoring(
             del shared, tens, one
         sync()
         t1 = time.perf_counter()
-        if fsc_masks is not None:
+        x_halves = []
+        if fsc_masks is not None and score_in_kernel:
             _, s = solve(inp, *iters)
             s1, s2 = (solve(dataclasses.replace(inp, **hv), *iters)[1] for hv in halves)
             s = s / 2 + (s1 + s2) / 4
@@ -515,25 +522,40 @@ def _grouped_scoring(
                 rounds = max(rounds, r)
             elif cfg.model == "lreg":
                 x = seed_lreg(x, 2)
+            if fsc_masks is not None:
+                # the halves of an unregularized model, scored in torch:
+                # plain solves without the lreg seed, as the reference's
+                # (its solver.py:644-668); the routing rule keeps l1 / l2
+                # with fsc off this path
+                x_halves = [solve(dataclasses.replace(inp, **hv), *iters, with_score=False)[0]
+                            for hv in halves]
         sync()
         t2 = time.perf_counter()
         if not score_in_kernel:
             nd = C_u * geom.d2
-            cos, img = zip(*(
-                _score_group(cfg, geom, ctx[gi], inp.a_top[gi, :nd].reshape(C_u, geom.d2, -1),
-                             rp[gi], m[gi], rank[gi], x[gi], b2d)
-                for gi in range(len(batch))
-            ))
-            s = torch.stack(cos)
-            if cfg.score_metric != "cosine":
-                s = _image_scores(cfg.score_metric, s.flatten(), torch.cat(img), b2d)
-                s = s.reshape(len(batch), -1)
+
+            def score_launch(x, w=None):
+                cos, img = zip(*(
+                    _score_group(cfg, geom, ctx[gi], inp.a_top[gi, :nd].reshape(C_u, geom.d2, -1),
+                                 rp[gi], m[gi], rank[gi], x[gi], b2d, w)
+                    for gi in range(len(batch))
+                ))
+                s = torch.stack(cos)
+                if cfg.score_metric != "cosine":
+                    s = _image_scores(cfg.score_metric, s.flatten(), torch.cat(img), b2d)
+                    s = s.reshape(len(batch), -1)
+                return s
+
+            s = score_launch(x)
+            if x_halves:
+                s1, s2 = (score_launch(xh, to_dev(w)) for xh, w in zip(x_halves, fsc_masks))
+                s = s / 2 + (s1 + s2) / 4
             sync()
         s_np = s.cpu().numpy()  # (len(batch), R)
         build_s += t1 - t0
         solve_s += t2 - t1
         score_s += time.perf_counter() - t2
-        del inp, halves
+        del inp, halves, x_halves
         for i, (t, g, ext) in enumerate(batch):
             scores[g] = s_np[i, : len(g)]
             done += len(g)
@@ -935,7 +957,6 @@ def reconstruct_grid(
         effective = dict(path="refine_all", aborted=False, d3=int(geom.d3), l3=int(geom.l3),
                          n_copies=int(n_copies), n_pairs=int(n_pairs), n_ops=int(n_ops))
     elif _use_grouped(cfg, geom, twists, n_copies, n_ops):
-        check_in_slice(cfg, grouped=True)
         scores, effective = _grouped_scoring(
             geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
             dy_pixel, copy_cache, device, densify_padding=densify_padding, **drive,

@@ -13,6 +13,11 @@ thresh clip of the prediction; the fsc half-set splits of modes 1-4 (mode
 1 draws JAX's permutation through ``_jax_random``). The power iteration is
 seeded from ones, as the reference's XLA path.
 
+``lsq_reconstruct`` is the reference's single-candidate entry point (its
+solver.py:1091): the host tables of one (twist, rise), the optional pose
+refinement (``refine``), then ``solve_candidates`` for one; the refined
+pose leaves through a thread-local channel (``consume_refined_params``).
+
 ``solve_candidates`` solves k candidates of one table shape together. At
 tilt = psi = 0 they solve on the separable operators' dense factors with
 B2 (``candidate_solve``: the kernels on the card, the plain version on the
@@ -26,6 +31,7 @@ lives in ``group_solve``. Both interpolations are ported.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import NamedTuple
 
@@ -33,7 +39,7 @@ import numpy as np
 import torch
 
 __all__ = ["SolveConfig", "SCORE_METRICS", "regularization_from_algorithm", "solve_candidate",
-           "solve_candidates", "ard_em"]
+           "solve_candidates", "ard_em", "lsq_reconstruct", "consume_refined_params"]
 
 SCORE_METRICS = ("cosine", "ssim", "ms_ssim", "mutual_information", "composite")
 MODELS = ("lsq", "lreg", "ridge", "lasso", "elasticnet", "ard")
@@ -77,15 +83,10 @@ class SolveConfig(NamedTuple):
     ard_prior: float = 1e-6
 
 
-def check_in_slice(cfg: SolveConfig, grouped: bool = False) -> None:
-    """Raise for every configuration the port does not cover yet
-    (NotImplementedError naming its ROADMAP item), and for an unknown score
-    metric (ValueError, as the reference). ``grouped``: the grid search's
-    grouped scorer (separable, no ard, no fsc with l1/l2: the reference's
-    routing rule sends those per candidate), where fsc rides the kernel
-    only with lsq + cosine and no thresh clip, as the reference's kernel
-    does (its grid.py:590-608); the per-candidate solve takes fsc with
-    every model."""
+def check_in_slice(cfg: SolveConfig) -> None:
+    """Raise for an interpolation or a model the port does not have
+    (NotImplementedError), and for an unknown score metric (ValueError, as
+    the reference)."""
     if cfg.score_metric not in SCORE_METRICS:
         raise ValueError(f"Unknown score_metric {cfg.score_metric!r}; supported: {SCORE_METRICS}")
     bad = []
@@ -93,11 +94,6 @@ def check_in_slice(cfg: SolveConfig, grouped: bool = False) -> None:
         bad.append(f"interpolation={cfg.interpolation!r}")
     if cfg.model not in MODELS:
         bad.append(f"model={cfg.model!r}")
-    if grouped and cfg.fsc_test and (cfg.model != "lsq" or cfg.score_metric != "cosine"
-                                     or cfg.thresh_fraction >= 0):
-        bad.append("fsc_test with a model other than lsq, a 2D score metric or "
-                   "thresh_fraction: the reference scores it on its grouped XLA path, "
-                   "not the kernel (ROADMAP A6.6b)")
     if bad:
         raise NotImplementedError("not ported yet: " + "; ".join(bad))
 
@@ -667,3 +663,175 @@ def solve_candidate(
         sym_keep=None if sym_keep is None else np.asarray(sym_keep)[None], device=device,
     )
     return {k: v[0] for k, v in out.items()}
+
+
+# the refined pose of this thread's last lsq_reconstruct call; the function
+# attribute lsq_reconstruct._refined_params is kept for the reference's
+# readers, but it is shared between threads
+_refined_tls = threading.local()
+
+
+def consume_refined_params() -> dict:
+    """Pop this thread's refined (tilt, psi, dy) of the last lsq_reconstruct
+    call: {} when that call did not refine."""
+    params = getattr(_refined_tls, "params", None) or {}
+    _refined_tls.params = {}
+    return params
+
+
+class _OneCandidate(NamedTuple):
+    """One (twist, rise) candidate of a projection image, as the single-
+    candidate entry points derive it: its geometry, config, centred image
+    region and host tables."""
+
+    geom: object
+    cfg: SolveConfig
+    region: torch.Tensor
+    twist: float
+    rise: float
+    copies: tuple
+    pairs: tuple
+    n_pairs: int
+
+
+def _one_candidate(projection_image, scale2d_to_3d, twist_degree, rise_pixel, csym, d2_pixel,
+                   l2_pixel, d3_pixel, l3_pixel, d3_inner_pixel, sym_oversample, algorithm,
+                   device, **cfg_fields) -> _OneCandidate:
+    """The geometry (d2 / l2 the image's size when <= 0, d3 / l3 scaled
+    from them when <= 0), the host tables (select_copies, select_pairs),
+    the region of exactly d2 x l2 pixels centred as the reference's np.ix_
+    (HeliconError when it does not fit) and the SolveConfig of the model
+    in ``algorithm`` and ``cfg_fields``."""
+    from ..utils.exceptions import HeliconError
+    from .geometry import (ReconstructionGeometry, estimate_copy_pair_counts, select_copies,
+                           select_pairs)
+
+    algorithm = algorithm or dict(model="lsq")
+    img = torch.as_tensor(projection_image, dtype=torch.float32)
+    ny, nx = img.shape
+    d2 = int(d2_pixel) if d2_pixel > 0 else ny
+    l2 = int(l2_pixel) if l2_pixel > 0 else nx
+    d3 = int(d3_pixel) if d3_pixel > 0 else int(round(d2 * scale2d_to_3d))
+    l3 = int(l3_pixel) if l3_pixel > 0 else int(round(l2 * scale2d_to_3d))
+    geom = ReconstructionGeometry(d2=d2, l2=l2, d3=d3, l3=l3, rmin=d3_inner_pixel / 2,
+                                  rmax=d3 // 2 - 1, scale2d_to_3d=float(scale2d_to_3d),
+                                  csym=int(csym))
+    twist, rise = float(twist_degree), float(rise_pixel)
+    n_copies, n_pairs = estimate_copy_pair_counts(geom, rise, int(max(1, sym_oversample)))
+    copies = select_copies(geom, rise, n_copies)
+    pairs = select_pairs(geom, twist, rise, n_pairs)
+    # a half-open slice about the centre would drop a row or column of odd
+    # sizes
+    r0, c0 = ny // 2 - d2 // 2, nx // 2 - l2 // 2
+    if r0 < 0 or c0 < 0 or r0 + d2 > ny or c0 + l2 > nx:
+        raise HeliconError(f"reconstruction region {d2}x{l2} does not fit inside the "
+                           f"{ny}x{nx} projection image")
+    region = img[r0 : r0 + d2, c0 : c0 + l2].to(device)
+    l1, l2_reg = regularization_from_algorithm(algorithm,
+                                               geom.d2 * geom.l2 * max(1, int(copies[2].sum())))
+    cfg = SolveConfig(model=algorithm.get("model", "lsq"), l1_reg=float(l1),
+                      l2_reg=float(l2_reg), ard_prior=float(algorithm.get("alpha", 1e-6)),
+                      **cfg_fields)
+    return _OneCandidate(geom, cfg, region, twist, rise, copies, pairs, n_pairs)
+
+
+def _refine_and_solve(c: _OneCandidate, tilt, psi, dy, refine_range=None, sym_dedup=True,
+                      device="cuda"):
+    """Solve one candidate at (tilt, psi, dy), after refining that pose
+    within ``refine_range`` (refine.refine_tilt_psi_dy on the gather
+    projector) when it is given: B2 on the dense symmetry factors
+    (select_pair_ops) at tilt = psi = 0, the gather projector otherwise;
+    with ``sym_dedup``, nn drops duplicate symmetry rows
+    (compute_sym_dedup_mask). Returns (solve_candidates' dict for the one
+    candidate, the refined pose as a dict or None)."""
+    from .geometry import compute_sym_dedup_mask, estimate_n_pair_ops, select_pair_ops
+
+    tilt, psi, dy = float(tilt), float(psi), float(dy)
+    refined = None
+    if refine_range:
+        from .refine import refine_tilt_psi_dy
+
+        # refinement explores tilt / psi != 0: the general operators
+        tilt, psi, dy = refine_tilt_psi_dy(
+            c.geom, c.cfg._replace(separable=False), c.region, c.twist, c.rise, c.copies,
+            c.pairs, tilt, psi, dy, refine_range, device=device)
+        refined = dict(tilt=tilt, psi=psi, dy=dy)
+    cfg = c.cfg._replace(separable=(tilt == 0 and psi == 0))
+    pair_ops = None
+    if cfg.separable:
+        pair_ops = tuple(a[None] for a in select_pair_ops(
+            c.geom, c.twist, c.rise, c.n_pairs, estimate_n_pair_ops(c.geom, c.rise))[:3])
+    sym_keep = None
+    if sym_dedup and cfg.interpolation == "nn":
+        sym_keep = compute_sym_dedup_mask(c.geom, c.twist, c.rise, *c.pairs)[None]
+    out = solve_candidates(
+        c.geom, cfg, c.region, [c.twist], [c.rise],
+        *(np.asarray(t)[None] for t in (*c.copies, *c.pairs)), tilt, psi, dy,
+        pair_ops=pair_ops, sym_keep=sym_keep, device=device)
+    return {k: v[0] for k, v in out.items()}, refined
+
+
+def lsq_reconstruct(
+    projection_image,
+    scale2d_to_3d,
+    twist_degree,
+    rise_pixel,
+    csym: int = 1,
+    tilt_degree: float = 0,
+    psi_degree: float = 0,
+    dy_pixel: float = 0,
+    thresh_fraction: float = -1,
+    positive_constraint: int = -1,
+    reconstruct_diameter_3d_inner_pixel: int = 0,
+    reconstruct_diameter_2d_pixel: int = -1,
+    reconstruct_diameter_3d_pixel: int = -1,
+    reconstruct_length_2d_pixel: int = -1,
+    reconstruct_length_3d_pixel: int = -1,
+    sym_oversample: int = 1,
+    interpolation: str = "nn",
+    fsc_test: int = 0,
+    score_metric: str = "cosine",
+    target_apix2d: float = 5.0,
+    verbose: int = 0,
+    algorithm=None,
+    refine_tilt_psi_dy_range=None,
+    cpu: int = 1,
+    device="cuda",
+):
+    """Reconstruct and score one (twist, rise, tilt, psi, dy) candidate of a
+    projection image on ``device`` (the card unless the caller asks for
+    "cpu"): the reference's entry point of the same name.
+
+    The geometry comes from the region sizes (d2 x l2 pixels of the image,
+    centred, exactly; a region that does not fit raises HeliconError) and
+    scale2d_to_3d; the host tables are the reference's (select_copies,
+    select_pairs, select_pair_ops for the separable pose, the nn symmetry
+    dedup mask). With refine_tilt_psi_dy_range the pose is refined first
+    (refine.refine_tilt_psi_dy, on the gather projector) and returned
+    through consume_refined_params() and lsq_reconstruct._refined_params,
+    both cleared at entry. The solve is solve_candidates for one: B2 at
+    tilt = psi = 0, the gather projector otherwise. ``cpu`` and
+    ``target_apix2d`` are accepted and unused, as in the reference.
+    Returns ((rec3d, rec3d_half1, rec3d_half2), score): float32 tensors
+    (l3, d3, d3) on ``device``, the halves None without fsc_test."""
+    lsq_reconstruct._refined_params = {}
+    _refined_tls.params = {}
+    c = _one_candidate(
+        projection_image, scale2d_to_3d, twist_degree, rise_pixel, csym,
+        reconstruct_diameter_2d_pixel, reconstruct_length_2d_pixel,
+        reconstruct_diameter_3d_pixel, reconstruct_length_3d_pixel,
+        reconstruct_diameter_3d_inner_pixel, sym_oversample, algorithm, device,
+        interpolation=interpolation, fsc_test=int(fsc_test), score_metric=score_metric,
+        thresh_fraction=float(thresh_fraction), positive_constraint=int(positive_constraint))
+    out, refined = _refine_and_solve(c, tilt_degree, psi_degree, dy_pixel,
+                                     refine_tilt_psi_dy_range, device=device)
+    if refined:
+        lsq_reconstruct._refined_params = dict(refined)
+        _refined_tls.params = dict(refined)
+    score = float(out["score"])
+    if fsc_test >= 1:
+        return (out["rec3d"], out["rec3d_half1"], out["rec3d_half2"]), score
+    return (out["rec3d"], None, None), score
+
+
+lsq_reconstruct._refined_params = {}

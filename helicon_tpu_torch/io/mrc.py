@@ -1,8 +1,9 @@
 """MRC2014 reader and writer for the port (no mrcfile dependency).
 
-A copy of the part of ``helicon_tpu/io/mrc.py`` that the port's CLI and
-its smoke use: the 1024-byte header (modes 0/1/2/4/6/12, voxel size from
-the cell and mx), one image of a stack, and the writer.
+A copy of the part of ``helicon_tpu/io/mrc.py`` that the port's CLI, its
+web app facade and its smoke use: the 1024-byte header (modes
+0/1/2/4/6/12, voxel size from the cell and mx), one image of a stack, the
+whole file, and the writer.
 tests/test_torch_io.py pins the copy to the original in both directions.
 """
 
@@ -13,7 +14,7 @@ import struct
 
 import numpy as np
 
-__all__ = ["MrcHeader", "mrc_header", "read_image_2d", "write_mrc"]
+__all__ = ["MrcHeader", "mrc_header", "read_image_2d", "read_mrc", "write_mrc"]
 
 _MODE_DTYPES = {
     0: np.dtype(np.int8),
@@ -113,6 +114,13 @@ def mrc_header(path) -> MrcHeader:
     if h.mode not in _MODE_DTYPES:
         raise ValueError(f"{path}: unsupported MRC mode {h.mode}")
     return h
+
+
+def read_mrc(path):
+    """The whole file as (data (nz, ny, nx) in its own dtype, apix)."""
+    h = mrc_header(path)
+    data = np.fromfile(path, dtype=h.dtype, count=h.nx * h.ny * h.nz, offset=h.data_offset)
+    return data.reshape(h.shape), h.apix
 
 
 def write_mrc(path, data, apix: float = 1.0, is_stack: bool | None = None):

@@ -108,14 +108,11 @@ def test_envelope_matches_reference(amyloid, name):
 OUT_OF_SLICE = dict(
     # tilt, psi, ard, ridge, ssim, fsc, thresh and refinement are ported
     # (the refine rows: tests/test_torch_refine.py's
-    # test_refine_rows_match_reference); each case
-    # keeps its name on a combination that still raises: fsc with a 2D
-    # metric or thresh on the grouped path (ROADMAP A6.6b), several devices
-    # (A10b), cost_analysis (A5c)
-    ssim=dict(score_metric="ssim", fsc_test=2),
-    thresh=dict(thresh_fraction=0.1, fsc_test=3),
+    # test_refine_rows_match_reference; fsc with lreg, a 2D metric or thresh
+    # on the grouped path: test_grouped_fsc_options_match_reference); each
+    # case keeps its name on a combination that still raises: several
+    # devices (ROADMAP A10b), cost_analysis (A5c)
     ard=dict(algorithm=dict(model="ard"), devices=["cuda:0", "cuda:1"]),
-    fsc_lreg=dict(algorithm=dict(model="lreg"), fsc_test=2),
     devices=dict(devices=["cuda:0", "cuda:1"]),
     cost_analysis=dict(cost_analysis=True),
 )
@@ -128,6 +125,63 @@ def test_out_of_slice_arguments_raise(amyloid, name):
     kw.update(OUT_OF_SLICE[name])
     with pytest.raises(NotImplementedError):
         reconstruct_grid(amyloid, **kw)
+
+
+# fsc on the grouped path with the options the kernel does not score: the
+# three cases that raised until then, and fsc modes 1 and 4 on the same
+# path (lreg: the reference's routing rule sends fsc under l1 / l2, so
+# elasticnet's, per candidate; tests/test_torch_percand_grid.py holds it)
+GROUPED_FSC = dict(
+    ssim=dict(score_metric="ssim", fsc_test=2),
+    thresh=dict(thresh_fraction=0.1, fsc_test=3),
+    fsc_lreg=dict(algorithm=dict(model="lreg"), fsc_test=2),
+    fsc1_lreg=dict(algorithm=dict(model="lreg"), fsc_test=1),
+    fsc4_lreg=dict(algorithm=dict(model="lreg"), fsc_test=4),
+)
+# the best volume is the full set's solve, whatever the fsc mode (the
+# reference's are bit-identical for modes 1, 2 and 4): the reference
+# re-solves it once, in fsc_lreg's run, for the three lreg cases
+SHARED_BEST_VOLUME = dict(fsc1_lreg="fsc_lreg", fsc4_lreg="fsc_lreg")
+
+
+@pytest.fixture(scope="module")
+def grouped_fsc_reference(amyloid):
+    """The reference's eager reconstruct_grid on the 2-candidate grid, once
+    per (option, return_best_volume)."""
+    runs = {}
+
+    def run(name, best_volume=True):
+        if (name, best_volume) not in runs:
+            kw = dict(GOLDEN, twists=np.asarray([2.0, 2.0], np.float32),
+                      rises=np.asarray([4.6, 4.75], np.float32), **GROUPED_FSC[name])
+            kw["return_best_volume"] = best_volume
+            with jax.disable_jit():
+                runs[name, best_volume] = ref_reconstruct_grid(
+                    amyloid, batch_size=32, devices=jax.devices()[:1], **kw)
+        return runs[name, best_volume]
+
+    return run
+
+
+@pytest.mark.parametrize("name", sorted(GROUPED_FSC))
+def test_grouped_fsc_options_match_reference(amyloid, name, grouped_fsc_reference):
+    """fsc with lreg, a 2D metric or thresh on the grouped path (three B1
+    solves a launch, each half scored in torch) on the 2-candidate grid:
+    scores within 1e-4, the best index and the best volume (rel 1e-4)."""
+    kw = dict(GOLDEN, twists=np.asarray([2.0, 2.0], np.float32),
+              rises=np.asarray([4.6, 4.75], np.float32), **GROUPED_FSC[name])
+    port = reconstruct_grid(amyloid, device="cpu", **kw)
+    assert port.effective["path"] == "grouped"
+    assert not port.effective["score_in_kernel"]
+    shared = SHARED_BEST_VOLUME.get(name)
+    ref = grouped_fsc_reference(name, best_volume=shared is None)
+    np.testing.assert_allclose(port.scores, ref.scores, atol=1e-4)
+    assert port.best_index == ref.best_index
+    if shared is not None:
+        ref = grouped_fsc_reference(shared)
+        assert ref.best_index == port.best_index
+    rel = np.abs(port.best_volume - ref.best_volume).max() / np.abs(ref.best_volume).max()
+    assert rel < 1e-4, rel
 
 
 def _record():
@@ -217,6 +271,11 @@ def test_port_imports_no_jax():
             "helicon_tpu_torch.utils.exceptions, helicon_tpu_torch.utils.logging, "
             "helicon_tpu_torch.io.mrc, helicon_tpu_torch.parallel, "
             "helicon_tpu_torch.parallel.multihost, helicon_tpu_torch.commands.helicon, "
-            "helicon_tpu_torch.commands.denovo3d_cli, sys; "
+            "helicon_tpu_torch.commands.denovo3d_cli, helicon_tpu_torch.core.alignment, "
+            "helicon_tpu_torch.core.rotation, helicon_tpu_torch.core.transforms, "
+            "helicon_tpu_torch.webApps.denovo3D, helicon_tpu_torch.webApps.denovo3D.workflow, "
+            "helicon_tpu_torch.webApps.denovo3D.solver_linear_regression, "
+            "helicon_tpu_torch.webApps.denovo3D.pipeline, helicon_tpu_torch.webApps.denovo3D.utils, "
+            "sys; "
             "assert 'jax' not in sys.modules and 'helicon_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)

@@ -1,0 +1,316 @@
+"""The denovo3D web app's workflow and facades in the PyTorch port against
+the JAX package: the cases of tests/test_webapp_workflow.py run through
+both workflows (stitching, the transform chain, Otsu, the automatic
+transform, the simulation mode, the score plot, the incremental grid with
+progress and abort), the solver_linear_regression facade (its sparse
+systems equal, its pose refinement) and the facades' names.
+
+The reference's grid runs jitted on one device: on these inputs XLA's
+fused z arithmetic (ROADMAP C6) moves its scores by at most 3.6e-5 from
+the port's. The pose refinement runs at the bench's iteration budget (cg
+10, fista 16, power 2: SolveConfig's defaults patched in both packages),
+as tests/test_torch_single_task.py does."""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import jax
+
+import helicon_tpu.webApps.denovo3D as ref_app
+from helicon_tpu.helix import simulate_helical_projection as ref_simulate
+from helicon_tpu.webApps.denovo3D import solver_linear_regression as ref_slr
+from helicon_tpu.denovo3d import solver as ref_solver
+from helicon_tpu.webApps.denovo3D import workflow as ref_wf
+from helicon_tpu_torch.denovo3d import solver
+import helicon_tpu_torch.webApps.denovo3D as port_app
+from helicon_tpu_torch.webApps.denovo3D import solver_linear_regression as slr
+from helicon_tpu_torch.webApps.denovo3D import workflow as wf
+
+
+@pytest.fixture(scope="module")
+def helix_image():
+    """tests/test_webapp_workflow.py's image."""
+    return np.squeeze(np.asarray(ref_simulate(
+        n=1, twist=30.0, rise=6.0, csym=1, helical_diameter=40.0, ball_radius=5.0, polymer=0,
+        planarity=1.0, ny=32, nx=48, apix=2.0, rng=0))).astype(np.float32)
+
+
+def test_facade_names_match_reference():
+    for mod in ("pipeline", "solver_linear_regression", "utils", "workflow"):
+        assert hasattr(port_app, mod)
+    assert set(wf.__all__) == set(ref_wf.__all__)
+    assert set(slr.__all__) == set(ref_slr.__all__)
+    for mod in ("pipeline", "utils"):
+        want = {n for n in dir(getattr(ref_app, mod)) if not n.startswith("_")}
+        got = {n for n in dir(getattr(port_app, mod)) if not n.startswith("_")}
+        assert want - {"cache", "setup_cache_dir", "download_file_from_url"} <= got, want - got
+    assert wf.URLS == ref_wf.URLS and wf.DEFAULT_URL_KEY == ref_wf.DEFAULT_URL_KEY
+    for name in ("get_images_from_url", "get_images_from_emdb"):
+        with pytest.raises(NotImplementedError, match="A13"):
+            getattr(port_app.pipeline, name)("x")
+
+
+def test_get_images_from_file(tmp_path):
+    from helicon_tpu_torch.io.mrc import write_mrc
+
+    stack = np.random.default_rng(0).random((2, 8, 12)).astype(np.float32)
+    write_mrc(tmp_path / "s.mrcs", stack, apix=1.23456)
+    data, apix = port_app.pipeline.get_images_from_file(tmp_path / "s.mrcs")
+    np.testing.assert_array_equal(data, stack)
+    assert apix == round(1.23456, 4)
+
+
+STITCH = [
+    ([np.zeros((4, 10)), np.zeros((4, 6)), np.zeros((4, 8))], None),
+    ([np.zeros((4, 10)), np.zeros((4, 6))], [0, -4]),
+    ([np.full((4, 5), 1.0), np.full((4, 5), 3.0)], None),
+    ([np.full((4, 6), 1.0), np.full((4, 6), 3.0)], [0, -2]),
+    ([], None),
+]
+
+
+@pytest.mark.parametrize("case", range(len(STITCH)))
+def test_stitching_matches_reference(case):
+    imgs, offs = STITCH[case]
+    assert wf.image_stitching_x_positions(imgs, offs) == ref_wf.image_stitching_x_positions(
+        imgs, offs)
+    np.testing.assert_array_equal(wf.combine_images_for_display(imgs, offs),
+                                  ref_wf.combine_images_for_display(imgs, offs))
+
+
+def test_stitch_offsets_and_montage_match_reference():
+    base = np.random.default_rng(2).random((16, 90))
+    imgs = [base[:, :50], base[:, 30:70], base[:, 55:]]
+    assert wf.estimate_stitch_offsets(imgs) == ref_wf.estimate_stitch_offsets(imgs)
+    base = np.random.default_rng(5).random((40, 120)).astype(np.float32)
+    tiles = [base[2:34, :70], base[5:37, 50:]]
+    mont, pos = wf.register_and_montage(tiles, device="cpu")
+    ref_mont, ref_pos = ref_wf.register_and_montage(tiles)
+    assert pos == ref_pos == [(0, 0), (3, 50)]
+    np.testing.assert_array_equal(mont, ref_mont)
+
+
+TRANSFORMS = dict(
+    identity=dict(),
+    negate_threshold=dict(negate=True, threshold=0.5),
+    transpose=dict(transpose=True),
+    flip=dict(flip=True),
+    crop=dict(vertical_crop_size=16, horizontal_crop_size=32),
+    rotation=dict(rotation=10.0),
+    rotation_shift_crop=dict(rotation=-7.5, shift_y_pixel=1.5, vertical_crop_size=20),
+)
+
+
+@pytest.mark.parametrize("name", sorted(TRANSFORMS))
+def test_transform_chain_matches_reference(helix_image, name):
+    img = helix_image
+    if name == "negate_threshold":
+        img = np.array([[-2.0, -1.0], [1.0, 2.0]], np.float32)
+    (got,) = wf.apply_transform_chain([img], device="cpu", **TRANSFORMS[name])
+    (want,) = ref_wf.apply_transform_chain([img], **TRANSFORMS[name])
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-5 * max(1.0, float(np.abs(want).max())))
+
+
+def test_otsu_auto_transform_blank_and_preprocess_match_reference():
+    rng = np.random.default_rng(0)
+    img = np.concatenate([rng.normal(0, 0.1, 500), rng.normal(10, 0.1, 500)]).reshape(20, 50)
+    for negate in (False, True):
+        assert wf.estimate_threshold_otsu([img], negate) == ref_wf.estimate_threshold_otsu(
+            [img], negate)
+    ys = np.arange(48)[:, None]
+    rod = (np.exp(-((ys - 24.0) ** 2) / 8.0) * np.ones((48, 64))).astype(np.float32)
+    from helicon_tpu.core.transforms import rotate_shift_image
+
+    rot_img = np.asarray(rotate_shift_image(rod, angle=10.0))
+    for is_3d in (False, True):
+        got = wf.auto_transform_params([rot_img], apix=2.0, is_3d=is_3d)
+        want = ref_wf.auto_transform_params([rot_img], apix=2.0, is_3d=is_3d)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    stack = np.stack([np.zeros((8, 8), np.float32),
+                      np.linspace(0, 1, 64).reshape(8, 8).astype(np.float32),
+                      np.full((8, 8), 2.5, np.float32)])
+    assert wf.filter_blank_images(stack) == ref_wf.filter_blank_images(stack) == [1]
+    img = np.random.default_rng(1).random((32, 64)).astype(np.float32)
+    for kw in (dict(binning=2), dict(lp_angst=20), dict(hp_angst=200),
+               dict(binning=2, lp_angst=20, hp_angst=200)):
+        got, apix = wf.preprocess_selected_images([img], 2.0, device="cpu", **kw)
+        want, ref_apix = ref_wf.preprocess_selected_images([img], 2.0, **kw)
+        assert apix == ref_apix
+        np.testing.assert_allclose(got[0], want[0], atol=1e-5)
+
+
+SIMULATE = dict(
+    rot_tilt=dict(new_size=(24, 20, 20), new_apix=2.5, axial_rotation=5.0, tilt=2.0),
+    plain=dict(new_size=(24, 20, 20), new_apix=2.5),
+    noise=dict(new_size=(24, 20, 20), new_apix=2.5, gauss_noise_std=0.5, rng=0),
+    same_apix=dict(),
+)
+
+
+@pytest.mark.parametrize("name", sorted(SIMULATE))
+def test_symmetrize_projection_matches_reference(name):
+    vol = np.zeros((24, 20, 20), np.float32)
+    vol[8:14, 10, 14] = 50.0
+    kw = dict(apix=2.0, twist_degree=29.4, rise_angstrom=4.75, csym=1, **SIMULATE[name])
+    got, apix = wf.symmetrize_projection(vol, device="cpu", **kw)
+    want, ref_apix = ref_wf.symmetrize_projection(vol, **kw)
+    assert apix == ref_apix and got.shape == want.shape and got.dtype == np.float32
+    tol = 1e-4 * float(np.abs(want).max())
+    if name == "noise":  # the noise's sigma reads the foreground of the projection
+        tol *= 10
+    np.testing.assert_allclose(got, want, atol=tol)
+
+
+def test_score_plot_data_matches_reference():
+    tw = np.repeat([1.0, 2.0, 3.0], 2)
+    ri = np.tile([4.0, 5.0], 3)
+    sc = np.asarray([0.1, 0.2, 0.9, 0.4, 0.5, 0.6])
+    for args in ((tw, ri, sc), (np.r_[tw, 2.0], np.r_[ri, 4.0], np.r_[sc, 0.95]),
+                 ([3.0, 1.0, 2.0], [4.75] * 3, [0.3, 0.1, 0.2]),
+                 ([4.75] * 3, [3.0, 1.0, 2.0], [0.3, 0.1, 0.2]), ([1.0], [2.0], [0.5])):
+        got, want = wf.score_plot_data(*args), ref_wf.score_plot_data(*args)
+        assert (got is None) == (want is None)
+        if want is not None:
+            assert got.keys() == want.keys()
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k])
+
+
+GRID = dict(cg_iters=8, fista_iters=6, batch_size=1, return_best_volume=False, horizontalize=0)
+
+
+def _incremental(run, image, twists, rises, abort_after=None, **kw):
+    snaps, calls = [], dict(n=0)
+
+    def should_abort():
+        calls["n"] += 1
+        return abort_after is not None and calls["n"] > abort_after
+
+    res = run(image, 2.0, np.float32(twists), np.float32(rises), on_progress=snaps.append,
+              should_abort=should_abort, **kw)
+    return res, snaps
+
+
+@pytest.mark.parametrize("abort_after", [None, 1])
+def test_run_grid_incremental_matches_reference(helix_image, abort_after):
+    """The progress protocol and abort of tests/test_webapp_workflow.py:
+    one snapshot a launch plus the final one, each best-first, the same
+    done counts, scores within 1e-4; an abort after the first launch ranks
+    only the scored rows."""
+    args = (helix_image, [25.0, 30.0, 35.0], [6.0, 6.0, 6.0], abort_after)
+    port, snaps = _incremental(wf.run_grid_incremental, *args, device="cpu", **GRID)
+    ref, ref_snaps = _incremental(ref_wf.run_grid_incremental, *args,
+                                  devices=jax.devices()[:1], **GRID)
+    s, rs = np.asarray(port.scores), np.asarray(ref.scores)
+    np.testing.assert_array_equal(np.isfinite(s), np.isfinite(rs))
+    np.testing.assert_allclose(s[np.isfinite(s)], rs[np.isfinite(rs)], atol=1e-4)
+    assert [(p.done, p.total, p.aborted) for p in snaps] == [
+        (p.done, p.total, p.aborted) for p in ref_snaps]
+    for p, r in zip(snaps, ref_snaps):
+        scores = [v for _, _, v in p.ranked]
+        assert scores == sorted(scores, reverse=True) and all(np.isfinite(scores))
+        assert [row[:2] for row in p.ranked] == [row[:2] for row in r.ranked]
+        np.testing.assert_allclose(scores, [v for _, _, v in r.ranked], atol=1e-4)
+    final = snaps[-1]
+    if abort_after is None:
+        assert final.done == final.total == 3 and not final.aborted
+    else:
+        assert final.aborted and final.done == 1 < final.total
+        assert np.isneginf(s[1:]).all()
+
+
+def test_run_grid_incremental_passes_grid_kwargs(helix_image):
+    """tests/test_webapp_workflow.py's knob case: positivity, the pixel
+    sizes, the length in rises and elasticnet reach the port's grid."""
+    kw = dict(target_apix2d=4.0, target_apix3d=4.0, reconstruct_length_rise=2.0,
+              positive_constraint=1, algorithm=dict(model="elasticnet", alpha=1e-5, l1_ratio=0.3),
+              cg_iters=4, fista_iters=4, power_iters=2, compute_dtype="float32",
+              return_best_volume=False)
+    port = wf.run_grid_incremental(helix_image, 2.0, np.float32([29.4]), np.float32([4.75]),
+                                   device="cpu", **kw)
+    ref = ref_wf.run_grid_incremental(helix_image, 2.0, np.float32([29.4]), np.float32([4.75]),
+                                      devices=jax.devices()[:1], **kw)
+    assert np.isfinite(port.scores).all()
+    np.testing.assert_allclose(port.scores, ref.scores, atol=1e-4)
+
+
+@pytest.mark.parametrize("interp", ["nn", "linear"])
+def test_sym_matrix_matches_reference(interp):
+    kw = dict(nz=16, ny=16, nx=16, twist_degree=91.3, rise_pixel=4.0, csym=1, rmin=0.0,
+              rmax=6.0, min_sym_pairs=4000, interpolation=interp, verbose=0)
+    A, b = slr.build_A_helical_sym_matrix(**kw)
+    A_ref, b_ref = ref_slr.build_A_helical_sym_matrix(**kw)
+    assert A.shape == A_ref.shape and (A != A_ref).nnz == 0
+    np.testing.assert_array_equal(b, b_ref)
+
+
+@pytest.mark.parametrize("interp,tilt,psi,dy,csym", [("nn", 0.0, 0.0, 0.0, 1),
+                                                     ("linear", 2.5, -3.0, 0.7, 1),
+                                                     ("nn", 0.0, 0.0, 0.0, 2)])
+def test_data_matrix_matches_reference(interp, tilt, psi, dy, csym):
+    img = np.random.default_rng(0).standard_normal((32, 48)).astype(np.float32)
+    kw = dict(image=img, scale2d_to_3d=1.0 if csym == 1 else 0.75, twist_degree=91.3,
+              rise_pixel=4.0, csym=csym, tilt_degree=tilt, psi_degree=psi, dy_pixel=dy,
+              reconstruct_diameter_2d_pixel=24, reconstruct_length_2d_pixel=40,
+              reconstruct_diameter_3d_pixel=24, reconstruct_diameter_3d_inner_pixel=4 * (csym - 1),
+              reconstruct_length_3d_pixel=16, min_projection_lines=2000, interpolation=interp,
+              verbose=0)
+    (A, b, pid), (A_ref, b_ref, pid_ref) = (slr.build_A_data_matrix(**kw),
+                                            ref_slr.build_A_data_matrix(**kw))
+    assert A.shape == A_ref.shape and (A != A_ref).nnz == 0
+    np.testing.assert_array_equal(b, b_ref)
+    np.testing.assert_array_equal(pid, pid_ref)
+    (X, Y, Z), pv = slr.back_project_2d_coords_to_3d_coords(img, 0.5, 24, 40)
+    (RX, RY, RZ), rpv = ref_slr.back_project_2d_coords_to_3d_coords(img, 0.5, 24, 40)
+    for g, w in ((X, RX), (Y, RY), (Z, RZ), (pv, rpv)):
+        np.testing.assert_array_equal(g, w)
+    assert slr.sorted_hsym_csym_pairs(29.4, 1.1, csym, 8) == ref_slr.sorted_hsym_csym_pairs(
+        29.4, 1.1, csym, 8)
+
+
+@pytest.mark.parametrize("interp", ["linear", "nn"])
+def test_refine_tilt_psi_dy_facade_matches_reference(tmp_path_factory, monkeypatch, interp):
+    """The image-level refinement on the app's default model (the
+    reference's engine route; tests/test_torch_refine.py holds the loop):
+    the refined pose within 5e-3 and the re-solved score within 1e-4
+    (tests/test_torch_refine.py's gates), the masked volume within 1e-4
+    relative; nn re-solves with the duplicate symmetry rows kept, as the
+    reference's facade does."""
+    monkeypatch.setenv("HELICON_NATIVE_CACHE", str(tmp_path_factory.getbasetemp() / "native"))
+    for cls in (ref_solver.SolveConfig, solver.SolveConfig):
+        defaults, names = list(cls.__new__.__defaults__), list(cls._fields)
+        for k, v in (("cg_iters", 10), ("fista_iters", 16), ("power_iters", 2)):
+            defaults[names.index(k)] = v
+        monkeypatch.setattr(cls.__new__, "__defaults__", tuple(defaults))
+    img = np.squeeze(np.asarray(ref_simulate(
+        n=1, twist=29.4, rise=4.75, csym=1, helical_diameter=40.0, ball_radius=5.0, polymer=0,
+        planarity=1.0, ny=32, nx=64, apix=2.0, rng=0))).astype(np.float32)
+    kw = dict(projection_image=img, scale2d_to_3d=1.0, twist_degree=29.4, rise_pixel=2.375,
+              csym=1, reconstruct_diameter_2d_pixel=24, reconstruct_length_2d_pixel=48,
+              reconstruct_diameter_3d_pixel=24, reconstruct_diameter_3d_inner_pixel=0,
+              reconstruct_length_3d_pixel=12, sym_oversample=1, interpolation=interp,
+              x_init=None, tilt_0=1.0, max_iter=2, algorithm=dict(model="lsq"))
+    got = slr.refine_tilt_psi_dy(device="cpu", **kw)
+    want = ref_slr.refine_tilt_psi_dy(**kw)
+    np.testing.assert_allclose(got[:3], want[:3], atol=5e-3)
+    assert got[3].shape == want[3].shape
+    assert np.abs(got[3] - want[3]).max() < 1e-4 * np.abs(want[3]).max()
+    assert abs(got[4] - want[4]) < 1e-4
+
+
+def test_refine_tilt_psi_dy_facade_region_too_large_raises():
+    """A region that does not fit the image raises before any solve, as
+    lsq_reconstruct does."""
+    from helicon_tpu_torch.utils.exceptions import HeliconError
+
+    kw = dict(projection_image=np.ones((32, 64), np.float32), scale2d_to_3d=1.0,
+              twist_degree=29.4, rise_pixel=2.375, csym=1, reconstruct_diameter_2d_pixel=40,
+              reconstruct_length_2d_pixel=48, reconstruct_diameter_3d_pixel=24,
+              reconstruct_diameter_3d_inner_pixel=0, reconstruct_length_3d_pixel=12,
+              sym_oversample=1, interpolation="nn", x_init=None)
+    with pytest.raises(HeliconError, match="does not fit"):
+        slr.refine_tilt_psi_dy(device="cpu", **kw)

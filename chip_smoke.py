@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs twelve phases and fails (non-zero exit) if any fails:
+checkout, then runs thirteen phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
@@ -146,7 +146,24 @@ checkout, then runs twelve phases and fails (non-zero exit) if any fails:
    (c) the simulation mode, symmetrize_projection of (a)'s volume at the
    app's defaults, a finite (1, 128, 256) stack; (d) fsc 2 with lreg and
    with ssim on B1's grouped path (halves scored in torch) on 260
-   candidates of phase 4, against the plain B1 (float32 1e-4, bf16 1e-3).
+   candidates of phase 4, against the plain B1 (float32 1e-4, bf16 1e-3);
+13. the 3D-map commands on a seeded 320^3 fibril map at 1 A/px (Gaussian
+   blobs on a 4.75 A-rise, -1.2 deg-twist helix at 30-50 A radius) and its
+   two half maps (the map plus independent low-passed noise): (a) trueFSC
+   at its defaults as a subprocess on the card (wall start to exit), then
+   in this process with its parts timed (the FSCs, the phase
+   randomizations and their random draws, the lowpass, the threshold, the
+   seeds, the growth and its dilations, each distance transform and each
+   evaluation of the soft-edge search), its peak device memory and the
+   true FSC's 0.143 resolution, and the card's random draw against the
+   numpy threefry (bit for bit); (b) trueFSC on the pair's central 128^3
+   with --device cuda and cpu under one numpy seed (curves within 1e-4, the
+   masks' differing voxels counted, a phase-randomized map within 1e-5
+   relative); (c) proc3d's chain (fft_resample to 256^3, helical_sym,
+   flip_hand z, clip to 200^3, z_moving_average 4.75 A) as a subprocess on
+   the card (wall start to exit) and in this process with each option
+   timed, and at 96^3 with --device cuda against cpu (1e-5 relative).
+   This phase launches no hand-written kernel.
 
 The last two lines of standard output are the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them lists each
@@ -751,9 +768,8 @@ def phase_single_candidate(device, res) -> dict:
                               for g, t in parts.items())
                   + f"; sum {total:.3f} ms", flush=True)
             rows[key]["breakdown_ms"] = parts
-            if not bf16:
-                rows[key]["products"] = _time_products(inp.a_top, inp.shape[3], label,
-                                                       inp.a_top.shape[1])
+            rows[key]["products"] = _time_products(inp.a_top, inp.shape[3], label,
+                                                   inp.a_top.shape[1])
 
     for name in ("float32", "bfloat16"):
         fin = inputs[("score_candidate", "nn", name)]
@@ -2877,6 +2893,402 @@ def phase_webapp_grouped_fsc(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the 3D-map commands (trueFSC, proc3d)
+# ---------------------------------------------------------------------------
+
+PH13 = ROOT / "build" / "phase13"
+# an amyloid-like fibril at 1 A/px: 4.75 A rise, -1.2 deg twist, two
+# protofilaments of six Gaussian blobs (sigma 1.5 A) between 30 and 50 A
+# radius; each half map adds noise of std ``noise`` after a 1 px low-pass
+FIBRIL = dict(n=320, apix=1.0, rise=4.75, twist=-1.2, radii=(30, 34, 38, 42, 46, 50),
+              sigma=1.5, noise=0.1)
+PROC3D_CHAIN = ("--fft_resample new_nx=256:new_ny=256:new_nz=256 --helical_sym "
+                "twist=-1.2:rise=4.75:center_fraction=0.3 --flip_hand z --clip "
+                "new_nx=200:new_ny=200:new_nz=200 --z_moving_average length=4.75")
+PROC3D_CHAIN_96 = ("--fft_resample new_nx=80:new_ny=80:new_nz=80 --helical_sym "
+                   "twist=-1.2:rise=4.75:center_fraction=0.3 --flip_hand z --clip "
+                   "new_nx=62:new_ny=62:new_nz=62 --z_moving_average length=4.75")
+TRUEFSC_CURVES = ("unmasked", "randomized-unmasked", "masked", "randomized-masked", "true")
+# a trueFSC run up to the plot, for a machine without matplotlib: the
+# command's own parser, log and steps (trueFSC.run), and its result line
+TRUEFSC_NO_PLOT = """
+import sys
+from argparse import ArgumentParser
+from helicon_tpu_torch.commands import trueFSC as t
+args = t.add_args(ArgumentParser()).parse_args(sys.argv[1:])
+with t.log_to(args):
+    out = t.run(args)
+print(f"trueFSC resolution at FSC=0.143: {out['res_true']:.2f} A")
+"""
+
+
+def _fibril(n: int, device, f=FIBRIL):
+    """The fibril map (n, n, n) float32 on device, one layer's slab at a time."""
+    import math
+
+    import torch
+
+    vol = torch.zeros((n, n, n), dtype=torch.float32, device=device)
+    ax = (torch.arange(n, dtype=torch.float32, device=device) - n // 2) * f["apix"]
+    span = int(math.ceil(4 * f["sigma"] / f["apix"]))
+    half = n * f["apix"] / 2
+    for k in range(-int(half / f["rise"]) - 1, int(half / f["rise"]) + 2):
+        zc = k * f["rise"]
+        iz = int(round(zc / f["apix"])) + n // 2
+        z0, z1 = max(0, iz - span), min(n, iz + span + 1)
+        if z0 >= z1:
+            continue
+        th = [math.radians(f["twist"] * k + 7.0 * j + 180.0 * p)
+              for p in (0, 1) for j in range(len(f["radii"]))]
+        rr = [r for _ in (0, 1) for r in f["radii"]]
+        yc = torch.tensor([r * math.sin(t) for r, t in zip(rr, th)], device=device)
+        xc = torch.tensor([r * math.cos(t) for r, t in zip(rr, th)], device=device)
+        dz2 = (ax[z0:z1] - zc) ** 2
+        d2 = (dz2[None, :, None, None] + (ax[None, None, :, None] - yc[:, None, None, None]) ** 2
+              + (ax[None, None, None, :] - xc[:, None, None, None]) ** 2)
+        vol[z0:z1] += torch.exp(-d2 / (2 * f["sigma"] ** 2)).sum(0)
+    return vol
+
+
+def _half_maps(vol, seed: int, std: float = FIBRIL["noise"]):
+    """The two half maps: vol plus independent seeded noise (std ``std``
+    after a Gaussian low-pass of 1 px), each on vol's device."""
+    import torch
+
+    n = vol.shape[0]
+    gen = torch.Generator(device=vol.device).manual_seed(seed)
+    k = torch.fft.fftfreq(n, device=vol.device)
+    kr = torch.fft.rfftfreq(n, device=vol.device)
+    g = torch.exp(-2 * (torch.pi * 1.0) ** 2 * (k[:, None, None] ** 2 + k[None, :, None] ** 2
+                                                + kr[None, None, :] ** 2))
+    out = []
+    for _ in range(2):
+        noise = torch.fft.irfftn(torch.fft.rfftn(torch.randn(vol.shape, generator=gen,
+                                                             device=vol.device)) * g, s=vol.shape)
+        out.append(vol + noise * (std / noise.std()))
+    return out
+
+
+@contextlib.contextmanager
+def _truefsc_parts(parts: dict):
+    """trueFSC's parts timed for the duration, each call's host seconds (the
+    card synchronised before and after) appended to parts[key]: the FSCs,
+    the phase randomizations and their random draws, the lowpass, the
+    threshold, the seeds, the growth (its dilations in parts["grow_iters"]),
+    each distance transform, the per-shell FSCs and each evaluation of the
+    soft-edge search's objective."""
+    import scipy.optimize
+    import torch
+
+    from helicon_tpu_torch import _jax_random
+    from helicon_tpu_torch.core import analysis, filters, mask3d
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            parts.setdefault(key, []).append(time.perf_counter() - t0)
+            if key == "grow":
+                parts.setdefault("grow_iters", []).append(out[1])
+            return out
+        return run
+
+    def minimize_scalar(fun, *args, **kw):
+        return saved_min(timed(fun, "objective"), *args, **kw)
+
+    spots = ((analysis, "calc_fsc", "calc_fsc"),
+             (analysis, "calc_fsc_per_shell", "calc_fsc_per_shell"),
+             (filters, "randomize_phases_lowpass", "randomize"),
+             (_jax_random, "uniform_tensor", "draw"),
+             (mask3d, "gaussian_lowpass_3d", "lowpass"),
+             (mask3d, "_threshold", "threshold"),
+             (mask3d, "_top_seeds", "seeds"),
+             (mask3d, "_grow", "grow"),
+             (mask3d, "euclidean_distance_outside", "distance"))
+    saved = [getattr(mod, name) for mod, name, _ in spots]
+    saved_min = scipy.optimize.minimize_scalar
+    for mod, name, key in spots:
+        setattr(mod, name, timed(getattr(mod, name), key))
+    scipy.optimize.minimize_scalar = minimize_scalar
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(spots, saved):
+            setattr(mod, name, fn)
+        scipy.optimize.minimize_scalar = saved_min
+
+
+def _truefsc_in_process(work: Path, device: str, seed: int, parts=None) -> dict:
+    """trueFSC.run (everything the command does up to the plot) in this
+    process on the half maps in work's parent, its files in work, numpy's
+    global generator seeded first; returns its result with its wall seconds
+    and the peak device memory (GiB)."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.commands import trueFSC
+
+    work.mkdir(parents=True, exist_ok=True)
+    args = trueFSC.add_args(argparse.ArgumentParser()).parse_args(
+        [str(work.parent / "h1.mrc"), str(work.parent / "h2.mrc"), str(work / "fsc.png"),
+         "--verbose", "0", "--device", device])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    np.random.seed(seed)
+    t0 = time.perf_counter()
+    with trueFSC.log_to(args), (_truefsc_parts(parts) if parts is not None
+                                else contextlib.nullcontext()):
+        out = trueFSC.run(args)
+    torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _curves(work: Path) -> dict:
+    import numpy as np
+
+    return {c: np.loadtxt(work / f"fsc.{c}.txt") for c in TRUEFSC_CURVES}
+
+
+def _parts_line(parts: dict) -> str:
+    def fmt(v):
+        return (f"{v[0]:.3f}" if len(v) == 1 else
+                f"{sum(v):.3f} ({len(v)} calls: " + ", ".join(f"{x:.3f}" for x in v) + ")")
+
+    return "; ".join(f"{k} {fmt(v)} s" if k != "grow_iters" else f"growth dilations {v}"
+                     for k, v in parts.items())
+
+
+def phase_truefsc(device, card) -> dict:
+    """Phase 13 (a), (b): trueFSC at its defaults (refineMask 1, oneMask 1,
+    the automatic cutoff) on the 320^3 half-map pair at 1 A/px, as a
+    subprocess with --device cuda (its wall start to exit), then in this
+    process with its parts timed (the card synchronised around each), its
+    peak device memory and the true FSC's 0.143 resolution, and the random
+    draw of a map's phases on the card against the numpy threefry (bit for
+    bit, both timed); then the same command on the pair's central 128^3 with
+    --device cuda and --device cpu under one numpy seed: the five curves
+    within 1e-4, the masks' differing voxels counted, and a map's
+    phase-randomized inverse (map1r) on the card within 1e-5 relative of
+    the CPU's."""
+    import importlib.util
+    import os
+
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch import _jax_random
+    from helicon_tpu_torch.core.filters import randomize_phases_lowpass
+    from helicon_tpu_torch.io.mrc import read_mrc, write_mrc
+
+    n, apix = FIBRIL["n"], FIBRIL["apix"]
+    work = PH13 / "a"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    vol = _fibril(n, device)
+    h1, h2 = _half_maps(vol, 13)
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    for name, h in (("h1", h1), ("h2", h2)):
+        write_mrc(work / f"{name}.mrc", h.cpu().numpy(), apix=apix)
+    del vol
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    cmd = ([sys.executable, "-m", "helicon_tpu_torch.commands.trueFSC"] if has_mpl
+           else [sys.executable, "-c", TRUEFSC_NO_PLOT])
+    print(f"phase 13: matplotlib {'present: trueFSC runs whole' if has_mpl else 'absent: trueFSC runs up to the plot (trueFSC.run), its result line printed by the caller'}; "
+          f"the {n}^3 pair made on the card in {t_make:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    sub = subprocess.run([*cmd, "h1.mrc", "h2.mrc", "fsc.png", "--device", "cuda",
+                          "--verbose", "1"], cwd=work, capture_output=True, text=True,
+                         timeout=900, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    wall_sub = time.perf_counter() - t0
+    if sub.returncode != 0:
+        print(sub.stdout[-6000:], sub.stderr[-6000:], sep="\n", flush=True)
+        raise AssertionError(f"phase 13 (a): trueFSC exited {sub.returncode}")
+    res_line = [x for x in sub.stdout.splitlines() if x.startswith("trueFSC resolution")]
+    print(f"phase 13 (a) [trueFSC {n}^3 at {apix} A/px, defaults, subprocess --device cuda]: "
+          f"wall start to exit {wall_sub:.3f} s; {res_line[-1] if res_line else 'no result'}; "
+          f"{card}", flush=True)
+    sub_curves = _curves(work)
+
+    parts = {}
+    got = _truefsc_in_process(work / "in_process", "cuda", 13, parts)
+    curves = _curves(work / "in_process")
+    # the unmasked curve draws nothing (the subprocess's phases are its own)
+    err_sub = float(np.abs(curves["unmasked"] - sub_curves["unmasked"]).max())
+    print(f"phase 13 (a) [in process]: wall {got['wall']:.3f} s, peak device memory "
+          f"{got['peak_gib']:.3f} GiB, cutoff {got['cutoff_res']} A, true FSC 0.143 at "
+          f"{got['res_true']:.2f} A, the unmasked curve against the subprocess's {err_sub:.3e}; "
+          f"parts: "
+          f"{_parts_line(parts)}", flush=True)
+    ok = all(np.all(np.isfinite(v)) and v.shape == (n // 2, 2) for v in curves.values())
+    if not ok or not 2 * apix < got["res_true"] < 999 or not res_line or err_sub > 1e-4:
+        raise AssertionError("phase 13 (a): trueFSC's curves are not finite, misshapen, never "
+                             "cross 0.143, or differ from the subprocess's")
+
+    # the random draw of one map's phases: numpy threefry against the card's
+    shape = (n, n, n // 2 + 1)
+    key = _jax_random.PRNGKey(13)
+    t0 = time.perf_counter()
+    want = _jax_random.uniform(key, shape, 0.0, 2 * np.pi)
+    t_np = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draw = _jax_random.uniform_tensor(key, shape, 0.0, 2 * np.pi, device=device)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    same = np.array_equal(draw.cpu().numpy().view(np.uint32), want.view(np.uint32))
+    print(f"phase 13 (a) [the random draw, {int(np.prod(shape)):,} words]: numpy threefry "
+          f"{t_np:.3f} s, on the card {t_dev:.3f} s, equal bit for bit {same}", flush=True)
+    if not same:
+        raise AssertionError("phase 13 (a): the card's random draw differs from numpy's")
+    del draw, want
+
+    # (b) the central 128^3 on the card and on the CPU
+    m = 128
+    cut = slice(n // 2 - m // 2, n // 2 + m // 2)
+    work_b = PH13 / "b"
+    work_b.mkdir(parents=True, exist_ok=True)
+    for name, h in (("h1", h1), ("h2", h2)):
+        write_mrc(work_b / f"{name}.mrc", h[cut, cut, cut].cpu().numpy(), apix=apix)
+    del h1, h2
+    torch.cuda.empty_cache()
+    runs = {d: _truefsc_in_process(work_b / d, d, 7) for d in ("cuda", "cpu")}
+    cv = {d: _curves(work_b / d) for d in runs}
+    err_curves = {c: float(np.abs(cv["cuda"][c] - cv["cpu"][c]).max()) for c in TRUEFSC_CURVES}
+    mask_name = "h1_h2.common_mask.mrc"
+    mk = {d: read_mrc(work_b / d / mask_name)[0] for d in runs}
+    diff = mk["cuda"] != mk["cpu"]
+    binary = int(((mk["cuda"] == 1) != (mk["cpu"] == 1)).sum()
+                 + ((mk["cuda"] == 0) != (mk["cpu"] == 0)).sum())
+    data = read_mrc(work_b / "h1.mrc")[0]
+    key = _jax_random.PRNGKey(21)
+    r = {}
+    for d in ("cuda", "cpu"):
+        r[d] = randomize_phases_lowpass(torch.as_tensor(data, device=d), apix, 8.0,
+                                        key=key).cpu().numpy()
+    scale = float(np.abs(r["cpu"]).max())
+    err_r = float(np.abs(r["cuda"] - r["cpu"]).max()) / scale
+    print(f"phase 13 (b) [trueFSC {m}^3, cuda against cpu, one numpy seed]: wall "
+          f"{runs['cuda']['wall']:.3f} / {runs['cpu']['wall']:.3f} s; resolutions "
+          f"{runs['cuda']['res_true']:.2f} / {runs['cpu']['res_true']:.2f} A; curves max abs "
+          f"diff {json.dumps({c: float(f'{v:.3e}') for c, v in err_curves.items()})} (limit "
+          f"1e-4); common mask: {int(diff.sum())} of {diff.size} voxels differ (max "
+          f"{float(np.abs(mk['cuda'] - mk['cpu']).max()):.3e}), {binary} in its inside / "
+          f"outside; map1r on the card {err_r:.3e} relative of the CPU's (limit 1e-5)", flush=True)
+    if max(err_curves.values()) > 1e-4 or not err_r <= 1e-5:
+        raise AssertionError("phase 13 (b): trueFSC on the card differs from the CPU")
+    return dict(wall_sub=wall_sub, parts=parts, res=got["res_true"], peak=got["peak_gib"],
+                err_curves=err_curves, err_map1r=err_r)
+
+
+def _proc3d(argv: list, cwd: Path):
+    """proc3d's main in this process with its options timed by name (the
+    card synchronised around each); returns {option: seconds}."""
+    import argparse
+    import os
+
+    import torch
+
+    from helicon_tpu_torch.commands import proc3d
+    from helicon_tpu_torch.ops import proc3d as ops
+
+    parser = proc3d.add_args(argparse.ArgumentParser())
+    args = proc3d.check_args(parser.parse_args(argv), parser, argv)
+    times = {}
+    dispatch = ops.dispatch
+
+    def timed(option_name, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dispatch(option_name, *a)
+        torch.cuda.synchronize()
+        times[option_name] = time.perf_counter() - t0
+        return out
+
+    ops.dispatch = timed
+    cwd_before = Path.cwd()
+    try:
+        os.chdir(cwd)
+        proc3d.main(args)
+    finally:
+        ops.dispatch = dispatch
+        os.chdir(cwd_before)
+    return times
+
+
+def phase_proc3d(device, card) -> dict:
+    """Phase 13 (c): proc3d on the 320^3 fibril map as a subprocess with
+    --device cuda, the chain --fft_resample to 256^3, --helical_sym
+    (twist -1.2, rise 4.75, center_fraction 0.3), --flip_hand z, --clip to
+    200^3, --z_moving_average 4.75 A (its wall start to exit; a finite
+    200^3 map at 1.25 A/px), the same command in this process with each
+    option timed, and the same chain at 96^3 (the map's centre, sizes
+    scaled) with --device cuda against --device cpu (1e-5 relative)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.io.mrc import read_mrc, write_mrc
+
+    n, apix = FIBRIL["n"], FIBRIL["apix"]
+    work = PH13 / "c"
+    work.mkdir(parents=True, exist_ok=True)
+    vol = _fibril(n, device)
+    write_mrc(work / "map.mrc", vol.cpu().numpy(), apix=apix)
+    m = 96
+    cut = slice(n // 2 - m // 2, n // 2 + m // 2)
+    write_mrc(work / "map96.mrc", vol[cut, cut, cut].cpu().numpy(), apix=apix)
+    del vol
+    torch.cuda.empty_cache()
+    argv = ["map.mrc", "out.mrc", *PROC3D_CHAIN.split(), "--device", "cuda", "--verbose", "0",
+            "--force", "1"]
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-m", "helicon_tpu_torch.commands.proc3d", *argv],
+                         cwd=work, capture_output=True, text=True, timeout=900,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    wall_sub = time.perf_counter() - t0
+    if sub.returncode != 0:
+        print(sub.stdout[-6000:], sub.stderr[-6000:], sep="\n", flush=True)
+        raise AssertionError(f"phase 13 (c): proc3d exited {sub.returncode}")
+    out_sub, apix_sub = read_mrc(work / "out.mrc")
+    argv_in = ["map.mrc", "out_in.mrc", *argv[2:]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    times = _proc3d(argv_in, work)
+    wall_in = time.perf_counter() - t0
+    out_in, _ = read_mrc(work / "out_in.mrc")
+    err_in = float(np.abs(out_in - out_sub).max() / np.abs(out_sub).max())
+    print(f"phase 13 (c) [proc3d {n}^3 -> {out_sub.shape} at {apix_sub:.4f} A/px, subprocess "
+          f"--device cuda]: wall start to exit {wall_sub:.3f} s; in process {wall_in:.3f} s, "
+          f"options {json.dumps({k: round(v, 4) for k, v in times.items()})} s, output against "
+          f"the subprocess's {err_in:.3e}; {card}", flush=True)
+    if (out_sub.shape != (200, 200, 200) or abs(apix_sub - 1.25) > 1e-4
+            or not np.all(np.isfinite(out_sub)) or not out_sub.max() > 0 or err_in > 1e-6):
+        raise AssertionError("phase 13 (c): proc3d's map is misshapen, not finite, or differs "
+                             "between runs")
+    outs, t96 = {}, {}
+    for d in ("cuda", "cpu"):
+        t96[d] = _proc3d(["map96.mrc", f"out96_{d}.mrc", *PROC3D_CHAIN_96.split(), "--device", d,
+                          "--verbose", "0", "--force", "1"], work)
+        outs[d] = read_mrc(work / f"out96_{d}.mrc")[0]
+    err96 = float(np.abs(outs["cuda"] - outs["cpu"]).max() / np.abs(outs["cpu"]).max())
+    print(f"phase 13 (c) [the chain at {m}^3 -> {outs['cuda'].shape}]: cuda against cpu "
+          f"{err96:.3e} relative (limit 1e-5); options cuda "
+          f"{json.dumps({k: round(v, 4) for k, v in t96['cuda'].items()})} s, cpu "
+          f"{json.dumps({k: round(v, 4) for k, v in t96['cpu'].items()})} s", flush=True)
+    if not err96 <= 1e-5:
+        raise AssertionError("phase 13 (c): proc3d on the card differs from the CPU")
+    return dict(wall_sub=wall_sub, times=times, err96=err96)
+
+
 def main() -> int:
     import torch
 
@@ -2947,6 +3359,10 @@ def main() -> int:
     phase_webapp_simulate(device, webapp["tilt 0"])
     webapp_fsc = phase_webapp_grouped_fsc(device)
     print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+    t13 = time.perf_counter()
+    phase_truefsc(device, card)
+    phase_proc3d(device, card)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
     webapp_launches = {k: sum(d["launches"][k] for d in (*webapp.values(), webapp_grid))
                        + sum(d["launches_app"][k] for d in webapp.values()) for k in _counts()}
     webapp_launches["group_solve"] += webapp_fsc["launches"]

@@ -8,9 +8,12 @@ The port draws the same random numbers as the JAX package where its
 results depend on them: fsc mode 1's pixel split permutes
 ``arange(l2 * d2)`` with ``permutation(PRNGKey(0), n)``, and the ard
 model counts its symmetry rows with two ``uniform`` volumes and probes
-its posterior diagonal with ``rademacher`` volumes.
-``tests/test_torch_drivers.py`` holds every function here to
-``jax.random``.
+its posterior diagonal with ``rademacher`` volumes;
+``randomize_phases_lowpass`` draws its random phases with
+``uniform_tensor``, the same words computed on the device in torch integer
+ops (uint32 emulated in int64 and masked). ``tests/test_torch_drivers.py``
+holds every numpy function here to ``jax.random``,
+``tests/test_torch_volume_core.py`` the device draw to ``uniform``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import math
 import numpy as np
 
 __all__ = ["PRNGKey", "split", "fold_in", "random_bits", "permutation", "uniform",
-           "rademacher"]
+           "rademacher", "uniform_tensor"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -107,3 +110,41 @@ def permutation(key, n: int) -> np.ndarray:
         key, sub = split(key)
         x = x[np.argsort(random_bits(sub, n), kind="stable")]
     return x
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _threefry2x32_tensor(key, x1, x2):
+    """threefry2x32 of the int64 tensors x1, x2 (each word in [0, 2^32))
+    under key (2,) uint32, in int64 arithmetic masked to 32 bits: the same
+    words as threefry2x32."""
+    k1, k2 = (int(k) for k in key)
+    ks = (k1, k2, k1 ^ k2 ^ int(_PARITY))
+    x0 = (x1 + ks[0]) & _M32
+    x1 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def uniform_tensor(key, shape, minval: float = 0.0, maxval: float = 1.0,
+                   device=None):
+    """``uniform(key, shape, minval, maxval)`` as a float32 tensor on device,
+    computed there: equal to the numpy draw bit for bit."""
+    import torch
+
+    shape = tuple(shape)
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    b1, b2 = _threefry2x32_tensor(key, i >> 32, i & _M32)
+    del i
+    bits = b1 ^ b2
+    del b1, b2
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    out = floats * float(hi - lo) + float(lo)
+    return torch.clamp_min(out, float(lo)).reshape(shape)

@@ -3,16 +3,23 @@ dispatcher over the port's subcommands, as ``helicon_tpu/commands/helicon.py``
 is for the JAX package's.
 
   helicon-torch denovo3d_cli classes.mrcs out --twist 0.5 45 0.5 --rise 4 5 0.25
+  helicon-torch proc3d in.mrc out.mrc --flip_hand z --device cpu
+  helicon-torch trueFSC half1.mrc half2.mrc fsc.pdf
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
+import sys
 from importlib import import_module
 
 import helicon_tpu_torch
+from helicon_tpu_torch.utils.exceptions import HeliconError, HeliconExit
 
-cli_commands = ["denovo3d_cli"]
+logger = logging.getLogger(__name__)
+
+cli_commands = ["denovo3d_cli", "proc3d", "trueFSC"]
 
 
 def main(argv=None):
@@ -28,9 +35,21 @@ def main(argv=None):
                                     epilog="\n".join(doc[1:]),
                                     formatter_class=argparse.RawDescriptionHelpFormatter)
         module.add_args(sub)
-        sub.set_defaults(main_function=module.main)
+        sub.set_defaults(main_function=module.main, this_parser=sub,
+                         check_args_function=getattr(module, "check_args", None))
     args = parser.parse_args(argv)
-    args.main_function(args)
+    try:
+        if args.check_args_function is not None:
+            # the option plan reads the command line after the dispatcher's
+            # own argv[0]: the subcommand's name starts no option
+            args = args.check_args_function(args, args.this_parser,
+                                            sys.argv[1:] if argv is None else list(argv))
+        args.main_function(args)
+    except HeliconExit:
+        sys.exit(0)
+    except HeliconError as e:
+        logger.error("ERROR: %s", e)
+        sys.exit(1)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,19 @@
 """Geometry analysis the denovo3d prep chain needs (the cylindrical
-volume mask and the grayscale-moment helix rotation/diameter estimator)
-and the 2D image scores of the denovo3d score metrics.
+volume mask and the grayscale-moment helix rotation/diameter estimator),
+the 2D image scores of the denovo3d score metrics, and the Fourier shell
+and ring correlations.
 
 Counterpart of ``helicon_tpu/core/analysis.py:438`` (``_binary_closing``),
 ``:447`` (``estimate_helix_rotation_center_diameter``), ``:504``
-(``get_cylindrical_mask``), and of the traced scores ``:241-419``
+(``get_cylindrical_mask``), of the traced scores ``:241-419``
 (``_uniform_filter``, ``_ssim_map``, ``_rescale_half``,
 ``ssim_score_traced``, ``ms_ssim_score_traced``,
-``mutual_information_score_traced``). The moments and morphology are host
-numpy and scipy, as in the reference; the one rotation runs through the
-port's ``transform_image`` on the CPU. The scores take images (..., h, w)
-whose leading axes are a batch, and return one score per image.
+``mutual_information_score_traced``), and of the FSC / FRC family
+``:97-240`` (the shells binned on the spectra's device in float64). The
+moments and morphology are host numpy and scipy, as in the reference; the
+one rotation runs through the port's ``transform_image`` on the CPU. The
+scores take images (..., h, w) whose leading axes are a batch, and return
+one score per image.
 """
 
 from __future__ import annotations
@@ -21,6 +24,11 @@ import numpy as np
 import torch
 
 __all__ = [
+    "calc_fsc",
+    "calc_fsc_from_fft",
+    "calc_fsc_per_shell",
+    "calc_frc_2d",
+    "frc_score",
     "estimate_helix_rotation_center_diameter",
     "get_cylindrical_mask",
     "ssim_score_traced",
@@ -109,6 +117,171 @@ def get_cylindrical_mask(nz, ny, nx, rmin=0, rmax=-1, return_xyz: bool = False):
     if return_xyz:
         return mask, (Z, Y, X)
     return mask
+
+
+# ---------------------------------------------------------------------------
+# FSC / FRC
+# ---------------------------------------------------------------------------
+
+
+def _fftfreq64(n: int, device, half: bool = False) -> torch.Tensor:
+    """numpy's fftfreq(n) (rfftfreq(n) if half) in float64 on device: the
+    integer frequencies times 1.0 / n, as numpy forms them."""
+    if half:
+        k = torch.arange(n // 2 + 1, device=device)
+    else:
+        k = torch.arange(n, device=device)
+        k = torch.where(k < (n - 1) // 2 + 1, k, k - n)
+    return k.to(torch.float64) * (1.0 / n)
+
+
+def _shell_labels(sizes, scale: int, top: int, device, half: bool) -> torch.Tensor:
+    """int32 shell index round(|k| * scale), clipped to [0, top], of every
+    coefficient of an fftn grid of sizes (rfftn over the last axis if
+    half), in float64 as the reference forms it on the host."""
+    r2 = None
+    for ax, n in enumerate(sizes):
+        f = _fftfreq64(n, device, half=half and ax == len(sizes) - 1)
+        shape = [1] * len(sizes)
+        shape[ax] = -1
+        f2 = (f * f).reshape(shape)
+        r2 = f2 if r2 is None else r2 + f2
+    shell = torch.round(torch.sqrt(r2) * scale).to(torch.int32)
+    return shell.clamp_(0, top)
+
+
+def _shell_labels_3d(n: int, device=None) -> torch.Tensor:
+    """The shells of an (n, n, n // 2 + 1) rfftn grid (int32, on device)."""
+    return _shell_labels((n, n, n), n, n // 2, device, half=True)
+
+
+def _binned_fsc(F1, F2, labels, nshells: int) -> np.ndarray:
+    """Per-shell correlation of two spectra, binned on their device in
+    float64 (the reference's host bincount is float64 too: float32 sums
+    over ~1e7 coefficients spanning many orders move FSC values near
+    0.143). Only the three nshells-long sums cross to the host."""
+    labels = torch.as_tensor(labels, device=F1.device).reshape(-1)
+    p, q = F1.reshape(-1), F2.reshape(-1)
+    pr, pi = p.real.to(torch.float64), p.imag.to(torch.float64)
+    qr, qi = q.real.to(torch.float64), q.imag.to(torch.float64)
+    sums = torch.zeros((3, nshells), dtype=torch.float64, device=F1.device)
+    sums[0].index_add_(0, labels, pr * qr + pi * qi)
+    sums[1].index_add_(0, labels, pr * pr + pi * pi)
+    sums[2].index_add_(0, labels, qr * qr + qi * qi)
+    num, d1, d2 = sums.cpu().numpy()
+    denom = np.sqrt(d1 * d2)
+    return np.where(denom > 0, num / np.where(denom > 0, denom, 1.0), 1.0)
+
+
+def calc_fsc(map1, map2, apix, F1=None, F2=None, shell_flat=None, n=None) -> np.ndarray:
+    """FSC between two 3D maps (or their rfftn spectra F1, F2): columns
+    (spatial frequency 1/A, fsc), on the maps' device."""
+    if n is None:
+        n = map1.shape[0] if F1 is None else F1.shape[0]
+    df = 1.0 / (apix * n)
+    F1 = torch.fft.rfftn(torch.as_tensor(map1).to(torch.float32)) if F1 is None \
+        else torch.as_tensor(F1)
+    F2 = torch.fft.rfftn(torch.as_tensor(map2).to(torch.float32)) if F2 is None \
+        else torch.as_tensor(F2, device=F1.device)
+    if shell_flat is None:
+        labels = _shell_labels_3d(n, F1.device)
+    else:
+        labels = torch.as_tensor(shell_flat, device=F1.device).reshape((n, n, n // 2 + 1))
+    fsc = _binned_fsc(F1, F2, labels, n // 2 + 1)
+    qx_max = np.fft.rfftfreq(n).max()
+    saxis = np.arange(n // 2 + 1) * df
+    idx = saxis <= qx_max
+    return np.vstack((saxis[idx], fsc[idx])).T
+
+
+def calc_fsc_from_fft(F1, F2, n, apix) -> np.ndarray:
+    """FSC from precomputed rfftn spectra."""
+    return calc_fsc(None, None, apix, F1=F1, F2=F2, n=n)
+
+
+def calc_fsc_per_shell(map1, map2, apix) -> np.ndarray:
+    """EMAN2-style per-shell FSC over the full (fftn) grid; index = shell."""
+    map1 = torch.as_tensor(map1)
+    n = map1.shape[0]
+    F1 = torch.fft.fftn(map1.to(torch.float32))
+    F2 = torch.fft.fftn(torch.as_tensor(map2, device=map1.device).to(torch.float32))
+    labels = _shell_labels((n, n, n), n, n // 2, map1.device, half=False)
+    return _binned_fsc(F1, F2, labels, n // 2 + 1)
+
+
+def calc_frc_2d(img1, img2, apix):
+    """2D Fourier ring correlation: (spatial frequencies 1/A, frc curve)."""
+    if img1.shape != img2.shape:
+        raise ValueError(f"Image shapes must match: {img1.shape} vs {img2.shape}")
+    img1 = torch.as_tensor(img1)
+    h, w = img1.shape
+    n_shells = min(h, w) // 2
+    F1 = torch.fft.fft2(img1.to(torch.float32))
+    F2 = torch.fft.fft2(torch.as_tensor(img2, device=img1.device).to(torch.float32))
+    shell = _shell_labels((h, w), n_shells, n_shells, img1.device, half=False)
+    fsc = _binned_fsc(F1, F2, shell, n_shells + 1)
+    saxis = np.arange(n_shells + 1) / (min(h, w) * apix)
+    return saxis, fsc
+
+
+def _fit_frc_curve(saxis, fsc):
+    """Fit a Fermi or Butterworth falloff to an FRC curve (host-side)."""
+    from scipy.optimize import minimize
+
+    mask = np.isfinite(fsc) & (fsc >= -0.1) & (fsc <= 1.1)
+    s_fit, f_fit = saxis[mask], fsc[mask]
+    if len(s_fit) < 3:
+        return saxis, fsc
+
+    def fermi(mu, T, x):
+        return 1.0 / (np.exp((x - mu) / T) + 1.0)
+
+    def score_fermi(p):
+        mu, T = p
+        if T <= 0:
+            return 1e10
+        a = 1.0 / fermi(mu, T, 0.0)
+        return np.mean(np.abs(f_fit - a * fermi(mu, T, s_fit)))
+
+    def score_bw(p):
+        omega, order = p
+        if omega <= 0 or order <= 0:
+            return 1e10
+        return np.mean(np.abs(f_fit - 1.0 / (1.0 + (s_fit / omega) ** order)))
+
+    x0 = s_fit[len(s_fit) // 2]
+    best_err, best = np.inf, (s_fit.copy(), f_fit.copy())
+    rf = minimize(score_fermi, x0=[x0, 0.01], method="Nelder-Mead",
+                  options={"maxiter": 1000, "xatol": 1e-6})
+    if rf.fun < best_err:
+        best_err = rf.fun
+        mu, T = rf.x
+        a = 1.0 / fermi(mu, T, 0.0)
+        s_fine = np.linspace(saxis[1], saxis[-1], 500)
+        best = (s_fine, np.clip(a * fermi(mu, T, s_fine), -1, 1))
+    rb = minimize(score_bw, x0=[x0, 2.0], method="Nelder-Mead",
+                  options={"maxiter": 1000, "xatol": 1e-6})
+    if rb.fun < best_err:
+        omega, order = rb.x
+        s_fine = np.linspace(saxis[1], saxis[-1], 500)
+        best = (s_fine, np.clip(1.0 / (1.0 + (s_fine / omega) ** order), -1, 1))
+    return best
+
+
+def frc_score(img1, img2, apix, use_fit: bool = False) -> float:
+    """Scalar similarity from the FRC curve (mean or fitted-area)."""
+    saxis, fsc = calc_frc_2d(img1, img2, apix)
+    if use_fit:
+        s_fine, f_fine = _fit_frc_curve(saxis, fsc)
+        valid = np.isfinite(f_fine) & (f_fine >= -1) & (f_fine <= 1)
+        if valid.sum() == 0:
+            return 0.0
+        trapezoid = getattr(np, "trapezoid", None) or np.trapz
+        area = trapezoid(f_fine[valid], s_fine[valid])
+        span = s_fine[valid][-1] - s_fine[valid][0]
+        return float(area / span) if span > 0 else 0.0
+    valid = np.isfinite(fsc) & (fsc >= -1) & (fsc <= 1)
+    return float(np.mean(fsc[valid])) if valid.sum() else 0.0
 
 
 # ---------------------------------------------------------------------------

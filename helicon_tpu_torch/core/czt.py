@@ -1,0 +1,96 @@
+"""Chirp-Z transform (Bluestein) on ``torch.fft``.
+
+Counterpart of ``helicon_tpu/core/czt.py`` (its FFT path; the TPU's
+matmul-DFT fallback is not ported). ``czt(x, m, f0, df, axis)`` computes,
+along ``axis``::
+
+    X[k] = sum_n x[n] * exp(-2*pi*i * (f0 + k*df) * n),   k = 0..m-1
+
+with ``f0``/``df`` in cycles/sample, as three FFTs of length
+``next_fast_len(n + m - 1)``. The chirps are computed in float64 numpy,
+as the reference computes them, and applied in complex64 on the device
+of the tensor given.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["czt", "zoom_fft_2d", "zoom_fft_3d"]
+
+
+def _next_fast_len(n: int) -> int:
+    """Smallest 5-smooth number >= n (good FFT length)."""
+    if n <= 2:
+        return max(n, 1)
+    best = 1 << (n - 1).bit_length()
+    p5 = 1
+    while p5 < best:
+        p35 = p5
+        while p35 < best:
+            need = -(-n // p35)
+            p2 = 1 << max(0, (need - 1).bit_length())
+            best = min(best, p35 * p2)
+            p35 *= 3
+        p5 *= 5
+    return best
+
+
+def _along(vec: np.ndarray, ndim: int, axis: int, device) -> torch.Tensor:
+    """A 1D complex64 factor shaped to broadcast along ``axis``."""
+    shape = [1] * ndim
+    shape[axis] = -1
+    return torch.as_tensor(np.asarray(vec, np.complex64), device=device).reshape(shape)
+
+
+def czt(x: torch.Tensor, m: int, f0: float, df: float, axis: int = -1) -> torch.Tensor:
+    """Chirp-Z transform along one axis at frequencies ``f0 + k*df``."""
+    x = torch.as_tensor(x)
+    axis = axis % x.ndim
+    n = x.shape[axis]
+    L = _next_fast_len(n + m - 1)
+    k_all = np.arange(max(n, m), dtype=np.float64)
+    # W^(k^2/2) with W = exp(-2*pi*i*df), the exponent reduced mod 1
+    w_exp = 0.5 * df * k_all * k_all
+    a_exp = f0 * k_all[:n]
+    chirp = np.exp(-2j * np.pi * np.mod(w_exp, 1.0))
+    a_fac = np.exp(-2j * np.pi * np.mod(a_exp, 1.0))
+    pre = (a_fac * chirp[:n]).astype(np.complex64)
+    post = chirp[:m].astype(np.complex64)
+    # the convolution kernel: conj chirp at offsets -(n-1)..(m-1), wrapped
+    idx = np.arange(L, dtype=np.float64)
+    offs = np.where(idx < m, idx, idx - L)
+    v = np.exp(2j * np.pi * np.mod(0.5 * df * offs * offs, 1.0)).astype(np.complex64)
+    valid = (idx < m) | (idx >= L - (n - 1)) if n > 1 else (idx < m)
+    v = np.where(valid, v, 0).astype(np.complex64)
+
+    xw = x.to(torch.complex64) * _along(pre, x.ndim, axis, x.device)
+    Xf = torch.fft.fft(xw, n=L, dim=axis)
+    del xw
+    y = torch.fft.ifft(Xf * _along(np.fft.fft(v), x.ndim, axis, x.device), dim=axis)
+    del Xf
+    y = y.narrow(axis, 0, m)
+    return y * _along(post, x.ndim, axis, x.device)
+
+
+def zoom_fft_2d(data: torch.Tensor, out_shape, zoom) -> torch.Tensor:
+    """The 2D DFT on zoomed fftfreq-ordered frequency grids: along each axis
+    ``fftfreq(m) * zoom`` cycles per input sample. Leading axes are a
+    batch."""
+    my, mx = out_shape
+    zy, zx = zoom
+    dfy, dfx = zy / my, zx / mx
+    y = czt(data, my, -(my // 2) * dfy, dfy, axis=-2)
+    y = czt(y, mx, -(mx // 2) * dfx, dfx, axis=-1)
+    return torch.fft.ifftshift(y, dim=(-2, -1))
+
+
+def zoom_fft_3d(data: torch.Tensor, out_shape, zoom) -> torch.Tensor:
+    """3D analog of :func:`zoom_fft_2d`."""
+    mz, my, mx = out_shape
+    zz, zy, zx = zoom
+    y = czt(data, mz, -(mz // 2) * (zz / mz), zz / mz, axis=-3)
+    y = czt(y, my, -(my // 2) * (zy / my), zy / my, axis=-2)
+    y = czt(y, mx, -(mx // 2) * (zx / mx), zx / mx, axis=-1)
+    return torch.fft.ifftshift(y, dim=(-3, -2, -1))

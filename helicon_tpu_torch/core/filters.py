@@ -1,11 +1,13 @@
 """Filters on tensors: the threshold clip, and on ``torch.fft`` the
-Gaussian low/high-pass and the anti-aliased down-scaling (Gaussian
-prefilter, then a cubic B-spline resample).
+Gaussian low/high-pass, the anti-aliased down-scaling (Gaussian
+prefilter, then a cubic B-spline resample) and the phase randomization
+beyond a resolution cutoff.
 
 Counterpart of ``helicon_tpu/core/filters.py:139`` (``threshold_data``),
 ``:151`` (``_normalized_r2``), ``:165`` (``low_high_pass_filter``),
-``:181`` (``_gaussian_blur``), ``:195`` (``down_scale``) and ``:224``
-(``_down_scale_jit``). Each runs on the device of the tensor it is given.
+``:181`` (``_gaussian_blur``), ``:195`` (``down_scale``), ``:224``
+(``_down_scale_jit``) and ``:266`` (``randomize_phases_lowpass``). Each
+runs on the device of the tensor it is given.
 """
 
 from __future__ import annotations
@@ -15,7 +17,10 @@ import logging
 import numpy as np
 import torch
 
-__all__ = ["low_high_pass_filter", "down_scale", "threshold_data"]
+from .. import _jax_random
+from .analysis import _fftfreq64
+
+__all__ = ["low_high_pass_filter", "down_scale", "threshold_data", "randomize_phases_lowpass"]
 
 logger = logging.getLogger(__name__)
 
@@ -109,3 +114,38 @@ def down_scale(data, target_apix: float, apix_orig: float) -> torch.Tensor:
     R, C = torch.meshgrid(rr, cc, indexing="ij")
     out = map_coordinates(blurred, (R, C), order=3, mode="mirror")
     return pad_to_size(out, (ny1 + ny1 % 2, nx1 + nx1 % 2))
+
+
+def randomize_phases_lowpass(data, apix: float, cutoff_res: float, return_fft: bool = False,
+                             key=None):
+    """Randomize the phases beyond a resolution cutoff, keeping the
+    amplitudes (Chen et al. 2013, the true-FSC noise substitution).
+
+    key: a raw (2,) uint32 key of ``_jax_random.PRNGKey``; without one a
+    seed is drawn with ``np.random.randint(0, 2**31 - 1)``, as the
+    reference draws it, so both packages under one numpy seed take the
+    same key. The draw is JAX's uniform words bit for bit, computed on
+    data's device. Returns the rfftn spectrum (return_fft) or the map.
+    """
+    data = torch.as_tensor(data).to(torch.float32)
+    F = torch.fft.rfftn(data)
+    amp = torch.abs(F)
+    phase = torch.angle(F)
+    del F
+    cutoff2 = (apix / cutoff_res) ** 2
+    n = data.shape[-1]
+    k = _fftfreq64(n, data.device)
+    kr = _fftfreq64(n, data.device, half=True)
+    k2, kr2 = k * k, kr * kr
+    mask = (k2[:, None, None] + k2[None, :, None] + kr2[None, None, :]) >= cutoff2
+    if key is None:
+        key = _jax_random.PRNGKey(np.random.randint(0, 2**31 - 1))
+    rand = _jax_random.uniform_tensor(key, phase.shape, minval=0.0, maxval=2 * np.pi,
+                                      device=data.device)
+    rand = torch.angle(torch.exp(1j * rand))
+    phase = torch.where(mask, rand, phase)
+    del rand, mask
+    F2 = amp * torch.exp(1j * phase)
+    if return_fft:
+        return F2
+    return torch.fft.irfftn(F2, s=data.shape)

@@ -1,12 +1,15 @@
 """Image and volume transforms: ``transform_image`` (rotation about the
 centre), ``rotate_shift_image`` (rotation about a centre with pre/post
 shifts), ``pad_to_size``, the centre crops, the helical symmetrization
-``apply_helical_symmetry`` and the cubic volume transform
-``transform_map``.
+``apply_helical_symmetry``, the cubic volume transform
+``transform_map``, the zero-padded clips, the Fourier crop and rescale and
+the hand flip.
 
 Counterpart of ``helicon_tpu/core/transforms.py:261``, ``:326``, ``:401``,
 ``:370`` / ``:378`` (the crops), ``:143`` with ``_helical_sym_accumulate``
-:65, and ``:219``. Each runs on the device of the tensor it is given.
+:65, ``:219``, ``:421`` / ``:433`` (the clips), ``:467`` (``fft_crop``),
+``:507`` (``fft_rescale``) and ``:561`` (``flip_hand``). Each runs on the
+device of the tensor it is given.
 """
 
 from __future__ import annotations
@@ -18,10 +21,12 @@ import torch
 import torch.nn.functional as F
 
 from . import rotation
+from .czt import zoom_fft_2d, zoom_fft_3d
 from .interp import map_coordinates
 
 __all__ = ["transform_image", "rotate_shift_image", "pad_to_size", "crop_center",
-           "crop_center_z", "apply_helical_symmetry", "transform_map"]
+           "crop_center_z", "apply_helical_symmetry", "transform_map", "get_clip",
+           "get_clip3d", "fft_crop", "fft_rescale", "flip_hand"]
 
 
 def transform_image(image, rotation: float = 0.0, order: int = 1):
@@ -262,3 +267,96 @@ def transform_map(data, scale: float = 1.0, rot: float = 0, tilt: float = 0, psi
     y = (X * R[1][0] + Y * R[1][1] + Z * R[1][2]) + ny // 2 - dy
     z = (X * R[2][0] + Y * R[2][1] + Z * R[2][2]) + nz // 2 - dz
     return map_coordinates(data, (z, y, x), order=3, mode="constant")
+
+
+def get_clip(image, y0: int, x0: int, height: int, width: int) -> torch.Tensor:
+    """Rectangular clip with zero padding outside the image."""
+    image = torch.as_tensor(image)
+    clip = torch.zeros((height, width), dtype=image.dtype, device=image.device)
+    yc, xc = max(0, y0), max(0, x0)
+    y1 = min(y0 + height, image.shape[0])
+    x1 = min(x0 + width, image.shape[1])
+    if y1 > yc and x1 > xc:
+        clip[yc - y0 : y1 - y0, xc - x0 : x1 - x0] = image[yc:y1, xc:x1]
+    return clip
+
+
+def get_clip3d(data, z0: int, y0: int, x0: int, nz: int, ny: int, nx: int) -> torch.Tensor:
+    """3D clip with zero padding outside the volume."""
+    data = torch.as_tensor(data)
+    clip = torch.zeros((nz, ny, nx), dtype=data.dtype, device=data.device)
+    zc, yc, xc = max(0, z0), max(0, y0), max(0, x0)
+    z1 = min(z0 + nz, data.shape[0])
+    y1 = min(y0 + ny, data.shape[1])
+    x1 = min(x0 + nx, data.shape[2])
+    if z1 > zc and y1 > yc and x1 > xc:
+        clip[zc - z0 : z1 - z0, yc - y0 : y1 - y0, xc - x0 : x1 - x0] = data[
+            zc:z1, yc:y1, xc:x1
+        ]
+    return clip
+
+
+def fft_crop(data, output_size=None) -> torch.Tensor:
+    """Downscale by truncating the Fourier transform (even sizes): the
+    rfft's centred block of output_size, inverted over every axis (the
+    reference inverts all axes in 3D too)."""
+    if output_size is None or tuple(data.shape) == tuple(output_size):
+        return torch.as_tensor(data)
+    data = torch.as_tensor(data, dtype=torch.float32)
+    assert data.ndim in (2, 3) and data.ndim == len(output_size)
+    assert all(s % 2 == 0 for s in output_size) and all(
+        s % 2 == 0 for s in data.shape
+    ), f"fft_crop requires even sizes, got {tuple(data.shape)} -> {tuple(output_size)}"
+    lead = tuple(range(data.ndim - 1))
+    for n, m in zip(data.shape, output_size):
+        assert m <= n
+    fft = torch.fft.fftshift(torch.fft.rfftn(data), dim=lead)
+    block = tuple(slice(n // 2 - m // 2, n // 2 + m // 2)
+                  for n, m in zip(data.shape[:-1], output_size[:-1]))
+    fft = fft[block + (slice(0, output_size[-1] // 2 + 1),)]
+    fft = torch.fft.fftshift(fft, dim=lead)
+    return torch.fft.irfftn(fft, s=tuple(output_size))
+
+
+def _center_phase(out_sizes, zooms, in_sizes, device) -> torch.Tensor:
+    """The re-centring phase exp(2 pi i f n_in / 2) of each output
+    frequency times (-1)^(sum of output indices), complex128 on device:
+    the reference's finufft type-2 treats the data origin at the array
+    centre, the chirp-Z at the corner. Each axis's factor carries its own
+    (-1)^index, and the outer product is taken in the reference's order."""
+    ph = None
+    for om, zoom, n_in in zip(out_sizes, zooms, in_sizes):
+        f = np.fft.fftfreq(om) * zoom
+        p = np.exp(2j * np.pi * f * (n_in / 2.0)) * np.where(np.arange(om) % 2, -1.0, 1.0)
+        p = torch.as_tensor(p, device=device)
+        ph = p if ph is None else ph[..., None] * p
+    return ph
+
+
+def fft_rescale(data, apix: float = 1.0, cutoff_res=None, output_size=None) -> torch.Tensor:
+    """The Fourier transform evaluated on a rescaled uniform grid, by
+    chirp-Z: frequencies ``fftfreq(m) * 2*apix/cutoff`` per axis, with the
+    phase that centres the implied real-space origin. Returns complex64
+    coefficients in fftfreq layout; ``ifftn`` gives the rescaled image."""
+    data = torch.as_tensor(data)
+    if data.ndim not in (2, 3):
+        raise ValueError("only 2D images and 3D maps are supported")
+    cut = cutoff_res if cutoff_res else (2 * apix,) * data.ndim
+    out = tuple(output_size) if output_size else tuple(data.shape)
+    zooms = tuple(2 * apix / c for c in cut)
+    zoom_fft = zoom_fft_2d if data.ndim == 2 else zoom_fft_3d
+    fft = zoom_fft(data, out, zooms)
+    ph = _center_phase(out, zooms, data.shape, data.device)
+    # the reference's decomposed complex product, in float32
+    pr, pi = ph.real.to(torch.float32), ph.imag.to(torch.float32)
+    del ph
+    fr, fi = fft.real, fft.imag
+    return torch.complex(fr * pr - fi * pi, fr * pi + fi * pr)
+
+
+def flip_hand(data, axis: str = "x") -> torch.Tensor:
+    """Mirror a 3D volume along one axis (handedness flip)."""
+    dims = {"x": 2, "y": 1, "z": 0}
+    if axis not in dims:
+        raise ValueError("axis must be 'x', 'y', or 'z'")
+    return torch.flip(torch.as_tensor(data), (dims[axis],))

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import functools
 import math
 import os
 import time
@@ -44,6 +43,7 @@ import torch
 
 from ..angular import set_to_periodic_range
 from ..core.filters import down_scale
+from ..utils.precision import tf32_off as _tf32_off
 from .geometry import (
     ReconstructionGeometry,
     estimate_copy_pair_counts,
@@ -737,25 +737,6 @@ def _raise_out_of_slice(cost_analysis, devices) -> None:
     for name, on, item in checks:
         if on:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
-
-
-def _tf32_off(fn):
-    """Run fn with every float32 product in full float32 (the reference's
-    "highest" precision), then restore the caller's TF32 flags."""
-
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        flags = torch.backends.cuda.matmul, torch.backends.cudnn
-        saved = [f.allow_tf32 for f in flags]
-        for f in flags:
-            f.allow_tf32 = False
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            for f, on in zip(flags, saved):
-                f.allow_tf32 = on
-
-    return wrapped
 
 
 @_tf32_off

@@ -244,6 +244,25 @@ def _host_ms(fn, reps: int) -> float:
     return ms
 
 
+def _device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call between CUDA events around reps
+    calls enqueued behind a sleeping kernel, after one warm-up: the calls
+    run back to back on the card whatever the host's pace, so small
+    launches read their own time, not the host's."""
+    import torch
+
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)  # ~10 ms of the card: the queue fills meanwhile
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _bound(nbytes, mma_flops, simt_flops, bf16) -> tuple:
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     and the operations over the peak rate of their type (the products'
@@ -1910,12 +1929,62 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
           f"{live} symmetry items, {valid} valid]: K1 {t1}, grid_sample ({mode}) + sum "
           f"{rows[('project', interp)]['library_ms']:.3f} ms; K2 {t2}{lib}; K4 {t4}; {card}",
           flush=True)
+    parts = _gather_breakdown(listed, x, r)
+    rows[("backproject", interp)]["breakdown_ms"] = parts
+    print(f"{label}: device ms a step, queued behind a sleep: "
+          + ", ".join(f"{n} {v:.4f}" if isinstance(v, float) else f"{n} {v}"
+                      for n, v in parts.items()) + f"; {card}", flush=True)
     if errs is not None:
         t3 = timing(("jacobian", interp), lambda: gk.pose_jacobian(tab, x, b),
                     lambda: gk.pose_jacobian_reference(tab, x, b), _nbytes(x, b) + aux_bytes,
                     COORD_OPS * n_live + VALID_OPS[("jacobian", interp)] * n_valid)
         print(f"{label}: K3 {t3}; {card}", flush=True)
     return rows
+
+
+def _gather_breakdown(listed, x, r) -> dict:
+    """Device ms of each step of K1's and K2's calls on the list of live
+    rays (_device_ms around each C entry called with one step), K1 with
+    its volume in shared memory and read from device memory, and the live
+    rays a block took."""
+    import torch
+
+    from helicon_tpu_torch._build import Launcher
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
+    launch = Launcher(x.device, lambda n: None)
+    k, C, l2, d2 = listed.shape
+    d3, l3 = listed.d3, listed.l3
+    dev = x.device
+    vol = (k, l3, d3, d3)
+    amax, done = torch.empty((2, k), dtype=torch.int32, device=dev)
+    accg = torch.empty(vol, dtype=torch.int64, device=dev)
+    out = torch.empty(vol, dtype=torch.float32, device=dev)
+    pred = torch.empty(listed.shape, dtype=torch.float32, device=dev)
+    lists, n_max = gk._listed(listed)
+    common = (*gk._args(listed), *lists)
+    lin = int(listed.linear)
+
+    def k2(steps):
+        launch("hgp_backproject", r, listed.ok, *common, amax, accg, done, out, k, C, l2, d2, d3,
+               l3, lin, n_max, gk.SMEM_LIMIT, steps)
+
+    def k1(steps, limit):
+        launch("hgp_project", x, listed.aux, listed.ok, *common, pred, None, k, C, l2, d2, d3, l3,
+               lin, n_max, limit, steps)
+
+    parts = {"K2 memsets": lambda: k2(1), "K2 amax_kernel": lambda: k2(2),
+             "K2 backproject_kernel (done not zeroed: no last block)": lambda: k2(4),
+             "K2 memsets + backproject_kernel": lambda: k2(5), "K2 whole call": lambda: k2(7),
+             "K1 memset": lambda: k1(1, gk.SMEM_LIMIT),
+             "K1 kernel, volume in shared memory": lambda: k1(2, gk.SMEM_LIMIT),
+             "K1 kernel, volume read through the cache": lambda: k1(2, 0)}
+    out = {name: _device_ms(fn, 20) for name, fn in parts.items()}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rpb = max(32, -(-n_max * k // (8 * sms)))
+    out["rays_a_block"] = rpb
+    out["blocks"] = k * -(-n_max // rpb)
+    return out
 
 
 def _one_candidate_tables(device, geom, tw, rp, copies, pairs, pose, interp):

@@ -783,14 +783,15 @@ int hgp_project(const float* x, const float* aux, const uint8_t* ok_g, const flo
                 const float* cs, const float* sn, const float* dz, const float* cv,
                 const float* x0, const float* y0, const float* z0, const int* rptr,
                 const int* ridx, float* pred, uint8_t* rowv, int k, int C, int l2, int d2,
-                int d3, int l3, int linear, int n_max, int smem_limit, cudaStream_t st) {
+                int d3, int l3, int linear, int n_max, int smem_limit, int steps, cudaStream_t st) {
   Tables tb = tables(R, nullptr, cs, sn, dz, cv, x0, y0, z0, k, C, l2, d2, d3, l3);
   const dim3 grid = rptr ? list_grid(tb, rptr, ridx, n_max) : grid_of(tb);
   const int vol = l3 * d3 * d3;
   // the listed launch writes the live rays alone
-  if (rptr && pred) cudaMemsetAsync(pred, 0, sizeof(float) * k * C * l2 * d2, st);
+  if ((steps & 1) && rptr && pred) cudaMemsetAsync(pred, 0, sizeof(float) * k * C * l2 * d2, st);
   const void* fn = linear ? (const void*)project_kernel<true> : (const void*)project_kernel<false>;
   const size_t sm = smem_bytes(fn, vol, x != nullptr ? 5 : 1, smem_limit);
+  if (!(steps & 2)) return (int)cudaGetLastError();
   if (linear)
     project_kernel<true><<<grid, NT, sm, st>>>(tb, x, aux, ok_g, pred, rowv, sm > 0);
   else
@@ -816,14 +817,17 @@ int hgp_backproject(const float* r, const uint8_t* ok_g, const float* R, const f
                     const float* y0, const float* z0, const int* rptr, const int* ridx,
                     unsigned* amax, long long* accg, unsigned* done, float* out, int k, int C,
                     int l2, int d2, int d3, int l3, int linear, int n_max, int smem_limit,
-                    cudaStream_t st) {
+                    int steps, cudaStream_t st) {
   Tables tb = tables(R, nullptr, cs, sn, dz, cv, x0, y0, z0, k, C, l2, d2, d3, l3);
   const dim3 grid = rptr ? list_grid(tb, rptr, ridx, n_max) : grid_of(tb);
   const int vol = l3 * d3 * d3;
   const long n_rays = (long)C * l2 * d2;
-  cudaMemsetAsync(accg, 0, sizeof(long long) * k * vol, st);
-  cudaMemsetAsync(done, 0, sizeof(unsigned) * k, st);
-  launch_amax(r, n_rays, k, amax, st);
+  if (steps & 1) {
+    cudaMemsetAsync(accg, 0, sizeof(long long) * k * vol, st);
+    cudaMemsetAsync(done, 0, sizeof(unsigned) * k, st);
+  }
+  if (steps & 2) launch_amax(r, n_rays, k, amax, st);
+  if (!(steps & 4)) return (int)cudaGetLastError();
   // a sample's weights sum to 1: at most max |r| a sample
   const double n_terms = (double)n_rays * d2;
   const void* fn =

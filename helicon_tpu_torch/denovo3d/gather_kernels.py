@@ -582,7 +582,7 @@ def gather_project(tab: GatherTables, x=None, row_valid: bool = False):
     rowv = torch.empty((k, C, l2, d2), dtype=torch.bool, device=dev) if row_valid else None
     _launcher("gather_project", dev)("hgp_project", x, tab.aux, tab.ok, *_args(tab), *lists,
                                      pred, rowv, k, C, l2, d2, tab.d3, tab.l3, int(tab.linear),
-                                     n_max, SMEM_LIMIT)
+                                     n_max, SMEM_LIMIT, 3)
     return (pred, rowv) if row_valid else pred
 
 
@@ -607,7 +607,7 @@ def gather_backproject(tab: GatherTables, r) -> torch.Tensor:
     lists, n_max = _listed(tab)
     _launcher("gather_backproject", dev)("hgp_backproject", r, tab.ok, *_args(tab), *lists, amax,
                                          accg, done, out, k, C, l2, d2, tab.d3, tab.l3,
-                                         int(tab.linear), n_max, SMEM_LIMIT)
+                                         int(tab.linear), n_max, SMEM_LIMIT, 7)
     return out
 
 

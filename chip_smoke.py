@@ -62,9 +62,10 @@ checkout, then runs thirteen phases and fails (non-zero exit) if any fails:
    (transpose -1, horizontalize 1: the prep's seconds by pass); (b) B1
    at R = 1, the route HELICON_GRID_GROUPED=1 forces on (a)'s largest
    second-pass call, against its plain version (scores within 1e-3),
-   timed beside its bound; (c) phase 4's search as the web app calls it,
-   with progress_callback and should_abort and no batch_size (launches of
-   the reference's automatic batch), then aborted after its first launch;
+   timed beside its bound, its products beside cuBLAS's bmm; (c) phase
+   4's search as the web app calls it, with progress_callback and
+   should_abort and no batch_size (launches of the reference's automatic
+   batch), then aborted after its first launch;
    (d) (a)'s grid checkpointed in chunks of
    1,024, stopped after two and resumed (scores within 1e-3 of (a)'s, the
    same winner); (e) prepare_data (transpose -1, horizontalize 1,
@@ -75,14 +76,16 @@ checkout, then runs thirteen phases and fails (non-zero exit) if any fails:
 9. the per-candidate path: (a) the largest second-pass call of 8 (a)
    with B2 against its plain version (bfloat16 scores within 1e-3, and
    the call in float32 within 1e-4), one of its B2 launches timed beside
-   its bound; (b) the golden grid at tilt 3 deg on the gather projector
+   its bound and its products beside cuBLAS's bmm; (b) the golden grid
+   at tilt 3 deg on the gather projector
    (wall, candidates/s, peak memory, finite scores), the gather P and PT
    per application, and four golden candidates at tilt 0 on the gather
    projector against the separable path (float32 scores within 1e-4);
    (c) ard on the golden grid (B2's matvec entry under the EM loop) with
    the entry and with its plain version on the same card tensors
    (bfloat16 scores within 1e-3, float32 within 1e-4), one of the
-   search's matvecs timed with both beside its bound, and the entry
+   search's matvecs timed with both beside its bound (its products beside
+   cuBLAS's bmm), and the entry
    against plain on phase 5's float32 inputs (relative 1e-5); (d)
    elasticnet with fsc_test=2 on the golden grid with B2 and with its
    plain version (the halves on j-dependent z-Grams; the same gates),
@@ -90,12 +93,19 @@ checkout, then runs thirteen phases and fails (non-zero exit) if any fails:
    fsc half's j-dependent z-Gram against plain on phase 5's float32
    inputs (x within 1e-3 relative);
 10. pose refinement on the gather kernels (K1 gather_project, K2
-   gather_backproject, K3 pose_jacobian, K4 sym_normal): (a) each against
-   its plain version at phase 9 (b)'s best golden candidate at tilt 3 deg,
-   nn and linear (P within 1e-5 of its max, PT and ST(S(x)) bit for bit,
-   J^T J and J^T r 1e-4 relative), timed beside its plain version, its
-   bound and a yardstick (grid_sample + the ray sum for P, index_add_ for
-   nn PT), and K4's share of a refine matvec beside the torch S + ST it
+   gather_backproject, gather_normal (the solves' data term PT(rows *
+   P(x)) in one call), sample_table (each listed ray's samples, once a
+   pose), K3 pose_jacobian, K4 sym_normal): (a) each against its plain
+   version at phase 9 (b)'s best golden candidate at tilt 3 deg, nn and
+   linear (P within 1e-5 of its max, P, PT, gather_normal, the table and
+   ST(S(x)) bit for bit, K1 / K2 / gather_normal with the table and
+   without, J^T J and J^T r 1e-4 relative), timed beside its plain
+   version, its bound and a yardstick (grid_sample + the ray sum for P,
+   index_add_ of the precomputed taps for PT, nn and linear), gather_normal
+   beside K1 + multiply + K2, then each step of K1's, K2's and
+   gather_normal's C entries alone (device ms, queued behind a sleeping
+   kernel; with and without the table; K1's volume staged and cached),
+   and K4's share of a refine matvec beside the torch S + ST it
    replaced; (b) phase 9 (b)'s wall on the kernels beside the torch gather
    projector's; (c) refinement's main path, the CLI's refinement
    (--refineTiltPsiDy 5 5 2, top-1) on phase 4's search, K1-K4's counts
@@ -162,13 +172,15 @@ checkout, then runs thirteen phases and fails (non-zero exit) if any fails:
    relative); (c) proc3d's chain (fft_resample to 256^3, helical_sym,
    flip_hand z, clip to 200^3, z_moving_average 4.75 A) as a subprocess on
    the card (wall start to exit) and in this process with each option
-   timed, and at 96^3 with --device cuda against cpu (1e-5 relative).
-   This phase launches no hand-written kernel.
+   timed, and at 96^3 with --device cuda against cpu (1e-5 relative);
+   (a) also prints the largest bin of Otsu's histogram against 2^24
+   (ROADMAP C13). This phase launches no hand-written kernel.
 
 The last two lines of standard output are the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them lists each
 kernel with its launches on its own path (phase 4 for B1, phase 5 for B2
-and B3, phase 10 (c) for K1-K4; B1's and B2's on the bucketed path of
+and B3, phase 10 (c) for the gather kernels; B1's and B2's on the
+bucketed path of
 phase 8, B2's on phase 9's per-candidate searches too, with its matvec
 entry and its j-dependent z-Gram; K1-K4's on phases 9 (b) and 10 (d)),
 and on phase 11's CLI runs (launches_cli; B1's and B2's first float32
@@ -1205,8 +1217,10 @@ def phase_r1(device, bucketed) -> dict:
           f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
     if R != 1 or not np.all(np.isfinite(s_k)) or not (err <= 1e-3):
         raise AssertionError(f"phase 8 (b): B1 at R = {R} differs from plain by {err}")
+    products = _time_products(inp.a_top, R * l3, f"phase 8 (b) [R={R}, G={G}]",
+                              gs.padded_pitch(inp.a_top.shape[1]))
     return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
-                groups=(G, R, C_u, O))
+                groups=(G, R, C_u, O), products=products)
 
 
 def phase_incremental(device, phase4_scores) -> dict:
@@ -1443,11 +1457,14 @@ def phase_second_pass(device, bucketed) -> dict:
     bf16 = inp.a_top.dtype == torch.bfloat16
     bound_ms, bound_by = _bound(*_single_work(inp), bf16=bf16)
     k, C, O, l3, d3sq = inp.shape
-    print(f"phase 9 (a) [one B2 launch: k={k} C={C} O={O} l3={l3} d3^2={d3sq}, "
-          f"{inp.a_top.dtype}]: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({bound_by})", flush=True)
+    label = (f"phase 9 (a) [one B2 launch: k={k} C={C} O={O} l3={l3} d3^2={d3sq}, "
+             f"{inp.a_top.dtype}]")
+    print(f"{label}: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by})", flush=True)
+    products = _time_products(inp.a_top, l3, label, inp.a_top.shape[1])
     return dict(max_abs_err=out["bfloat16"], float32_err=out["float32"], ms=ms_k,
-                plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by, shape=(k, C, O, l3, d3sq))
+                plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by, shape=(k, C, O, l3, d3sq),
+                products=products)
 
 
 def _golden_search(device, tw, ri, **kw):
@@ -1622,7 +1639,7 @@ def phase_ard(device, single) -> dict:
     _print_golden("phase 9 (c) [ard]", res, b2, wall, peak, len(res.scores))
     out = dict(wall=wall, launches=b2, max_abs_err=errs["bfloat16"], float32_err=errs["float32"])
 
-    def timed(inp, v, label):
+    def timed(inp, v, label, products=False):
         got, want = cs.candidate_matvec(inp, v), cs.candidate_matvec_reference(inp, v)
         torch.cuda.synchronize()
         rel = float((got - want).abs().max() / want.abs().max())
@@ -1631,13 +1648,17 @@ def phase_ard(device, single) -> dict:
         bound_ms, bound_by = _bound(*_single_work(inp, nm=1),
                                     bf16=inp.a_top.dtype == torch.bfloat16)
         k, C, O, l3, d3sq = inp.shape
-        print(f"phase 9 (c) [{label}: the matvec entry, {inp.a_top.dtype}, k={k} C={C} O={O} "
-              f"l3={l3} d3^2={d3sq}]: rel err {rel:.3e}, kernel {ms_k:.3f} ms, plain "
-              f"{ms_p:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})", flush=True)
-        return dict(max_abs_err=float((got - want).abs().max()), rel_err=rel, ms=ms_k,
-                    plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by)
+        head = (f"phase 9 (c) [{label}: the matvec entry, {inp.a_top.dtype}, k={k} C={C} O={O} "
+                f"l3={l3} d3^2={d3sq}]")
+        print(f"{head}: rel err {rel:.3e}, kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, bound "
+              f"{bound_ms:.3f} ms ({bound_by})", flush=True)
+        row = dict(max_abs_err=float((got - want).abs().max()), rel_err=rel, ms=ms_k,
+                   plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by)
+        if products:
+            row["products"] = _time_products(inp.a_top, l3, head, inp.a_top.shape[1])
+        return row
 
-    out["search_matvec"] = timed(*record[0], "one of the search's matvecs")
+    out["search_matvec"] = timed(*record[0], "one of the search's matvecs", products=True)
     inp = single["inputs"][("solve_candidate", "nn", "float32")]
     extra = timed(inp, torch.rand(inp.rhs.shape, device=device) * inp.mask,
                   "phase 5's inputs")
@@ -1749,7 +1770,7 @@ def _plain_gather():
     tensors) for the duration."""
     from helicon_tpu_torch.denovo3d import gather_kernels as gk
 
-    names = ("gather_project", "gather_backproject", "pose_jacobian", "sym_normal")
+    names = GATHER_KERNELS
     saved = [getattr(gk, n) for n in names]
     for n in names:
         setattr(gk, n, getattr(gk, n + "_reference"))
@@ -1804,13 +1825,15 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
     P within 1e-5 of its max and row_valid equal; P, PT and ST(S(x)) bit
     for bit (the plain P sums a ray in the kernel's order, PT and ST(S(x))
     sum exactly), K1 and K2 both testing every ray and on the list of live
-    rays the projector builds; J^T J and J^T r within 1e-4 relative. timed:
-    each kernel (K1, K2 on the list) and its plain version timed by CUDA
+    rays the projector builds, with its sample table (equal to the plain
+    table) and without; gather_normal likewise; J^T J and J^T r within
+    1e-4 relative. timed: each kernel (K1, K2, gather_normal on the list
+    and its table, the table's build) and its plain version timed by CUDA
     events beside its bound, and the yardsticks: for P
     torch.nn.functional.grid_sample (5-D, nearest / bilinear, zero padding)
-    on the same samples plus the sum along the ray; for nn PT one
-    index_add_ of the same valid samples' indices. Returns the rows by
-    (kernel, interpolation)."""
+    on the same samples plus the sum along the ray; for PT one index_add_
+    of the same valid samples' taps. Returns the rows by (kernel,
+    interpolation)."""
     import torch
     import torch.nn.functional as F
 
@@ -1824,25 +1847,59 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     listed = gk.with_live_rays(tab, rv_k)
+    torch.cuda.synchronize()
     list_ms = (time.perf_counter() - t0) * 1e3
-    p_l = gk.gather_project(listed, x)
+    # the list's sample table (nn: the projector's; linear, which computes
+    # its samples, built here) against the plain table, and the list with
+    # it and without
+    if (listed.sidx is None) != tab.linear:
+        raise AssertionError(f"{label}: the list's sample table is "
+                             f"{'missing' if listed.sidx is None else 'there'}")
+    tabled = dataclasses.replace(listed, sidx=None, sfrac=None)
+    tabled.sidx, tabled.sfrac = gk.sample_table(tabled)
+    untabled = dataclasses.replace(listed, sidx=None, sfrac=None)
+    st_p = gk.sample_table_reference(listed)
+    table_same = bool(torch.equal(tabled.sidx, st_p[0])
+                      and (st_p[1] is None or torch.equal(tabled.sfrac, st_p[1]))
+                      and (listed.sidx is None or torch.equal(listed.sidx, st_p[0])))
+    rows[("table", interp)] = dict(
+        max_abs_err=0.0 if table_same else float("inf"), equal=table_same,
+        table_mb=_nbytes(*(t for t in (tabled.sidx, tabled.sfrac) if t is not None)) / 1e6)
+    if not table_same:
+        raise AssertionError(f"{label}: the sample table differs from the plain table")
+    on_lists = (listed, tabled, untabled)
+    p_l = [gk.gather_project(on, x) for on in on_lists]
     torch.cuda.synchronize()
     err_p, rv_same = _rel(p_k, p_p), bool((rv_k == rv_p).all())
-    p_same = bool(torch.equal(p_k, p_p) and torch.equal(p_l, p_p))
-    row = dict(max_abs_err=float(max((p_k - p_p).abs().max(), (p_l - p_p).abs().max())),
+    p_same = all(torch.equal(p, p_p) for p in (p_k, *p_l))
+    row = dict(max_abs_err=float(max((p - p_p).abs().max() for p in (p_k, *p_l))),
                rel_err=err_p, equal=p_same, live_rays=listed.n_max, list_build_ms=list_ms)
     if not (err_p <= 1e-5 and rv_same and p_same):
         raise AssertionError(f"{label}: K1 differs from plain ({err_p}, {rv_same}, {p_same})")
     # K2
     pt_k, pt_p = gk.gather_backproject(tab, r), gk.gather_backproject_reference(tab, r)
-    pt_l = gk.gather_backproject(listed, r)
+    pt_l = [gk.gather_backproject(on, r) for on in on_lists]
     torch.cuda.synchronize()
-    pt_same = bool(torch.equal(pt_k, pt_p) and torch.equal(pt_l, pt_p))
+    pt_same = all(torch.equal(p, pt_p) for p in (pt_k, *pt_l))
     rows[("backproject", interp)] = dict(max_abs_err=float((pt_k - pt_p).abs().max()),
                                          equal=pt_same)
     if not pt_same:
         raise AssertionError(f"{label}: K2 differs from plain by "
                              f"{float((pt_k - pt_p).abs().max())}")
+    # gather_normal at the solver's rows, full and with an fsc-like weighting
+    w = (torch.arange(tab.l2 * tab.d2, device=x.device) % 3 != 0).float().reshape(tab.l2, tab.d2)
+    rows_n = rv_k.float()
+    nm_same, nm_err = True, 0.0
+    for rw in (rows_n, rows_n * w):
+        nm_p = gk.gather_normal_reference(tab, x, rw)
+        for on in on_lists:
+            nm_k = gk.gather_normal(on, x, rw)
+            torch.cuda.synchronize()
+            nm_same = nm_same and bool(torch.equal(nm_k, nm_p))
+            nm_err = max(nm_err, float((nm_k - nm_p).abs().max()))
+    rows[("normal", interp)] = dict(max_abs_err=nm_err, equal=nm_same)
+    if not nm_same:
+        raise AssertionError(f"{label}: gather_normal differs from plain by {nm_err}")
     # K4
     sts_k, sts_p = gk.sym_normal(st, x), gk.sym_normal_reference(st, x)
     torch.cuda.synchronize()
@@ -1867,9 +1924,13 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
     k3 = "" if errs is None else (f"; K3 J^T J {errs[0]:.3e}, J^T r {errs[1]:.3e}, r^T r "
                                   f"{errs[2]:.3e} (limit 1e-4)")
     print(f"{label}: K1 rel err {err_p:.3e} (limit 1e-5), row_valid "
-          f"{'equal' if rv_same else 'DIFFERS'}; K1, K2 (every ray tested, and on the list of "
-          f"{listed.n_max} live rays, built in {list_ms:.3f} ms) and K4 equal to plain bit for "
-          f"bit{k3}; {card}", flush=True)
+          f"{'equal' if rv_same else 'DIFFERS'}; the sample table "
+          f"({rows[('table', interp)]['table_mb']:.1f} MB"
+          f"{', the list' + chr(39) + 's own' if listed.sidx is not None else ''}) equal to "
+          f"plain; K1, K2 (every ray tested, and on the list of {listed.n_max} live rays, built "
+          f"in {list_ms:.3f} ms, with and without a table), gather_normal (rows: the valid "
+          f"rows, and with an fsc-like weighting; with and without a table) and K4 equal to "
+          f"plain bit for bit{k3}; {card}", flush=True)
     if not timed:
         return rows
 
@@ -1882,12 +1943,12 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
 
     def timing(key, kernel, plain, nbytes, ops, lib=None):
         ms_k, ms_p = _time_ms(kernel, 20), _time_ms(plain, 3)
-        host = _host_ms(kernel, 20)
+        host, dev = _host_ms(kernel, 20), _device_ms(kernel, 20)
         bound = _bound(nbytes, 0, ops, False)
         rows[key].update(ms=ms_k, plain_ms=ms_p, bound_ms=bound[0], bound_by=bound[1],
-                         library_ms=lib, host_ms=host)
-        return (f"kernel {ms_k:.3f} ms (host {host:.3f} ms a call), plain {ms_p:.3f} ms, bound "
-                f"{bound[0]:.4f} ms ({bound[1]})")
+                         library_ms=lib, host_ms=host, device_ms=dev)
+        return (f"kernel {ms_k:.4f} ms (device alone {dev:.4f} ms, host {host:.4f} ms a call), "
+                f"plain {ms_p:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
 
     # the yardstick: grid_sample at the same samples, the populated slots'
     # (x, y, z) normalized with align_corners
@@ -1902,23 +1963,43 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
     t1 = timing(("project", interp), lambda: gk.gather_project(listed, x),
                 lambda: gk.gather_project_reference(tab, x), _nbytes(x, p_k) + aux_bytes,
                 COORD_OPS * n_listed + VALID_OPS[("project", interp)] * n_valid, ms_lib)
-    ms_lib = None
-    if not tab.linear:
-        # one index_add_ of the valid samples' padded indices (the plain
-        # version's), each carrying its ray's value
-        idx, val = [], []
-        for sl, _, taps, valid in gk._chunks(tab, 0, tab.sampler()):
-            valid = valid & (tab.cvf[0, sl] > 0)[:, None, None, None]
-            idx.append(taps[0][0][valid])
-            val.append(r[0, sl][..., None].expand(valid.shape)[valid])
-        idx, val = torch.cat(idx), torch.cat(val)
-        acc = tab.sampler().zeros(x.device)
-        ms_lib = _time_ms(lambda: acc.index_add_(0, idx, val), 10)
-        del idx, val
+    # one index_add_ of the valid samples' taps (the plain version's
+    # indices: nn one into the padded volume, linear the cell's eight),
+    # each carrying its ray's value times the tap's weight, precomputed
+    idx, val = [], []
+    for sl, _, taps, valid in gk._chunks(tab, 0, tab.sampler()):
+        valid = valid & (tab.cvf[0, sl] > 0)[:, None, None, None]
+        rv = r[0, sl][..., None].expand(valid.shape)
+        for i, wt in taps:
+            idx.append(i.expand(valid.shape)[valid])
+            val.append((rv if wt is None else wt * rv)[valid])
+    idx, val = torch.cat(idx), torch.cat(val)
+    acc = tab.sampler().zeros(x.device)
+    ms_lib = _time_ms(lambda: acc.index_add_(0, idx, val), 10)
+    del idx, val
     t2 = timing(("backproject", interp), lambda: gk.gather_backproject(listed, r),
                 lambda: gk.gather_backproject_reference(tab, r), _nbytes(r, pt_k) + aux_bytes,
                 COORD_OPS * n_listed + VALID_OPS[("backproject", interp)] * n_valid, ms_lib)
-    lib = "" if ms_lib is None else f", index_add_ {ms_lib:.3f} ms"
+    lib = f", index_add_ {ms_lib:.4f} ms"
+    # gather_normal at the valid rows, beside the composition it replaced
+    # (K1 on the list, the multiply, K2 on the list)
+    t5 = timing(("normal", interp), lambda: gk.gather_normal(listed, x, rows_n),
+                lambda: gk.gather_normal_reference(tab, x, rows_n),
+                _nbytes(x, nm_k, listed.ridx) + aux_bytes + 4 * listed.n_max,
+                2 * COORD_OPS * n_listed + (VALID_OPS[("project", interp)]
+                                            + VALID_OPS[("backproject", interp)]) * n_valid)
+
+    def composed():
+        return gk.gather_backproject(listed, gk.gather_project(listed, x) * rows_n)
+
+    comp = dict(ms=_time_ms(composed, 20), device_ms=_device_ms(composed, 20),
+                host_ms=_host_ms(composed, 20))
+    rows[("normal", interp)]["composition"] = comp
+    # the sample table's build, once a pose: it computes what K1 computes
+    t6 = timing(("table", interp), lambda: gk.sample_table(listed),
+                lambda: gk.sample_table_reference(listed),
+                _nbytes(listed.ridx, *(t for t in (tabled.sidx, tabled.sfrac) if t is not None))
+                + aux_bytes, COORD_OPS * n_listed)
     live, valid = _sym_items(st)
     t4 = timing(("sym_normal", interp), lambda: gk.sym_normal(st, x),
                 lambda: gk.sym_normal_reference(st, x),
@@ -1927,9 +2008,11 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
     print(f"{label} [{n_all} samples, {n_live} on unpruned rays, {n_valid} valid, "
           f"{listed.n_max} live rays; "
           f"{live} symmetry items, {valid} valid]: K1 {t1}, grid_sample ({mode}) + sum "
-          f"{rows[('project', interp)]['library_ms']:.3f} ms; K2 {t2}{lib}; K4 {t4}; {card}",
+          f"{rows[('project', interp)]['library_ms']:.3f} ms; K2 {t2}{lib}; gather_normal {t5}, "
+          f"against K1 + multiply + K2 {comp['ms']:.4f} ms (device alone {comp['device_ms']:.4f} "
+          f"ms, host {comp['host_ms']:.4f} ms a call); K4 {t4}; the sample table {t6}; {card}",
           flush=True)
-    parts = _gather_breakdown(listed, x, r)
+    parts = _gather_breakdown(tabled, x, r, rows_n)
     rows[("backproject", interp)]["breakdown_ms"] = parts
     print(f"{label}: device ms a step, queued behind a sleep: "
           + ", ".join(f"{n} {v:.4f}" if isinstance(v, float) else f"{n} {v}"
@@ -1942,49 +2025,43 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
     return rows
 
 
-def _gather_breakdown(listed, x, r) -> dict:
-    """Device ms of each step of K1's and K2's calls on the list of live
-    rays (_device_ms around each C entry called with one step), K1 with
-    its volume in shared memory and read from device memory, and the live
-    rays a block took."""
+def _gather_breakdown(listed, x, r, rows) -> dict:
+    """Device ms of each step of K1's, K2's and gather_normal's calls on the
+    list of live rays (_device_ms around each C entry called with one
+    step, on the wrappers' own scratch; no launch counted), reading the
+    list's sample table and computing the samples, K1 with its volume
+    staged in shared memory and read through the cache, and the grid:
+    blocks a candidate and live rays a block (gather_kernels.launch_grid)."""
     import torch
 
-    from helicon_tpu_torch._build import Launcher
     from helicon_tpu_torch.denovo3d import gather_kernels as gk
 
-    launch = Launcher(x.device, lambda n: None)
-    k, C, l2, d2 = listed.shape
-    d3, l3 = listed.d3, listed.l3
-    dev = x.device
-    vol = (k, l3, d3, d3)
-    amax, done = torch.empty((2, k), dtype=torch.int32, device=dev)
-    accg = torch.empty(vol, dtype=torch.int64, device=dev)
-    out = torch.empty(vol, dtype=torch.float32, device=dev)
-    pred = torch.empty(listed.shape, dtype=torch.float32, device=dev)
-    lists, n_max = gk._listed(listed)
-    common = (*gk._args(listed), *lists)
-    lin = int(listed.linear)
-
-    def k2(steps):
-        launch("hgp_backproject", r, listed.ok, *common, amax, accg, done, out, k, C, l2, d2, d3,
-               l3, lin, n_max, gk.SMEM_LIMIT, steps)
-
-    def k1(steps, limit):
-        launch("hgp_project", x, listed.aux, listed.ok, *common, pred, None, k, C, l2, d2, d3, l3,
-               lin, n_max, limit, steps)
-
-    parts = {"K2 memsets": lambda: k2(1), "K2 amax_kernel": lambda: k2(2),
-             "K2 backproject_kernel (done not zeroed: no last block)": lambda: k2(4),
-             "K2 memsets + backproject_kernel": lambda: k2(5), "K2 whole call": lambda: k2(7),
-             "K1 memset": lambda: k1(1, gk.SMEM_LIMIT),
-             "K1 kernel, volume in shared memory": lambda: k1(2, gk.SMEM_LIMIT),
-             "K1 kernel, volume read through the cache": lambda: k1(2, 0)}
-    out = {name: _device_ms(fn, 20) for name, fn in parts.items()}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rpb = max(32, -(-n_max * k // (8 * sms)))
-    out["rays_a_block"] = rpb
-    out["blocks"] = k * -(-n_max // rpb)
-    return out
+    out = torch.empty((listed.shape[0], listed.l3, listed.d3, listed.d3), device=x.device)
+    pred = torch.empty(listed.shape, device=x.device)
+    untabled = dataclasses.replace(listed, sidx=None, sfrac=None)
+    parts = {f"K2 {n}": (lambda s=s: gk._backproject_cuda(listed, r, out, s))
+             for n, s in gk.BACKPROJECT_STEPS.items()}
+    parts["K2 sums, samples computed"] = (
+        lambda: gk._backproject_cuda(untabled, r, out, gk.BACKPROJECT_STEPS["sums"]))
+    parts["K2 whole call"] = lambda: gk._backproject_cuda(listed, r, out)
+    zero, kernel = gk.PROJECT_STEPS["zero pred"], gk.PROJECT_STEPS["kernel"]
+    parts["K1 zero pred"] = lambda: gk._project_cuda(listed, x, pred, None, zero)
+    for name, limit in (("volume in shared memory", gk.SMEM_LIMIT),
+                        ("volume read through the cache", 0)):
+        parts[f"K1 kernel, {name}"] = (
+            lambda limit=limit: gk._project_cuda(listed, x, pred, None, kernel, limit))
+        parts[f"K1 kernel, {name}, samples computed"] = (
+            lambda limit=limit: gk._project_cuda(untabled, x, pred, None, kernel, limit))
+    for n, s in gk.NORMAL_STEPS.items():
+        parts[f"gather_normal {n}"] = lambda s=s: gk._normal_cuda(listed, x, rows, out, s)
+    parts["gather_normal whole call"] = lambda: gk._normal_cuda(listed, x, rows, out)
+    parts["gather_normal whole call, samples computed"] = (
+        lambda: gk._normal_cuda(untabled, x, rows, out))
+    res = {name: _device_ms(fn, 20) for name, fn in parts.items()}
+    per, rpb = gk.launch_grid(listed.shape[0], listed.n_max, True,
+                              torch.cuda.get_device_properties(x.device).multi_processor_count)
+    res.update(blocks_a_candidate=per, rays_a_block=rpb)
+    return res
 
 
 def _one_candidate_tables(device, geom, tw, rp, copies, pairs, pose, interp):
@@ -2030,7 +2107,7 @@ def phase_gather_kernels(device, tilted, card) -> dict:
 
 def phase_sym_share(device, tilted, card) -> dict:
     """Phase 10 (a), last: the share of the symmetry term in one refine
-    matvec PT(P(x) * rows) + ST(S(x)) at tilt 3 deg (nn) on the golden
+    matvec PT(rows * P(x)) + ST(S(x)) (gather_normal and K4) at tilt 3 deg (nn) on the golden
     grid's tables, for one candidate and for the 45 a refine_mode="all"
     launch takes: K4 (ST(S(x)) in one launch) beside the torch S + ST it
     replaced (the taps computed at the build)."""
@@ -2051,7 +2128,7 @@ def phase_sym_share(device, tilted, card) -> dict:
         rows = ops["row_valid"].float()
         ms_k4 = _time_ms(lambda: ops["STS"](x), 10)
         ms_torch = _time_ms(lambda: ops["ST"](ops["S"](x)), 10)
-        ms_mv = _time_ms(lambda: ops["PT"](ops["P"](x) * rows) + ops["STS"](x), 10)
+        ms_mv = _time_ms(lambda: ops["PTRP"](x, rows) + ops["STS"](x), 10)
         out[k] = dict(sym_ms=ms_k4, torch_sym_ms=ms_torch, matvec_ms=ms_mv,
                       share=ms_k4 / ms_mv)
         print(f"phase 10 (a) [the symmetry term, nn, tilt 3 deg, k={k}, {tabs[3].shape[1]} pair "
@@ -2070,8 +2147,10 @@ def phase_tilted_again(tilted, card) -> None:
           f"kernels]: {t['wall']:.3f} s wall incl. best volume ({TORCH_GATHER_TILT3_WALL} s on "
           f"the torch gather projector), {t['rate']:.2f} candidates/s, peak {t['peak']:.2f} GiB, "
           f"launches {launches}; {card}", flush=True)
-    if not all(launches[n] > 0 for n in ("gather_project", "gather_backproject", "sym_normal")):
-        raise AssertionError("phase 10 (b): the tilted search did not launch K1 / K2 / K4")
+    if not all(launches[n] > 0 for n in ("gather_project", "gather_backproject", "gather_normal",
+                                         "sample_table", "sym_normal")):
+        raise AssertionError("phase 10 (b): the tilted search did not launch K1 / K2 / "
+                             "gather_normal / sample_table / K4")
 
 
 def _pose_gate(label, got, want, card, pose_limit=5e-3, score=None) -> tuple:
@@ -2305,7 +2384,8 @@ CLI_GRID = "--apix 2 --twist 0.5 45 0.25 --rise 4 5 0.08 --handedness left --tub
 # at 1e-4 in float32 and bf16 at its own 1e-3
 CLI_WIDE = ("--apix 2 --twist 0.5 45 0.25 --rise 2 10 0.25 --handedness left --tubeDiameter 110 "
             "--cgIters 10 --fistaIters 16")
-GATHER_KERNELS = ("gather_project", "gather_backproject", "pose_jacobian", "sym_normal")
+GATHER_KERNELS = ("gather_project", "gather_backproject", "gather_normal", "sample_table",
+                  "pose_jacobian", "sym_normal")
 
 
 def _cli(workdir: Path, argv: str, env=None, timeout=900):
@@ -2415,7 +2495,8 @@ def phase_cli(device, card) -> dict:
               f"{eff['wall_s'] - warm:.3f} s in the "
               f"search and {wall - eff['wall_s']:.3f} s around it (imports, CUDA context, the "
               f"kernel library, the files); peak {eff['peak_gib']:.2f} GiB; launches B1 "
-              f"{la['group_solve']}, B2 {b2}, K1-K4 {[la[k] for k in GATHER_KERNELS]}; G "
+              f"{la['group_solve']}, B2 {b2}, "
+              f"{', '.join(f'{k} {la[k]}' for k in GATHER_KERNELS)}; G "
               f"{eff.get('groups_per_launch')} (in process "
               f"{res.effective.get('groups_per_launch')}); top-1 ({summary['best_twist']}, "
               f"{summary['best_rise']}) score {summary['best_score']:.6f}; .csv against the "
@@ -2818,7 +2899,7 @@ def phase_webapp_task(device, card) -> dict:
         print(f"phase 12 (a) [{label}]: against {against}: score abs err {errs['score']:.3e} "
               f"(limit 1e-4), rel err rec3d {errs['rec3d']:.3e}, x {errs['x_proj']:.3e}, y "
               f"{errs['y_proj']:.3e}, z {errs['z_sections']:.3e} (limit 1e-3)", flush=True)
-        need = (("gather_project", "gather_backproject", "pose_jacobian", "sym_normal") if over
+        need = (GATHER_KERNELS if over
                 else ("solve_candidate",))
         if any(n[k] <= 0 for n in (launches, launches_app) for k in need):
             raise AssertionError(f"phase 12 (a) [{label}]: a kernel of the path did not launch "
@@ -3068,6 +3149,19 @@ def _truefsc_parts(parts: dict):
     def minimize_scalar(fun, *args, **kw):
         return saved_min(timed(fun, "objective"), *args, **kw)
 
+    def otsu(volume, n_bins=256, ignore_zero=True):
+        # the largest bin of Otsu's histogram, counted exactly (ROADMAP
+        # C13: the reference's float32 counts stop at 2^24)
+        v = torch.as_tensor(volume).to(torch.float32).reshape(-1)
+        lo, hi = v.min(), v.max()
+        span = torch.where(hi > lo, hi - lo, torch.ones_like(hi))
+        bins = torch.clamp(((v - lo) / span * n_bins).to(torch.int32), 0, n_bins - 1)
+        if ignore_zero:
+            bins = bins[v != 0]
+        parts.setdefault("otsu_largest_bin", []).append(
+            int(torch.bincount(bins, minlength=n_bins).max()))
+        return saved_otsu(volume, n_bins, ignore_zero)
+
     spots = ((analysis, "calc_fsc", "calc_fsc"),
              (analysis, "calc_fsc_per_shell", "calc_fsc_per_shell"),
              (filters, "randomize_phases_lowpass", "randomize"),
@@ -3078,16 +3172,18 @@ def _truefsc_parts(parts: dict):
              (mask3d, "_grow", "grow"),
              (mask3d, "euclidean_distance_outside", "distance"))
     saved = [getattr(mod, name) for mod, name, _ in spots]
-    saved_min = scipy.optimize.minimize_scalar
+    saved_min, saved_otsu = scipy.optimize.minimize_scalar, mask3d.otsu_threshold_3d
     for mod, name, key in spots:
         setattr(mod, name, timed(getattr(mod, name), key))
     scipy.optimize.minimize_scalar = minimize_scalar
+    mask3d.otsu_threshold_3d = otsu
     try:
         yield
     finally:
         for (mod, name, _), fn in zip(spots, saved):
             setattr(mod, name, fn)
         scipy.optimize.minimize_scalar = saved_min
+        mask3d.otsu_threshold_3d = saved_otsu
 
 
 def _truefsc_in_process(work: Path, device: str, seed: int, parts=None) -> dict:
@@ -3130,8 +3226,9 @@ def _parts_line(parts: dict) -> str:
         return (f"{v[0]:.3f}" if len(v) == 1 else
                 f"{sum(v):.3f} ({len(v)} calls: " + ", ".join(f"{x:.3f}" for x in v) + ")")
 
-    return "; ".join(f"{k} {fmt(v)} s" if k != "grow_iters" else f"growth dilations {v}"
-                     for k, v in parts.items())
+    line = "; ".join(f"{k} {fmt(v)} s" for k, v in parts.items()
+                     if k not in ("grow_iters", "otsu_largest_bin"))
+    return line + (f"; growth dilations {parts['grow_iters']}" if "grow_iters" in parts else "")
 
 
 def phase_truefsc(device, card) -> dict:
@@ -3196,6 +3293,12 @@ def phase_truefsc(device, card) -> dict:
           f"{got['res_true']:.2f} A, the unmasked curve against the subprocess's {err_sub:.3e}; "
           f"parts: "
           f"{_parts_line(parts)}", flush=True)
+    bins = parts.get("otsu_largest_bin")
+    print("phase 13 (a) [ROADMAP C13]: " + (
+        "Otsu not called (a threshold option chose the level)" if not bins else
+        f"Otsu's largest bin holds {max(bins)} voxels a call ({len(bins)} calls), "
+        f"{'past' if max(bins) > 2**24 else 'below'} 2^24 = {2**24}: the reference's float32 "
+        f"counts {'saturate there' if max(bins) > 2**24 else 'are exact'}"), flush=True)
     ok = all(np.all(np.isfinite(v)) and v.shape == (n // 2, 2) for v in curves.values())
     if not ok or not 2 * apix < got["res_true"] < 999 or not res_line or err_sub > 1e-4:
         raise AssertionError("phase 13 (a): trueFSC's curves are not finite, misshapen, never "
@@ -3482,7 +3585,7 @@ def main() -> int:
               # phase 8 (b): the forced route of groups of one
               # (HELICON_GRID_GROUPED=1), B1 at R = 1 against plain
               forced_r1={f: r1[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                            "bound_by", "groups")},
+                                            "bound_by", "groups", "products")},
               bucketed=dict(launches_first=bucketed["sums"]["first"]["launches"],
                             launches_second=bucketed["sums"]["second"]["launches"],
                             launches_winner=bucketed["sums"]["winner"]["launches"]),
@@ -3503,7 +3606,8 @@ def main() -> int:
                   launches_ard=ard["launches"], launches_fsc_elasticnet=fsc_reg["launches"],
                   launches_tilt=tilted["b2_launches"],
                   second_pass={f: second[f] for f in ("max_abs_err", "float32_err", "ms",
-                                                       "plain_ms", "bound_ms", "bound_by")},
+                                                       "plain_ms", "bound_ms", "bound_by",
+                                                       "products")},
                   # ard's and elasticnet + fsc 2's golden searches, B2
                   # against plain (score errors), one of each search's
                   # launches timed, and phase 5's float32 k = 8 checks
@@ -3532,6 +3636,15 @@ def main() -> int:
               "helicon_tpu/denovo3d/projector.py:153", cli["launches"]["gather_backproject"],
               gather[("backproject", "nn")],
               **other("gather_backproject", gather[("backproject", "linear")])),
+        # PT(rows * P(x)) in one call: K1 and K2 on the list (the jax.vjp of
+        # P after P, the solver's data term)
+        entry("gather_normal", "gather_projector.cu", "helicon_tpu/denovo3d/projector.py:153",
+              cli["launches"]["gather_normal"], gather[("normal", "nn")],
+              **other("gather_normal", gather[("normal", "linear")])),
+        # each listed ray's samples, once a pose (P's sampling, tabulated)
+        entry("sample_table", "gather_projector.cu", "helicon_tpu/denovo3d/projector.py:153",
+              cli["launches"]["sample_table"], gather[("table", "nn")],
+              **other("sample_table", gather[("table", "linear")])),
         entry("pose_jacobian", "gather_projector.cu", "helicon_tpu/denovo3d/refine.py:50",
               cli["launches"]["pose_jacobian"], gather[("jacobian", "linear")],
               **other("pose_jacobian", None)),

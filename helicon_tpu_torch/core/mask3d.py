@@ -74,7 +74,9 @@ def otsu_threshold_3d(volume, n_bins: int = 256, ignore_zero: bool = True) -> to
     histogram spans [min, max] in n_bins equal bins, exact zeros are
     dropped when ignore_zero, bin 0 never wins, and the level is min +
     (winning bin + 1) * bin width (a float32 0-d tensor on the volume's
-    device). The counts are int64, converted to float32 once."""
+    device). The counts are int64, each capped at 2^24 before the
+    conversion to float32: the reference adds float32 ones, and a bin past
+    2^24 stops there (2^24 + 1 rounds back to 2^24)."""
     v = torch.as_tensor(volume).to(torch.float32).reshape(-1)
     lo, hi = v.min(), v.max()
     width = (hi - lo) / n_bins
@@ -82,7 +84,7 @@ def otsu_threshold_3d(volume, n_bins: int = 256, ignore_zero: bool = True) -> to
     bins = torch.clamp(((v - lo) / span * n_bins).to(torch.int32), 0, n_bins - 1)
     if ignore_zero:
         bins = bins[v != 0]
-    hist = torch.bincount(bins, minlength=n_bins).to(torch.float32)
+    hist = torch.bincount(bins, minlength=n_bins).clamp_max(2**24).to(torch.float32)
     p = hist / torch.clamp_min(hist.sum(), 1.0)
     centers = torch.arange(n_bins, dtype=torch.float32, device=v.device)
     omega = torch.cumsum(p, 0)

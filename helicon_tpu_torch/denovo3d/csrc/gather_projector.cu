@@ -10,6 +10,8 @@
 //   validity (row_valid: >= 1 valid sample and the copy slot populated).
 // - gather_backproject (K2): its transpose PT (the reference's jax.vjp of
 //   P): each ray's residual added back into the voxels its samples read.
+// - gather_normal: the data term of the solver's normal operator,
+//   PT(rows * P(x)), K1 and K2 on the list of live rays in one call.
 // - pose_jacobian (K3): refine.py::_gn_step (:50-94), jax.jacfwd of the
 //   linear residual (P(x) - b) * row_valid with respect to (tilt, psi, dy),
 //   reduced to J^T J, J^T r and r^T r per candidate; J is never stored.
@@ -22,34 +24,49 @@
 // the bytes are ~4 per ray: at 124 M samples a P moves 10 MB (3 us of
 // memory time), and only the ~3 % of the samples on rays that meet the
 // volume need their ~25-60 float operations (a few us at the float32
-// peak). All four are bound by the per-ray work and the latency of
+// peak). All of them are bound by the per-ray work and the latency of
 // gathers from on-chip memory, far above both floors.
 //
-// What the design does about it: one warp per ray, its lanes striding over
-// the d2 samples, the sums reduced by shuffles. The rays that cannot hold a
-// valid sample are found 32 at a time, a lane each, and skipped (below);
-// once per pose the wrapper lists the rays that hold one (K1's row
-// validity), and K1 and K2 then take the listed rays alone, dealt evenly
-// to the blocks, for the ~29 applications of a solve. A block serves one
-// candidate (blockIdx.y) and keeps that candidate's volume and the sampler's
-// validity volume (mask for nn, cell-valid volume for linear, one byte a
-// voxel) in shared memory when both fit in smem_limit bytes; otherwise it
-// reads them through the read-only cache (the production d3 = 64, l3 = 18
-// volume is 295 KB). Both branches are the kernel's own. K2 and K4 add
-// into a block-private copy of the volume in shared memory with shared
-// atomics and flush it with one global atomic per nonzero voxel (124 M x 8
-// global atomics onto a 35 KB volume would serialise); past smem_limit
-// they add into device memory directly. Their sums are exact: each term is
-// a 64-bit integer at a power-of-two scale (fixed() below), so neither the
-// order of the atomics nor the split into blocks changes a bit, and the
-// plain versions, which add the same integers, give the same result. K3
-// keeps each ray's value and its three derivatives in registers and the
-// per-candidate sums in float64, and adds the blocks' sums in block order.
-// K4 takes one (pair, voxel) a thread. Copy slots that are padding are skipped
-// whole, and so is every ray whose two end samples (Z is monotone along
-// the ray) put all its samples outside the volume's z range: at the
-// amyloid's geometry (l2 = 256 rows at 2/3 voxel, l3 = 6 planes) that is
-// most rays. Every C entry serves the k candidates of a launch at once.
+// What the design does about it: one warp per ray, its lanes striding over the
+// d2 samples, the sums reduced by shuffles. The rays that cannot hold a valid
+// sample are found 32 at a time, a lane each, and skipped (below); once per
+// pose the wrapper lists the rays that hold one (K1's row validity), and K1
+// and K2 then take the listed rays alone for the ~30 applications of a solve.
+// K1 and K2 run one block of 32 warps an SM (the grid the wrapper sizes:
+// blocks a candidate so that the launch fills the SMs once, each block walking
+// a contiguous share of the list, at least MIN_RAYS rays), so a block's fixed
+// costs (its tables, the volume it stages, its sums) are paid once an SM and
+// not once for a few dozen rays. A block serves one candidate (blockIdx.y).
+// Each block computes the rotation's products with the ray parameter once (xr,
+// in shared memory) and each ray's products with its y and z once, so a
+// sample's coordinates are sixteen rounded operations. With the list's sample
+// table (the wrapper builds one for nn lists once a pose,
+// sample_table_kernel), K1 and K2 read each sample's voxel instead of
+// computing it: four bytes a sample against ~40 instructions, which measured a
+// third faster; linear's table (sixteen bytes a sample) measured slower than
+// computing, so linear lists have none (PERF.md). Each warp loads the list
+// entries of its run 32 at a time (warp_run). K1 stages the volume and the
+// validity bytes in shared memory when they fit in its smem_limit; the wrapper
+// passes 0, so that it reads them through the cache (35 KB stays in L1), which
+// measured faster (PERF.md). K2 adds into a block-private copy of the volume
+// in shared memory with shared atomics (past smem_limit, into the block's own
+// slice of device memory) and writes it once, without atomics, to a partial
+// buffer (blocks, vol); a reduce pass adds a candidate's partials and converts
+// them. The sums are exact: each term is a 64-bit integer at a power-of-two
+// scale (fixed() below), so neither the order of the atomics nor the split
+// into blocks changes a bit, and the plain versions, which add the same
+// integers, give the same result. gather_normal's first kernel writes each
+// listed ray's rows * P(x) to a compact (k, n_max) buffer with each block's
+// max |value|, so the dense prediction, its memset, the multiply and the max
+// pass over every ray are gone. K4 adds into a block-private copy as K2 did
+// before (one global atomic per nonzero voxel a block, then the last block of
+// a candidate converts). K3 keeps each ray's value and its three derivatives
+// in registers and the per-candidate sums in float64, and adds the blocks'
+// sums in block order. K4 takes one (pair, voxel) a thread. Copy slots that
+// are padding are skipped whole, and so is every ray whose two end samples (Z
+// is monotone along the ray) put all its samples outside the volume's z range:
+// at the amyloid's geometry (l2 = 256 rows at 2/3 voxel, l3 = 6 planes) that
+// is most rays. Every C entry serves the k candidates of a launch at once.
 //
 // Traps, each kept here:
 // - nvcc contracts a*b+c into FMAs by default, which moves nearest-
@@ -57,7 +74,8 @@
 //   jitted XLA has that fault, ROADMAP C6). The coordinate arithmetic is
 //   written with __fmul_rn / __fadd_rn / __fsub_rn, which are never
 //   contracted, in the order of the plain PyTorch version, so each sample
-//   lands where the plain version puts it, bit for bit.
+//   lands where the plain version puts it, bit for bit (a product hoisted
+//   out of the sample loop is the same rounded product).
 // - cos and sin of the copy angles and the rotation come from the wrapper
 //   (projector_separable.cos_sin): CUDA's sinf / cosf would be a third
 //   implementation of float32 cos (ROADMAP C11).
@@ -68,18 +86,19 @@
 //   launch repeats bit for bit; the plain K1 sums a ray's samples in
 //   warp_sum's order (gather_kernels._ray_sum), so P is the plain P's.
 //
-// Every C entry launches one kernel on the given stream (K2's and K4's
-// after a max pass over their input and the zeroing of their scratch),
-// allocates nothing, and returns cudaGetLastError(); in K2, K3 and K4 the
-// last block of each candidate to finish writes its result.
+// Every C entry launches its kernels on the given stream (a mask `steps`
+// picks some of them, for timing them alone), allocates nothing, and
+// returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;  // threads a block: 8 warps
+constexpr int NT = 256;  // threads a block of K3, K4 and the passes: 8 warps
 constexpr int WARPS = NT / 32;
+constexpr int GT = 1024;  // threads a block of K1 and K2: 32 warps, one block an SM
+constexpr int GWARPS = GT / 32;
 
 // The per-candidate tables of a launch (float32): R (k, 9) the inverse pose
 // rotation, dR (k, 18) its derivatives by tilt and psi (K3 only), cs / sn /
@@ -87,14 +106,21 @@ constexpr int WARPS = NT / 32;
 // validity (0 / 1), x0 (d2) the ray parameter's x, y0 (k, d2) the column's
 // y less dy, z0 (l2) the row's z.
 // With a list of live rays (rptr non-null: candidate q's rays are ridx[rptr[q]
-// .. rptr[q+1]), the rays of its pose that hold a valid sample), block b of a
-// candidate takes its entries b*rpb .. (b+1)*rpb; without, every ray is
-// tested (live()).
+// .. rptr[q+1]), the rays of its pose that hold a valid sample; n_max the
+// longest candidate's), block b of a candidate takes its entries b*rpb ..
+// (b+1)*rpb; without, every ray is tested (live()). With the list's sample
+// table (sidx non-null, sample_table_kernel), entry s = e - rptr[q] of
+// candidate q reads sample kk's voxel (nn) or cell's base corner (linear),
+// -1 where it is not valid, at sidx[(q * n_max + s) * d2 + kk], and linear
+// its fractions (z, y, x) at sfrac[((q * n_max + s) * 3 + c) * d2 + kk],
+// instead of computing them.
 struct Tables {
   const float *R, *dR, *cs, *sn, *dz, *cv, *x0, *y0, *z0;
   int k, C, l2, d2, d3, l3;
   const int *rptr, *ridx;
-  int rpb;
+  int rpb, n_max;
+  const int* sidx;
+  const float* sfrac;
 };
 
 __device__ __forceinline__ float dot3_rn(const float* r, float x, float y, float z) {
@@ -186,15 +212,15 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Stage candidate q's volume (x may be null: zeros) and the validity bytes
-// (aux > 0.5) in shared memory; returns the views the samplers read.
+// (aux > 0.5) in shared memory; returns the views the samplers read. The
+// caller synchronises the block before reading them.
 __device__ Vol stage(const float* x, const float* aux, int vol, bool smem, float* sx,
                      uint8_t* sok) {
   if (!smem) return Vol{x, nullptr};
-  for (int v = threadIdx.x; v < vol; v += NT) {
+  for (int v = threadIdx.x; v < vol; v += blockDim.x) {
     if (sx) sx[v] = x ? __ldg(x + v) : 0.f;
     sok[v] = __ldg(aux + v) > 0.5f;
   }
-  __syncthreads();
   return Vol{sx, sok};
 }
 
@@ -220,6 +246,43 @@ __device__ __forceinline__ bool live(const Tables& tb, int q, int ray, int n_ray
   return !z_outside(R, tb.x0, tb.d2, r.y0, r.z0, r.dz, hl, tb.l3, linear);
 }
 
+// K1 and K2 sample a ray at (X, Y, Z) = coords of dot3_rn(R, x0, y0, z0)
+// for each row of R. The products R[3a] * x0[kk] are the same for every ray
+// of a candidate (xr, (3, d2) in shared memory, made by xr_table) and
+// R[3a + 1] * y0, R[3a + 2] * z0 for every sample of a ray (RayCoords), so
+// a sample adds them in dot3_rn's order: the same rounded operations.
+__device__ __forceinline__ void xr_table(const float* R, const float* x0, int d2, float* xr) {
+  for (int t = threadIdx.x; t < 3 * d2; t += blockDim.x)
+    xr[t] = __fmul_rn(R[3 * (t / d2)], x0[t % d2]);
+}
+
+struct RayCoords {
+  float ry[3], rz[3];
+  float c, s, dz;
+};
+
+__device__ __forceinline__ RayCoords ray_coords(const Ray& rr, const float* R) {
+  RayCoords rc;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    rc.ry[a] = __fmul_rn(R[3 * a + 1], rr.y0);
+    rc.rz[a] = __fmul_rn(R[3 * a + 2], rr.z0);
+  }
+  rc.c = rr.c;
+  rc.s = rr.s;
+  rc.dz = rr.dz;
+  return rc;
+}
+
+// Sample kk of the ray: its volume coordinates (X, Y, Z).
+__device__ __forceinline__ void sample_at(const RayCoords& rc, const float* xr, int d2, int kk,
+                                          float h3, float hl, float& X, float& Y, float& Z) {
+  const float bx = __fadd_rn(__fadd_rn(xr[kk], rc.ry[0]), rc.rz[0]);
+  const float by = __fadd_rn(__fadd_rn(xr[d2 + kk], rc.ry[1]), rc.rz[1]);
+  const float bz = __fadd_rn(__fadd_rn(xr[2 * d2 + kk], rc.ry[2]), rc.rz[2]);
+  coords(bx, by, bz, rc.c, rc.s, rc.dz, h3, hl, X, Y, Z);
+}
+
 // The rays of candidate q go to the warps in one of two ways. With a list,
 // a block's entries are dealt to its warps in turn. Without, the rays go in
 // groups of 32: each lane tests one ray (live), the warp's ballot lists the
@@ -232,25 +295,90 @@ __device__ __forceinline__ void block_entries(const Tables& tb, int q, int& e0, 
   e1 = min(tb.rptr[q + 1], e0 + tb.rpb);
 }
 
-// K1 on one ray: the sum of its samples (zero without x) and whether any
-// is valid, written by lane 0.
+// The run [w0, w1) of the block's entries [e0, e1) that warp `warp` takes:
+// a contiguous 1 / GWARPS of them. Its lanes load up to 32 entries of the
+// run (the ray and its value) at once, and the warp then takes them in
+// turn from the lanes' registers, so the list's two dependent loads a ray
+// are paid once for 32 rays.
+__device__ __forceinline__ void warp_run(int e0, int e1, int warp, int& w0, int& w1) {
+  const int m = (e1 - e0 + GWARPS - 1) / GWARPS;
+  w0 = min(e1, e0 + warp * m);
+  w1 = min(e1, w0 + m);
+}
+
+// Sample kk of a ray: its voxel (nn) or its cell's base corner and
+// fractions (linear), -1 where it is not valid; with the ray's rows of the
+// sample table (si, sf) the table's entry tix (si[kk]), else (si null)
+// computed from its coordinates (rc).
 template <bool LINEAR>
-__device__ __forceinline__ void project_ray(const Tables& tb, int q, int ray, const float* R,
-                                            const float* xs, const uint8_t* ok, float h3,
-                                            float hl, int lane, float* pred, uint8_t* rowv,
-                                            size_t out0) {
+__device__ __forceinline__ int sample_of(const RayCoords& rc, const float* xr, const int* si,
+                                         const float* sf, int tix, int d2, int kk, int d3,
+                                         int l3, const uint8_t* ok, float h3, float hl,
+                                         float& wz, float& wy, float& wx) {
+  if (si) {
+    const int idx = tix;
+    if (LINEAR && idx >= 0) {
+      wz = sf[kk];
+      wy = sf[d2 + kk];
+      wx = sf[2 * d2 + kk];
+    }
+    return idx;
+  }
+  float X, Y, Z;
+  sample_at(rc, xr, d2, kk, h3, hl, X, Y, Z);
+  return LINEAR ? cell(X, Y, Z, d3, l3, ok, wz, wy, wx) : nn_index(X, Y, Z, d3, l3, ok);
+}
+
+// The rows of the sample table of candidate q's list slot s (null without
+// a table).
+__device__ __forceinline__ const int* table_si(const Tables& tb, int q, int s) {
+  return tb.sidx ? tb.sidx + ((size_t)q * tb.n_max + s) * tb.d2 : nullptr;
+}
+
+__device__ __forceinline__ const float* table_sf(const Tables& tb, int q, int s) {
+  return tb.sfrac ? tb.sfrac + ((size_t)q * tb.n_max + s) * 3 * tb.d2 : nullptr;
+}
+
+// A ray's first two table entries that a lane takes (kk = lane, lane + 32;
+// -1 past d2 or without a table), loaded a ray ahead of their use so that
+// their latency hides behind the ray before.
+struct Ahead {
+  int a, b;
+};
+
+__device__ __forceinline__ Ahead ahead_of(const int* si, int d2, int lane) {
+  Ahead h{-1, -1};
+  if (si) {
+    if (lane < d2) h.a = si[lane];
+    if (lane + 32 < d2) h.b = si[lane + 32];
+  }
+  return h;
+}
+
+// The table entry of the m-th sample a lane takes (kk = lane + 32 m).
+__device__ __forceinline__ int table_entry(const int* si, const Ahead& h, int m, int kk) {
+  return !si ? 0 : m == 0 ? h.a : m == 1 ? h.b : si[kk];
+}
+
+// K1 on one ray: the sum of its samples in warp_sum's order (lane 0's
+// value is the plain version's) and whether any is valid; si / sf its
+// rows of the sample table (h its first entries), or null.
+template <bool LINEAR>
+__device__ __forceinline__ float project_ray(const Tables& tb, int q, int ray, const int* si,
+                                             const float* sf, const Ahead& h, const float* R,
+                                             const float* xr, const float* xs,
+                                             const uint8_t* ok, float h3, float hl, int lane,
+                                             bool& valid) {
   const int d2 = tb.d2, d3 = tb.d3, l3 = tb.l3;
-  const Ray rr = ray_of(tb, q, ray);
+  RayCoords rc;
+  if (!si) rc = ray_coords(ray_of(tb, q, ray), R);
   float acc = 0.f;
   bool any = false;
-  for (int kk = lane; kk < d2; kk += 32) {
-    const float x0 = tb.x0[kk];
-    float X, Y, Z;
-    coords(dot3_rn(R, x0, rr.y0, rr.z0), dot3_rn(R + 3, x0, rr.y0, rr.z0),
-           dot3_rn(R + 6, x0, rr.y0, rr.z0), rr.c, rr.s, rr.dz, h3, hl, X, Y, Z);
+  for (int m = 0, kk = lane; kk < d2; ++m, kk += 32) {
+    float wz, wy, wx;
+    const int base = sample_of<LINEAR>(rc, xr, si, sf, table_entry(si, h, m, kk), d2, kk, d3,
+                                       l3, ok, h3, hl, wz, wy, wx);
     if (LINEAR) {
-      float wz, wy, wx;
-      const int base = cell(X, Y, Z, d3, l3, ok, wz, wy, wx);
       if (base < 0) continue;
       any = true;
       if (xs) {
@@ -264,17 +392,26 @@ __device__ __forceinline__ void project_ray(const Tables& tb, int q, int ray, co
         acc += v;
       }
     } else {
-      const int idx = nn_index(X, Y, Z, d3, l3, ok);
-      if (idx < 0) continue;
+      if (base < 0) continue;
       any = true;
-      if (xs) acc += xs[idx];
+      if (xs) acc += xs[base];
     }
   }
-  acc = warp_sum(acc);
-  any = __any_sync(0xffffffffu, any);
-  if (lane == 0) {
-    if (pred) pred[out0 + ray] = acc;
-    if (rowv) rowv[out0 + ray] = any ? 1 : 0;
+  valid = __any_sync(0xffffffffu, any);
+  return warp_sum(acc);
+}
+
+// Each block's max |value| as bits into bmax (nonnegative floats order as
+// their bits, and a NaN's bits exceed every other's); every thread of the
+// block calls it.
+__device__ void block_max(unsigned m, unsigned* bmax) {
+  __shared__ unsigned wm[32];
+  for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) wm[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = max(m, wm[w]);
+    *bmax = m;
   }
 }
 
@@ -282,47 +419,95 @@ __device__ __forceinline__ void project_ray(const Tables& tb, int q, int ray, co
 // x (k, vol) may be null (row validity alone). ok_g (vol) holds the
 // validity bytes in device memory for the branch without shared memory.
 // With a list, only the listed rays are written: pred must hold zeros, and
-// rowv is not written.
+// rowv is not written. With rows (k, C, l2, d2) (gather_normal's first
+// kernel, on a list), entry e of candidate q writes rows * P(x) of its ray
+// to comp[q * n_max + e - rptr[q]] instead of pred, and each block its max
+// |value| to bmax (k, gridDim.x).
 template <bool LINEAR>
-__global__ void __launch_bounds__(NT) project_kernel(Tables tb, const float* __restrict__ x,
+__global__ void __launch_bounds__(GT) project_kernel(Tables tb, const float* __restrict__ x,
                                                      const float* __restrict__ aux,
                                                      const uint8_t* __restrict__ ok_g,
                                                      float* __restrict__ pred,
-                                                     uint8_t* __restrict__ rowv, int smem) {
+                                                     uint8_t* __restrict__ rowv,
+                                                     const float* __restrict__ rows,
+                                                     float* __restrict__ comp,
+                                                     unsigned* __restrict__ bmax, int smem) {
   extern __shared__ __align__(16) unsigned char shm[];
   const int q = blockIdx.y;
   int e0 = 0, e1 = 0;
   if (tb.rptr) {
     block_entries(tb, q, e0, e1);
-    if (e0 >= e1) return;  // the whole block: nothing listed here
+    if (e0 >= e1) {  // the whole block: nothing listed here
+      if (bmax && threadIdx.x == 0) bmax[q * gridDim.x + blockIdx.x] = 0u;
+      return;
+    }
   }
   const int d2 = tb.d2, d3 = tb.d3, l3 = tb.l3;
   const int vol = l3 * d3 * d3;
+  const float* R = tb.R + q * 9;
+  float* xr = reinterpret_cast<float*>(shm);
+  xr_table(R, tb.x0, d2, xr);
   const float* xq = x ? x + (size_t)q * vol : nullptr;
-  float* sx = x ? reinterpret_cast<float*>(shm) : nullptr;
-  uint8_t* sok = shm + (x ? (size_t)vol * 4 : 0);
-  Vol V = stage(xq, aux, vol, smem != 0, sx, sok);
+  float* sx = x ? xr + 3 * d2 : nullptr;
+  uint8_t* sok = reinterpret_cast<uint8_t*>(xr + 3 * d2 + (x ? vol : 0));
+  const Vol V = stage(xq, aux, vol, smem != 0, sx, sok);
+  __syncthreads();
   const uint8_t* ok = smem ? V.ok : ok_g;
   const float* xs = smem ? V.x : xq;
   const float h3 = (float)(d3 / 2), hl = (float)(l3 / 2);
-  const float* R = tb.R + q * 9;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_rays = tb.C * tb.l2 * d2;
   const size_t out0 = (size_t)q * n_rays;
+  bool valid;
   if (tb.rptr) {
-    for (int e = e0 + warp; e < e1; e += WARPS)
-      project_ray<LINEAR>(tb, q, tb.ridx[e], R, xs, ok, h3, hl, lane, pred, nullptr, out0);
+    unsigned m = 0;
+    int w0, w1;
+    warp_run(e0, e1, warp, w0, w1);
+    for (int base = w0; base < w1; base += 32) {
+      int ray = 0;
+      float rw = 0.f;
+      if (base + lane < w1) {
+        ray = tb.ridx[base + lane];
+        if (comp) rw = rows[out0 + ray];
+      }
+      const int n = min(32, w1 - base);
+      Ahead next = ahead_of(table_si(tb, q, base - tb.rptr[q]), d2, lane);
+      for (int j = 0; j < n; ++j) {
+        const int rj = __shfl_sync(0xffffffffu, ray, j);
+        const float wj = __shfl_sync(0xffffffffu, rw, j);
+        const int slot = base + j - tb.rptr[q];
+        const Ahead cur = next;
+        if (j + 1 < n) next = ahead_of(table_si(tb, q, slot + 1), d2, lane);
+        const float v = project_ray<LINEAR>(tb, q, rj, table_si(tb, q, slot),
+                                            table_sf(tb, q, slot), cur, R, xr, xs, ok, h3, hl,
+                                            lane, valid);
+        if (lane == 0 && comp) {
+          const float t = __fmul_rn(v, wj);
+          comp[(size_t)q * tb.n_max + (base + j - tb.rptr[q])] = t;
+          m = max(m, __float_as_uint(fabsf(t)));
+        } else if (lane == 0) {
+          pred[out0 + rj] = v;
+        }
+      }
+    }
+    if (bmax) block_max(m, bmax + q * gridDim.x + blockIdx.x);
     return;
   }
-  for (int g = (blockIdx.x * WARPS + warp) * 32; g < n_rays; g += gridDim.x * WARPS * 32) {
+  for (int g = (blockIdx.x * GWARPS + warp) * 32; g < n_rays; g += gridDim.x * GWARPS * 32) {
     const bool mine = live(tb, q, g + lane, n_rays, R, hl, LINEAR);
     if (!mine && g + lane < n_rays) {  // no valid sample: written here, coalesced
       if (pred) pred[out0 + g + lane] = 0.f;
       if (rowv) rowv[out0 + g + lane] = 0;
     }
-    for (unsigned todo = __ballot_sync(0xffffffffu, mine); todo; todo &= todo - 1)
-      project_ray<LINEAR>(tb, q, g + __ffs(todo) - 1, R, xs, ok, h3, hl, lane, pred, rowv,
-                          out0);
+    for (unsigned todo = __ballot_sync(0xffffffffu, mine); todo; todo &= todo - 1) {
+      const int ray = g + __ffs(todo) - 1;
+      const float v = project_ray<LINEAR>(tb, q, ray, nullptr, nullptr, Ahead{-1, -1}, R, xr, xs,
+                                          ok, h3, hl, lane, valid);
+      if (lane == 0) {
+        if (pred) pred[out0 + ray] = v;
+        if (rowv) rowv[out0 + ray] = valid ? 1 : 0;
+      }
+    }
   }
 }
 
@@ -330,18 +515,17 @@ __global__ void __launch_bounds__(NT) project_kernel(Tables tb, const float* __r
 // integer rint(t * scale), scale a power of two per candidate that keeps
 // every partial sum below 2^61 (gather_kernels.fixed_scales). Integer
 // additions do not depend on their order, so every run, whatever order the
-// atomics land in, and the plain version (an int64 index_add_ of the same
-// terms) give the same bits. The last block of a candidate to finish turns
-// its sums into float32: double(sum) / scale.
+// atomics land in and however the blocks split the rays, and the plain
+// version (an int64 index_add_ of the same terms) give the same bits. The
+// sums become float32 once: double(sum) / scale.
 __device__ __forceinline__ unsigned long long fixed(float t, double scale) {
   return (unsigned long long)__double2ll_rn((double)t * scale);
 }
 
 constexpr int FIXED_BITS = 61;
 
-// The pre-pass of the exact sums: amax (k,) (zeroed) gets the bits of
-// max |v| over each candidate's n values (k, n); nonnegative floats order
-// as their bits, and a NaN's bits exceed every other's.
+// K4's max pass: amax (k,) (zeroed) gets the bits of max |v| over each
+// candidate's n values (k, n).
 __global__ void __launch_bounds__(NT) amax_kernel(const float* __restrict__ v, long n,
                                                   unsigned* amax) {
   const float* vq = v + (size_t)blockIdx.y * n;
@@ -350,6 +534,27 @@ __global__ void __launch_bounds__(NT) amax_kernel(const float* __restrict__ v, l
     m = max(m, __float_as_uint(fabsf(vq[i])));
   for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
   if ((threadIdx.x & 31) == 0 && m != 0u) atomicMax(amax + blockIdx.y, m);
+}
+
+// K2's max pass: each block's max |v| over its share of each candidate's n
+// values (k, n) into bmax (k, gridDim.x), without atomics or zeroing.
+__global__ void __launch_bounds__(NT) max_kernel(const float* __restrict__ v, long n,
+                                                 unsigned* __restrict__ bmax) {
+  const float* vq = v + (size_t)blockIdx.y * n;
+  unsigned m = 0;
+  long i = (long)blockIdx.x * NT + threadIdx.x;
+  const long stride = (long)gridDim.x * NT;
+  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(vq) & 15) == 0) {  // 16 bytes a load
+    const float4* v4 = reinterpret_cast<const float4*>(vq);
+    for (; i < n / 4; i += stride) {
+      const float4 a = __ldg(v4 + i);
+      m = max(max(m, __float_as_uint(fabsf(a.x))), __float_as_uint(fabsf(a.y)));
+      m = max(max(m, __float_as_uint(fabsf(a.z))), __float_as_uint(fabsf(a.w)));
+    }
+  } else {
+    for (; i < n; i += stride) m = max(m, __float_as_uint(fabsf(__ldg(vq + i))));
+  }
+  block_max(m, bmax + blockIdx.y * gridDim.x + blockIdx.x);
 }
 
 // The scale of n_terms terms of at most the float of amax_bits each: the
@@ -363,8 +568,22 @@ __device__ __forceinline__ double scale_of(unsigned amax_bits, double n_terms) {
   return ldexp(1.0, FIXED_BITS - e);
 }
 
-// Called by every block of candidate q once its sums are in accg (k, vol):
-// the last one writes out = double(accg) / scale.
+// scale_of the max of a candidate's nb block maxima (bmax); every thread
+// of the block calls it and gets the scale.
+__device__ double block_scale(const unsigned* bmax, int nb, double n_terms) {
+  __shared__ double sc;
+  if (threadIdx.x < 32) {
+    unsigned m = 0;
+    for (int b = threadIdx.x; b < nb; b += 32) m = max(m, bmax[b]);
+    for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (threadIdx.x == 0) sc = scale_of(m, n_terms);
+  }
+  __syncthreads();
+  return sc;
+}
+
+// K4: called by every block of candidate q once its sums are in accg (k,
+// vol): the last one writes out = double(accg) / scale.
 __device__ void finish(const long long* accg, unsigned* done, double scale, float* out, int vol,
                        int q) {
   __shared__ bool last;
@@ -380,8 +599,8 @@ __device__ void finish(const long long* accg, unsigned* done, double scale, floa
     dst[v] = __double2float_rn(__ll2double_rn(__ldcg(src + v)) / scale);
 }
 
-// A block's integer sums: a private volume in shared memory (zeroed here;
-// flush() adds it into accg) or, past smem_limit, accg itself.
+// K4: a block's integer sums: a private volume in shared memory (zeroed
+// here; flush() adds it into accg) or, past smem_limit, accg itself.
 __device__ __forceinline__ unsigned long long* sums_of(unsigned char* shm, long long* accg, int q,
                                                       int vol, bool smem) {
   if (!smem) return reinterpret_cast<unsigned long long*>(accg + (size_t)q * vol);
@@ -399,86 +618,184 @@ __device__ __forceinline__ void flush(const unsigned long long* acc, long long* 
     if (acc[v] != 0ull) atomicAdd(dst + v, acc[v]);
 }
 
-// K2 on one ray of value rv: each valid sample's terms added into acc.
+// K2 on one ray of value rv: each valid sample's terms added into acc; si
+// / sf its rows of the sample table (h its first entries), or null.
 template <bool LINEAR>
-__device__ __forceinline__ void backproject_ray(const Tables& tb, int q, int ray, float rv,
-                                                const float* R, const uint8_t* ok, float h3,
-                                                float hl, int lane, const int* off,
+__device__ __forceinline__ void backproject_ray(const Tables& tb, int q, int ray, const int* si,
+                                                const float* sf, const Ahead& h, float rv,
+                                                const float* R, const float* xr,
+                                                const uint8_t* ok, float h3, float hl, int lane,
                                                 unsigned long long* acc, double sc) {
   const int d2 = tb.d2, d3 = tb.d3, l3 = tb.l3;
-  const Ray rr = ray_of(tb, q, ray);
-  for (int kk = lane; kk < d2; kk += 32) {
-    const float x0 = tb.x0[kk];
-    float X, Y, Z;
-    coords(dot3_rn(R, x0, rr.y0, rr.z0), dot3_rn(R + 3, x0, rr.y0, rr.z0),
-           dot3_rn(R + 6, x0, rr.y0, rr.z0), rr.c, rr.s, rr.dz, h3, hl, X, Y, Z);
+  RayCoords rc;
+  if (!si) rc = ray_coords(ray_of(tb, q, ray), R);
+  const unsigned long long term = fixed(rv, sc);  // nn: every sample's
+  for (int m = 0, kk = lane; kk < d2; ++m, kk += 32) {
+    float wz, wy, wx;
+    const int base = sample_of<LINEAR>(rc, xr, si, sf, table_entry(si, h, m, kk), d2, kk, d3,
+                                       l3, ok, h3, hl, wz, wy, wx);
+    if (base < 0) continue;
     if (LINEAR) {
-      float wz, wy, wx, w[8];
-      const int base = cell(X, Y, Z, d3, l3, ok, wz, wy, wx);
-      if (base < 0) continue;
+      float w[8];
+      int off[8];
       tri_weights(wz, wy, wx, w);
+      corner_offsets(d3, off);
 #pragma unroll
       for (int a = 0; a < 8; ++a) atomicAdd(acc + base + off[a], fixed(__fmul_rn(w[a], rv), sc));
     } else {
-      const int idx = nn_index(X, Y, Z, d3, l3, ok);
-      if (idx >= 0) atomicAdd(acc + idx, fixed(rv, sc));
+      atomicAdd(acc + base, term);
     }
   }
 }
 
-// K2: out (k, vol) = the transpose of K1 applied to r (k, C, l2, d2), summed
-// exactly (above) at the scale of n_terms terms of at most amax each.
-// accg (k, vol) and done (k,) must hold zeros. With a list, a block with
-// no entries only counts itself done.
+// K2's sums: block (b, q) adds the terms of its rays, at the scale of
+// n_terms terms of at most the max of bmax (k, nbmax) each, into a
+// private volume and writes it to part[q, b] (part (k, gridDim.x, vol)
+// int64), which reduce_kernel adds up. The values are r (k, C, l2, d2) at
+// each ray or, with comp (gather_normal, on a list), comp[q * n_max + e -
+// rptr[q]] at entry e. A listed block with no entries writes nothing.
 template <bool LINEAR>
-__global__ void __launch_bounds__(NT) backproject_kernel(Tables tb, const float* __restrict__ r,
+__global__ void __launch_bounds__(GT) backproject_kernel(Tables tb, const float* __restrict__ r,
+                                                         const float* __restrict__ comp,
                                                          const uint8_t* __restrict__ ok_g,
-                                                         const unsigned* __restrict__ amax,
-                                                         double n_terms, long long* accg,
-                                                         unsigned* done, float* __restrict__ out,
+                                                         const unsigned* __restrict__ bmax,
+                                                         int nbmax, double n_terms,
+                                                         unsigned long long* __restrict__ part,
                                                          int smem) {
   extern __shared__ __align__(16) unsigned char shm[];
   const int q = blockIdx.y;
+  int e0 = 0, e1 = 0;
+  if (tb.rptr) {
+    block_entries(tb, q, e0, e1);
+    if (e0 >= e1) return;  // the whole block alike
+  }
   const int d2 = tb.d2, d3 = tb.d3, l3 = tb.l3;
   const int vol = l3 * d3 * d3;
-  const double sc = scale_of(amax[q], n_terms);
-  int e0 = 0, e1 = 0;
-  if (tb.rptr) block_entries(tb, q, e0, e1);
-  if (!tb.rptr || e0 < e1) {  // the whole block alike
-    unsigned long long* acc = sums_of(shm, accg, q, vol, smem != 0);
-    const uint8_t* ok = ok_g;
-    if (smem) {
-      uint8_t* sok = shm + (size_t)vol * 8;
-      for (int v = threadIdx.x; v < vol; v += NT) sok[v] = __ldg(ok_g + v);
-      ok = sok;
-    }
-    __syncthreads();
-    const float h3 = (float)(d3 / 2), hl = (float)(l3 / 2);
-    const float* R = tb.R + q * 9;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int n_rays = tb.C * tb.l2 * d2;
-    const float* rq = r + (size_t)q * n_rays;
-    int off[8];
-    corner_offsets(d3, off);
-    if (tb.rptr) {
-      for (int e = e0 + warp; e < e1; e += WARPS) {
-        const int ray = tb.ridx[e];
-        const float rv = rq[ray];
-        if (rv != 0.f)
-          backproject_ray<LINEAR>(tb, q, ray, rv, R, ok, h3, hl, lane, off, acc, sc);
-      }
-    } else {
-      for (int g = (blockIdx.x * WARPS + warp) * 32; g < n_rays; g += gridDim.x * WARPS * 32) {
-        const bool mine = live(tb, q, g + lane, n_rays, R, hl, LINEAR) && rq[g + lane] != 0.f;
-        for (unsigned todo = __ballot_sync(0xffffffffu, mine); todo; todo &= todo - 1) {
-          const int ray = g + __ffs(todo) - 1;
-          backproject_ray<LINEAR>(tb, q, ray, rq[ray], R, ok, h3, hl, lane, off, acc, sc);
-        }
-      }
-    }
-    flush(acc, accg, q, vol, smem != 0);
+  const double sc = block_scale(bmax + q * nbmax, nbmax, n_terms);
+  const float* R = tb.R + q * 9;
+  unsigned long long* mine = part + ((size_t)q * gridDim.x + blockIdx.x) * vol;
+  unsigned long long* acc = smem ? reinterpret_cast<unsigned long long*>(shm) : mine;
+  float* xr = reinterpret_cast<float*>(shm + (smem ? (size_t)vol * 8 : 0));
+  for (int v = threadIdx.x; v < vol; v += GT) acc[v] = 0ull;
+  xr_table(R, tb.x0, d2, xr);
+  const uint8_t* ok = ok_g;
+  if (smem) {
+    uint8_t* sok = reinterpret_cast<uint8_t*>(xr + 3 * d2);
+    for (int v = threadIdx.x; v < vol; v += GT) sok[v] = __ldg(ok_g + v);
+    ok = sok;
   }
-  finish(accg, done, sc, out, vol, q);
+  __syncthreads();
+  const float h3 = (float)(d3 / 2), hl = (float)(l3 / 2);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_rays = tb.C * tb.l2 * d2;
+  if (tb.rptr) {
+    const float* cq = comp ? comp + (size_t)q * tb.n_max - tb.rptr[q] : nullptr;
+    const float* rq = r ? r + (size_t)q * n_rays : nullptr;
+    int w0, w1;
+    warp_run(e0, e1, warp, w0, w1);
+    for (int base = w0; base < w1; base += 32) {
+      int ray = 0;
+      float val = 0.f;
+      if (base + lane < w1) {
+        ray = tb.ridx[base + lane];
+        val = cq ? cq[base + lane] : rq[ray];
+      }
+      const int n = min(32, w1 - base);
+      Ahead next = ahead_of(table_si(tb, q, base - tb.rptr[q]), d2, lane);
+      for (int j = 0; j < n; ++j) {
+        const int rj = __shfl_sync(0xffffffffu, ray, j);
+        const float rv = __shfl_sync(0xffffffffu, val, j);
+        const int slot = base + j - tb.rptr[q];
+        const Ahead cur = next;
+        if (j + 1 < n) next = ahead_of(table_si(tb, q, slot + 1), d2, lane);
+        if (rv != 0.f)
+          backproject_ray<LINEAR>(tb, q, rj, table_si(tb, q, slot), table_sf(tb, q, slot), cur,
+                                  rv, R, xr, ok, h3, hl, lane, acc, sc);
+      }
+    }
+  } else {
+    const float* rq = r + (size_t)q * n_rays;
+    for (int g = (blockIdx.x * GWARPS + warp) * 32; g < n_rays; g += gridDim.x * GWARPS * 32) {
+      const bool take = live(tb, q, g + lane, n_rays, R, hl, LINEAR) && rq[g + lane] != 0.f;
+      for (unsigned todo = __ballot_sync(0xffffffffu, take); todo; todo &= todo - 1) {
+        const int ray = g + __ffs(todo) - 1;
+        backproject_ray<LINEAR>(tb, q, ray, nullptr, nullptr, Ahead{-1, -1}, rq[ray], R, xr, ok,
+                                h3, hl, lane, acc, sc);
+      }
+    }
+  }
+  if (!smem) return;
+  __syncthreads();
+  for (int v = threadIdx.x; v < vol; v += GT) mine[v] = acc[v];
+}
+
+// The sample table of a list (Tables' sidx / sfrac, which it writes): for
+// every listed ray, each sample's voxel (nn) or cell's base corner and
+// fractions (linear), -1 where it is not valid, computed as K1 computes
+// them, so that K1 and K2 on the table read what they would compute. Built
+// once a pose; slots past a candidate's entries are left as they are.
+template <bool LINEAR>
+__global__ void __launch_bounds__(GT) sample_table_kernel(Tables tb,
+                                                          const uint8_t* __restrict__ ok_g,
+                                                          int* __restrict__ sidx,
+                                                          float* __restrict__ sfrac) {
+  extern __shared__ __align__(16) unsigned char shm[];
+  const int q = blockIdx.y;
+  int e0, e1;
+  block_entries(tb, q, e0, e1);
+  if (e0 >= e1) return;
+  const int d2 = tb.d2, d3 = tb.d3, l3 = tb.l3;
+  const float* R = tb.R + q * 9;
+  float* xr = reinterpret_cast<float*>(shm);
+  xr_table(R, tb.x0, d2, xr);
+  __syncthreads();
+  const float h3 = (float)(d3 / 2), hl = (float)(l3 / 2);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int w0, w1;
+  warp_run(e0, e1, warp, w0, w1);
+  for (int e = w0; e < w1; ++e) {
+    const RayCoords rc = ray_coords(ray_of(tb, q, tb.ridx[e]), R);
+    const size_t slot = (size_t)q * tb.n_max + (e - tb.rptr[q]);
+    for (int kk = lane; kk < d2; kk += 32) {
+      float wz, wy, wx;
+      const int base = sample_of<LINEAR>(rc, xr, nullptr, nullptr, 0, d2, kk, d3, l3, ok_g, h3,
+                                         hl, wz, wy, wx);
+      sidx[slot * d2 + kk] = base;
+      if (LINEAR && base >= 0) {
+        float* f = sfrac + slot * 3 * d2 + kk;
+        f[0] = wz;
+        f[d2] = wy;
+        f[2 * d2] = wx;
+      }
+    }
+  }
+}
+
+// K2's second pass: out (k, vol) = double(sum of candidate q's partials) /
+// scale. A block takes 32 voxels (a lane each) and its 32 warps the
+// partials in turn; with a list only the blocks that held entries wrote
+// theirs.
+constexpr int RV = 32;  // voxels a block of the reduce
+
+__global__ void __launch_bounds__(GT) reduce_kernel(Tables tb, const unsigned long long* part,
+                                                    int per, const unsigned* __restrict__ bmax,
+                                                    int nbmax, double n_terms,
+                                                    float* __restrict__ out, int vol) {
+  __shared__ unsigned long long red[GWARPS][RV];
+  const int q = blockIdx.y;
+  const double sc = block_scale(bmax + q * nbmax, nbmax, n_terms);
+  int nb = per;
+  if (tb.rptr) nb = min(per, (tb.rptr[q + 1] - tb.rptr[q] + tb.rpb - 1) / tb.rpb);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int v = blockIdx.x * RV + lane;
+  unsigned long long s = 0;
+  if (v < vol)
+    for (int b = warp; b < nb; b += GWARPS) s += __ldcs(part + ((size_t)q * per + b) * vol + v);
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp != 0 || v >= vol) return;
+  for (int w = 1; w < GWARPS; ++w) s += red[w][lane];
+  out[(size_t)q * vol + v] = __double2float_rn(__ll2double_rn((long long)s) / sc);
 }
 
 // The most blocks a candidate of K3 takes: its per-block sums go to part
@@ -506,6 +823,7 @@ __global__ void __launch_bounds__(NT) pose_jacobian_kernel(Tables tb,
   const int vol = l3 * d3 * d3;
   const float* xq = x + (size_t)q * vol;
   Vol V = stage(xq, cellok, vol, smem != 0, reinterpret_cast<float*>(shm), shm + (size_t)vol * 4);
+  __syncthreads();
   const uint8_t* ok = smem ? V.ok : ok_g;
   const float* xs = smem ? V.x : xq;
   const float h3 = (float)(d3 / 2), hl = (float)(l3 / 2);
@@ -717,8 +1035,8 @@ int sm_count() {
   return n;
 }
 
-// Blocks a candidate: about six blocks an SM over the launch, at most one
-// warp a group of 32 rays.
+// Blocks a candidate of K3: about six blocks an SM over the launch, at
+// most one warp a group of 32 rays.
 dim3 grid_of(const Tables& tb) {
   const long groups = ((long)tb.C * tb.l2 * tb.d2 + 31) / 32;
   long per = (6L * sm_count() + tb.k - 1) / tb.k;
@@ -750,24 +1068,82 @@ size_t smem_bytes(const void* fn, int vol, int per, int smem_limit) {
   return need;
 }
 
+// K1's and K2's shared memory: `fixed` bytes always (the xr table) and
+// vol_bytes more when they fit in smem_limit (staged set: the volume's
+// branch), the kernel's limit raised to match.
+size_t gather_smem(const void* fn, size_t fixed, size_t vol_bytes, int smem_limit, bool& staged) {
+  staged = (long)vol_bytes <= (long)smem_limit;
+  const size_t need = fixed + (staged ? vol_bytes : 0);
+  // the limits already raised, by kernel (K1's and K2's four), so that a
+  // call costs the host no attribute call
+  static const void* fns[8];
+  static size_t raised[8];
+  static int n = 0;
+  int i = 0;
+  while (i < n && fns[i] != fn) ++i;
+  if (i == n && n < 8) fns[n++] = fn;
+  if (i < 8 && raised[i] >= need) return need;
+  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
+  if (i < 8) raised[i] = need;
+  return need;
+}
+
 Tables tables(const float* R, const float* dR, const float* cs, const float* sn, const float* dz,
               const float* cv, const float* x0, const float* y0, const float* z0, int k, int C,
               int l2, int d2, int d3, int l3) {
-  return Tables{R, dR, cs, sn, dz, cv, x0, y0, z0, k, C, l2, d2, d3, l3, nullptr, nullptr, 0};
+  return Tables{R,  dR, cs, sn, dz, cv,      x0,      y0, z0, k,       C,
+                l2, d2, d3, l3, nullptr, nullptr, 0, 0,  nullptr, nullptr};
 }
 
-// The grid of a launch on the list (rptr, ridx), n_max the longest
-// candidate's entries: rays a block (tb.rpb) so that the launch has about
-// eight blocks an SM, at least 32; blocks a candidate to cover n_max.
-dim3 list_grid(Tables& tb, const int* rptr, const int* ridx, int n_max) {
+// K1 / K2 tables on the list (rptr, ridx; null: every ray tested), rpb
+// entries a block, n_max the longest candidate's entries, and the list's
+// sample table (sidx, sfrac; null: computed).
+Tables gather_tables(const float* R, const float* cs, const float* sn, const float* dz,
+                     const float* cv, const float* x0, const float* y0, const float* z0,
+                     const int* rptr, const int* ridx, const int* sidx, const float* sfrac,
+                     int k, int C, int l2, int d2, int d3, int l3, int rpb, int n_max) {
+  Tables tb = tables(R, nullptr, cs, sn, dz, cv, x0, y0, z0, k, C, l2, d2, d3, l3);
   tb.rptr = rptr;
   tb.ridx = ridx;
-  long rpb = ((long)n_max * tb.k + 8L * sm_count() - 1) / (8L * sm_count());
-  if (rpb < 32) rpb = 32;
-  tb.rpb = (int)rpb;
-  long per = ((long)n_max + rpb - 1) / rpb;
-  if (per < 1) per = 1;
-  return dim3((unsigned)per, (unsigned)tb.k);
+  tb.rpb = rpb;
+  tb.n_max = n_max;
+  tb.sidx = rptr ? sidx : nullptr;
+  tb.sfrac = rptr ? sfrac : nullptr;
+  return tb;
+}
+
+template <bool LINEAR>
+void launch_project(const Tables& tb, int per, const float* x, const float* aux,
+                    const uint8_t* ok_g, float* pred, uint8_t* rowv, const float* rows,
+                    float* comp, unsigned* bmax, int smem_limit, cudaStream_t st) {
+  const int vol = tb.l3 * tb.d3 * tb.d3;
+  bool staged;
+  const size_t sm = gather_smem((const void*)project_kernel<LINEAR>, 12 * (size_t)tb.d2,
+                                (size_t)vol * (x != nullptr ? 5 : 1), smem_limit, staged);
+  project_kernel<LINEAR><<<dim3((unsigned)per, (unsigned)tb.k), GT, sm, st>>>(
+      tb, x, aux, ok_g, pred, rowv, rows, comp, bmax, staged);
+}
+
+// K2's sums (from r, or from comp on a list) into part, then the reduce
+// into out, at the scale of the max of bmax (k, nbmax).
+template <bool LINEAR>
+void launch_backproject(const Tables& tb, int per, const float* r, const float* comp,
+                        const uint8_t* ok_g, const unsigned* bmax, int nbmax,
+                        unsigned long long* part, float* out, int smem_limit, int steps,
+                        cudaStream_t st) {
+  const int vol = tb.l3 * tb.d3 * tb.d3;
+  // a sample's weights sum to 1: at most max |value| a sample
+  const double n_terms = (double)tb.C * tb.l2 * tb.d2 * tb.d2;
+  if (steps & 2) {
+    bool staged;
+    const size_t sm = gather_smem((const void*)backproject_kernel<LINEAR>, 12 * (size_t)tb.d2,
+                                  (size_t)vol * 9, smem_limit, staged);
+    backproject_kernel<LINEAR><<<dim3((unsigned)per, (unsigned)tb.k), GT, sm, st>>>(
+        tb, r, comp, ok_g, bmax, nbmax, n_terms, part, staged);
+  }
+  if (steps & 4)
+    reduce_kernel<<<dim3((unsigned)((vol + RV - 1) / RV), (unsigned)tb.k), GT, 0, st>>>(
+        tb, part, per, bmax, nbmax, n_terms, out, vol);
 }
 
 }  // namespace
@@ -775,70 +1151,101 @@ dim3 list_grid(Tables& tb, const int* rptr, const int* ridx, int n_max) {
 extern "C" {
 
 // K1. ok_g (vol bytes): the validity bytes (aux > 0.5) the device-memory
-// branch reads. x, pred, rowv may be null.
-// rptr (k + 1) / ridx: the list of live rays, or null (every ray tested);
-// n_max its longest candidate's entries. With the list pred is zeroed
-// here and the kernel writes the listed rays.
+// branch reads. x, pred, rowv may be null. rptr (k + 1) / ridx: the list
+// of live rays, or null (every ray tested); n_max its longest candidate's
+// entries, rpb the entries a block. per blocks a candidate. steps: 1 zero
+// pred (with the list: the kernel writes the listed rays alone), 2 the
+// kernel.
 int hgp_project(const float* x, const float* aux, const uint8_t* ok_g, const float* R,
                 const float* cs, const float* sn, const float* dz, const float* cv,
                 const float* x0, const float* y0, const float* z0, const int* rptr,
-                const int* ridx, float* pred, uint8_t* rowv, int k, int C, int l2, int d2,
-                int d3, int l3, int linear, int n_max, int smem_limit, int steps, cudaStream_t st) {
-  Tables tb = tables(R, nullptr, cs, sn, dz, cv, x0, y0, z0, k, C, l2, d2, d3, l3);
-  const dim3 grid = rptr ? list_grid(tb, rptr, ridx, n_max) : grid_of(tb);
-  const int vol = l3 * d3 * d3;
-  // the listed launch writes the live rays alone
+                const int* ridx, const int* sidx, const float* sfrac, float* pred,
+                uint8_t* rowv, int k, int C, int l2, int d2, int d3, int l3, int linear,
+                int n_max, int per, int rpb, int smem_limit, int steps, cudaStream_t st) {
+  const Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, sidx, sfrac, k, C,
+                                  l2, d2, d3, l3, rpb, n_max);
   if ((steps & 1) && rptr && pred) cudaMemsetAsync(pred, 0, sizeof(float) * k * C * l2 * d2, st);
-  const void* fn = linear ? (const void*)project_kernel<true> : (const void*)project_kernel<false>;
-  const size_t sm = smem_bytes(fn, vol, x != nullptr ? 5 : 1, smem_limit);
-  if (!(steps & 2)) return (int)cudaGetLastError();
-  if (linear)
-    project_kernel<true><<<grid, NT, sm, st>>>(tb, x, aux, ok_g, pred, rowv, sm > 0);
-  else
-    project_kernel<false><<<grid, NT, sm, st>>>(tb, x, aux, ok_g, pred, rowv, sm > 0);
+  if (steps & 2) {
+    if (linear)
+      launch_project<true>(tb, per, x, aux, ok_g, pred, rowv, nullptr, nullptr, nullptr,
+                           smem_limit, st);
+    else
+      launch_project<false>(tb, per, x, aux, ok_g, pred, rowv, nullptr, nullptr, nullptr,
+                            smem_limit, st);
+  }
   return (int)cudaGetLastError();
 }
 
-// The max pass of the exact sums on v (k, n) into amax (k,), zeroed here.
-void launch_amax(const float* v, long n, int k, unsigned* amax, cudaStream_t st) {
-  cudaMemsetAsync(amax, 0, sizeof(unsigned) * k, st);
-  long per = (2L * sm_count() + k - 1) / k;
-  const long most = (n + NT - 1) / NT;
-  if (per > most) per = most;
-  if (per < 1) per = 1;
-  amax_kernel<<<dim3((unsigned)per, (unsigned)k), NT, 0, st>>>(v, n, amax);
-}
-
-// K2. ok_g (vol) the validity bytes; amax (k,) uint32, accg (k, vol) int64
-// and done (k,) scratch, zeroed here; out (k, vol). Launches the max pass
-// over r, then the kernel.
+// K2: out (k, vol) = PT(r), r (k, C, l2, d2). The list and per / rpb as
+// K1's; nbmax the max pass's blocks a candidate. Scratch: bmax (k, nbmax)
+// uint32, part (k, per, vol) int64. steps: 1 the max pass over r, 2 the
+// sums, 4 the reduce.
 int hgp_backproject(const float* r, const uint8_t* ok_g, const float* R, const float* cs,
                     const float* sn, const float* dz, const float* cv, const float* x0,
                     const float* y0, const float* z0, const int* rptr, const int* ridx,
-                    unsigned* amax, long long* accg, unsigned* done, float* out, int k, int C,
-                    int l2, int d2, int d3, int l3, int linear, int n_max, int smem_limit,
+                    const int* sidx, const float* sfrac, unsigned* bmax,
+                    unsigned long long* part, float* out, int k, int C, int l2, int d2, int d3,
+                    int l3, int linear, int n_max, int per, int rpb, int nbmax, int smem_limit,
                     int steps, cudaStream_t st) {
-  Tables tb = tables(R, nullptr, cs, sn, dz, cv, x0, y0, z0, k, C, l2, d2, d3, l3);
-  const dim3 grid = rptr ? list_grid(tb, rptr, ridx, n_max) : grid_of(tb);
-  const int vol = l3 * d3 * d3;
-  const long n_rays = (long)C * l2 * d2;
-  if (steps & 1) {
-    cudaMemsetAsync(accg, 0, sizeof(long long) * k * vol, st);
-    cudaMemsetAsync(done, 0, sizeof(unsigned) * k, st);
-  }
-  if (steps & 2) launch_amax(r, n_rays, k, amax, st);
-  if (!(steps & 4)) return (int)cudaGetLastError();
-  // a sample's weights sum to 1: at most max |r| a sample
-  const double n_terms = (double)n_rays * d2;
-  const void* fn =
-      linear ? (const void*)backproject_kernel<true> : (const void*)backproject_kernel<false>;
-  const size_t sm = smem_bytes(fn, vol, 9, smem_limit);
+  const Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, sidx, sfrac, k, C,
+                                  l2, d2, d3, l3, rpb, n_max);
+  if (steps & 1)
+    max_kernel<<<dim3((unsigned)nbmax, (unsigned)k), NT, 0, st>>>(r, (long)C * l2 * d2, bmax);
   if (linear)
-    backproject_kernel<true><<<grid, NT, sm, st>>>(tb, r, ok_g, amax, n_terms, accg, done, out,
-                                                   sm > 0);
+    launch_backproject<true>(tb, per, r, nullptr, ok_g, bmax, nbmax, part, out, smem_limit,
+                             steps, st);
   else
-    backproject_kernel<false><<<grid, NT, sm, st>>>(tb, r, ok_g, amax, n_terms, accg, done, out,
-                                                    sm > 0);
+    launch_backproject<false>(tb, per, r, nullptr, ok_g, bmax, nbmax, part, out, smem_limit,
+                              steps, st);
+  return (int)cudaGetLastError();
+}
+
+// gather_normal: out (k, vol) = PT(rows * P(x)) on the list of live rays,
+// x (k, vol), rows (k, C, l2, d2). Scratch: comp (k, n_max) float32, bmax
+// (k, per) uint32, part (k, per, vol) int64. proj_smem_limit is the
+// projection's smem_limit (K1's), smem_limit the sums' (K2's). steps: 1
+// the projection into comp with the blocks' maxima, 2 the sums, 4 the
+// reduce.
+int hgp_normal(const float* x, const float* aux, const uint8_t* ok_g, const float* R,
+               const float* cs, const float* sn, const float* dz, const float* cv,
+               const float* x0, const float* y0, const float* z0, const int* rptr,
+               const int* ridx, const int* sidx, const float* sfrac, const float* rows,
+               float* comp, unsigned* bmax, unsigned long long* part, float* out, int k, int C,
+               int l2, int d2, int d3, int l3, int linear, int n_max, int per, int rpb,
+               int proj_smem_limit, int smem_limit, int steps, cudaStream_t st) {
+  const Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, sidx, sfrac, k, C,
+                                  l2, d2, d3, l3, rpb, n_max);
+  if (linear) {
+    if (steps & 1)
+      launch_project<true>(tb, per, x, aux, ok_g, nullptr, nullptr, rows, comp, bmax,
+                           proj_smem_limit, st);
+    launch_backproject<true>(tb, per, nullptr, comp, ok_g, bmax, per, part, out, smem_limit,
+                             steps, st);
+  } else {
+    if (steps & 1)
+      launch_project<false>(tb, per, x, aux, ok_g, nullptr, nullptr, rows, comp, bmax,
+                            proj_smem_limit, st);
+    launch_backproject<false>(tb, per, nullptr, comp, ok_g, bmax, per, part, out, smem_limit,
+                              steps, st);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The sample table of the list (rptr, ridx), per / rpb as K1's: sidx (k,
+// n_max, d2) int32 and, linear, sfrac (k, n_max, 3, d2) float32.
+int hgp_sample_table(const uint8_t* ok_g, const float* R, const float* cs, const float* sn,
+                     const float* dz, const float* cv, const float* x0, const float* y0,
+                     const float* z0, const int* rptr, const int* ridx, int* sidx, float* sfrac,
+                     int k, int C, int l2, int d2, int d3, int l3, int linear, int n_max, int per,
+                     int rpb, cudaStream_t st) {
+  const Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, nullptr, nullptr, k,
+                                  C, l2, d2, d3, l3, rpb, n_max);
+  const dim3 grid((unsigned)per, (unsigned)k);
+  const size_t sm = 12 * (size_t)d2;
+  if (linear)
+    sample_table_kernel<true><<<grid, GT, sm, st>>>(tb, ok_g, sidx, sfrac);
+  else
+    sample_table_kernel<false><<<grid, GT, sm, st>>>(tb, ok_g, sidx, sfrac);
   return (int)cudaGetLastError();
 }
 
@@ -855,6 +1262,16 @@ int hgp_pose_jacobian(const float* x, const float* cellok, const uint8_t* ok_g, 
   pose_jacobian_kernel<<<grid_of(tb), NT, sm, st>>>(tb, x, cellok, ok_g, b, part, done, out,
                                                     sm > 0);
   return (int)cudaGetLastError();
+}
+
+// The max pass of K4's exact sums on v (k, n) into amax (k,), zeroed here.
+void launch_amax(const float* v, long n, int k, unsigned* amax, cudaStream_t st) {
+  cudaMemsetAsync(amax, 0, sizeof(unsigned) * k, st);
+  long per = (2L * sm_count() + k - 1) / k;
+  const long most = (n + NT - 1) / NT;
+  if (per > most) per = most;
+  if (per < 1) per = 1;
+  amax_kernel<<<dim3((unsigned)per, (unsigned)k), NT, 0, st>>>(v, n, amax);
 }
 
 // K4. cs, sn, dz (k, P, 2), pv (k, P), keep (k, P, vol) bytes or null,

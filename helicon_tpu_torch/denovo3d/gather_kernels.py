@@ -9,6 +9,11 @@ per-candidate batch or a refinement batch:
 
     gather_project      (K1)  P: pred (k, C, l2, d2), optionally row_valid
     gather_backproject  (K2)  PT: (k, l3, d3, d3)
+    gather_normal             PT(rows * P(x)) (k, l3, d3, d3): the data term
+                              of the solver's normal operator, K1 and K2 on
+                              the list of live rays in one call
+    sample_table              each listed ray's samples' voxels, once a
+                              pose, which K1 and K2 then read
     pose_jacobian       (K3)  J^T J (k, 3, 3), J^T r (k, 3), r^T r (k,) of
                               the linear residual (P(x) - b) * row_valid by
                               (tilt, psi, dy), J never stored
@@ -46,15 +51,31 @@ from . import projector_separable as _ps
 
 __all__ = ["GatherTables", "gather_tables", "with_live_rays", "rotations", "gather_project",
            "gather_project_reference", "gather_backproject", "gather_backproject_reference",
-           "pose_jacobian", "pose_jacobian_reference", "SymTables", "sym_tables", "sym_normal",
+           "gather_normal", "gather_normal_reference", "sample_table",
+           "sample_table_reference", "launch_grid", "pose_jacobian",
+           "pose_jacobian_reference", "SymTables", "sym_tables", "sym_normal",
            "sym_normal_reference", "fixed_scales", "launches"]
 
-# kernel launches made on CUDA tensors, by entry (one kernel a call)
-launches = {"gather_project": 0, "gather_backproject": 0, "pose_jacobian": 0, "sym_normal": 0}
+# kernel launches made on CUDA tensors, by entry (one a call)
+launches = {"gather_project": 0, "gather_backproject": 0, "gather_normal": 0,
+            "sample_table": 0, "pose_jacobian": 0, "sym_normal": 0}
 
 # shared memory a block may stage the volume in (its float32 values and a
-# validity byte a voxel); past it the kernels read device memory
+# validity byte a voxel; K2 its 64-bit sums); past it the kernels read and
+# add into device memory. K1 (and gather_normal's projection) reads the
+# volume through the cache at any size: on the H100 that measured faster
+# than staging it (PERF.md, PR 13), so its limit is 0
 SMEM_LIMIT = 200 * 1024
+PROJECT_SMEM_LIMIT = 0
+
+# K1 / K2's grid (gather_projector.cu): GT threads a block, one block an SM
+# over a launch, at least MIN_RAYS listed rays a block; the max pass's
+# blocks of NT threads
+_GT, _NT = 1024, 256
+MIN_RAYS = 256
+
+# the most of the card's free memory a pose's sample table may take
+TABLE_SHARE = 0.25
 
 # samples (copies x l2 x d2 x d2) one chunk of the plain versions holds at most
 _CHUNK_SAMPLES = 1 << 25
@@ -265,8 +286,18 @@ class GatherTables:
     rptr: torch.Tensor | None = None
     ridx: torch.Tensor | None = None
     n_max: int = 0
+    # the list's sample table (sample_table; None: the kernels compute the
+    # samples): sidx (k, n_max, d2) int32 each listed ray's samples' voxel
+    # (nn) or cell base (linear), -1 where not valid; sfrac (k, n_max, 3,
+    # d2) float32 linear's fractions (z, y, x)
+    sidx: torch.Tensor | None = None
+    sfrac: torch.Tensor | None = None
     # the kernels' validity bytes (aux > 0.5), made once with the tables
     ok: torch.Tensor | None = None
+    # the kernels' fixed arguments and scratch by C entry (_plan), kept for
+    # the tables' later calls
+    _plans: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                     compare=False)
 
     @property
     def shape(self):
@@ -331,18 +362,27 @@ def with_live_rays(tab: GatherTables, row_valid) -> GatherTables:
     """tab with the list of its live rays, the rays of row_valid (k, C, l2,
     d2) (K1's validity at this pose): K1 and K2 take those alone, a
     block's share each, where every launch would otherwise test every ray
-    (at the amyloid's geometry 3 % of them are live). The engine's
-    per-pose sampling tables, at the ray's grain: a table of the valid
-    samples would hold 8 bytes (nn) to 36 (linear) each, 16-60 MB a
-    candidate there. Built once per pose, with one device-to-host copy (the
-    longest list); the plain versions do not read it."""
+    (at the amyloid's geometry 3 % of them are live). On the card, nn, also
+    the list's sample table (sample_table), when its bytes (4 a sample: 14
+    MB a candidate there) are at most TABLE_SHARE of the card's free
+    memory: the ~30 applications of a solve then read each sample's voxel
+    instead of computing it (the engine's per-pose sampling tables).
+    Linear's table (16 bytes a sample) measured slower than computing the
+    samples, so linear lists have none (PERF.md, PR 13). Built once per
+    pose, with one device-to-host copy (the longest list); the plain
+    versions read neither."""
     k = tab.shape[0]
     flat = row_valid.reshape(k, -1)
     counts = flat.sum(dim=1)
     rptr = torch.zeros(k + 1, dtype=torch.int32, device=flat.device)
     rptr[1:] = torch.cumsum(counts, 0)
     ridx = torch.nonzero(flat)[:, 1].to(torch.int32).contiguous()
-    return dataclasses.replace(tab, rptr=rptr, ridx=ridx, n_max=int(counts.max()))
+    listed = dataclasses.replace(tab, rptr=rptr, ridx=ridx, n_max=int(counts.max()), sidx=None,
+                                 sfrac=None)
+    if flat.is_cuda and not tab.linear:
+        if 4 * k * listed.n_max * tab.d2 <= TABLE_SHARE * torch.cuda.mem_get_info(flat.device)[0]:
+            listed.sidx, listed.sfrac = sample_table(listed)
+    return listed
 
 
 # ---------------------------------------------------------------------------
@@ -459,6 +499,47 @@ def gather_backproject_reference(tab: GatherTables, r) -> torch.Tensor:
     return torch.stack(out)
 
 
+def sample_table_reference(tab: GatherTables):
+    """The plain sample table of tab's list: (sidx (k, n_max, d2) int32,
+    sfrac (k, n_max, 3, d2) float32 or None for nn) as the kernel writes
+    it: each listed ray's samples' flat voxel index (nn: rounded half to
+    even, inside the volume and the mask) or its cell's base corner and
+    fractions (linear: floored, the cell inside the volume and valid), -1
+    and zeros where the sample is not valid and in the slots past a
+    candidate's entries."""
+    k, C, l2, d2 = tab.shape
+    d3, l3 = tab.d3, tab.l3
+    dev = tab.mask.device
+    sidx = torch.full((k, tab.n_max, d2), -1, dtype=torch.int32, device=dev)
+    sfrac = (torch.zeros((k, tab.n_max, 3, d2), dtype=torch.float32, device=dev)
+             if tab.linear else None)
+    for q in range(k):
+        a, b = int(tab.rptr[q]), int(tab.rptr[q + 1])
+        ray = tab.ridx[a:b].long()
+        t, i, j = ray // (l2 * d2), (ray // d2) % l2, ray % d2
+        bx, by, bz = _base(tab, q)
+        Z, Y, X = _sample_coords(tab, q, t, bx[i, j], by[i, j], bz[i, j])
+        f = torch.floor if tab.linear else torch.round
+        zi, yi, xi = (f(v).to(torch.int64) for v in (Z, Y, X))
+        top = 2 if tab.linear else 1
+        inb = ((zi >= 0) & (zi <= l3 - top) & (yi >= 0) & (yi <= d3 - top) & (xi >= 0)
+               & (xi <= d3 - top))
+        idx = ((zi * d3 + yi) * d3 + xi).clamp(0, l3 * d3 * d3 - 1)
+        valid = inb & (tab.aux[idx] > 0.5)
+        sidx[q, : b - a] = torch.where(valid, idx, -1).to(torch.int32)
+        if tab.linear:
+            frac = torch.stack([Z - torch.floor(Z), Y - torch.floor(Y), X - torch.floor(X)], 1)
+            sfrac[q, : b - a] = torch.where(valid[:, None], frac, 0.0)
+    return sidx, sfrac
+
+
+def gather_normal_reference(tab: GatherTables, x, rows) -> torch.Tensor:
+    """The plain gather_normal: PT(P(x) * rows) (k, l3, d3, d3) of the
+    volumes x (k, l3, d3, d3) and the row weights rows (k, C, l2, d2), the
+    two plain versions composed."""
+    return gather_backproject_reference(tab, gather_project_reference(tab, x) * rows)
+
+
 def pose_jacobian_reference(tab: GatherTables, x, b):
     """The plain K3 (linear tables with derivatives): for each candidate
     the residual r = (P(x) - b) over the valid rows and its Jacobian J by
@@ -550,20 +631,153 @@ def _args(tab: GatherTables):
     return (tab.R, tab.cs, tab.sn, tab.dz, tab.cvf, tab.x0, tab.y0, tab.z0)
 
 
-def _listed(tab: GatherTables):
-    """K1 / K2's list arguments (rptr, ridx) and n_max: null pointers and 0
-    without a list."""
-    if tab.rptr is None:
-        return (None, None), 0
-    return (tab.rptr, tab.ridx), tab.n_max
+def launch_grid(k: int, n_items: int, listed: bool, sms: int) -> tuple:
+    """(blocks a candidate, entries a block) of a K1 / K2 launch of k
+    candidates on a card of ``sms`` SMs: one block an SM over the launch
+    (each block walks its share, so its fixed costs are paid once an SM),
+    but no more blocks than leave each at least MIN_RAYS of the longest
+    list's n_items entries (listed) or one group of 32 rays a warp of the
+    n_items rays (every ray tested; entries a block 0)."""
+    per = max(1, min(-(-sms // k), n_items // (MIN_RAYS if listed else _GT)))
+    return per, (max(1, -(-n_items // per)) if listed else 0)
+
+
+def _max_blocks(k: int, n: int, sms: int) -> int:
+    """Blocks a candidate of K2's max pass over n values: about four blocks
+    an SM over the launch."""
+    return max(1, min(-(-4 * sms // k), -(-n // _NT)))
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def _geometry(tab: GatherTables, listed: bool):
+    """The C entries' list arguments (rptr, ridx), null without one, and
+    the ints after them: k, C, l2, d2, d3, l3, linear, n_max, per, rpb."""
+    k, C, l2, d2 = tab.shape
+    listed = listed and tab.rptr is not None
+    n = tab.n_max if listed else C * l2 * d2
+    per, rpb = launch_grid(k, n, listed, _sm_count(tab.mask.device))
+    lists = (tab.rptr, tab.ridx) if listed else (None, None)
+    return lists, (k, C, l2, d2, tab.d3, tab.l3, int(tab.linear), tab.n_max if listed else 0,
+                   per, rpb)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _plan(tab: GatherTables, entry: str):
+    """The C function of K1 ("project": on the list when the tables have
+    one; "project_all": every ray tested), K2 ("backproject") or
+    gather_normal ("normal"), and its arguments that stay fixed for the
+    tables: the tables' and the list's pointers (as ints), the grid, and
+    the entry's scratch, made here. Made on the first call and kept, so a
+    solve's ~30 calls on one pose convert and allocate none of it."""
+    plan = tab._plans.get(entry)
+    if plan is not None:
+        return plan
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    lists, ints = _geometry(tab, entry != "project_all")
+    k, C, l2, d2, d3, l3, _, _, per, _ = ints
+    vol = l3 * d3 * d3
+    table = (tab.sidx, tab.sfrac) if lists[0] is not None else (None, None)
+    tables = tuple(_ptr(t) for t in (*_args(tab), *lists, *table))
+    dev = tab.mask.device
+    # (the C function, the pointers before the call's middle tensor, those
+    # after it, the ints, the scratch tensors they point into)
+    if entry in ("project", "project_all"):
+        plan = (lib.hgp_project, (_ptr(tab.aux), _ptr(tab.ok), *tables), (), ints, ())
+    elif entry == "backproject":
+        nbmax = _max_blocks(k, C * l2 * d2, _sm_count(dev))
+        scratch = (torch.empty((k, nbmax), dtype=torch.int32, device=dev),
+                   torch.empty((k, per, vol), dtype=torch.int64, device=dev))
+        plan = (lib.hgp_backproject, (_ptr(tab.ok), *tables, *map(_ptr, scratch)), (),
+                ints + (nbmax,), scratch)
+    else:
+        scratch = (torch.empty((k, max(1, tab.n_max)), dtype=torch.float32, device=dev),
+                   torch.empty((k, per), dtype=torch.int32, device=dev),
+                   torch.empty((k, per, vol), dtype=torch.int64, device=dev))
+        plan = (lib.hgp_normal, (_ptr(tab.aux), _ptr(tab.ok), *tables), tuple(map(_ptr, scratch)),
+                ints, scratch)
+    tab._plans[entry] = plan
+    return plan
+
+
+def _run(tab: GatherTables, fn, *args) -> None:
+    """fn(*args, the current stream of the tables' card); raises if its
+    launches were refused."""
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(tab.mask.device.index))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
 
 
 def _volumes(tab: GatherTables, x, name: str):
-    k = tab.shape[0]
-    vol = (k, tab.l3, tab.d3, tab.d3)
+    vol = (tab.shape[0], tab.l3, tab.d3, tab.d3)
     if tuple(x.shape) != vol:
         raise ValueError(f"{name} must be {vol}, got {tuple(x.shape)}")
     return x.contiguous()
+
+
+def _rays(tab: GatherTables, r, name: str):
+    if tuple(r.shape) != tab.shape:
+        raise ValueError(f"{name} must be {tab.shape}, got {tuple(r.shape)}")
+    return r.contiguous()
+
+
+# the C entries' steps (bits of their `steps` argument), for timing them alone
+PROJECT_STEPS = {"zero pred": 1, "kernel": 2}
+BACKPROJECT_STEPS = {"max pass": 1, "sums": 2, "reduce": 4}
+NORMAL_STEPS = {"projection": 1, "sums": 2, "reduce": 4}
+
+
+def _project_cuda(tab: GatherTables, x, pred, rowv, steps: int = 3,
+                  smem_limit: int | None = None) -> None:
+    fn, pre, _, ints, _ = _plan(tab, "project" if rowv is None else "project_all")
+    _run(tab, fn, _ptr(x), *pre, _ptr(pred), _ptr(rowv), *ints,
+         PROJECT_SMEM_LIMIT if smem_limit is None else smem_limit, steps)
+
+
+def _backproject_cuda(tab: GatherTables, r, out, steps: int = 7) -> None:
+    fn, pre, _, ints, _ = _plan(tab, "backproject")
+    _run(tab, fn, r.data_ptr(), *pre, out.data_ptr(), *ints, SMEM_LIMIT, steps)
+
+
+def _normal_cuda(tab: GatherTables, x, rows, out, steps: int = 7) -> None:
+    fn, pre, post, ints, _ = _plan(tab, "normal")
+    _run(tab, fn, x.data_ptr(), *pre, rows.data_ptr(), *post, out.data_ptr(), *ints,
+         PROJECT_SMEM_LIMIT, SMEM_LIMIT, steps)
+
+
+def sample_table(tab: GatherTables):
+    """The sample table of tab's list (sample_table_reference's (sidx,
+    sfrac)), computed as K1 computes each sample. CPU tensors run the plain
+    version; CUDA tensors run the kernel (never the plain version)."""
+    if tab.rptr is None:
+        raise ValueError("sample_table tabulates the list of live rays: with_live_rays(tab, ...)")
+    if _device_of(tab.mask, "sample_table") == "cpu":
+        return sample_table_reference(tab)
+    k, C, l2, d2 = tab.shape
+    dev = tab.mask.device
+    sidx = torch.full((k, tab.n_max, d2), -1, dtype=torch.int32, device=dev)
+    sfrac = (torch.zeros((k, tab.n_max, 3, d2), dtype=torch.float32, device=dev)
+             if tab.linear else None)
+    lists, ints = _geometry(tab, True)
+    from .._build import load_kernels
+
+    _run(tab, load_kernels().hgp_sample_table, _ptr(tab.ok), *map(_ptr, _args(tab)),
+         *map(_ptr, lists), _ptr(sidx), _ptr(sfrac), *ints)
+    launches["sample_table"] += 1
+    return sidx, sfrac
 
 
 def gather_project(tab: GatherTables, x=None, row_valid: bool = False):
@@ -573,16 +787,13 @@ def gather_project(tab: GatherTables, x=None, row_valid: bool = False):
     tensors run the kernel (never the plain version)."""
     if _device_of(tab.mask, "gather_project") == "cpu":
         return gather_project_reference(tab, x, row_valid)
-    k, C, l2, d2 = tab.shape
     dev = tab.mask.device
     x = None if x is None else _volumes(tab, x, "x")
     _check(tab, x=x)
-    lists, n_max = ((None, None), 0) if row_valid else _listed(tab)
-    pred = None if x is None else torch.empty((k, C, l2, d2), dtype=torch.float32, device=dev)
-    rowv = torch.empty((k, C, l2, d2), dtype=torch.bool, device=dev) if row_valid else None
-    _launcher("gather_project", dev)("hgp_project", x, tab.aux, tab.ok, *_args(tab), *lists,
-                                     pred, rowv, k, C, l2, d2, tab.d3, tab.l3, int(tab.linear),
-                                     n_max, SMEM_LIMIT, 3)
+    pred = None if x is None else torch.empty(tab.shape, dtype=torch.float32, device=dev)
+    rowv = torch.empty(tab.shape, dtype=torch.bool, device=dev) if row_valid else None
+    _project_cuda(tab, x, pred, rowv)
+    launches["gather_project"] += 1
     return (pred, rowv) if row_valid else pred
 
 
@@ -593,21 +804,35 @@ def gather_backproject(tab: GatherTables, r) -> torch.Tensor:
     version)."""
     if _device_of(tab.mask, "gather_backproject") == "cpu":
         return gather_backproject_reference(tab, r)
-    k, C, l2, d2 = tab.shape
-    dev = tab.mask.device
-    if tuple(r.shape) != (k, C, l2, d2):
-        raise ValueError(f"r must be {(k, C, l2, d2)}, got {tuple(r.shape)}")
-    r = r.contiguous()
+    r = _rays(tab, r, "r")
     _check(tab, r=r)
-    vol = (k, tab.l3, tab.d3, tab.d3)
-    # scratch the entry zeroes: the max pass's bits, the sums, the counts
-    amax, done = torch.empty((2, k), dtype=torch.int32, device=dev)
-    accg = torch.empty(vol, dtype=torch.int64, device=dev)
-    out = torch.empty(vol, dtype=torch.float32, device=dev)
-    lists, n_max = _listed(tab)
-    _launcher("gather_backproject", dev)("hgp_backproject", r, tab.ok, *_args(tab), *lists, amax,
-                                         accg, done, out, k, C, l2, d2, tab.d3, tab.l3,
-                                         int(tab.linear), n_max, SMEM_LIMIT, 7)
+    out = torch.empty((tab.shape[0], tab.l3, tab.d3, tab.d3), dtype=torch.float32,
+                      device=tab.mask.device)
+    _backproject_cuda(tab, r, out)
+    launches["gather_backproject"] += 1
+    return out
+
+
+def gather_normal(tab: GatherTables, x, rows) -> torch.Tensor:
+    """PT(P(x) * rows) (k, l3, d3, d3) of the volumes x (k, l3, d3, d3) and
+    the row weights rows (k, C, l2, d2), summed exactly: the same bits as
+    the plain version, gather_backproject_reference(tab,
+    gather_project_reference(tab, x) * rows). CPU tensors run the plain
+    version; CUDA tensors run K1 and K2 on the tables' list of live rays
+    (with_live_rays; off it P(x) is 0) in one call, the projected values
+    kept in a compact buffer of the listed rays (never the plain
+    version)."""
+    if _device_of(tab.mask, "gather_normal") == "cpu":
+        return gather_normal_reference(tab, x, rows)
+    if tab.rptr is None:
+        raise ValueError("gather_normal runs on the list of live rays: with_live_rays(tab, ...)")
+    x = _volumes(tab, x, "x")
+    rows = _rays(tab, rows, "rows")
+    _check(tab, x=x, rows=rows)
+    out = torch.empty((tab.shape[0], tab.l3, tab.d3, tab.d3), dtype=torch.float32,
+                      device=tab.mask.device)
+    _normal_cuda(tab, x, rows, out)
+    launches["gather_normal"] += 1
     return out
 
 

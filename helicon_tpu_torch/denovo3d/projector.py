@@ -26,7 +26,9 @@ once, each at its own pose (``build_problems``; ``build_problem`` is one):
 (``gather_kernels``: the amyloid geometry samples 177 copies x 256 x 56 x
 56 = 124 M points per application), and as their plain versions on the
 CPU, a candidate and a chunk of copies at a time, the transpose an
-``index_add_`` of the same samples' weights. Coordinates are recomputed in
+``index_add_`` of the same samples' weights. The solves apply the data
+term as ``PTRP`` = PT(rows * P(x)), one call of ``gather_normal`` on the
+card. Coordinates are recomputed in
 every application, as in the reference; on the card only for the pose's
 live rays, listed once per build. ``S`` and ``ST`` touch pairs x l3
 x d3^2 voxels, far fewer: alone they are torch on either device, their
@@ -79,10 +81,11 @@ def data_operators(
     kernels K1 / K2 (``gather_kernels``) on the list of the pose's live
     rays, built here once, the CPU their plain versions.
 
-    Returns (P, PT, row_valid): P(x (k, l3, d3, d3)) -> pred (k, C, l2,
-    d2); PT(r (k, C, l2, d2)) -> (k, l3, d3, d3); row_valid (k, C, l2, d2)
-    bool, True where the ray hits >= 1 valid voxel and the copy slot is
-    populated."""
+    Returns (P, PT, PTRP, row_valid): P(x (k, l3, d3, d3)) -> pred (k, C,
+    l2, d2); PT(r (k, C, l2, d2)) -> (k, l3, d3, d3); PTRP(x, rows (k, C,
+    l2, d2)) -> PT(rows * P(x)), gather_normal (one call on the card);
+    row_valid (k, C, l2, d2) bool, True where the ray hits >= 1 valid voxel
+    and the copy slot is populated."""
     tab = _gk.gather_tables(geom, twists, rises_pixel, copies_h, copies_c, copies_valid,
                             tilt_degree, psi_degree, dy_pixel, interpolation, mask_flat,
                             cellok_flat)
@@ -90,7 +93,8 @@ def data_operators(
     if row_valid.is_cuda:
         tab = _gk.with_live_rays(tab, row_valid)
     return (lambda x_vol: _gk.gather_project(tab, x_vol),
-            lambda r: _gk.gather_backproject(tab, r), row_valid)
+            lambda r: _gk.gather_backproject(tab, r),
+            lambda x_vol, rows: _gk.gather_normal(tab, x_vol, rows), row_valid)
 
 
 def data_operator(
@@ -111,13 +115,15 @@ def data_operator(
     one candidate (data_operators for one). mask_flat / cellok_flat:
     float32 tensors (l3*d3*d3,) on the operators' device.
 
-    Returns (P, PT, row_valid): P(x (l3, d3, d3)) -> pred (C, l2, d2);
-    PT(r (C, l2, d2)) -> (l3, d3, d3); row_valid (C, l2, d2) bool."""
-    P, PT, row_valid = data_operators(
+    Returns (P, PT, PTRP, row_valid): P(x (l3, d3, d3)) -> pred (C, l2,
+    d2); PT(r (C, l2, d2)) -> (l3, d3, d3); PTRP(x, rows (C, l2, d2)) ->
+    PT(rows * P(x)); row_valid (C, l2, d2) bool."""
+    P, PT, PTRP, row_valid = data_operators(
         geom, [twist_degree], [rise_pixel], _ps._lead(copies_h), _ps._lead(copies_c),
         _ps._lead(copies_valid), tilt_degree, psi_degree, dy_pixel, interpolation, mask_flat,
         cellok_flat)
-    return lambda x_vol: P(x_vol[None])[0], lambda r: PT(r[None])[0], row_valid[0]
+    return (lambda x_vol: P(x_vol[None])[0], lambda r: PT(r[None])[0],
+            lambda x_vol, rows: PTRP(x_vol[None], rows[None])[0], row_valid[0])
 
 
 def sym_operators(
@@ -204,16 +210,17 @@ def build_problems(
     sym_keep=None,
     device="cuda",
 ):
-    """Assemble (P, PT, S, ST, STS, b, row_valid, mask) for k candidates on
-    ``device``, each at its own pose (tilt, psi, dy: a number or (k,));
-    tables carry a leading candidate axis. P maps (k, l3, d3, d3) to (k, C,
-    l2, d2), S to (k, P, l3, d3, d3); STS is ST(S(x)), one launch of K4 on
-    the card. image_region: (d2, l2) pixel values
+    """Assemble (P, PT, PTRP, S, ST, STS, b, row_valid, mask) for k
+    candidates on ``device``, each at its own pose (tilt, psi, dy: a number
+    or (k,)); tables carry a leading candidate axis. P maps (k, l3, d3, d3)
+    to (k, C, l2, d2), S to (k, P, l3, d3, d3); PTRP(x, rows) is PT(rows *
+    P(x)), one call of gather_normal on the card, and STS is ST(S(x)), one
+    launch of K4. image_region: (d2, l2) pixel values
     (rows j, columns i); b[i, j] = region[j, i]."""
     dev = torch.device(device)
     mask_flat = _ps._as(np.asarray(mask, np.float32).reshape(-1), dev)
     cellok_flat = _ps._as(np.asarray(cellok, np.float32).reshape(-1), dev)
-    P, PT, row_valid = data_operators(
+    P, PT, PTRP, row_valid = data_operators(
         geom, twists, rises_pixel, copies_h, copies_c, copies_valid, tilt_degree, psi_degree,
         dy_pixel, interpolation, mask_flat, cellok_flat,
     )
@@ -222,6 +229,7 @@ def build_problems(
     return dict(
         P=P,
         PT=PT,
+        PTRP=PTRP,
         S=S,
         ST=ST,
         STS=STS,
@@ -250,8 +258,8 @@ def build_problem(
     sym_keep=None,
     device="cuda",
 ):
-    """Assemble (P, PT, S, ST, b, row_valid, mask) for one candidate on
-    ``device`` (build_problems for one). image_region: (d2, l2) pixel
+    """Assemble (P, PT, PTRP, S, ST, STS, b, row_valid, mask) for one
+    candidate on ``device`` (build_problems for one). image_region: (d2, l2) pixel
     values (rows j, columns i); b[i, j] = region[j, i]."""
     ops = build_problems(
         geom, image_region, [twist_degree], [rise_pixel],
@@ -259,4 +267,5 @@ def build_problem(
         tilt_degree, psi_degree, dy_pixel, interpolation, mask, cellok,
         None if sym_keep is None else _ps._lead(sym_keep), device)
     one = {k: (lambda f: lambda a: f(a[None])[0])(ops[k]) for k in ("P", "PT", "S", "ST", "STS")}
+    one["PTRP"] = lambda x_vol, rows: ops["PTRP"](x_vol[None], rows[None])[0]
     return dict(ops, **one, row_valid=ops["row_valid"][0])

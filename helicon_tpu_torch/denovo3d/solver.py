@@ -368,8 +368,9 @@ class _Batch:
     build_problems_separable, whose dense factors B2 solves on
     (``candidate_solve``: its kernels on CUDA tensors, its plain version
     on CPU tensors), or of the gather projector's build_problems, solved
-    in torch on the closures (P, PT and STS one launch of K1 / K2 / K4
-    each on the card).
+    in torch on the closures (P and PT one launch of K1 / K2 each on the
+    card, the normal operator's data term PTRP one call of gather_normal
+    and STS one launch of K4).
     ``w`` is a data-row weighting: None for the full rows, else the fsc
     half's pixel-id mask (1, l2, d2)."""
 
@@ -424,7 +425,7 @@ class _Batch:
 
         def N0(v):
             vol = v.reshape((k,) + self.vol)
-            out = ops["PT"](ops["P"](vol) * rows) + ops["STS"](vol)
+            out = ops["PTRP"](vol, rows) + ops["STS"](vol)
             return out.reshape(v.shape) * self.mask
         return N0
 

@@ -12,6 +12,8 @@ another order than cuBLAS); bf16 A_top scores 1e-3 and x 5e-3 relative
 can still flip one rounding).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -534,10 +536,13 @@ def _rel(a, b):
 @pytest.mark.parametrize("interpolation", ["nn", "linear"])
 @pytest.mark.parametrize("case", GATHER_GEOMS, ids=lambda c: c[0])
 def test_gather_kernels_match_plain(cuda, case, interpolation):
-    """K1, K2 and K4 (P, row_valid, PT and ST(S(x)) bit for bit: the plain
-    P sums each ray in the kernel's order, PT and ST(S(x)) sum exactly) and,
+    """K1, K2, gather_normal, the sample table and K4 (P, row_valid, PT,
+    PT(rows * P(x)), the table and ST(S(x)) bit for bit: the plain P sums
+    each ray in the kernel's order, the transposes sum exactly) and,
     linear, K3 (J^T J, J^T r within 1e-4 relative) against their plain
-    versions on the same card tensors."""
+    versions on the same card tensors; K1, K2 and gather_normal on the list
+    with its sample table and without, gather_normal at the valid rows and
+    at an fsc half's weighting."""
     from helicon_tpu_torch.denovo3d import gather_kernels as gk
 
     _, fields, k = case
@@ -554,8 +559,25 @@ def test_gather_kernels_match_plain(cuda, case, interpolation):
     # on the list of the live rays, as the projector launches them
     listed = gk.with_live_rays(tab, rv_k)
     assert listed.n_max > 0 and int(listed.rptr[-1]) == int(rv_p.sum())
-    assert torch.equal(gk.gather_project(listed, x), p_p)
-    assert torch.equal(gk.gather_backproject(listed, r), pt_p)
+    # its sample table (nn: the list's own; linear: built here) has the
+    # plain table's bits; K1 and K2 with a table and without
+    want = gk.sample_table_reference(listed)
+    assert (listed.sidx is None) == (interpolation == "linear")
+    assert listed.sidx is None or torch.equal(listed.sidx, want[0])
+    tabled = dataclasses.replace(listed, sidx=None, sfrac=None)
+    tabled.sidx, tabled.sfrac = gk.sample_table(tabled)
+    assert torch.equal(tabled.sidx, want[0]) and (want[1] is None) != (interpolation == "linear")
+    assert want[1] is None or torch.equal(tabled.sfrac, want[1])
+    untabled = dataclasses.replace(listed, sidx=None, sfrac=None)
+    lists = (listed, tabled, untabled)
+    for on in lists:
+        assert torch.equal(gk.gather_project(on, x), p_p)
+        assert torch.equal(gk.gather_backproject(on, r), pt_p)
+    half = (torch.arange(tab.l2 * tab.d2, device=cuda) % 2 == 0).float().reshape(tab.l2, tab.d2)
+    for rows in (rv_p.float(), rv_p.float() * half):
+        want = gk.gather_normal_reference(tab, x, rows)
+        assert all(torch.equal(gk.gather_normal(on, x, rows), want) for on in lists)
+        assert torch.equal(gk.gather_backproject(listed, gk.gather_project(listed, x) * rows), want)
     assert torch.equal(sts_k, sts_p) and bool(sts_p.abs().max() > 0)
     assert gk.launches["sym_normal"] - before["sym_normal"] == 1
     if interpolation == "linear":
@@ -563,24 +585,32 @@ def test_gather_kernels_match_plain(cuda, case, interpolation):
         torch.cuda.synchronize()
         assert _rel(got[0], want[0]) <= 1e-4 and _rel(got[1], want[1]) <= 1e-4
         assert _rel(got[2], want[2]) <= 1e-4
-    assert gk.launches["gather_project"] - before["gather_project"] == 2
-    assert gk.launches["gather_backproject"] - before["gather_backproject"] == 2
+    assert gk.launches["gather_project"] - before["gather_project"] == 6
+    assert gk.launches["gather_backproject"] - before["gather_backproject"] == 6
+    assert gk.launches["gather_normal"] - before["gather_normal"] == 6
+    assert gk.launches["sample_table"] - before["sample_table"] == (
+        2 if interpolation == "nn" else 1)
 
 
 @pytest.mark.parametrize("interpolation", ["nn", "linear"])
 def test_gather_kernels_without_shared_memory(cuda, interpolation, monkeypatch):
     """The kernels' device-memory branch (the one a volume past their
-    shared memory takes) on the small geometry: the same results."""
+    shared memory takes, and K1's at any size) on the small geometry
+    against their shared-memory branch: the same results, and
+    gather_normal's too."""
     from helicon_tpu_torch.denovo3d import gather_kernels as gk
 
     tab, x, r, b, st = _gather_case(cuda, GATHER_GEOMS[0][1], 3, interpolation, seed=2,
                                     sym=True)
-    listed = gk.with_live_rays(tab, gk.gather_project(tab, None, row_valid=True)[1])
+    rowv = gk.gather_project(tab, None, row_valid=True)[1]
+    listed = gk.with_live_rays(tab, rowv)
     runs = []
     for limit in (gk.SMEM_LIMIT, 0):
         monkeypatch.setattr(gk, "SMEM_LIMIT", limit)
+        monkeypatch.setattr(gk, "PROJECT_SMEM_LIMIT", limit)  # K1 staged, then not
         runs.append([gk.gather_project(tab, x), gk.gather_backproject(tab, r), gk.sym_normal(st, x),
-                     gk.gather_project(listed, x), gk.gather_backproject(listed, r)])
+                     gk.gather_project(listed, x), gk.gather_backproject(listed, r),
+                     gk.gather_normal(listed, x, rowv.float())])
     torch.cuda.synchronize()
     staged, direct = runs
     assert _rel(direct[0], staged[0]) <= 1e-5
@@ -592,18 +622,27 @@ def test_gather_kernels_without_shared_memory(cuda, interpolation, monkeypatch):
 
 @pytest.mark.parametrize("interpolation", ["nn", "linear"])
 def test_gather_kernels_repeat_bit_for_bit(cuda, interpolation):
-    """Launched again on the same inputs, K2, K3 and K4 give the same bits
-    (exact integer sums, K3's block sums added in block order), at the
-    amyloid's geometry and at k = 3 on the small one."""
+    """Launched again on the same inputs, K1 and K2 on the list,
+    gather_normal, K2, K3 and K4 give the same bits (exact integer sums,
+    K3's block sums added in block order), at the amyloid's geometry and at
+    k = 3 on the small one."""
     from helicon_tpu_torch.denovo3d import gather_kernels as gk
 
     for (_, fields, k), seed in ((GATHER_GEOMS[2], 5), (GATHER_GEOMS[0], 6)):
         tab, x, r, b, st = _gather_case(cuda, fields, k, interpolation, seed=seed, sym=True)
-        first = [gk.gather_backproject(tab, r), gk.sym_normal(st, x)]
+        rowv = gk.gather_project(tab, None, row_valid=True)[1]
+        listed = gk.with_live_rays(tab, rowv)
+
+        def run():
+            return [gk.gather_backproject(tab, r), gk.sym_normal(st, x),
+                    gk.gather_project(listed, x), gk.gather_backproject(listed, r),
+                    gk.gather_normal(listed, x, rowv.float())]
+
+        first = run()
         if interpolation == "linear":
             first += list(gk.pose_jacobian(tab, x, b))
         for _ in range(3):
-            again = [gk.gather_backproject(tab, r), gk.sym_normal(st, x)]
+            again = run()
             if interpolation == "linear":
                 again += list(gk.pose_jacobian(tab, x, b))
             assert all(torch.equal(a, c) for a, c in zip(again, first))

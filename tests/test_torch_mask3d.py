@@ -56,6 +56,23 @@ def test_otsu_threshold_3d_matches_reference(shape, ignore_zero):
     _close(got, want)
 
 
+def test_otsu_bins_saturate_as_the_reference():
+    """A bin of more than 2^24 voxels: the reference adds float32 ones into
+    its histogram, so the bin stops at 2^24 (1 + 2^24 rounds back). Here
+    the solvent bin holds 2^24 + 500,000 voxels, and two smaller modes sit
+    where the saturated count moves the Otsu level from above the solvent
+    to above the second mode (found by a search over the modes' sizes;
+    the two levels' variances differ by ~4e-5 relative, far above float32
+    rounding). The port's level is the reference's."""
+    counts = {10: 2**24 + 500_000, 120: 530_000, 250: 1_204_000}
+    v = np.concatenate([np.float32([1e-6, 1.0])] + [
+        np.full(n, (b + 0.5) / 256, np.float32) for b, n in counts.items()])
+    want = ref.otsu_threshold_3d(v.reshape(-1, 1, 1))
+    got = mask3d.otsu_threshold_3d(torch.from_numpy(v).reshape(-1, 1, 1))
+    assert abs(float(want) - 121 / 256) < 1e-3  # the saturated count's level
+    _close(got, want)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_grow_from_seeds_matches_reference(shape):
     g = np.random.default_rng(3)

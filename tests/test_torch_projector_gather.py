@@ -226,6 +226,129 @@ def test_live_rays_list_the_valid_rows():
     assert listed.ridx.dtype == listed.rptr.dtype == torch.int32
 
 
+def test_posed_data_term_matches_reference(posed):
+    """PTRP(x, rows) = PT(rows * P(x)), the solver's data term
+    (gather_normal's plain version), against the reference's PT(rows *
+    P(x)), at the valid rows and at an fsc half's (mode 3) weighting."""
+    ref, port, x, _, _ = posed
+    rows = port["row_valid"].float()
+    half = torch.from_numpy(port_solver._pid_split_masks(port_geo.ReconstructionGeometry(
+        csym=1, **GEOM), 3)[0])
+    xt = torch.from_numpy(x)
+    for rw in (rows, rows * half):
+        with jax.disable_jit():
+            want = ref["PT"](ref["P"](jnp.asarray(x)) * jnp.asarray(_np(rw)))
+        got = port["PTRP"](xt, rw)
+        _close(got, want, rel=True)
+        np.testing.assert_array_equal(_np(got), _np(port["PT"](port["P"](xt) * rw)))
+
+
+def _ragged(interpolation):
+    """Tables of three candidates at their own poses whose lists of live
+    rays differ in length (other populated slots, other poses)."""
+    pg = port_geo.ReconstructionGeometry(csym=2, **GEOM)
+    tabs, _ = _tables(pg, 2)
+    ch, cc, cv = (np.stack([t, t, t]) for t in tabs[:3])
+    cv[1, ::2] = False
+    cv[2, 1::3] = False
+    mask = torch.from_numpy(pg.cylindrical_mask().reshape(-1))
+    tab = port_gk.gather_tables(pg, [TWIST, TWIST + 1, TWIST - 2], [RISE] * 3, ch, cc, cv,
+                                [3.0, -2.0, 7.5], [1.0, 0.0, -2.0], [0.5, 0.0, 1.0],
+                                interpolation, mask,
+                                torch.from_numpy(pg.cell_valid_mask().reshape(-1)))
+    rng = np.random.default_rng(13)
+    x = (torch.from_numpy(rng.random((3,) + pg.volume_shape).astype(np.float32)) - 0.3
+         ) * mask.reshape(pg.volume_shape)
+    return pg, tab, x
+
+
+@pytest.mark.parametrize("interpolation", ["nn", "linear"])
+def test_gather_normal_is_the_composition_on_the_live_rays(interpolation):
+    """gather_normal (its plain version on CPU tensors) equals
+    gather_backproject_reference(tab, gather_project_reference(tab, x) *
+    rows) bit for bit at k = 3 with ragged live lists, at the valid rows
+    and at an fsc half's weighting; and the kernel's reading of it holds:
+    P(x) is 0 off the list, so the listed rays' values alone (its compact
+    (k, n_max) buffer) have the same max and, added back, give the same
+    bits."""
+    pg, tab, x = _ragged(interpolation)
+    _, rowv = port_gk.gather_project(tab, None, row_valid=True)
+    listed = port_gk.with_live_rays(tab, rowv)
+    counts = _np(listed.rptr[1:] - listed.rptr[:-1])
+    assert len(set(counts.tolist())) == 3 and counts.min() > 0
+    half = torch.from_numpy(port_solver._pid_split_masks(pg, 2)[1])
+    pred = port_gk.gather_project_reference(tab, x)
+    assert not bool(pred[~rowv].any())
+    for rows in (rowv.float(), rowv.float() * half):
+        got = port_gk.gather_normal(listed, x, rows)
+        want = port_gk.gather_backproject_reference(tab, pred * rows)
+        np.testing.assert_array_equal(_np(got), _np(want))
+        assert bool(want.abs().max() > 0)
+        flat = (pred * rows).reshape(3, -1)
+        dense = torch.zeros_like(flat)
+        for q in range(3):
+            idx = listed.ridx[int(listed.rptr[q]):int(listed.rptr[q + 1])].long()
+            comp = flat[q, idx]
+            assert torch.equal(comp.abs().max(), flat[q].abs().max())
+            dense[q, idx] = comp
+        np.testing.assert_array_equal(
+            _np(port_gk.gather_backproject_reference(tab, dense.reshape(tab.shape))), _np(want))
+
+
+@pytest.mark.parametrize("interpolation", ["nn", "linear"])
+def test_sample_table_gives_the_plain_samples(interpolation):
+    """The plain sample table of a list (k = 3, ragged) holds each listed
+    ray's samples as K1 takes them: summed from the table in K1's order
+    (nn: the voxel; linear: the eight corners' weights from the fractions,
+    in the plain version's order), each listed ray's value equals the plain
+    P's bit for bit, and the slots past a candidate's entries hold -1."""
+    pg, tab, x = _ragged(interpolation)
+    _, rowv = port_gk.gather_project(tab, None, row_valid=True)
+    listed = port_gk.with_live_rays(tab, rowv)
+    assert listed.sidx is None  # built on the card only
+    sidx, sfrac = port_gk.sample_table(listed)
+    assert sidx.shape == (3, listed.n_max, pg.d2) and (sfrac is None) != tab.linear
+    pred = port_gk.gather_project_reference(tab, x).reshape(3, -1)
+    d3, dzs = pg.d3, pg.d3 * pg.d3
+    for q in range(3):
+        a, b = int(listed.rptr[q]), int(listed.rptr[q + 1])
+        si = sidx[q, : b - a].long()
+        assert bool((sidx[q, b - a:] == -1).all()) and bool((si >= 0).any(dim=1).all())
+        xf = x[q].reshape(-1)
+        if tab.linear:
+            wz, wy, wx = sfrac[q, : b - a].unbind(1)
+            uz, uy, ux = 1 - wz, 1 - wy, 1 - wx
+            terms = [(0, uz, uy, ux), (1, uz, uy, wx), (d3, uz, wy, ux), (d3 + 1, uz, wy, wx),
+                     (dzs, wz, uy, ux), (dzs + 1, wz, uy, wx), (dzs + d3, wz, wy, ux),
+                     (dzs + d3 + 1, wz, wy, wx)]
+            val = None
+            for off, p, r, t in terms:
+                v = p * r * t * xf[(si + off).clamp(0, xf.numel() - 1)]
+                val = v if val is None else val + v
+        else:
+            val = xf[si.clamp(0)]
+        val = torch.where(si >= 0, val, 0.0)
+        got = port_gk._ray_sum(val)
+        np.testing.assert_array_equal(_np(got), _np(pred[q, listed.ridx[a:b].long()]))
+
+
+@pytest.mark.parametrize("k,n,listed", [(1, 62694, True), (45, 62694, True), (1, 300, True),
+                                        (200, 5000, True), (3, 0, True), (1, 2539520, False),
+                                        (45, 2539520, False), (2, 500, False)])
+def test_launch_grid_follows_the_work(k, n, listed):
+    """K1 / K2's grid: at most one block an SM over the launch, none
+    without a share of the list, each with at least MIN_RAYS entries (or a
+    group of 32 rays a warp) unless one block takes them all."""
+    sms = 132
+    per, rpb = port_gk.launch_grid(k, n, listed, sms)
+    assert 1 <= per <= -(-sms // k)
+    if not listed:
+        assert rpb == 0 and (per == 1 or n // per >= 1024)
+        return
+    assert per * rpb >= n and (per - 1) * rpb < max(n, 1)
+    assert per == 1 or rpb >= port_gk.MIN_RAYS
+
+
 def test_posed_transposes_are_adjoint(posed):
     _, port, x, r, q = posed
     xt, rt, qt = (torch.from_numpy(a).double() for a in (x, r, q))

@@ -97,14 +97,14 @@ checkout, then runs thirteen phases and fails (non-zero exit) if any fails:
    P(x)) in one call), sample_table (each listed ray's samples, once a
    pose), K3 pose_jacobian, K4 sym_normal): (a) each against its plain
    version at phase 9 (b)'s best golden candidate at tilt 3 deg, nn and
-   linear (P within 1e-5 of its max, P, PT, gather_normal, the table and
-   ST(S(x)) bit for bit, K1 / K2 / gather_normal with the table and
+   linear (P within 1e-5 of its max, P, PT, gather_normal, nn's table and
+   ST(S(x)) bit for bit, nn's K1 / K2 / gather_normal with the table and
    without, J^T J and J^T r 1e-4 relative), timed beside its plain
    version, its bound and a yardstick (grid_sample + the ray sum for P,
    index_add_ of the precomputed taps for PT, nn and linear), gather_normal
    beside K1 + multiply + K2, then each step of K1's, K2's and
    gather_normal's C entries alone (device ms, queued behind a sleeping
-   kernel; with and without the table; K1's volume staged and cached),
+   kernel; nn with the table and without),
    and K4's share of a refine matvec beside the torch S + ST it
    replaced; (b) phase 9 (b)'s wall on the kernels beside the torch gather
    projector's; (c) refinement's main path, the CLI's refinement
@@ -1849,25 +1849,19 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
     listed = gk.with_live_rays(tab, rv_k)
     torch.cuda.synchronize()
     list_ms = (time.perf_counter() - t0) * 1e3
-    # the list's sample table (nn: the projector's; linear, which computes
-    # its samples, built here) against the plain table, and the list with
-    # it and without
+    # nn: the list's sample table against the plain table, and the list
+    # with it and without (linear lists compute their samples)
     if (listed.sidx is None) != tab.linear:
         raise AssertionError(f"{label}: the list's sample table is "
                              f"{'missing' if listed.sidx is None else 'there'}")
-    tabled = dataclasses.replace(listed, sidx=None, sfrac=None)
-    tabled.sidx, tabled.sfrac = gk.sample_table(tabled)
-    untabled = dataclasses.replace(listed, sidx=None, sfrac=None)
-    st_p = gk.sample_table_reference(listed)
-    table_same = bool(torch.equal(tabled.sidx, st_p[0])
-                      and (st_p[1] is None or torch.equal(tabled.sfrac, st_p[1]))
-                      and (listed.sidx is None or torch.equal(listed.sidx, st_p[0])))
-    rows[("table", interp)] = dict(
-        max_abs_err=0.0 if table_same else float("inf"), equal=table_same,
-        table_mb=_nbytes(*(t for t in (tabled.sidx, tabled.sfrac) if t is not None)) / 1e6)
-    if not table_same:
-        raise AssertionError(f"{label}: the sample table differs from the plain table")
-    on_lists = (listed, tabled, untabled)
+    on_lists = (listed,)
+    if listed.sidx is not None:
+        table_same = bool(torch.equal(listed.sidx, gk.sample_table_reference(listed)))
+        rows[("table", interp)] = dict(max_abs_err=0.0 if table_same else float("inf"),
+                                       equal=table_same, table_mb=_nbytes(listed.sidx) / 1e6)
+        if not table_same:
+            raise AssertionError(f"{label}: the sample table differs from the plain table")
+        on_lists += (dataclasses.replace(listed, sidx=None),)
     p_l = [gk.gather_project(on, x) for on in on_lists]
     torch.cuda.synchronize()
     err_p, rv_same = _rel(p_k, p_p), bool((rv_k == rv_p).all())
@@ -1924,13 +1918,14 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
     k3 = "" if errs is None else (f"; K3 J^T J {errs[0]:.3e}, J^T r {errs[1]:.3e}, r^T r "
                                   f"{errs[2]:.3e} (limit 1e-4)")
     print(f"{label}: K1 rel err {err_p:.3e} (limit 1e-5), row_valid "
-          f"{'equal' if rv_same else 'DIFFERS'}; the sample table "
-          f"({rows[('table', interp)]['table_mb']:.1f} MB"
-          f"{', the list' + chr(39) + 's own' if listed.sidx is not None else ''}) equal to "
-          f"plain; K1, K2 (every ray tested, and on the list of {listed.n_max} live rays, built "
-          f"in {list_ms:.3f} ms, with and without a table), gather_normal (rows: the valid "
-          f"rows, and with an fsc-like weighting; with and without a table) and K4 equal to "
-          f"plain bit for bit{k3}; {card}", flush=True)
+          f"{'equal' if rv_same else 'DIFFERS'}; "
+          + ("" if listed.sidx is None else
+             f"the list's sample table ({rows[('table', interp)]['table_mb']:.1f} MB) equal to "
+             "plain; ")
+          + f"K1, K2 (every ray tested, and on the list of {listed.n_max} live rays, built in "
+          f"{list_ms:.3f} ms{'' if listed.sidx is None else ', with and without its table'}), "
+          f"gather_normal (rows: the valid rows, and with an fsc-like weighting) and K4 equal "
+          f"to plain bit for bit{k3}; {card}", flush=True)
     if not timed:
         return rows
 
@@ -1995,11 +1990,11 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
     comp = dict(ms=_time_ms(composed, 20), device_ms=_device_ms(composed, 20),
                 host_ms=_host_ms(composed, 20))
     rows[("normal", interp)]["composition"] = comp
-    # the sample table's build, once a pose: it computes what K1 computes
-    t6 = timing(("table", interp), lambda: gk.sample_table(listed),
-                lambda: gk.sample_table_reference(listed),
-                _nbytes(listed.ridx, *(t for t in (tabled.sidx, tabled.sfrac) if t is not None))
-                + aux_bytes, COORD_OPS * n_listed)
+    # the nn sample table's build, once a pose: it computes what K1 computes
+    t6 = "" if listed.sidx is None else "; the sample table " + timing(
+        ("table", interp), lambda: gk.sample_table(listed),
+        lambda: gk.sample_table_reference(listed),
+        _nbytes(listed.ridx, listed.sidx) + aux_bytes, COORD_OPS * n_listed)
     live, valid = _sym_items(st)
     t4 = timing(("sym_normal", interp), lambda: gk.sym_normal(st, x),
                 lambda: gk.sym_normal_reference(st, x),
@@ -2010,9 +2005,8 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
           f"{live} symmetry items, {valid} valid]: K1 {t1}, grid_sample ({mode}) + sum "
           f"{rows[('project', interp)]['library_ms']:.3f} ms; K2 {t2}{lib}; gather_normal {t5}, "
           f"against K1 + multiply + K2 {comp['ms']:.4f} ms (device alone {comp['device_ms']:.4f} "
-          f"ms, host {comp['host_ms']:.4f} ms a call); K4 {t4}; the sample table {t6}; {card}",
-          flush=True)
-    parts = _gather_breakdown(tabled, x, r, rows_n)
+          f"ms, host {comp['host_ms']:.4f} ms a call); K4 {t4}{t6}; {card}", flush=True)
+    parts = _gather_breakdown(listed, x, r, rows_n)
     rows[("backproject", interp)]["breakdown_ms"] = parts
     print(f"{label}: device ms a step, queued behind a sleep: "
           + ", ".join(f"{n} {v:.4f}" if isinstance(v, float) else f"{n} {v}"
@@ -2028,35 +2022,33 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
 def _gather_breakdown(listed, x, r, rows) -> dict:
     """Device ms of each step of K1's, K2's and gather_normal's calls on the
     list of live rays (_device_ms around each C entry called with one
-    step, on the wrappers' own scratch; no launch counted), reading the
-    list's sample table and computing the samples, K1 with its volume
-    staged in shared memory and read through the cache, and the grid:
-    blocks a candidate and live rays a block (gather_kernels.launch_grid)."""
+    step, on the wrappers' own scratch; no launch counted), with an nn
+    list's sample table and computing the samples, and the grid: blocks a
+    candidate and live rays a block (gather_kernels.launch_grid)."""
     import torch
 
     from helicon_tpu_torch.denovo3d import gather_kernels as gk
 
     out = torch.empty((listed.shape[0], listed.l3, listed.d3, listed.d3), device=x.device)
     pred = torch.empty(listed.shape, device=x.device)
-    untabled = dataclasses.replace(listed, sidx=None, sfrac=None)
+    computed = dataclasses.replace(listed, sidx=None)
     parts = {f"K2 {n}": (lambda s=s: gk._backproject_cuda(listed, r, out, s))
              for n, s in gk.BACKPROJECT_STEPS.items()}
-    parts["K2 sums, samples computed"] = (
-        lambda: gk._backproject_cuda(untabled, r, out, gk.BACKPROJECT_STEPS["sums"]))
     parts["K2 whole call"] = lambda: gk._backproject_cuda(listed, r, out)
-    zero, kernel = gk.PROJECT_STEPS["zero pred"], gk.PROJECT_STEPS["kernel"]
-    parts["K1 zero pred"] = lambda: gk._project_cuda(listed, x, pred, None, zero)
-    for name, limit in (("volume in shared memory", gk.SMEM_LIMIT),
-                        ("volume read through the cache", 0)):
-        parts[f"K1 kernel, {name}"] = (
-            lambda limit=limit: gk._project_cuda(listed, x, pred, None, kernel, limit))
-        parts[f"K1 kernel, {name}, samples computed"] = (
-            lambda limit=limit: gk._project_cuda(untabled, x, pred, None, kernel, limit))
+    parts["K1 zero pred"] = lambda: gk._project_cuda(listed, x, pred, None,
+                                                     gk.PROJECT_STEPS["zero pred"])
+    parts["K1 kernel"] = lambda: gk._project_cuda(listed, x, pred, None,
+                                                  gk.PROJECT_STEPS["kernel"])
     for n, s in gk.NORMAL_STEPS.items():
         parts[f"gather_normal {n}"] = lambda s=s: gk._normal_cuda(listed, x, rows, out, s)
     parts["gather_normal whole call"] = lambda: gk._normal_cuda(listed, x, rows, out)
-    parts["gather_normal whole call, samples computed"] = (
-        lambda: gk._normal_cuda(untabled, x, rows, out))
+    if listed.sidx is not None:
+        parts["K2 sums, samples computed"] = (
+            lambda: gk._backproject_cuda(computed, r, out, gk.BACKPROJECT_STEPS["sums"]))
+        parts["K1 kernel, samples computed"] = (
+            lambda: gk._project_cuda(computed, x, pred, None, gk.PROJECT_STEPS["kernel"]))
+        parts["gather_normal whole call, samples computed"] = (
+            lambda: gk._normal_cuda(computed, x, rows, out))
     res = {name: _device_ms(fn, 20) for name, fn in parts.items()}
     per, rpb = gk.launch_grid(listed.shape[0], listed.n_max, True,
                               torch.cuda.get_device_properties(x.device).multi_processor_count)
@@ -3644,7 +3636,7 @@ def main() -> int:
         # each listed ray's samples, once a pose (P's sampling, tabulated)
         entry("sample_table", "gather_projector.cu", "helicon_tpu/denovo3d/projector.py:153",
               cli["launches"]["sample_table"], gather[("table", "nn")],
-              **other("sample_table", gather[("table", "linear")])),
+              **other("sample_table", None)),
         entry("pose_jacobian", "gather_projector.cu", "helicon_tpu/denovo3d/refine.py:50",
               cli["launches"]["pose_jacobian"], gather[("jacobian", "linear")],
               **other("pose_jacobian", None)),

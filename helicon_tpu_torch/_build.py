@@ -60,10 +60,10 @@ _SIGNATURES = {
     "hcs_build_w2": [_P] * 5 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "hcs_build_mxy": [_P] * 4 + [_I] * 6 + [_P],
     "hcs_score": [_P] * 5 + [_I, _I, _P],
-    "hgp_project": [_P] * 17 + [_I] * 12 + [_P],
-    "hgp_backproject": [_P] * 17 + [_I] * 13 + [_P],
-    "hgp_normal": [_P] * 20 + [_I] * 13 + [_P],
-    "hgp_sample_table": [_P] * 13 + [_I] * 10 + [_P],
+    "hgp_project": [_P] * 15 + [_I] * 11 + [_P],
+    "hgp_backproject": [_P] * 16 + [_I] * 13 + [_P],
+    "hgp_normal": [_P] * 18 + [_I] * 12 + [_P],
+    "hgp_sample_table": [_P] * 12 + [_I] * 9 + [_P],
     "hgp_pose_jacobian": [_P] * 16 + [_I] * 7 + [_P],
     "hgp_sym_normal": [_P] * 12 + [_I] * 6 + [_P],
 }

@@ -35,38 +35,37 @@
 // K1 and K2 run one block of 32 warps an SM (the grid the wrapper sizes:
 // blocks a candidate so that the launch fills the SMs once, each block walking
 // a contiguous share of the list, at least MIN_RAYS rays), so a block's fixed
-// costs (its tables, the volume it stages, its sums) are paid once an SM and
-// not once for a few dozen rays. A block serves one candidate (blockIdx.y).
-// Each block computes the rotation's products with the ray parameter once (xr,
-// in shared memory) and each ray's products with its y and z once, so a
-// sample's coordinates are sixteen rounded operations. With the list's sample
-// table (the wrapper builds one for nn lists once a pose,
-// sample_table_kernel), K1 and K2 read each sample's voxel instead of
+// costs (its tables, its sums) are paid once an SM and not once for a few
+// dozen rays. A block serves one candidate (blockIdx.y). Each block computes
+// the rotation's products with the ray parameter once (xr, in shared memory)
+// and each ray's products with its y and z once, so a sample's coordinates are
+// sixteen rounded operations. With an nn list's sample table (built once a
+// pose, sample_table_kernel), K1 and K2 read each sample's voxel instead of
 // computing it: four bytes a sample against ~40 instructions, which measured a
-// third faster; linear's table (sixteen bytes a sample) measured slower than
+// third faster; a linear table (sixteen bytes a sample) measured slower than
 // computing, so linear lists have none (PERF.md). Each warp loads the list
-// entries of its run 32 at a time (warp_run). K1 stages the volume and the
-// validity bytes in shared memory when they fit in its smem_limit; the wrapper
-// passes 0, so that it reads them through the cache (35 KB stays in L1), which
-// measured faster (PERF.md). K2 adds into a block-private copy of the volume
-// in shared memory with shared atomics (past smem_limit, into the block's own
-// slice of device memory) and writes it once, without atomics, to a partial
-// buffer (blocks, vol); a reduce pass adds a candidate's partials and converts
-// them. The sums are exact: each term is a 64-bit integer at a power-of-two
-// scale (fixed() below), so neither the order of the atomics nor the split
-// into blocks changes a bit, and the plain versions, which add the same
-// integers, give the same result. gather_normal's first kernel writes each
-// listed ray's rows * P(x) to a compact (k, n_max) buffer with each block's
-// max |value|, so the dense prediction, its memset, the multiply and the max
-// pass over every ray are gone. K4 adds into a block-private copy as K2 did
-// before (one global atomic per nonzero voxel a block, then the last block of
-// a candidate converts). K3 keeps each ray's value and its three derivatives
-// in registers and the per-candidate sums in float64, and adds the blocks'
-// sums in block order. K4 takes one (pair, voxel) a thread. Copy slots that
-// are padding are skipped whole, and so is every ray whose two end samples (Z
-// is monotone along the ray) put all its samples outside the volume's z range:
-// at the amyloid's geometry (l2 = 256 rows at 2/3 voxel, l3 = 6 planes) that
-// is most rays. Every C entry serves the k candidates of a launch at once.
+// entries of its run 32 at a time (warp_run). K1 reads the volume and the
+// validity bytes through the cache (35 KB stays in L1), which measured faster
+// than staging them in shared memory (PERF.md). K2 adds into a block-private
+// copy of the volume in shared memory with shared atomics (past smem_limit,
+// into the block's own slice of device memory) and writes it once, without
+// atomics, to a partial buffer (blocks, vol); a reduce pass adds a candidate's
+// partials and converts them. The sums are exact: each term is a 64-bit
+// integer at a power-of-two scale (fixed() below), so neither the order of the
+// atomics nor the split into blocks changes a bit, and the plain versions,
+// which add the same integers, give the same result. gather_normal's first
+// kernel writes each listed ray's rows * P(x) to a compact (k, n_max) buffer
+// with each block's max |value|, so the dense prediction, its memset, the
+// multiply and the max pass over every ray are gone. K4 adds into a block-
+// private copy as K2 did before (one global atomic per nonzero voxel a block,
+// then the last block of a candidate converts). K3 keeps each ray's value and
+// its three derivatives in registers and the per-candidate sums in float64,
+// and adds the blocks' sums in block order. K4 takes one (pair, voxel) a
+// thread. Copy slots that are padding are skipped whole, and so is every ray
+// whose two end samples (Z is monotone along the ray) put all its samples
+// outside the volume's z range: at the amyloid's geometry (l2 = 256 rows at
+// 2/3 voxel, l3 = 6 planes) that is most rays. Every C entry serves the k
+// candidates of a launch at once.
 //
 // Traps, each kept here:
 // - nvcc contracts a*b+c into FMAs by default, which moves nearest-
@@ -109,18 +108,15 @@ constexpr int GWARPS = GT / 32;
 // .. rptr[q+1]), the rays of its pose that hold a valid sample; n_max the
 // longest candidate's), block b of a candidate takes its entries b*rpb ..
 // (b+1)*rpb; without, every ray is tested (live()). With the list's sample
-// table (sidx non-null, sample_table_kernel), entry s = e - rptr[q] of
-// candidate q reads sample kk's voxel (nn) or cell's base corner (linear),
-// -1 where it is not valid, at sidx[(q * n_max + s) * d2 + kk], and linear
-// its fractions (z, y, x) at sfrac[((q * n_max + s) * 3 + c) * d2 + kk],
-// instead of computing them.
+// table (nn; sidx non-null, sample_table_kernel), entry s = e - rptr[q] of
+// candidate q reads sample kk's voxel, -1 where it is not valid, at
+// sidx[(q * n_max + s) * d2 + kk] instead of computing it.
 struct Tables {
   const float *R, *dR, *cs, *sn, *dz, *cv, *x0, *y0, *z0;
   int k, C, l2, d2, d3, l3;
   const int *rptr, *ridx;
   int rpb, n_max;
   const int* sidx;
-  const float* sfrac;
 };
 
 __device__ __forceinline__ float dot3_rn(const float* r, float x, float y, float z) {
@@ -307,36 +303,24 @@ __device__ __forceinline__ void warp_run(int e0, int e1, int warp, int& w0, int&
 }
 
 // Sample kk of a ray: its voxel (nn) or its cell's base corner and
-// fractions (linear), -1 where it is not valid; with the ray's rows of the
-// sample table (si, sf) the table's entry tix (si[kk]), else (si null)
-// computed from its coordinates (rc).
+// fractions (linear), -1 where it is not valid; with the ray's row of the
+// sample table (si, nn) the table's entry tix (si[kk]), else computed from
+// its coordinates (rc).
 template <bool LINEAR>
 __device__ __forceinline__ int sample_of(const RayCoords& rc, const float* xr, const int* si,
-                                         const float* sf, int tix, int d2, int kk, int d3,
-                                         int l3, const uint8_t* ok, float h3, float hl,
-                                         float& wz, float& wy, float& wx) {
-  if (si) {
-    const int idx = tix;
-    if (LINEAR && idx >= 0) {
-      wz = sf[kk];
-      wy = sf[d2 + kk];
-      wx = sf[2 * d2 + kk];
-    }
-    return idx;
-  }
+                                         int tix, int d2, int kk, int d3, int l3,
+                                         const uint8_t* ok, float h3, float hl, float& wz,
+                                         float& wy, float& wx) {
+  if (!LINEAR && si) return tix;
   float X, Y, Z;
   sample_at(rc, xr, d2, kk, h3, hl, X, Y, Z);
   return LINEAR ? cell(X, Y, Z, d3, l3, ok, wz, wy, wx) : nn_index(X, Y, Z, d3, l3, ok);
 }
 
-// The rows of the sample table of candidate q's list slot s (null without
+// The row of the sample table of candidate q's list slot s (null without
 // a table).
 __device__ __forceinline__ const int* table_si(const Tables& tb, int q, int s) {
   return tb.sidx ? tb.sidx + ((size_t)q * tb.n_max + s) * tb.d2 : nullptr;
-}
-
-__device__ __forceinline__ const float* table_sf(const Tables& tb, int q, int s) {
-  return tb.sfrac ? tb.sfrac + ((size_t)q * tb.n_max + s) * 3 * tb.d2 : nullptr;
 }
 
 // A ray's first two table entries that a lane takes (kk = lane, lane + 32;
@@ -361,14 +345,13 @@ __device__ __forceinline__ int table_entry(const int* si, const Ahead& h, int m,
 }
 
 // K1 on one ray: the sum of its samples in warp_sum's order (lane 0's
-// value is the plain version's) and whether any is valid; si / sf its
-// rows of the sample table (h its first entries), or null.
+// value is the plain version's) and whether any is valid; si its row of
+// the sample table (h its first entries), or null.
 template <bool LINEAR>
 __device__ __forceinline__ float project_ray(const Tables& tb, int q, int ray, const int* si,
-                                             const float* sf, const Ahead& h, const float* R,
-                                             const float* xr, const float* xs,
-                                             const uint8_t* ok, float h3, float hl, int lane,
-                                             bool& valid) {
+                                             const Ahead& h, const float* R, const float* xr,
+                                             const float* xs, const uint8_t* ok, float h3,
+                                             float hl, int lane, bool& valid) {
   const int d2 = tb.d2, d3 = tb.d3, l3 = tb.l3;
   RayCoords rc;
   if (!si) rc = ray_coords(ray_of(tb, q, ray), R);
@@ -376,8 +359,8 @@ __device__ __forceinline__ float project_ray(const Tables& tb, int q, int ray, c
   bool any = false;
   for (int m = 0, kk = lane; kk < d2; ++m, kk += 32) {
     float wz, wy, wx;
-    const int base = sample_of<LINEAR>(rc, xr, si, sf, table_entry(si, h, m, kk), d2, kk, d3,
-                                       l3, ok, h3, hl, wz, wy, wx);
+    const int base = sample_of<LINEAR>(rc, xr, si, table_entry(si, h, m, kk), d2, kk, d3, l3,
+                                       ok, h3, hl, wz, wy, wx);
     if (LINEAR) {
       if (base < 0) continue;
       any = true;
@@ -416,22 +399,21 @@ __device__ void block_max(unsigned m, unsigned* bmax) {
 }
 
 // K1: pred (k, C, l2, d2) and optionally row_valid (same shape, bytes).
-// x (k, vol) may be null (row validity alone). ok_g (vol) holds the
-// validity bytes in device memory for the branch without shared memory.
-// With a list, only the listed rays are written: pred must hold zeros, and
-// rowv is not written. With rows (k, C, l2, d2) (gather_normal's first
-// kernel, on a list), entry e of candidate q writes rows * P(x) of its ray
-// to comp[q * n_max + e - rptr[q]] instead of pred, and each block its max
-// |value| to bmax (k, gridDim.x).
+// x (k, vol) may be null (row validity alone); it and the validity bytes
+// ok (vol) are read through the cache (35 KB stays in L1). With a list,
+// only the listed rays are written: pred must hold zeros, and rowv is not
+// written. With rows (k, C, l2, d2) (gather_normal's first kernel, on a
+// list), entry e of candidate q writes rows * P(x) of its ray to comp[q *
+// n_max + e - rptr[q]] instead of pred, and each block its max |value| to
+// bmax (k, gridDim.x).
 template <bool LINEAR>
 __global__ void __launch_bounds__(GT) project_kernel(Tables tb, const float* __restrict__ x,
-                                                     const float* __restrict__ aux,
-                                                     const uint8_t* __restrict__ ok_g,
+                                                     const uint8_t* __restrict__ ok,
                                                      float* __restrict__ pred,
                                                      uint8_t* __restrict__ rowv,
                                                      const float* __restrict__ rows,
                                                      float* __restrict__ comp,
-                                                     unsigned* __restrict__ bmax, int smem) {
+                                                     unsigned* __restrict__ bmax) {
   extern __shared__ __align__(16) unsigned char shm[];
   const int q = blockIdx.y;
   int e0 = 0, e1 = 0;
@@ -447,13 +429,8 @@ __global__ void __launch_bounds__(GT) project_kernel(Tables tb, const float* __r
   const float* R = tb.R + q * 9;
   float* xr = reinterpret_cast<float*>(shm);
   xr_table(R, tb.x0, d2, xr);
-  const float* xq = x ? x + (size_t)q * vol : nullptr;
-  float* sx = x ? xr + 3 * d2 : nullptr;
-  uint8_t* sok = reinterpret_cast<uint8_t*>(xr + 3 * d2 + (x ? vol : 0));
-  const Vol V = stage(xq, aux, vol, smem != 0, sx, sok);
   __syncthreads();
-  const uint8_t* ok = smem ? V.ok : ok_g;
-  const float* xs = smem ? V.x : xq;
+  const float* xs = x ? x + (size_t)q * vol : nullptr;
   const float h3 = (float)(d3 / 2), hl = (float)(l3 / 2);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_rays = tb.C * tb.l2 * d2;
@@ -478,9 +455,8 @@ __global__ void __launch_bounds__(GT) project_kernel(Tables tb, const float* __r
         const int slot = base + j - tb.rptr[q];
         const Ahead cur = next;
         if (j + 1 < n) next = ahead_of(table_si(tb, q, slot + 1), d2, lane);
-        const float v = project_ray<LINEAR>(tb, q, rj, table_si(tb, q, slot),
-                                            table_sf(tb, q, slot), cur, R, xr, xs, ok, h3, hl,
-                                            lane, valid);
+        const float v = project_ray<LINEAR>(tb, q, rj, table_si(tb, q, slot), cur, R, xr, xs,
+                                            ok, h3, hl, lane, valid);
         if (lane == 0 && comp) {
           const float t = __fmul_rn(v, wj);
           comp[(size_t)q * tb.n_max + (base + j - tb.rptr[q])] = t;
@@ -501,8 +477,8 @@ __global__ void __launch_bounds__(GT) project_kernel(Tables tb, const float* __r
     }
     for (unsigned todo = __ballot_sync(0xffffffffu, mine); todo; todo &= todo - 1) {
       const int ray = g + __ffs(todo) - 1;
-      const float v = project_ray<LINEAR>(tb, q, ray, nullptr, nullptr, Ahead{-1, -1}, R, xr, xs,
-                                          ok, h3, hl, lane, valid);
+      const float v = project_ray<LINEAR>(tb, q, ray, nullptr, Ahead{-1, -1}, R, xr, xs, ok, h3,
+                                          hl, lane, valid);
       if (lane == 0) {
         if (pred) pred[out0 + ray] = v;
         if (rowv) rowv[out0 + ray] = valid ? 1 : 0;
@@ -619,21 +595,21 @@ __device__ __forceinline__ void flush(const unsigned long long* acc, long long* 
 }
 
 // K2 on one ray of value rv: each valid sample's terms added into acc; si
-// / sf its rows of the sample table (h its first entries), or null.
+// its row of the sample table (h its first entries), or null.
 template <bool LINEAR>
 __device__ __forceinline__ void backproject_ray(const Tables& tb, int q, int ray, const int* si,
-                                                const float* sf, const Ahead& h, float rv,
-                                                const float* R, const float* xr,
-                                                const uint8_t* ok, float h3, float hl, int lane,
-                                                unsigned long long* acc, double sc) {
+                                                const Ahead& h, float rv, const float* R,
+                                                const float* xr, const uint8_t* ok, float h3,
+                                                float hl, int lane, unsigned long long* acc,
+                                                double sc) {
   const int d2 = tb.d2, d3 = tb.d3, l3 = tb.l3;
   RayCoords rc;
   if (!si) rc = ray_coords(ray_of(tb, q, ray), R);
   const unsigned long long term = fixed(rv, sc);  // nn: every sample's
   for (int m = 0, kk = lane; kk < d2; ++m, kk += 32) {
     float wz, wy, wx;
-    const int base = sample_of<LINEAR>(rc, xr, si, sf, table_entry(si, h, m, kk), d2, kk, d3,
-                                       l3, ok, h3, hl, wz, wy, wx);
+    const int base = sample_of<LINEAR>(rc, xr, si, table_entry(si, h, m, kk), d2, kk, d3, l3,
+                                       ok, h3, hl, wz, wy, wx);
     if (base < 0) continue;
     if (LINEAR) {
       float w[8];
@@ -709,8 +685,8 @@ __global__ void __launch_bounds__(GT) backproject_kernel(Tables tb, const float*
         const Ahead cur = next;
         if (j + 1 < n) next = ahead_of(table_si(tb, q, slot + 1), d2, lane);
         if (rv != 0.f)
-          backproject_ray<LINEAR>(tb, q, rj, table_si(tb, q, slot), table_sf(tb, q, slot), cur,
-                                  rv, R, xr, ok, h3, hl, lane, acc, sc);
+          backproject_ray<LINEAR>(tb, q, rj, table_si(tb, q, slot), cur, rv, R, xr, ok, h3, hl,
+                                  lane, acc, sc);
       }
     }
   } else {
@@ -719,8 +695,8 @@ __global__ void __launch_bounds__(GT) backproject_kernel(Tables tb, const float*
       const bool take = live(tb, q, g + lane, n_rays, R, hl, LINEAR) && rq[g + lane] != 0.f;
       for (unsigned todo = __ballot_sync(0xffffffffu, take); todo; todo &= todo - 1) {
         const int ray = g + __ffs(todo) - 1;
-        backproject_ray<LINEAR>(tb, q, ray, nullptr, nullptr, Ahead{-1, -1}, rq[ray], R, xr, ok,
-                                h3, hl, lane, acc, sc);
+        backproject_ray<LINEAR>(tb, q, ray, nullptr, Ahead{-1, -1}, rq[ray], R, xr, ok, h3, hl,
+                                lane, acc, sc);
       }
     }
   }
@@ -729,16 +705,14 @@ __global__ void __launch_bounds__(GT) backproject_kernel(Tables tb, const float*
   for (int v = threadIdx.x; v < vol; v += GT) mine[v] = acc[v];
 }
 
-// The sample table of a list (Tables' sidx / sfrac, which it writes): for
-// every listed ray, each sample's voxel (nn) or cell's base corner and
-// fractions (linear), -1 where it is not valid, computed as K1 computes
-// them, so that K1 and K2 on the table read what they would compute. Built
-// once a pose; slots past a candidate's entries are left as they are.
-template <bool LINEAR>
+// The sample table of an nn list (Tables' sidx, which it writes): for
+// every listed ray, each sample's voxel, -1 where it is not valid,
+// computed as K1 computes it, so that K1 and K2 on the table read what they
+// would compute. Built once a pose; slots past a candidate's entries are
+// left as they are.
 __global__ void __launch_bounds__(GT) sample_table_kernel(Tables tb,
-                                                          const uint8_t* __restrict__ ok_g,
-                                                          int* __restrict__ sidx,
-                                                          float* __restrict__ sfrac) {
+                                                          const uint8_t* __restrict__ ok,
+                                                          int* __restrict__ sidx) {
   extern __shared__ __align__(16) unsigned char shm[];
   const int q = blockIdx.y;
   int e0, e1;
@@ -755,18 +729,11 @@ __global__ void __launch_bounds__(GT) sample_table_kernel(Tables tb,
   warp_run(e0, e1, warp, w0, w1);
   for (int e = w0; e < w1; ++e) {
     const RayCoords rc = ray_coords(ray_of(tb, q, tb.ridx[e]), R);
-    const size_t slot = (size_t)q * tb.n_max + (e - tb.rptr[q]);
+    int* row = sidx + ((size_t)q * tb.n_max + (e - tb.rptr[q])) * d2;
     for (int kk = lane; kk < d2; kk += 32) {
-      float wz, wy, wx;
-      const int base = sample_of<LINEAR>(rc, xr, nullptr, nullptr, 0, d2, kk, d3, l3, ok_g, h3,
-                                         hl, wz, wy, wx);
-      sidx[slot * d2 + kk] = base;
-      if (LINEAR && base >= 0) {
-        float* f = sfrac + slot * 3 * d2 + kk;
-        f[0] = wz;
-        f[d2] = wy;
-        f[2 * d2] = wx;
-      }
+      float X, Y, Z;
+      sample_at(rc, xr, d2, kk, h3, hl, X, Y, Z);
+      row[kk] = nn_index(X, Y, Z, d3, l3, ok);
     }
   }
 }
@@ -1068,60 +1035,56 @@ size_t smem_bytes(const void* fn, int vol, int per, int smem_limit) {
   return need;
 }
 
-// K1's and K2's shared memory: `fixed` bytes always (the xr table) and
-// vol_bytes more when they fit in smem_limit (staged set: the volume's
+// K2's shared memory: `fixed` bytes always (the xr table) and vol_bytes
+// more when they fit in smem_limit (staged set: the private volume's
 // branch), the kernel's limit raised to match.
 size_t gather_smem(const void* fn, size_t fixed, size_t vol_bytes, int smem_limit, bool& staged) {
   staged = (long)vol_bytes <= (long)smem_limit;
   const size_t need = fixed + (staged ? vol_bytes : 0);
-  // the limits already raised, by kernel (K1's and K2's four), so that a
-  // call costs the host no attribute call
-  static const void* fns[8];
-  static size_t raised[8];
+  // the limits already raised, by kernel (K2's two), so that a call costs
+  // the host no attribute call
+  static const void* fns[4];
+  static size_t raised[4];
   static int n = 0;
   int i = 0;
   while (i < n && fns[i] != fn) ++i;
-  if (i == n && n < 8) fns[n++] = fn;
-  if (i < 8 && raised[i] >= need) return need;
+  if (i == n && n < 4) fns[n++] = fn;
+  if (i < 4 && raised[i] >= need) return need;
   cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
-  if (i < 8) raised[i] = need;
+  if (i < 4) raised[i] = need;
   return need;
 }
 
 Tables tables(const float* R, const float* dR, const float* cs, const float* sn, const float* dz,
               const float* cv, const float* x0, const float* y0, const float* z0, int k, int C,
               int l2, int d2, int d3, int l3) {
-  return Tables{R,  dR, cs, sn, dz, cv,      x0,      y0, z0, k,       C,
-                l2, d2, d3, l3, nullptr, nullptr, 0, 0,  nullptr, nullptr};
+  return Tables{R, dR, cs, sn, dz, cv, x0, y0, z0, k, C, l2, d2, d3, l3, nullptr, nullptr, 0, 0,
+                nullptr};
 }
 
 // K1 / K2 tables on the list (rptr, ridx; null: every ray tested), rpb
 // entries a block, n_max the longest candidate's entries, and the list's
-// sample table (sidx, sfrac; null: computed).
+// sample table (sidx; null: computed).
 Tables gather_tables(const float* R, const float* cs, const float* sn, const float* dz,
                      const float* cv, const float* x0, const float* y0, const float* z0,
-                     const int* rptr, const int* ridx, const int* sidx, const float* sfrac,
-                     int k, int C, int l2, int d2, int d3, int l3, int rpb, int n_max) {
+                     const int* rptr, const int* ridx, const int* sidx, int k, int C, int l2,
+                     int d2, int d3, int l3, int rpb, int n_max) {
   Tables tb = tables(R, nullptr, cs, sn, dz, cv, x0, y0, z0, k, C, l2, d2, d3, l3);
   tb.rptr = rptr;
   tb.ridx = ridx;
   tb.rpb = rpb;
   tb.n_max = n_max;
   tb.sidx = rptr ? sidx : nullptr;
-  tb.sfrac = rptr ? sfrac : nullptr;
   return tb;
 }
 
+// K1's kernel; its shared memory holds the xr table alone.
 template <bool LINEAR>
-void launch_project(const Tables& tb, int per, const float* x, const float* aux,
-                    const uint8_t* ok_g, float* pred, uint8_t* rowv, const float* rows,
-                    float* comp, unsigned* bmax, int smem_limit, cudaStream_t st) {
-  const int vol = tb.l3 * tb.d3 * tb.d3;
-  bool staged;
-  const size_t sm = gather_smem((const void*)project_kernel<LINEAR>, 12 * (size_t)tb.d2,
-                                (size_t)vol * (x != nullptr ? 5 : 1), smem_limit, staged);
-  project_kernel<LINEAR><<<dim3((unsigned)per, (unsigned)tb.k), GT, sm, st>>>(
-      tb, x, aux, ok_g, pred, rowv, rows, comp, bmax, staged);
+void launch_project(const Tables& tb, int per, const float* x, const uint8_t* ok, float* pred,
+                    uint8_t* rowv, const float* rows, float* comp, unsigned* bmax,
+                    cudaStream_t st) {
+  project_kernel<LINEAR><<<dim3((unsigned)per, (unsigned)tb.k), GT, 12 * (size_t)tb.d2, st>>>(
+      tb, x, ok, pred, rowv, rows, comp, bmax);
 }
 
 // K2's sums (from r, or from comp on a list) into part, then the reduce
@@ -1150,102 +1113,89 @@ void launch_backproject(const Tables& tb, int per, const float* r, const float* 
 
 extern "C" {
 
-// K1. ok_g (vol bytes): the validity bytes (aux > 0.5) the device-memory
-// branch reads. x, pred, rowv may be null. rptr (k + 1) / ridx: the list
-// of live rays, or null (every ray tested); n_max its longest candidate's
-// entries, rpb the entries a block. per blocks a candidate. steps: 1 zero
+// K1. ok (vol bytes): the validity bytes (aux > 0.5). x, pred, rowv may be
+// null. rptr (k + 1) / ridx: the list of live rays, or null (every ray
+// tested); n_max its longest candidate's entries, rpb the entries a block,
+// sidx its sample table or null. per blocks a candidate. steps: 1 zero
 // pred (with the list: the kernel writes the listed rays alone), 2 the
 // kernel.
-int hgp_project(const float* x, const float* aux, const uint8_t* ok_g, const float* R,
-                const float* cs, const float* sn, const float* dz, const float* cv,
-                const float* x0, const float* y0, const float* z0, const int* rptr,
-                const int* ridx, const int* sidx, const float* sfrac, float* pred,
-                uint8_t* rowv, int k, int C, int l2, int d2, int d3, int l3, int linear,
-                int n_max, int per, int rpb, int smem_limit, int steps, cudaStream_t st) {
-  const Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, sidx, sfrac, k, C,
-                                  l2, d2, d3, l3, rpb, n_max);
+int hgp_project(const float* x, const uint8_t* ok, const float* R, const float* cs,
+                const float* sn, const float* dz, const float* cv, const float* x0,
+                const float* y0, const float* z0, const int* rptr, const int* ridx,
+                const int* sidx, float* pred, uint8_t* rowv, int k, int C, int l2, int d2, int d3,
+                int l3, int linear, int n_max, int per, int rpb, int steps, cudaStream_t st) {
+  const Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, sidx, k, C, l2, d2,
+                                  d3, l3, rpb, n_max);
   if ((steps & 1) && rptr && pred) cudaMemsetAsync(pred, 0, sizeof(float) * k * C * l2 * d2, st);
   if (steps & 2) {
     if (linear)
-      launch_project<true>(tb, per, x, aux, ok_g, pred, rowv, nullptr, nullptr, nullptr,
-                           smem_limit, st);
+      launch_project<true>(tb, per, x, ok, pred, rowv, nullptr, nullptr, nullptr, st);
     else
-      launch_project<false>(tb, per, x, aux, ok_g, pred, rowv, nullptr, nullptr, nullptr,
-                            smem_limit, st);
+      launch_project<false>(tb, per, x, ok, pred, rowv, nullptr, nullptr, nullptr, st);
   }
   return (int)cudaGetLastError();
 }
 
-// K2: out (k, vol) = PT(r), r (k, C, l2, d2). The list and per / rpb as
-// K1's; nbmax the max pass's blocks a candidate. Scratch: bmax (k, nbmax)
-// uint32, part (k, per, vol) int64. steps: 1 the max pass over r, 2 the
-// sums, 4 the reduce.
-int hgp_backproject(const float* r, const uint8_t* ok_g, const float* R, const float* cs,
+// K2: out (k, vol) = PT(r), r (k, C, l2, d2). The list, sidx and per /
+// rpb as K1's; nbmax the max pass's blocks a candidate. Scratch: bmax (k,
+// nbmax) uint32, part (k, per, vol) int64. steps: 1 the max pass over r, 2
+// the sums, 4 the reduce.
+int hgp_backproject(const float* r, const uint8_t* ok, const float* R, const float* cs,
                     const float* sn, const float* dz, const float* cv, const float* x0,
                     const float* y0, const float* z0, const int* rptr, const int* ridx,
-                    const int* sidx, const float* sfrac, unsigned* bmax,
-                    unsigned long long* part, float* out, int k, int C, int l2, int d2, int d3,
-                    int l3, int linear, int n_max, int per, int rpb, int nbmax, int smem_limit,
-                    int steps, cudaStream_t st) {
-  const Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, sidx, sfrac, k, C,
-                                  l2, d2, d3, l3, rpb, n_max);
+                    const int* sidx, unsigned* bmax, unsigned long long* part, float* out, int k,
+                    int C, int l2, int d2, int d3, int l3, int linear, int n_max, int per,
+                    int rpb, int nbmax, int smem_limit, int steps, cudaStream_t st) {
+  const Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, sidx, k, C, l2, d2,
+                                  d3, l3, rpb, n_max);
   if (steps & 1)
     max_kernel<<<dim3((unsigned)nbmax, (unsigned)k), NT, 0, st>>>(r, (long)C * l2 * d2, bmax);
   if (linear)
-    launch_backproject<true>(tb, per, r, nullptr, ok_g, bmax, nbmax, part, out, smem_limit,
-                             steps, st);
+    launch_backproject<true>(tb, per, r, nullptr, ok, bmax, nbmax, part, out, smem_limit, steps,
+                             st);
   else
-    launch_backproject<false>(tb, per, r, nullptr, ok_g, bmax, nbmax, part, out, smem_limit,
-                              steps, st);
+    launch_backproject<false>(tb, per, r, nullptr, ok, bmax, nbmax, part, out, smem_limit, steps,
+                              st);
   return (int)cudaGetLastError();
 }
 
 // gather_normal: out (k, vol) = PT(rows * P(x)) on the list of live rays,
 // x (k, vol), rows (k, C, l2, d2). Scratch: comp (k, n_max) float32, bmax
-// (k, per) uint32, part (k, per, vol) int64. proj_smem_limit is the
-// projection's smem_limit (K1's), smem_limit the sums' (K2's). steps: 1
-// the projection into comp with the blocks' maxima, 2 the sums, 4 the
-// reduce.
-int hgp_normal(const float* x, const float* aux, const uint8_t* ok_g, const float* R,
-               const float* cs, const float* sn, const float* dz, const float* cv,
-               const float* x0, const float* y0, const float* z0, const int* rptr,
-               const int* ridx, const int* sidx, const float* sfrac, const float* rows,
-               float* comp, unsigned* bmax, unsigned long long* part, float* out, int k, int C,
-               int l2, int d2, int d3, int l3, int linear, int n_max, int per, int rpb,
-               int proj_smem_limit, int smem_limit, int steps, cudaStream_t st) {
-  const Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, sidx, sfrac, k, C,
-                                  l2, d2, d3, l3, rpb, n_max);
+// (k, per) uint32, part (k, per, vol) int64; smem_limit the sums' (K2's).
+// steps: 1 the projection into comp with the blocks' maxima, 2 the sums, 4
+// the reduce.
+int hgp_normal(const float* x, const uint8_t* ok, const float* R, const float* cs,
+               const float* sn, const float* dz, const float* cv, const float* x0,
+               const float* y0, const float* z0, const int* rptr, const int* ridx,
+               const int* sidx, const float* rows, float* comp, unsigned* bmax,
+               unsigned long long* part, float* out, int k, int C, int l2, int d2, int d3,
+               int l3, int linear, int n_max, int per, int rpb, int smem_limit, int steps,
+               cudaStream_t st) {
+  const Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, sidx, k, C, l2, d2,
+                                  d3, l3, rpb, n_max);
   if (linear) {
-    if (steps & 1)
-      launch_project<true>(tb, per, x, aux, ok_g, nullptr, nullptr, rows, comp, bmax,
-                           proj_smem_limit, st);
-    launch_backproject<true>(tb, per, nullptr, comp, ok_g, bmax, per, part, out, smem_limit,
-                             steps, st);
+    if (steps & 1) launch_project<true>(tb, per, x, ok, nullptr, nullptr, rows, comp, bmax, st);
+    launch_backproject<true>(tb, per, nullptr, comp, ok, bmax, per, part, out, smem_limit, steps,
+                             st);
   } else {
-    if (steps & 1)
-      launch_project<false>(tb, per, x, aux, ok_g, nullptr, nullptr, rows, comp, bmax,
-                            proj_smem_limit, st);
-    launch_backproject<false>(tb, per, nullptr, comp, ok_g, bmax, per, part, out, smem_limit,
+    if (steps & 1) launch_project<false>(tb, per, x, ok, nullptr, nullptr, rows, comp, bmax, st);
+    launch_backproject<false>(tb, per, nullptr, comp, ok, bmax, per, part, out, smem_limit,
                               steps, st);
   }
   return (int)cudaGetLastError();
 }
 
-// The sample table of the list (rptr, ridx), per / rpb as K1's: sidx (k,
-// n_max, d2) int32 and, linear, sfrac (k, n_max, 3, d2) float32.
-int hgp_sample_table(const uint8_t* ok_g, const float* R, const float* cs, const float* sn,
+// The sample table of an nn list (rptr, ridx), per / rpb as K1's: sidx (k,
+// n_max, d2) int32.
+int hgp_sample_table(const uint8_t* ok, const float* R, const float* cs, const float* sn,
                      const float* dz, const float* cv, const float* x0, const float* y0,
-                     const float* z0, const int* rptr, const int* ridx, int* sidx, float* sfrac,
-                     int k, int C, int l2, int d2, int d3, int l3, int linear, int n_max, int per,
-                     int rpb, cudaStream_t st) {
-  const Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, nullptr, nullptr, k,
-                                  C, l2, d2, d3, l3, rpb, n_max);
-  const dim3 grid((unsigned)per, (unsigned)k);
-  const size_t sm = 12 * (size_t)d2;
-  if (linear)
-    sample_table_kernel<true><<<grid, GT, sm, st>>>(tb, ok_g, sidx, sfrac);
-  else
-    sample_table_kernel<false><<<grid, GT, sm, st>>>(tb, ok_g, sidx, sfrac);
+                     const float* z0, const int* rptr, const int* ridx, int* sidx, int k, int C,
+                     int l2, int d2, int d3, int l3, int n_max, int per, int rpb,
+                     cudaStream_t st) {
+  const Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, nullptr, k, C, l2,
+                                  d2, d3, l3, rpb, n_max);
+  sample_table_kernel<<<dim3((unsigned)per, (unsigned)k), GT, 12 * (size_t)d2, st>>>(tb, ok,
+                                                                                    sidx);
   return (int)cudaGetLastError();
 }
 

@@ -64,9 +64,8 @@ launches = {"gather_project": 0, "gather_backproject": 0, "gather_normal": 0,
 # validity byte a voxel; K2 its 64-bit sums); past it the kernels read and
 # add into device memory. K1 (and gather_normal's projection) reads the
 # volume through the cache at any size: on the H100 that measured faster
-# than staging it (PERF.md, PR 13), so its limit is 0
+# than staging it (PERF.md, PR 13)
 SMEM_LIMIT = 200 * 1024
-PROJECT_SMEM_LIMIT = 0
 
 # K1 / K2's grid (gather_projector.cu): GT threads a block, one block an SM
 # over a launch, at least MIN_RAYS listed rays a block; the max pass's
@@ -286,12 +285,10 @@ class GatherTables:
     rptr: torch.Tensor | None = None
     ridx: torch.Tensor | None = None
     n_max: int = 0
-    # the list's sample table (sample_table; None: the kernels compute the
-    # samples): sidx (k, n_max, d2) int32 each listed ray's samples' voxel
-    # (nn) or cell base (linear), -1 where not valid; sfrac (k, n_max, 3,
-    # d2) float32 linear's fractions (z, y, x)
+    # the nn list's sample table (sample_table; None: the kernels compute
+    # the samples): sidx (k, n_max, d2) int32 each listed ray's samples'
+    # voxels, -1 where not valid
     sidx: torch.Tensor | None = None
-    sfrac: torch.Tensor | None = None
     # the kernels' validity bytes (aux > 0.5), made once with the tables
     ok: torch.Tensor | None = None
     # the kernels' fixed arguments and scratch by C entry (_plan), kept for
@@ -366,22 +363,21 @@ def with_live_rays(tab: GatherTables, row_valid) -> GatherTables:
     the list's sample table (sample_table), when its bytes (4 a sample: 14
     MB a candidate there) are at most TABLE_SHARE of the card's free
     memory: the ~30 applications of a solve then read each sample's voxel
-    instead of computing it (the engine's per-pose sampling tables).
-    Linear's table (16 bytes a sample) measured slower than computing the
-    samples, so linear lists have none (PERF.md, PR 13). Built once per
-    pose, with one device-to-host copy (the longest list); the plain
-    versions read neither."""
+    instead of computing it (the engine's per-pose sampling tables). A
+    linear table (16 bytes a sample: a cell and its fractions) measured
+    slower than computing the samples, so linear lists have none (PERF.md,
+    PR 13). Built once per pose, with one device-to-host copy (the longest
+    list); the plain versions read neither."""
     k = tab.shape[0]
     flat = row_valid.reshape(k, -1)
     counts = flat.sum(dim=1)
     rptr = torch.zeros(k + 1, dtype=torch.int32, device=flat.device)
     rptr[1:] = torch.cumsum(counts, 0)
     ridx = torch.nonzero(flat)[:, 1].to(torch.int32).contiguous()
-    listed = dataclasses.replace(tab, rptr=rptr, ridx=ridx, n_max=int(counts.max()), sidx=None,
-                                 sfrac=None)
+    listed = dataclasses.replace(tab, rptr=rptr, ridx=ridx, n_max=int(counts.max()), sidx=None)
     if flat.is_cuda and not tab.linear:
         if 4 * k * listed.n_max * tab.d2 <= TABLE_SHARE * torch.cuda.mem_get_info(flat.device)[0]:
-            listed.sidx, listed.sfrac = sample_table(listed)
+            listed.sidx = sample_table(listed)
     return listed
 
 
@@ -499,38 +495,27 @@ def gather_backproject_reference(tab: GatherTables, r) -> torch.Tensor:
     return torch.stack(out)
 
 
-def sample_table_reference(tab: GatherTables):
-    """The plain sample table of tab's list: (sidx (k, n_max, d2) int32,
-    sfrac (k, n_max, 3, d2) float32 or None for nn) as the kernel writes
-    it: each listed ray's samples' flat voxel index (nn: rounded half to
-    even, inside the volume and the mask) or its cell's base corner and
-    fractions (linear: floored, the cell inside the volume and valid), -1
-    and zeros where the sample is not valid and in the slots past a
-    candidate's entries."""
+def sample_table_reference(tab: GatherTables) -> torch.Tensor:
+    """The plain sample table of tab's nn list: sidx (k, n_max, d2) int32
+    as the kernel writes it, each listed ray's samples' flat voxel index
+    (rounded half to even, inside the volume and the mask), -1 where the
+    sample is not valid and in the slots past a candidate's entries."""
     k, C, l2, d2 = tab.shape
     d3, l3 = tab.d3, tab.l3
-    dev = tab.mask.device
-    sidx = torch.full((k, tab.n_max, d2), -1, dtype=torch.int32, device=dev)
-    sfrac = (torch.zeros((k, tab.n_max, 3, d2), dtype=torch.float32, device=dev)
-             if tab.linear else None)
+    sidx = torch.full((k, tab.n_max, d2), -1, dtype=torch.int32, device=tab.mask.device)
     for q in range(k):
         a, b = int(tab.rptr[q]), int(tab.rptr[q + 1])
         ray = tab.ridx[a:b].long()
         t, i, j = ray // (l2 * d2), (ray // d2) % l2, ray % d2
         bx, by, bz = _base(tab, q)
         Z, Y, X = _sample_coords(tab, q, t, bx[i, j], by[i, j], bz[i, j])
-        f = torch.floor if tab.linear else torch.round
-        zi, yi, xi = (f(v).to(torch.int64) for v in (Z, Y, X))
-        top = 2 if tab.linear else 1
-        inb = ((zi >= 0) & (zi <= l3 - top) & (yi >= 0) & (yi <= d3 - top) & (xi >= 0)
-               & (xi <= d3 - top))
+        zi, yi, xi = (torch.round(v).to(torch.int64) for v in (Z, Y, X))
+        inb = ((zi >= 0) & (zi <= l3 - 1) & (yi >= 0) & (yi <= d3 - 1) & (xi >= 0)
+               & (xi <= d3 - 1))
         idx = ((zi * d3 + yi) * d3 + xi).clamp(0, l3 * d3 * d3 - 1)
-        valid = inb & (tab.aux[idx] > 0.5)
+        valid = inb & (tab.mask[idx] > 0.5)
         sidx[q, : b - a] = torch.where(valid, idx, -1).to(torch.int32)
-        if tab.linear:
-            frac = torch.stack([Z - torch.floor(Z), Y - torch.floor(Y), X - torch.floor(X)], 1)
-            sfrac[q, : b - a] = torch.where(valid[:, None], frac, 0.0)
-    return sidx, sfrac
+    return sidx
 
 
 def gather_normal_reference(tab: GatherTables, x, rows) -> torch.Tensor:
@@ -690,13 +675,13 @@ def _plan(tab: GatherTables, entry: str):
     lists, ints = _geometry(tab, entry != "project_all")
     k, C, l2, d2, d3, l3, _, _, per, _ = ints
     vol = l3 * d3 * d3
-    table = (tab.sidx, tab.sfrac) if lists[0] is not None else (None, None)
-    tables = tuple(_ptr(t) for t in (*_args(tab), *lists, *table))
+    tables = tuple(_ptr(t) for t in (*_args(tab), *lists,
+                                      tab.sidx if lists[0] is not None else None))
     dev = tab.mask.device
     # (the C function, the pointers before the call's middle tensor, those
     # after it, the ints, the scratch tensors they point into)
     if entry in ("project", "project_all"):
-        plan = (lib.hgp_project, (_ptr(tab.aux), _ptr(tab.ok), *tables), (), ints, ())
+        plan = (lib.hgp_project, (_ptr(tab.ok), *tables), (), ints, ())
     elif entry == "backproject":
         nbmax = _max_blocks(k, C * l2 * d2, _sm_count(dev))
         scratch = (torch.empty((k, nbmax), dtype=torch.int32, device=dev),
@@ -707,8 +692,8 @@ def _plan(tab: GatherTables, entry: str):
         scratch = (torch.empty((k, max(1, tab.n_max)), dtype=torch.float32, device=dev),
                    torch.empty((k, per), dtype=torch.int32, device=dev),
                    torch.empty((k, per, vol), dtype=torch.int64, device=dev))
-        plan = (lib.hgp_normal, (_ptr(tab.aux), _ptr(tab.ok), *tables), tuple(map(_ptr, scratch)),
-                ints, scratch)
+        plan = (lib.hgp_normal, (_ptr(tab.ok), *tables), tuple(map(_ptr, scratch)), ints,
+                scratch)
     tab._plans[entry] = plan
     return plan
 
@@ -740,11 +725,9 @@ BACKPROJECT_STEPS = {"max pass": 1, "sums": 2, "reduce": 4}
 NORMAL_STEPS = {"projection": 1, "sums": 2, "reduce": 4}
 
 
-def _project_cuda(tab: GatherTables, x, pred, rowv, steps: int = 3,
-                  smem_limit: int | None = None) -> None:
+def _project_cuda(tab: GatherTables, x, pred, rowv, steps: int = 3) -> None:
     fn, pre, _, ints, _ = _plan(tab, "project" if rowv is None else "project_all")
-    _run(tab, fn, _ptr(x), *pre, _ptr(pred), _ptr(rowv), *ints,
-         PROJECT_SMEM_LIMIT if smem_limit is None else smem_limit, steps)
+    _run(tab, fn, _ptr(x), *pre, _ptr(pred), _ptr(rowv), *ints, steps)
 
 
 def _backproject_cuda(tab: GatherTables, r, out, steps: int = 7) -> None:
@@ -755,29 +738,26 @@ def _backproject_cuda(tab: GatherTables, r, out, steps: int = 7) -> None:
 def _normal_cuda(tab: GatherTables, x, rows, out, steps: int = 7) -> None:
     fn, pre, post, ints, _ = _plan(tab, "normal")
     _run(tab, fn, x.data_ptr(), *pre, rows.data_ptr(), *post, out.data_ptr(), *ints,
-         PROJECT_SMEM_LIMIT, SMEM_LIMIT, steps)
+         SMEM_LIMIT, steps)
 
 
-def sample_table(tab: GatherTables):
-    """The sample table of tab's list (sample_table_reference's (sidx,
-    sfrac)), computed as K1 computes each sample. CPU tensors run the plain
-    version; CUDA tensors run the kernel (never the plain version)."""
-    if tab.rptr is None:
-        raise ValueError("sample_table tabulates the list of live rays: with_live_rays(tab, ...)")
+def sample_table(tab: GatherTables) -> torch.Tensor:
+    """The sample table of tab's nn list (sample_table_reference's sidx),
+    computed as K1 computes each sample. CPU tensors run the plain version;
+    CUDA tensors run the kernel (never the plain version)."""
+    if tab.rptr is None or tab.linear:
+        raise ValueError("sample_table tabulates an nn list of live rays: with_live_rays(tab, ...)")
     if _device_of(tab.mask, "sample_table") == "cpu":
         return sample_table_reference(tab)
     k, C, l2, d2 = tab.shape
-    dev = tab.mask.device
-    sidx = torch.full((k, tab.n_max, d2), -1, dtype=torch.int32, device=dev)
-    sfrac = (torch.zeros((k, tab.n_max, 3, d2), dtype=torch.float32, device=dev)
-             if tab.linear else None)
-    lists, ints = _geometry(tab, True)
+    sidx = torch.full((k, tab.n_max, d2), -1, dtype=torch.int32, device=tab.mask.device)
+    lists, (*head, _, n_max, per, rpb) = _geometry(tab, True)
     from .._build import load_kernels
 
     _run(tab, load_kernels().hgp_sample_table, _ptr(tab.ok), *map(_ptr, _args(tab)),
-         *map(_ptr, lists), _ptr(sidx), _ptr(sfrac), *ints)
+         *map(_ptr, lists), _ptr(sidx), *head, n_max, per, rpb)
     launches["sample_table"] += 1
-    return sidx, sfrac
+    return sidx
 
 
 def gather_project(tab: GatherTables, x=None, row_valid: bool = False):

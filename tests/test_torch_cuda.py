@@ -536,13 +536,13 @@ def _rel(a, b):
 @pytest.mark.parametrize("interpolation", ["nn", "linear"])
 @pytest.mark.parametrize("case", GATHER_GEOMS, ids=lambda c: c[0])
 def test_gather_kernels_match_plain(cuda, case, interpolation):
-    """K1, K2, gather_normal, the sample table and K4 (P, row_valid, PT,
+    """K1, K2, gather_normal, nn's sample table and K4 (P, row_valid, PT,
     PT(rows * P(x)), the table and ST(S(x)) bit for bit: the plain P sums
     each ray in the kernel's order, the transposes sum exactly) and,
     linear, K3 (J^T J, J^T r within 1e-4 relative) against their plain
-    versions on the same card tensors; K1, K2 and gather_normal on the list
-    with its sample table and without, gather_normal at the valid rows and
-    at an fsc half's weighting."""
+    versions on the same card tensors; nn's K1, K2 and gather_normal on
+    the list with its sample table and without, gather_normal at the
+    valid rows and at an fsc half's weighting."""
     from helicon_tpu_torch.denovo3d import gather_kernels as gk
 
     _, fields, k = case
@@ -559,17 +559,13 @@ def test_gather_kernels_match_plain(cuda, case, interpolation):
     # on the list of the live rays, as the projector launches them
     listed = gk.with_live_rays(tab, rv_k)
     assert listed.n_max > 0 and int(listed.rptr[-1]) == int(rv_p.sum())
-    # its sample table (nn: the list's own; linear: built here) has the
-    # plain table's bits; K1 and K2 with a table and without
-    want = gk.sample_table_reference(listed)
+    # nn: the list's sample table has the plain table's bits, and K1 and K2
+    # run with it and without (linear lists compute their samples)
     assert (listed.sidx is None) == (interpolation == "linear")
-    assert listed.sidx is None or torch.equal(listed.sidx, want[0])
-    tabled = dataclasses.replace(listed, sidx=None, sfrac=None)
-    tabled.sidx, tabled.sfrac = gk.sample_table(tabled)
-    assert torch.equal(tabled.sidx, want[0]) and (want[1] is None) != (interpolation == "linear")
-    assert want[1] is None or torch.equal(tabled.sfrac, want[1])
-    untabled = dataclasses.replace(listed, sidx=None, sfrac=None)
-    lists = (listed, tabled, untabled)
+    lists = (listed,)
+    if listed.sidx is not None:
+        assert torch.equal(listed.sidx, gk.sample_table_reference(listed))
+        lists += (dataclasses.replace(listed, sidx=None),)
     for on in lists:
         assert torch.equal(gk.gather_project(on, x), p_p)
         assert torch.equal(gk.gather_backproject(on, r), pt_p)
@@ -585,18 +581,16 @@ def test_gather_kernels_match_plain(cuda, case, interpolation):
         torch.cuda.synchronize()
         assert _rel(got[0], want[0]) <= 1e-4 and _rel(got[1], want[1]) <= 1e-4
         assert _rel(got[2], want[2]) <= 1e-4
-    assert gk.launches["gather_project"] - before["gather_project"] == 6
-    assert gk.launches["gather_backproject"] - before["gather_backproject"] == 6
-    assert gk.launches["gather_normal"] - before["gather_normal"] == 6
-    assert gk.launches["sample_table"] - before["sample_table"] == (
-        2 if interpolation == "nn" else 1)
+    assert gk.launches["gather_project"] - before["gather_project"] == 3 + len(lists)
+    assert gk.launches["gather_backproject"] - before["gather_backproject"] == 3 + len(lists)
+    assert gk.launches["gather_normal"] - before["gather_normal"] == 2 * len(lists)
+    assert gk.launches["sample_table"] - before["sample_table"] == len(lists) - 1
 
 
 @pytest.mark.parametrize("interpolation", ["nn", "linear"])
 def test_gather_kernels_without_shared_memory(cuda, interpolation, monkeypatch):
     """The kernels' device-memory branch (the one a volume past their
-    shared memory takes, and K1's at any size) on the small geometry
-    against their shared-memory branch: the same results, and
+    shared memory takes) on the small geometry: the same results, and
     gather_normal's too."""
     from helicon_tpu_torch.denovo3d import gather_kernels as gk
 
@@ -607,7 +601,6 @@ def test_gather_kernels_without_shared_memory(cuda, interpolation, monkeypatch):
     runs = []
     for limit in (gk.SMEM_LIMIT, 0):
         monkeypatch.setattr(gk, "SMEM_LIMIT", limit)
-        monkeypatch.setattr(gk, "PROJECT_SMEM_LIMIT", limit)  # K1 staged, then not
         runs.append([gk.gather_project(tab, x), gk.gather_backproject(tab, r), gk.sym_normal(st, x),
                      gk.gather_project(listed, x), gk.gather_backproject(listed, r),
                      gk.gather_normal(listed, x, rowv.float())])

@@ -297,39 +297,29 @@ def test_gather_normal_is_the_composition_on_the_live_rays(interpolation):
 
 @pytest.mark.parametrize("interpolation", ["nn", "linear"])
 def test_sample_table_gives_the_plain_samples(interpolation):
-    """The plain sample table of a list (k = 3, ragged) holds each listed
-    ray's samples as K1 takes them: summed from the table in K1's order
-    (nn: the voxel; linear: the eight corners' weights from the fractions,
-    in the plain version's order), each listed ray's value equals the plain
-    P's bit for bit, and the slots past a candidate's entries hold -1."""
+    """The plain sample table of an nn list (k = 3, ragged) holds each
+    listed ray's samples as K1 takes them: summed from the table in K1's
+    order, each listed ray's value equals the plain P's bit for bit, and
+    the slots past a candidate's entries hold -1. Linear lists have no
+    table: sample_table refuses them."""
     pg, tab, x = _ragged(interpolation)
     _, rowv = port_gk.gather_project(tab, None, row_valid=True)
     listed = port_gk.with_live_rays(tab, rowv)
     assert listed.sidx is None  # built on the card only
-    sidx, sfrac = port_gk.sample_table(listed)
-    assert sidx.shape == (3, listed.n_max, pg.d2) and (sfrac is None) != tab.linear
+    if tab.linear:
+        with pytest.raises(ValueError):
+            port_gk.sample_table(listed)
+        return
+    sidx = port_gk.sample_table(listed)
+    assert sidx.shape == (3, listed.n_max, pg.d2) and sidx.dtype == torch.int32
     pred = port_gk.gather_project_reference(tab, x).reshape(3, -1)
-    d3, dzs = pg.d3, pg.d3 * pg.d3
     for q in range(3):
         a, b = int(listed.rptr[q]), int(listed.rptr[q + 1])
         si = sidx[q, : b - a].long()
         assert bool((sidx[q, b - a:] == -1).all()) and bool((si >= 0).any(dim=1).all())
-        xf = x[q].reshape(-1)
-        if tab.linear:
-            wz, wy, wx = sfrac[q, : b - a].unbind(1)
-            uz, uy, ux = 1 - wz, 1 - wy, 1 - wx
-            terms = [(0, uz, uy, ux), (1, uz, uy, wx), (d3, uz, wy, ux), (d3 + 1, uz, wy, wx),
-                     (dzs, wz, uy, ux), (dzs + 1, wz, uy, wx), (dzs + d3, wz, wy, ux),
-                     (dzs + d3 + 1, wz, wy, wx)]
-            val = None
-            for off, p, r, t in terms:
-                v = p * r * t * xf[(si + off).clamp(0, xf.numel() - 1)]
-                val = v if val is None else val + v
-        else:
-            val = xf[si.clamp(0)]
-        val = torch.where(si >= 0, val, 0.0)
-        got = port_gk._ray_sum(val)
-        np.testing.assert_array_equal(_np(got), _np(pred[q, listed.ridx[a:b].long()]))
+        val = torch.where(si >= 0, x[q].reshape(-1)[si.clamp(0)], 0.0)
+        np.testing.assert_array_equal(_np(port_gk._ray_sum(val)),
+                                      _np(pred[q, listed.ridx[a:b].long()]))
 
 
 @pytest.mark.parametrize("k,n,listed", [(1, 62694, True), (45, 62694, True), (1, 300, True),

@@ -30,7 +30,8 @@ CPU, a candidate and a chunk of copies at a time, the transpose an
 term as ``PTRP`` = PT(rows * P(x)), one call of ``gather_normal`` on the
 card. Coordinates are recomputed in
 every application, as in the reference; on the card only for the pose's
-live rays, listed once per build. ``S`` and ``ST`` touch pairs x l3
+live rays, listed once per build, and nn reads them from a table of the
+listed rays' samples made with the list. ``S`` and ``ST`` touch pairs x l3
 x d3^2 voxels, far fewer: alone they are torch on either device, their
 taps computed once per build, the k candidates' in one batch; the solves
 apply them as ``STS`` = ST(S(x)), the kernel K4 on the card. PT and STS

@@ -2006,7 +2006,7 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
           f"{rows[('project', interp)]['library_ms']:.3f} ms; K2 {t2}{lib}; gather_normal {t5}, "
           f"against K1 + multiply + K2 {comp['ms']:.4f} ms (device alone {comp['device_ms']:.4f} "
           f"ms, host {comp['host_ms']:.4f} ms a call); K4 {t4}{t6}; {card}", flush=True)
-    parts = _gather_breakdown(listed, x, r, rows_n)
+    parts = _gather_breakdown(listed, x, r, rows_n, st, b if errs is not None else None)
     rows[("backproject", interp)]["breakdown_ms"] = parts
     print(f"{label}: device ms a step, queued behind a sleep: "
           + ", ".join(f"{n} {v:.4f}" if isinstance(v, float) else f"{n} {v}"
@@ -2019,14 +2019,18 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
     return rows
 
 
-def _gather_breakdown(listed, x, r, rows) -> dict:
-    """Device ms of each step of K1's, K2's and gather_normal's calls on the
-    list of live rays (_device_ms around each C entry called with one
-    step, on the wrappers' own scratch; no launch counted), with an nn
-    list's sample table and computing the samples, and the grid: blocks a
-    candidate and live rays a block (gather_kernels.launch_grid)."""
+def _gather_breakdown(listed, x, r, rows, st, b=None) -> dict:
+    """Device ms of each step of K1's, K2's, gather_normal's and K4's calls
+    (K1, K2 and gather_normal on the list of live rays; _device_ms around
+    each C entry called with one step, on the wrappers' own scratch; no
+    launch counted), with an nn list's sample table and computing the
+    samples; with b (linear tables with derivatives), K3's kernel; the
+    grid: blocks a candidate and live rays a block
+    (gather_kernels.launch_grid); and the floor of a call, an empty
+    kernel's launch through the same C path, its device and host ms."""
     import torch
 
+    from helicon_tpu_torch import _build
     from helicon_tpu_torch.denovo3d import gather_kernels as gk
 
     out = torch.empty((listed.shape[0], listed.l3, listed.d3, listed.d3), device=x.device)
@@ -2049,7 +2053,24 @@ def _gather_breakdown(listed, x, r, rows) -> dict:
             lambda: gk._project_cuda(computed, x, pred, None, gk.PROJECT_STEPS["kernel"]))
         parts["gather_normal whole call, samples computed"] = (
             lambda: gk._normal_cuda(computed, x, rows, out))
+    k = listed.shape[0]
+    sym_scratch = (torch.empty(k, dtype=torch.int32, device=x.device),
+                   torch.empty(out.shape, dtype=torch.int64, device=x.device),
+                   torch.empty(k, dtype=torch.int32, device=x.device))
+    for n, s in gk.SYM_STEPS.items():
+        parts[f"K4 {n}"] = lambda s=s: gk._sym_cuda(st, x, sym_scratch, out, s)
+    parts["K4 whole call"] = lambda: gk._sym_cuda(st, x, sym_scratch, out)
+    if b is not None:
+        jac = (torch.empty((k, gk._K3_MAX_BLOCKS, 10), dtype=torch.float64, device=x.device),
+               torch.zeros(k, dtype=torch.int32, device=x.device))
+        jout = torch.empty((k, 10), dtype=torch.float64, device=x.device)
+        parts["K3 zero its count"] = lambda: jac[1].zero_()
+        parts["K3 kernel with its count zeroed"] = lambda: (
+            jac[1].zero_(), gk._jacobian_cuda(listed, x, b, jac, jout))
     res = {name: _device_ms(fn, 20) for name, fn in parts.items()}
+    empty = _build.load_kernels().hgp_empty
+    res["floor: an empty launch, device"] = _device_ms(lambda: gk._run(x.device, empty), 20)
+    res["floor: an empty launch, host"] = _host_ms(lambda: gk._run(x.device, empty), 20)
     per, rpb = gk.launch_grid(listed.shape[0], listed.n_max, True,
                               torch.cuda.get_device_properties(x.device).multi_processor_count)
     res.update(blocks_a_candidate=per, rays_a_block=rpb)

@@ -65,7 +65,8 @@ _SIGNATURES = {
     "hgp_normal": [_P] * 18 + [_I] * 12 + [_P],
     "hgp_sample_table": [_P] * 12 + [_I] * 9 + [_P],
     "hgp_pose_jacobian": [_P] * 16 + [_I] * 7 + [_P],
-    "hgp_sym_normal": [_P] * 12 + [_I] * 6 + [_P],
+    "hgp_sym_normal": [_P] * 12 + [_I] * 7 + [_P],
+    "hgp_empty": [_P],
 }
 
 _lock = threading.Lock()

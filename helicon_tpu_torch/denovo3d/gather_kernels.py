@@ -698,10 +698,10 @@ def _plan(tab: GatherTables, entry: str):
     return plan
 
 
-def _run(tab: GatherTables, fn, *args) -> None:
-    """fn(*args, the current stream of the tables' card); raises if its
+def _run(dev: torch.device, fn, *args) -> None:
+    """fn(*args, the current stream of the card dev); raises if its
     launches were refused."""
-    err = fn(*args, torch._C._cuda_getCurrentRawStream(tab.mask.device.index))
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
 
@@ -727,17 +727,17 @@ NORMAL_STEPS = {"projection": 1, "sums": 2, "reduce": 4}
 
 def _project_cuda(tab: GatherTables, x, pred, rowv, steps: int = 3) -> None:
     fn, pre, _, ints, _ = _plan(tab, "project" if rowv is None else "project_all")
-    _run(tab, fn, _ptr(x), *pre, _ptr(pred), _ptr(rowv), *ints, steps)
+    _run(tab.mask.device, fn, _ptr(x), *pre, _ptr(pred), _ptr(rowv), *ints, steps)
 
 
 def _backproject_cuda(tab: GatherTables, r, out, steps: int = 7) -> None:
     fn, pre, _, ints, _ = _plan(tab, "backproject")
-    _run(tab, fn, r.data_ptr(), *pre, out.data_ptr(), *ints, SMEM_LIMIT, steps)
+    _run(tab.mask.device, fn, r.data_ptr(), *pre, out.data_ptr(), *ints, SMEM_LIMIT, steps)
 
 
 def _normal_cuda(tab: GatherTables, x, rows, out, steps: int = 7) -> None:
     fn, pre, post, ints, _ = _plan(tab, "normal")
-    _run(tab, fn, x.data_ptr(), *pre, rows.data_ptr(), *post, out.data_ptr(), *ints,
+    _run(tab.mask.device, fn, x.data_ptr(), *pre, rows.data_ptr(), *post, out.data_ptr(), *ints,
          SMEM_LIMIT, steps)
 
 
@@ -754,7 +754,7 @@ def sample_table(tab: GatherTables) -> torch.Tensor:
     lists, (*head, _, n_max, per, rpb) = _geometry(tab, True)
     from .._build import load_kernels
 
-    _run(tab, load_kernels().hgp_sample_table, _ptr(tab.ok), *map(_ptr, _args(tab)),
+    _run(tab.mask.device, load_kernels().hgp_sample_table, _ptr(tab.ok), *map(_ptr, _args(tab)),
          *map(_ptr, lists), _ptr(sidx), *head, n_max, per, rpb)
     launches["sample_table"] += 1
     return sidx
@@ -836,11 +836,18 @@ def pose_jacobian(tab: GatherTables, x, b):
     part = torch.empty((k, _K3_MAX_BLOCKS, 10), dtype=torch.float64, device=dev)
     done = torch.zeros(k, dtype=torch.int32, device=dev)
     out = torch.empty((k, 10), dtype=torch.float64, device=dev)
-    R, *rest = _args(tab)
-    _launcher("pose_jacobian", dev)("hgp_pose_jacobian", x, tab.aux, tab.ok, R, tab.dR, *rest,
-                                    b, part, done, out, k, C, l2, d2, tab.d3, tab.l3, SMEM_LIMIT)
+    _jacobian_cuda(tab, x, b, (part, done), out)
     sym = out[:, [0, 1, 2, 1, 3, 4, 2, 4, 5]].reshape(k, 3, 3)
     return sym, out[:, 6:9], out[:, 9]
+
+
+def _jacobian_cuda(tab: GatherTables, x, b, scratch, out) -> None:
+    part, done = scratch
+    k, C, l2, d2 = tab.shape
+    R, *rest = _args(tab)
+    _launcher("pose_jacobian", tab.mask.device)(
+        "hgp_pose_jacobian", x, tab.aux, tab.ok, R, tab.dR, *rest, b, part, done, out, k, C, l2,
+        d2, tab.d3, tab.l3, SMEM_LIMIT)
 
 
 # ---------------------------------------------------------------------------
@@ -991,7 +998,16 @@ def sym_normal(st: SymTables, x) -> torch.Tensor:
     amax, done = torch.empty((2, k), dtype=torch.int32, device=dev)
     accg = torch.empty(vol, dtype=torch.int64, device=dev)
     out = torch.empty(vol, dtype=torch.float32, device=dev)
-    _launcher("sym_normal", dev)("hgp_sym_normal", x, st.ok, st.cs, st.sn, st.dz, st.pv,
-                                 st.keep_u8, st.inmask, amax, accg, done, out, k, P, st.d3, st.l3,
-                                 int(st.linear), SMEM_LIMIT)
+    _sym_cuda(st, x, (amax, accg, done), out)
     return out
+
+
+SYM_STEPS = {"memsets": 1, "max pass": 2, "sums": 4}
+
+
+def _sym_cuda(st: SymTables, x, scratch, out, steps: int = 7) -> None:
+    amax, accg, done = scratch
+    k, P = st.shape
+    _launcher("sym_normal", st.mask.device)(
+        "hgp_sym_normal", x, st.ok, st.cs, st.sn, st.dz, st.pv, st.keep_u8, st.inmask, amax, accg,
+        done, out, k, P, st.d3, st.l3, int(st.linear), SMEM_LIMIT, steps)

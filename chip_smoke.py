@@ -95,18 +95,20 @@ checkout, then runs thirteen phases and fails (non-zero exit) if any fails:
 10. pose refinement on the gather kernels (K1 gather_project, K2
    gather_backproject, gather_normal (the solves' data term PT(rows *
    P(x)) in one call), sample_table (each listed ray's samples, once a
-   pose), K3 pose_jacobian, K4 sym_normal): (a) each against its plain
+   pose), K3 pose_jacobian (on the list of live rays), sym_items (K4's
+   item list, once a pose), K4 sym_normal): (a) each against its plain
    version at phase 9 (b)'s best golden candidate at tilt 3 deg, nn and
-   linear (P within 1e-5 of its max, P, PT, gather_normal, nn's table and
-   ST(S(x)) bit for bit, nn's K1 / K2 / gather_normal with the table and
-   without, J^T J and J^T r 1e-4 relative), timed beside its plain
-   version, its bound and a yardstick (grid_sample + the ray sum for P,
-   index_add_ of the precomputed taps for PT, nn and linear), gather_normal
-   beside K1 + multiply + K2, then each step of K1's, K2's and
-   gather_normal's C entries alone (device ms, queued behind a sleeping
-   kernel; nn with the table and without),
-   and K4's share of a refine matvec beside the torch S + ST it
-   replaced; (b) phase 9 (b)'s wall on the kernels beside the torch gather
+   linear (P within 1e-5 of its max, P, PT, gather_normal, nn's table,
+   K4's item list and ST(S(x)) bit for bit, nn's K1 / K2 / gather_normal
+   with the table and without, J^T J and J^T r 1e-4 relative), timed
+   beside its plain version, its bound and a yardstick (grid_sample + the
+   ray sum for P, index_add_ of the precomputed taps for PT, nn and
+   linear), gather_normal beside K1 + multiply + K2, then each step of
+   K1's, K2's, gather_normal's and K4's C entries and K3's kernel alone
+   (device ms, queued behind a sleeping kernel; nn with the table and
+   without) beside the floor of a launch (an empty kernel), and K4's share
+   of a refine matvec beside the torch S + ST it replaced, K4 held bit for
+   bit at k = 1 and k = 45; (b) phase 9 (b)'s wall on the kernels beside the torch gather
    projector's; (c) refinement's main path, the CLI's refinement
    (--refineTiltPsiDy 5 5 2, top-1) on phase 4's search, K1-K4's counts
    zeroed just before and read just after (the wall split into search,
@@ -1752,6 +1754,10 @@ VALID_OPS = {("project", "nn"): 1, ("backproject", "nn"): 3, ("project", "linear
 # sixteen terms' products, scalings, roundings and adds (64)
 SYM_COORD_OPS = 14
 SYM_VALID_OPS = {"nn": 7, "linear": 139}
+# K4's item list, once a pose: each live item's coordinates and tests as
+# above; linear's valid items besides their two cells' fractions,
+# complements and eight weights (2 x 22)
+SYM_ITEM_OPS = {"nn": 0, "linear": 44}
 # phase 9 (b)'s wall on the torch gather projector the kernels replaced
 # (PERF.md section 5)
 TORCH_GATHER_TILT3_WALL = 41.8
@@ -1894,19 +1900,26 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
     rows[("normal", interp)] = dict(max_abs_err=nm_err, equal=nm_same)
     if not nm_same:
         raise AssertionError(f"{label}: gather_normal differs from plain by {nm_err}")
-    # K4
+    # K4, and its item list (made at its first call) against the plain list
     sts_k, sts_p = gk.sym_normal(st, x), gk.sym_normal_reference(st, x)
     torch.cuda.synchronize()
     sts_same = bool(torch.equal(sts_k, sts_p))
     rows[("sym_normal", interp)] = dict(max_abs_err=float((sts_k - sts_p).abs().max()),
                                         equal=sts_same)
-    if not sts_same:
+    lst = gk.sym_list(st)
+    items_same = all((a is None and c is None) or torch.equal(a, c) for a, c in zip(
+        (lst.iptr, lst.itap, lst.iw), gk.sym_items_reference(st)))
+    rows[("sym_items", interp)] = dict(max_abs_err=0.0 if items_same else float("inf"),
+                                       equal=items_same, items=int(lst.iptr[-1]),
+                                       incidences=lst.cinc.numel())
+    if not (sts_same and items_same):
         raise AssertionError(f"{label}: K4 differs from plain by "
-                             f"{float((sts_k - sts_p).abs().max())}")
-    # K3
+                             f"{float((sts_k - sts_p).abs().max())}, or its item list from the "
+                             f"plain list ({items_same})")
+    # K3, on the list of live rays (the rows it counts: K1's row validity)
     errs = None
     if tab.linear and tab.dR is not None:
-        jk, jp = gk.pose_jacobian(tab, x, b), gk.pose_jacobian_reference(tab, x, b)
+        jk, jp = gk.pose_jacobian(listed, x, b), gk.pose_jacobian_reference(tab, x, b)
         torch.cuda.synchronize()
         errs = [_rel(a, c) for a, c in zip(jk, jp)]
         rows[("jacobian", interp)] = dict(
@@ -1924,7 +1937,8 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
              "plain; ")
           + f"K1, K2 (every ray tested, and on the list of {listed.n_max} live rays, built in "
           f"{list_ms:.3f} ms{'' if listed.sidx is None else ', with and without its table'}), "
-          f"gather_normal (rows: the valid rows, and with an fsc-like weighting) and K4 equal "
+          f"gather_normal (rows: the valid rows, and with an fsc-like weighting) and K4 (on its "
+          f"list of {rows[('sym_items', interp)]['items']} items, equal to the plain list) equal "
           f"to plain bit for bit{k3}; {card}", flush=True)
     if not timed:
         return rows
@@ -2000,34 +2014,53 @@ def _hold_gather(label, tab, st, x, r, b, card, timed=False) -> dict:
                 lambda: gk.sym_normal_reference(st, x),
                 _nbytes(x, sts_k, st.cs, st.sn, st.dz, st.pv) + aux_bytes,
                 SYM_COORD_OPS * live + SYM_VALID_OPS[interp] * valid)
+    # K4's item list, once a pose: its two build kernels, and the whole
+    # list (with the incidences' sort) on fresh tables, host clock
+    t7 = timing(("sym_items", interp), lambda: gk.sym_items(st),
+                lambda: gk.sym_items_reference(st),
+                _nbytes(st.cs, st.sn, st.dz, st.pv, st.inmask, lst.iptr, lst.itap,
+                        *(() if lst.iw is None else (lst.iw,))) + aux_bytes,
+                SYM_COORD_OPS * live + SYM_ITEM_OPS[interp] * valid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        gk.sym_list(dataclasses.replace(st))
+    torch.cuda.synchronize()
+    rows[("sym_items", interp)]["list_build_ms"] = (time.perf_counter() - t0) * 1e3 / 5
     print(f"{label} [{n_all} samples, {n_live} on unpruned rays, {n_valid} valid, "
           f"{listed.n_max} live rays; "
           f"{live} symmetry items, {valid} valid]: K1 {t1}, grid_sample ({mode}) + sum "
           f"{rows[('project', interp)]['library_ms']:.3f} ms; K2 {t2}{lib}; gather_normal {t5}, "
           f"against K1 + multiply + K2 {comp['ms']:.4f} ms (device alone {comp['device_ms']:.4f} "
-          f"ms, host {comp['host_ms']:.4f} ms a call); K4 {t4}{t6}; {card}", flush=True)
+          f"ms, host {comp['host_ms']:.4f} ms a call); K4 {t4}; its item list's build "
+          f"kernels {t7}, the whole list with its incidences' sort "
+          f"{rows[('sym_items', interp)]['list_build_ms']:.3f} ms a pose "
+          f"({rows[('sym_items', interp)]['incidences']} incidences){t6}; {card}", flush=True)
     parts = _gather_breakdown(listed, x, r, rows_n, st, b if errs is not None else None)
     rows[("backproject", interp)]["breakdown_ms"] = parts
     print(f"{label}: device ms a step, queued behind a sleep: "
           + ", ".join(f"{n} {v:.4f}" if isinstance(v, float) else f"{n} {v}"
                       for n, v in parts.items()) + f"; {card}", flush=True)
     if errs is not None:
-        t3 = timing(("jacobian", interp), lambda: gk.pose_jacobian(tab, x, b),
-                    lambda: gk.pose_jacobian_reference(tab, x, b), _nbytes(x, b) + aux_bytes,
-                    COORD_OPS * n_live + VALID_OPS[("jacobian", interp)] * n_valid)
+        t3 = timing(("jacobian", interp), lambda: gk.pose_jacobian(listed, x, b),
+                    lambda: gk.pose_jacobian_reference(tab, x, b),
+                    _nbytes(x, b, listed.ridx) + aux_bytes,
+                    COORD_OPS * n_listed + VALID_OPS[("jacobian", interp)] * n_valid)
         print(f"{label}: K3 {t3}; {card}", flush=True)
     return rows
 
 
 def _gather_breakdown(listed, x, r, rows, st, b=None) -> dict:
     """Device ms of each step of K1's, K2's, gather_normal's and K4's calls
-    (K1, K2 and gather_normal on the list of live rays; _device_ms around
-    each C entry called with one step, on the wrappers' own scratch; no
-    launch counted), with an nn list's sample table and computing the
-    samples; with b (linear tables with derivatives), K3's kernel; the
-    grid: blocks a candidate and live rays a block
-    (gather_kernels.launch_grid); and the floor of a call, an empty
-    kernel's launch through the same C path, its device and host ms."""
+    (K1, K2 and gather_normal on the list of live rays, K4 on its item
+    list; _device_ms around each C entry called with one step, on the
+    wrappers' own scratch; no launch counted), with an nn list's sample
+    table and computing the samples; with b (linear tables with
+    derivatives), K3's kernel on the list; the grids: K1's blocks a
+    candidate and live rays a block (gather_kernels.launch_grid), K3's
+    (jacobian_grid), K4's blocks and lanes; and the floor of a call, an
+    empty kernel's launch through the same C path, its device and host
+    ms."""
     import torch
 
     from helicon_tpu_torch import _build
@@ -2054,23 +2087,21 @@ def _gather_breakdown(listed, x, r, rows, st, b=None) -> dict:
         parts["gather_normal whole call, samples computed"] = (
             lambda: gk._normal_cuda(computed, x, rows, out))
     k = listed.shape[0]
-    sym_scratch = (torch.empty(k, dtype=torch.int32, device=x.device),
-                   torch.empty(out.shape, dtype=torch.int64, device=x.device),
-                   torch.empty(k, dtype=torch.int32, device=x.device))
     for n, s in gk.SYM_STEPS.items():
-        parts[f"K4 {n}"] = lambda s=s: gk._sym_cuda(st, x, sym_scratch, out, s)
-    parts["K4 whole call"] = lambda: gk._sym_cuda(st, x, sym_scratch, out)
+        parts[f"K4 {n}"] = lambda s=s: gk._sym_cuda(st, x, out, s)
+    parts["K4 whole call"] = lambda: gk._sym_cuda(st, x, out)
     if b is not None:
-        jac = (torch.empty((k, gk._K3_MAX_BLOCKS, 10), dtype=torch.float64, device=x.device),
-               torch.zeros(k, dtype=torch.int32, device=x.device))
         jout = torch.empty((k, 10), dtype=torch.float64, device=x.device)
-        parts["K3 zero its count"] = lambda: jac[1].zero_()
-        parts["K3 kernel with its count zeroed"] = lambda: (
-            jac[1].zero_(), gk._jacobian_cuda(listed, x, b, jac, jout))
+        parts["K3 kernel"] = lambda: gk._jacobian_cuda(listed, x, b, jout)
     res = {name: _device_ms(fn, 20) for name, fn in parts.items()}
     empty = _build.load_kernels().hgp_empty
     res["floor: an empty launch, device"] = _device_ms(lambda: gk._run(x.device, empty), 20)
     res["floor: an empty launch, host"] = _host_ms(lambda: gk._run(x.device, empty), 20)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if b is not None:
+        res["K3 blocks_a_candidate"], res["K3 rays_a_block"] = gk.jacobian_grid(
+            k, listed.n_max, sms)
+    *_, res["K4 blocks_a_candidate"], res["K4 lanes_a_voxel"] = gk._sym_plan(st)[2]
     per, rpb = gk.launch_grid(listed.shape[0], listed.n_max, True,
                               torch.cuda.get_device_properties(x.device).multi_processor_count)
     res.update(blocks_a_candidate=per, rays_a_block=rpb)
@@ -2122,8 +2153,9 @@ def phase_sym_share(device, tilted, card) -> dict:
     """Phase 10 (a), last: the share of the symmetry term in one refine
     matvec PT(rows * P(x)) + ST(S(x)) (gather_normal and K4) at tilt 3 deg (nn) on the golden
     grid's tables, for one candidate and for the 45 a refine_mode="all"
-    launch takes: K4 (ST(S(x)) in one launch) beside the torch S + ST it
-    replaced (the taps computed at the build)."""
+    launch takes: K4 (ST(S(x)) in one call) beside the torch S + ST it
+    replaced (the taps computed at the build), and K4 held bit for bit
+    against its plain version at both k."""
     import numpy as np
     import torch
 
@@ -2139,6 +2171,12 @@ def phase_sym_share(device, tilted, card) -> dict:
                              geom.cylindrical_mask(), geom.cell_valid_mask(), device=device)
         x = torch.rand((k,) + geom.volume_shape, device=device) * ops["mask"]
         rows = ops["row_valid"].float()
+        got = ops["STS"](x)
+        with _plain_gather():
+            want = ops["STS"](x)
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 10 (a): K4 at k={k} differs from plain by "
+                                 f"{float((got - want).abs().max())}")
         ms_k4 = _time_ms(lambda: ops["STS"](x), 10)
         ms_torch = _time_ms(lambda: ops["ST"](ops["S"](x)), 10)
         ms_mv = _time_ms(lambda: ops["PTRP"](x, rows) + ops["STS"](x), 10)
@@ -2146,7 +2184,8 @@ def phase_sym_share(device, tilted, card) -> dict:
                       share=ms_k4 / ms_mv)
         print(f"phase 10 (a) [the symmetry term, nn, tilt 3 deg, k={k}, {tabs[3].shape[1]} pair "
               f"slots]: K4 {ms_k4:.3f} ms of a {ms_mv:.3f} ms refine matvec "
-              f"({100 * ms_k4 / ms_mv:.1f} %); torch S + ST {ms_torch:.3f} ms; {card}",
+              f"({100 * ms_k4 / ms_mv:.1f} %), equal to plain bit for bit; torch S + ST "
+              f"{ms_torch:.3f} ms; {card}",
               flush=True)
         del ops
     return out
@@ -2398,7 +2437,7 @@ CLI_GRID = "--apix 2 --twist 0.5 45 0.25 --rise 4 5 0.08 --handedness left --tub
 CLI_WIDE = ("--apix 2 --twist 0.5 45 0.25 --rise 2 10 0.25 --handedness left --tubeDiameter 110 "
             "--cgIters 10 --fistaIters 16")
 GATHER_KERNELS = ("gather_project", "gather_backproject", "gather_normal", "sample_table",
-                  "pose_jacobian", "sym_normal")
+                  "pose_jacobian", "sym_items", "sym_normal")
 
 
 def _cli(workdir: Path, argv: str, env=None, timeout=900):
@@ -3556,7 +3595,8 @@ def main() -> int:
         return dict(name=name, route="cuda", source=CSRC + src, replaces=replaces,
                     launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=r.get("library_ms"), launches_webapp=webapp_launches[name],
+                    library_ms=r.get("library_ms"), device_ms=r.get("device_ms"),
+                    host_ms=r.get("host_ms"), launches_webapp=webapp_launches[name],
                     **extra)
 
     def other(n, interp):
@@ -3661,6 +3701,11 @@ def main() -> int:
         entry("pose_jacobian", "gather_projector.cu", "helicon_tpu/denovo3d/refine.py:50",
               cli["launches"]["pose_jacobian"], gather[("jacobian", "linear")],
               **other("pose_jacobian", None)),
+        # K4's item list and its incidences, once a pose (S's sampling,
+        # tabulated)
+        entry("sym_items", "gather_projector.cu", "helicon_tpu/denovo3d/projector.py:230",
+              cli["launches"]["sym_items"], gather[("sym_items", "nn")],
+              **other("sym_items", gather[("sym_items", "linear")])),
         entry("sym_normal", "gather_projector.cu", "helicon_tpu/denovo3d/projector.py:230",
               cli["launches"]["sym_normal"], gather[("sym_normal", "nn")],
               **other("sym_normal", gather[("sym_normal", "linear")]),

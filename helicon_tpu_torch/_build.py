@@ -64,8 +64,9 @@ _SIGNATURES = {
     "hgp_backproject": [_P] * 16 + [_I] * 13 + [_P],
     "hgp_normal": [_P] * 18 + [_I] * 12 + [_P],
     "hgp_sample_table": [_P] * 12 + [_I] * 9 + [_P],
-    "hgp_pose_jacobian": [_P] * 16 + [_I] * 7 + [_P],
-    "hgp_sym_normal": [_P] * 12 + [_I] * 7 + [_P],
+    "hgp_pose_jacobian": [_P] * 17 + [_I] * 9 + [_P],
+    "hgp_sym_items": [_P] * 11 + [_I] * 6 + [_P],
+    "hgp_sym_normal": [_P] * 10 + [_I] * 8 + [_P],
     "hgp_empty": [_P],
 }
 

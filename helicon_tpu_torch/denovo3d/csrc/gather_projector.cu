@@ -56,12 +56,20 @@
 // which add the same integers, give the same result. gather_normal's first
 // kernel writes each listed ray's rows * P(x) to a compact (k, n_max) buffer
 // with each block's max |value|, so the dense prediction, its memset, the
-// multiply and the max pass over every ray are gone. K4 adds into a block-
-// private copy as K2 did before (one global atomic per nonzero voxel a block,
-// then the last block of a candidate converts). K3 keeps each ray's value and
-// its three derivatives in registers and the per-candidate sums in float64,
-// and adds the blocks' sums in block order. K4 takes one (pair, voxel) a
-// thread. Copy slots that are padding are skipped whole, and so is every ray
+// multiply and the max pass over every ray are gone. K3 walks the same list
+// (built at the Gauss-Newton pose), its blocks of 8 warps sized to it
+// (gather_kernels.jacobian_grid), the volume read through the cache; it keeps
+// each ray's value and its three derivatives in registers and the
+// per-candidate sums in float64, and adds the blocks' sums in a fixed order.
+// K4's symmetry term touches pairs x l3 x d3^2 items of a 35 KB volume, so a
+// call is as short as a launch: its bound is the host's and the launches'.
+// Once per symmetry tables (the pose's solve), two build kernels list its
+// items (the (pair, voxel) rows of S that can be nonzero) with their samples
+// (nn: two voxels; linear: two cells and their weights), and the wrapper
+// sorts their incidences by output voxel; a call is then two kernels, no
+// memset and no atomics: the rows' differences with the max pass, and a
+// gather of each voxel's incidences into its own integer sum. Copy slots that
+// are padding are skipped whole, and so is every ray
 // whose two end samples (Z is monotone along the ray) put all its samples
 // outside the volume's z range: at the amyloid's geometry (l2 = 256 rows at
 // 2/3 voxel, l3 = 6 planes) that is most rays. Every C entry serves the k
@@ -94,7 +102,7 @@
 
 namespace {
 
-constexpr int NT = 256;  // threads a block of K3, K4 and the passes: 8 warps
+constexpr int NT = 256;  // threads a block of K3, K4 and the max pass: 8 warps
 constexpr int WARPS = NT / 32;
 constexpr int GT = 1024;  // threads a block of K1 and K2: 32 warps, one block an SM
 constexpr int GWARPS = GT / 32;
@@ -132,12 +140,6 @@ __device__ __forceinline__ void coords(float bx, float by, float bz, float c, fl
   Y = __fadd_rn(__fsub_rn(__fmul_rn(by, c), __fmul_rn(bx, s)), h3);
   Z = __fadd_rn(__fsub_rn(bz, dz), hl);
 }
-
-// A volume and its validity bytes: in shared memory or in device memory.
-struct Vol {
-  const float* x;
-  const uint8_t* ok;
-};
 
 // Whether no sample of the ray (its samples at x0[0 .. d2-1], y0, z0) can
 // be valid by z alone. Z is monotone in x0 under round-to-nearest (each
@@ -205,19 +207,6 @@ __device__ __forceinline__ void corner_offsets(int d3, int off[8]) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Stage candidate q's volume (x may be null: zeros) and the validity bytes
-// (aux > 0.5) in shared memory; returns the views the samplers read. The
-// caller synchronises the block before reading them.
-__device__ Vol stage(const float* x, const float* aux, int vol, bool smem, float* sx,
-                     uint8_t* sok) {
-  if (!smem) return Vol{x, nullptr};
-  for (int v = threadIdx.x; v < vol; v += blockDim.x) {
-    if (sx) sx[v] = x ? __ldg(x + v) : 0.f;
-    sok[v] = __ldg(aux + v) > 0.5f;
-  }
-  return Vol{sx, sok};
 }
 
 // A ray's constants: its image row i and column j, its copy's in-plane cos
@@ -291,13 +280,13 @@ __device__ __forceinline__ void block_entries(const Tables& tb, int q, int& e0, 
   e1 = min(tb.rptr[q + 1], e0 + tb.rpb);
 }
 
-// The run [w0, w1) of the block's entries [e0, e1) that warp `warp` takes:
-// a contiguous 1 / GWARPS of them. Its lanes load up to 32 entries of the
-// run (the ray and its value) at once, and the warp then takes them in
-// turn from the lanes' registers, so the list's two dependent loads a ray
-// are paid once for 32 rays.
-__device__ __forceinline__ void warp_run(int e0, int e1, int warp, int& w0, int& w1) {
-  const int m = (e1 - e0 + GWARPS - 1) / GWARPS;
+// The run [w0, w1) of the block's entries [e0, e1) that warp `warp` of
+// `warps` takes: a contiguous 1 / warps of them. Its lanes load up to 32
+// entries of the run (the ray and its value) at once, and the warp then
+// takes them in turn from the lanes' registers, so the list's two
+// dependent loads a ray are paid once for 32 rays.
+__device__ __forceinline__ void warp_run(int e0, int e1, int warp, int warps, int& w0, int& w1) {
+  const int m = (e1 - e0 + warps - 1) / warps;
   w0 = min(e1, e0 + warp * m);
   w1 = min(e1, w0 + m);
 }
@@ -439,7 +428,7 @@ __global__ void __launch_bounds__(GT) project_kernel(Tables tb, const float* __r
   if (tb.rptr) {
     unsigned m = 0;
     int w0, w1;
-    warp_run(e0, e1, warp, w0, w1);
+    warp_run(e0, e1, warp, GWARPS, w0, w1);
     for (int base = w0; base < w1; base += 32) {
       int ray = 0;
       float rw = 0.f;
@@ -500,18 +489,6 @@ __device__ __forceinline__ unsigned long long fixed(float t, double scale) {
 
 constexpr int FIXED_BITS = 61;
 
-// K4's max pass: amax (k,) (zeroed) gets the bits of max |v| over each
-// candidate's n values (k, n).
-__global__ void __launch_bounds__(NT) amax_kernel(const float* __restrict__ v, long n,
-                                                  unsigned* amax) {
-  const float* vq = v + (size_t)blockIdx.y * n;
-  unsigned m = 0;
-  for (long i = (long)blockIdx.x * NT + threadIdx.x; i < n; i += (long)gridDim.x * NT)
-    m = max(m, __float_as_uint(fabsf(vq[i])));
-  for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0 && m != 0u) atomicMax(amax + blockIdx.y, m);
-}
-
 // K2's max pass: each block's max |v| over its share of each candidate's n
 // values (k, n) into bmax (k, gridDim.x), without atomics or zeroing.
 __global__ void __launch_bounds__(NT) max_kernel(const float* __restrict__ v, long n,
@@ -556,42 +533,6 @@ __device__ double block_scale(const unsigned* bmax, int nb, double n_terms) {
   }
   __syncthreads();
   return sc;
-}
-
-// K4: called by every block of candidate q once its sums are in accg (k,
-// vol): the last one writes out = double(accg) / scale.
-__device__ void finish(const long long* accg, unsigned* done, double scale, float* out, int vol,
-                       int q) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(done + q, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const long long* src = accg + (size_t)q * vol;
-  float* dst = out + (size_t)q * vol;
-  for (int v = threadIdx.x; v < vol; v += NT)
-    dst[v] = __double2float_rn(__ll2double_rn(__ldcg(src + v)) / scale);
-}
-
-// K4: a block's integer sums: a private volume in shared memory (zeroed
-// here; flush() adds it into accg) or, past smem_limit, accg itself.
-__device__ __forceinline__ unsigned long long* sums_of(unsigned char* shm, long long* accg, int q,
-                                                      int vol, bool smem) {
-  if (!smem) return reinterpret_cast<unsigned long long*>(accg + (size_t)q * vol);
-  unsigned long long* acc = reinterpret_cast<unsigned long long*>(shm);
-  for (int v = threadIdx.x; v < vol; v += NT) acc[v] = 0ull;
-  return acc;
-}
-
-__device__ __forceinline__ void flush(const unsigned long long* acc, long long* accg, int q,
-                                      int vol, bool smem) {
-  if (!smem) return;
-  __syncthreads();
-  unsigned long long* dst = reinterpret_cast<unsigned long long*>(accg + (size_t)q * vol);
-  for (int v = threadIdx.x; v < vol; v += NT)
-    if (acc[v] != 0ull) atomicAdd(dst + v, acc[v]);
 }
 
 // K2 on one ray of value rv: each valid sample's terms added into acc; si
@@ -668,7 +609,7 @@ __global__ void __launch_bounds__(GT) backproject_kernel(Tables tb, const float*
     const float* cq = comp ? comp + (size_t)q * tb.n_max - tb.rptr[q] : nullptr;
     const float* rq = r ? r + (size_t)q * n_rays : nullptr;
     int w0, w1;
-    warp_run(e0, e1, warp, w0, w1);
+    warp_run(e0, e1, warp, GWARPS, w0, w1);
     for (int base = w0; base < w1; base += 32) {
       int ray = 0;
       float val = 0.f;
@@ -726,7 +667,7 @@ __global__ void __launch_bounds__(GT) sample_table_kernel(Tables tb,
   const float h3 = (float)(d3 / 2), hl = (float)(l3 / 2);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int w0, w1;
-  warp_run(e0, e1, warp, w0, w1);
+  warp_run(e0, e1, warp, GWARPS, w0, w1);
   for (int e = w0; e < w1; ++e) {
     const RayCoords rc = ray_coords(ray_of(tb, q, tb.ridx[e]), R);
     int* row = sidx + ((size_t)q * tb.n_max + (e - tb.rptr[q])) * d2;
@@ -765,66 +706,67 @@ __global__ void __launch_bounds__(GT) reduce_kernel(Tables tb, const unsigned lo
   out[(size_t)q * vol + v] = __double2float_rn(__ll2double_rn((long long)s) / sc);
 }
 
-// The most blocks a candidate of K3 takes: its per-block sums go to part
-// (k, MAX_BLOCKS, 10), which the last block adds up in block order.
-constexpr int MAX_BLOCKS = 1024;
-
 // K3: per candidate, out (k, 10) float64 = [J^T J (xx, xy, xz, yy, yz, zz),
-// J^T r (3), r^T r] of the linear residual r = P(x) - b over the valid
-// rows, J its derivative by (tilt, psi, dy). b (l2, d2). Each block's sums
-// go to part, and the candidate's last block adds them in block order, so
-// the result does not depend on which block finishes first. done (k,)
-// must hold zeros.
+// J^T r (3), r^T r] of the linear residual r = P(x) - b over the listed rays
+// (the pose's live rays, K1's row validity: the rays the residual counts),
+// J its derivative by (tilt, psi, dy). b (l2, d2). Block (blk, q) takes the
+// entries of candidate q's list that K1's would (block_entries), each of its
+// warps a contiguous run of them, a ray at a time; the volume and the
+// validity bytes are read through the cache. Each block's sums go to part
+// (k, gridDim.x, 10) (an empty block's are zeros), and the candidate's last
+// block adds them in a fixed order (lane l the blocks l, l + 32, ... in
+// turn, then the lanes by shuffles), so the result does not depend on which
+// block finishes first; it then sets done[q] back to 0 for the next launch
+// (done must hold zeros at the first).
 __global__ void __launch_bounds__(NT) pose_jacobian_kernel(Tables tb,
                                                            const float* __restrict__ x,
-                                                           const float* __restrict__ cellok,
-                                                           const uint8_t* __restrict__ ok_g,
+                                                           const uint8_t* __restrict__ ok,
                                                            const float* __restrict__ b,
                                                            double* part, unsigned* done,
-                                                           double* __restrict__ out, int smem) {
+                                                           double* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char shm[];
   __shared__ double red[WARPS][10];
   __shared__ bool last;
   const int q = blockIdx.y;
   const int d2 = tb.d2, d3 = tb.d3, l3 = tb.l3;
-  const int vol = l3 * d3 * d3;
-  const float* xq = x + (size_t)q * vol;
-  Vol V = stage(xq, cellok, vol, smem != 0, reinterpret_cast<float*>(shm), shm + (size_t)vol * 4);
-  __syncthreads();
-  const uint8_t* ok = smem ? V.ok : ok_g;
-  const float* xs = smem ? V.x : xq;
-  const float h3 = (float)(d3 / 2), hl = (float)(l3 / 2);
+  const float* xs = x + (size_t)q * l3 * d3 * d3;
   const float* R = tb.R + q * 9;
   const float* Dt = tb.dR + q * 18;
   const float* Dp = Dt + 9;
+  float* xr = reinterpret_cast<float*>(shm);
+  xr_table(R, tb.x0, d2, xr);
+  __syncthreads();
+  const float h3 = (float)(d3 / 2), hl = (float)(l3 / 2);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_rays = tb.C * tb.l2 * d2;
   int off[8];
   corner_offsets(d3, off);
   // dy moves y0 by -1: its coordinate derivatives before the copy's turn
   const float dyx = -R[1], dyy = -R[4], dyz = -R[7];
   double s[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
-  for (int g = (blockIdx.x * WARPS + warp) * 32; g < n_rays; g += gridDim.x * WARPS * 32) {
-    const bool mine = live(tb, q, g + lane, n_rays, R, hl, true);
-    for (unsigned todo = __ballot_sync(0xffffffffu, mine); todo; todo &= todo - 1) {
-      const int ray = g + __ffs(todo) - 1;
-      const Ray rr = ray_of(tb, q, ray);
+  int e0, e1, w0, w1;
+  block_entries(tb, q, e0, e1);
+  warp_run(e0, e1, warp, WARPS, w0, w1);
+  for (int base = w0; base < w1; base += 32) {
+    const int mine = base + lane < w1 ? tb.ridx[base + lane] : 0;
+    const int n = min(32, w1 - base);
+    for (int jj = 0; jj < n; ++jj) {
+      const Ray rr = ray_of(tb, q, __shfl_sync(0xffffffffu, mine, jj));
+      const RayCoords rc = ray_coords(rr, R);
       const float c = rr.c, sn = rr.s, y0 = rr.y0, z0 = rr.z0;
       const float dXd = dyx * c + dyy * sn, dYd = dyy * c - dyx * sn;
       float v = 0.f, g0 = 0.f, g1 = 0.f, g2 = 0.f;
       bool any = false;
       for (int kk = lane; kk < d2; kk += 32) {
-        const float x0 = tb.x0[kk];
         float X, Y, Z, wz, wy, wx;
-        coords(dot3_rn(R, x0, y0, z0), dot3_rn(R + 3, x0, y0, z0), dot3_rn(R + 6, x0, y0, z0),
-               c, sn, rr.dz, h3, hl, X, Y, Z);
-        const int base = cell(X, Y, Z, d3, l3, ok, wz, wy, wx);
-        if (base < 0) continue;
+        sample_at(rc, xr, d2, kk, h3, hl, X, Y, Z);
+        const int cb = cell(X, Y, Z, d3, l3, ok, wz, wy, wx);
+        if (cb < 0) continue;
         any = true;
+        const float x0 = tb.x0[kk];
         float w[8], a[8];
         tri_weights(wz, wy, wx, w);
 #pragma unroll
-        for (int m = 0; m < 8; ++m) a[m] = xs[base + off[m]];
+        for (int m = 0; m < 8; ++m) a[m] = __ldg(xs + cb + off[m]);
         float val = __fmul_rn(w[0], a[0]);
 #pragma unroll
         for (int m = 1; m < 8; ++m) val = __fadd_rn(val, __fmul_rn(w[m], a[m]));
@@ -866,22 +808,25 @@ __global__ void __launch_bounds__(NT) pose_jacobian_kernel(Tables tb,
   if (lane == 0)
     for (int m = 0; m < 10; ++m) red[warp][m] = s[m];
   __syncthreads();
-  double* mine = part + ((size_t)q * MAX_BLOCKS + blockIdx.x) * 10;
+  const int nb = gridDim.x;
   if (threadIdx.x < 10) {
     double t = 0;
     for (int w = 0; w < WARPS; ++w) t += red[w][threadIdx.x];
-    mine[threadIdx.x] = t;
+    part[((size_t)q * nb + blockIdx.x) * 10 + threadIdx.x] = t;
   }
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(done + q, 1u) == gridDim.x - 1;
+  if (threadIdx.x == 0) last = atomicAdd(done + q, 1u) == (unsigned)nb - 1;
   __syncthreads();
-  if (!last || threadIdx.x >= 10) return;
+  if (!last) return;
   __threadfence();
-  double t = 0;
-  for (int blk = 0; blk < (int)gridDim.x; ++blk)
-    t += __ldcg(part + ((size_t)q * MAX_BLOCKS + blk) * 10 + threadIdx.x);
-  out[q * 10 + threadIdx.x] = t;
+  for (int m = warp; m < 10; m += WARPS) {
+    double t = 0;
+    for (int blk = lane; blk < nb; blk += 32) t += __ldcg(part + ((size_t)q * nb + blk) * 10 + m);
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(0xffffffffu, t, o);
+    if (lane == 0) out[q * 10 + m] = t;
+  }
+  if (threadIdx.x == 0) done[q] = 0;
 }
 
 // The symmetry term's tables (float32 unless said): cs, sn, dz (k, P, 2)
@@ -894,101 +839,156 @@ struct SymTables {
   int k, P, d3, l3;
 };
 
-// The value of x at op (c, s, dz) applied to the voxel (xc, yc, zc)
-// (centred coordinates), in the plain version's order: X = (xc c - yc s) +
-// d3//2, Y = (xc s + yc c) + d3//2, Z = (zc + dz) + l3//2. Returns the
-// sample's flat index (the cell's base corner for linear), or -1 when it is
-// not valid; w gets linear's weights.
+// Op (c, s, dz)'s sample of the voxel (xc, yc, zc) (centred coordinates),
+// in the plain version's order: X = (xc c - yc s) + d3//2, Y = (xc s + yc c)
+// + d3//2, Z = (zc + dz) + l3//2. Returns its flat voxel (nn) or its cell's
+// base corner with the eight weights in w (linear), -1 where it is not
+// valid.
 template <bool LINEAR>
-__device__ __forceinline__ int sym_sample(float xc, float yc, float zc, float c, float s, float dz,
-                                          float h3, float hl, int d3, int l3, const uint8_t* ok,
-                                          const float* xs, const int* off, float w[8],
-                                          float& val) {
+__device__ __forceinline__ int sym_tap(float xc, float yc, float zc, float c, float s, float dz,
+                                       float h3, float hl, int d3, int l3, const uint8_t* ok,
+                                       float w[8]) {
   const float X = __fadd_rn(__fsub_rn(__fmul_rn(xc, c), __fmul_rn(yc, s)), h3);
   const float Y = __fadd_rn(__fadd_rn(__fmul_rn(xc, s), __fmul_rn(yc, c)), h3);
   const float Z = __fadd_rn(__fadd_rn(zc, dz), hl);
-  if (!LINEAR) {
-    const int idx = nn_index(X, Y, Z, d3, l3, ok);
-    if (idx >= 0) val = xs[idx];
-    return idx;
-  }
+  if (!LINEAR) return nn_index(X, Y, Z, d3, l3, ok);
   float wz, wy, wx;
   const int base = cell(X, Y, Z, d3, l3, ok, wz, wy, wx);
-  if (base < 0) return -1;
-  tri_weights(wz, wy, wx, w);
-  val = __fmul_rn(w[0], xs[base]);
-#pragma unroll
-  for (int a = 1; a < 8; ++a) val = __fadd_rn(val, __fmul_rn(w[a], xs[base + off[a]]));
+  if (base >= 0) tri_weights(wz, wy, wx, w);
   return base;
 }
 
-// K4: out (k, vol) = ST(S(x)) of the symmetry pairs, the symmetry term of
-// the gather projector's normal operator. For candidate q, pair p and
-// voxel v (v in the mask, the slot populated, keep set): with both ops'
-// samples valid, s = x(g1 v) - x(g2 v) is added back at g1 v's taps and
-// subtracted at g2 v's, summed exactly (above) at the scale of n_terms
-// terms of at most amax each. accg (k, vol) and done (k,) must hold
-// zeros.
+// K4's items: (candidate q, pair slot p, voxel v) with v in the mask, the
+// slot populated, keep set and both ops' samples valid: the rows of S that
+// can be nonzero. Item it = p * vol + v of candidate q: its two samples (t1,
+// t2; linear's weights w1, w2), or false where it is not an item.
 template <bool LINEAR>
-__global__ void __launch_bounds__(NT) sym_normal_kernel(SymTables st, const float* __restrict__ x,
-                                                        const uint8_t* __restrict__ ok_g,
-                                                        const unsigned* __restrict__ amax,
-                                                        double n_terms, long long* accg,
-                                                        unsigned* done, float* __restrict__ out,
-                                                        int smem) {
-  extern __shared__ __align__(16) unsigned char shm[];
-  const int q = blockIdx.y;
-  const int d3 = st.d3, l3 = st.l3, plane = d3 * d3;
-  const int vol = l3 * plane;
-  unsigned long long* acc = sums_of(shm, accg, q, vol, smem != 0);
-  const float* xq = x + (size_t)q * vol;
-  const float* xs = xq;
-  const uint8_t* ok = ok_g;
-  if (smem) {
-    float* sx = reinterpret_cast<float*>(shm + (size_t)vol * 8);
-    uint8_t* sok = shm + (size_t)vol * 12;
-    for (int v = threadIdx.x; v < vol; v += NT) {
-      sx[v] = __ldg(xq + v);
-      sok[v] = __ldg(ok_g + v);
-    }
-    xs = sx;
-    ok = sok;
-  }
-  __syncthreads();
-  const double sc = scale_of(amax[q], n_terms);
+__device__ __forceinline__ bool sym_item(const SymTables& st, const uint8_t* ok, int q, long it,
+                                         int& t1, int& t2, float w1[8], float w2[8]) {
+  const int d3 = st.d3, l3 = st.l3, vol = l3 * d3 * d3;
+  const int p = (int)(it / vol), v = (int)(it % vol);
+  const int qp = q * st.P + p;
+  if (st.pv[qp] == 0.f || !st.inmask[v] || (st.keep && !st.keep[(size_t)qp * vol + v]))
+    return false;
+  const float zc = (float)(v / (d3 * d3) - l3 / 2), yc = (float)((v / d3) % d3 - d3 / 2);
+  const float xc = (float)(v % d3 - d3 / 2);
   const float h3 = (float)(d3 / 2), hl = (float)(l3 / 2);
-  int off[8];
-  corner_offsets(d3, off);
-  const long n = (long)st.P * vol;
+  t1 = sym_tap<LINEAR>(xc, yc, zc, st.cs[2 * qp], st.sn[2 * qp], st.dz[2 * qp], h3, hl, d3, l3,
+                       ok, w1);
+  if (t1 < 0) return false;
+  t2 = sym_tap<LINEAR>(xc, yc, zc, st.cs[2 * qp + 1], st.sn[2 * qp + 1], st.dz[2 * qp + 1], h3,
+                       hl, d3, l3, ok, w2);
+  return t2 >= 0;
+}
+
+// The item list's first pass: flag (k, P, vol) bytes, 1 at the items.
+template <bool LINEAR>
+__global__ void __launch_bounds__(NT) sym_flags_kernel(SymTables st, const uint8_t* __restrict__ ok,
+                                                       uint8_t* __restrict__ flag) {
+  const int q = blockIdx.y;
+  const long n = (long)st.P * st.l3 * st.d3 * st.d3;
+  float w1[8], w2[8];
   for (long it = (long)blockIdx.x * NT + threadIdx.x; it < n; it += (long)gridDim.x * NT) {
-    const int p = (int)(it / vol), v = (int)(it % vol);
-    const int qp = q * st.P + p;
-    if (st.pv[qp] == 0.f || !st.inmask[v] || (st.keep && !st.keep[(size_t)qp * vol + v]))
-      continue;
-    const float zc = (float)(v / plane - l3 / 2), yc = (float)((v / d3) % d3 - d3 / 2);
-    const float xc = (float)(v % d3 - d3 / 2);
-    float w1[8], w2[8], a1 = 0.f, a2 = 0.f;
-    const int i1 = sym_sample<LINEAR>(xc, yc, zc, st.cs[2 * qp], st.sn[2 * qp], st.dz[2 * qp],
-                                      h3, hl, d3, l3, ok, xs, off, w1, a1);
-    if (i1 < 0) continue;
-    const int i2 = sym_sample<LINEAR>(xc, yc, zc, st.cs[2 * qp + 1], st.sn[2 * qp + 1],
-                                      st.dz[2 * qp + 1], h3, hl, d3, l3, ok, xs, off, w2, a2);
-    if (i2 < 0) continue;
-    const float s = __fsub_rn(a1, a2);
-    if (s == 0.f) continue;
+    int t1, t2;
+    flag[(size_t)q * n + it] = sym_item<LINEAR>(st, ok, q, it, t1, t2, w1, w2) ? 1 : 0;
+  }
+}
+
+// Its second pass: for each of the n_items items, ids (int64) its flat (q,
+// p, v), in order: itap (n_items, 2) its two samples and, linear, iw
+// (n_items, 2, 8) their weights.
+template <bool LINEAR>
+__global__ void __launch_bounds__(NT) sym_items_kernel(SymTables st, const uint8_t* __restrict__ ok,
+                                                       const long long* __restrict__ ids,
+                                                       int n_items, int* __restrict__ itap,
+                                                       float* __restrict__ iw) {
+  const long per = (long)st.P * st.l3 * st.d3 * st.d3;
+  for (int e = blockIdx.x * NT + threadIdx.x; e < n_items; e += gridDim.x * NT) {
+    const long id = ids[e];
+    int t1 = -1, t2 = -1;
+    float w1[8], w2[8];
+    sym_item<LINEAR>(st, ok, (int)(id / per), id % per, t1, t2, w1, w2);
+    itap[2 * e] = t1;
+    itap[2 * e + 1] = t2;
     if (LINEAR) {
 #pragma unroll
       for (int a = 0; a < 8; ++a) {
-        atomicAdd(acc + i1 + off[a], fixed(__fmul_rn(w1[a], s), sc));
-        atomicAdd(acc + i2 + off[a], fixed(__fmul_rn(w2[a], -s), sc));
+        iw[16 * (size_t)e + a] = w1[a];
+        iw[16 * (size_t)e + 8 + a] = w2[a];
       }
-    } else {
-      atomicAdd(acc + i1, fixed(s, sc));
-      atomicAdd(acc + i2, fixed(-s, sc));
     }
   }
-  flush(acc, accg, q, vol, smem != 0);
-  finish(accg, done, sc, out, vol, q);
+}
+
+// A sample's value: x at the voxel (nn), or the cell's eight corners
+// weighted, in the plain version's order (linear; w its weights).
+template <bool LINEAR>
+__device__ __forceinline__ float sym_value(const float* xq, int t, const float* w, const int* off) {
+  if (!LINEAR) return __ldg(xq + t);
+  const float4 wa = __ldg(reinterpret_cast<const float4*>(w));
+  const float4 wb = __ldg(reinterpret_cast<const float4*>(w) + 1);
+  const float ws[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+  float val = __fmul_rn(ws[0], __ldg(xq + t));
+#pragma unroll
+  for (int a = 1; a < 8; ++a) val = __fadd_rn(val, __fmul_rn(ws[a], __ldg(xq + t + off[a])));
+  return val;
+}
+
+// K4's first kernel: for candidate q's items iptr[q] .. iptr[q + 1] each
+// row of S, s = x(g1 v) - x(g2 v), into s (n_items); and each block's max
+// |x| over its share of the volume into bmax (k, gridDim.x), which the
+// scale of the sums needs.
+template <bool LINEAR>
+__global__ void __launch_bounds__(NT) sym_diff_kernel(const float* __restrict__ x,
+                                                      const int* __restrict__ iptr,
+                                                      const int* __restrict__ itap,
+                                                      const float* __restrict__ iw, int d3,
+                                                      int vol, float* __restrict__ s,
+                                                      unsigned* __restrict__ bmax) {
+  const int q = blockIdx.y;
+  const float* xq = x + (size_t)q * vol;
+  const int t0 = blockIdx.x * NT + threadIdx.x, stride = gridDim.x * NT;
+  unsigned m = 0;
+  for (int v = t0; v < vol; v += stride) m = max(m, __float_as_uint(fabsf(__ldg(xq + v))));
+  int off[8];
+  corner_offsets(d3, off);
+  const int end = iptr[q + 1];
+  for (int e = iptr[q] + t0; e < end; e += stride) {
+    const int2 t = __ldg(reinterpret_cast<const int2*>(itap) + e);
+    const float a1 = sym_value<LINEAR>(xq, t.x, iw + 16 * (size_t)e, off);
+    const float a2 = sym_value<LINEAR>(xq, t.y, iw + 16 * (size_t)e + 8, off);
+    s[e] = __fsub_rn(a1, a2);
+  }
+  block_max(m, bmax + q * gridDim.x + blockIdx.x);
+}
+
+// K4's second kernel: out (k, vol), each output voxel o = (q, v) the exact
+// sum of its incidences cptr[o] .. cptr[o + 1] (an item e that samples v,
+// the tap's signed weight w: +w at the first op's sample, -w at the
+// second's, nn's w 1), each the integer fixed(w * s[e]) at the scale of
+// n_terms terms of at most the max of bmax (k, nb) each. `lanes` lanes (a
+// power of two, up to 32) share a voxel, each taking every lanes-th
+// incidence, and meet by shuffles. Every voxel is written: no zeroing.
+__global__ void __launch_bounds__(NT) sym_sums_kernel(const int* __restrict__ cptr,
+                                                      const int* __restrict__ cinc,
+                                                      const float* __restrict__ cw,
+                                                      const float* __restrict__ s,
+                                                      const unsigned* __restrict__ bmax, int nb,
+                                                      double n_terms, float* __restrict__ out,
+                                                      int vol, int lanes) {
+  const int q = blockIdx.y;
+  const double sc = block_scale(bmax + q * nb, nb, n_terms);
+  const int t = blockIdx.x * NT + threadIdx.x;
+  const int v = t / lanes, sub = t & (lanes - 1);
+  const size_t o = (size_t)q * vol + v;
+  unsigned long long acc = 0;
+  if (v < vol) {
+    const int end = cptr[o + 1];
+    for (int i = cptr[o] + sub; i < end; i += lanes)
+      acc += fixed(__fmul_rn(__ldg(cw + i), __ldg(s + __ldg(cinc + i))), sc);
+  }
+  for (int w = lanes / 2; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (v < vol && sub == 0) out[o] = __double2float_rn(__ll2double_rn((long long)acc) / sc);
 }
 
 __global__ void empty_kernel() {}
@@ -1002,39 +1002,6 @@ int sm_count() {
     if (n <= 0) n = 132;
   }
   return n;
-}
-
-// Blocks a candidate of K3: about six blocks an SM over the launch, at
-// most one warp a group of 32 rays.
-dim3 grid_of(const Tables& tb) {
-  const long groups = ((long)tb.C * tb.l2 * tb.d2 + 31) / 32;
-  long per = (6L * sm_count() + tb.k - 1) / tb.k;
-  const long most = (groups + WARPS - 1) / WARPS;
-  if (per > most) per = most;
-  if (per > MAX_BLOCKS) per = MAX_BLOCKS;
-  if (per < 1) per = 1;
-  return dim3((unsigned)per, (unsigned)tb.k);
-}
-
-// Blocks a candidate of K4: about two blocks an SM over the launch (each
-// zeroes, and flushes, a whole volume of sums), one (pair, voxel) a thread
-// at most.
-dim3 sym_grid_of(const SymTables& st) {
-  const long items = (long)st.P * st.l3 * st.d3 * st.d3;
-  long per = (2L * sm_count() + st.k - 1) / st.k;
-  const long most = (items + NT - 1) / NT;
-  if (per > most) per = most;
-  if (per < 1) per = 1;
-  return dim3((unsigned)per, (unsigned)st.k);
-}
-
-// Shared memory bytes the kernel's staging needs at `per` bytes a voxel
-// (0: the device-memory branch), within smem_limit.
-size_t smem_bytes(const void* fn, int vol, int per, int smem_limit) {
-  const size_t need = (size_t)vol * per;
-  if ((long)need > (long)smem_limit) return 0;
-  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
-  return need;
 }
 
 // K2's shared memory: `fixed` bytes always (the xr table) and vol_bytes
@@ -1201,59 +1168,78 @@ int hgp_sample_table(const uint8_t* ok, const float* R, const float* cs, const f
   return (int)cudaGetLastError();
 }
 
-// K3. part (k, MAX_BLOCKS, 10) float64 scratch; done (k,) must hold zeros;
+// K3 on the list of live rays (rptr, ridx; n_max its longest candidate's
+// entries, rpb the entries a block, per blocks a candidate). ok (vol
+// bytes): the cell validity (cellok > 0.5). part (k, per, 10) float64
+// scratch; done (k,) must hold zeros at the first launch and is left so;
 // out (k, 10) float64.
-int hgp_pose_jacobian(const float* x, const float* cellok, const uint8_t* ok_g, const float* R,
-                      const float* dR, const float* cs, const float* sn, const float* dz,
-                      const float* cv, const float* x0, const float* y0, const float* z0,
-                      const float* b, double* part, unsigned* done, double* out, int k, int C,
-                      int l2, int d2, int d3, int l3, int smem_limit, cudaStream_t st) {
-  const Tables tb = tables(R, dR, cs, sn, dz, cv, x0, y0, z0, k, C, l2, d2, d3, l3);
-  const int vol = l3 * d3 * d3;
-  const size_t sm = smem_bytes((const void*)pose_jacobian_kernel, vol, 5, smem_limit);
-  pose_jacobian_kernel<<<grid_of(tb), NT, sm, st>>>(tb, x, cellok, ok_g, b, part, done, out,
-                                                    sm > 0);
+int hgp_pose_jacobian(const float* x, const uint8_t* ok, const float* R, const float* dR,
+                      const float* cs, const float* sn, const float* dz, const float* cv,
+                      const float* x0, const float* y0, const float* z0, const int* rptr,
+                      const int* ridx, const float* b, double* part, unsigned* done, double* out,
+                      int k, int C, int l2, int d2, int d3, int l3, int n_max, int per, int rpb,
+                      cudaStream_t st) {
+  Tables tb = gather_tables(R, cs, sn, dz, cv, x0, y0, z0, rptr, ridx, nullptr, k, C, l2, d2, d3,
+                            l3, rpb, n_max);
+  tb.dR = dR;
+  pose_jacobian_kernel<<<dim3((unsigned)per, (unsigned)k), NT, 12 * (size_t)d2, st>>>(
+      tb, x, ok, b, part, done, out);
   return (int)cudaGetLastError();
 }
 
-// The max pass of K4's exact sums on v (k, n) into amax (k,), zeroed here.
-void launch_amax(const float* v, long n, int k, unsigned* amax, cudaStream_t st) {
-  cudaMemsetAsync(amax, 0, sizeof(unsigned) * k, st);
-  long per = (2L * sm_count() + k - 1) / k;
-  const long most = (n + NT - 1) / NT;
-  if (per > most) per = most;
-  if (per < 1) per = 1;
-  amax_kernel<<<dim3((unsigned)per, (unsigned)k), NT, 0, st>>>(v, n, amax);
+// K4's item list, once per symmetry tables: with flag (k, P, vol) bytes,
+// the first pass (flag 1 at the items); else the second, for the n_items
+// items of ids (int64, their flat (q, p, v) in order): itap (n_items, 2)
+// and, linear, iw (n_items, 2, 8). ok_g and inmask (vol bytes): the
+// sampler's validity and the voxels in the mask; keep (k, P, vol) bytes or
+// null.
+int hgp_sym_items(const uint8_t* ok_g, const float* cs, const float* sn, const float* dz,
+                  const float* pv, const uint8_t* keep, const uint8_t* inmask, uint8_t* flag,
+                  const long long* ids, int* itap, float* iw, int k, int P, int d3, int l3,
+                  int linear, int n_items, cudaStream_t stream) {
+  const SymTables st{cs, sn, dz, pv, keep, inmask, k, P, d3, l3};
+  if (flag) {
+    const long n = (long)P * l3 * d3 * d3;
+    long per = (4L * sm_count() + k - 1) / k;
+    if (per > (n + NT - 1) / NT) per = (n + NT - 1) / NT;
+    const dim3 grid((unsigned)(per < 1 ? 1 : per), (unsigned)k);
+    if (linear)
+      sym_flags_kernel<true><<<grid, NT, 0, stream>>>(st, ok_g, flag);
+    else
+      sym_flags_kernel<false><<<grid, NT, 0, stream>>>(st, ok_g, flag);
+  } else if (n_items > 0) {
+    const unsigned blocks = (unsigned)((n_items + NT - 1) / NT);
+    if (linear)
+      sym_items_kernel<true><<<blocks, NT, 0, stream>>>(st, ok_g, ids, n_items, itap, iw);
+    else
+      sym_items_kernel<false><<<blocks, NT, 0, stream>>>(st, ok_g, ids, n_items, itap, iw);
+  }
+  return (int)cudaGetLastError();
 }
 
-// K4. cs, sn, dz (k, P, 2), pv (k, P), keep (k, P, vol) bytes or null,
-// inmask and ok_g (vol) bytes (the voxels in the mask, the sampler's
-// validity); amax (k,) uint32, accg (k, vol) int64 and done (k,) scratch,
-// zeroed here; out (k, vol). steps: 1 the memsets of accg and done, 2 the
-// max pass over x, 4 the kernel.
-int hgp_sym_normal(const float* x, const uint8_t* ok_g, const float* cs, const float* sn,
-                   const float* dz, const float* pv, const uint8_t* keep, const uint8_t* inmask,
-                   unsigned* amax, long long* accg, unsigned* done, float* out, int k, int P,
-                   int d3, int l3, int linear, int smem_limit, int steps, cudaStream_t stream) {
-  const SymTables st{cs, sn, dz, pv, keep, inmask, k, P, d3, l3};
+// K4: out (k, vol) = ST(S(x)) on the item list (iptr (k + 1), itap, iw as
+// hgp_sym_items wrote them) and its incidences by output voxel (cptr (k *
+// vol + 1), cinc, cw). Scratch: s (n_items) float32, bmax (k, nb) uint32.
+// nb the first kernel's blocks a candidate, lanes the second's lanes a
+// voxel. steps: 1 the differences and the max pass (sym_diff_kernel), 2 the
+// sums.
+int hgp_sym_normal(const float* x, const int* iptr, const int* itap, const float* iw,
+                   const int* cptr, const int* cinc, const float* cw, float* s, unsigned* bmax,
+                   float* out, int k, int P, int d3, int l3, int linear, int nb, int lanes,
+                   int steps, cudaStream_t stream) {
   const int vol = l3 * d3 * d3;
   if (steps & 1) {
-    cudaMemsetAsync(accg, 0, sizeof(long long) * k * vol, stream);
-    cudaMemsetAsync(done, 0, sizeof(unsigned) * k, stream);
+    if (linear)
+      sym_diff_kernel<true><<<dim3((unsigned)nb, (unsigned)k), NT, 0, stream>>>(
+          x, iptr, itap, iw, d3, vol, s, bmax);
+    else
+      sym_diff_kernel<false><<<dim3((unsigned)nb, (unsigned)k), NT, 0, stream>>>(
+          x, iptr, itap, iw, d3, vol, s, bmax);
   }
-  if (steps & 2) launch_amax(x, vol, k, amax, stream);
-  if (!(steps & 4)) return (int)cudaGetLastError();
   // a pair's row is at most 2 max |x|, added back at two samples
-  const double n_terms = 4.0 * P * vol;
-  const void* fn =
-      linear ? (const void*)sym_normal_kernel<true> : (const void*)sym_normal_kernel<false>;
-  const size_t sm = smem_bytes(fn, vol, 13, smem_limit);
-  if (linear)
-    sym_normal_kernel<true><<<sym_grid_of(st), NT, sm, stream>>>(st, x, ok_g, amax, n_terms,
-                                                                 accg, done, out, sm > 0);
-  else
-    sym_normal_kernel<false><<<sym_grid_of(st), NT, sm, stream>>>(st, x, ok_g, amax, n_terms,
-                                                                  accg, done, out, sm > 0);
+  if (steps & 2)
+    sym_sums_kernel<<<dim3((unsigned)(((long)vol * lanes + NT - 1) / NT), (unsigned)k), NT, 0,
+                      stream>>>(cptr, cinc, cw, s, bmax, nb, 4.0 * P * vol, out, vol, lanes);
   return (int)cudaGetLastError();
 }
 

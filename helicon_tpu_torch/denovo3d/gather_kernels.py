@@ -16,9 +16,14 @@ per-candidate batch or a refinement batch:
                               pose, which K1 and K2 then read
     pose_jacobian       (K3)  J^T J (k, 3, 3), J^T r (k, 3), r^T r (k,) of
                               the linear residual (P(x) - b) * row_valid by
-                              (tilt, psi, dy), J never stored
+                              (tilt, psi, dy), J never stored; on the card
+                              on the list of live rays
+    sym_items                 K4's item list (sym_list), once a pose: the
+                              (pair, voxel) rows of S that can be nonzero
+                              and their samples
     sym_normal          (K4)  ST(S(x)) (k, l3, d3, d3): the symmetry term
-                              of the normal operator
+                              of the normal operator, on the card from the
+                              item list and its incidences by output voxel
 
 The transposes (K2, K4 and their plain versions) sum exactly: each term is
 rounded to a 64-bit integer at a power of two per candidate
@@ -26,7 +31,8 @@ rounded to a 64-bit integer at a power of two per candidate
 float32 once. Integer sums do not depend on their order, so the kernels'
 atomics repeat bit for bit from run to run and equal their plain versions'
 ``index_add_``; a refinement's Gauss-Newton steps would amplify float
-atomics' run-to-run rounding into other poses.
+atomics' run-to-run rounding into other poses. On the card K4 needs no
+atomics: each output voxel sums its own incidences.
 
 CPU tensors take the plain PyTorch versions (``*_reference``: the
 sampler ``_Sampler``, a candidate and a chunk of copies at a time); CUDA
@@ -58,7 +64,7 @@ __all__ = ["GatherTables", "gather_tables", "with_live_rays", "rotations", "gath
 
 # kernel launches made on CUDA tensors, by entry (one a call)
 launches = {"gather_project": 0, "gather_backproject": 0, "gather_normal": 0,
-            "sample_table": 0, "pose_jacobian": 0, "sym_normal": 0}
+            "sample_table": 0, "pose_jacobian": 0, "sym_items": 0, "sym_normal": 0}
 
 # shared memory a block may stage the volume in (its float32 values and a
 # validity byte a voxel; K2 its 64-bit sums); past it the kernels read and
@@ -82,9 +88,10 @@ _CHUNK_SAMPLES = 1 << 25
 # the transposes' integer sums stay below 2^FIXED_BITS (int64 holds 2^63)
 FIXED_BITS = 61
 
-# the blocks a candidate of K3 takes at most (gather_projector.cu's
-# MAX_BLOCKS): the rows of its scratch
-_K3_MAX_BLOCKS = 1024
+# K3's grid: blocks of _NT threads, about K3_BLOCKS_A_SM an SM over the
+# launch (its registers let two stay on an SM), at least K3_MIN_RAYS listed
+# rays a block
+K3_BLOCKS_A_SM, K3_MIN_RAYS = 2, 64
 
 # d(deg2rad(a)) / da in float32, the factor jax.jacfwd carries into the
 # rotation's derivatives
@@ -530,11 +537,20 @@ def pose_jacobian_reference(tab: GatherTables, x, b):
     the residual r = (P(x) - b) over the valid rows and its Jacobian J by
     (tilt, psi, dy), each ray's derivative the trilinear gradient at each
     sample dotted with the sample's coordinate derivatives, over the live
-    row blocks (_live_chunks: the others add 0). Returns (J^T J (k, 3, 3),
-    J^T r (k, 3), r^T r (k,)) float64."""
+    row blocks (_live_chunks: the others add 0). The valid rows are the
+    tables' list of live rays where they have one (with_live_rays: the
+    rays the kernel walks), else each ray's >= 1 valid sample and its
+    populated slot. Returns (J^T J (k, 3, 3), J^T r (k, 3), r^T r (k,))
+    float64."""
     if not tab.linear or tab.dR is None:
         raise ValueError("pose_jacobian needs linear tables with derivatives")
     k, C, l2, d2 = tab.shape
+    listed = None
+    if tab.rptr is not None:
+        listed = torch.zeros((k, C * l2 * d2), dtype=torch.bool, device=x.device)
+        for q in range(k):
+            listed[q, tab.ridx[int(tab.rptr[q]):int(tab.rptr[q + 1])].long()] = True
+        listed = listed.reshape(k, C, l2, d2)
     sampler = tab.sampler()
     dzs = tab.d3 * tab.d3
     f64 = dict(dtype=torch.float64, device=x.device)
@@ -571,7 +587,8 @@ def pose_jacobian_reference(tab: GatherTables, x, b):
             J = torch.stack([
                 (gX * (dx * c + dy * sn) + gY * (dy * c - dx * sn) + gZ * dz).sum(dim=2)
                 for dx, dy, dz in dblk])  # (3, blocks, d2)
-            rows = (valid.any(dim=2) & (tab.cvf[q, ci, None] > 0)).double()
+            rows = (valid.any(dim=2) & (tab.cvf[q, ci, None] > 0) if listed is None
+                    else listed[q, ci, ii]).double()
             r = (pred.double() - b.double()[ii]) * rows
             J = J.double() * rows
             JtJ[q] += torch.einsum("pnj,qnj->pq", J, J)
@@ -583,15 +600,6 @@ def pose_jacobian_reference(tab: GatherTables, x, b):
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
-
-
-def _launcher(key: str, dev: torch.device):
-    from .._build import Launcher
-
-    def count(kernels: int) -> None:
-        launches[key] += kernels
-
-    return Launcher(dev, count)
 
 
 def _device_of(t: torch.Tensor, what: str) -> str:
@@ -816,38 +824,67 @@ def gather_normal(tab: GatherTables, x, rows) -> torch.Tensor:
     return out
 
 
+def jacobian_grid(k: int, n_items: int, sms: int) -> tuple:
+    """(blocks a candidate, entries a block) of a K3 launch of k candidates
+    whose longest list holds n_items live rays, on a card of ``sms`` SMs:
+    about K3_BLOCKS_A_SM blocks an SM over the launch, but no more blocks
+    than leave each at least K3_MIN_RAYS entries, and none without any."""
+    per = max(1, min(-(-K3_BLOCKS_A_SM * sms // k), n_items // K3_MIN_RAYS))
+    rpb = max(1, -(-n_items // per))
+    return max(1, -(-n_items // rpb)), rpb
+
+
 def pose_jacobian(tab: GatherTables, x, b):
     """K3 on linear tables with derivatives: (J^T J (k, 3, 3), J^T r (k, 3),
     r^T r (k,)) float64 of the residual r = P(x) - b (b (l2, d2)) over each
     candidate's valid rows and its Jacobian by (tilt, psi, dy). CPU
-    tensors run the plain version; CUDA tensors run the kernel (never the
+    tensors run the plain version; CUDA tensors run the kernel on the
+    tables' list of live rays (with_live_rays: the valid rows) (never the
     plain version)."""
     if not tab.linear or tab.dR is None:
         raise ValueError("pose_jacobian needs linear tables with derivatives")
     if _device_of(tab.mask, "pose_jacobian") == "cpu":
         return pose_jacobian_reference(tab, x, b)
+    if tab.rptr is None:
+        raise ValueError("pose_jacobian runs on the list of live rays: with_live_rays(tab, ...)")
     k, C, l2, d2 = tab.shape
-    dev = tab.mask.device
     x = _volumes(tab, x, "x")
     b = b.contiguous()
     if tuple(b.shape) != (l2, d2):
         raise ValueError(f"b must be {(l2, d2)}, got {tuple(b.shape)}")
     _check(tab, x=x, b=b, dR=tab.dR)
-    part = torch.empty((k, _K3_MAX_BLOCKS, 10), dtype=torch.float64, device=dev)
-    done = torch.zeros(k, dtype=torch.int32, device=dev)
-    out = torch.empty((k, 10), dtype=torch.float64, device=dev)
-    _jacobian_cuda(tab, x, b, (part, done), out)
+    out = torch.empty((k, 10), dtype=torch.float64, device=tab.mask.device)
+    _jacobian_cuda(tab, x, b, out)
+    launches["pose_jacobian"] += 1
     sym = out[:, [0, 1, 2, 1, 3, 4, 2, 4, 5]].reshape(k, 3, 3)
     return sym, out[:, 6:9], out[:, 9]
 
 
-def _jacobian_cuda(tab: GatherTables, x, b, scratch, out) -> None:
-    part, done = scratch
-    k, C, l2, d2 = tab.shape
-    R, *rest = _args(tab)
-    _launcher("pose_jacobian", tab.mask.device)(
-        "hgp_pose_jacobian", x, tab.aux, tab.ok, R, tab.dR, *rest, b, part, done, out, k, C, l2,
-        d2, tab.d3, tab.l3, SMEM_LIMIT)
+def _jacobian_plan(tab: GatherTables):
+    """K3's C function and its arguments that stay fixed for the listed
+    tables: the pointers (as ints) before b and after it (its scratch: the
+    blocks' sums and the candidates' counts, zero between launches), and
+    the ints; made on the first call and kept."""
+    plan = tab._plans.get("jacobian")
+    if plan is None:
+        from .._build import load_kernels
+
+        k, C, l2, d2 = tab.shape
+        dev = tab.mask.device
+        per, rpb = jacobian_grid(k, tab.n_max, _sm_count(dev))
+        scratch = (torch.empty((k, per, 10), dtype=torch.float64, device=dev),
+                   torch.zeros(k, dtype=torch.int32, device=dev))
+        R, *rest = _args(tab)
+        pre = tuple(map(_ptr, (tab.ok, R, tab.dR, *rest, tab.rptr, tab.ridx)))
+        plan = (load_kernels().hgp_pose_jacobian, pre, tuple(map(_ptr, scratch)),
+                (k, C, l2, d2, tab.d3, tab.l3, tab.n_max, per, rpb), scratch)
+        tab._plans["jacobian"] = plan
+    return plan
+
+
+def _jacobian_cuda(tab: GatherTables, x, b, out) -> None:
+    fn, pre, post, ints, _ = _jacobian_plan(tab)
+    _run(tab.mask.device, fn, x.data_ptr(), *pre, b.data_ptr(), *post, out.data_ptr(), *ints)
 
 
 # ---------------------------------------------------------------------------
@@ -879,6 +916,11 @@ class SymTables:
     inmask: torch.Tensor | None = None
     keep_u8: torch.Tensor | None = None
     _taps: tuple | None = dataclasses.field(default=None, repr=False)
+    # K4's item list (sym_list) and its C function, fixed arguments and
+    # scratch (_sym_plan), made on first use and kept
+    _list: SymList | None = dataclasses.field(default=None, init=False, repr=False,
+                                               compare=False)
+    _plan: tuple | None = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     @property
     def shape(self):
@@ -979,35 +1021,239 @@ def sym_normal_reference(st: SymTables, x) -> torch.Tensor:
     return sampler.result(_from_fixed(acc.reshape(k, -1), scale[:, None]), k)
 
 
+@dataclasses.dataclass
+class SymList:
+    """K4's list of the items of k candidates' symmetry tables: the (pair
+    slot, voxel) rows of S that can be nonzero (the voxel in the mask, the
+    slot populated, keep set, both ops' samples valid), made once per
+    tables. Candidate q's items are iptr[q] .. iptr[q + 1] (int32), in
+    (pair, voxel) order; itap (n, 2) int32 each item's two samples, the
+    flat voxel (nn) or the cell's base corner (linear), and iw (n, 2, 8)
+    float32 linear's trilinear weights (None for nn). Their incidences by
+    output voxel: those of voxel o = q * vol + v are cptr[o] .. cptr[o + 1]
+    (int32), each an item (cinc, int32) and its tap's signed weight (cw,
+    float32: +w at the first op's sample, -w at the second's; nn's w 1).
+    n_max: the most items of a candidate."""
+
+    iptr: torch.Tensor
+    itap: torch.Tensor
+    iw: torch.Tensor | None
+    cptr: torch.Tensor
+    cinc: torch.Tensor
+    cw: torch.Tensor
+    n_max: int
+
+
+def sym_items_reference(st: SymTables):
+    """The plain item list: (iptr, itap, iw) of SymList as the kernels
+    write them, each sample computed as sym_tap computes it (nn: rounded
+    half to even, inside the volume and the mask; linear: the cell below,
+    inside the volume and cell-valid, with its eight weights in the plain
+    version's order)."""
+    k, P = st.shape
+    d3, l3 = st.d3, st.l3
+    vol = l3 * d3 * d3
+    dev = st.mask.device
+    v = torch.arange(vol, device=dev)
+    zc, yc, xc = ((a - h).float() for a, h in ((v // (d3 * d3), l3 // 2),
+                                                ((v // d3) % d3, d3 // 2), (v % d3, d3 // 2)))
+    ok = st.ok.bool()
+
+    def tap(o):
+        c, s, dz = (t[..., o][..., None] for t in (st.cs, st.sn, st.dz))
+        X = (xc * c - yc * s) + d3 // 2
+        Y = (xc * s + yc * c) + d3 // 2
+        Z = (zc + dz) + l3 // 2
+        fl = torch.floor if st.linear else torch.round
+        zi, yi, xi = (fl(a).to(torch.int64) for a in (Z, Y, X))
+        top = 2 if st.linear else 1
+        inb = ((zi >= 0) & (zi <= l3 - top) & (yi >= 0) & (yi <= d3 - top) & (xi >= 0)
+               & (xi <= d3 - top))
+        idx = ((zi * d3 + yi) * d3 + xi).clamp(0, vol - 1)
+        w = None
+        if st.linear:
+            wz, wy, wx = Z - torch.floor(Z), Y - torch.floor(Y), X - torch.floor(X)
+            uz, uy, ux = 1 - wz, 1 - wy, 1 - wx
+            w = torch.stack([a * b * c for a, b, c in (
+                (uz, uy, ux), (uz, uy, wx), (uz, wy, ux), (uz, wy, wx),
+                (wz, uy, ux), (wz, uy, wx), (wz, wy, ux), (wz, wy, wx))], dim=-1)
+        return idx, inb & ok[idx], w
+
+    (t1, ok1, w1), (t2, ok2, w2) = tap(0), tap(1)
+    item = ok1 & ok2 & (st.inmask > 0)[None, None] & (st.pv != 0)[..., None]
+    if st.keep is not None:
+        item = item & st.keep.reshape(k, P, vol)
+    ids = torch.nonzero(item.reshape(-1))[:, 0]
+    iptr = torch.zeros(k + 1, dtype=torch.int32, device=dev)
+    iptr[1:] = torch.cumsum(item.reshape(k, -1).sum(dim=1), 0)
+    itap = torch.stack([t1.reshape(-1)[ids], t2.reshape(-1)[ids]], dim=1).to(torch.int32)
+    iw = None
+    if st.linear:
+        iw = torch.stack([w1.reshape(-1, 8)[ids], w2.reshape(-1, 8)[ids]], dim=1).contiguous()
+    return iptr, itap, iw
+
+
+def sym_items(st: SymTables):
+    """K4's item list (iptr, itap, iw), once per tables: CPU tensors run the
+    plain version; CUDA tensors run the two build kernels (the items'
+    flags, then each item's samples; never the plain version), with one
+    device-to-host copy (torch.nonzero's count)."""
+    if _device_of(st.mask, "sym_items") == "cpu":
+        return sym_items_reference(st)
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    k, P = st.shape
+    dev = st.mask.device
+    ints = (k, P, st.d3, st.l3, int(st.linear))
+    tables = tuple(map(_ptr, (st.ok, st.cs, st.sn, st.dz, st.pv, st.keep_u8, st.inmask)))
+    flag = torch.empty((k, P * st.l3 * st.d3 * st.d3), dtype=torch.uint8, device=dev)
+    _run(dev, lib.hgp_sym_items, *tables, flag.data_ptr(), None, None, None, *ints, 0)
+    ids = torch.nonzero(flag.reshape(-1))[:, 0]
+    n = ids.numel()
+    itap = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    iw = torch.empty((n, 2, 8), dtype=torch.float32, device=dev) if st.linear else None
+    _run(dev, lib.hgp_sym_items, *tables, None, ids.data_ptr(), itap.data_ptr(), _ptr(iw), *ints,
+         n)
+    iptr = torch.zeros(k + 1, dtype=torch.int32, device=dev)
+    iptr[1:] = torch.cumsum(flag.sum(dim=1, dtype=torch.int64), 0)
+    launches["sym_items"] += 1
+    return iptr, itap, iw
+
+
+def _incidences(st: SymTables, iptr, itap, iw):
+    """(cptr, cinc, cw) of SymList: each item's taps (nn one a sample,
+    linear the cell's eight corners) as incidences of its output voxels,
+    sorted by voxel (a stable sort, so in item order within one)."""
+    k = st.shape[0]
+    d3, vol = st.d3, st.l3 * st.d3 * st.d3
+    dev = itap.device
+    n = itap.shape[0]
+    q = torch.repeat_interleave(torch.arange(k, device=dev), (iptr[1:] - iptr[:-1]).long(),
+                                output_size=n)
+    dzs = d3 * d3
+    offs = torch.tensor([0, 1, d3, d3 + 1, dzs, dzs + 1, dzs + d3, dzs + d3 + 1] if st.linear
+                        else [0], device=dev)
+    dst = (itap.long()[:, :, None] + offs + (q * vol)[:, None, None]).reshape(-1)
+    sign = torch.tensor([1.0, -1.0], device=dev)[None, :, None]
+    w = iw * sign if st.linear else sign.expand(n, 2, 1)
+    order = torch.argsort(dst, stable=True)
+    cptr = torch.zeros(k * vol + 1, dtype=torch.int32, device=dev)
+    cptr[1:] = torch.cumsum(torch.bincount(dst, minlength=k * vol), 0)
+    cinc = torch.div(order, 2 * len(offs), rounding_mode="floor").to(torch.int32)
+    return cptr, cinc, w.reshape(-1)[order].contiguous()
+
+
+def sym_list(st: SymTables) -> SymList:
+    """The tables' SymList, made on first use (sym_items and the sort of
+    its incidences) and kept."""
+    if st._list is None:
+        iptr, itap, iw = sym_items(st)
+        counts = (iptr[1:] - iptr[:-1]).cpu()
+        st._list = SymList(iptr, itap, iw, *_incidences(st, iptr, itap, iw),
+                           n_max=int(counts.max()) if len(counts) else 0)
+    return st._list
+
+
+def sym_normal_list_reference(st: SymTables, x) -> torch.Tensor:
+    """The plain K4 on the tables' list: each item's row s = x(g1 v) - x(g2
+    v) (linear: the eight corners weighted in the plain version's order),
+    each incidence's integer fixed(w * s) added into its voxel, at
+    sym_normal_reference's scale: its bits, from the list alone."""
+    lst = sym_list(st)
+    k, P = st.shape
+    vol = st.l3 * st.d3 * st.d3
+    dev = x.device
+    xf = x.reshape(-1)
+    n = lst.itap.shape[0]
+    q = torch.repeat_interleave(torch.arange(k, device=dev), (lst.iptr[1:] - lst.iptr[:-1]).long(),
+                                output_size=n)
+    at = lst.itap.long() + (q * vol)[:, None]
+    if st.linear:
+        d3, dzs = st.d3, st.d3 * st.d3
+        vals = xf[at[..., None] + torch.tensor([0, 1, d3, d3 + 1, dzs, dzs + 1, dzs + d3,
+                                                dzs + d3 + 1], device=dev)]
+        a = lst.iw[..., 0] * vals[..., 0]
+        for c in range(1, 8):
+            a = a + lst.iw[..., c] * vals[..., c]
+    else:
+        a = xf[at]
+    s = a[:, 0] - a[:, 1]
+    scale = fixed_scales(x.abs().reshape(k, -1).amax(dim=1), 4 * P * vol)
+    dst = torch.repeat_interleave(torch.arange(k * vol, device=dev),
+                                  (lst.cptr[1:] - lst.cptr[:-1]).long(),
+                                  output_size=lst.cinc.numel())
+    terms = _to_fixed(lst.cw * s[lst.cinc.long()], scale[dst // vol])
+    acc = torch.zeros(k * vol, dtype=torch.int64, device=dev).index_add_(0, dst, terms)
+    return _from_fixed(acc.reshape(k, vol), scale[:, None]).reshape(x.shape)
+
+
 def sym_normal(st: SymTables, x) -> torch.Tensor:
     """K4: ST(S(x)) (k, l3, d3, d3) of the volumes x (k, l3, d3, d3), summed
     exactly (the same bits as the plain version). CPU tensors run the
-    plain version; CUDA tensors run the kernel (never the plain
-    version)."""
+    plain version; CUDA tensors run the kernels on the tables' list
+    (sym_list, made at the first call; never the plain version): the
+    call's only allocation is its result."""
     if _device_of(st.mask, "sym_normal") == "cpu":
         return sym_normal_reference(st, x)
-    k, P = st.shape
     dev = st.mask.device
-    vol = (k, st.l3, st.d3, st.d3)
+    vol = (st.shape[0], st.l3, st.d3, st.d3)
     if tuple(x.shape) != vol:
         raise ValueError(f"x must be {vol}, got {tuple(x.shape)}")
     x = x.contiguous()
     if x.device != dev or x.dtype != torch.float32:
         raise ValueError(f"x must be a float32 tensor on {dev}")
-    # scratch the entry zeroes: the max pass's bits, the sums, the counts
-    amax, done = torch.empty((2, k), dtype=torch.int32, device=dev)
-    accg = torch.empty(vol, dtype=torch.int64, device=dev)
     out = torch.empty(vol, dtype=torch.float32, device=dev)
-    _sym_cuda(st, x, (amax, accg, done), out)
+    _sym_cuda(st, x, out)
+    launches["sym_normal"] += 1
     return out
 
 
-SYM_STEPS = {"memsets": 1, "max pass": 2, "sums": 4}
+SYM_STEPS = {"differences and max pass": 1, "sums": 2}
 
 
-def _sym_cuda(st: SymTables, x, scratch, out, steps: int = 7) -> None:
-    amax, accg, done = scratch
-    k, P = st.shape
-    _launcher("sym_normal", st.mask.device)(
-        "hgp_sym_normal", x, st.ok, st.cs, st.sn, st.dz, st.pv, st.keep_u8, st.inmask, amax, accg,
-        done, out, k, P, st.d3, st.l3, int(st.linear), SMEM_LIMIT, steps)
+def sym_blocks(k: int, n_max: int, vol: int, sms: int) -> int:
+    """Blocks a candidate of K4's first kernel: one item (or voxel of the
+    max pass) a thread of _NT, but at most about four blocks an SM over
+    the launch."""
+    return max(1, min(-(-4 * sms // k), -(-max(n_max, vol) // _NT)))
+
+
+def sym_lanes(k: int, vol: int, n_inc: int, sms: int) -> int:
+    """Lanes that share an output voxel in K4's sums: the least power of two
+    at or above the mean incidences a voxel, but at most 32 and no more
+    than one wave of the card's threads (2,048 an SM) holds."""
+    cap = min(32, sms * 2048 // max(1, k * vol))
+    lanes = 1
+    while lanes * 2 <= cap and lanes * k * vol < n_inc:
+        lanes *= 2
+    return lanes
+
+
+def _sym_plan(st: SymTables):
+    """K4's C function and its arguments that stay fixed for the tables:
+    the list's pointers (as ints), the call's scratch (the rows'
+    differences, the blocks' maxima) and the grid; made on the first call
+    and kept, so that a call allocates nothing but its result and converts
+    only x and out."""
+    if st._plan is None:
+        from .._build import load_kernels
+
+        lst = sym_list(st)
+        k, P = st.shape
+        dev = st.mask.device
+        vol = st.l3 * st.d3 * st.d3
+        sms = _sm_count(dev)
+        nb = sym_blocks(k, lst.n_max, vol, sms)
+        scratch = (torch.empty(max(1, lst.itap.shape[0]), dtype=torch.float32, device=dev),
+                   torch.empty((k, nb), dtype=torch.int32, device=dev))
+        pre = tuple(map(_ptr, (lst.iptr, lst.itap, lst.iw, lst.cptr, lst.cinc, lst.cw, *scratch)))
+        st._plan = (load_kernels().hgp_sym_normal, pre,
+                    (k, P, st.d3, st.l3, int(st.linear), nb,
+                     sym_lanes(k, vol, lst.cinc.numel(), sms)), scratch)
+    return st._plan
+
+
+def _sym_cuda(st: SymTables, x, out, steps: int = 3) -> None:
+    fn, pre, ints, _ = _sym_plan(st)
+    _run(st.mask.device, fn, x.data_ptr(), *pre, out.data_ptr(), *ints, steps)

@@ -34,7 +34,8 @@ live rays, listed once per build, and nn reads them from a table of the
 listed rays' samples made with the list. ``S`` and ``ST`` touch pairs x l3
 x d3^2 voxels, far fewer: alone they are torch on either device, their
 taps computed once per build, the k candidates' in one batch; the solves
-apply them as ``STS`` = ST(S(x)), the kernel K4 on the card. PT and STS
+apply them as ``STS`` = ST(S(x)), the kernel K4 on the card (on a list of
+the symmetry rows that can be nonzero, made at its first call). PT and STS
 sum exactly, in 64-bit integers (``gather_kernels``), so the card repeats
 a refinement bit for bit. A
 nearest-neighbour sample reads the masked volume padded by one zero
@@ -216,7 +217,7 @@ def build_problems(
     or (k,)); tables carry a leading candidate axis. P maps (k, l3, d3, d3)
     to (k, C, l2, d2), S to (k, P, l3, d3, d3); PTRP(x, rows) is PT(rows *
     P(x)), one call of gather_normal on the card, and STS is ST(S(x)), one
-    launch of K4. image_region: (d2, l2) pixel values
+    call of K4. image_region: (d2, l2) pixel values
     (rows j, columns i); b[i, j] = region[j, i]."""
     dev = torch.device(device)
     mask_flat = _ps._as(np.asarray(mask, np.float32).reshape(-1), dev)

@@ -82,9 +82,10 @@ def gn_step(geom, image_region, twists, rises_pixel, copies, x_vol, params):
     """One damped Gauss-Newton step on (tilt, psi, dy) of k candidates,
     their volumes x_vol (k, l3, d3, d3) fixed: twists, rises_pixel (k,),
     copies (copies_h, copies_c, copies_valid) (k, C), params (k, 3) float32.
-    Runs where x_vol lies (K3 on the card). Returns (new params (k, 3)
-    float32 numpy, r^T r (k,) float64 numpy)."""
-    from .gather_kernels import gather_tables, pose_jacobian
+    Runs where x_vol lies (on the card K3, on the list of the pose's live
+    rays: K1's row validity). Returns (new params (k, 3) float32 numpy,
+    r^T r (k,) float64 numpy)."""
+    from .gather_kernels import gather_project, gather_tables, pose_jacobian, with_live_rays
     from .projector_separable import _as
 
     dev = x_vol.device
@@ -93,6 +94,8 @@ def gn_step(geom, image_region, twists, rises_pixel, copies, x_vol, params):
     cellok = _as(geom.cell_valid_mask().reshape(-1).astype(np.float32), dev)
     tab = gather_tables(geom, twists, rises_pixel, *copies, params[:, 0], params[:, 1],
                         params[:, 2], "linear", mask, cellok, derivatives=True)
+    if dev.type == "cuda":
+        tab = with_live_rays(tab, gather_project(tab, None, row_valid=True)[1])
     b = _as(image_region, dev, torch.float32).T
     JtJ, Jtr, rtr = pose_jacobian(tab, x_vol.float(), b)
     eye = torch.eye(3, dtype=torch.float64, device=dev)

@@ -539,7 +539,8 @@ def test_gather_kernels_match_plain(cuda, case, interpolation):
     """K1, K2, gather_normal, nn's sample table and K4 (P, row_valid, PT,
     PT(rows * P(x)), the table and ST(S(x)) bit for bit: the plain P sums
     each ray in the kernel's order, the transposes sum exactly) and,
-    linear, K3 (J^T J, J^T r within 1e-4 relative) against their plain
+    linear, K3 on the list of live rays (J^T J, J^T r within 1e-4
+    relative of the plain version over every ray) against their plain
     versions on the same card tensors; nn's K1, K2 and gather_normal on
     the list with its sample table and without, gather_normal at the
     valid rows and at an fsc half's weighting."""
@@ -576,8 +577,9 @@ def test_gather_kernels_match_plain(cuda, case, interpolation):
         assert torch.equal(gk.gather_backproject(listed, gk.gather_project(listed, x) * rows), want)
     assert torch.equal(sts_k, sts_p) and bool(sts_p.abs().max() > 0)
     assert gk.launches["sym_normal"] - before["sym_normal"] == 1
+    assert gk.launches["sym_items"] - before["sym_items"] == 1
     if interpolation == "linear":
-        got, want = gk.pose_jacobian(tab, x, b), gk.pose_jacobian_reference(tab, x, b)
+        got, want = gk.pose_jacobian(listed, x, b), gk.pose_jacobian_reference(tab, x, b)
         torch.cuda.synchronize()
         assert _rel(got[0], want[0]) <= 1e-4 and _rel(got[1], want[1]) <= 1e-4
         assert _rel(got[2], want[2]) <= 1e-4
@@ -609,7 +611,7 @@ def test_gather_kernels_without_shared_memory(cuda, interpolation, monkeypatch):
     assert _rel(direct[0], staged[0]) <= 1e-5
     assert all(torch.equal(a, c) for a, c in zip(direct, staged))
     if interpolation == "linear":
-        got, want = gk.pose_jacobian(tab, x, b), gk.pose_jacobian_reference(tab, x, b)
+        got, want = gk.pose_jacobian(listed, x, b), gk.pose_jacobian_reference(tab, x, b)
         assert _rel(got[0], want[0]) <= 1e-4 and _rel(got[1], want[1]) <= 1e-4
 
 
@@ -633,12 +635,43 @@ def test_gather_kernels_repeat_bit_for_bit(cuda, interpolation):
 
         first = run()
         if interpolation == "linear":
-            first += list(gk.pose_jacobian(tab, x, b))
+            first += list(gk.pose_jacobian(listed, x, b))
         for _ in range(3):
             again = run()
             if interpolation == "linear":
-                again += list(gk.pose_jacobian(tab, x, b))
+                again += list(gk.pose_jacobian(listed, x, b))
             assert all(torch.equal(a, c) for a, c in zip(again, first))
+
+
+@pytest.mark.parametrize("interpolation", ["nn", "linear"])
+@pytest.mark.parametrize("k", [1, 45])
+def test_sym_normal_on_its_list(cuda, k, interpolation):
+    """K4 on its item list at the amyloid's geometry, k = 1 and k = 45:
+    ST(S(x)) and the list (made by its build kernels at the first call)
+    equal their plain versions bit for bit; after that first call a call
+    adds exactly one to launches["sym_normal"], allocates nothing but its
+    result (one allocation; memory_allocated back where it was once the
+    result is dropped) and repeats bit for bit."""
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
+    _, x, _, _, st = _gather_case(cuda, GATHER_GEOMS[2][1], k, interpolation, seed=7, sym=True)
+    first = gk.sym_normal(st, x)
+    assert torch.equal(first, gk.sym_normal_reference(st, x)) and bool(first.abs().max() > 0)
+    lst = gk.sym_list(st)
+    for got, want in zip((lst.iptr, lst.itap, lst.iw), gk.sym_items_reference(st)):
+        assert (got is None and want is None) or torch.equal(got, want)
+    torch.cuda.synchronize()
+    before = dict(gk.launches)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    mem = torch.cuda.memory_allocated()
+    again = gk.sym_normal(st, x)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 1
+    assert {n: gk.launches[n] - before[n] for n in before} == dict.fromkeys(before, 0) | {
+        "sym_normal": 1}
+    assert torch.equal(again, first)
+    del again
+    assert torch.cuda.memory_allocated() == mem
 
 
 def test_gather_project_half_way_ties_at_twist_30(cuda):

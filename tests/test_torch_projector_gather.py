@@ -438,3 +438,136 @@ def test_dense_rule_follows_the_reference():
     cfg = port_solver.SolveConfig(cg_iters=2, fista_iters=0, separable=True)
     with pytest.raises(ValueError):
         port_solver.solve_candidate(geom, cfg, region, *args[:7], device="cpu")
+
+
+def _sym_case(csym, interpolation, with_keep):
+    """The symmetry tables of two candidates (other twists and rises; the
+    second with every other pair slot padding), with the reference's
+    deduplication mask or without, and a volume each."""
+    pg = port_geo.ReconstructionGeometry(csym=csym, **GEOM)
+    tabs, _ = _tables(pg, csym)
+    phc, pv = np.stack([tabs[3], tabs[3]]), np.stack([tabs[4], tabs[4]])
+    pv[1, ::2] = False
+    keep = None
+    if with_keep:
+        keep = np.stack([ref_geo.compute_sym_dedup_mask(pg, TWIST, RISE, tabs[3], tabs[4])] * 2)
+    mask = torch.from_numpy(pg.cylindrical_mask().reshape(-1))
+    st = port_gk.sym_tables(pg, [TWIST, TWIST + 1], [RISE, RISE * 1.1], phc, pv, interpolation,
+                            mask, torch.from_numpy(pg.cell_valid_mask().reshape(-1)), keep)
+    rng = np.random.default_rng(17)
+    x = (torch.from_numpy(rng.random((2,) + pg.volume_shape).astype(np.float32)) - 0.3
+         ) * mask.reshape(pg.volume_shape)
+    return st, x
+
+
+SYM_CASES = [(csym, interp, keep) for csym in (1, 2) for interp in ("nn", "linear")
+             for keep in (False, True)]
+
+
+@pytest.mark.parametrize("csym,interpolation,with_keep", SYM_CASES)
+def test_sym_items_are_the_plain_taps(csym, interpolation, with_keep):
+    """K4's item list (sym_items on the CPU: its plain version, which
+    samples each item alone as the build kernels do) holds the rows that
+    _sym_taps finds valid, in order, with their samples' voxels (nn; the
+    taps index the padded volume) or cells and eight weights (linear)."""
+    st, _ = _sym_case(csym, interpolation, with_keep)
+    k, P = st.shape
+    d3, l3 = st.d3, st.l3
+    vol = l3 * d3 * d3
+    taps1, taps2, valid = st.taps()
+    iptr, itap, iw = port_gk.sym_items(st)
+    ids = torch.nonzero(valid.reshape(-1) > 0)[:, 0]
+    assert itap.shape == (len(ids), 2) and itap.dtype == iptr.dtype == torch.int32
+    np.testing.assert_array_equal(_np(iptr), np.concatenate(
+        [[0], np.cumsum(_np(valid.reshape(k, -1).sum(dim=1)))]))
+    assert int(iptr[2] - iptr[1]) < int(iptr[1]) and len(ids) > 0
+    size = st.sampler().size
+    q = ids // (P * vol)
+    for o, taps in enumerate((taps1, taps2)):
+        first = taps[0][0].reshape(-1)[ids] - q * size
+        if interpolation == "nn":
+            D = d3 + 2
+            z, y, x = first // (D * D) - 1, (first // D) % D - 1, first % D - 1
+            first = (z * d3 + y) * d3 + x
+            assert iw is None
+        else:
+            for a, (_, w) in enumerate(taps):
+                np.testing.assert_array_equal(_np(iw[:, o, a]), _np(w.reshape(-1)[ids]))
+        np.testing.assert_array_equal(_np(itap[:, o]).astype(np.int64), _np(first))
+
+
+@pytest.mark.parametrize("csym,interpolation,with_keep", SYM_CASES)
+def test_sym_normal_on_the_list_is_plain(csym, interpolation, with_keep):
+    """The plain K4 on the tables' item list (each row's difference, each
+    incidence's integer added into its voxel: the kernels' arithmetic)
+    equals sym_normal_reference bit for bit; each item's taps appear once
+    as incidences, sorted by output voxel, signed by op."""
+    st, x = _sym_case(csym, interpolation, with_keep)
+    want = port_gk.sym_normal_reference(st, x)
+    np.testing.assert_array_equal(_np(port_gk.sym_normal_list_reference(st, x)), _np(want))
+    assert bool(want.abs().max() > 0)
+    lst = port_gk.sym_list(st)
+    n, taps = lst.itap.shape[0], 8 if interpolation == "linear" else 1
+    assert lst.cinc.numel() == lst.cw.numel() == 2 * taps * n == int(lst.cptr[-1])
+    assert bool((lst.cptr[1:] >= lst.cptr[:-1]).all())
+    np.testing.assert_array_equal(np.bincount(_np(lst.cinc), minlength=n), 2 * taps)
+    # each item: its first op's taps weigh +1 in all, its second's -1
+    per_item = torch.zeros(n, dtype=torch.float64).index_add_(0, lst.cinc.long(), lst.cw.double())
+    np.testing.assert_allclose(_np(per_item), 0.0, atol=1e-6)
+    if interpolation == "nn":
+        assert bool((lst.cw.abs() == 1).all())
+    else:
+        np.testing.assert_allclose(_np(lst.iw.double().sum(dim=-1)), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("pose", [(3.0, 1.0, 0.5), (-7.5, 2.25, -1.0), (12.0, -4.0, 2.0)])
+def test_pose_jacobian_on_the_live_list(pose):
+    """At a Gauss-Newton pose, K3's plain version on the tables' list of
+    live rays (the rays the kernel walks: K1's row validity, as gn_step
+    lists them on the card) gives the (J^T J, J^T r, r^T r) of the plain
+    version over every ray of every copy within 1e-12 relative, at k = 2
+    with ragged lists."""
+    pg = port_geo.ReconstructionGeometry(csym=2, **GEOM)
+    tabs, _ = _tables(pg, 2)
+    ch, cc, cv = (np.stack([t, t]) for t in tabs[:3])
+    cv[1, 1::3] = False
+    tab = port_gk.gather_tables(pg, [TWIST, TWIST - 1], [RISE, RISE], ch, cc, cv,
+                                [pose[0], pose[0] / 2], [pose[1], 0.0], [pose[2], 0.0], "linear",
+                                torch.from_numpy(pg.cylindrical_mask().reshape(-1)),
+                                torch.from_numpy(pg.cell_valid_mask().reshape(-1)),
+                                derivatives=True)
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.random((2,) + pg.volume_shape).astype(np.float32))
+    b = torch.from_numpy(rng.random(tab.shape[2:]).astype(np.float32))
+    listed = port_gk.with_live_rays(tab, port_gk.gather_project(tab, None, row_valid=True)[1])
+    assert listed.n_max < tab.shape[1] * tab.shape[2] * tab.shape[3]
+    got = port_gk.pose_jacobian(listed, x, b)
+    every = functools.partial(port_gk._live_chunks, every=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_gk, "_live_chunks", every)
+        want = port_gk.pose_jacobian_reference(tab, x, b)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-12, atol=0)
+    assert float(want[2].min()) > 0
+
+
+@pytest.mark.parametrize("k,n,vol,n_inc", [(1, 52068, 8664, 57466), (1, 28733, 8664, 292512),
+                                           (45, 62694, 8664, 2586000), (1, 0, 8664, 0),
+                                           (3, 1500, 1152, 3000), (200, 5000, 100000, 10 ** 7)])
+def test_k3_and_k4_grids_follow_the_work(k, n, vol, n_inc):
+    """K3's grid (jacobian_grid): at most K3_BLOCKS_A_SM blocks an SM over
+    the launch, each with at least K3_MIN_RAYS entries unless one block
+    takes them all, the list covered. K4's first kernel one thread an
+    item or voxel at most, at most four blocks an SM; its sums' lanes a
+    power of two up to 32, no more than one wave of threads holds, none
+    past the mean incidences a voxel."""
+    sms = 132
+    per, rpb = port_gk.jacobian_grid(k, n, sms)
+    assert 1 <= per <= -(-port_gk.K3_BLOCKS_A_SM * sms // k)
+    assert per * rpb >= n and (per - 1) * rpb < max(n, 1)
+    assert per == 1 or rpb >= port_gk.K3_MIN_RAYS
+    nb = port_gk.sym_blocks(k, n, vol, sms)
+    assert 1 <= nb <= max(1, -(-4 * sms // k)) and (nb - 1) * 256 < max(n, vol)
+    lanes = port_gk.sym_lanes(k, vol, n_inc, sms)
+    assert lanes in (1, 2, 4, 8, 16, 32)
+    assert lanes == 1 or (k * vol * lanes <= sms * 2048 and (lanes // 2) * k * vol < n_inc)

@@ -853,11 +853,10 @@ def pose_jacobian(tab: GatherTables, x, b):
     if tuple(b.shape) != (l2, d2):
         raise ValueError(f"b must be {(l2, d2)}, got {tuple(b.shape)}")
     _check(tab, x=x, b=b, dR=tab.dR)
-    out = torch.empty((k, 10), dtype=torch.float64, device=tab.mask.device)
+    out = torch.empty((k, 13), dtype=torch.float64, device=tab.mask.device)
     _jacobian_cuda(tab, x, b, out)
     launches["pose_jacobian"] += 1
-    sym = out[:, [0, 1, 2, 1, 3, 4, 2, 4, 5]].reshape(k, 3, 3)
-    return sym, out[:, 6:9], out[:, 9]
+    return out[:, :9].reshape(k, 3, 3), out[:, 9:12], out[:, 12]
 
 
 def _jacobian_plan(tab: GatherTables):
@@ -1032,8 +1031,7 @@ class SymList:
     float32 linear's trilinear weights (None for nn). Their incidences by
     output voxel: those of voxel o = q * vol + v are cptr[o] .. cptr[o + 1]
     (int32), each an item (cinc, int32) and its tap's signed weight (cw,
-    float32: +w at the first op's sample, -w at the second's; nn's w 1).
-    n_max: the most items of a candidate."""
+    float32: +w at the first op's sample, -w at the second's; nn's w 1)."""
 
     iptr: torch.Tensor
     itap: torch.Tensor
@@ -1041,7 +1039,6 @@ class SymList:
     cptr: torch.Tensor
     cinc: torch.Tensor
     cw: torch.Tensor
-    n_max: int
 
 
 def sym_items_reference(st: SymTables):
@@ -1121,25 +1118,30 @@ def sym_items(st: SymTables):
     return iptr, itap, iw
 
 
+def _corners(d3: int, n: int, dev) -> torch.Tensor:
+    """The flat offsets of a cell's first n corners (1 or 8) in the plain
+    version's order (z, y, x as the bits of the corner's number)."""
+    a = torch.arange(n, device=dev)
+    return (a & 1) + ((a >> 1) & 1) * d3 + (a >> 2) * (d3 * d3)
+
+
 def _incidences(st: SymTables, iptr, itap, iw):
     """(cptr, cinc, cw) of SymList: each item's taps (nn one a sample,
     linear the cell's eight corners) as incidences of its output voxels,
-    sorted by voxel (a stable sort, so in item order within one)."""
+    sorted by voxel (a stable sort, so in item order within one), with no
+    device-to-host copy."""
     k = st.shape[0]
-    d3, vol = st.d3, st.l3 * st.d3 * st.d3
+    vol = st.l3 * st.d3 * st.d3
     dev = itap.device
     n = itap.shape[0]
     q = torch.repeat_interleave(torch.arange(k, device=dev), (iptr[1:] - iptr[:-1]).long(),
                                 output_size=n)
-    dzs = d3 * d3
-    offs = torch.tensor([0, 1, d3, d3 + 1, dzs, dzs + 1, dzs + d3, dzs + d3 + 1] if st.linear
-                        else [0], device=dev)
+    offs = _corners(st.d3, 8 if st.linear else 1, dev)
     dst = (itap.long()[:, :, None] + offs + (q * vol)[:, None, None]).reshape(-1)
-    sign = torch.tensor([1.0, -1.0], device=dev)[None, :, None]
+    sign = (1 - 2 * torch.arange(2, device=dev, dtype=torch.float32))[None, :, None]
     w = iw * sign if st.linear else sign.expand(n, 2, 1)
-    order = torch.argsort(dst, stable=True)
-    cptr = torch.zeros(k * vol + 1, dtype=torch.int32, device=dev)
-    cptr[1:] = torch.cumsum(torch.bincount(dst, minlength=k * vol), 0)
+    dst, order = torch.sort(dst, stable=True)
+    cptr = torch.searchsorted(dst, torch.arange(k * vol + 1, device=dev)).to(torch.int32)
     cinc = torch.div(order, 2 * len(offs), rounding_mode="floor").to(torch.int32)
     return cptr, cinc, w.reshape(-1)[order].contiguous()
 
@@ -1149,9 +1151,7 @@ def sym_list(st: SymTables) -> SymList:
     its incidences) and kept."""
     if st._list is None:
         iptr, itap, iw = sym_items(st)
-        counts = (iptr[1:] - iptr[:-1]).cpu()
-        st._list = SymList(iptr, itap, iw, *_incidences(st, iptr, itap, iw),
-                           n_max=int(counts.max()) if len(counts) else 0)
+        st._list = SymList(iptr, itap, iw, *_incidences(st, iptr, itap, iw))
     return st._list
 
 
@@ -1170,9 +1170,7 @@ def sym_normal_list_reference(st: SymTables, x) -> torch.Tensor:
                                 output_size=n)
     at = lst.itap.long() + (q * vol)[:, None]
     if st.linear:
-        d3, dzs = st.d3, st.d3 * st.d3
-        vals = xf[at[..., None] + torch.tensor([0, 1, d3, d3 + 1, dzs, dzs + 1, dzs + d3,
-                                                dzs + d3 + 1], device=dev)]
+        vals = xf[at[..., None] + _corners(st.d3, 8, dev)]
         a = lst.iw[..., 0] * vals[..., 0]
         for c in range(1, 8):
             a = a + lst.iw[..., c] * vals[..., c]
@@ -1212,11 +1210,11 @@ def sym_normal(st: SymTables, x) -> torch.Tensor:
 SYM_STEPS = {"differences and max pass": 1, "sums": 2}
 
 
-def sym_blocks(k: int, n_max: int, vol: int, sms: int) -> int:
-    """Blocks a candidate of K4's first kernel: one item (or voxel of the
-    max pass) a thread of _NT, but at most about four blocks an SM over
-    the launch."""
-    return max(1, min(-(-4 * sms // k), -(-max(n_max, vol) // _NT)))
+def sym_blocks(k: int, n_items: int, vol: int, sms: int) -> int:
+    """Blocks a candidate of K4's first kernel: one of a candidate's mean
+    share of the n_items items (or a voxel of the max pass) a thread of
+    _NT, but at most about four blocks an SM over the launch."""
+    return max(1, min(-(-4 * sms // k), -(-max(-(-n_items // k), vol) // _NT)))
 
 
 def sym_lanes(k: int, vol: int, n_inc: int, sms: int) -> int:
@@ -1244,7 +1242,7 @@ def _sym_plan(st: SymTables):
         dev = st.mask.device
         vol = st.l3 * st.d3 * st.d3
         sms = _sm_count(dev)
-        nb = sym_blocks(k, lst.n_max, vol, sms)
+        nb = sym_blocks(k, lst.itap.shape[0], vol, sms)
         scratch = (torch.empty(max(1, lst.itap.shape[0]), dtype=torch.float32, device=dev),
                    torch.empty((k, nb), dtype=torch.int32, device=dev))
         pre = tuple(map(_ptr, (lst.iptr, lst.itap, lst.iw, lst.cptr, lst.cinc, lst.cw, *scratch)))
@@ -1254,6 +1252,8 @@ def _sym_plan(st: SymTables):
     return st._plan
 
 
-def _sym_cuda(st: SymTables, x, out, steps: int = 3) -> None:
+def _sym_cuda(st: SymTables, x, out, steps: int = 3, variant: int = 0, part=None,
+              nbp: int = 0) -> None:
     fn, pre, ints, _ = _sym_plan(st)
-    _run(st.mask.device, fn, x.data_ptr(), *pre, out.data_ptr(), *ints, steps)
+    _run(st.mask.device, fn, x.data_ptr(), *pre, out.data_ptr(), _ptr(part), *ints, variant, nbp,
+         steps)

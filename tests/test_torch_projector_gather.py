@@ -567,7 +567,7 @@ def test_k3_and_k4_grids_follow_the_work(k, n, vol, n_inc):
     assert per * rpb >= n and (per - 1) * rpb < max(n, 1)
     assert per == 1 or rpb >= port_gk.K3_MIN_RAYS
     nb = port_gk.sym_blocks(k, n, vol, sms)
-    assert 1 <= nb <= max(1, -(-4 * sms // k)) and (nb - 1) * 256 < max(n, vol)
+    assert 1 <= nb <= max(1, -(-4 * sms // k)) and (nb - 1) * 256 < max(-(-n // k), vol)
     lanes = port_gk.sym_lanes(k, vol, n_inc, sms)
     assert lanes in (1, 2, 4, 8, 16, 32)
     assert lanes == 1 or (k * vol * lanes <= sms * 2048 and (lanes // 2) * k * vol < n_inc)

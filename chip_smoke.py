@@ -2090,26 +2090,6 @@ def _gather_breakdown(listed, x, r, rows, st, b=None) -> dict:
     for n, s in gk.SYM_STEPS.items():
         parts[f"K4 {n}"] = lambda s=s: gk._sym_cuda(st, x, out, s)
     parts["K4 whole call"] = lambda: gk._sym_cuda(st, x, out)
-    # K4's two other designs, measured against the one kept (each equal to
-    # plain bit for bit): every row computed again from x by the sums (no
-    # rows buffer, the first kernel the max pass alone); and private sums
-    # of blocks in shared memory with a reduce pass, as K2's
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    vol = listed.l3 * listed.d3 * listed.d3
-    nbp = max(1, min(-(-sms // k), -(-gk.sym_list(st).itap.shape[0] // (k * 1024))))
-    part = torch.empty((k, nbp, vol), dtype=torch.int64, device=x.device)
-    want = gk.sym_normal_reference(st, x)
-    for v, name, steps in ((1, "rows from x", {"max pass": 1, "sums": 2}),
-                           (2, "private sums and a reduce", {"differences and max pass": 1,
-                                                             "private sums": 2, "reduce": 4})):
-        vout = torch.empty_like(out)
-        gk._sym_cuda(st, x, vout, 7, v, part, nbp)
-        if not torch.equal(vout, want):
-            raise AssertionError(f"K4's design '{name}' differs from plain")
-        for n, st_ in steps.items():
-            parts[f"K4 ({name}) {n}"] = lambda v=v, st_=st_: gk._sym_cuda(st, x, out, st_, v,
-                                                                           part, nbp)
-        parts[f"K4 ({name}) whole call"] = lambda v=v: gk._sym_cuda(st, x, out, 7, v, part, nbp)
     if b is not None:
         jout = torch.empty((k, 13), dtype=torch.float64, device=x.device)
         parts["K3 kernel"] = lambda: gk._jacobian_cuda(listed, x, b, jout)
@@ -2117,7 +2097,7 @@ def _gather_breakdown(listed, x, r, rows, st, b=None) -> dict:
     empty = _build.load_kernels().hgp_empty
     res["floor: an empty launch, device"] = _device_ms(lambda: gk._run(x.device, empty), 20)
     res["floor: an empty launch, host"] = _host_ms(lambda: gk._run(x.device, empty), 20)
-    res["K4 (private sums and a reduce) blocks_a_candidate"] = nbp
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if b is not None:
         res["K3 blocks_a_candidate"], res["K3 rays_a_block"] = gk.jacobian_grid(
             k, listed.n_max, sms)

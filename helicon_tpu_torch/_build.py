@@ -66,7 +66,7 @@ _SIGNATURES = {
     "hgp_sample_table": [_P] * 12 + [_I] * 9 + [_P],
     "hgp_pose_jacobian": [_P] * 17 + [_I] * 9 + [_P],
     "hgp_sym_items": [_P] * 11 + [_I] * 6 + [_P],
-    "hgp_sym_normal": [_P] * 11 + [_I] * 10 + [_P],
+    "hgp_sym_normal": [_P] * 10 + [_I] * 8 + [_P],
     "hgp_empty": [_P],
 }
 

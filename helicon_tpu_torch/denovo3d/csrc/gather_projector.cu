@@ -956,8 +956,8 @@ __global__ void __launch_bounds__(NT) sym_diff_kernel(const float* __restrict__ 
   for (int v = t0; v < vol; v += stride) m = max(m, __float_as_uint(fabsf(__ldg(xq + v))));
   int off[8];
   corner_offsets(d3, off);
-  const int end = iptr ? iptr[q + 1] : 0;
-  for (int e = iptr ? iptr[q] + t0 : 0; e < end; e += stride) {
+  const int end = iptr[q + 1];
+  for (int e = iptr[q] + t0; e < end; e += stride) {
     const int2 t = __ldg(reinterpret_cast<const int2*>(itap) + e);
     const float a1 = sym_value<LINEAR>(xq, t.x, iw + 16 * (size_t)e, off);
     const float a2 = sym_value<LINEAR>(xq, t.y, iw + 16 * (size_t)e + 8, off);
@@ -973,98 +973,26 @@ __global__ void __launch_bounds__(NT) sym_diff_kernel(const float* __restrict__ 
 // n_terms terms of at most the max of bmax (k, nb) each. `lanes` lanes (a
 // power of two, up to 32) share a voxel, each taking every lanes-th
 // incidence, and meet by shuffles. Every voxel is written: no zeroing.
-// (FROM_X: each incidence's row computed again from x and its item's taps,
-// itap / iw, instead of read from s.)
-template <bool FROM_X, bool LINEAR>
 __global__ void __launch_bounds__(NT) sym_sums_kernel(const int* __restrict__ cptr,
                                                       const int* __restrict__ cinc,
                                                       const float* __restrict__ cw,
                                                       const float* __restrict__ s,
                                                       const unsigned* __restrict__ bmax, int nb,
                                                       double n_terms, float* __restrict__ out,
-                                                      int vol, int lanes,
-                                                      const float* __restrict__ x,
-                                                      const int* __restrict__ itap,
-                                                      const float* __restrict__ iw, int d3) {
+                                                      int vol, int lanes) {
   const int q = blockIdx.y;
   const double sc = block_scale(bmax + q * nb, nb, n_terms);
   const int t = blockIdx.x * NT + threadIdx.x;
   const int v = t / lanes, sub = t & (lanes - 1);
   const size_t o = (size_t)q * vol + v;
-  int off[8];
-  corner_offsets(d3, off);
-  const float* xq = FROM_X ? x + (size_t)q * vol : nullptr;
   unsigned long long acc = 0;
   if (v < vol) {
     const int end = cptr[o + 1];
-    for (int i = cptr[o] + sub; i < end; i += lanes) {
-      const int e = __ldg(cinc + i);
-      float se;
-      if (FROM_X) {
-        const int2 tt = __ldg(reinterpret_cast<const int2*>(itap) + e);
-        se = __fsub_rn(sym_value<LINEAR>(xq, tt.x, iw + 16 * (size_t)e, off),
-                       sym_value<LINEAR>(xq, tt.y, iw + 16 * (size_t)e + 8, off));
-      } else {
-        se = __ldg(s + e);
-      }
-      acc += fixed(__fmul_rn(__ldg(cw + i), se), sc);
-    }
+    for (int i = cptr[o] + sub; i < end; i += lanes)
+      acc += fixed(__fmul_rn(__ldg(cw + i), __ldg(s + __ldg(cinc + i))), sc);
   }
   for (int w = lanes / 2; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
   if (v < vol && sub == 0) out[o] = __double2float_rn(__ll2double_rn((long long)acc) / sc);
-}
-
-// (Measured against the above, as K2's design: each block adds the terms of
-// its share of the items into a private volume in shared memory, written
-// once to part (k, gridDim.x, vol); sym_reduce_kernel adds them up.)
-template <bool LINEAR>
-__global__ void __launch_bounds__(GT) sym_private_kernel(const int* __restrict__ iptr,
-                                                         const int* __restrict__ itap,
-                                                         const float* __restrict__ iw,
-                                                         const float* __restrict__ s,
-                                                         const unsigned* __restrict__ bmax, int nb,
-                                                         double n_terms, int d3, int vol,
-                                                         unsigned long long* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char shm[];
-  unsigned long long* acc = reinterpret_cast<unsigned long long*>(shm);
-  const int q = blockIdx.y;
-  const double sc = block_scale(bmax + q * nb, nb, n_terms);
-  for (int v = threadIdx.x; v < vol; v += GT) acc[v] = 0ull;
-  __syncthreads();
-  int off[8];
-  corner_offsets(d3, off);
-  const int end = iptr[q + 1];
-  for (int e = iptr[q] + blockIdx.x * GT + threadIdx.x; e < end; e += gridDim.x * GT) {
-    const float sv = s[e];
-    if (sv == 0.f) continue;
-    const int2 t = __ldg(reinterpret_cast<const int2*>(itap) + e);
-    if (LINEAR) {
-#pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        atomicAdd(acc + t.x + off[a], fixed(__fmul_rn(iw[16 * (size_t)e + a], sv), sc));
-        atomicAdd(acc + t.y + off[a], fixed(__fmul_rn(-iw[16 * (size_t)e + 8 + a], sv), sc));
-      }
-    } else {
-      atomicAdd(acc + t.x, fixed(sv, sc));
-      atomicAdd(acc + t.y, fixed(-sv, sc));
-    }
-  }
-  __syncthreads();
-  unsigned long long* mine = part + ((size_t)q * gridDim.x + blockIdx.x) * vol;
-  for (int v = threadIdx.x; v < vol; v += GT) mine[v] = acc[v];
-}
-
-__global__ void __launch_bounds__(NT) sym_reduce_kernel(const unsigned long long* __restrict__ part,
-                                                        int per, const unsigned* __restrict__ bmax,
-                                                        int nb, double n_terms,
-                                                        float* __restrict__ out, int vol) {
-  const int q = blockIdx.y;
-  const double sc = block_scale(bmax + q * nb, nb, n_terms);
-  const int v = blockIdx.x * NT + threadIdx.x;
-  if (v >= vol) return;
-  unsigned long long t = 0;
-  for (int b = 0; b < per; ++b) t += __ldcs(part + ((size_t)q * per + b) * vol + v);
-  out[(size_t)q * vol + v] = __double2float_rn(__ll2double_rn((long long)t) / sc);
 }
 
 __global__ void empty_kernel() {}
@@ -1298,52 +1226,23 @@ int hgp_sym_items(const uint8_t* ok_g, const float* cs, const float* sn, const f
 // vol + 1), cinc, cw). Scratch: s (n_items) float32, bmax (k, nb) uint32.
 // nb the first kernel's blocks a candidate, lanes the second's lanes a
 // voxel. steps: 1 the differences and the max pass (sym_diff_kernel), 2 the
-// sums. variant (measurement only): 1 the max pass alone, the sums
-// computing each row from x; 2 the private sums of nbp blocks a candidate
-// into part (k, nbp, vol) int64, then (4) their reduce.
+// sums.
 int hgp_sym_normal(const float* x, const int* iptr, const int* itap, const float* iw,
                    const int* cptr, const int* cinc, const float* cw, float* s, unsigned* bmax,
-                   float* out, unsigned long long* part, int k, int P, int d3, int l3, int linear,
-                   int nb, int lanes, int variant, int nbp, int steps, cudaStream_t stream) {
+                   float* out, int k, int P, int d3, int l3, int linear, int nb, int lanes,
+                   int steps, cudaStream_t stream) {
   const int vol = l3 * d3 * d3;
-  const dim3 grid((unsigned)nb, (unsigned)k);
-  const int* dl = variant == 1 ? nullptr : iptr;
   if (steps & 1) {
+    const dim3 grid((unsigned)nb, (unsigned)k);
     if (linear)
-      sym_diff_kernel<true><<<grid, NT, 0, stream>>>(x, dl, itap, iw, d3, vol, s, bmax);
+      sym_diff_kernel<true><<<grid, NT, 0, stream>>>(x, iptr, itap, iw, d3, vol, s, bmax);
     else
-      sym_diff_kernel<false><<<grid, NT, 0, stream>>>(x, dl, itap, iw, d3, vol, s, bmax);
+      sym_diff_kernel<false><<<grid, NT, 0, stream>>>(x, iptr, itap, iw, d3, vol, s, bmax);
   }
   // a pair's row is at most 2 max |x|, added back at two samples
-  const double n_terms = 4.0 * P * vol;
-  const dim3 sgrid((unsigned)(((long)vol * lanes + NT - 1) / NT), (unsigned)k);
-  if ((steps & 2) && variant == 0)
-    sym_sums_kernel<false, false><<<sgrid, NT, 0, stream>>>(cptr, cinc, cw, s, bmax, nb, n_terms,
-                                                            out, vol, lanes, x, itap, iw, d3);
-  if ((steps & 2) && variant == 1) {
-    if (linear)
-      sym_sums_kernel<true, true><<<sgrid, NT, 0, stream>>>(cptr, cinc, cw, s, bmax, nb, n_terms,
-                                                            out, vol, lanes, x, itap, iw, d3);
-    else
-      sym_sums_kernel<true, false><<<sgrid, NT, 0, stream>>>(cptr, cinc, cw, s, bmax, nb,
-                                                             n_terms, out, vol, lanes, x, itap,
-                                                             iw, d3);
-  }
-  if ((steps & 2) && variant == 2) {
-    bool staged;
-    const void* fn = linear ? (const void*)sym_private_kernel<true>
-                            : (const void*)sym_private_kernel<false>;
-    const size_t sm = gather_smem(fn, 0, (size_t)vol * 8, 220 * 1024, staged);
-    if (linear)
-      sym_private_kernel<true><<<dim3((unsigned)nbp, (unsigned)k), GT, sm, stream>>>(
-          iptr, itap, iw, s, bmax, nb, n_terms, d3, vol, part);
-    else
-      sym_private_kernel<false><<<dim3((unsigned)nbp, (unsigned)k), GT, sm, stream>>>(
-          iptr, itap, iw, s, bmax, nb, n_terms, d3, vol, part);
-  }
-  if ((steps & 4) && variant == 2)
-    sym_reduce_kernel<<<dim3((unsigned)((vol + NT - 1) / NT), (unsigned)k), NT, 0, stream>>>(
-        part, nbp, bmax, nb, n_terms, out, vol);
+  if (steps & 2)
+    sym_sums_kernel<<<dim3((unsigned)(((long)vol * lanes + NT - 1) / NT), (unsigned)k), NT, 0,
+                      stream>>>(cptr, cinc, cw, s, bmax, nb, 4.0 * P * vol, out, vol, lanes);
   return (int)cudaGetLastError();
 }
 

@@ -1252,8 +1252,6 @@ def _sym_plan(st: SymTables):
     return st._plan
 
 
-def _sym_cuda(st: SymTables, x, out, steps: int = 3, variant: int = 0, part=None,
-              nbp: int = 0) -> None:
+def _sym_cuda(st: SymTables, x, out, steps: int = 3) -> None:
     fn, pre, ints, _ = _sym_plan(st)
-    _run(st.mask.device, fn, x.data_ptr(), *pre, out.data_ptr(), _ptr(part), *ints, variant, nbp,
-         steps)
+    _run(st.mask.device, fn, x.data_ptr(), *pre, out.data_ptr(), *ints, steps)

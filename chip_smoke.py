@@ -2130,7 +2130,9 @@ def phase_gather_kernels(device, tilted, card) -> dict:
     """Phase 10 (a): K1-K4 against their plain versions on the same card
     tensors at phase 9 (b)'s best golden candidate at tilt 3 deg, nn and
     linear (K3 linear only), each timed beside its plain version, its
-    bound and its yardstick (_hold_gather)."""
+    bound and its yardstick (_hold_gather); then one whole Gauss-Newton
+    step at the candidate's tilt-3 pose, timed."""
+    import numpy as np
     import torch
 
     geom, tw, rp, copies, pairs = tilted["golden"]
@@ -2146,6 +2148,24 @@ def phase_gather_kernels(device, tilted, card) -> dict:
         rows.update(_hold_gather(
             f"phase 10 (a) [{interp}, tilt 3 deg, C={int(copies[2].sum())} populated copies, "
             f"{len(pairs[1])} pair slots]", tab, st, x, r, b, card, timed=True))
+    # K3 as refinement calls it: a whole Gauss-Newton step at the pose
+    # (the linear tables with derivatives, K1's row validity and the list of
+    # live rays, K3, the damped 3 x 3 solve and its copy to the host)
+    from helicon_tpu_torch.denovo3d import refine
+
+    step = (geom, np.random.default_rng(12).random((geom.d2, geom.l2)).astype(np.float32),
+            np.float32([tw]), np.float32([rp]), tuple(np.asarray(c)[None] for c in copies), x,
+            np.float32([[3.0, 0.0, 0.0]]))
+    refine.gn_step(*step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        refine.gn_step(*step)
+    ms = (time.perf_counter() - t0) * 1e3 / 20
+    rows[("jacobian", "linear")]["gn_step_ms"] = ms
+    print(f"phase 10 (a) [one Gauss-Newton step at tilt 3 deg, the list at its pose included]: "
+          f"{ms:.4f} ms a step (host clock; the step copies its result to the host); {card}",
+          flush=True)
     return rows
 
 

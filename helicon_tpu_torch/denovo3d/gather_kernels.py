@@ -66,11 +66,10 @@ __all__ = ["GatherTables", "gather_tables", "with_live_rays", "rotations", "gath
 launches = {"gather_project": 0, "gather_backproject": 0, "gather_normal": 0,
             "sample_table": 0, "pose_jacobian": 0, "sym_items": 0, "sym_normal": 0}
 
-# shared memory a block may stage the volume in (its float32 values and a
-# validity byte a voxel; K2 its 64-bit sums); past it the kernels read and
-# add into device memory. K1 (and gather_normal's projection) reads the
-# volume through the cache at any size: on the H100 that measured faster
-# than staging it (PERF.md, PR 13)
+# shared memory a block of K2 (and gather_normal's sums) may keep its
+# private 64-bit sums and the validity bytes in; past it they add into
+# device memory. K1, K3 and K4 read the volume through the cache at any
+# size: on the H100 that measured faster than staging it (PERF.md, PR 13)
 SMEM_LIMIT = 200 * 1024
 
 # K1 / K2's grid (gather_projector.cu): GT threads a block, one block an SM
@@ -1125,6 +1124,14 @@ def _corners(d3: int, n: int, dev) -> torch.Tensor:
     return (a & 1) + ((a >> 1) & 1) * d3 + (a >> 2) * (d3 * d3)
 
 
+def _item_candidates(iptr, n: int) -> torch.Tensor:
+    """Each of the n listed items' candidate (int64), from the list's
+    pointers iptr (k + 1), with no device-to-host copy."""
+    k = iptr.numel() - 1
+    return torch.repeat_interleave(torch.arange(k, device=iptr.device),
+                                   (iptr[1:] - iptr[:-1]).long(), output_size=n)
+
+
 def _incidences(st: SymTables, iptr, itap, iw):
     """(cptr, cinc, cw) of SymList: each item's taps (nn one a sample,
     linear the cell's eight corners) as incidences of its output voxels,
@@ -1134,8 +1141,7 @@ def _incidences(st: SymTables, iptr, itap, iw):
     vol = st.l3 * st.d3 * st.d3
     dev = itap.device
     n = itap.shape[0]
-    q = torch.repeat_interleave(torch.arange(k, device=dev), (iptr[1:] - iptr[:-1]).long(),
-                                output_size=n)
+    q = _item_candidates(iptr, n)
     offs = _corners(st.d3, 8 if st.linear else 1, dev)
     dst = (itap.long()[:, :, None] + offs + (q * vol)[:, None, None]).reshape(-1)
     sign = (1 - 2 * torch.arange(2, device=dev, dtype=torch.float32))[None, :, None]
@@ -1165,10 +1171,7 @@ def sym_normal_list_reference(st: SymTables, x) -> torch.Tensor:
     vol = st.l3 * st.d3 * st.d3
     dev = x.device
     xf = x.reshape(-1)
-    n = lst.itap.shape[0]
-    q = torch.repeat_interleave(torch.arange(k, device=dev), (lst.iptr[1:] - lst.iptr[:-1]).long(),
-                                output_size=n)
-    at = lst.itap.long() + (q * vol)[:, None]
+    at = lst.itap.long() + (_item_candidates(lst.iptr, lst.itap.shape[0]) * vol)[:, None]
     if st.linear:
         vals = xf[at[..., None] + _corners(st.d3, 8, dev)]
         a = lst.iw[..., 0] * vals[..., 0]

@@ -591,9 +591,10 @@ def test_gather_kernels_match_plain(cuda, case, interpolation):
 
 @pytest.mark.parametrize("interpolation", ["nn", "linear"])
 def test_gather_kernels_without_shared_memory(cuda, interpolation, monkeypatch):
-    """The kernels' device-memory branch (the one a volume past their
-    shared memory takes) on the small geometry: the same results, and
-    gather_normal's too."""
+    """K2's device-memory branch (the one a volume past its shared memory
+    takes) on the small geometry: the same results, gather_normal's too;
+    K1, K3 and K4, which keep nothing of the volume in shared memory, the
+    same under either limit."""
     from helicon_tpu_torch.denovo3d import gather_kernels as gk
 
     tab, x, r, b, st = _gather_case(cuda, GATHER_GEOMS[0][1], 3, interpolation, seed=2,

@@ -58,9 +58,10 @@ from . import projector_separable as _ps
 __all__ = ["GatherTables", "gather_tables", "with_live_rays", "rotations", "gather_project",
            "gather_project_reference", "gather_backproject", "gather_backproject_reference",
            "gather_normal", "gather_normal_reference", "sample_table",
-           "sample_table_reference", "launch_grid", "pose_jacobian",
-           "pose_jacobian_reference", "SymTables", "sym_tables", "sym_normal",
-           "sym_normal_reference", "fixed_scales", "launches"]
+           "sample_table_reference", "launch_grid", "jacobian_grid", "pose_jacobian",
+           "pose_jacobian_reference", "SymTables", "sym_tables", "SymList", "sym_list",
+           "sym_items", "sym_items_reference", "sym_blocks", "sym_lanes", "sym_normal",
+           "sym_normal_reference", "sym_normal_list_reference", "fixed_scales", "launches"]
 
 # kernel launches made on CUDA tensors, by entry (one a call)
 launches = {"gather_project": 0, "gather_backproject": 0, "gather_normal": 0,

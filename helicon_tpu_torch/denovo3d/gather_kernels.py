@@ -70,7 +70,7 @@ launches = {"gather_project": 0, "gather_backproject": 0, "gather_normal": 0,
 # shared memory a block of K2 (and gather_normal's sums) may keep its
 # private 64-bit sums and the validity bytes in; past it they add into
 # device memory. K1, K3 and K4 read the volume through the cache at any
-# size: on the H100 that measured faster than staging it (PERF.md, PR 13)
+# size: on the H100 that measured faster than staging it (PERF.md §6)
 SMEM_LIMIT = 200 * 1024
 
 # K1 / K2's grid (gather_projector.cu): GT threads a block, one block an SM

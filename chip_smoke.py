@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs thirteen phases and fails (non-zero exit) if any fails:
+checkout, then runs fourteen phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
@@ -176,7 +176,25 @@ checkout, then runs thirteen phases and fails (non-zero exit) if any fails:
    the card (wall start to exit) and in this process with each option
    timed, and at 96^3 with --device cuda against cpu (1e-5 relative);
    (a) also prints the largest bin of Otsu's histogram against 2^24
-   (ROADMAP C13). This phase launches no hand-written kernel.
+   (ROADMAP C13). This phase launches no hand-written kernel;
+14. curvelet denoising on phase 13's fibril map with seeded Gaussian
+   noise: (a) proc3d --denoiseCurvelet sigma=3 as a subprocess on the card
+   (wall start to exit; a finite map of the input's shape that differs
+   from it); (b) the same command in this process with the window build,
+   the forward pass (ifftn of F U_k), the medians, the thresholds and the
+   inverse pass timed, the card synchronised around each, its peak device
+   memory (under 16 GiB: the (37, n^3) complex stacks are never held
+   whole) and its 37 bands; (c) the tight frame at 320^3: sum_k U_k^2 = 1
+   within 1e-6, and the transform and inverse with nothing thresholded
+   give back the map within 1e-5; (d) the map's 96^3 centre through
+   proc3d with --device cuda against cpu, nDirs 6 and 0: every keep
+   decision that differs lies within 1e-5 relative of its band's
+   threshold (their count printed), the maps within 1e-4 of the CPU
+   map's peak once the differing coefficients' own synthesis is taken
+   out (a coefficient that close to its threshold moves a map by up to
+   ~9 % of its peak); (e) denoise_curvelet_2d (udct, mct) and
+   curvelet_denoise_batch_mct on 64 images of 256^2 (slices of the noisy
+   map), card against CPU the same way. No hand-written kernel either.
 
 The last two lines of standard output are the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them lists each
@@ -3487,7 +3505,7 @@ def phase_proc3d(device, card) -> dict:
     work.mkdir(parents=True, exist_ok=True)
     vol = _fibril(n, device)
     write_mrc(work / "map.mrc", vol.cpu().numpy(), apix=apix)
-    m = 96
+    m = min(96, n)
     cut = slice(n // 2 - m // 2, n // 2 + m // 2)
     write_mrc(work / "map96.mrc", vol[cut, cut, cut].cpu().numpy(), apix=apix)
     del vol
@@ -3531,6 +3549,290 @@ def phase_proc3d(device, card) -> dict:
     if not err96 <= 1e-5:
         raise AssertionError("phase 13 (c): proc3d on the card differs from the CPU")
     return dict(wall_sub=wall_sub, times=times, err96=err96)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: curvelet denoising (proc3d --denoiseCurvelet, core/curvelet.py)
+# ---------------------------------------------------------------------------
+
+PH14 = ROOT / "build" / "phase14"
+CURVELET_NOISE = dict(seed=14, std=0.3)  # numpy Gaussian noise on the fibril map
+KEEP_REL = 1e-5  # a keep decision may differ only this close to its threshold
+PEAK_LIMIT_GIB = 16.0
+
+
+def _noisy_fibril(n: int, device):
+    """Phase 13's fibril map (n^3, on device) and the map plus numpy noise
+    (CURVELET_NOISE), both float32 numpy."""
+    import numpy as np
+
+    clean = _fibril(n, device).cpu().numpy()
+    g = np.random.default_rng(CURVELET_NOISE["seed"])
+    noise = g.standard_normal(clean.shape, dtype=np.float32) * np.float32(CURVELET_NOISE["std"])
+    return clean, clean + noise
+
+
+@contextlib.contextmanager
+def _curvelet_parts(parts: dict):
+    """core/curvelet.py's steps timed for the duration, the card
+    synchronised around each call, seconds summed into parts[step] and the
+    calls counted in parts[step + "_calls"]: window build, forward
+    (ifftn of F U_k), medians (the MAD's two sorts), threshold (the keep
+    mask), inverse (fftn and the sum over the bands), synthesis (the last
+    ifftn)."""
+    import torch
+
+    from helicon_tpu_torch.core import curvelet
+
+    names = dict(windows="_directional_bands_3d", forward="_coeffs", medians="_mad_sigma",
+                 threshold="_keep", inverse="_accumulate", synthesis="_synthesis")
+    saved = {k: getattr(curvelet, f) for k, f in names.items()}
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[key] = parts.get(key, 0.0) + time.perf_counter() - t0
+            parts[key + "_calls"] = parts.get(key + "_calls", 0) + 1
+            return out
+        return wrapper
+
+    for k, f in names.items():
+        setattr(curvelet, f, timed(k, saved[k]))
+    try:
+        yield parts
+    finally:
+        for k, f in names.items():
+            setattr(curvelet, f, saved[k])
+
+
+class _MaskHold:
+    """The kept-mask rule between two runs of one denoiser: the first run
+    (the card) records each band's magnitudes and thresholds on the host;
+    the second (the CPU, the reference) holds each band against them as it
+    comes. A decision may differ only within KEEP_REL relative of the
+    CPU's threshold, and the thresholds agree within KEEP_REL. A
+    coefficient so close to its threshold moves the output by its own
+    synthesis, up to ~9 % of a 256^2 image's peak at sigma 3 (a 2e-6
+    change of sigma moves the CPU's own output that far), so the hold also
+    sums those contributions, delta = sum_k real(ifftn(fftn(D_k) U_k)) of
+    the CPU's differing coefficients D_k (+ where only the card kept one,
+    - where only the CPU did): the card's output minus delta is held to
+    the CPU's."""
+
+    def __init__(self, U, dims):
+        self.U, self.dims = U, dims
+        self.first, self.flips, self.bands, self.thr_err, self.delta = {}, 0, 0, 0.0, 0.0
+
+    def record(self, k, c, mag, thr):
+        self.first[(k, len(self.first))] = (mag.cpu().numpy(), thr.cpu().numpy())
+
+    def hold(self, k, c, mag, thr):
+        import numpy as np
+        import torch
+
+        key = next(key for key in self.first if key[0] == k)
+        mag_a, thr_a = self.first.pop(key)
+        mag, thr = mag.numpy(), np.asarray(thr.numpy())
+        t = thr.reshape(thr.shape + (1,) * (mag.ndim - thr.ndim))
+        ta = thr_a.reshape(t.shape)
+        self.thr_err = max(self.thr_err, float(np.max(np.abs(ta - t) / np.abs(t))))
+        kept_a, kept = mag_a >= ta, mag >= t
+        differ = kept_a != kept
+        near = np.abs(mag - t) <= KEEP_REL * np.abs(t)
+        if not np.all(near[differ]):
+            raise AssertionError(f"band {k}: a keep decision differs away from the threshold")
+        self.bands += 1
+        if differ.any():
+            self.flips += int(differ.sum())
+            sign = torch.as_tensor(kept_a.astype(np.float32) - kept.astype(np.float32))
+            D = torch.fft.fftn(c * sign, dim=self.dims) * self.U[k]
+            self.delta = self.delta + torch.fft.ifftn(D, dim=self.dims).real.numpy()
+
+
+def phase_curvelet(device, card) -> dict:
+    """Phase 14 (a)-(e): see the module docstring."""
+    import argparse
+    import functools
+    import os
+
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.commands import proc3d
+    from helicon_tpu_torch.core import curvelet
+    from helicon_tpu_torch.io.mrc import read_mrc, write_mrc
+
+    n, apix = FIBRIL["n"], FIBRIL["apix"]
+    card_dev = device.type  # "cuda"; the CPU is the reference
+    work = PH14
+    work.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()
+    clean, noisy = _noisy_fibril(n, device)
+    write_mrc(work / "noisy.mrc", noisy, apix=apix)
+    argv = ["noisy.mrc", "out.mrc", "--denoiseCurvelet", "sigma=3", "--device", card_dev,
+            "--verbose", "0", "--force", "1"]
+
+    # (a) the command as a user runs it
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-m", "helicon_tpu_torch.commands.proc3d", *argv],
+                         cwd=work, capture_output=True, text=True, timeout=900,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    wall_sub = time.perf_counter() - t0
+    if sub.returncode != 0:
+        print(sub.stdout[-6000:], sub.stderr[-6000:], sep="\n", flush=True)
+        raise AssertionError(f"phase 14 (a): proc3d exited {sub.returncode}")
+    out_sub, apix_sub = read_mrc(work / "out.mrc")
+
+    def mse(a):
+        return float(np.mean((np.asarray(a, np.float64) - clean) ** 2))
+
+    print(f"phase 14 (a) [proc3d --denoiseCurvelet sigma=3 on the {n}^3 fibril map + numpy "
+          f"noise of std {CURVELET_NOISE['std']}, subprocess --device {card_dev}]: wall start to exit "
+          f"{wall_sub:.3f} s; mean squared error to the clean map {mse(noisy):.6e} before, "
+          f"{mse(out_sub):.6e} after; {card}", flush=True)
+    if (out_sub.shape != noisy.shape or abs(apix_sub - apix) > 1e-4
+            or not np.all(np.isfinite(out_sub)) or np.array_equal(out_sub, noisy)):
+        raise AssertionError("phase 14 (a): the denoised map is misshapen, not finite or "
+                             "unchanged")
+
+    # (b) the same command in this process, its steps timed
+    curvelet._directional_bands_3d.cache_clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    parts = {}
+    argv_in = ["noisy.mrc", "out_in.mrc", *argv[2:]]
+    with _curvelet_parts(parts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        times = _proc3d(argv_in, work)
+        wall_in = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out_in, _ = read_mrc(work / "out_in.mrc")
+    err_in = float(np.abs(out_in - out_sub).max() / np.abs(out_sub).max())
+    U, meta = curvelet.curvelet_bands_3d((n, n, n), device=device)
+    steps = {k: round(v, 4) for k, v in parts.items() if not k.endswith("_calls")}
+    calls = {k[:-6]: v for k, v in parts.items() if k.endswith("_calls")}
+    steps["other"] = round(times["denoiseCurvelet"] - sum(steps.values()), 4)
+    print(f"phase 14 (b) [the same command in process]: wall {wall_in:.3f} s, the option "
+          f"{times['denoiseCurvelet']:.4f} s; steps {json.dumps(steps)} s, calls "
+          f"{json.dumps(calls)}; {len(meta)} bands; peak device memory {peak:.3f} GiB (limit "
+          f"{PEAK_LIMIT_GIB}); output against the subprocess's {err_in:.3e}; {card}", flush=True)
+    if len(meta) != 37 or U.shape[0] != 37 or not peak < PEAK_LIMIT_GIB or err_in > 1e-6:
+        raise AssertionError("phase 14 (b): bands, peak memory or a repeat run off")
+
+    # (c) the tight frame at full size
+    s = torch.zeros((n, n, n), dtype=torch.float64, device=device)
+    for k in range(U.shape[0]):
+        s += U[k].double() ** 2
+    covered = s > 1e-20
+    frame_err = float((s[covered] - 1).abs().max())
+    holes = int((~covered).sum())
+    del s, covered
+    vol = torch.as_tensor(noisy, device=device)
+    dims = (-3, -2, -1)
+    F = torch.fft.fftn(vol, dim=dims)
+    acc = None
+    for k in range(U.shape[0]):
+        acc = curvelet._accumulate(acc, curvelet._coeffs(F, U[k], dims), U[k], dims)
+    back = curvelet._synthesis(acc, dims)
+    rt_err = float((back - vol).abs().max() / vol.abs().max())
+    del F, acc, back, vol, U
+    print(f"phase 14 (c) [the tight frame at {n}^3, nDirs 6]: |sum_k U_k^2 - 1| max "
+          f"{frame_err:.3e} (limit 1e-6) over the covered voxels, {holes} voxels uncovered; "
+          f"transform and inverse with nothing thresholded {rt_err:.3e} relative (limit 1e-5); "
+          f"{card}", flush=True)
+    if not frame_err <= 1e-6 or not rt_err <= 1e-5:
+        raise AssertionError("phase 14 (c): the windows are not a tight frame")
+    curvelet._directional_bands_3d.cache_clear()
+    torch.cuda.empty_cache()
+
+    # (d) the 96^3 centre through the command, card against CPU
+    m = min(96, n)
+    cut = slice(n // 2 - m // 2, n // 2 + m // 2)
+    write_mrc(work / "noisy96.mrc", noisy[cut, cut, cut], apix=apix)
+    res_d = {}
+    real = curvelet.denoise_curvelet_3d
+    for label, param, n_dirs in (("nDirs 6", "sigma=3", 6), ("nDirs 0", "sigma=3:nDirs=0", 0)):
+        U_cpu, _ = curvelet.curvelet_bands_3d((m, m, m), n_dirs=n_dirs, device="cpu")
+        hold, outs, walls = _MaskHold(U_cpu, (-3, -2, -1)), {}, {}
+        for dev_name, hook in ((card_dev, hold.record), ("cpu", hold.hold)):
+            curvelet.denoise_curvelet_3d = functools.partial(real, on_band=hook)
+            try:
+                t0 = time.perf_counter()
+                _proc3d(["noisy96.mrc", f"out96_{dev_name}.mrc", "--denoiseCurvelet", param,
+                         "--device", dev_name, "--verbose", "0", "--force", "1"], work)
+                walls[dev_name] = time.perf_counter() - t0
+            finally:
+                curvelet.denoise_curvelet_3d = real
+            outs[dev_name] = read_mrc(work / f"out96_{dev_name}.mrc")[0]
+        peak_cpu = np.abs(outs["cpu"]).max()
+        raw = float(np.abs(outs[card_dev] - outs["cpu"]).max() / peak_cpu)
+        err = float(np.abs(outs[card_dev] - hold.delta - outs["cpu"]).max() / peak_cpu)
+        res_d[label] = dict(err=err, raw=raw, flips=hold.flips, bands=hold.bands,
+                            thr_err=hold.thr_err)
+        print(f"phase 14 (d) [proc3d --denoiseCurvelet {param} on the {m}^3 centre, cuda "
+              f"against cpu, {label}]: {hold.bands} bands held, {hold.flips} keep decisions "
+              f"differ (each within {KEEP_REL} of its threshold), thresholds within "
+              f"{hold.thr_err:.3e}; maps within {raw:.3e} of the CPU map's peak, {err:.3e} "
+              f"with the differing decisions' synthesis taken out (limit 1e-4); "
+              f"walls cuda {walls[card_dev]:.3f} s, cpu {walls['cpu']:.3f} s; {card}", flush=True)
+        if hold.first or hold.bands != (36 if label == "nDirs 6" else 4) or not err <= 1e-4 \
+                or not hold.thr_err <= KEEP_REL:
+            raise AssertionError(f"phase 14 (d) {label}: the card differs from the CPU")
+
+    # (e) the 2D denoisers on a stack of 64 images of 256^2, card against CPU
+    b, w = min(64, n), min(256, n)
+    lo = n // 2 - w // 2
+    stack = np.ascontiguousarray(noisy[n // 2 - b // 2 : n // 2 + b // 2, lo : lo + w, lo : lo + w])
+    res_e = {}
+    U2, _ = curvelet.curvelet_bands_2d((w, w), device="cpu")
+    for label, fn, kw in (("denoise_curvelet_2d udct", curvelet.denoise_curvelet_2d,
+                           dict(transform="udct")),
+                          ("denoise_curvelet_2d mct", curvelet.denoise_curvelet_2d,
+                           dict(transform="mct")),
+                          ("curvelet_denoise_batch_mct", curvelet.curvelet_denoise_batch_mct,
+                           dict())):
+        hold, outs, walls = _MaskHold(U2, (-2, -1)), {}, {}
+        for dev_name, hook in ((card_dev, hold.record), ("cpu", hold.hold)):
+            x = torch.as_tensor(stack, device=dev_name)
+            if dev_name == card_dev:
+                fn(x[:2], **kw)  # the windows built and cached, cuFFT planned
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x, on_band=hook, **kw)
+            torch.cuda.synchronize()
+            walls[dev_name] = time.perf_counter() - t0
+            outs[dev_name] = out.cpu().numpy()
+        xc = torch.as_tensor(stack, device=device)
+        t0 = time.perf_counter()
+        batch = fn(xc, **kw)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+        # each image as it gives alone (one image a call) against its slot
+        alone = max(float((fn(xc[i : i + 1], **kw) - batch[i : i + 1]).abs().max()
+                          / batch[i].abs().max()) for i in (0, b // 2, b - 1))
+        ref = outs["cpu"]
+        peaks = np.abs(ref).max(axis=(1, 2))
+        raw = float(np.max(np.abs(outs[card_dev] - ref).max(axis=(1, 2)) / peaks))
+        err = float(np.max(np.abs(outs[card_dev] - hold.delta - ref).max(axis=(1, 2)) / peaks))
+        res_e[label] = dict(err=err, raw=raw, flips=hold.flips, wall_cuda=wall_plain,
+                            alone=alone)
+        print(f"phase 14 (e) [{label}, {b} images of {w}^2, cuda against cpu]: {hold.bands} "
+              f"bands held, {hold.flips} keep decisions differ (each within {KEEP_REL} of its "
+              f"threshold), thresholds within {hold.thr_err:.3e}; images within {raw:.3e} of "
+              f"each CPU image's peak, {err:.3e} with the differing decisions' synthesis "
+              f"taken out (limit 1e-4); images 0, {b // 2}, {b - 1} alone against their "
+              f"slots of the stack on the card {alone:.3e}; walls cuda {wall_plain:.3f} s ("
+              f"{walls[card_dev]:.3f} s with the bands copied to the host), cpu "
+              f"{walls['cpu']:.3f} s; {card}", flush=True)
+        if hold.first or hold.bands != 48 or not err <= 1e-4 or not hold.thr_err <= KEEP_REL:
+            raise AssertionError(f"phase 14 (e) {label}: the card differs from the CPU")
+    curvelet._windows_2d.cache_clear()
+    return dict(wall_sub=wall_sub, wall_in=wall_in, parts=parts, peak=peak,
+                frame_err=frame_err, rt_err=rt_err, d=res_d, e=res_e)
 
 
 def main() -> int:
@@ -3607,6 +3909,9 @@ def main() -> int:
     phase_truefsc(device, card)
     phase_proc3d(device, card)
     print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+    t14 = time.perf_counter()
+    phase_curvelet(device, card)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
     webapp_launches = {k: sum(d["launches"][k] for d in (*webapp.values(), webapp_grid))
                        + sum(d["launches_app"][k] for d in webapp.values()) for k in _counts()}
     webapp_launches["group_solve"] += webapp_fsc["launches"]

@@ -1,7 +1,8 @@
 """Geometry analysis the denovo3d prep chain needs (the cylindrical
 volume mask and the grayscale-moment helix rotation/diameter estimator),
-the 2D image scores of the denovo3d score metrics, and the Fourier shell
-and ring correlations.
+the 2D image scores (batched, and the float ones), the Fourier shell and
+ring correlations, and the small helpers: ``is_3d``, ``twist2pitch``,
+the correlations, the elbow and the line fit.
 
 Counterpart of ``helicon_tpu/core/analysis.py:438`` (``_binary_closing``),
 ``:447`` (``estimate_helix_rotation_center_diameter``), ``:504``
@@ -9,7 +10,12 @@ Counterpart of ``helicon_tpu/core/analysis.py:438`` (``_binary_closing``),
 (``_uniform_filter``, ``_ssim_map``, ``_rescale_half``,
 ``ssim_score_traced``, ``ms_ssim_score_traced``,
 ``mutual_information_score_traced``), and of the FSC / FRC family
-``:97-240`` (the shells binned on the spectra's device in float64). The
+``:97-240`` (the shells binned on the spectra's device in float64), and
+of ``is_3d`` :56, ``twist2pitch`` :73, ``ssim_score`` :275,
+``ms_ssim_score`` :309, ``mutual_information_score`` :339,
+``r_factor_score`` :422, ``cross_correlation_coefficient`` :520,
+``cosine_similarity`` :530, ``find_elbow_point`` :538 and
+``line_fit_projection`` :551. The
 moments and morphology are host numpy and scipy, as in the reference; the
 one rotation runs through the port's ``transform_image`` on the CPU. The
 scores take images (..., h, w) whose leading axes are a batch, and return
@@ -34,7 +40,47 @@ __all__ = [
     "ssim_score_traced",
     "ms_ssim_score_traced",
     "mutual_information_score_traced",
+    "cosine_similarity",
+    "cross_correlation_coefficient",
+    "find_elbow_point",
+    "is_3d",
+    "line_fit_projection",
+    "ms_ssim_score",
+    "mutual_information_score",
+    "r_factor_score",
+    "ssim_score",
+    "twist2pitch",
 ]
+
+
+def is_3d(data) -> bool:
+    """True for cubic or z-elongated rectangular 3D volumes."""
+    if data.ndim != 3:
+        return False
+    nz, ny, nx = data.shape
+    return (nz == ny == nx) or (nz > ny and ny == nx)
+
+
+def twist2pitch(twist: float, rise: float,
+                return_pitch_for_4p75Angstrom_rise: bool = True) -> float:
+    """Helical pitch from twist / rise, by default re-expressed at the
+    multiple of the rise between 4.5 and 5 A (the amyloid rise) whose
+    accumulated twist stays under 90 degrees."""
+    from ..angular import set_angle_range
+
+    if not return_pitch_for_4p75Angstrom_rise:
+        return rise * 360 / abs(twist)
+    rise_star = abs(rise)
+    twist_star = abs(twist)
+    for n in range(10, 1, -1):
+        cond = (rise * n < 5) and (4.5 < rise * n)
+        tmp_twist = abs(set_angle_range(twist_star * n, range=(-180, 180)))
+        cond = cond and (tmp_twist < 90)
+        if cond:
+            twist_star = tmp_twist
+            rise_star = rise_star * n
+            break
+    return rise_star * 360 / twist_star
 
 
 def _binary_closing(mask: np.ndarray) -> np.ndarray:
@@ -122,6 +168,12 @@ def get_cylindrical_mask(nz, ny, nx, rmin=0, rmax=-1, return_xyz: bool = False):
 # ---------------------------------------------------------------------------
 # FSC / FRC
 # ---------------------------------------------------------------------------
+
+
+def _div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x / s as a true division on every device (CUDA divides by a host
+    scalar as a multiplication by its reciprocal; numpy and XLA do not)."""
+    return x / torch.tensor(s, dtype=x.dtype, device=x.device)
 
 
 def _fftfreq64(n: int, device, half: bool = False) -> torch.Tensor:
@@ -438,3 +490,139 @@ def mutual_information_score_traced(img1, img2, bins: int = 64) -> torch.Tensor:
     hxy = H(pxy.reshape(-1, bins * bins))
     nmi = (H(px) + H(py)) / hxy.clamp_min(1e-30)
     return torch.where(hxy > 0, nmi - 1.0, 0.0).reshape(lead)
+
+
+# ---------------------------------------------------------------------------
+# the float scores of one image pair, and the small helpers
+# ---------------------------------------------------------------------------
+
+
+def _pair(img1, img2, what: str = "Image shapes"):
+    if tuple(img1.shape) != tuple(img2.shape):
+        raise ValueError(f"{what} must match: {tuple(img1.shape)} vs {tuple(img2.shape)}")
+    a = torch.as_tensor(img1).to(torch.float32)
+    return a, torch.as_tensor(img2, device=a.device).to(torch.float32)
+
+
+def ssim_score(img1, img2) -> float:
+    """Mean SSIM of one pair (win 7, uniform windows, an edge crop of 3);
+    0 for a data range of 0 or an image smaller than the window."""
+    a, b = _pair(img1, img2)
+    data_range = max(float(a.max() - a.min()), float(b.max() - b.min()))
+    win = 7
+    if data_range == 0 or min(a.shape) < win:
+        return 0.0
+    smap = _ssim_map(a, b, data_range, win)
+    pad = (win - 1) // 2
+    return float(smap[pad:-pad, pad:-pad].mean())
+
+
+def ms_ssim_score(img1, img2) -> float:
+    """Multi-scale SSIM of one pair: per-scale SSIM (clipped at 0) combined
+    with the standard weights; the scales stop at an image under 8 pixels
+    or a data range of 0."""
+    a, b = _pair(img1, img2)
+    values = []
+    for i in range(len(_MS_WEIGHTS)):
+        h, w = a.shape
+        if h < 8 or w < 8:
+            break
+        if max(float(a.max() - a.min()), float(b.max() - b.min())) == 0:
+            break
+        values.append(max(ssim_score(a, b), 0.0))
+        if i < len(_MS_WEIGHTS) - 1:
+            a, b = _rescale_half(a), _rescale_half(b)
+    if not values:
+        return 0.0
+    weights = _MS_WEIGHTS[: len(values)]
+    weights = weights / weights.sum()
+    result = 1.0
+    for s, w in zip(values, weights):
+        result *= s**w
+    return float(result)
+
+
+def mutual_information_score(img1, img2, bins: int = 64) -> float:
+    """Normalized mutual information (Studholme 1999) minus 1, from a
+    float64 joint histogram of bins x bins on the host (as the
+    reference's numpy histogram2d)."""
+    a, b = _pair(img1, img2)
+    a = a.cpu().numpy().astype(np.float64).ravel()
+    b = b.cpu().numpy().astype(np.float64).ravel()
+    hist, _, _ = np.histogram2d(a, b, bins=bins)
+    pxy = hist / hist.sum()
+
+    def H(p):
+        p = p[p > 0]
+        return -np.sum(p * np.log(p))
+
+    hxy = H(pxy.ravel())
+    if hxy == 0:
+        return 0.0
+    return float((H(pxy.sum(axis=1)) + H(pxy.sum(axis=0))) / hxy - 1.0)
+
+
+def r_factor_score(img1, img2) -> float:
+    """1 / (1 + R), R = sum |a - b| / sum |b| (crystallographic)."""
+    a, b = _pair(img1, img2, "Shapes")
+    denom = float(torch.abs(b).sum())
+    if denom == 0:
+        return 0.0
+    return float(1.0 / (1.0 + float(torch.abs(a - b).sum()) / denom))
+
+
+def cross_correlation_coefficient(a, b) -> float:
+    """Pearson correlation of two arrays (0 for a constant one)."""
+    a = torch.as_tensor(a).to(torch.float32)
+    b = torch.as_tensor(b, device=a.device).to(torch.float32)
+    da, db = a - a.mean(), b - b.mean()
+    norm = torch.sqrt((da * da).sum() * (db * db).sum())
+    return float(torch.where(norm == 0, 0.0, (da * db).sum() / torch.where(norm == 0, 1.0, norm)))
+
+
+def cosine_similarity(a, b) -> float:
+    """Cosine similarity of two vectors (0 when either is zero)."""
+    a = torch.as_tensor(a)
+    b = torch.as_tensor(b, device=a.device)
+    norm = torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)
+    return float(torch.where(norm == 0, 0.0, (a * b).sum() / torch.where(norm == 0, 1.0, norm)))
+
+
+def find_elbow_point(curve) -> int:
+    """Index of the point farthest from the first-to-last chord (the knee),
+    in float64 on the curve's device."""
+    curve = torch.as_tensor(curve).to(torch.float64)
+    n = curve.shape[0]
+    pts = torch.stack([torch.arange(n, dtype=torch.float64, device=curve.device), curve], dim=1)
+    vec = pts[-1] - pts[0]
+    vec = vec / torch.linalg.vector_norm(vec)
+    rel = pts - pts[0]
+    perp = rel - torch.outer(rel @ vec, vec)
+    return int(torch.argmax(torch.linalg.vector_norm(perp, dim=1)))
+
+
+def line_fit_projection(x, y, w=None, ref_i: int = 0, return_xy_fit: bool = False):
+    """Signed positions of points projected onto their total-least-squares
+    line (the principal axis of the weighted covariance, the reference's
+    orthogonal regression), from point ref_i, in float64 on x's device.
+    With return_xy_fit also the (n, 2) projected points."""
+    x = torch.as_tensor(x).to(torch.float64)
+    y = torch.as_tensor(y, device=x.device).to(torch.float64)
+    weights = (torch.ones_like(x) if w is None
+               else torch.as_tensor(w, device=x.device).to(torch.float64))
+    wsum = weights.sum()
+    cx, cy = (x * weights).sum() / wsum, (y * weights).sum() / wsum
+    dx, dy = x - cx, y - cy
+    sxx = float((weights * dx * dx).sum())
+    syy = float((weights * dy * dy).sum())
+    sxy = float((weights * dx * dy).sum())
+    theta = 0.5 * math.atan2(2 * sxy, sxx - syy)
+    c, s = math.cos(theta), math.sin(theta)
+    t = dx * c + dy * s
+    x2, y2 = cx + t * c, cy + t * s
+    v0 = torch.stack([x2[-1] - x2[0], y2[-1] - y2[0]])
+    v0 = v0 / torch.linalg.vector_norm(v0)
+    pos = (x2 - x2[ref_i]) * v0[0] + (y2 - y2[ref_i]) * v0[1]
+    if return_xy_fit:
+        return pos, torch.stack([x2, y2], dim=1)
+    return pos

@@ -1,13 +1,17 @@
-"""Filters on tensors: the threshold clip, and on ``torch.fft`` the
-Gaussian low/high-pass, the anti-aliased down-scaling (Gaussian
+"""Filters on tensors: the threshold clip, the normalizations, the cosine
+edge taper, and on ``torch.fft`` the structural factor and its matching,
+the Gaussian low/high-pass, the anti-aliased down-scaling (Gaussian
 prefilter, then a cubic B-spline resample) and the phase randomization
 beyond a resolution cutoff.
 
-Counterpart of ``helicon_tpu/core/filters.py:139`` (``threshold_data``),
-``:151`` (``_normalized_r2``), ``:165`` (``low_high_pass_filter``),
-``:181`` (``_gaussian_blur``), ``:195`` (``down_scale``), ``:224``
-(``_down_scale_jit``) and ``:266`` (``randomize_phases_lowpass``). Each
-runs on the device of the tensor it is given.
+Counterpart of ``helicon_tpu/core/filters.py`` whole:
+``calculate_structural_factor`` :51, ``set_structural_factors`` :82,
+``match_structural_factors`` :105, the normalizations :117-137,
+``threshold_data`` :139, ``_normalized_r2`` :151,
+``low_high_pass_filter`` :165, ``_gaussian_blur`` :181, ``down_scale``
+:195 / :224, ``generate_tapering_filter`` :244 and
+``randomize_phases_lowpass`` :266. Each runs on the device of the tensor
+it is given (the taper, which takes none, on ``device``).
 """
 
 from __future__ import annotations
@@ -18,11 +22,158 @@ import numpy as np
 import torch
 
 from .. import _jax_random
-from .analysis import _fftfreq64
+from .analysis import _div, _fftfreq64
 
-__all__ = ["low_high_pass_filter", "down_scale", "threshold_data", "randomize_phases_lowpass"]
+__all__ = [
+    "calculate_structural_factor",
+    "down_scale",
+    "generate_tapering_filter",
+    "low_high_pass_filter",
+    "match_structural_factors",
+    "normalize_mean_std",
+    "normalize_min_max",
+    "normalize_percentile",
+    "randomize_phases_lowpass",
+    "set_structural_factors",
+    "threshold_data",
+]
 
 logger = logging.getLogger(__name__)
+
+
+def _fftfreq_radius(shape, apix: float) -> np.ndarray:
+    """|q| grid (1/Angstrom) in fft layout for a 2D / 3D shape, float64 on
+    the host as the reference bins it."""
+    grids = [np.fft.fftfreq(n) ** 2 for n in shape]
+    if len(shape) == 2:
+        qr2 = grids[0][:, None] + grids[1][None, :]
+    else:
+        qr2 = grids[0][:, None, None] + grids[1][None, :, None] + grids[2][None, None, :]
+    return np.sqrt(qr2) / apix
+
+
+def calculate_structural_factor(data, apix: float, thresh=None, mask=None,
+                                return_fft: bool = False):
+    """1D structural factor: the sum of |F|^2 over radial q bins (a float32
+    scatter-add, as the reference's). Returns (qbins numpy, sf[, F])."""
+    data = torch.as_tensor(data).to(torch.float32)
+    work = threshold_data(data, thresh_value=thresh) if thresh else data
+    if mask is not None:
+        work = work * torch.as_tensor(mask, device=data.device).to(torch.float32)
+    F = torch.fft.fftn(work)
+    amp2 = F.real**2 + F.imag**2
+
+    qr = _fftfreq_radius(work.shape, apix)
+    qstep = qr[qr > 0].min()
+    nbins = int(qr.max() / qstep) // 2 * 2
+    qbins = np.linspace(0, nbins * qstep, nbins)
+    labels = torch.as_tensor(np.searchsorted(qbins, qr, "right").ravel() - 1, device=data.device)
+    sf = torch.zeros(nbins, dtype=torch.float32, device=data.device)
+    sf.index_add_(0, labels, amp2.reshape(-1))
+    if return_fft:
+        return qbins, sf, F
+    return qbins, sf
+
+
+def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """jnp.interp(x, xp, fp) in x's dtype (a segment shorter than the
+    float32 spacing of eps takes its left value; outside the ends, the end
+    values)."""
+    i = torch.searchsorted(xp, x.contiguous(), right=True).clamp(1, len(xp) - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    dx0 = torch.abs(dx) <= float(np.spacing(np.finfo(np.float32).eps))
+    f = torch.where(dx0, fp[i - 1], fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def _interp_fill0(xq: torch.Tensor, xp, fp: torch.Tensor) -> torch.Tensor:
+    """Linear interpolation with 0 outside [xp[0], xp[-1]], float32."""
+    xp = torch.tensor(np.asarray(xp, np.float32), device=xq.device)
+    y = _interp(xq, xp, fp)
+    return torch.where((xq >= xp[0]) & (xq <= xp[-1]), y, 0.0)
+
+
+def set_structural_factors(data, apix: float, target_bins, target_structural_factors,
+                           thresh=None, mask=None) -> torch.Tensor:
+    """Rescale the radial amplitudes so that the structural factor matches
+    a target (interpolated onto this map's bins, 0 outside its range)."""
+    data = torch.as_tensor(data).to(torch.float32)
+    qbins, sf, fft = calculate_structural_factor(data, apix, thresh=thresh, mask=mask,
+                                                 return_fft=True)
+    if mask is not None:
+        fft = torch.fft.fftn(data)
+    dev = data.device
+    target = _interp_fill0(torch.tensor(qbins.astype(np.float32), device=dev), target_bins,
+                           torch.tensor(np.asarray(target_structural_factors, np.float32),
+                                        device=dev))
+    ratio = torch.where(sf > 0, torch.sqrt(torch.clamp_min(target, 0.0)
+                                           / torch.where(sf > 0, sf, 1.0)), 0.0)
+    qr = torch.as_tensor(_fftfreq_radius(data.shape, apix).astype(np.float32), device=dev)
+    ratio_grid = _interp_fill0(qr, qbins, ratio)
+    return torch.fft.ifftn(fft * ratio_grid).real
+
+
+def match_structural_factors(data, apix: float, data_target, apix_target: float, thresh=None,
+                             thresh_target=None, mask=None) -> torch.Tensor:
+    """Match the structural factor of *data* to that of *data_target*."""
+    tb, tsf = calculate_structural_factor(data_target, apix_target, thresh=thresh_target,
+                                          mask=mask)
+    return set_structural_factors(data, apix, tb, tsf.cpu().numpy(), thresh=thresh, mask=mask)
+
+
+def normalize_min_max(data, min: float = 0, max: float = 1) -> torch.Tensor:
+    """(max - min) * (data - lo) / (hi - lo); a constant array unchanged
+    (the reference's form, which does not add min)."""
+    data = torch.as_tensor(data)
+    lo, hi = data.min(), data.max()
+    same = hi == lo
+    return torch.where(same, data, (max - min) * (data - lo) / torch.where(same, 1.0, hi - lo))
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """jnp.mean as XLA forms it: the sum times the reciprocal of the count
+    in x's dtype (a constant float32 array of 30 x 2.5 has the mean
+    2.5000002)."""
+    return x.sum() * torch.tensor(1.0 / x.numel(), dtype=x.dtype, device=x.device)
+
+
+def normalize_mean_std(data, mean: float = 0, std: float = 1) -> torch.Tensor:
+    """(data - mean(data)) / std(data), the population std, as jnp.std
+    forms it (an array whose std is 0 unchanged; the reference's form,
+    which ignores mean and std)."""
+    data = torch.as_tensor(data)
+    centered = data - _mean(data)
+    s = torch.sqrt(_mean(centered * centered))
+    return torch.where(s == 0, data, centered / torch.where(s == 0, 1.0, s))
+
+
+def _percentiles(data: torch.Tensor, ps) -> list:
+    """jnp.percentile's linear method over all elements: the sorted values
+    at the float32 index q (n - 1), weighted by its fraction."""
+    s = torch.sort(data.reshape(-1)).values
+    n = s.numel()
+    out = []
+    for p in ps:
+        q = np.float32(np.float32(p) / np.float32(100.0)) * (np.float32(n) - np.float32(1))
+        lo, hi = np.floor(q), np.ceil(q)
+        w_hi = np.float32(q - lo)
+        w_lo = np.float32(1) - w_hi
+        lo, hi = int(min(max(lo, 0), n - 1)), int(min(max(hi, 0), n - 1))
+        out.append(s[lo] * float(w_lo) + s[hi] * float(w_hi))
+    return out
+
+
+def normalize_percentile(data, percentile=(0, 100)) -> torch.Tensor:
+    """Rescale so the two percentiles map to 0 and 1 (a constant array
+    unchanged)."""
+    data = torch.as_tensor(data)
+    v = torch.stack(_percentiles(data, percentile))
+    vmin, vmax = v.min(), v.max()
+    same = vmax == vmin
+    return torch.where(same, data, (data - vmin) / torch.where(same, 1.0, vmax - vmin))
 
 
 def threshold_data(data, thresh_fraction=None, thresh_value=None):
@@ -114,6 +265,29 @@ def down_scale(data, target_apix: float, apix_orig: float) -> torch.Tensor:
     R, C = torch.meshgrid(rr, cc, indexing="ij")
     out = map_coordinates(blurred, (R, C), order=3, mode="mirror")
     return pad_to_size(out, (ny1 + ny1 % 2, nx1 + nx1 % 2))
+
+
+def generate_tapering_filter(image_size, fraction_start=(0.8, 0.8),
+                             fraction_slope: float = 0.1, device=None) -> torch.Tensor:
+    """Cosine edge taper (ny, nx) float32 on device: 1 inside
+    fraction_start of each half axis, a cosine fall over fraction_slope,
+    0 beyond; an axis whose fraction is outside (0, 1) is not tapered."""
+    ny, nx = image_size
+    fy, fx = fraction_start
+    if not (0 < fy < 1 or 0 < fx < 1):
+        return torch.ones((ny, nx), dtype=torch.float32, device=device)
+
+    def axis(n):
+        return torch.abs(_div(torch.arange(n, dtype=torch.float32, device=device) - n // 2,
+                              float(n // 2)))
+
+    filt = torch.ones((ny, nx), dtype=torch.float32, device=device)
+    for f, a in ((fy, axis(ny)[:, None]), (fx, axis(nx)[None, :])):
+        if 0 < f < 1:
+            w = _div(1.0 + torch.cos(_div(a - f, fraction_slope) * np.pi), 2.0)
+            w = torch.where(a < f, 1.0, torch.where(a > f + fraction_slope, 0.0, w))
+            filt = filt * w
+    return filt
 
 
 def randomize_phases_lowpass(data, apix: float, cutoff_res: float, return_fft: bool = False,

@@ -1,9 +1,10 @@
 """N-d interpolation on tensors: ``map_coordinates`` of order 1 and 3.
 
-Counterpart of ``helicon_tpu/core/interp.py`` for the orders and modes the
-denovo3d prep chain uses: order 1 (bilinear rotation in the helix
-estimator) and order 3 (cubic B-spline down-scaling, with the recursive
-prefilter of pole sqrt(3) - 2). The scipy conventions are the same.
+Counterpart of ``helicon_tpu/core/interp.py`` for orders 1 (bilinear:
+the rotations of the helix estimator and of the image alignment) and 3
+(cubic B-spline down-scaling, with the recursive prefilter of pole
+sqrt(3) - 2), in its modes constant, nearest, mirror, reflect and wrap
+(periodic, scipy's grid-wrap). The scipy conventions are the same.
 The prefilter's recursion is a Python loop over the filtered axis.
 """
 
@@ -17,7 +18,7 @@ import torch
 __all__ = ["spline_filter1d", "spline_filter", "map_coordinates"]
 
 _CUBIC_POLE = math.sqrt(3.0) - 2.0
-_MODES = ("constant", "mirror")
+_MODES = ("constant", "nearest", "mirror", "reflect", "wrap")
 
 
 def _mirror_index(idx, n: int):
@@ -30,10 +31,27 @@ def _mirror_index(idx, n: int):
     return torch.where(idx >= n, period - idx, idx)
 
 
+def _reflect_index(idx, n: int):
+    """Reflect indices about the edges (scipy 'reflect': the edge sample
+    repeated)."""
+    if n == 1:
+        return torch.zeros_like(idx)
+    period = 2 * n
+    idx = torch.abs(idx + (idx < 0).to(idx.dtype)) % period
+    return torch.where(idx >= n, period - 1 - idx, idx)
+
+
 def _fix_index(mode: str, idx, n: int):
     """(index inside [0, n-1], in-bounds flag) for one axis."""
+    inside = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
     if mode == "mirror":
-        return _mirror_index(idx, n), torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+        return _mirror_index(idx, n), inside
+    if mode == "reflect":
+        return _reflect_index(idx, n), inside
+    if mode == "nearest":
+        return idx.clamp(0, n - 1), inside
+    if mode == "wrap":
+        return torch.remainder(idx, n), inside
     return idx.clamp(0, n - 1), (idx >= 0) & (idx <= n - 1)
 
 
@@ -99,7 +117,7 @@ def map_coordinates(
     convention; one coordinate array per input axis).
 
     order 1 or 3; mode "constant" (points outside [0, n-1] on any axis
-    return cval) or "mirror".
+    return cval), "nearest", "mirror", "reflect" or "wrap".
     """
     if order not in (1, 3):
         raise NotImplementedError(f"map_coordinates order={order} (port has 1 and 3)")
@@ -140,6 +158,7 @@ def map_coordinates(
         # scipy's 'constant' mode mirror-extends the spline coefficients
         # for window samples that cross the edge; cval applies only to
         # points whose coordinate is out of domain (in_domain below)
+        sample_mode = "mirror" if mode == "constant" else mode
         cx = spline_filter(x) if prefilter else x
         wts = [_cubic_weights(f) for f in frac]
         for corner in range(4**x.ndim):
@@ -150,7 +169,7 @@ def map_coordinates(
                 o = rem % 4
                 rem //= 4
                 w = w * wts[d][o]
-                i, _ = _fix_index("mirror", lo[d] + (o - 1), x.shape[d])
+                i, _ = _fix_index(sample_mode, lo[d] + (o - 1), x.shape[d])
                 idxs.append(i)
             out = out + cx[tuple(idxs)].to(out.dtype) * w
     if mode == "constant":

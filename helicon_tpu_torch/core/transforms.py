@@ -1,15 +1,18 @@
-"""Image and volume transforms: ``transform_image`` (rotation about the
-centre), ``rotate_shift_image`` (rotation about a centre with pre/post
-shifts), ``pad_to_size``, the centre crops, the helical symmetrization
-``apply_helical_symmetry``, the cubic volume transform
-``transform_map``, the zero-padded clips, the Fourier crop and rescale and
-the hand flip.
+"""Image and volume transforms: ``transform_image`` (the centre-referenced
+affine warp), ``rotate_shift_image`` (rotation about a centre with
+pre/post shifts), ``pad_to_size``, the centre crops, the helical
+symmetrization ``apply_helical_symmetry``, the cubic volume transform
+``transform_map``, the zero-padded clips, the straightened strip
+``get_rotated_clip``, the Fourier crop and rescale, the hand flip and the
+Friedel phase difference across the meridian.
 
 Counterpart of ``helicon_tpu/core/transforms.py:261``, ``:326``, ``:401``,
 ``:370`` / ``:378`` (the crops), ``:143`` with ``_helical_sym_accumulate``
-:65, ``:219``, ``:421`` / ``:433`` (the clips), ``:467`` (``fft_crop``),
-``:507`` (``fft_rescale``) and ``:561`` (``flip_hand``). Each runs on the
-device of the tensor it is given.
+:65, ``:219``, ``:421`` / ``:433`` (the clips), ``:448``
+(``get_rotated_clip``), ``:467`` (``fft_crop``), ``:507``
+(``fft_rescale``), ``:561`` (``flip_hand``) and ``:601``
+(``compute_phase_difference_across_meridian``). Each runs on the device
+of the tensor it is given.
 """
 
 from __future__ import annotations
@@ -26,25 +29,44 @@ from .interp import map_coordinates
 
 __all__ = ["transform_image", "rotate_shift_image", "pad_to_size", "crop_center",
            "crop_center_z", "apply_helical_symmetry", "transform_map", "get_clip",
-           "get_clip3d", "fft_crop", "fft_rescale", "flip_hand"]
+           "get_clip3d", "get_rotated_clip", "fft_crop", "fft_rescale", "flip_hand",
+           "compute_phase_difference_across_meridian"]
 
 
-def transform_image(image, rotation: float = 0.0, order: int = 1):
-    """Rotate a 2D image by ``rotation`` degrees about its centre (ny/2,
-    nx/2), sampling through the inverse map with zeros outside: the
-    rotation-only case of the reference's skimage-style affine chain
-    (to_center -> rotate -> from_center)."""
+_WARP_MODES = {"constant": "constant", "edge": "nearest", "symmetric": "reflect",
+               "reflect": "mirror", "wrap": "wrap"}
+
+
+def transform_image(image, scale=1.0, rotation: float = 0.0, rotation_center=None,
+                    pre_translation=(0.0, 0.0), post_translation=(0.0, 0.0),
+                    mode: str = "constant", order: int = 1):
+    """Centre-referenced affine warp of a 2D image: pre_translation, to the
+    centre (ny/2, nx/2 unless given), rotate by ``rotation`` degrees and
+    scale (one factor or (sy, sx)), back from the centre, post_translation,
+    sampled through the inverse map (the skimage chain of the reference;
+    translations and centres are (y, x)). mode: skimage's names
+    (constant, edge, symmetric, reflect, wrap)."""
     image = torch.as_tensor(image, dtype=torch.float32)
     ny, nx = image.shape
-    cy, cx = ny / 2.0, nx / 2.0
+    if rotation_center is None:
+        center = np.array([ny, nx], dtype=np.float64) / 2.0
+    else:
+        center = np.asarray(rotation_center, dtype=np.float64)
+    if np.isscalar(scale) or isinstance(scale, (int, float)):
+        scale = (float(scale), float(scale))
+    sy, sx = float(scale[0]), float(scale[1])
+
+    def T(tx, ty):
+        m = np.eye(3)
+        m[0, 2], m[1, 2] = tx, ty
+        return m
+
     theta = math.radians(rotation)
-    M = np.array(
-        [
-            [math.cos(theta), -math.sin(theta), cx - math.cos(theta) * cx + math.sin(theta) * cy],
-            [math.sin(theta), math.cos(theta), cy - math.sin(theta) * cx - math.cos(theta) * cy],
-            [0.0, 0.0, 1.0],
-        ]
-    )
+    RS = np.array([[sx * math.cos(theta), -sy * math.sin(theta), 0.0],
+                   [sx * math.sin(theta), sy * math.cos(theta), 0.0],
+                   [0.0, 0.0, 1.0]])
+    M = (T(post_translation[1], post_translation[0]) @ T(center[1], center[0]) @ RS
+         @ T(-center[1], -center[0]) @ T(pre_translation[1], pre_translation[0]))
     Minv = np.linalg.inv(M)
     rr, cc = torch.meshgrid(
         torch.arange(ny, dtype=torch.float32, device=image.device),
@@ -53,7 +75,8 @@ def transform_image(image, rotation: float = 0.0, order: int = 1):
     )
     x_src = float(Minv[0, 0]) * cc + float(Minv[0, 1]) * rr + float(Minv[0, 2])
     y_src = float(Minv[1, 0]) * cc + float(Minv[1, 1]) * rr + float(Minv[1, 2])
-    return map_coordinates(image, (y_src, x_src), order=order, mode="constant")
+    return map_coordinates(image, (y_src, x_src), order=order,
+                           mode=_WARP_MODES.get(mode, "constant"))
 
 
 def rotate_shift_image(data, angle: float = 0, pre_shift=(0, 0), post_shift=(0, 0),
@@ -296,6 +319,33 @@ def get_clip3d(data, z0: int, y0: int, x0: int, nz: int, ny: int, nx: int) -> to
     return clip
 
 
+def _linspace32(start: float, stop: float, num: int, device) -> torch.Tensor:
+    """jnp.linspace(start, stop, num) in float32, as jnp forms it:
+    start (1 - i/(num-1)) + stop i/(num-1), the last point stop."""
+    if num <= 1:
+        return torch.full((num,), start, dtype=torch.float32, device=device)
+    div = num - 1
+    step = torch.arange(div, dtype=torch.float32, device=device) / torch.tensor(
+        float(div), dtype=torch.float32, device=device)
+    out = start * (1 - step) + stop * step
+    return torch.cat([out, torch.tensor([stop], dtype=torch.float32, device=device)])
+
+
+def get_rotated_clip(image, y0, x0, y1, x1, width: int, order: int = 1) -> torch.Tensor:
+    """A straightened strip (width, int(length)) along the segment
+    (y0, x0) -> (y1, x1), sampled with zeros outside the image."""
+    image = torch.as_tensor(image, dtype=torch.float32)
+    dy, dx = y1 - y0, x1 - x0
+    angle = math.atan2(dy, dx)
+    length = math.hypot(dy, dx)
+    xs = _linspace32(0.0, length, int(length), image.device)
+    ys = _linspace32(-width / 2.0, width / 2.0, width, image.device)
+    Y, X = torch.meshgrid(ys, xs, indexing="ij")
+    xr = X * math.cos(angle) - Y * math.sin(angle) + x0
+    yr = X * math.sin(angle) + Y * math.cos(angle) + y0
+    return map_coordinates(image, (yr, xr), order=order, mode="constant")
+
+
 def fft_crop(data, output_size=None) -> torch.Tensor:
     """Downscale by truncating the Fourier transform (even sizes): the
     rfft's centred block of output_size, inverted over every axis (the
@@ -360,3 +410,12 @@ def flip_hand(data, axis: str = "x") -> torch.Tensor:
     if axis not in dims:
         raise ValueError("axis must be 'x', 'y', or 'z'")
     return torch.flip(torch.as_tensor(data), (dims[axis],))
+
+
+def compute_phase_difference_across_meridian(phase) -> torch.Tensor:
+    """The Friedel phase difference across the meridian in degrees, in
+    [0, 180] (0: an even Bessel order, 180: an odd one); column 0 is 0."""
+    phase = torch.as_tensor(phase)
+    diff = torch.zeros_like(phase)
+    diff[..., 1:] = phase[..., 1:] - torch.flip(phase[..., 1:], dims=(-1,))
+    return torch.rad2deg(torch.arccos(torch.cos(diff)))

@@ -1,6 +1,5 @@
 """The proc3d options: apix, clip, fft_resample, flip_hand, helical_sym,
-z_moving_average, and denoiseCurvelet, which raises until
-``core/curvelet.py`` is ported (ROADMAP A12.5).
+z_moving_average and denoiseCurvelet.
 
 Counterpart of ``helicon_tpu/ops/proc3d/volume_ops.py``, with its
 parameters, its messages and its deviation notes. Each handler takes and
@@ -239,15 +238,35 @@ def _add_denoiseCurvelet(parser):
     parser.add_argument(
         "--denoiseCurvelet", type=str, default="",
         metavar="[threshold_sigma=<n>][:n_scales=<n>]",
-        help="curvelet-denoise the 3D map (not ported yet: ROADMAP A12.5)",
+        help="curvelet-denoise the 3D map",
     )
 
 
 def _h_denoiseCurvelet(data, args, index_d, param, apix, nx, ny, nz):
-    raise HeliconError(
-        "--denoiseCurvelet is not ported to helicon_tpu_torch yet: core/curvelet.py "
-        "is ROADMAP item A12.5"
-    )
+    from ...core.curvelet import denoise_curvelet_3d
+    from ...utils.system import parse_param_str
+
+    if param is not None:
+        _, pd_ = parse_param_str(param) if param else (None, {})
+        # the reference's sigma= / numScales= mini-language
+        # (proc3d/denoiseCurvelet.py:81-111): transform default mct, and
+        # only udct | mct for 3D maps (fdct is 2D-only there)
+        transform = str(pd_.get("transform", "mct"))
+        if transform not in ("udct", "mct"):
+            raise HeliconError(
+                f"\tERROR: unknown transform '{transform}' for "
+                "--denoiseCurvelet. Use 'udct' or 'mct'."
+            )
+        sigma = float(pd_.get("sigma", pd_.get("threshold_sigma", 3.0)))
+        num_scales = pd_.get("numScales", pd_.get("n_scales", None))
+        n_scales = int(num_scales) if num_scales is not None else 4
+        # nDirs=0: the isotropic radial bands (cheap mode for huge maps)
+        n_dirs = int(pd_.get("nDirs", pd_.get("n_dirs", 6)))
+        data = denoise_curvelet_3d(
+            data.to(torch.float32), threshold_sigma=sigma, n_scales=n_scales, n_dirs=n_dirs
+        )
+        index_d["denoiseCurvelet"] += 1
+    return data, apix, nx, ny, nz
 
 
 PLUGINS = [

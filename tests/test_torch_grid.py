@@ -278,7 +278,8 @@ def test_port_imports_no_jax():
             "helicon_tpu_torch.webApps.denovo3D.pipeline, helicon_tpu_torch.webApps.denovo3D.utils, "
             "helicon_tpu_torch.commands.proc3d, helicon_tpu_torch.commands.trueFSC, "
             "helicon_tpu_torch.ops.proc3d, helicon_tpu_torch.core.mask3d, "
-            "helicon_tpu_torch.core.czt, "
+            "helicon_tpu_torch.core.czt, helicon_tpu_torch.core.curvelet, "
+            "helicon_tpu_torch.angular, "
             "helicon_tpu_torch.utils.system, sys; "
             "assert 'jax' not in sys.modules and 'helicon_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)

@@ -3,10 +3,11 @@
 proc3d command (eagerly where helical_sym resamples, ROADMAP C6), both run
 in this process on an .mrc written to tmp_path:
 each option (1e-5 relative to the reference's peak; helical_sym at
-tests/test_torch_core_web.py's gate, also 1e-5), a chained command, an
-abbreviated option, the reference's error cases with the same messages,
-denoiseCurvelet raising, --device cuda raising without a card, and the
-pins of the utils/system.py and ops/registry.py copies."""
+tests/test_torch_core_web.py's gate, also 1e-5; denoiseCurvelet with
+its parameters, "" at its defaults), a chained command, an abbreviated
+option, the reference's error cases with the same messages (the fdct
+transform of denoiseCurvelet among them), --device cuda raising without a
+card, and the pins of the utils/system.py and ops/registry.py copies."""
 
 import argparse
 import contextlib
@@ -106,6 +107,12 @@ OPTIONS = dict(
            "new_nx=16:new_ny=16:new_nz=16", "--z_moving_average", "length=4.75",
            "--apix", "2"],
     abbreviated=["--fft", "new_nx=20:new_ny=20:new_nz=20", "--z_mov", "n_pixel=3"],
+    denoiseCurvelet_sigma=["--denoiseCurvelet", "sigma=3"],
+    denoiseCurvelet_elbow=["--denoiseCurvelet", "threshold_sigma=0"],
+    denoiseCurvelet_radial=["--denoiseCurvelet", "nDirs=0:numScales=3:transform=udct"],
+    denoiseCurvelet_defaults=["--denoiseCurvelet", ""],
+    denoiseCurvelet_chain=["--clip", "new_nx=20:new_ny=22:new_nz=18", "--denoiseCurvelet",
+                           "sigma=2:n_dirs=3:n_scales=3", "--flip_hand", "z"],
 )
 
 
@@ -136,6 +143,8 @@ ERRORS = dict(
                            "specify either length or n_pixel, not both"),
     z_moving_average_long=(["--z_moving_average", "n_pixel=40"],
                            "z_moving_average window of 40 pixels"),
+    denoiseCurvelet_fdct=(["--denoiseCurvelet", "sigma=3:transform=fdct"],
+                          "unknown transform 'fdct' for --denoiseCurvelet"),
 )
 
 
@@ -167,12 +176,18 @@ def test_default_output_name(workdir):
     np.testing.assert_array_equal(read_mrc("in.proc3d.mrc")[0], read_mrc("in.mrc")[0][::-1])
 
 
-def test_denoise_curvelet_raises(workdir):
-    with pytest.raises(HeliconError, match="A12.5"):
-        _run_port(["in.mrc", "port.mrc", "--denoiseCurvelet", "sigma=3", "--device", "cpu"])
+def test_denoise_curvelet_raises(workdir, monkeypatch):
+    """denoiseCurvelet's one error, transform=fdct (fdct is 2D-only): the
+    reference's message, and exit code 1 with no output through the
+    dispatcher."""
+    opts = ["--denoiseCurvelet", "transform=fdct"]
+    with pytest.raises(Exception) as want:
+        _run_ref(["in.mrc", "ref.mrc", *opts], monkeypatch)
+    with pytest.raises(HeliconError) as got:
+        _run_port(["in.mrc", "port.mrc", *opts, "--device", "cpu"])
+    assert str(got.value) == str(want.value) and "Use 'udct' or 'mct'" in str(got.value)
     with pytest.raises(SystemExit) as e:
-        helicon.main(["proc3d", "in.mrc", "port.mrc", "--denoiseCurvelet", "",
-                      "--device", "cpu"])
+        helicon.main(["proc3d", "in.mrc", "port.mrc", *opts, "--device", "cpu"])
     assert e.value.code == 1 and not (workdir / "port.mrc").exists()
 
 

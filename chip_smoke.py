@@ -3701,6 +3701,7 @@ def phase_curvelet(device, card) -> dict:
     # (b) the same command in this process, its steps timed
     curvelet._directional_bands_3d.cache_clear()
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30  # by earlier phases of this process
     torch.cuda.reset_peak_memory_stats()
     parts = {}
     argv_in = ["noisy.mrc", "out_in.mrc", *argv[2:]]
@@ -3719,7 +3720,8 @@ def phase_curvelet(device, card) -> dict:
     print(f"phase 14 (b) [the same command in process]: wall {wall_in:.3f} s, the option "
           f"{times['denoiseCurvelet']:.4f} s; steps {json.dumps(steps)} s, calls "
           f"{json.dumps(calls)}; {len(meta)} bands; peak device memory {peak:.3f} GiB (limit "
-          f"{PEAK_LIMIT_GIB}); output against the subprocess's {err_in:.3e}; {card}", flush=True)
+          f"{PEAK_LIMIT_GIB}), {held:.3f} GiB of it held before the command; output against "
+          f"the subprocess's {err_in:.3e}; {card}", flush=True)
     if len(meta) != 37 or U.shape[0] != 37 or not peak < PEAK_LIMIT_GIB or err_in > 1e-6:
         raise AssertionError("phase 14 (b): bands, peak memory or a repeat run off")
 
@@ -3831,7 +3833,7 @@ def phase_curvelet(device, card) -> dict:
         if hold.first or hold.bands != 48 or not err <= 1e-4 or not hold.thr_err <= KEEP_REL:
             raise AssertionError(f"phase 14 (e) {label}: the card differs from the CPU")
     curvelet._windows_2d.cache_clear()
-    return dict(wall_sub=wall_sub, wall_in=wall_in, parts=parts, peak=peak,
+    return dict(wall_sub=wall_sub, wall_in=wall_in, parts=parts, peak=peak, held=held,
                 frame_err=frame_err, rt_err=rt_err, d=res_d, e=res_e)
 
 

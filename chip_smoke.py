@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs fourteen phases and fails (non-zero exit) if any fails:
+checkout, then runs fifteen phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
@@ -194,9 +194,35 @@ checkout, then runs fourteen phases and fails (non-zero exit) if any fails:
    out (a coefficient that close to its threshold moves a map by up to
    ~9 % of its peak); (e) denoise_curvelet_2d (udct, mct) and
    curvelet_denoise_batch_mct on 64 images of 256^2 (slices of the noisy
-   map), card against CPU the same way. No hand-written kernel either.
+   map), card against CPU the same way. No hand-written kernel either;
+15. helical indexing, cross-correlation, the CTF and ptychography, each
+   step timed with the card synchronised around it, with its peak device
+   memory: (a) 200 class averages of 384^2 at 0.6 A/px (an amyloid, a
+   TMV-like rod and a C3 tube from the port's simulator, plus seeded
+   noise) through compute_power_spectra_batch and
+   detect_layer_lines_batch, then estimate_helical_parameters on one image
+   of each geometry; the spectra within 1e-5 of the CPU's, the lines
+   equal (a line on one side only within 1e-4 relative of
+   min_prominence, counted) and the candidate tables equal where the lines
+   are; (b) batched_cross_correlation of 100 classes against 20,000
+   segments of 128^2 (the first 500 shifted copies of classes plus
+   noise), spectra, products with their inverse FFTs and peaks timed
+   apart, 10 x 500 pairs against the CPU (peaks 1e-5 relative; a shift
+   that differs only between two peaks within 1e-5), the planted shifts
+   recovered; (c) ctf_2d of 1,000 defoci at 512^2, 16 against the CPU
+   within 3 float32 ulps of the largest phase; (d) ptychography after
+   the loader (parallax and ePIE, 5 epochs of batch 256) on a synthetic
+   128 x 128 scan with a 128^2 detector (tests/test_aux_modules.py's
+   fixture rule), the phase finite, the defocus estimate beside the
+   truth; a 24 x 24 scan with a 64^2 detector on the card and the CPU
+   (within 1e-4 rad on a vacuum probe with a 1 % floor; the hard
+   aperture's difference printed), each run twice on the card bit for
+   bit; (e) map_coordinates order 0 in every mode (bit for bit),
+   apply_rotation and the two gathers (1e-6) on the card against the CPU.
+   No hand-written kernel: none of these reaches a TPU kernel.
 
-The last two lines of standard output are the card's name and power
+A line before phase 1 lists which optional host packages the machine
+has. The last two lines of standard output are the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them lists each
 kernel with its launches on its own path (phase 4 for B1, phase 5 for B2
 and B3, phase 10 (c) for the gather kernels; B1's and B2's on the
@@ -3837,6 +3863,529 @@ def phase_curvelet(device, card) -> dict:
                 frame_err=frame_err, rt_err=rt_err, d=res_d, e=res_e)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: helical indexing from power spectra, batched cross-correlation,
+# the CTF, ptychography (helix/indexing.py, core/xcorr.py, core/ctf.py,
+# core/ptycho.py) and the order-0 interpolation (ROADMAP C14)
+# ---------------------------------------------------------------------------
+
+HOST_PACKAGES = ("pandas", "sklearn", "h5py", "mrcfile", "starfile")
+# (name, twist deg, rise A, csym, diameter A, ball radius A), each image
+# 384^2 at 0.6 A/px, the filament axis vertical
+INDEX = dict(n=200, size=384, apix=0.6, seed=15, noise=0.5, min_prominence=3.0, geometries=(
+    ("amyloid", -1.2, 4.75, 1, 100.0, 3.0), ("TMV-like", 22.03, 1.408, 1, 180.0, 2.0),
+    ("C3 tube", 15.0, 12.0, 3, 200.0, 4.0)))
+PROMINENCE_REL = 1e-4  # a line on one side only lies this close to min_prominence
+XCORR = dict(classes=100, segments=20000, size=128, planted=500, checked=(10, 500), seed=151)
+CTF = dict(n=1000, size=512, apix=1.0, checked=16, seed=152)
+PTYCHO = dict(scan=128, det=128, step_px=2, defocus=-600.0, epochs=5, batch=256,
+              small_scan=24, small_det=64, small_batch=16, floor=0.01, tol=1e-4)
+
+
+def _host_packages() -> str:
+    """Which optional host packages this machine has (none imported)."""
+    import importlib.util
+
+    return json.dumps({name: importlib.util.find_spec(name) is not None
+                       for name in HOST_PACKAGES})
+
+
+@contextlib.contextmanager
+def _timed_calls(module, names, parts: dict):
+    """module's functions ``names`` timed for the duration, the card
+    synchronised around each call, seconds summed into parts[name]."""
+    import torch
+
+    saved = {n: getattr(module, n) for n in names}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    for n in names:
+        setattr(module, n, timed(n, saved[n]))
+    try:
+        yield parts
+    finally:
+        for n in names:
+            setattr(module, n, saved[n])
+
+
+def _sync_wall(fn):
+    """(fn(), host seconds with the card synchronised before and after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _peak_gib(reset: bool = False) -> float:
+    import torch
+
+    if reset:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _index_stack(device):
+    """INDEX["n"] class averages: the three geometries' projections in
+    turn (the port's simulator on device), each plus seeded numpy
+    Gaussian noise of INDEX["noise"] times its projection's std."""
+    import numpy as np
+
+    from helicon_tpu_torch.helix import simulate_helical_projection
+
+    n, apix = INDEX["size"], INDEX["apix"]
+    projs = [np.ascontiguousarray(np.asarray(simulate_helical_projection(
+        1, tw, ri, cs, d, br, 0, 1.0, n, n, apix, rng=INDEX["seed"], device=device)).T)
+        for _, tw, ri, cs, d, br in INDEX["geometries"]]
+    which = np.arange(INDEX["n"]) % len(projs)
+    g = np.random.default_rng(INDEX["seed"])
+    scale = np.asarray([p.std() * INDEX["noise"] for p in projs], np.float32)[which, None, None]
+    stack = np.stack([projs[k] for k in which])
+    stack += g.standard_normal(stack.shape, dtype=np.float32) * scale
+    return stack, which
+
+
+def _prominences(prof, rows):
+    """A row's peak height over the profile's MAD (helix/indexing.py's
+    _peak_rows test), for the rows given."""
+    import numpy as np
+    from scipy.ndimage import median_filter
+
+    prof = np.asarray(prof, np.float64)
+    resid = prof - median_filter(prof, size=max(5, prof.shape[0] // 16))
+    mad = np.median(np.abs(resid - np.median(resid))) * 1.4826 + 1e-12
+    return resid[rows] / mad
+
+
+def _hold_lines(got, want, prof_got, prof_want, ny: int, apix: float) -> int:
+    """Two line lists of one spectrum (card, CPU): the lines on both sides
+    equal (intensity within 1e-5); a line on one side only must have its
+    prominence within PROMINENCE_REL of min_prominence on its side.
+    Returns the count of such lines."""
+    import numpy as np
+
+    sy = np.abs(np.fft.fftshift(np.fft.fftfreq(ny, d=apix)))
+    key = lambda l: (l.Z, l.meridional)  # noqa: E731
+    a, b = {key(l): l for l in got}, {key(l): l for l in want}
+    for k in a.keys() & b.keys():
+        x, y = a[k], b[k]
+        if (x.r_peak, x.bessel_order) != (y.r_peak, y.bessel_order) \
+                or abs(x.intensity - y.intensity) > 1e-5:
+            raise AssertionError(f"line {k}: card {x}, cpu {y}")
+    alone = 0
+    for side, lines, prof in (("card", a, prof_got), ("cpu", b, prof_want)):
+        for k in lines.keys() - (b.keys() if side == "card" else a.keys()):
+            rows = np.flatnonzero(np.abs(np.round(sy, 6) - k[0]) < 1e-9)
+            prom = _prominences(prof[2] if k[1] else prof[0], rows)
+            m = INDEX["min_prominence"]
+            if not np.any(np.abs(prom - m) <= PROMINENCE_REL * m):
+                raise AssertionError(f"line {k} only on the {side}, prominence {prom}")
+            alone += 1
+    return alone
+
+
+def phase_indexing(device, card) -> dict:
+    """Phase 15 (a): see the module docstring."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.core import transforms
+    from helicon_tpu_torch.helix import indexing
+
+    import scipy.ndimage  # noqa: F401  (the peak logic's imports, outside the timed calls)
+    import scipy.signal  # noqa: F401
+
+    apix, n = INDEX["apix"], INDEX["n"]
+    stack, which = _index_stack(device)
+    _peak_gib(reset=True)
+    x = torch.as_tensor(stack, device=device)
+    # each step twice: the first call plans cuFFT's transforms for the shapes
+    t_spec, t_prof, t_detect = [], [], []
+    for _ in range(2):
+        (pwr, _), t = _sync_wall(lambda: transforms.compute_power_spectra_batch(x, apix))
+        t_spec.append(t)
+        prof_card, t = _sync_wall(lambda: indexing.layer_line_profiles(pwr))
+        t_prof.append(t)
+        lines, t = _sync_wall(lambda: indexing.detect_layer_lines_batch(
+            pwr, apix, min_prominence=INDEX["min_prominence"]))
+        t_detect.append(t)
+    peak = _peak_gib()
+    one = {}
+    for k, (name, tw, ri, cs, d, _) in enumerate(INDEX["geometries"]):
+        img = x[int(np.flatnonzero(which == k)[0])]
+        one[name], one[name + "_s"] = _sync_wall(lambda: indexing.estimate_helical_parameters(
+            img, apix=apix, diameter=d, csym=cs))
+    # the CPU
+    pwr_cpu, _ = transforms.compute_power_spectra_batch(torch.as_tensor(stack), apix)
+    lines_cpu = indexing.detect_layer_lines_batch(pwr_cpu, apix,
+                                                  min_prominence=INDEX["min_prominence"],
+                                                  device="cpu")
+    spec_err = float((pwr.cpu() - pwr_cpu).abs().max())
+    prof_card = [t.cpu().numpy() for t in prof_card]
+    prof_cpu = [t.numpy() for t in indexing.layer_line_profiles(pwr_cpu)]
+    alone = sum(_hold_lines(lines[i], lines_cpu[i], [p[i] for p in prof_card],
+                            [p[i] for p in prof_cpu], pwr.shape[-2], apix) for i in range(n))
+    batch_err = max(float((transforms.compute_power_spectra(x[i], apix)[0] - pwr[i]).abs().max())
+                    for i in (0, n // 2, n - 1))
+    tables = {}
+    for k, (name, tw, ri, cs, d, _) in enumerate(INDEX["geometries"]):
+        img = stack[int(np.flatnonzero(which == k)[0])]
+        cpu = indexing.estimate_helical_parameters(img, apix=apix, diameter=d, csym=cs,
+                                                   device="cpu")
+        got, want = one[name]["candidates"], cpu["candidates"]
+        same_lines = [(l.Z, l.meridional) for l in one[name]["layer_lines"]] == \
+            [(l.Z, l.meridional) for l in cpu["layer_lines"]]
+        if same_lines:
+            strip = lambda cs_: [{k_: v for k_, v in c.items() if k_ != "support"}  # noqa: E731
+                                 for c in cs_]
+            if json.dumps(strip(got)) != json.dumps(strip(want)) or any(
+                    abs(a["support"] - b["support"]) > 1e-4 for a, b in zip(got, want)):
+                raise AssertionError(f"phase 15 (a) {name}: candidate tables differ")
+        best = got[0] if got else {}
+        tables[name] = dict(candidates=len(got), lines=len(one[name]["layer_lines"]),
+                            same_lines=same_lines, wall_s=one[name + "_s"],
+                            best={k_: best.get(k_) for k_ in ("twist", "rise", "pitch")},
+                            truth=(tw, ri))
+    n_lines = sum(len(l) for l in lines)
+    print(f"phase 15 (a) [{n} class averages of {INDEX['size']}^2 at {apix} A/px, three "
+          f"geometries + noise], first call / second: compute_power_spectra_batch "
+          f"{t_spec[0]:.4f} / {t_spec[1]:.4f} s, detect_layer_lines_batch {t_detect[0]:.4f} / "
+          f"{t_detect[1]:.4f} s (its profiles alone {t_prof[0]:.4f} / {t_prof[1]:.4f} s), "
+          f"{n_lines} lines; peak device memory {peak:.3f} GiB; spectra within {spec_err:.3e} "
+          f"of the CPU's (peak 1; limit 1e-5), an image alone against its slot {batch_err:.3e}; "
+          f"lines on one side only {alone} (each within {PROMINENCE_REL} of min_prominence); "
+          f"estimate_helical_parameters {json.dumps(tables)}; {card}", flush=True)
+    if not spec_err <= 1e-5:
+        raise AssertionError("phase 15 (a): the card's spectra differ from the CPU's")
+    return dict(spectra_s=t_spec, detect_s=t_detect, profiles_s=t_prof, peak=peak,
+                spec_err=spec_err, alone=alone, batch_err=batch_err, tables=tables)
+
+
+def phase_xcorr(device, card) -> dict:
+    """Phase 15 (b): see the module docstring."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.core import xcorr
+
+    C, S, m = XCORR["classes"], XCORR["segments"], XCORR["size"]
+    g = np.random.default_rng(XCORR["seed"])
+    classes = g.standard_normal((C, m, m), dtype=np.float32)
+    segments = g.standard_normal((S, m, m), dtype=np.float32)
+    planted = XCORR["planted"]
+    cls = np.arange(planted) % C
+    offs = g.integers(-20, 21, (planted, 2))
+    for i in range(planted):  # a class shifted by offs[i], plus noise
+        segments[i] = np.roll(classes[cls[i]], tuple(offs[i]), axis=(0, 1)) + 0.5 * segments[i]
+    _peak_gib(reset=True)
+    cl = torch.as_tensor(classes, device=device)
+    sg = torch.as_tensor(segments, device=device)
+    chunk = xcorr.segment_chunk(C, S, m, m, device)
+    walls, runs = [], []
+    for _ in range(2):  # the first call plans cuFFT's transforms
+        parts = {}
+        with _timed_calls(xcorr, ("_spectra", "_correlate", "_peaks"), parts):
+            (peak, shift), wall = _sync_wall(lambda: xcorr.batched_cross_correlation(cl, sg))
+        walls.append(wall)
+        runs.append(parts)
+    mem = _peak_gib()
+    cold = runs[0]
+    del sg
+    c_n, s_n = XCORR["checked"]
+    p_cpu, s_cpu = xcorr.batched_cross_correlation(classes[:c_n], segments[:s_n], device="cpu")
+    p_card, s_card = peak[:c_n, :s_n].cpu().numpy(), shift[:c_n, :s_n].cpu().numpy()
+    p_cpu, s_cpu = p_cpu.numpy(), s_cpu.numpy()
+    peak_err = float(np.abs(p_card - p_cpu).max() / np.abs(p_cpu).max())
+    moved = list(zip(*np.nonzero((s_card != s_cpu).any(-1))))
+    for c, s in moved:
+        cc = xcorr.cross_correlation_map(classes[c], segments[s]).numpy()
+        if abs(cc[tuple(s_card[c, s])] - cc[tuple(s_cpu[c, s])]) > 1e-5 * abs(p_cpu[c, s]):
+            raise AssertionError(f"phase 15 (b): pair ({c}, {s}) peaks apart")
+    own = shift[cls, torch.arange(planted)].cpu().numpy()
+    want = -offs
+    want = np.where(want > m // 2, want - m, np.where(want <= -(m - m // 2), want + m, want))
+    planted_ok = bool(np.array_equal(own, want)) and float(
+        peak[cls, torch.arange(planted)].min()) > 0.8
+    pairs = C * S
+    # the three passes over the (C, chunk, m, m) product: its half spectrum
+    # written and read by the inverse FFT, the maps written and read by the max
+    passes_gb = pairs * (2 * m * (m // 2 + 1) * 8 + 2 * m * m * 4) / 1e9
+    print(f"phase 15 (b) [batched_cross_correlation, {C} classes x {S} segments of {m}^2, "
+          f"{pairs} pairs, chunks of {chunk} segments], second call (first): wall {wall:.4f} s "
+          f"({walls[0]:.4f}), {pairs / wall:.0f} pairs/s: spectra {parts['_spectra']:.4f} s "
+          f"({cold['_spectra']:.4f}), products + inverse FFTs {parts['_correlate']:.4f} s "
+          f"({cold['_correlate']:.4f}), peaks {parts['_peaks']:.4f} s ({cold['_peaks']:.4f}); "
+          f"the passes over the products move {passes_gb:.1f} GB ({passes_gb / 3350:.4f} s at "
+          f"3.35 TB/s); peak device memory {mem:.3f} GiB; {c_n} x {s_n} pairs against the CPU: "
+          f"peaks within {peak_err:.3e} relative (limit 1e-5), {len(moved)} shifts differ (each "
+          f"between two peaks within 1e-5); planted shifts recovered {planted_ok}; {card}",
+          flush=True)
+    if not peak_err <= 1e-5 or not planted_ok:
+        raise AssertionError("phase 15 (b): the card's correlations are off")
+    return dict(wall=wall, wall_first=walls[0], parts=parts, parts_first=cold, peak=mem,
+                peak_err=peak_err, moved=len(moved), chunk=chunk)
+
+
+def _gamma_max(shape, apix, defocus_A) -> float:
+    """The largest CTF phase (rad) of a shape at a defocus (300 kV)."""
+    import math
+
+    from helicon_tpu_torch.core.ctf import electron_wavelength
+
+    return math.pi * electron_wavelength(300.0) * 2 * (0.5 / apix) ** 2 * defocus_A
+
+
+def phase_ctf(device, card) -> dict:
+    """Phase 15 (c): see the module docstring."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.core import ctf
+
+    n, m, apix = CTF["n"], CTF["size"], CTF["apix"]
+    g = np.random.default_rng(CTF["seed"])
+    du = g.uniform(5000.0, 30000.0, n).astype(np.float32)
+    dv = du * np.float32(0.9)
+    kw = dict(astig_angle_deg=30.0, bfactor=40.0)
+    _peak_gib(reset=True)
+    ctf.ctf_2d((m, m), apix, defocus_u_A=du[:2], defocus_v_A=dv[:2], device=device, **kw)
+    out, wall = _sync_wall(lambda: ctf.ctf_2d((m, m), apix, defocus_u_A=du, defocus_v_A=dv,
+                                              device=device, **kw))
+    mem = _peak_gib()
+    idx = np.sort(g.choice(n, CTF["checked"], replace=False))
+    cpu = ctf.ctf_2d((m, m), apix, defocus_u_A=du[idx], defocus_v_A=dv[idx], device="cpu", **kw)
+    err = float((out[torch.as_tensor(idx, device=out.device)].cpu() - cpu).abs().max())
+    limit = 3 * float(np.spacing(np.float32(_gamma_max((m, m), apix, float(du[idx].max())))))
+    finite = bool(torch.isfinite(out).all())
+    print(f"phase 15 (c) [ctf_2d, {n} defoci 0.5-3 um at {m}^2, {out.numel() * 4 / 1e9:.2f} GB]: "
+          f"wall {wall:.4f} s ({n / wall:.0f} images/s); peak device memory {mem:.3f} GiB; "
+          f"{len(idx)} against the CPU within {err:.3e} (limit {limit:.3e}: 3 float32 ulps of the "
+          f"largest phase, {_gamma_max((m, m), apix, float(du[idx].max())):.1f} rad); finite "
+          f"{finite}; {card}", flush=True)
+    if tuple(out.shape) != (n, m, m) or not finite or not err <= limit:
+        raise AssertionError("phase 15 (c): the card's CTFs are off")
+    return dict(wall=wall, peak=mem, err=err, limit=limit)
+
+
+def _ptycho_dataset(scan: int, det: int, device, floor: float = 0.0):
+    """tests/test_aux_modules.py's synthetic 4D-STEM rule at (scan, det):
+    a defocused hard-aperture probe (radius 8 px) over a smooth seeded
+    phase object, |FFT|^2 of each position's exit wave, centred; the
+    patterns on device in complex128, kept float32 on the host. floor:
+    a vacuum probe of |probe_f|^2 + floor * its max (0: the fixture's).
+    Returns (data, vacuum, acc_v, semiconv_mrad, r_pixel_a, V, pad_gen)."""
+    import numpy as np
+    import torch
+    from scipy.ndimage import gaussian_filter
+
+    from helicon_tpu_torch.core.ptycho import electron_wavelength_angstrom
+
+    step_px, defocus = PTYCHO["step_px"], PTYCHO["defocus"]
+    rng = np.random.default_rng(0)
+    acc_v = 300e3
+    lam = electron_wavelength_angstrom(acc_v)
+    bf_r = 8.0
+    q_pixel_mrad = lam / (det * 1.0) * 1e3
+    ky = np.fft.fftfreq(det)[:, None] * det
+    kx = np.fft.fftfreq(det)[None, :] * det
+    rr = np.hypot(ky, kx)
+    chi = np.pi * lam * (rr * (q_pixel_mrad * 1e-3) / lam) ** 2 * defocus
+    probe_f = (rr <= bf_r) * np.exp(1j * chi)
+    probe = np.fft.ifft2(probe_f)
+    probe /= np.sqrt((np.abs(probe) ** 2).sum())
+    oy = ox = (scan - 1) * step_px + det + 8
+    V = gaussian_filter(rng.standard_normal((oy, ox)), 3)
+    V = (0.6 * V / np.abs(V).max()).astype(np.float32)
+    O = torch.as_tensor(np.exp(1j * V), device=device).to(torch.complex128)
+    P = torch.as_tensor(probe, device=device)
+    pad_gen = 4
+    data = np.zeros((scan, scan, det, det), np.float32)
+    for i in range(scan):
+        rows = O[i * step_px + pad_gen : i * step_px + pad_gen + det]  # (det, ox)
+        patches = rows.unfold(1, det, step_px)[:, pad_gen // step_px : pad_gen // step_px + scan]
+        psi = P[None] * patches.permute(1, 0, 2)  # (scan, det, det)
+        data[i] = torch.fft.fftshift(torch.fft.fft2(psi).abs() ** 2, dim=(-2, -1)).float().cpu()
+    vacuum = np.fft.fftshift(np.abs(probe_f) ** 2)
+    if floor:
+        vacuum = vacuum + floor * vacuum.max()
+    return data, vacuum, acc_v, bf_r * q_pixel_mrad, float(step_px), V, pad_gen
+
+
+def _truth_corr(pot, V, pad_gen, scan, det, margin=10) -> float:
+    """The phase's correlation with the truth over the scanned region
+    (the reference's test_ptycho_reconstruct_synthetic measure)."""
+    import numpy as np
+
+    tru = np.zeros_like(pot)
+    o = 16 - pad_gen
+    oy, ox = (min(a, b - o) for a, b in zip(V.shape, pot.shape))
+    tru[o : o + oy, o : o + ox] = V[:oy, :ox]
+    span = (scan - 1) * PTYCHO["step_px"] + det
+    r = pot[16 + margin : 16 + span - margin, 16 + margin : 16 + span - margin]
+    t = tru[16 + margin : 16 + span - margin, 16 + margin : 16 + span - margin]
+    r, t = r - r.mean(), t - t.mean()
+    return float((r * t).sum() / np.sqrt((r * r).sum() * (t * t).sum()))
+
+
+def phase_ptycho(device, card) -> dict:
+    """Phase 15 (d): see the module docstring."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.core import ptycho
+
+    scan, det = PTYCHO["scan"], PTYCHO["det"]
+    data, vacuum, acc_v, semi, r_pix, V, pad_gen = _ptycho_dataset(scan, det, device)
+    seen = {}
+    real_parallax = ptycho.estimate_defocus_parallax
+
+    def spy(*a, **kw):
+        seen["defocus"] = real_parallax(*a, **kw)
+        return seen["defocus"]
+
+    def run(d, vac, dev, epochs, batch, crop=16):
+        return ptycho._reconstruct(d, vac, acc_v, semi, r_pix, defocus_initial_guess=-15000,
+                                   com_rotation_force=0.0, com_transpose_force=False,
+                                   batch_size=batch, step_size=0.5, crop_margin=crop,
+                                   num_iter=epochs, device=dev)
+
+    _peak_gib(reset=True)
+    walls, runs = [], []
+    ptycho.estimate_defocus_parallax = spy
+    try:
+        for _ in range(2):  # the first call plans cuFFT's transforms
+            parts = {}
+            with _timed_calls(ptycho, ("estimate_defocus_parallax", "_epie_reconstruct"), parts):
+                pot, wall = _sync_wall(lambda: run(data, vacuum, device, PTYCHO["epochs"],
+                                                    PTYCHO["batch"]))
+            walls.append(wall)
+            runs.append(parts)
+    finally:
+        ptycho.estimate_defocus_parallax = real_parallax
+    mem = _peak_gib()
+    cold = runs[0]
+    finite = bool(np.isfinite(pot).all())
+    corr = _truth_corr(np.pad(pot, 16), V, pad_gen, scan, det)
+    n_steps = PTYCHO["epochs"] * -(-scan * scan // PTYCHO["batch"])
+    print(f"phase 15 (d) [ptychography, a {scan} x {scan} scan, {det}^2 detector "
+          f"({data.nbytes / 1e9:.2f} GB float32), {PTYCHO['epochs']} epochs of batch "
+          f"{PTYCHO['batch']} ({n_steps} steps)], second call (first): after the loader "
+          f"{wall:.3f} s ({walls[0]:.3f}): parallax {parts['estimate_defocus_parallax']:.4f} s "
+          f"({cold['estimate_defocus_parallax']:.4f}), ePIE {parts['_epie_reconstruct']:.4f} s "
+          f"({cold['_epie_reconstruct']:.4f}; {parts['_epie_reconstruct'] / n_steps * 1e3:.3f} ms "
+          f"a step); defocus estimate "
+          f"{seen['defocus']:.1f} A (truth {PTYCHO['defocus']:.1f}); phase {pot.shape} finite "
+          f"{finite}, correlation with the truth {corr:.4f}; peak device memory {mem:.3f} GiB; "
+          f"{card}", flush=True)
+    if not finite:
+        raise AssertionError("phase 15 (d): the phase is not finite")
+    # the small set, card against CPU, on the floored vacuum probe (no zero
+    # in its spectrum) and on the fixture's hard aperture
+    small = {}
+    s_scan, s_det = PTYCHO["small_scan"], PTYCHO["small_det"]
+    for label, floor in (("floored vacuum probe", PTYCHO["floor"]), ("hard aperture", 0.0)):
+        d, vac, *_, Vs, pg = _ptycho_dataset(s_scan, s_det, device, floor=floor)
+        (a, t_card) = _sync_wall(lambda: run(d, vac, device, PTYCHO["epochs"],
+                                             PTYCHO["small_batch"], crop=0))
+        b = run(d, vac, device, PTYCHO["epochs"], PTYCHO["small_batch"], crop=0)
+        t0 = time.perf_counter()
+        c = run(d, vac, "cpu", PTYCHO["epochs"], PTYCHO["small_batch"], crop=0)
+        t_cpu = time.perf_counter() - t0
+        err = float(np.abs(a - c).max())
+        small[label] = dict(err=err, repeat=bool(np.array_equal(a, b)), card_s=t_card,
+                            cpu_s=t_cpu, corr_card=_truth_corr(a, Vs, pg, s_scan, s_det),
+                            corr_cpu=_truth_corr(c, Vs, pg, s_scan, s_det))
+    fl, ha = small["floored vacuum probe"], small["hard aperture"]
+    print(f"phase 15 (d) [{s_scan} x {s_scan} scan, {s_det}^2 detector, {PTYCHO['epochs']} "
+          f"epochs of batch {PTYCHO['small_batch']}, cuda against cpu]: floored vacuum probe "
+          f"within {fl['err']:.3e} rad (limit {PTYCHO['tol']}); hard aperture {ha['err']:.3e} rad "
+          f"apart (its first steps take the phase of rounding noise outside the aperture), "
+          f"correlation with the truth card {ha['corr_card']:.4f} / cpu {ha['corr_cpu']:.4f}; a "
+          f"second run on the card equal bit for bit: {fl['repeat']} / {ha['repeat']}; walls "
+          f"cuda {fl['card_s']:.3f} s, cpu {fl['cpu_s']:.3f} s; {card}", flush=True)
+    if not fl["err"] <= PTYCHO["tol"] or not (fl["repeat"] and ha["repeat"]):
+        raise AssertionError("phase 15 (d): the small set differs from the CPU or does not "
+                             "repeat")
+    return dict(wall=wall, wall_first=walls[0], parts=parts, parts_first=cold, peak=mem,
+                defocus=seen["defocus"], corr=corr, small=small)
+
+
+def phase_interp(device, card) -> dict:
+    """Phase 15 (e): see the module docstring."""
+    import numpy as np
+    import torch
+
+    from helicon_tpu_torch.core import interp, rotation
+
+    g = np.random.default_rng(155)
+    img = g.random((97, 113)).astype(np.float32)
+    coords = []
+    for n in img.shape:
+        c = g.uniform(-3.0, n + 2.0, (300, 400)).astype(np.float32)
+        c.flat[::4] = np.floor(c.flat[::4]) + np.float32(0.5)
+        coords.append(c)
+    res, walls = {}, {}
+    _peak_gib(reset=True)
+    for mode in ("constant", "nearest", "edge", "mirror", "reflect", "wrap", "grid-wrap"):
+        x, cs_ = torch.as_tensor(img, device=device), [torch.as_tensor(c, device=device)
+                                                        for c in coords]
+        card_out, walls[mode] = _sync_wall(lambda: interp.map_coordinates(
+            x, cs_, order=0, mode=mode, cval=-1.0))
+        cpu_out = interp.map_coordinates(torch.as_tensor(img), [torch.as_tensor(c) for c in coords],
+                                         order=0, mode=mode, cval=-1.0)
+        res[mode] = bool(torch.equal(card_out.cpu(), cpu_out))
+    angles = g.uniform(-180, 180, (64, 3)).astype(np.float32)
+    vecs = g.standard_normal((64, 500, 3)).astype(np.float32)
+    rot = [rotation.apply_rotation(rotation.euler_matrix("ZYZ", torch.as_tensor(angles, device=dev))
+                                   [:, None], torch.as_tensor(vecs, device=dev)[..., None, :])
+           .cpu() for dev in (device, "cpu")]
+    rot_err = float((rot[0] - rot[1]).abs().max())
+    vol = g.random((40, 48, 56)).astype(np.float32)
+    zyx = [g.uniform(-2.0, n + 1.0, (64, 64, 16)).astype(np.float32) for n in vol.shape]
+    gat = [(interp.linear_gather_2d(torch.as_tensor(img, device=dev), *(torch.as_tensor(c, device=dev)
+                                                                       for c in coords), fill=-1.0)
+            .cpu(), interp.trilinear_gather_3d(torch.as_tensor(vol, device=dev),
+                                               *(torch.as_tensor(c, device=dev) for c in zyx),
+                                               fill=2.0).cpu()) for dev in (device, "cpu")]
+    g2 = float((gat[0][0] - gat[1][0]).abs().max())
+    g3 = float((gat[0][1] - gat[1][1]).abs().max())
+    mem = _peak_gib()
+    print(f"phase 15 (e) [map_coordinates order 0 on {img.shape}, {coords[0].size} samples, a "
+          f"quarter at exact .5, cuda against cpu]: walls on the card (first call each) "
+          f"{json.dumps({k: round(v, 5) for k, v in walls.items()})} s, peak device memory "
+          f"{mem:.3f} GiB; bit for bit by mode {json.dumps(res)}; "
+          f"apply_rotation (64 ZYZ matrices x 500 vectors) within {rot_err:.3e}; "
+          f"linear_gather_2d within {g2:.3e}, trilinear_gather_3d within {g3:.3e} (limit 1e-6); "
+          f"{card}", flush=True)
+    if not all(res.values()) or not max(rot_err, g2, g3) <= 1e-6:
+        raise AssertionError("phase 15 (e): the card's interpolation differs from the CPU's")
+    return dict(order0=res, walls=walls, peak=mem, rot_err=rot_err, gather_2d=g2, gather_3d=g3)
+
+
+def phase_helical_arrays(device, card) -> dict:
+    """Phase 15 (a)-(e)."""
+    out = {}
+    for key, fn in (("a", phase_indexing), ("b", phase_xcorr), ("c", phase_ctf),
+                    ("d", phase_ptycho), ("e", phase_interp)):
+        t0 = time.perf_counter()
+        out[key] = fn(device, card)
+        out[key]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3852,6 +4401,7 @@ def main() -> int:
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = _card_line()
+    print(f"host packages: {_host_packages()}", flush=True)
     print(f"phase 1: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     _build.load_kernels()
@@ -3914,6 +4464,10 @@ def main() -> int:
     t14 = time.perf_counter()
     phase_curvelet(device, card)
     print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+    t15 = time.perf_counter()
+    arrays = phase_helical_arrays(device, card)
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s (by part "
+          f"{json.dumps({k: round(v['phase_s'], 1) for k, v in arrays.items()})})", flush=True)
     webapp_launches = {k: sum(d["launches"][k] for d in (*webapp.values(), webapp_grid))
                        + sum(d["launches_app"][k] for d in webapp.values()) for k in _counts()}
     webapp_launches["group_solve"] += webapp_fsc["launches"]

@@ -8,8 +8,8 @@ along ``axis``::
 
 with ``f0``/``df`` in cycles/sample, as three FFTs of length
 ``next_fast_len(n + m - 1)``. The chirps are computed in float64 numpy,
-as the reference computes them, and applied in complex64 on the device
-of the tensor given.
+as the reference computes them, and applied in complex64 (complex128 in
+``zoom_fft_2d``) on the device of the tensor given.
 """
 
 from __future__ import annotations
@@ -37,15 +37,18 @@ def _next_fast_len(n: int) -> int:
     return best
 
 
-def _along(vec: np.ndarray, ndim: int, axis: int, device) -> torch.Tensor:
-    """A 1D complex64 factor shaped to broadcast along ``axis``."""
+def _along(vec: np.ndarray, ndim: int, axis: int, device, dtype) -> torch.Tensor:
+    """A 1D factor of ``dtype`` shaped to broadcast along ``axis``."""
     shape = [1] * ndim
     shape[axis] = -1
-    return torch.as_tensor(np.asarray(vec, np.complex64), device=device).reshape(shape)
+    return torch.as_tensor(vec, device=device).to(dtype).reshape(shape)
 
 
-def czt(x: torch.Tensor, m: int, f0: float, df: float, axis: int = -1) -> torch.Tensor:
-    """Chirp-Z transform along one axis at frequencies ``f0 + k*df``."""
+def czt(x: torch.Tensor, m: int, f0: float, df: float, axis: int = -1,
+        dtype=torch.complex64) -> torch.Tensor:
+    """Chirp-Z transform along one axis at frequencies ``f0 + k*df``,
+    computed in ``dtype`` (complex64: the chirps rounded to it first, as
+    the reference's)."""
     x = torch.as_tensor(x)
     axis = axis % x.ndim
     n = x.shape[axis]
@@ -56,34 +59,42 @@ def czt(x: torch.Tensor, m: int, f0: float, df: float, axis: int = -1) -> torch.
     a_exp = f0 * k_all[:n]
     chirp = np.exp(-2j * np.pi * np.mod(w_exp, 1.0))
     a_fac = np.exp(-2j * np.pi * np.mod(a_exp, 1.0))
-    pre = (a_fac * chirp[:n]).astype(np.complex64)
-    post = chirp[:m].astype(np.complex64)
+    npdt = np.complex64 if dtype == torch.complex64 else np.complex128
+    pre = (a_fac * chirp[:n]).astype(npdt)
+    post = chirp[:m].astype(npdt)
     # the convolution kernel: conj chirp at offsets -(n-1)..(m-1), wrapped
     idx = np.arange(L, dtype=np.float64)
     offs = np.where(idx < m, idx, idx - L)
-    v = np.exp(2j * np.pi * np.mod(0.5 * df * offs * offs, 1.0)).astype(np.complex64)
+    v = np.exp(2j * np.pi * np.mod(0.5 * df * offs * offs, 1.0)).astype(npdt)
     valid = (idx < m) | (idx >= L - (n - 1)) if n > 1 else (idx < m)
-    v = np.where(valid, v, 0).astype(np.complex64)
+    v = np.where(valid, v, 0).astype(npdt)
 
-    xw = x.to(torch.complex64) * _along(pre, x.ndim, axis, x.device)
+    xw = x.to(dtype) * _along(pre, x.ndim, axis, x.device, dtype)
     Xf = torch.fft.fft(xw, n=L, dim=axis)
     del xw
-    y = torch.fft.ifft(Xf * _along(np.fft.fft(v), x.ndim, axis, x.device), dim=axis)
+    y = torch.fft.ifft(Xf * _along(np.fft.fft(v), x.ndim, axis, x.device, dtype), dim=axis)
     del Xf
     y = y.narrow(axis, 0, m)
-    return y * _along(post, x.ndim, axis, x.device)
+    return y * _along(post, x.ndim, axis, x.device, dtype)
 
 
 def zoom_fft_2d(data: torch.Tensor, out_shape, zoom) -> torch.Tensor:
     """The 2D DFT on zoomed fftfreq-ordered frequency grids: along each axis
     ``fftfreq(m) * zoom`` cycles per input sample. Leading axes are a
-    batch."""
+    batch. Each chirp-Z runs along the contiguous last axis (the image
+    transposed for the first), so an image of a batch gets the bits of
+    its own call: a batched FFT along a strided axis may not. Both run in
+    complex128, the result complex64: in complex64 the chirp-Z's rounding
+    is up to 4.6e-5 of the largest coefficient with cuFFT at 384^2 and
+    1.1e-5 on the CPU, and a power spectrum's log scale shows it."""
     my, mx = out_shape
     zy, zx = zoom
     dfy, dfx = zy / my, zx / mx
-    y = czt(data, my, -(my // 2) * dfy, dfy, axis=-2)
-    y = czt(y, mx, -(mx // 2) * dfx, dfx, axis=-1)
-    return torch.fft.ifftshift(y, dim=(-2, -1))
+    c128 = torch.complex128
+    y = czt(torch.as_tensor(data).transpose(-2, -1).contiguous(), my, -(my // 2) * dfy, dfy,
+            axis=-1, dtype=c128)
+    y = czt(y.transpose(-2, -1).contiguous(), mx, -(mx // 2) * dfx, dfx, axis=-1, dtype=c128)
+    return torch.fft.ifftshift(y, dim=(-2, -1)).to(torch.complex64)
 
 
 def zoom_fft_3d(data: torch.Tensor, out_shape, zoom) -> torch.Tensor:

@@ -1,11 +1,15 @@
-"""N-d interpolation on tensors: ``map_coordinates`` of order 1 and 3.
+"""N-d interpolation on tensors: ``map_coordinates`` of order 0, 1 and 3,
+and the masked bilinear / trilinear gathers.
 
-Counterpart of ``helicon_tpu/core/interp.py`` for orders 1 (bilinear:
-the rotations of the helix estimator and of the image alignment) and 3
-(cubic B-spline down-scaling, with the recursive prefilter of pole
-sqrt(3) - 2), in its modes constant, nearest, mirror, reflect and wrap
-(periodic, scipy's grid-wrap). The scipy conventions are the same.
-The prefilter's recursion is a Python loop over the filtered axis.
+Counterpart of ``helicon_tpu/core/interp.py``: order 0 (nearest pixel by
+scipy's floor(c + 0.5) rule), 1 (bilinear: the rotations of the helix
+estimator and of the image alignment) and 3 (cubic B-spline
+down-scaling, with the recursive prefilter of pole sqrt(3) - 2), in the
+modes constant, nearest (alias edge), mirror, reflect and wrap (periodic,
+scipy's grid-wrap; alias grid-wrap). The scipy conventions are the same.
+``linear_gather_2d`` :269 and ``trilinear_gather_3d`` :274 are order 1
+with a fill value. The prefilter's recursion is a Python loop over the
+filtered axis.
 """
 
 from __future__ import annotations
@@ -15,10 +19,11 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["spline_filter1d", "spline_filter", "map_coordinates"]
+__all__ = ["spline_filter1d", "spline_filter", "map_coordinates", "linear_gather_2d",
+           "trilinear_gather_3d"]
 
 _CUBIC_POLE = math.sqrt(3.0) - 2.0
-_MODES = ("constant", "nearest", "mirror", "reflect", "wrap")
+_MODES = ("constant", "nearest", "edge", "mirror", "reflect", "wrap", "grid-wrap")
 
 
 def _mirror_index(idx, n: int):
@@ -48,9 +53,9 @@ def _fix_index(mode: str, idx, n: int):
         return _mirror_index(idx, n), inside
     if mode == "reflect":
         return _reflect_index(idx, n), inside
-    if mode == "nearest":
+    if mode in ("nearest", "edge"):
         return idx.clamp(0, n - 1), inside
-    if mode == "wrap":
+    if mode in ("wrap", "grid-wrap"):
         return torch.remainder(idx, n), inside
     return idx.clamp(0, n - 1), (idx >= 0) & (idx <= n - 1)
 
@@ -116,13 +121,15 @@ def map_coordinates(
     """Evaluate a float *input* at fractional *coordinates* (scipy
     convention; one coordinate array per input axis).
 
-    order 1 or 3; mode "constant" (points outside [0, n-1] on any axis
-    return cval), "nearest", "mirror", "reflect" or "wrap".
+    order 0 (the pixel at floor(c + 0.5): an exact .5 takes the upper
+    one), 1 or 3; mode "constant" (points outside [0, n-1] on any axis
+    return cval), "nearest" (or "edge"), "mirror", "reflect" or "wrap"
+    (or "grid-wrap").
     """
-    if order not in (1, 3):
-        raise NotImplementedError(f"map_coordinates order={order} (port has 1 and 3)")
+    if order not in (0, 1, 3):
+        raise ValueError(f"order={order} not supported (use 0, 1, or 3)")
     if mode not in _MODES:
-        raise NotImplementedError(f"map_coordinates mode={mode!r} (port has {_MODES})")
+        raise ValueError(f"map_coordinates mode={mode!r} (one of {_MODES})")
     x = torch.as_tensor(input)
     coords = [torch.as_tensor(c, dtype=torch.float32, device=x.device) for c in coordinates]
     if len(coords) != x.ndim:
@@ -134,6 +141,18 @@ def map_coordinates(
     if mode == "constant":
         for d, c in enumerate(coords):
             in_domain &= (c >= 0) & (c <= x.shape[d] - 1)
+
+    if order == 0:
+        idxs = []
+        valid = torch.ones(out_shape, dtype=torch.bool, device=x.device)
+        for d, c in enumerate(coords):
+            i, ok = _fix_index(mode, torch.floor(c + 0.5).to(torch.int64), x.shape[d])
+            idxs.append(i)
+            valid &= ok
+        vals = x[tuple(idxs)]
+        if mode == "constant":
+            vals = torch.where(valid & in_domain, vals, float(cval))
+        return vals
 
     floors = [torch.floor(c) for c in coords]
     lo = [f.to(torch.int64) for f in floors]
@@ -175,3 +194,13 @@ def map_coordinates(
     if mode == "constant":
         out = torch.where(in_domain, out, float(cval))
     return out.to(x.dtype)
+
+
+def linear_gather_2d(img, yy, xx, fill: float = 0.0) -> torch.Tensor:
+    """Bilinear sample of a 2D image at (yy, xx); out of bounds -> fill."""
+    return map_coordinates(img, (yy, xx), order=1, mode="constant", cval=fill)
+
+
+def trilinear_gather_3d(vol, zz, yy, xx, fill: float = 0.0) -> torch.Tensor:
+    """Trilinear sample of a 3D volume at (zz, yy, xx); out of bounds -> fill."""
+    return map_coordinates(vol, (zz, yy, xx), order=1, mode="constant", cval=fill)

@@ -1,7 +1,7 @@
 """Rotation matrices of the Euler conventions the port uses, on tensors.
 
 Counterpart of ``helicon_tpu/core/rotation.py`` (``rot_x`` :23, ``rot_y``
-:37, ``rot_z`` :51, ``euler_matrix`` :68): scipy's
+:37, ``rot_z`` :51, ``euler_matrix`` :68, ``apply_rotation`` :89): scipy's
 ``Rotation.from_euler(seq, angles)`` semantics, uppercase axes intrinsic,
 lowercase extrinsic; a matrix acts on column vectors (R @ v). Angles are
 degrees; the matrices are float32 and batch over leading axes.
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["rot_x", "rot_y", "rot_z", "euler_matrix", "cos_sin"]
+__all__ = ["rot_x", "rot_y", "rot_z", "euler_matrix", "apply_rotation", "cos_sin"]
 
 _DEG = np.float32(np.pi / 180)
 
@@ -74,3 +74,13 @@ def euler_matrix(seq: str, angles) -> torch.Tensor:
     else:
         raise ValueError(f"mixed-case Euler sequence {seq!r} not supported")
     return out
+
+
+def apply_rotation(matrix, vectors, inverse: bool = False) -> torch.Tensor:
+    """Rotate (..., 3) vectors by R (v @ R^T); ``inverse=True`` applies R^T
+    (v @ R). A stack of matrices (..., 3, 3) rotates its own vectors."""
+    matrix = torch.as_tensor(matrix)
+    vectors = torch.as_tensor(vectors, device=matrix.device)
+    if inverse:
+        return vectors @ matrix
+    return vectors @ matrix.transpose(-1, -2)

@@ -3,16 +3,17 @@ affine warp), ``rotate_shift_image`` (rotation about a centre with
 pre/post shifts), ``pad_to_size``, the centre crops, the helical
 symmetrization ``apply_helical_symmetry``, the cubic volume transform
 ``transform_map``, the zero-padded clips, the straightened strip
-``get_rotated_clip``, the Fourier crop and rescale, the hand flip and the
-Friedel phase difference across the meridian.
+``get_rotated_clip``, the Fourier crop and rescale, the hand flip, the
+power spectra and the Friedel phase difference across the meridian.
 
 Counterpart of ``helicon_tpu/core/transforms.py:261``, ``:326``, ``:401``,
 ``:370`` / ``:378`` (the crops), ``:143`` with ``_helical_sym_accumulate``
 :65, ``:219``, ``:421`` / ``:433`` (the clips), ``:448``
 (``get_rotated_clip``), ``:467`` (``fft_crop``), ``:507``
-(``fft_rescale``), ``:561`` (``flip_hand``) and ``:601``
-(``compute_phase_difference_across_meridian``). Each runs on the device
-of the tensor it is given.
+(``fft_rescale``), ``:561`` (``flip_hand``), ``:572``
+(``compute_power_spectra``, with a batched form for stacks of images) and
+``:601`` (``compute_phase_difference_across_meridian``). Each runs on the
+device of the tensor it is given.
 """
 
 from __future__ import annotations
@@ -25,11 +26,13 @@ import torch.nn.functional as F
 
 from . import rotation
 from .czt import zoom_fft_2d, zoom_fft_3d
+from .filters import low_high_pass_filter, normalize_percentile
 from .interp import map_coordinates
 
 __all__ = ["transform_image", "rotate_shift_image", "pad_to_size", "crop_center",
            "crop_center_z", "apply_helical_symmetry", "transform_map", "get_clip",
            "get_clip3d", "get_rotated_clip", "fft_crop", "fft_rescale", "flip_hand",
+           "compute_power_spectra", "compute_power_spectra_batch",
            "compute_phase_difference_across_meridian"]
 
 
@@ -391,12 +394,18 @@ def fft_rescale(data, apix: float = 1.0, cutoff_res=None, output_size=None) -> t
     data = torch.as_tensor(data)
     if data.ndim not in (2, 3):
         raise ValueError("only 2D images and 3D maps are supported")
-    cut = cutoff_res if cutoff_res else (2 * apix,) * data.ndim
-    out = tuple(output_size) if output_size else tuple(data.shape)
+    return _fft_rescale(data, data.ndim, apix, cutoff_res, output_size)
+
+
+def _fft_rescale(data, ndim: int, apix, cutoff_res, output_size) -> torch.Tensor:
+    """fft_rescale over the last ``ndim`` axes; leading axes are a batch."""
+    shape = tuple(data.shape[-ndim:])
+    cut = cutoff_res if cutoff_res else (2 * apix,) * ndim
+    out = tuple(output_size) if output_size else shape
     zooms = tuple(2 * apix / c for c in cut)
-    zoom_fft = zoom_fft_2d if data.ndim == 2 else zoom_fft_3d
+    zoom_fft = zoom_fft_2d if ndim == 2 else zoom_fft_3d
     fft = zoom_fft(data, out, zooms)
-    ph = _center_phase(out, zooms, data.shape, data.device)
+    ph = _center_phase(out, zooms, shape, data.device)
     # the reference's decomposed complex product, in float32
     pr, pi = ph.real.to(torch.float32), ph.imag.to(torch.float32)
     del ph
@@ -410,6 +419,58 @@ def flip_hand(data, axis: str = "x") -> torch.Tensor:
     if axis not in dims:
         raise ValueError("axis must be 'x', 'y', or 'z'")
     return torch.flip(torch.as_tensor(data), (dims[axis],))
+
+
+def compute_power_spectra(data, apix: float, cutoff_res=None, output_size=None,
+                          log: bool = True, low_pass_fraction: float = 0,
+                          high_pass_fraction: float = 0):
+    """Power spectrum and phase of a 2D image (or 3D map) on a rescaled
+    Fourier grid (fft_rescale), fftshifted: log1p(|F|) (|F| when log is
+    False), Gaussian low / high-passed when a fraction lies in (0, 1),
+    then scaled to [0, 1]; the phase is angle(F). Returns (pwr, phase).
+    An image takes the batched form's path, as a stack of one."""
+    data = torch.as_tensor(data)
+    if data.ndim == 2:
+        pwr, phase = compute_power_spectra_batch(
+            data[None], apix, cutoff_res=cutoff_res, output_size=output_size, log=log,
+            low_pass_fraction=low_pass_fraction, high_pass_fraction=high_pass_fraction)
+        return pwr[0], phase[0]
+    fft = torch.fft.fftshift(fft_rescale(data, apix=apix, cutoff_res=cutoff_res,
+                                         output_size=output_size))
+    pwr = torch.log1p(torch.abs(fft)) if log else torch.abs(fft)
+    if 0 < low_pass_fraction < 1 or 0 < high_pass_fraction < 1:
+        pwr = low_high_pass_filter(pwr, low_pass_fraction=low_pass_fraction,
+                                   high_pass_fraction=high_pass_fraction)
+    return normalize_percentile(pwr, percentile=(0, 100)), torch.angle(fft)
+
+
+def compute_power_spectra_batch(images, apix: float, cutoff_res=None, output_size=None,
+                                log: bool = True, low_pass_fraction: float = 0,
+                                high_pass_fraction: float = 0):
+    """compute_power_spectra of each image of a (B, ny, nx) stack in one
+    batched chirp-Z; every image's spectra equal its own call's bit for
+    bit (the (0, 100) percentiles are each image's exact min and max).
+    Returns (pwr, phase), each (B, ony, onx)."""
+    images = torch.as_tensor(images)
+    if images.ndim != 3:
+        raise ValueError("compute_power_spectra_batch takes a (B, ny, nx) stack")
+    fft = torch.fft.fftshift(_fft_rescale(images, 2, apix, cutoff_res, output_size),
+                             dim=(-2, -1))
+    # the elementwise functions image by image: a CPU kernel rounds the
+    # vector tail of its flat loop apart from its body (atan2, log1p), and
+    # the tail of a stack falls elsewhere in an image than its own call's
+    pwr = torch.stack([torch.log1p(torch.abs(f)) if log else torch.abs(f) for f in fft])
+    phase = torch.stack([torch.angle(f) for f in fft])
+    del fft
+    if 0 < low_pass_fraction < 1 or 0 < high_pass_fraction < 1:
+        pwr = torch.stack([low_high_pass_filter(p, low_pass_fraction=low_pass_fraction,
+                                                high_pass_fraction=high_pass_fraction)
+                           for p in pwr])
+    vmin = pwr.amin(dim=(-2, -1), keepdim=True)
+    vmax = pwr.amax(dim=(-2, -1), keepdim=True)
+    same = vmax == vmin
+    pwr = torch.where(same, pwr, (pwr - vmin) / torch.where(same, 1.0, vmax - vmin))
+    return pwr, phase
 
 
 def compute_phase_difference_across_meridian(phase) -> torch.Tensor:

@@ -279,7 +279,12 @@ def test_port_imports_no_jax():
             "helicon_tpu_torch.commands.proc3d, helicon_tpu_torch.commands.trueFSC, "
             "helicon_tpu_torch.ops.proc3d, helicon_tpu_torch.core.mask3d, "
             "helicon_tpu_torch.core.czt, helicon_tpu_torch.core.curvelet, "
-            "helicon_tpu_torch.angular, "
+            "helicon_tpu_torch.angular, helicon_tpu_torch.euler, helicon_tpu_torch.gauss, "
+            "helicon_tpu_torch.point_group, helicon_tpu_torch.helix, "
+            "helicon_tpu_torch.helix.indexing, helicon_tpu_torch.helix.lattice, "
+            "helicon_tpu_torch.helix.pitch, helicon_tpu_torch.core.ctf, "
+            "helicon_tpu_torch.core.xcorr, helicon_tpu_torch.core.ptycho, "
+            "helicon_tpu_torch.core.interp, helicon_tpu_torch.utils.tensors, "
             "helicon_tpu_torch.utils.system, sys; "
             "assert 'jax' not in sys.modules and 'helicon_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)

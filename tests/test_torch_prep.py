@@ -70,8 +70,70 @@ def test_map_coordinates(order, mode):
 
 
 def test_map_coordinates_raises_on_unported_order():
-    with pytest.raises(NotImplementedError):
-        port_interp.map_coordinates(torch.zeros(4, 4), (torch.zeros(2), torch.zeros(2)), order=0)
+    """Order 2 is in neither package: both raise ValueError (order 0 is
+    ported; its parity is test_map_coordinates_order0)."""
+    args = (np.zeros((4, 4), np.float32), (np.zeros(2, np.float32), np.zeros(2, np.float32)))
+    with pytest.raises(ValueError):
+        ref_interp.map_coordinates(*args, order=2)
+    with pytest.raises(ValueError):
+        port_interp.map_coordinates(torch.from_numpy(args[0]), args[1], order=2)
+
+
+MODES = ("constant", "nearest", "edge", "mirror", "reflect", "wrap", "grid-wrap")
+
+
+def _coords_with_halves(rng, shape):
+    """Uniform coordinates past both edges, every fourth one an exact .5."""
+    out = []
+    for n in shape:
+        c = rng.uniform(-3.0, n + 2.0, (9, 11)).astype(np.float32)
+        c.flat[::4] = np.floor(c.flat[::4]) + np.float32(0.5)
+        out.append(c)
+    return out
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_map_coordinates_order0(mode):
+    """scipy's floor(c + 0.5) rule (an exact .5 takes the upper pixel) in
+    every mode, exactly as the reference."""
+    rng = np.random.default_rng(1)
+    img = rng.random((17, 23)).astype(np.float32)
+    yy, xx = _coords_with_halves(rng, img.shape)
+    ref = np.asarray(ref_interp.map_coordinates(jnp.asarray(img), (yy, xx), order=0, mode=mode,
+                                                cval=-1.0))
+    out = port_interp.map_coordinates(torch.from_numpy(img), (yy, xx), order=0, mode=mode,
+                                      cval=-1.0)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("order,mode", [(1, "edge"), (1, "grid-wrap"), (3, "edge"),
+                                        (3, "grid-wrap")])
+def test_map_coordinates_mode_aliases(order, mode):
+    rng = np.random.default_rng(2)
+    img = rng.random((13, 19)).astype(np.float32)
+    yy, xx = _coords_with_halves(rng, img.shape)
+    ref = np.asarray(ref_interp.map_coordinates(jnp.asarray(img), (yy, xx), order=order, mode=mode))
+    out = port_interp.map_coordinates(torch.from_numpy(img), (yy, xx), order=order, mode=mode)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("fn", ["transform_image", "rotate_shift_image", "get_rotated_clip"])
+def test_order0_transforms(amyloid, fn):
+    """The three image transforms at order=0 (they raised before the port
+    had order 0). Exact where no sample lands within float32 rounding of a
+    half-pixel; the count of differing pixels is held at zero."""
+    img = amyloid[:, 64:192]
+    calls = dict(transform_image=lambda m: m.transform_image(img, rotation=12.5, mode="edge",
+                                                              order=0),
+                 rotate_shift_image=lambda m: m.rotate_shift_image(img, angle=-7.0,
+                                                                   post_shift=(1.5, -2.0),
+                                                                   order=0),
+                 get_rotated_clip=lambda m: m.get_rotated_clip(img, 10.0, 5.0, 50.0, 120.0, 24,
+                                                               order=0))
+    ref = np.asarray(calls[fn](ref_transforms))
+    out = calls[fn](port_transforms).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_array_equal(out, ref)
 
 
 def test_estimate_helix_rotation_center_diameter(amyloid):

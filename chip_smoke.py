@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs fifteen phases and fails (non-zero exit) if any fails:
+checkout, then runs sixteen phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
@@ -219,6 +219,36 @@ checkout, then runs fifteen phases and fails (non-zero exit) if any fails:
    aperture's difference printed), each run twice on the card bit for
    bit; (e) map_coordinates order 0 in every mode (bit for bit),
    apply_rotation and the two gathers (1e-6) on the card against the CPU.
+   No hand-written kernel: none of these reaches a TPU kernel.
+16. images2star (commands/images2star.py and ops/images2star/), its files
+   under build/phase16/, each part timed with the card synchronised around
+   it, with its peak device memory: (a) bench.py's ETL chain on its
+   100,000-row frame (select 10 of 50 classes, addParm, multParm, sortby,
+   breakFilaments maxSegments=20, removeDuplicates, write, read back) as
+   ``helicon-torch images2star`` in a subprocess, start to exit, and twice
+   in process with the read, the plugins and the write timed apart
+   (rows/s); the three runs must write equal files; (b) --createStack
+   out.mrcs:rescale2size=128 on 4,000 particles of 256^2 in 8 stacks of 500
+   (a simulated amyloid projection plus seeded noise): images/s and peak
+   memory; 16 of them with float16=0 on the card against the CPU within
+   1e-5 of each image's peak, the float16 stack within that plus one
+   float16 ulp of those; (c) --maskGold on 4 micrographs of 4,096^2 at 1
+   A/px with 40 planted gold discs each, gradient_sigma automatic (100 A):
+   seconds per micrograph; micrograph 0's mask on the card against the
+   CPU's (a pixel may differ only within 1e-5 relative of a threshold), at
+   least half the discs' pixels masked, and the option's output the card's
+   decision; (d) --denoiseCurvelet transform=mct on 500 particles of 256^2
+   and, at the defaults, on one micrograph and on 8 (links to (c)'s):
+   seconds and peak memory, the peak of 8 within two micrographs' bytes of
+   the peak of one and the first micrograph equal in both runs; 4 particles
+   on the card against the CPU at phase 14's gate (the kept-mask rule, 1e-4
+   with the differing decisions' synthesis taken out);
+   (e) --extractHelices width=300 on 25 segments on each of (c)'s
+   micrographs: seconds; 4 strips of micrograph 0 against the CPU's within
+   1e-5 of the strip's peak; (f) --calibratePixelSize gold on 100 images of
+   512^2 with a ring at 2.355 A planted on an integer radius and the pixel
+   size set 2 % off: apix_new equal to the CPU's and within 0.1 % of the
+   truth.
    No hand-written kernel: none of these reaches a TPU kernel.
 
 A line before phase 1 lists which optional host packages the machine
@@ -3112,6 +3142,8 @@ def phase_webapp_grouped_fsc(device) -> dict:
     the plain B1 on the same card tensors: float32 scores within 1e-4,
     bf16 within 1e-3. (elasticnet with fsc goes per candidate by the
     reference's rule: phase 9 (d) holds it on B2.)"""
+    import functools
+
     import numpy as np
 
     from helicon_tpu_torch.denovo3d import grid, group_solve as gs, reconstruct_grid
@@ -3141,8 +3173,9 @@ def phase_webapp_grouped_fsc(device) -> dict:
             launches = _counts()["group_solve"]
             total += launches
             run = grid._tf32_off(scorer)
-            s_p, _ = run(*captured["args"], **dict(captured["kw"],
-                                                   solve=gs.solve_group_reference))
+            # plain B1 with the search's own power seed (grid.POWER_SEED)
+            plain = functools.partial(gs.solve_group_reference, power_seed=grid.POWER_SEED)
+            s_p, _ = run(*captured["args"], **dict(captured["kw"], solve=plain))
             err = float(np.abs(res.scores - s_p).max())
             e = res.effective
             print(f"phase 12 (d) [fsc 2, {name}, {dtype}, {len(tw)} candidates, path "
@@ -4386,6 +4419,471 @@ def phase_helical_arrays(device, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: images2star on the card (commands/images2star.py and the options
+# of ops/images2star/ that touch pixels), at a real project's scale
+# ---------------------------------------------------------------------------
+
+PH16 = ROOT / "build" / "phase16"
+# (a) bench.py's ETL frame and chain; (b) createStack; (c) maskGold on
+# micrographs with planted gold discs; (d) denoiseCurvelet; (e)
+# extractHelices on (c)'s micrographs; (f) calibratePixelSize on a gold ring
+I2S = dict(seed=16, rows=100_000, stacks=8, per_stack=500, size=256, rescale=128, held=16,
+           mics=4, mic_size=4096, mic_apix=1.0, discs=40, disc_radius=(20.0, 40.0),
+           dn_particles=500, dn_held=4, dn_mics=8, filaments=25, width=300, strips_held=4,
+           cal_n=100, cal_size=512, cal_radius=217, cal_off=1.02)
+ETL_CHAIN = ["--select", "rlnClassNumber", "1,2,3,4,5,6,7,8,9,10",
+             "--addParm", "rlnDefocusU", "100", "--multParm", "rlnDefocusV", "1.01",
+             "--sortby", "rlnMicrographName", "rlnHelicalTubeID",
+             "--breakFilaments", "maxSegments=20", "--removeDuplicates", "rlnImageName"]
+
+
+def _i2s_args(device, **kw):
+    import argparse
+
+    return argparse.Namespace(verbose=0, folder=[], output_starFile="out.star",
+                              device=str(device), **kw)
+
+
+def _i2s(option, frame, param, device):
+    """One images2star option through the port's dispatch, on ``device``."""
+    import collections
+
+    from helicon_tpu_torch.ops import images2star as ops
+
+    return ops.dispatch(option, frame, _i2s_args(device), collections.defaultdict(int),
+                        param)[0]
+
+
+@contextlib.contextmanager
+def _cwd(path: Path):
+    import os
+
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def phase_i2s_etl(device, card) -> dict:
+    """Phase 16 (a): see the module docstring."""
+    import argparse
+    import os
+
+    import numpy as np
+    import pandas as pd
+
+    from helicon_tpu_torch.commands import images2star
+    from helicon_tpu_torch.io import metadata
+    from helicon_tpu_torch.ops import images2star as ops
+
+    work = PH16 / "etl"
+    work.mkdir(parents=True, exist_ok=True)
+    n = I2S["rows"]
+    g = np.random.default_rng(I2S["seed"])
+    df = pd.DataFrame(dict(
+        rlnImageName=[f"{i % 500 + 1:06d}@stack_{i // 500:04d}.mrcs" for i in range(n)],
+        rlnMicrographName=[f"mic_{i // 500:04d}.mrc" for i in range(n)],
+        rlnHelicalTubeID=g.integers(1, 20, n), rlnCoordinateX=g.uniform(0, 4000, n),
+        rlnCoordinateY=g.uniform(0, 4000, n), rlnHelicalTrackLengthAngst=g.uniform(0, 5000, n),
+        rlnDefocusU=g.uniform(8000, 30000, n), rlnDefocusV=g.uniform(8000, 30000, n),
+        rlnDefocusAngle=g.uniform(0, 180, n), rlnAnglePsi=g.uniform(-180, 180, n),
+        rlnClassNumber=g.integers(1, 51, n)))
+    df.attrs["convention"] = "relion"
+    for k in range(n // 500):
+        (work / f"stack_{k:04d}.mrcs").touch()
+    metadata.dataframe2file(df, str(work / "in.star"))
+
+    argv = ["in.star", "out_sub.star", *ETL_CHAIN, "--verbose", "0", "--force", "1"]
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-m", "helicon_tpu_torch.commands.helicon",
+                          "images2star", *argv], cwd=work, capture_output=True, text=True,
+                         timeout=900, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    wall_sub = time.perf_counter() - t0
+    if sub.returncode != 0:
+        print(sub.stdout[-6000:], sub.stderr[-6000:], sep="\n", flush=True)
+        raise AssertionError(f"phase 16 (a): images2star exited {sub.returncode}")
+
+    runs = []
+    for run in range(2):
+        out = f"out_in{run}.star"
+        parser = argparse.ArgumentParser()
+        images2star.add_args(parser)
+        run_argv = ["in.star", out, *ETL_CHAIN, "--verbose", "0", "--force", "1"]
+        args = images2star.check_args(parser.parse_args(run_argv), parser, run_argv)
+        parts = {}
+        with _cwd(work), _timed_calls(metadata, ("images2dataframe", "dataframe2file"), parts), \
+                _timed_calls(ops, ("dispatch",), parts):
+            t0 = time.perf_counter()
+            images2star.main(args)
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = metadata.images2dataframe(out, ignore_bad_particle_path=2)
+            parts["read back"] = time.perf_counter() - t0
+        runs.append(dict(wall=wall, parts=parts, rows_out=len(back),
+                         text=(work / out).read_bytes()))
+    same = runs[0]["text"] == runs[1]["text"] == (work / "out_sub.star").read_bytes()
+    r = runs[1]
+    chain_s = r["parts"]["images2dataframe"] + r["parts"]["dispatch"] + r["parts"]["dataframe2file"]
+    print(f"phase 16 (a) [images2star, bench.py's ETL chain on {n} rows: select 10 of 50 "
+          f"classes, addParm, multParm, sortby, breakFilaments maxSegments=20, "
+          f"removeDuplicates, write, read back]: subprocess start to exit {wall_sub:.3f} s; in "
+          f"process {n / chain_s:.0f} rows/s (read {r['parts']['images2dataframe']:.3f} s, "
+          f"plugins {r['parts']['dispatch']:.3f} s, write {r['parts']['dataframe2file']:.3f} s; "
+          f"read back {r['parts']['read back']:.3f} s; main {r['wall']:.3f} s; first run "
+          f"{n / (runs[0]['parts']['images2dataframe'] + runs[0]['parts']['dispatch'] + runs[0]['parts']['dataframe2file']):.0f} "
+          f"rows/s), {r['rows_out']} rows out; the two in-process runs and the subprocess "
+          f"wrote equal files: {same}; {card}", flush=True)
+    if not same or not 0 < r["rows_out"] < n:
+        raise AssertionError("phase 16 (a): the runs wrote different files or no rows")
+    return dict(wall_sub=wall_sub, rows_per_s=n / chain_s, parts=r["parts"], rows_out=r["rows_out"])
+
+
+def _particle_stacks(work: Path, device):
+    """I2S["stacks"] stacks of I2S["per_stack"] particles of I2S["size"]^2:
+    an amyloid projection from the port's simulator, shifted and scaled per
+    particle, plus seeded numpy Gaussian noise."""
+    import numpy as np
+
+    from helicon_tpu_torch.helix import simulate_helical_projection
+    from helicon_tpu_torch.io.mrc import write_mrc
+
+    m, apix = I2S["size"], 1.0
+    proj = np.ascontiguousarray(np.asarray(simulate_helical_projection(
+        1, -1.2, 4.75, 1, min(100.0, 0.5 * m), 3.0, 0, 1.0, m, m, apix, rng=I2S["seed"],
+        device=device)).T)
+    proj /= proj.std()
+    g = np.random.default_rng(I2S["seed"] + 1)
+    names = []
+    for k in range(I2S["stacks"]):
+        shifts = g.integers(-20, 21, I2S["per_stack"])
+        imgs = g.standard_normal((I2S["per_stack"], m, m), dtype=np.float32)
+        for i, s in enumerate(shifts):
+            imgs[i] += np.roll(proj, int(s), axis=1)
+        write_mrc(work / f"particles_{k}.mrcs", imgs, apix=apix)
+        names += [f"{i + 1:06d}@{work}/particles_{k}.mrcs" for i in range(I2S["per_stack"])]
+    return names
+
+
+def phase_i2s_create_stack(device, card) -> dict:
+    """Phase 16 (b): see the module docstring."""
+    import numpy as np
+    import pandas as pd
+
+    from helicon_tpu_torch.io.mrc import read_mrc
+
+    work = PH16 / "stack"
+    work.mkdir(parents=True, exist_ok=True)
+    names = _particle_stacks(work, device)
+    n, m, r = len(names), I2S["size"], I2S["rescale"]
+    frame = pd.DataFrame({"rlnImageName": names, "rlnOpticsGroup": 1})
+    frame.attrs["optics"] = pd.DataFrame({"rlnOpticsGroup": [1], "rlnImagePixelSize": [1.0],
+                                          "rlnImageSize": [m]})
+    _peak_gib(reset=True)
+    out, wall = _sync_wall(lambda: _i2s("createStack", frame.copy(),
+                                        f"{work}/out.mrcs:rescale2size={r}", device))
+    peak = _peak_gib()
+    stack, apix = read_mrc(work / "out.mrcs")
+    rows = np.linspace(0, n - 1, I2S["held"]).astype(int)
+    held = frame.iloc[rows].reset_index(drop=True)
+    ref = {}
+    for tag, dev in (("card", device), ("cpu", "cpu")):
+        _i2s("createStack", held.copy(), f"{work}/held_{tag}.mrcs:rescale2size={r}:float16=0",
+             dev)
+        ref[tag] = read_mrc(work / f"held_{tag}.mrcs")[0]
+    a, b = ref["card"].astype(np.float64), ref["cpu"].astype(np.float64)
+    err = float(np.max(np.abs(a - b).max(axis=(1, 2)) / np.abs(b).max(axis=(1, 2))))
+    # the float16 stack's rows: the float32 gate (the main run crops 256
+    # images a call, the held run 16), then one float16 rounding step
+    f16 = stack[rows].astype(np.float64)
+    ulp = np.spacing(np.abs(a).astype(np.float16)).astype(np.float64)
+    pk = np.abs(a).max(axis=(1, 2), keepdims=True)
+    f16_ok = bool(np.all(np.abs(f16 - a) <= ulp + 1e-5 * pk))
+    f16_err = float(np.max((np.abs(f16 - a) - ulp) / pk))
+    print(f"phase 16 (b) [--createStack out.mrcs:rescale2size={r} (float16), {n} particles of "
+          f"{m}^2 in {I2S['stacks']} stacks of {I2S['per_stack']}]: {wall:.3f} s, "
+          f"{n / wall:.1f} images/s, peak device memory {peak:.3f} GiB; the stack "
+          f"{stack.shape} {stack.dtype} at {apix:.4f} A/px, rows renamed "
+          f"{out['rlnImageName'].iloc[-1].split('@')[0]}; {len(rows)} images with float16=0 on "
+          f"the card against the CPU within {err:.3e} of each image's peak (limit 1e-5), the "
+          f"float16 stack's rows within that plus one float16 ulp of them: {f16_ok} "
+          f"({f16_err:.3e} of the peak beyond one ulp); {card}", flush=True)
+    if (stack.shape != (n, r, r) or not np.all(np.isfinite(stack)) or not err <= 1e-5
+            or not f16_ok or abs(apix - m / r) > 1e-4):
+        raise AssertionError("phase 16 (b): the stack is off or differs from the CPU's")
+    return dict(wall=wall, images_per_s=n / wall, peak=peak, err=err)
+
+
+def _micrographs(work: Path):
+    """I2S["mics"] micrographs of I2S["mic_size"]^2 at I2S["mic_apix"] A/px:
+    seeded numpy Gaussian noise on a smooth ice gradient, with
+    I2S["discs"] dark gold discs of radius I2S["disc_radius"] A each.
+    Returns the paths and each micrograph's disc mask."""
+    import numpy as np
+
+    from helicon_tpu_torch.io.mrc import write_mrc
+
+    n, apix = I2S["mic_size"], I2S["mic_apix"]
+    g = np.random.default_rng(I2S["seed"] + 2)
+    ramp = (np.linspace(-2.0, 2.0, n, dtype=np.float32)[:, None]
+            + np.linspace(-1.0, 1.0, n, dtype=np.float32)[None, :])
+    paths, masks = [], []
+    for k in range(I2S["mics"]):
+        img = g.standard_normal((n, n), dtype=np.float32) + ramp
+        disc = np.zeros((n, n), bool)
+        for cy, cx, rad in zip(g.uniform(100, n - 100, I2S["discs"]),
+                               g.uniform(100, n - 100, I2S["discs"]),
+                               g.uniform(*I2S["disc_radius"], I2S["discs"]) / apix):
+            y0, y1 = int(cy - rad) - 1, int(cy + rad) + 2
+            x0, x1 = int(cx - rad) - 1, int(cx + rad) + 2
+            yy, xx = np.mgrid[y0:y1, x0:x1]
+            disc[y0:y1, x0:x1] |= (yy - cy) ** 2 + (xx - cx) ** 2 <= rad * rad
+        img[disc] -= 12.0
+        paths.append(work / f"mic_{k}.mrc")
+        write_mrc(paths[-1], img, apix=apix)
+        masks.append(disc)
+    return paths, masks
+
+
+def phase_i2s_mask_gold(device, card, mics) -> dict:
+    """Phase 16 (c): see the module docstring."""
+    import numpy as np
+    import pandas as pd
+
+    from helicon_tpu_torch.io.mrc import read_image_2d, read_mrc
+    from helicon_tpu_torch.ops.images2star.heavy import gold_mask
+
+    work = PH16 / "mics"
+    paths, discs = mics
+    frame = pd.DataFrame({"rlnMicrographName": [str(p) for p in paths]})
+    _peak_gib(reset=True)
+    with _cwd(work):
+        out, wall = _sync_wall(lambda: _i2s("maskGold", frame.copy(), "outdir=masked", device))
+    peak = _peak_gib()
+    masked = read_mrc(work / "masked" / paths[0].name)[0].reshape(discs[0].shape)
+    img = read_image_2d(paths[0], 0)
+    # the option's automatic gradient_sigma: sqrt(min_area) * 10 = 100 A
+    res = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        res[str(dev)] = gold_mask(img, I2S["mic_apix"], 4.0, 100.0, 100.0, 1, dev)
+        res[f"{dev} s"] = time.perf_counter() - t0
+    (fa, ma, meda, mada), (fb, mb, medb, madb) = res[str(device)], res["cpu"]
+    thr = [medb + 4.0 * madb * 1.4826, medb - 4.0 * madb * 1.4826]
+    differ = ma != mb
+    near = np.zeros_like(differ)
+    for t in thr:
+        near |= np.abs(fb - t) <= 1e-5 * abs(t)
+    found = float(mb[discs[0]].mean())
+    same_out = bool(np.array_equal(np.isclose(masked, fa, rtol=0, atol=0), ~ma))
+    print(f"phase 16 (c) [--maskGold on {len(paths)} micrographs of {I2S['mic_size']}^2 at "
+          f"{I2S['mic_apix']} A/px with {I2S['discs']} planted gold discs each, gradient_sigma "
+          f"automatic (100 A)]: {wall:.3f} s, {wall / len(paths):.3f} s per micrograph, peak "
+          f"device memory {peak:.3f} GiB; micrograph 0 card against CPU: {int(differ.sum())} "
+          f"mask pixels differ, all within 1e-5 of a threshold: {bool(np.all(near[differ]))}; "
+          f"{ma.sum()} pixels masked, {found:.4f} of the discs' pixels; the option's output "
+          f"is the card's decision: {same_out}; gold_mask card {res[f'{device} s']:.3f} s, "
+          f"cpu {res['cpu s']:.3f} s; {card}", flush=True)
+    if not np.all(near[differ]) or found < 0.5 or not same_out:
+        raise AssertionError("phase 16 (c): the card's mask differs from the CPU's")
+    return dict(wall=wall, per_mic=wall / len(paths), peak=peak, differ=int(differ.sum()))
+
+
+def phase_i2s_denoise(device, card, mics) -> dict:
+    """Phase 16 (d): see the module docstring."""
+    import functools
+
+    import numpy as np
+    import pandas as pd
+
+    from helicon_tpu_torch.core import curvelet
+    from helicon_tpu_torch.io.mrc import read_mrc, write_mrc
+
+    work = PH16 / "denoise"
+    work.mkdir(parents=True, exist_ok=True)
+    n, m = I2S["dn_particles"], I2S["size"]
+    src = read_mrc(PH16 / "stack" / "particles_0.mrcs")[0][:n]
+    write_mrc(work / "p.mrcs", src, apix=1.0)
+    frame = pd.DataFrame({"rlnImageName": [f"{i + 1:06d}@{work}/p.mrcs" for i in range(n)]})
+    _peak_gib(reset=True)
+    _, wall = _sync_wall(lambda: _i2s("denoiseCurvelet", frame.copy(),
+                                      f"transform=mct:outdir={work}/dn", device))
+    peak = _peak_gib()
+    den = read_mrc(work / "dn" / "p.mrcs")[0]
+    # the held particles, card and CPU, through the option with the kept-mask hold
+    k = I2S["dn_held"]
+    held = frame.iloc[np.linspace(0, n - 1, k).astype(int)].reset_index(drop=True)
+    U2, _ = curvelet.curvelet_bands_2d((m, m), device="cpu")
+    hold, outs = _MaskHold(U2, (-2, -1)), {}
+    real = curvelet.denoise_curvelet_2d
+    for tag, dev, hook in (("card", device, hold.record), ("cpu", "cpu", hold.hold)):
+        curvelet.denoise_curvelet_2d = functools.partial(real, on_band=hook)
+        try:
+            _i2s("denoiseCurvelet", held.copy(), f"transform=mct:outdir={work}/held_{tag}", dev)
+        finally:
+            curvelet.denoise_curvelet_2d = real
+        outs[tag] = read_mrc(work / f"held_{tag}" / "p.mrcs")[0]
+    ref = outs["cpu"].astype(np.float64)
+    peaks = np.abs(ref).max(axis=(1, 2))
+    err = float(np.max(np.abs(outs["card"] - hold.delta - ref).max(axis=(1, 2)) / peaks))
+    rows = np.linspace(0, n - 1, k).astype(int)
+    alone = float(np.max(np.abs(den[rows] - outs["card"]).max(axis=(1, 2)) / peaks))
+    # the micrograph route: each unique micrograph once, through the batch
+    # seam, which takes them to the card one at a time; one micrograph, then
+    # I2S["dn_mics"] (links to (c)'s files): the peak must not grow with
+    # the count (held together, each would add its upload, its result and a
+    # stacked copy)
+    n_mics = I2S["dn_mics"]
+    links = [work / f"mic_{k}.mrc" for k in range(n_mics)]
+    for i, link in enumerate(links):
+        link.unlink(missing_ok=True)
+        link.symlink_to(mics[0][i % len(mics[0])])
+    walls, peaks, first = {}, {}, {}
+    for count in (1, n_mics):
+        mf = pd.DataFrame({"rlnMicrographName": [str(p) for p in links[:count]]})
+        curvelet._windows_2d.cache_clear()
+        _peak_gib(reset=True)
+        _, walls[count] = _sync_wall(lambda: _i2s("denoiseCurvelet", mf,
+                                                  f"outdir={work}/dn_mics_{count}", device))
+        peaks[count] = _peak_gib()
+        first[count] = read_mrc(work / f"dn_mics_{count}" / links[0].name)[0]
+    curvelet._windows_2d.cache_clear()
+    dmic = read_mrc(work / f"dn_mics_{n_mics}" / links[-1].name)[0]
+    mic_gib = 4 * I2S["mic_size"] ** 2 / 2**30
+    grow = peaks[n_mics] - peaks[1]
+    wall_mic, peak_mic = walls[n_mics], peaks[n_mics]
+    print(f"phase 16 (d) [--denoiseCurvelet transform=mct on {n} particles of {m}^2]: "
+          f"{wall:.3f} s, {n / wall:.1f} images/s, peak device memory {peak:.3f} GiB; "
+          f"{k} particles card against CPU: {hold.bands} bands held, {hold.flips} keep "
+          f"decisions differ (each within {KEEP_REL} of its threshold), thresholds within "
+          f"{hold.thr_err:.3e}, images within {err:.3e} of each CPU image's peak with the "
+          f"differing decisions' synthesis taken out (limit 1e-4); the {n}-particle run's "
+          f"rows against the held card run {alone:.3e}; micrograph route (mct defaults, "
+          f"{I2S['mic_size']}^2): one {walls[1]:.3f} s, peak {peaks[1]:.3f} GiB; {n_mics} "
+          f"{wall_mic:.3f} s, peak {peak_mic:.3f} GiB, {grow:+.3f} GiB over one (limit "
+          f"{2 * mic_gib:.3f}: two micrographs; held together the {n_mics} would add "
+          f"~{3 * (n_mics - 1) * mic_gib:.3f}); the first micrograph equal in both runs "
+          f"{bool(np.array_equal(first[1], first[n_mics]))}, finite "
+          f"{bool(np.all(np.isfinite(dmic)))}; {card}", flush=True)
+    if (hold.first or hold.bands != 48 or not err <= 1e-4
+            or not hold.thr_err <= KEEP_REL or den.shape != (n, m, m)
+            or not np.all(np.isfinite(den)) or not np.all(np.isfinite(dmic))
+            or not grow <= 2 * mic_gib or not np.array_equal(first[1], first[n_mics])):
+        raise AssertionError("phase 16 (d): the card's denoising differs from the CPU's")
+    return dict(wall=wall, images_per_s=n / wall, peak=peak, err=err, flips=hold.flips,
+                wall_mic=wall_mic, peak_mic=peak_mic, peak_mic1=peaks[1])
+
+
+def phase_i2s_extract(device, card, mics) -> dict:
+    """Phase 16 (e): see the module docstring."""
+    import numpy as np
+    import pandas as pd
+
+    from helicon_tpu_torch.io.mrc import read_mrc
+    from helicon_tpu_torch.io.star import write_star
+
+    work = PH16 / "mics"
+    paths = mics[0]
+    size = I2S["mic_size"]
+    g = np.random.default_rng(I2S["seed"] + 3)
+    rows = []
+    for p in paths:
+        c = np.empty((2 * I2S["filaments"], 2))
+        for f in range(I2S["filaments"]):
+            length = g.uniform(0.2, 0.6) * size
+            ang = g.uniform(0, np.pi)
+            d = length / 2 * np.array([np.cos(ang), np.sin(ang)])
+            mid = g.uniform(0.1 * size + abs(d), 0.9 * size - abs(d))
+            c[2 * f], c[2 * f + 1] = mid - d, mid + d
+        star = work / f"{p.stem}_coords.star"
+        write_star(star, pd.DataFrame({"rlnCoordinateX": c[:, 0], "rlnCoordinateY": c[:, 1]}))
+        rows.append({"rlnMicrographName": str(p), "rlnCoordinateFileName": str(star)})
+    frame = pd.DataFrame(rows)
+    _peak_gib(reset=True)
+    out, wall = _sync_wall(lambda: _i2s("extractHelices", frame.copy(),
+                                        f"width={I2S['width']}:outPath={work}/helices", device))
+    peak = _peak_gib()
+    cpu = _i2s("extractHelices", frame.iloc[:1].copy(),
+               f"width={I2S['width']}:outPath={work}/helices_cpu", "cpu")
+    mine = out[out["rlnMicrographName"] == str(paths[0])].reset_index(drop=True)
+    errs = []
+    for i in range(I2S["strips_held"]):
+        a = read_mrc(mine["rlnImageName"].iloc[i].split("@")[1])[0]
+        b = read_mrc(cpu["rlnImageName"].iloc[i].split("@")[1])[0]
+        errs.append(float(np.abs(a - b).max() / np.abs(b).max()) if a.shape == b.shape
+                    else np.inf)
+    n_strips = len(out)
+    print(f"phase 16 (e) [--extractHelices width={I2S['width']}, {I2S['filaments']} filaments "
+          f"on each of {len(paths)} micrographs of {size}^2]: {wall:.3f} s for {n_strips} "
+          f"strips, peak device memory {peak:.3f} GiB; {len(errs)} strips of micrograph 0 "
+          f"card against CPU within {max(errs):.3e} of the strip's peak (limit 1e-5); {card}",
+          flush=True)
+    if n_strips != I2S["filaments"] * len(paths) or not max(errs) <= 1e-5:
+        raise AssertionError("phase 16 (e): strips missing or off the CPU's")
+    return dict(wall=wall, strips=n_strips, peak=peak, err=max(errs))
+
+
+def phase_i2s_calibrate(device, card) -> dict:
+    """Phase 16 (f): see the module docstring."""
+    import numpy as np
+    import pandas as pd
+
+    from helicon_tpu_torch.io.mrc import write_mrc
+
+    work = PH16 / "calibrate"
+    work.mkdir(parents=True, exist_ok=True)
+    n, size, radius = I2S["cal_n"], I2S["cal_size"], I2S["cal_radius"]
+    apix_true = 2.355 * radius / size  # the gold ring on an integer radius
+    nominal = round(apix_true * I2S["cal_off"], 4)
+    g = np.random.default_rng(I2S["seed"] + 4)
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32)
+    ring = sum(np.cos(np.float32(2 * np.pi * radius / size) * (x * np.cos(t) + y * np.sin(t)))
+               for t in np.linspace(0, np.pi, 8, endpoint=False)).astype(np.float32)
+    imgs = g.standard_normal((n, size, size), dtype=np.float32) * 4.0 + ring
+    write_mrc(work / "ring.mrcs", imgs, apix=nominal)
+    frame = pd.DataFrame({"rlnImageName": [f"{i + 1:06d}@{work}/ring.mrcs" for i in range(n)],
+                          "rlnImagePixelSize": nominal, "rlnDefocusU": 15000.0,
+                          "rlnDefocusV": 14000.0})
+    _peak_gib(reset=True)
+    out, wall = _sync_wall(lambda: _i2s("calibratePixelSize", frame.copy(), "gold", device))
+    peak = _peak_gib()
+    t0 = time.perf_counter()
+    cpu = _i2s("calibratePixelSize", frame.copy(), "gold", "cpu")
+    wall_cpu = time.perf_counter() - t0
+    got, want = float(out["rlnImagePixelSize"].iloc[0]), float(cpu["rlnImagePixelSize"].iloc[0])
+    rel = abs(got - apix_true) / apix_true
+    print(f"phase 16 (f) [--calibratePixelSize gold on {n} images of {size}^2, a ring at 2.355 "
+          f"A planted at apix {apix_true:.5f}, the header {nominal} (2 % off)]: {wall:.3f} s "
+          f"on the card ({wall_cpu:.3f} s on the CPU), peak device memory {peak:.3f} GiB; "
+          f"apix_new {got} (CPU {want}), {rel:.2e} from the truth (limit 1e-3); {card}",
+          flush=True)
+    if got != want or not rel <= 1e-3:
+        raise AssertionError("phase 16 (f): apix_new differs from the CPU's or the truth")
+    return dict(wall=wall, wall_cpu=wall_cpu, apix_new=got, rel=rel, peak=peak)
+
+
+def phase_images2star(device, card) -> dict:
+    """Phase 16 (a)-(f)."""
+    import shutil
+
+    shutil.rmtree(PH16, ignore_errors=True)
+    (PH16 / "mics").mkdir(parents=True)
+    out = {}
+    t0 = time.perf_counter()
+    mics = _micrographs(PH16 / "mics")
+    out["data"] = {"phase_s": time.perf_counter() - t0}
+    for key, fn, extra in (("a", phase_i2s_etl, ()), ("b", phase_i2s_create_stack, ()),
+                           ("c", phase_i2s_mask_gold, (mics,)),
+                           ("d", phase_i2s_denoise, (mics,)),
+                           ("e", phase_i2s_extract, (mics,)), ("f", phase_i2s_calibrate, ())):
+        t0 = time.perf_counter()
+        out[key] = fn(device, card, *extra)
+        out[key]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4468,6 +4966,10 @@ def main() -> int:
     arrays = phase_helical_arrays(device, card)
     print(f"phase 15: {time.perf_counter() - t15:.1f} s (by part "
           f"{json.dumps({k: round(v['phase_s'], 1) for k, v in arrays.items()})})", flush=True)
+    t16 = time.perf_counter()
+    i2s = phase_images2star(device, card)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s (by part "
+          f"{json.dumps({k: round(v['phase_s'], 1) for k, v in i2s.items()})})", flush=True)
     webapp_launches = {k: sum(d["launches"][k] for d in (*webapp.values(), webapp_grid))
                        + sum(d["launches_app"][k] for d in webapp.values()) for k in _counts()}
     webapp_launches["group_solve"] += webapp_fsc["launches"]

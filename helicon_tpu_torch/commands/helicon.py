@@ -3,6 +3,7 @@ dispatcher over the port's subcommands, as ``helicon_tpu/commands/helicon.py``
 is for the JAX package's.
 
   helicon-torch denovo3d_cli classes.mrcs out --twist 0.5 45 0.5 --rise 4 5 0.25
+  helicon-torch images2star in.star out.star --select rlnClassNumber 1 --device cpu
   helicon-torch proc3d in.mrc out.mrc --flip_hand z --device cpu
   helicon-torch trueFSC half1.mrc half2.mrc fsc.pdf
 """
@@ -19,7 +20,7 @@ from helicon_tpu_torch.utils.exceptions import HeliconError, HeliconExit
 
 logger = logging.getLogger(__name__)
 
-cli_commands = ["denovo3d_cli", "proc3d", "trueFSC"]
+cli_commands = ["denovo3d_cli", "images2star", "proc3d", "trueFSC"]
 
 
 def main(argv=None):

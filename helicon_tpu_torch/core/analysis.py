@@ -14,8 +14,11 @@ Counterpart of ``helicon_tpu/core/analysis.py:438`` (``_binary_closing``),
 of ``is_3d`` :56, ``twist2pitch`` :73, ``ssim_score`` :275,
 ``ms_ssim_score`` :309, ``mutual_information_score`` :339,
 ``r_factor_score`` :422, ``cross_correlation_coefficient`` :520,
-``cosine_similarity`` :530, ``find_elbow_point`` :538 and
-``line_fit_projection`` :551. The
+``cosine_similarity`` :530, ``find_elbow_point`` :538,
+``line_fit_projection`` :551, and copies of the host (pandas) tube
+metadata functions ``estimate_inter_segment_distance`` :586,
+``reset_inter_segment_distance`` :614 and ``estimate_helicalTube_length``
+:692. The
 moments and morphology are host numpy and scipy, as in the reference; the
 one rotation runs through the port's ``transform_image`` on the CPU. The
 scores take images (..., h, w) whose leading axes are a batch, and return
@@ -24,6 +27,7 @@ one score per image.
 
 from __future__ import annotations
 
+import logging
 import math
 
 import numpy as np
@@ -36,6 +40,8 @@ __all__ = [
     "calc_frc_2d",
     "frc_score",
     "estimate_helix_rotation_center_diameter",
+    "estimate_helicalTube_length",
+    "estimate_inter_segment_distance",
     "get_cylindrical_mask",
     "ssim_score_traced",
     "ms_ssim_score_traced",
@@ -48,9 +54,12 @@ __all__ = [
     "ms_ssim_score",
     "mutual_information_score",
     "r_factor_score",
+    "reset_inter_segment_distance",
     "ssim_score",
     "twist2pitch",
 ]
+
+logger = logging.getLogger(__name__)
 
 
 def is_3d(data) -> bool:
@@ -626,3 +635,181 @@ def line_fit_projection(x, y, w=None, ref_i: int = 0, return_xy_fit: bool = Fals
     if return_xy_fit:
         return pos, torch.stack([x2, y2], dim=1)
     return pos
+
+
+def _line_fit_projection_host(x, y, w=None, ref_i: int = 0, return_xy_fit: bool = False):
+    """line_fit_projection in numpy float64 on the host: a copy of the
+    original's, which the tube metadata functions below call (so their
+    coordinates equal the original's bit for bit)."""
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    weights = np.ones_like(x) if w is None else np.asarray(w, np.float64)
+    wsum = weights.sum()
+    cx = (x * weights).sum() / wsum
+    cy = (y * weights).sum() / wsum
+    dx, dy = x - cx, y - cy
+    sxx = (weights * dx * dx).sum()
+    syy = (weights * dy * dy).sum()
+    sxy = (weights * dx * dy).sum()
+    theta = 0.5 * math.atan2(2 * sxy, sxx - syy)
+    v = np.array([math.cos(theta), math.sin(theta)])
+    t = dx * v[0] + dy * v[1]
+    x2 = cx + t * v[0]
+    y2 = cy + t * v[1]
+    v0 = np.array([x2[-1] - x2[0], y2[-1] - y2[0]])
+    v0 = v0 / np.linalg.norm(v0)
+    pos = (x2 - x2[ref_i]) * v0[0] + (y2 - y2[ref_i]) * v0[1]
+    if return_xy_fit:
+        return pos, np.vstack((x2, y2)).T
+    return pos
+
+
+# ---------------------------------------------------------------------------
+# helical-tube metadata ops (pandas host-side)
+# ---------------------------------------------------------------------------
+
+
+def estimate_inter_segment_distance(data):
+    """(median, mean, std, n_max) of inter-segment distances per tube."""
+    for attr in ("rlnImageName", "rlnHelicalTubeID", "rlnHelicalTrackLengthAngst"):
+        if attr not in data:
+            return None, None, None, None
+    df = data.copy()
+    parts = df["rlnImageName"].str.split("@", expand=True)
+    df["pid"] = parts.iloc[:, 0].astype(int)
+    df["micrograph"] = parts.iloc[:, 1]
+    df = df.sort_values(["micrograph", "pid"]).reset_index(drop=True)
+
+    dists_all, lengths = [], []
+    for _, particles in df.groupby(["micrograph", "rlnHelicalTubeID"], sort=False):
+        track = particles["rlnHelicalTrackLengthAngst"].astype(np.float32).values
+        lengths.append(track.max())
+        if len(particles) < 2:
+            continue
+        srt = np.sort(track)
+        dists_all.append(srt[1:] - srt[:-1])
+    if not dists_all:
+        return None, None, None, None
+    dists_all = np.hstack(dists_all)
+    med = np.median(dists_all)
+    n_max = int(np.sum(np.round(np.array(lengths) / med) + 1))
+    return med, float(np.mean(dists_all)), float(np.std(dists_all)), n_max
+
+
+def reset_inter_segment_distance(
+    data, new_inter_segment_distance, apix_micrograph,
+    current_inter_segment_distance=-1, verbose: int = 0,
+):
+    """Resample segment picks along each fitted filament line so segments
+    are *new_inter_segment_distance* apart (reference analysis.py:969-1075)."""
+    import pandas as pd
+
+    if (
+        current_inter_segment_distance > 0
+        and new_inter_segment_distance == current_inter_segment_distance
+    ):
+        return data
+    for attr in ("rlnHelicalTubeID", "rlnCoordinateX", "rlnCoordinateY"):
+        if attr not in data:
+            return None
+    if "rlnImageName" not in data:
+        return None
+    parts = data["rlnImageName"].str.split("@", expand=True)
+    data = data.copy()
+    data["risd_pid"] = parts.iloc[:, 0].astype(int)
+    data["risd_filename"] = parts.iloc[:, 1]
+    filename = "rlnMicrographName" if "rlnMicrographName" in data else "risd_filename"
+
+    if current_inter_segment_distance <= 0:
+        current_inter_segment_distance = estimate_inter_segment_distance(data)[0]
+    if new_inter_segment_distance == current_inter_segment_distance:
+        return data.drop(columns=["risd_filename", "risd_pid"])
+
+    cdist = current_inter_segment_distance / apix_micrograph
+    ndist = new_inter_segment_distance / apix_micrograph
+
+    chunks = []
+    for _, particles in data.groupby([filename, "rlnHelicalTubeID"], sort=False):
+        if len(particles) < 2:
+            chunks.append(particles.reset_index(drop=True))
+            continue
+        srt = particles.sort_values("risd_pid").reset_index(drop=True)
+        x = srt["rlnCoordinateX"].astype(float).values
+        y = srt["rlnCoordinateY"].astype(float).values
+        pos, xy_fit = _line_fit_projection_host(x, y, ref_i=0, return_xy_fit=True)
+        n0 = len(pos)
+        unit = (xy_fit[-1] - xy_fit[0]) / (pos[-1] - pos[0])
+        right = np.arange(pos[0], pos[-1] + cdist / 2 + 0.1, ndist)
+        left = np.arange(pos[0] - ndist, pos[0] - cdist / 2, -ndist)
+        pos_new = np.hstack((np.sort(left), right)) if len(left) else right
+        n = len(pos_new)
+        xy_new = xy_fit[0] + pos_new.reshape((n, 1)) * unit
+        if n <= n0:
+            chunk = srt.iloc[:n].reset_index(drop=True)
+        else:
+            chunk = srt.iloc[:n0].reset_index(drop=True)
+            repeats = chunk.iloc[[len(chunk) - 1] * (n - n0)]
+            chunk = pd.concat([chunk, repeats], ignore_index=True)
+        chunk.loc[:, "rlnCoordinateX"] = xy_new[:, 0]
+        chunk.loc[:, "rlnCoordinateY"] = xy_new[:, 1]
+        if "rlnHelicalTrackLengthAngst" in chunk:
+            chunk.loc[:, "rlnHelicalTrackLengthAngst"] = (
+                pos_new - pos_new[0]
+            ) * apix_micrograph
+        chunks.append(chunk)
+
+    # pandas 3 propagates attrs through concat and compares them with
+    # `==`, which raises on DataFrame-valued attrs (the optics table);
+    # strip before concat and restore after.
+    attrs = dict(data.attrs)
+    for c in chunks:
+        c.attrs = {}
+    out = pd.concat(chunks).drop(columns=["risd_filename", "risd_pid"])
+    out.attrs.update(attrs)
+    return out
+
+
+def estimate_helicalTube_length(data, inter_segment_distance=-1, verbose: int = 0):
+    """Add ``rlnHelicalTubeLength`` (Å) per filament to the dataframe."""
+    for attr in ("rlnHelicalTubeID", "rlnCoordinateX", "rlnCoordinateY"):
+        if attr not in data:
+            return None
+    if "rlnImageName" not in data:
+        return None
+    parts = data["rlnImageName"].str.split("@", expand=True)
+    data = data.copy()
+    data["ehl_pid"] = parts.iloc[:, 0].astype(int)
+    data["ehl_filename"] = parts.iloc[:, 1]
+    filename = "rlnMicrographName" if "rlnMicrographName" in data else "ehl_filename"
+
+    if inter_segment_distance is not None and inter_segment_distance <= 0:
+        inter_segment_distance = estimate_inter_segment_distance(data)[0]
+    # (the reference crashes here when the distance is inestimable —
+    # rlnHelicalTrackLengthAngst absent, reference analysis.py:1116-1130;
+    # fall back to the coordinate path length instead)
+    apix = None
+    if inter_segment_distance is None:
+        from ..io.metadata import getPixelSize
+
+        apix = getPixelSize(data)
+        if apix is None:
+            logger.warning(
+                "no rlnHelicalTrackLengthAngst and no pixel size: "
+                "rlnHelicalTubeLength will be in PIXELS, not Angstrom"
+            )
+            apix = 1.0
+
+    for _, particles in data.groupby([filename, "rlnHelicalTubeID"], sort=False):
+        if "rlnHelicalTrackLengthAngst" in particles:
+            length = round(particles["rlnHelicalTrackLengthAngst"].max(), 1)
+        elif inter_segment_distance is not None:
+            pids = particles["ehl_pid"].astype(int).values
+            length = round((pids.max() - pids.min() + 1) * inter_segment_distance, 1)
+        else:
+            srt = particles.sort_values("ehl_pid")
+            dx = np.diff(srt["rlnCoordinateX"].astype(float).values)
+            dy = np.diff(srt["rlnCoordinateY"].astype(float).values)
+            length = round(float(np.hypot(dx, dy).sum()) * apix, 1)
+        data.loc[particles.index, "rlnHelicalTubeLength"] = length
+
+    return data.drop(columns=["ehl_filename", "ehl_pid"])

@@ -525,18 +525,25 @@ curvelet_denoise_mct_tiled = _tiled("mct")
 
 
 def _batch(fn):
-    def wrapper(stack, **kwargs):
-        """Denoise each image of a stack (n, ny, nx), in chunks of at most
-        BATCH_PIXELS pixels; a list or tuple of images is denoised image by
-        image and stacked only when the shapes agree."""
+    def wrapper(stack, device=None, **kwargs):
+        """Denoise each image of a stack (n, ny, nx) on ``device`` (by
+        default the stack's own), in chunks of at most BATCH_PIXELS pixels.
+        A list or tuple of images is denoised one image at a time: an image
+        that is not a tensor goes to ``device`` alone and its result comes
+        back to the host before the next one goes, so the device holds one
+        image's work at a time. The results are stacked only when their
+        shapes and devices agree."""
         if isinstance(stack, (list, tuple)):
-            outs = [fn(_image(img), **kwargs) for img in stack]
-            if len({tuple(o.shape) for o in outs}) == 1:
+            outs = []
+            for img in stack:
+                out = fn(_image(img).to(device), **kwargs)
+                outs.append(out if isinstance(img, torch.Tensor) else out.cpu())
+            if len({(o.device, tuple(o.shape)) for o in outs}) == 1:
                 return torch.stack(outs)
             return outs
         stack = _image(stack)
         per = max(1, BATCH_PIXELS // (stack.shape[-2] * stack.shape[-1]))
-        return torch.cat([fn(stack[i : i + per], **kwargs)
+        return torch.cat([fn(stack[i : i + per].to(device), **kwargs)
                           for i in range(0, stack.shape[0], per)])
 
     return wrapper

@@ -124,14 +124,16 @@ def map_coordinates(
     order 0 (the pixel at floor(c + 0.5): an exact .5 takes the upper
     one), 1 or 3; mode "constant" (points outside [0, n-1] on any axis
     return cval), "nearest" (or "edge"), "mirror", "reflect" or "wrap"
-    (or "grid-wrap").
+    (or "grid-wrap"). A float64 input is sampled at float64 coordinates
+    with float64 weights; any other in float32.
     """
     if order not in (0, 1, 3):
         raise ValueError(f"order={order} not supported (use 0, 1, or 3)")
     if mode not in _MODES:
         raise ValueError(f"map_coordinates mode={mode!r} (one of {_MODES})")
     x = torch.as_tensor(input)
-    coords = [torch.as_tensor(c, dtype=torch.float32, device=x.device) for c in coordinates]
+    work = torch.float64 if x.dtype == torch.float64 else torch.float32
+    coords = [torch.as_tensor(c, dtype=work, device=x.device) for c in coordinates]
     if len(coords) != x.ndim:
         raise ValueError("need one coordinate array per input dim")
     out_shape = torch.broadcast_shapes(*(c.shape for c in coords))
@@ -157,10 +159,10 @@ def map_coordinates(
     floors = [torch.floor(c) for c in coords]
     lo = [f.to(torch.int64) for f in floors]
     frac = [c - f for c, f in zip(coords, floors)]
-    out = torch.zeros(out_shape, dtype=torch.float32, device=x.device)
+    out = torch.zeros(out_shape, dtype=work, device=x.device)
     if order == 1:
         for corner in range(2**x.ndim):
-            w = torch.ones(out_shape, dtype=torch.float32, device=x.device)
+            w = torch.ones(out_shape, dtype=work, device=x.device)
             idxs = []
             valid = torch.ones(out_shape, dtype=torch.bool, device=x.device)
             for d in range(x.ndim):
@@ -181,7 +183,7 @@ def map_coordinates(
         cx = spline_filter(x) if prefilter else x
         wts = [_cubic_weights(f) for f in frac]
         for corner in range(4**x.ndim):
-            w = torch.ones(out_shape, dtype=torch.float32, device=x.device)
+            w = torch.ones(out_shape, dtype=work, device=x.device)
             idxs = []
             rem = corner
             for d in range(x.ndim):

@@ -351,24 +351,37 @@ def get_rotated_clip(image, y0, x0, y1, x1, width: int, order: int = 1) -> torch
 
 def fft_crop(data, output_size=None) -> torch.Tensor:
     """Downscale by truncating the Fourier transform (even sizes): the
-    rfft's centred block of output_size, inverted over every axis (the
-    reference inverts all axes in 3D too)."""
+    rfft's centred block of output_size, inverted over every axis of
+    output_size (the reference inverts all axes in 3D too). Axes before
+    the last len(output_size) are a batch, each entry cropped alone."""
     if output_size is None or tuple(data.shape) == tuple(output_size):
         return torch.as_tensor(data)
     data = torch.as_tensor(data, dtype=torch.float32)
-    assert data.ndim in (2, 3) and data.ndim == len(output_size)
+    k = len(output_size)
+    sizes = tuple(data.shape[data.ndim - k:])
+    assert k in (2, 3) and data.ndim >= k
     assert all(s % 2 == 0 for s in output_size) and all(
-        s % 2 == 0 for s in data.shape
-    ), f"fft_crop requires even sizes, got {tuple(data.shape)} -> {tuple(output_size)}"
-    lead = tuple(range(data.ndim - 1))
-    for n, m in zip(data.shape, output_size):
+        s % 2 == 0 for s in sizes
+    ), f"fft_crop requires even sizes, got {sizes} -> {tuple(output_size)}"
+    for n, m in zip(sizes, output_size):
         assert m <= n
-    fft = torch.fft.fftshift(torch.fft.rfftn(data), dim=lead)
+    dims = tuple(range(-k, 0))
+    lead = dims[:-1]
+    fft = torch.fft.fftshift(torch.fft.rfftn(data, dim=dims), dim=lead)
     block = tuple(slice(n // 2 - m // 2, n // 2 + m // 2)
-                  for n, m in zip(data.shape[:-1], output_size[:-1]))
-    fft = fft[block + (slice(0, output_size[-1] // 2 + 1),)]
+                  for n, m in zip(sizes[:-1], output_size[:-1]))
+    fft = fft[(Ellipsis,) + block + (slice(0, output_size[-1] // 2 + 1),)]
     fft = torch.fft.fftshift(fft, dim=lead)
-    return torch.fft.irfftn(fft, s=tuple(output_size))
+    # the block is no Hermitian spectrum (its last column is not the
+    # input's Nyquist column), and c2r transforms differ on such input:
+    # cuFFT's batched 2D c2r lay 0.5 of a unit-noise image from its single
+    # one. So the leading axes invert as complex transforms, and the last
+    # as a 1D c2r of lines whose first and last coefficients are real
+    # (pocketfft's irfftn drops their imaginary parts so)
+    z = torch.fft.ifftn(fft, dim=lead)
+    z[..., 0].imag.zero_()
+    z[..., -1].imag.zero_()
+    return torch.fft.irfft(z, n=output_size[-1], dim=-1)
 
 
 def _center_phase(out_sizes, zooms, in_sizes, device) -> torch.Tensor:

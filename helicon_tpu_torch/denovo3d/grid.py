@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
 import os
 import time
@@ -392,8 +393,9 @@ def _grouped_scoring(
 ):
     """Score every candidate, G twist groups per solve launch (the
     counterpart of the reference's _solve_group_pallas). ``solve`` is the
-    grouped solve (group_solve.solve_group; validate_grouped_on_gpu passes
-    the plain version).
+    grouped solve (by default group_solve.solve_group with the reference's
+    power seed, ``POWER_SEED``; validate_grouped_on_gpu passes the kernel
+    and the plain version, each with its own default seed).
 
     Incremental mode (progress_callback or should_abort given): unscored
     candidates hold -inf, should_abort() is polled before each launch
@@ -407,7 +409,7 @@ def _grouped_scoring(
     from .projector_grouped import build_candidate_tensors_grouped, build_group_shared
     from .solver import _image_scores, _pid_split_masks, seed_lreg
 
-    solve = solve or solve_group
+    solve = solve or functools.partial(solve_group, power_seed=POWER_SEED)
     n_cand = len(twists)
     incremental = progress_callback is not None or should_abort is not None
     # the reference caps R by the caller's batch or its automatic one
@@ -598,6 +600,14 @@ def _group_budget_bytes() -> int:
     """The per-group operator budget, HELICON_GROUP_BUDGET_MB (default
     1536 MB), as the reference reads it."""
     return int(os.environ.get("HELICON_GROUP_BUDGET_MB", "1536")) * 1024 * 1024
+
+
+# Where the grouped search starts B1's power iteration: from ones, as the
+# reference's XLA grouped solve (its solver.py:294), which every search off
+# a TPU runs (the reference seeds from rhs only inside its TPU kernel). At a
+# short power budget the seed moves the FISTA step and the scores (ROADMAP
+# C15); B1's own default stays rhs, the kernel's.
+POWER_SEED = "ones"
 
 
 def _use_grouped(cfg, geom, twists, n_copies: int, n_ops: int) -> bool:

@@ -17,8 +17,10 @@ candidate-major block X (R*l3, d3^2) is
     Y  = [u; gs] . A_top * mask               (second product)
 
 Per candidate: CG from 0, a power iteration seeded from rhs (as the TPU
-kernel; the best-volume solve in solver.py seeds from ones), FISTA with
-the box [lb, ub], then cosine = <x, rhs> / (sqrt(<t_d, Gz mix t_d>) |b|).
+kernel) or, with ``power_seed="ones"``, from ones (as the reference's XLA
+grouped solve, ``solver._power_iteration``; the grid search takes the
+reference's seed, ``grid.POWER_SEED``), FISTA with the box [lb, ub], then cosine = <x, rhs> /
+(sqrt(<t_d, Gz mix t_d>) |b|).
 
 ``solve_group`` takes a ``GroupInputs`` batch of G groups. On CPU tensors
 it runs ``solve_group_reference`` (plain PyTorch); on CUDA tensors it
@@ -225,14 +227,24 @@ def _fista_coefs(fista_iters: int) -> list:
     return out
 
 
+def _power_start(rhs: torch.Tensor, power_seed: str) -> torch.Tensor:
+    """The power iteration's unnormalised start: rhs, or ones."""
+    if power_seed == "rhs":
+        return rhs
+    if power_seed == "ones":
+        return torch.ones_like(rhs)
+    raise ValueError(f"power_seed must be 'rhs' or 'ones', not {power_seed!r}")
+
+
 def solve_group_reference(
     inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: int,
     l1: torch.Tensor | None = None, l2: torch.Tensor | None = None,
-    with_score: bool = True,
+    with_score: bool = True, power_seed: str = "rhs",
 ):
     """Plain PyTorch version of the grouped solve, with optional (G, R)
-    float32 l1 / l2 columns. Returns (x (G, R, l3, d3^2) float32, score
-    (G, R) float32; zero without ``with_score``)."""
+    float32 l1 / l2 columns; the power iteration starts from rhs or ones
+    (``power_seed``). Returns (x (G, R, l3, d3^2) float32, score (G, R)
+    float32; zero without ``with_score``)."""
 
     def mv(v):
         return matvec_reference(inp, v, l2=l2)
@@ -264,7 +276,8 @@ def solve_group_reference(
 
     lb, ub = col(inp.lb), col(inp.ub)
     if fista_iters > 0:
-        v = rhs / col(torch.sqrt(csum(rhs * rhs)).clamp_min(1e-30))
+        v = _power_start(rhs, power_seed)
+        v = v / col(torch.sqrt(csum(v * v)).clamp_min(1e-30))
         for _ in range(power_iters):
             w = mv(v)
             v = w / col(torch.sqrt(csum(w * w)).clamp_min(1e-30))
@@ -466,21 +479,25 @@ def gemm_ga(Gm: torch.Tensor, A: torch.Tensor, nsplit: int | None = None) -> tor
 def solve_group(
     inp: GroupInputs, cg_iters: int, fista_iters: int, power_iters: int,
     l1: torch.Tensor | None = None, l2: torch.Tensor | None = None,
-    with_score: bool = True,
+    with_score: bool = True, power_seed: str = "rhs",
 ):
     """Grouped solve and score. l1 / l2: optional (G, R) float32 columns
     (FISTA's soft-threshold; the ridge term of every matvec); without
-    ``with_score`` the score is zero and its product is skipped. CPU
+    ``with_score`` the score is zero and its product is skipped;
+    ``power_seed`` starts the power iteration from rhs or ones. CPU
     tensors run the plain version; CUDA tensors run the kernels of
     csrc/group_solve.cu (never the plain version). Returns (x (G, R, l3,
     d3^2), score (G, R)), float32."""
     if inp.a_top.device.type == "cpu":
-        return solve_group_reference(inp, cg_iters, fista_iters, power_iters, l1, l2, with_score)
+        return solve_group_reference(inp, cg_iters, fista_iters, power_iters, l1, l2, with_score,
+                                     power_seed)
     if inp.a_top.device.type != "cuda":
         raise ValueError(f"solve_group runs on cpu or cuda, not {inp.a_top.device}")
     from .._build import Launcher
 
     _check_cuda_inputs(inp)
+    if power_seed not in ("rhs", "ones"):
+        raise ValueError(f"power_seed must be 'rhs' or 'ones', not {power_seed!r}")
     for name, c in (("l1", l1), ("l2", l2)):
         if c is not None and (c.shape != inp.lb.shape or c.dtype != torch.float32
                               or c.device != inp.a_top.device or not c.is_contiguous()):
@@ -522,7 +539,10 @@ def solve_group(
         matvec(p, q)
         run("hts_cg_step", x, r, p, q, rs, ncand, n)
     if fista_iters > 0:
-        run("hts_normalize", r, inp.rhs, ncand, n)  # v in r
+        # v in r, from rhs or from ones (filled into w, which the first
+        # matvec overwrites)
+        start = inp.rhs if power_seed == "rhs" else w.fill_(1.0)
+        run("hts_normalize", r, start, ncand, n)
         for _ in range(power_iters):
             matvec(r, w)
             run("hts_normalize", r, w, ncand, n)

@@ -1,10 +1,11 @@
 """Option ordering and the colon parameter mini-language of the option
-pipelines (proc3d).
+pipelines (proc3d, images2star).
 
 A copy of ``get_option_list``, ``resolve_option_abbreviations``,
-``_coerce_value``, ``parse_param_str`` and ``validate_param_dict`` from
-``helicon_tpu/utils/system.py``; the JAX device probes stay behind.
-tests/test_torch_proc3d.py pins the copy to the original.
+``_coerce_value``, ``parse_param_str``, ``validate_param_dict`` and
+``ceil_power_of_10`` from ``helicon_tpu/utils/system.py``; the JAX device
+probes stay behind. tests/test_torch_proc3d.py and
+tests/test_torch_metadata.py pin the copy to the original.
 """
 
 from __future__ import annotations
@@ -14,8 +15,8 @@ from typing import Any
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["get_option_list", "resolve_option_abbreviations", "parse_param_str",
-           "validate_param_dict"]
+__all__ = ["ceil_power_of_10", "get_option_list", "parse_param_str",
+           "resolve_option_abbreviations", "validate_param_dict"]
 
 
 def get_option_list(argv: list[str]) -> list[str]:
@@ -109,3 +110,14 @@ def validate_param_dict(
     }
     changed = {k: v for k, v in final.items() if v != param_ref[k]}
     return final, changed, unsupported
+
+
+def ceil_power_of_10(n: float | int) -> int:
+    """Smallest power of 10 that is >= n (with 10 as the floor)."""
+    import math
+
+    if n < 0:
+        raise ValueError(f"n={n} while n>0 is required")
+    if n <= 1:
+        return 10
+    return 10 ** math.ceil(math.log10(n))

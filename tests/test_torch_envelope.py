@@ -15,17 +15,17 @@ thresh_fraction, the 2D score metrics and the fsc half-set splits.
   * The port's grouped scorer (grid._grouped_scoring on CPU tensors)
     against the XLA grouped path _solve_group_impl(fused_ntn=True) on
     tests/test_pallas_solver.py::_grouped_case, scores within 1e-4, and
-    against the Pallas kernel in interpret mode within 1e-4. Both the
-    port's kernel route and the Pallas kernel seed the power iteration from
-    rhs, the XLA path from ones (ROADMAP C1); where that seed moves a score
-    past 1e-4 (mutual information's histogram bins; a retried lasso) the
-    XLA comparison takes the reference's own 5e-4 gate
-    (test_pallas_solver.py:343), the kernel comparison stays at 1e-4.
+    against the Pallas kernel in interpret mode within 1e-4. A float32
+    search seeds the power iteration from ones, as the XLA path; the
+    Pallas kernel seeds from rhs, so its comparison gives the port's
+    scorer the kernel's seed (ROADMAP C15: the seed moved mutual
+    information's and a retried lasso's scores past 1e-4).
 The whole slice (reconstruct_grid under each kind of option) is held
 against the reference in tests/test_torch_grid.py.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -247,8 +247,6 @@ CONFIGS = dict(
     # an alpha large enough that the first fit is all zero: two retries
     lasso_retry=dict(model="lasso", l1_reg=0.05, reg_per_row=True, positive_constraint=1),
 )
-# the XLA path's ones seed of the power iteration moves these past 1e-4
-XLA_ATOL = dict(mutual_information=5e-4, lasso_retry=5e-4)
 
 
 @pytest.fixture(scope="module")
@@ -262,12 +260,12 @@ def grouped():
                 counts=(n_copies, n_pairs, n_ops))
 
 
-def _port_scores(g, cfg, region=None):
+def _port_scores(g, cfg, region=None, solve=None):
     pcfg = port_solver.SolveConfig(**cfg._asdict())
     region = np.asarray(g["common"][1]) if region is None else region
     return port_grid._grouped_scoring(
         g["pg"], pcfg, np.full(3, 29.4, np.float32), g["rises"], *g["counts"], region,
-        np.float32(0.0), {}, CPU)
+        np.float32(0.0), {}, CPU, solve=solve)
 
 
 def _cfg(**kw):
@@ -286,18 +284,19 @@ def test_grouped_scorer_matches_xla_grouped_path(grouped, name):
     assert np.all(np.isfinite(got))
     assert eff["retry_rounds"] == (2 if name == "lasso_retry" else 0)
     assert eff["score_in_kernel"] == (name in ("default", "fsc", "fsc3", "fsc4"))
-    np.testing.assert_allclose(got, want, rtol=0, atol=XLA_ATOL.get(name, 1e-4))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("name", ["lasso_retry", "mutual_information", "elasticnet", "fsc"])
 def test_grouped_scorer_matches_pallas_kernel_interpret(grouped, name):
-    """The same power-iteration seed as the port's kernel route: 1e-4."""
+    """With the kernel's power-iteration seed (rhs; a float32 search
+    seeds from ones, as the XLA path): 1e-4."""
     g = grouped
     cfg = _cfg(**CONFIGS[name])
     want = np.asarray(ref_solver._solve_group_impl(
         g["common"][0], cfg, *g["common"][1:], g["rank"], n_ops_u=g["n_ops"], use_pallas=True,
         pallas_interpret=True))[:3]
-    got, _ = _port_scores(g, cfg)
+    got, _ = _port_scores(g, cfg, solve=functools.partial(gs.solve_group, power_seed="rhs"))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 

@@ -285,6 +285,18 @@ def test_port_imports_no_jax():
             "helicon_tpu_torch.helix.pitch, helicon_tpu_torch.core.ctf, "
             "helicon_tpu_torch.core.xcorr, helicon_tpu_torch.core.ptycho, "
             "helicon_tpu_torch.core.interp, helicon_tpu_torch.utils.tensors, "
-            "helicon_tpu_torch.utils.system, sys; "
-            "assert 'jax' not in sys.modules and 'helicon_tpu' not in sys.modules")
+            "helicon_tpu_torch.utils.system, helicon_tpu_torch.utils.collections, "
+            "helicon_tpu_torch.utils.path_utils, helicon_tpu_torch.io.star, "
+            "helicon_tpu_torch.io.cs, helicon_tpu_torch.io.csdat, helicon_tpu_torch.io.epu, "
+            "helicon_tpu_torch.io.groups, helicon_tpu_torch.io.metadata, "
+            "helicon_tpu_torch.ops.images2star, helicon_tpu_torch.ops.images2star.parm, "
+            "helicon_tpu_torch.ops.images2star.select, helicon_tpu_torch.ops.images2star.sort, "
+            "helicon_tpu_torch.ops.images2star.dedup, "
+            "helicon_tpu_torch.ops.images2star.helixops, "
+            "helicon_tpu_torch.ops.images2star.optics, "
+            "helicon_tpu_torch.ops.images2star.stacks, "
+            "helicon_tpu_torch.ops.images2star.heavy, "
+            "helicon_tpu_torch.commands.images2star, sys; "
+            "assert 'jax' not in sys.modules and 'helicon_tpu' not in sys.modules "
+            "and 'helicon' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)

@@ -1,9 +1,10 @@
 """The PyTorch port's bucketed search on the wide-rise grid of
 tests/test_denovo3d_pipeline.py (rises 4-20 A: three rise buckets, then a
 second pass of one candidate per twist, which both packages score on their
-per-candidate paths) against the JAX package, and the two places where
-the port's groups of one (forced with HELICON_GRID_GROUPED=1) and the
-reference differ (ROADMAP C1 and C11).
+per-candidate paths) against the JAX package, and on the port's groups
+of one (forced with HELICON_GRID_GROUPED=1) the power seed, which the port
+takes from the reference's routing (ROADMAP C1, C15), and C11, where the
+two differ.
 
 The JAX searches run under jax.disable_jit() with one device, as in
 tests/test_torch_grid.py. An eager JAX search costs seconds per twist
@@ -82,12 +83,16 @@ def test_second_pass_goes_per_candidate(wide_rise):
 
 
 def test_power_seed_moves_groups_of_one(wide_rise, monkeypatch):
-    """ROADMAP C1 on groups of one, forced with HELICON_GRID_GROUPED=1: one
-    candidate per twist at the wide-rise grid's longest rise, each package
-    on its grouped path. The reference's XLA paths start the power
-    iteration from ones; B1 and its plain version start from the rhs. At
-    two power iterations the scores differ by more than 1e-4; at eight by
-    less."""
+    """ROADMAP C1 and C15 on groups of one, forced with
+    HELICON_GRID_GROUPED=1: one candidate per twist at the wide-rise grid's
+    longest rise, each package on its grouped path. The reference's XLA
+    paths start the power iteration from ones, and so does the port's
+    grouped search (grid.POWER_SEED); B1's own default, the TPU
+    kernel's, starts from rhs. At two power iterations the rhs seed moves
+    the scores by more than 1e-4 from the reference's; with the reference's
+    seed they agree within 1e-4 at two power iterations and at eight."""
+    from helicon_tpu_torch.denovo3d import grid as port_grid
+
     image = wide_rise[0]
     monkeypatch.setenv("HELICON_GRID_GROUPED", "1")
     rises = np.float32([20.0, 20.0])
@@ -97,7 +102,12 @@ def test_power_seed_moves_groups_of_one(wide_rise, monkeypatch):
         port, ref = _port(image, TWISTS, rises, **kw), _ref(image, TWISTS, rises, **kw)
         assert port.effective["path"] == "grouped" and port.effective["R"] == 1
         d[power] = float(np.abs(port.scores - ref.scores).max())
-    assert d[2] > 1e-4 > d[8], d
+        if power == 2:
+            with monkeypatch.context() as m:
+                m.setattr(port_grid, "POWER_SEED", "rhs")
+                rhs = _port(image, TWISTS, rises, **kw)
+            d["rhs"] = float(np.abs(rhs.scores - ref.scores).max())
+    assert d[2] < 1e-4 and d[8] < 1e-4 < d["rhs"], d
 
 
 def _jax_cos_sin(theta):

@@ -250,6 +250,41 @@ checkout, then runs sixteen phases and fails (non-zero exit) if any fails:
    size set 2 % off: apix_new equal to the CPU's and within 0.1 % of the
    truth.
    No hand-written kernel: none of these reaches a TPU kernel.
+17. The last commands (commands/HOM_containerC.py, symmetry_mismatch.py,
+   cryosparc.py with ops/cryosparc/) and whereIsMyClass's compute
+   (webApps/whereIsMyClass/compute.py, helix/pitch.py), their files under
+   build/phase17/, each part timed with the card synchronised around it,
+   with its peak device memory: (a) HOM_containerC on a seeded RELION
+   helical STAR of 100,000 segments (5,000 filaments of 20, 95 A apart, on
+   1,000 micrographs; rise 4.75 A, twist -1.2 deg, 5 % of segments off by
+   20-90 deg) as ``helicon-torch HOM_containerC`` in a subprocess, start
+   to exit, and in process with the read, the fit and the write timed
+   apart (the two must write equal files); the slope grid of all 5,000
+   helices on the card against the CPU (the slope index equal but where
+   the two SSEs lie within 1e-12 relative, counted; b and SSE 1e-12
+   relative, |err| 1e-9), the planted twist within one grid step (0.02
+   deg), the reference's host loop on 200 helices timed beside it, the
+   per-helix reports where matplotlib is present; (b)
+   solve_symmetry_mismatch on 100,000 particles at C5 / C12 with a
+   planted angle and 10 seed particles: the angle within 0.5 deg; 10,000
+   particles on the card against the CPU under one numpy seed (the same
+   seed choice, a swap only within the 1e-9 rule, counted; the same angle
+   and unfolded angles), then the command on two .cs files of 100,000
+   particles sharing uids; (c) cryosparc --extractParticles
+   box_size=384:fft_crop_size=128 on 1,000 particles on each of phase 16
+   (c)'s four 4,096^2 micrographs (made here when phase 16 did not run),
+   30 a micrograph crossing an edge: particles/s; 16 particles of
+   micrograph 0, half of them crossing an edge, on the card against the
+   CPU within 1e-5 of each particle's peak, and with fp16=1 within that
+   plus one float16 ulp; (d) get_micrograph on those micrographs at the
+   app's 5 A and 20 A low-pass (card against CPU within 1e-5 of the
+   range); (a)'s segments as a Class2D job of 50 classes by rot phase with
+   50 x 256^2 averages, read with get_class2d_params_from_file, then
+   compute_pair_distances over 10 classes (equal to the CPU's bit for
+   bit) and estimate_pitch_from_class2d (equal to the CPU's, within one
+   histogram bin of the planted 1,425 A); the projection sheets of ten
+   256^3 maps (the first against the CPU within 1e-6 of its peak).
+   No hand-written kernel: none of these reaches a TPU kernel.
 
 A line before phase 1 lists which optional host packages the machine
 has. The last two lines of standard output are the card's name and power
@@ -3902,7 +3937,8 @@ def phase_curvelet(device, card) -> dict:
 # core/ptycho.py) and the order-0 interpolation (ROADMAP C14)
 # ---------------------------------------------------------------------------
 
-HOST_PACKAGES = ("pandas", "sklearn", "h5py", "mrcfile", "starfile")
+HOST_PACKAGES = ("pandas", "sklearn", "h5py", "mrcfile", "starfile", "joblib", "matplotlib",
+                 "PIL", "cryosparc")
 # (name, twist deg, rise A, csym, diameter A, ball radius A), each image
 # 384^2 at 0.6 A/px, the filament axis vertical
 INDEX = dict(n=200, size=384, apix=0.6, seed=15, noise=0.5, min_prominence=3.0, geometries=(
@@ -4884,6 +4920,477 @@ def phase_images2star(device, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the last commands on the card (commands/HOM_containerC.py,
+# commands/symmetry_mismatch.py, commands/cryosparc.py --extractParticles)
+# and whereIsMyClass's compute (webApps/whereIsMyClass/compute.py with
+# helix/pitch.estimate_pitch_from_class2d), at a real project's scale
+# ---------------------------------------------------------------------------
+
+PH17 = ROOT / "build" / "phase17"
+# (a) a RELION helical project: 5,000 filaments of 20 segments 95 A apart
+# (20 rises) on 1,000 micrographs, twist -1.2 deg a rise, 5 % of segments
+# off by 20-90 deg; (b) C5 / C12 with a planted relative angle; (c) 1,000
+# particles on each of phase 16 (c)'s micrographs, ~3 % crossing an edge;
+# (d) 50 classes by rot phase, ten 256^3 maps
+PH17_HOM = dict(seed=17, filaments=5000, per=20, mics=1000, rise=4.75, twist=-1.2, step=95.0,
+                noise=1.0, outliers=0.05, off=(20.0, 90.0), host_helices=200, report=50)
+PH17_SM = dict(seed=171, n=100_000, sym1=5, sym2=12, seeds=10, checked=10_000, noise=0.5)
+PH17_EX = dict(seed=172, per_mic=1000, edge=30, box=384, crop=128, held=16)
+PH17_WIMC = dict(target_apix=5.0, low_pass=20.0, high_pass=0.0, classes=50, class_size=256,
+                 pair_classes=10, maps=10, map_size=256, pitch=1425.0)
+GRID_STEP = 10.0 / 500  # HOM's slope grid step, deg a rise (twist range -5..5, 501 slopes)
+
+
+def _hom_project(work: Path):
+    """PH17_HOM's segments as a RELION STAR (optics + particles, classes by
+    rot phase for (d)); returns the path."""
+    import numpy as np
+    import pandas as pd
+
+    from helicon_tpu_torch.io.star import write_star
+
+    c = PH17_HOM
+    g = np.random.default_rng(c["seed"])
+    nf, per = c["filaments"], c["per"]
+    n = nf * per
+    f = np.repeat(np.arange(nf), per)
+    s = np.tile(np.arange(per), nf)
+    x = np.round(s * c["step"] + g.uniform(-2.0, 2.0, n), 2)
+    rot = (g.uniform(0, 360, nf)[f] + c["twist"] / c["rise"] * x + g.normal(0, c["noise"], n))
+    off = g.random(n) < c["outliers"]
+    rot[off] += g.uniform(*c["off"], off.sum()) * g.choice([-1.0, 1.0], off.sum())
+    rot = np.mod(rot, 360.0)
+    mic = f // (nf // c["mics"])
+    psi = g.choice([-90.0, 90.0], nf)[f] + g.normal(0, 2.0, n)
+    df = pd.DataFrame(dict(
+        rlnImageName=[f"{k % 100 + 1:06d}@Extract/job010/mic{m:04d}.mrcs"
+                      for k, m in zip(range(n), mic)],
+        rlnMicrographName=[f"MotionCorr/job002/mic{m:04d}.mrc" for m in mic],
+        rlnCoordinateX=g.uniform(200, 3800, n), rlnCoordinateY=g.uniform(200, 3800, n),
+        rlnHelicalTubeID=f % (nf // c["mics"]) + 1, rlnHelicalTrackLengthAngst=x,
+        rlnAngleRot=rot, rlnAngleTilt=np.full(n, 90.0), rlnAnglePsi=psi,
+        rlnClassNumber=(rot * PH17_WIMC["classes"] / 360.0).astype(int) + 1,
+        rlnOpticsGroup=np.ones(n, int)))
+    optics = pd.DataFrame(dict(rlnOpticsGroup=[1], rlnOpticsGroupName=["opticsGroup1"],
+                               rlnImagePixelSize=[1.0], rlnImageSize=[256], rlnVoltage=[300.0],
+                               rlnSphericalAberration=[2.7], rlnAmplitudeContrast=[0.1]))
+    path = work / "run_it020_data.star"
+    write_star(path, {"optics": optics, "particles": df})
+    return path
+
+
+def phase_hom(device, card, star: Path) -> dict:
+    """Phase 17 (a): see the module docstring."""
+    import argparse
+    import importlib.util
+    import os
+
+    import numpy as np
+
+    from helicon_tpu_torch.commands import HOM_containerC as hom
+
+    c = PH17_HOM
+    work = star.parent
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-m", "helicon_tpu_torch.commands.helicon",
+                          "HOM_containerC", star.name, "out_sub.star", "--force", "1",
+                          "--verbose", "0"], cwd=work, capture_output=True, text=True,
+                         timeout=900, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    wall_sub = time.perf_counter() - t0
+    if sub.returncode != 0:
+        print(sub.stdout[-6000:], sub.stderr[-6000:], sep="\n", flush=True)
+        raise AssertionError(f"phase 17 (a): HOM_containerC exited {sub.returncode}")
+    # the command in process, its parts timed
+    cmd_parts = {}
+    parser = argparse.ArgumentParser()
+    hom.add_args(parser)
+    args = hom.check_args(parser.parse_args([str(star), str(work / "out_in.star"), "--force",
+                                             "1", "--verbose", "0"]), parser)
+    with _timed_calls(hom, ("_read_star", "HelicalSegmentConsistency", "_write_star"),
+                      cmd_parts):
+        _, cmd_s = _sync_wall(lambda: hom.main(args))
+    t0 = time.perf_counter()
+    data = hom._read_star(str(star))
+    read_s = time.perf_counter() - t0
+    parts = {}
+    _peak_gib(reset=True)
+    with _timed_calls(hom, ("fit_line_wrapped_by_m_grid_batch",), parts):
+        (out, stats), wall = _sync_wall(lambda: hom.HelicalSegmentConsistency(
+            data, rise=c["rise"], device=device))
+    peak = _peak_gib()
+    # every helix on the card against the port's CPU path, grids included
+    groups = [p for p in hom._helix_groups(data, ["rlnMicrographName", "rlnHelicalTubeID"])
+              if len(p) >= 3]
+    x_all = data["rlnHelicalTrackLengthAngst"].astype(float).to_numpy()
+    o_all = data["rlnAngleRot"].astype(float).to_numpy() % 360.0
+    xs, os_ = [x_all[p] for p in groups], [o_all[p] for p in groups]
+    lo, hi = -5.0 / c["rise"], 5.0 / c["rise"]
+    res = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        res[str(dev)] = hom.fit_line_wrapped_by_m_grid_batch(xs, os_, 360.0, lo, hi,
+                                                            device=dev, return_grids=True)
+        res[f"{dev} s"] = time.perf_counter() - t0
+    gi, _, gb, gs, ge, (_, _, gsg) = res[str(device)]
+    ci, _, cb, cs, ce, (_, _, csg) = res["cpu"]
+    rows = np.arange(len(xs))
+    differ = gi != ci
+    tied = np.abs(csg[rows, gi] - csg[rows, ci]) <= 1e-12 * np.abs(csg[rows, ci])
+    same = ~differ
+    b_rel = float(np.max(np.abs(gb - cb)[same] / np.maximum(np.abs(cb[same]), 1e-300)))
+    s_rel = float(np.max(np.abs(gs - cs)[same] / cs[same]))
+    e_abs = float(max(np.abs(a - b).max() for a, b, k in zip(ge, ce, same) if k))
+    twist = stats["consensus_twist_per_rise"]
+    # the reference's host loop (501 closed-form solves a helix) on 200 helices
+    t0 = time.perf_counter()
+    m_grid = np.linspace(lo, hi, 501)
+    host_idx = [int(np.argmin([hom.solve_b_given_m_wrapped(xs[h], os_[h], 360.0, m)[1]
+                               for m in m_grid])) for h in range(c["host_helices"])]
+    host_s = time.perf_counter() - t0
+    host_differ = int(np.sum(np.asarray(host_idx) != ci[: c["host_helices"]]))
+    report = "skipped: no matplotlib on this machine"
+    if importlib.util.find_spec("matplotlib") is not None:
+        sub_df = data[data["rlnMicrographName"].isin(
+            data["rlnMicrographName"].unique()[: c["report"] // 5])]
+        _, rs = hom.HelicalSegmentConsistency(sub_df, rise=c["rise"],
+                                              report_prefix=str(work / "hom"), device=device)
+        report = f"{len(rs['report_pages'])} pages and {Path(rs['report_pdf']).name}"
+    same_file = (work / "out_sub.star").read_bytes() == (work / "out_in.star").read_bytes()
+    n_good = int(out["rlnHelicalConsistencyGood"].sum())
+    print(f"phase 17 (a) [HOM_containerC on {len(data)} segments in {len(xs)} filaments of "
+          f"{c['per']} on {c['mics']} micrographs, rise {c['rise']} A, twist {c['twist']} deg, "
+          f"{c['outliers']:.0%} off by {c['off'][0]:.0f}-{c['off'][1]:.0f} deg]: the command "
+          f"{wall_sub:.3f} s start to exit, in process {cmd_s:.3f} s (by part "
+          f"{json.dumps({k: round(v, 3) for k, v in cmd_parts.items()})}); alone: read "
+          f"{read_s:.3f} s, "
+          f"HelicalSegmentConsistency {wall:.3f} s of which the slope grid "
+          f"{parts['fit_line_wrapped_by_m_grid_batch']:.3f} s, peak device memory {peak:.3f} "
+          f"GiB; consensus twist {twist:.4f} deg a rise (planted {c['twist']}, grid step "
+          f"{GRID_STEP}), {n_good} of {len(out)} segments good; all {len(xs)} helices card "
+          f"against CPU: {int(differ.sum())} slope indices differ, {int((differ & tied).sum())} "
+          f"of them within 1e-12 relative of a tie; b within {b_rel:.3e}, SSE within "
+          f"{s_rel:.3e} relative, |err| within {e_abs:.3e}; the grid on the card "
+          f"{res[f'{device} s']:.3f} s, on the CPU {res['cpu s']:.3f} s; the reference's host "
+          f"loop on {c['host_helices']} helices {host_s:.3f} s ({host_s / c['host_helices']:.4f} "
+          f"s a helix, {host_differ} slope indices other than the CPU path's); reports: {report}; {card}", flush=True)
+    if (np.any(differ & ~tied) or not b_rel <= 1e-12 or not s_rel <= 1e-12
+            or not e_abs <= 1e-9 or abs(twist - c["twist"]) > GRID_STEP or not same_file):
+        raise AssertionError("phase 17 (a): the card's fit differs from the CPU's or the "
+                             "planted twist is missed")
+    return dict(wall_sub=wall_sub, cmd_s=cmd_s, cmd_parts=cmd_parts, wall=wall,
+                grid_s=parts["fit_line_wrapped_by_m_grid_batch"],
+                peak=peak, swaps=int(differ.sum()), twist=twist, host_s=host_s,
+                grid_card_s=res[f"{device} s"], grid_cpu_s=res["cpu s"], read_s=read_s)
+
+
+def _sm_angles(n, seed):
+    """(planted angle, rot1 (C5), rot2 (C12)) of n particles."""
+    import numpy as np
+
+    from helicon_tpu_torch.commands import symmetry_mismatch as sm
+
+    c = PH17_SM
+    g = np.random.default_rng(seed)
+    planted = g.uniform(0, sm.relative_angle_range(c["sym1"], c["sym2"]))
+    true = g.uniform(0, 360, n)
+    rot1 = (true + g.integers(0, c["sym1"], n) * 360 / c["sym1"]
+            + g.normal(0, c["noise"], n)) % (360 / c["sym1"])
+    rot2 = (true + planted + g.integers(0, c["sym2"], n) * 360 / c["sym2"]
+            + g.normal(0, c["noise"], n)) % (360 / c["sym2"])
+    return planted, rot1, rot2, true
+
+
+def phase_symmetry_mismatch(device, card) -> dict:
+    """Phase 17 (b): see the module docstring."""
+    import argparse
+
+    import numpy as np
+
+    from helicon_tpu_torch.commands import symmetry_mismatch as sm
+    from helicon_tpu_torch.io.cs import read_cs, write_cs
+
+    c = PH17_SM
+    s1, s2 = c["sym1"], c["sym2"]
+    period = sm.relative_angle_range(s1, s2)
+    planted, rot1, rot2, true = _sm_angles(c["n"], c["seed"])
+    _peak_gib(reset=True)
+    np.random.seed(c["seed"])
+    (angle, _, _), wall = _sync_wall(lambda: sm.solve_symmetry_mismatch(
+        rot1, rot2, s1, s2, num_seed_samples=c["seeds"], device=device))
+    peak = _peak_gib()
+    miss = abs((angle - planted + period / 2) % period - period / 2)
+    k = c["checked"]
+    res = {}
+    for dev in (device, "cpu"):
+        np.random.seed(c["seed"] + 1)
+        t0 = time.perf_counter()
+        res[str(dev)] = sm.solve_symmetry_mismatch(rot1[:k], rot2[:k], s1, s2,
+                                                   num_seed_samples=c["seeds"], device=dev,
+                                                   return_seeds=True)
+        res[f"{dev} s"] = time.perf_counter() - t0
+    ga, g1, g2, (gseeds, gerr, gbest) = res[str(device)]
+    ca, c1, c2, (cseeds, cerr, cbest) = res["cpu"]
+    swapped = gbest != cbest
+    tie = bool(np.array_equal(gseeds, cseeds)) and abs(cerr[gbest] - cerr[cbest]) <= 1e-9
+    same = bool(ga == ca and np.array_equal(g1, c1) and np.array_equal(g2, c2))
+    err_rel = float(np.max(np.abs(gerr - cerr) / cerr))
+    # the command on two .cs files of c["n"] particles that share uids
+    work = PH17 / "sm"
+    work.mkdir(parents=True, exist_ok=True)
+    g = np.random.default_rng(c["seed"] + 2)
+    tilt, psi = g.uniform(5, 175, c["n"]), g.uniform(0, 360, c["n"])
+    for name, rot in (("J1", rot1), ("J2", rot2)):
+        arr = np.zeros(c["n"], dtype=[("uid", "<u8"), ("location/micrograph_uid", "<u8"),
+                                      ("alignments3D/pose", "<f4", (3,))])
+        arr["uid"] = np.arange(c["n"]) + 10**12
+        arr["location/micrograph_uid"] = np.arange(c["n"]) // 100
+        arr["alignments3D/pose"] = sm.convert_euler_angles_to_cryosparc_pose(
+            np.stack([rot, tilt, psi], axis=1))
+        write_cs(work / f"{name}_particles.cs", arr)
+    parser = argparse.ArgumentParser()
+    sm.add_args(parser)
+    argv = ["-i1", "J1_particles.cs", "-s1", f"C{s1}", "-i2", "J2_particles.cs", "-s2",
+            f"C{s2}", "-of2", "J2_unfolded.cs", "-v", "0"]
+    args = sm.check_args(parser.parse_args(argv), parser)
+    np.random.seed(c["seed"])
+    with _cwd(work):
+        _, cmd_s = _sync_wall(lambda: sm.main(args))
+    out = read_cs(work / "J2_unfolded.cs")
+    cmd_angle = float(out["sym_mismatch/relative_angle"][0])
+    cmd_miss = abs((cmd_angle - planted + period / 2) % period - period / 2)
+    print(f"phase 17 (b) [solve_symmetry_mismatch on {c['n']} particles, C{s1} / C{s2}, "
+          f"{c['seeds']} seed particles ({c['seeds'] * s1 * s2} seed angles)]: {wall:.3f} s, "
+          f"peak device memory {peak:.3f} GiB; angle {angle:.4f} deg, planted {planted:.4f} "
+          f"(off by {miss:.4f}); {k} particles card against CPU: seed choice swapped "
+          f"{int(swapped)} (a swap within the 1e-9 rule: {tie if swapped else 'none'}), seed "
+          f"errors within {err_rel:.3e} relative, angle and unfolded angles equal: {same}; card "
+          f"{res[f'{device} s']:.3f} s, CPU {res['cpu s']:.3f} s; the command on two .cs files "
+          f"of {c['n']} particles sharing uids: {cmd_s:.3f} s, {len(out)} particles written, "
+          f"angle {cmd_angle:.4f} (off by {cmd_miss:.4f}); {card}", flush=True)
+    if (miss > 0.5 or cmd_miss > 0.5 or len(out) != c["n"]
+            or (swapped and not tie) or (not swapped and not same)):
+        raise AssertionError("phase 17 (b): the angle is missed or the card differs from "
+                             "the CPU")
+    return dict(wall=wall, peak=peak, miss=miss, swapped=int(swapped), cmd_s=cmd_s,
+                card_s=res[f"{device} s"], cpu_s=res["cpu s"])
+
+
+def phase_extract(device, card, mics) -> dict:
+    """Phase 17 (c): see the module docstring."""
+    import argparse
+
+    import numpy as np
+    import pandas as pd
+
+    from helicon_tpu_torch.commands import cryosparc as cmd
+    from helicon_tpu_torch.io.cs import read_cs
+    from helicon_tpu_torch.io.metadata import dataframe2cs
+    from helicon_tpu_torch.io.mrc import read_mrc
+    from helicon_tpu_torch.ops.cryosparc.extract import extract_particles
+
+    c = PH17_EX
+    work = PH17 / "extract"
+    work.mkdir(parents=True, exist_ok=True)
+    size = I2S["mic_size"]
+    g = np.random.default_rng(c["seed"])
+    rows = []
+    for k, p in enumerate(mics):
+        xy = g.uniform(c["box"] / 2 + 1, size - c["box"] / 2 - 1, (c["per_mic"], 2))
+        edge = g.choice(c["per_mic"], c["edge"], replace=False)
+        xy[edge, g.integers(0, 2, c["edge"])] = np.where(
+            g.random(c["edge"]) < 0.5, g.uniform(20, c["box"] / 2 - 8, c["edge"]),
+            size - g.uniform(20, c["box"] / 2 - 8, c["edge"]))
+        for i in range(c["per_mic"]):
+            rows.append({"uid": np.uint64(k * 10**6 + i), "location/micrograph_uid": np.uint64(k),
+                         "location/micrograph_path": str(p),
+                         "location/micrograph_psize_A": np.float32(I2S["mic_apix"]),
+                         "location/micrograph_shape": np.array([size, size], np.uint32),
+                         "location/center_x_frac": np.float32(xy[i, 0] / size),
+                         "location/center_y_frac": np.float32(xy[i, 1] / size),
+                         "ctf/exp_group_id": np.uint32(1)})
+    frame = pd.DataFrame(rows)
+    dataframe2cs(frame, work / "J5_particles.cs")
+    param = f"box_size={c['box']}:fft_crop_size={c['crop']}"
+    parser = argparse.ArgumentParser()
+    cmd.add_args(parser)
+    argv = ["--csFile", "J5_particles.cs", "--extractParticles", param, "--output_csFile",
+            "J5_extracted.cs", "--verbose", "0"]
+    args = cmd.check_args(parser.parse_args(argv), parser, argv)
+    _peak_gib(reset=True)
+    with _cwd(work):
+        _, wall = _sync_wall(lambda: cmd.main(args))
+    peak = _peak_gib()
+    n = len(frame)
+    out = read_cs(work / "J5_extracted.cs")
+    stack, apix = read_mrc(work / "extract" / f"{mics[0].stem}.mrcs")
+    # c["held"] particles of micrograph 0, its edge ones among them
+    # the option's own rounding of the fractions (float32 times the uint32 shape)
+    shape = np.asarray(frame["location/micrograph_shape"].iloc[0])
+    x = np.rint(frame["location/center_x_frac"].to_numpy()[: c["per_mic"]] * shape[1]).astype(
+        np.int32)
+    y = np.rint(frame["location/center_y_frac"].to_numpy()[: c["per_mic"]] * shape[0]).astype(
+        np.int32)
+    h = c["box"] // 2
+    edge = np.nonzero((x < h) | (y < h) | (x + h > size) | (y + h > size))[0]
+    held = np.sort(np.concatenate([edge[: c["held"] // 2], np.setdiff1d(
+        np.arange(c["per_mic"]), edge)[: c["held"] - min(len(edge), c["held"] // 2)]]))
+    mic = read_mrc(mics[0], mmap=True)[0][0]
+    errs = {}
+    for fp16 in (False, True):
+        got = {dev: extract_particles(mic, x[held], y[held], c["box"], c["crop"], (size, size),
+                                      fp16=fp16, device=dev) for dev in (device, "cpu")}
+        a, b = got[device].astype(np.float64), got["cpu"].astype(np.float64)
+        pk = np.abs(b).max(axis=(1, 2), keepdims=True)
+        ulp = np.spacing(np.abs(b).astype(np.float16)).astype(np.float64) if fp16 else 0.0
+        errs[fp16] = float(np.max((np.abs(a - b) - ulp) / pk))
+    # the command's stack against the held run on the interior boxes (an edge
+    # box's fill draws depend on the edge boxes before it)
+    inner = ~np.isin(held, edge)
+    a16 = stack[held][inner].astype(np.float64)
+    b16 = got[device][inner].astype(np.float64)
+    main_ok = bool(np.all(np.abs(a16 - b16) <= np.spacing(np.abs(b16).astype(np.float16))
+                          + 1e-5 * np.abs(b16).max(axis=(1, 2), keepdims=True)))
+    print(f"phase 17 (c) [cryosparc --extractParticles {param} (fp16 by default) on {n} "
+          f"particles, {c['per_mic']} on each of {len(mics)} micrographs of {size}^2, "
+          f"{c['edge']} a micrograph placed to cross an edge]: {wall:.3f} s, {n / wall:.1f} "
+          f"particles/s, peak device memory {peak:.3f} GiB; {len(out)} rows, the stacks "
+          f"{stack.shape} {stack.dtype} at {apix:.4f} A/px; {len(held)} particles of "
+          f"micrograph 0 ({min(len(edge), c['held'] // 2)} crossing an edge) card against CPU "
+          f"within {errs[False]:.3e} of each particle's peak (limit 1e-5), with fp16=1 "
+          f"{errs[True]:.3e} beyond one float16 ulp; the command's stack holds the card's "
+          f"float16 interior boxes: {main_ok}; {card}", flush=True)
+    if (len(out) != n or stack.shape != (c["per_mic"], c["crop"], c["crop"])
+            or not np.all(np.isfinite(stack)) or not errs[False] <= 1e-5
+            or not errs[True] <= 1e-5 or not main_ok):
+        raise AssertionError("phase 17 (c): the extraction differs from the CPU's")
+    return dict(wall=wall, per_s=n / wall, peak=peak, err=errs[False], err16=errs[True])
+
+
+def phase_wimc(device, card, mics, star: Path) -> dict:
+    """Phase 17 (d): see the module docstring."""
+    import numpy as np
+
+    from helicon_tpu_torch.helix import pitch
+    from helicon_tpu_torch.io.mrc import write_mrc
+    from helicon_tpu_torch.webApps.whereIsMyClass import compute
+
+    c = PH17_WIMC
+    out = {}
+    # micrographs at the app's defaults
+    _peak_gib(reset=True)
+    walls = []
+    for p in mics:
+        (img, _, _), w = _sync_wall(lambda: compute.get_micrograph(
+            str(p), c["target_apix"], c["low_pass"], c["high_pass"], device=device))
+        walls.append(w)
+    peak_mic = _peak_gib()
+    t0 = time.perf_counter()
+    cpu, _, _ = compute.get_micrograph(str(mics[-1]), c["target_apix"], c["low_pass"],
+                                       c["high_pass"], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    mic_err = float(np.abs(img - cpu).max() / np.ptp(cpu))
+    # the Class2D job of (a)'s segments
+    g = np.random.default_rng(PH17_HOM["seed"] + 3)
+    write_mrc(star.parent / "run_it020_classes.mrcs",
+              g.standard_normal((c["classes"], c["class_size"], c["class_size"]),
+                                dtype=np.float32), apix=1.0)
+    t0 = time.perf_counter()
+    params = compute.get_class2d_params_from_file(str(star))
+    classes, apix = compute.get_class2d_from_file(compute.get_class_file(str(star)))
+    read_s = time.perf_counter() - t0
+    sel = list(range(c["pair_classes"]))
+    helices = compute.select_classes(params, sel)
+    lengths = compute.get_filament_length(helices)
+    _peak_gib(reset=True)
+    (dists, min_len), pairs_s = _sync_wall(lambda: compute.compute_pair_distances(
+        helices, lengths=lengths, device=device))
+    peak_pairs = _peak_gib()
+    t0 = time.perf_counter()
+    dists_cpu, min_cpu = compute.compute_pair_distances(helices, lengths=lengths, device="cpu")
+    pairs_cpu_s = time.perf_counter() - t0
+    pairs_equal = bool(np.array_equal(dists, dists_cpu) and min_len == min_cpu)
+    est, pitch_s = _sync_wall(lambda: pitch.estimate_pitch_from_class2d(
+        params, sel, rise=PH17_HOM["rise"], device=device))
+    est_cpu = pitch.estimate_pitch_from_class2d(params, sel, rise=PH17_HOM["rise"],
+                                                device="cpu")
+    centers = est["histogram"][0]
+    bin_w = float(centers[1] - centers[0]) if len(centers) > 1 else 0.0
+    pitch_equal = all(est[k] == est_cpu[k] for k in ("pitch", "twist", "peak_dist",
+                                                     "harmonics"))
+    # projection sheets of ten 256^3 maps
+    maps = PH17 / "class3d"
+    maps.mkdir(parents=True, exist_ok=True)
+    n = c["map_size"]
+    zz = np.linspace(-1, 1, n, dtype=np.float32)
+    files = []
+    for k in range(c["maps"]):
+        vol = np.exp(-((zz[:, None, None] * (1 + k / 10)) ** 2 + zz[None, :, None] ** 2 * 4
+                       + zz[None, None, :] ** 2 * 9)).astype(np.float32)
+        files.append(maps / f"run_it025_class{k + 1:03d}.mrc")
+        write_mrc(files[-1], vol + 0.01 * g.standard_normal(vol.shape, dtype=np.float32),
+                  apix=1.0)
+    _peak_gib(reset=True)
+    (sheets, _, _), sheet_s = _sync_wall(lambda: compute.get_class3d_projections_from_files(
+        files, device=device))
+    peak_maps = _peak_gib()
+    from helicon_tpu_torch.io.mrc import read_mrc
+
+    plain = getattr(compute.get_one_map_xyz_projects, "func",
+                    compute.get_one_map_xyz_projects)
+    vol0 = read_mrc(files[0])[0]
+    sheet_cpu = plain(vol0, n, device="cpu")
+    sheet_err = float(np.abs(sheets[0] - sheet_cpu).max() / np.abs(sheet_cpu).max())
+    print(f"phase 17 (d) [whereIsMyClass's compute: get_micrograph at {c['target_apix']} A, "
+          f"low-pass {c['low_pass']} A on {len(mics)} micrographs of {I2S['mic_size']}^2]: "
+          f"the first {walls[0]:.3f} s, then {np.mean(walls[1:]):.3f} s a micrograph, peak "
+          f"device memory "
+          f"{peak_mic:.3f} GiB, {img.shape}, card against CPU within {mic_err:.3e} of the "
+          f"range (limit 1e-5; CPU {cpu_s:.3f} s); Class2D job of (a)'s {len(params)} "
+          f"segments in {c['classes']} classes ({classes.shape} averages) read in "
+          f"{read_s:.3f} s; compute_pair_distances over {c['pair_classes']} classes: "
+          f"{len(dists)} pairs of {len(helices)} filaments in {pairs_s:.3f} s (CPU "
+          f"{pairs_cpu_s:.3f} s), peak device memory {peak_pairs:.3f} GiB, equal to the CPU's "
+          f"bit for bit: {pairs_equal}; estimate_pitch_from_class2d {pitch_s:.3f} s: pitch "
+          f"{est['pitch']:.2f} A (planted {c['pitch']}, bin {bin_w:.2f} A), twist "
+          f"{est['twist']:.4f} deg, equal to the CPU's: {pitch_equal}; projection sheets of "
+          f"{c['maps']} maps of {n}^3: {sheet_s:.3f} s, peak device memory {peak_maps:.3f} GiB, "
+          f"{sheets.shape}, the first against the CPU within {sheet_err:.3e} of its peak "
+          f"(limit 1e-6); {card}", flush=True)
+    if (not mic_err <= 1e-5 or not pairs_equal or not pitch_equal or est["pitch"] is None
+            or abs(est["pitch"] - c["pitch"]) > bin_w or not sheet_err <= 1e-6):
+        raise AssertionError("phase 17 (d): whereIsMyClass's compute differs from the CPU's "
+                             "or misses the planted pitch")
+    out.update(mic_first_s=walls[0], mic_s=float(np.mean(walls[1:])), mic_err=mic_err, pairs=len(dists), pairs_s=pairs_s,
+               pitch=est["pitch"], pitch_s=pitch_s, sheet_s=sheet_s, sheet_err=sheet_err)
+    return out
+
+
+def phase_last_commands(device, card) -> dict:
+    """Phase 17 (a)-(d)."""
+    import os
+    import shutil
+
+    shutil.rmtree(PH17, ignore_errors=True)
+    (PH17 / "Class2D" / "job020").mkdir(parents=True)
+    # whereIsMyClass's projection sheets cache under the phase's folder
+    os.environ["HELICON_CACHE_DIR"] = str(PH17 / "cache")
+    out = {}
+    t0 = time.perf_counter()
+    star = _hom_project(PH17 / "Class2D" / "job020")
+    mics = sorted((PH16 / "mics").glob("mic_*.mrc"))
+    if len(mics) != I2S["mics"]:
+        (PH17 / "mics").mkdir()
+        mics = _micrographs(PH17 / "mics")[0]
+    out["data"] = {"phase_s": time.perf_counter() - t0}
+    for key, fn, extra in (("a", phase_hom, (star,)), ("b", phase_symmetry_mismatch, ()),
+                           ("c", phase_extract, (mics,)), ("d", phase_wimc, (mics, star))):
+        t0 = time.perf_counter()
+        out[key] = fn(device, card, *extra)
+        out[key]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4970,6 +5477,10 @@ def main() -> int:
     i2s = phase_images2star(device, card)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s (by part "
           f"{json.dumps({k: round(v['phase_s'], 1) for k, v in i2s.items()})})", flush=True)
+    t17 = time.perf_counter()
+    last = phase_last_commands(device, card)
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s (by part "
+          f"{json.dumps({k: round(v['phase_s'], 1) for k, v in last.items()})})", flush=True)
     webapp_launches = {k: sum(d["launches"][k] for d in (*webapp.values(), webapp_grid))
                        + sum(d["launches_app"][k] for d in webapp.values()) for k in _counts()}
     webapp_launches["group_solve"] += webapp_fsc["launches"]

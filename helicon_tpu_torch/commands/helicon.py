@@ -6,6 +6,9 @@ is for the JAX package's.
   helicon-torch images2star in.star out.star --select rlnClassNumber 1 --device cpu
   helicon-torch proc3d in.mrc out.mrc --flip_hand z --device cpu
   helicon-torch trueFSC half1.mrc half2.mrc fsc.pdf
+  helicon-torch HOM_containerC in.star out.star --filterBad 1
+  helicon-torch symmetry_mismatch -i1 a.cs -s1 C5 -i2 b.cs -s2 C12 -of2 out.cs
+  helicon-torch cryosparc --csFile J1_particles.cs --extractParticles box_size=384
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from helicon_tpu_torch.utils.exceptions import HeliconError, HeliconExit
 
 logger = logging.getLogger(__name__)
 
-cli_commands = ["denovo3d_cli", "images2star", "proc3d", "trueFSC"]
+cli_commands = ["cryosparc", "denovo3d_cli", "HOM_containerC", "images2star", "proc3d",
+                "symmetry_mismatch", "trueFSC"]
 
 
 def main(argv=None):

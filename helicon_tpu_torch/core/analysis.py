@@ -11,7 +11,8 @@ Counterpart of ``helicon_tpu/core/analysis.py:438`` (``_binary_closing``),
 ``ssim_score_traced``, ``ms_ssim_score_traced``,
 ``mutual_information_score_traced``), and of the FSC / FRC family
 ``:97-240`` (the shells binned on the spectra's device in float64), and
-of ``is_3d`` :56, ``twist2pitch`` :73, ``ssim_score`` :275,
+of ``is_3d`` :56, ``is_amyloid`` :64 (on the port's ``io/dataset``),
+``twist2pitch`` :73, ``ssim_score`` :275,
 ``ms_ssim_score`` :309, ``mutual_information_score`` :339,
 ``r_factor_score`` :422, ``cross_correlation_coefficient`` :520,
 ``cosine_similarity`` :530, ``find_elbow_point`` :538,
@@ -50,6 +51,7 @@ __all__ = [
     "cross_correlation_coefficient",
     "find_elbow_point",
     "is_3d",
+    "is_amyloid",
     "line_fit_projection",
     "ms_ssim_score",
     "mutual_information_score",
@@ -68,6 +70,15 @@ def is_3d(data) -> bool:
         return False
     nz, ny, nx = data.shape
     return (nz == ny == nx) or (nz > ny and ny == nx)
+
+
+def is_amyloid(emdb_id) -> bool:
+    """True when the EMDB ID appears in the amyloid atlas."""
+    if not isinstance(emdb_id, str):
+        return False
+    from ..io.dataset import EMDB
+
+    return emdb_id.split("-")[-1].split("_")[-1] in EMDB().amyloid_atlas_ids()
 
 
 def twist2pitch(twist: float, rise: float,

@@ -5,8 +5,10 @@ Counterpart of ``helicon_tpu/core/interp.py``: order 0 (nearest pixel by
 scipy's floor(c + 0.5) rule), 1 (bilinear: the rotations of the helix
 estimator and of the image alignment) and 3 (cubic B-spline
 down-scaling, with the recursive prefilter of pole sqrt(3) - 2), in the
-modes constant, nearest (alias edge), mirror, reflect and wrap (periodic,
-scipy's grid-wrap; alias grid-wrap). The scipy conventions are the same.
+modes constant, grid-constant (order 0 and 1: samples outside the input
+are cval, and a point between the edge and one pixel beyond blends with
+it), nearest (alias edge), mirror, reflect and wrap (periodic, scipy's
+grid-wrap; alias grid-wrap). The scipy conventions are the same.
 ``linear_gather_2d`` :269 and ``trilinear_gather_3d`` :274 are order 1
 with a fill value. The prefilter's recursion is a Python loop over the
 filtered axis.
@@ -23,7 +25,8 @@ __all__ = ["spline_filter1d", "spline_filter", "map_coordinates", "linear_gather
            "trilinear_gather_3d"]
 
 _CUBIC_POLE = math.sqrt(3.0) - 2.0
-_MODES = ("constant", "nearest", "edge", "mirror", "reflect", "wrap", "grid-wrap")
+_MODES = ("constant", "grid-constant", "nearest", "edge", "mirror", "reflect", "wrap",
+          "grid-wrap")
 
 
 def _mirror_index(idx, n: int):
@@ -123,14 +126,17 @@ def map_coordinates(
 
     order 0 (the pixel at floor(c + 0.5): an exact .5 takes the upper
     one), 1 or 3; mode "constant" (points outside [0, n-1] on any axis
-    return cval), "nearest" (or "edge"), "mirror", "reflect" or "wrap"
-    (or "grid-wrap"). A float64 input is sampled at float64 coordinates
+    return cval), "grid-constant" (order 0 and 1: the input padded with
+    cval), "nearest" (or "edge"), "mirror", "reflect" or "wrap" (or
+    "grid-wrap"). A float64 input is sampled at float64 coordinates
     with float64 weights; any other in float32.
     """
     if order not in (0, 1, 3):
         raise ValueError(f"order={order} not supported (use 0, 1, or 3)")
     if mode not in _MODES:
         raise ValueError(f"map_coordinates mode={mode!r} (one of {_MODES})")
+    if mode == "grid-constant" and order == 3:
+        raise ValueError("map_coordinates mode='grid-constant' supports order 0 and 1")
     x = torch.as_tensor(input)
     work = torch.float64 if x.dtype == torch.float64 else torch.float32
     coords = [torch.as_tensor(c, dtype=work, device=x.device) for c in coordinates]
@@ -152,7 +158,7 @@ def map_coordinates(
             idxs.append(i)
             valid &= ok
         vals = x[tuple(idxs)]
-        if mode == "constant":
+        if mode in ("constant", "grid-constant"):
             vals = torch.where(valid & in_domain, vals, float(cval))
         return vals
 
@@ -172,7 +178,7 @@ def map_coordinates(
                 idxs.append(i)
                 valid &= ok
             vals = x[tuple(idxs)]
-            if mode == "constant":
+            if mode in ("constant", "grid-constant"):
                 vals = torch.where(valid, vals, float(cval))
             out = out + vals.to(out.dtype) * w
     else:

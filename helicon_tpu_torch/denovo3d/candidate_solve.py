@@ -206,7 +206,7 @@ def candidate_inputs(factors, cdt, rhs, scal, gz=None, a_top=None) -> CandidateI
 _SHARED_FACTORS = ("mask", "plane_ok")
 
 
-def factors_from_numpy(factors_np, compute_dtype=torch.float32, device="cpu") -> dict:
+def factors_from_numpy(factors_np, compute_dtype=torch.float32, device="cuda") -> dict:
     """The JAX package's ``ops["factors"]`` (as numpy arrays) as the port's
     tensors on ``device``: Wsum, Gz, Mz_ops and Mxy_ops in compute_dtype,
     pair_idx int64, the rest float32."""

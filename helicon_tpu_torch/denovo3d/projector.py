@@ -55,7 +55,7 @@ __all__ = ["build_problem", "build_problems", "data_operator", "data_operators",
            "sym_operators", "rot_yx_inv"]
 
 
-def rot_yx_inv(tilt_deg, psi_deg, device="cpu") -> torch.Tensor:
+def rot_yx_inv(tilt_deg, psi_deg, device="cuda") -> torch.Tensor:
     """Transpose of scipy R.from_euler('yx', (tilt, psi)) as a (3, 3)
     float32 tensor: Ry(-tilt) @ Rx(-psi), each entry the one nonzero
     product of the reference's 3 x 3 float32 matmul."""

@@ -4,9 +4,8 @@ Counterpart of ``helicon_tpu/helix/pitch.py``:
 ``estimate_pitch_from_pair_distances`` :24 (host numpy / scipy, copied):
 same-class2D segments of a filament repeat every pitch / csym along its
 axis, so the histogram of their pair distances peaks at multiples of
-pitch / csym. ``estimate_pitch_from_class2d`` :91 needs whereIsMyClass's
-pair-distance code (``webApps/whereIsMyClass/compute.py``), not ported
-yet: it raises naming that item.
+pitch / csym. ``estimate_pitch_from_class2d`` :91 takes its pair
+distances from whereIsMyClass's compute module, on ``device``.
 """
 
 from __future__ import annotations
@@ -88,10 +87,31 @@ def estimate_pitch_from_pair_distances(
 
 def estimate_pitch_from_class2d(params, class_indices=None, csym: int = 1,
                                 rise: float | None = None, target_total_count: int = -1,
-                                **kwargs):
-    """Class2D params DataFrame -> pitch estimate (the reference's
-    pitch.py:91). Its pair distances come from whereIsMyClass's compute
-    module, which the port does not have yet."""
-    raise NotImplementedError(
-        "estimate_pitch_from_class2d is not ported yet: it needs "
-        "webApps/whereIsMyClass/compute.py (ROADMAP A11b)")
+                                device="cuda", **kwargs):
+    """End-to-end: Class2D params DataFrame -> pitch estimate.
+
+    params: RELION-convention DataFrame (rlnMicrographName,
+    rlnHelicalTubeID, rlnHelicalTrackLengthAngst, rlnClassNumber,
+    rlnAnglePsi) as produced by
+    whereIsMyClass.compute.get_class2d_params_from_file.
+    class_indices: 0-based class selection (default: all classes). The
+    pair distances are computed on ``device``.
+    """
+    from ..webApps.whereIsMyClass.compute import (
+        compute_pair_distances,
+        get_filament_length,
+        select_classes,
+    )
+
+    if class_indices is None:
+        class_indices = sorted(
+            int(c) - 1 for c in np.unique(params["rlnClassNumber"])
+        )
+    helices = select_classes(params, class_indices)
+    lengths = get_filament_length(helices)
+    dists, _ = compute_pair_distances(
+        helices, lengths=lengths, target_total_count=target_total_count, device=device
+    )
+    return estimate_pitch_from_pair_distances(
+        dists, csym=csym, rise=rise, **kwargs
+    )

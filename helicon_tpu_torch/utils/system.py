@@ -2,10 +2,11 @@
 pipelines (proc3d, images2star).
 
 A copy of ``get_option_list``, ``resolve_option_abbreviations``,
-``_coerce_value``, ``parse_param_str``, ``validate_param_dict`` and
-``ceil_power_of_10`` from ``helicon_tpu/utils/system.py``; the JAX device
-probes stay behind. tests/test_torch_proc3d.py and
-tests/test_torch_metadata.py pin the copy to the original.
+``_coerce_value``, ``parse_param_str``, ``validate_param_dict``,
+``optional_loader`` and ``ceil_power_of_10`` from
+``helicon_tpu/utils/system.py``; the JAX device probes stay behind.
+tests/test_torch_proc3d.py and tests/test_torch_metadata.py pin the copy
+to the original.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Any
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ceil_power_of_10", "get_option_list", "parse_param_str",
+__all__ = ["ceil_power_of_10", "get_option_list", "optional_loader", "parse_param_str",
            "resolve_option_abbreviations", "validate_param_dict"]
 
 
@@ -110,6 +111,20 @@ def validate_param_dict(
     }
     changed = {k: v for k, v in final.items() if v != param_ref[k]}
     return final, changed, unsupported
+
+
+def optional_loader(module_name: str, attr: str):
+    """Import an optional IO package (``mrcfile`` / ``starfile``) only if
+    it provides the needed callable: the module, or None to select the
+    native codec (the module is absent, or a bare placeholder without the
+    entry point)."""
+    import importlib
+
+    try:
+        mod = importlib.import_module(module_name)
+    except ImportError:
+        return None
+    return mod if callable(getattr(mod, attr, None)) else None
 
 
 def ceil_power_of_10(n: float | int) -> int:

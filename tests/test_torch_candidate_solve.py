@@ -92,13 +92,13 @@ def test_factors_match_reference(small):
 
 def test_factors_from_numpy_round_trip(small):
     f_np = {k: np.asarray(v) for k, v in small["ref"]["factors"].items()}
-    f_t = cs.factors_from_numpy(f_np)
+    f_t = cs.factors_from_numpy(f_np, device="cpu")
     assert sorted(f_t) == sorted(f_np)
     for k, v in f_np.items():
         assert f_t[k].device.type == "cpu"
         np.testing.assert_array_equal(f_t[k].numpy(), v, err_msg=k)
     assert f_t["pair_idx"].dtype == torch.int64
-    bf = cs.factors_from_numpy(f_np, compute_dtype=torch.bfloat16)
+    bf = cs.factors_from_numpy(f_np, compute_dtype=torch.bfloat16, device="cpu")
     assert bf["Wsum"].dtype == bf["Mxy_ops"].dtype == torch.bfloat16
     assert bf["pair_ok"].dtype == torch.float32
 
@@ -114,7 +114,7 @@ def test_plain_solve_matches_pallas_kernel_interpret(small):
         jnp.asarray([[l2_reg, l1_reg, lb, ub]], jnp.float32), cg_iters=CG, fista_iters=FI,
         power_iters=PW, use_bf16=False, interpret=True,
     ))
-    factors = cs.factors_from_numpy({k: np.asarray(v) for k, v in f.items()})
+    factors = cs.factors_from_numpy({k: np.asarray(v) for k, v in f.items()}, device="cpu")
     inp = cs.candidate_inputs(factors, torch.float32, torch.from_numpy(small["rhs"]),
                               (l2_reg, l1_reg, lb, ub))
     np.testing.assert_allclose(inp.b1[0].numpy(), np.asarray(b1), atol=0)

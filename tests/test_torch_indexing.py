@@ -420,8 +420,25 @@ def test_pitch_from_distances_matches_reference(args, kw):
 
 
 def test_pitch_from_class2d_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="A11b"):
-        pitch.estimate_pitch_from_class2d(None)
+    # ported since the pair distances of whereIsMyClass's compute came:
+    # without params it raises as the reference does, with params it
+    # equals the reference (tests/test_torch_whereismyclass.py has more)
+    import pandas as pd
+
+    for fn in (ref_pitch.estimate_pitch_from_class2d, pitch.estimate_pitch_from_class2d):
+        with pytest.raises(TypeError):
+            fn(None)
+    rng = np.random.default_rng(2)
+    n = 60
+    params = pd.DataFrame(dict(
+        rlnMicrographName=np.repeat(["m1.mrc", "m2.mrc"], n // 2),
+        rlnHelicalTubeID=np.tile(np.repeat([1, 2, 3], n // 6), 2),
+        rlnHelicalTrackLengthAngst=np.round(rng.uniform(0, 2000, n), 2),
+        rlnClassNumber=rng.integers(1, 3, n), rlnAnglePsi=rng.choice([5.0, 185.0], n)))
+    want = ref_pitch.estimate_pitch_from_class2d(params, csym=2, rise=4.75)
+    got = pitch.estimate_pitch_from_class2d(params, csym=2, rise=4.75, device="cpu")
+    for k in ("pitch", "twist", "peak_dist", "harmonics"):
+        assert got[k] == want[k]
 
 
 def test_helix_exports_match_reference():

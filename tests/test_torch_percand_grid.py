@@ -6,8 +6,12 @@ the single-candidate solve and B2's entries).
 
 The JAX side runs eagerly (jax.disable_jit()), as in tests/test_torch_grid.py:
 jitted, XLA fuses the nearest-neighbour z positions' arithmetic and moves
-samples that sit half-way between two planes (ROADMAP C6)."""
+samples that sit half-way between two planes (ROADMAP C6). The tilted
+configuration runs it jitted: at tilt 3 deg no sample sits half-way, and
+its eager gather solves cost minutes (jitted, the scores agree to
+1.1e-6)."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -48,7 +52,7 @@ def _both(image, monkeypatch, env, **kw):
     if env is not None:
         monkeypatch.setenv("HELICON_GRID_GROUPED", env)
     port = reconstruct_grid(image, device="cpu", **kw)
-    with jax.disable_jit():
+    with contextlib.nullcontext() if kw.get("tilt") else jax.disable_jit():
         ref = ref_reconstruct_grid(image, devices=jax.devices()[:1], **kw)
     return port, ref
 

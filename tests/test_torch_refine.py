@@ -21,6 +21,7 @@ bucketed one: tests/test_torch_drivers.py; the one-shot search:
 tests/test_torch_refine_grid.py).
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -285,7 +286,10 @@ def test_checkpointed_refine_matches_reference(mode, tmp_path, tmp_path_factory,
     reference's, and the shard's poses as the reference writes them (topk:
     the coarse pass only, no poses; all: every chunk's: top-k deferred to
     bucket geometry, "all" inside each chunk). No best volume: the
-    winner's re-solve is the one-shot search's (tests/test_torch_drivers.py)."""
+    winner's re-solve is the one-shot search's (tests/test_torch_drivers.py).
+    The reference runs jitted for topk: eager, its refinement's gather
+    solves cost minutes, and on these four candidates jitted agrees to
+    2.3e-6 (linear "all" runs eager, as before)."""
     from test_torch_refine_grid import ALL, RANGE as GRID_RANGE, _same_refined, _same_scores, \
         _tiny
 
@@ -293,7 +297,7 @@ def test_checkpointed_refine_matches_reference(mode, tmp_path, tmp_path_factory,
     image, tw, ri, kw = _tiny(refine_tilt_psi_dy_range=dict(GRID_RANGE, max_iter=1),
                               **(dict(refine_top_k=2) if mode == "topk" else ALL))
     tw, ri = tw[2:6], ri[2:6]
-    with jax.disable_jit():
+    with contextlib.nullcontext() if mode == "topk" else jax.disable_jit():
         ref = ref_checkpoint.reconstruct_grid_checkpointed(
             image, twists=tw, rises=ri, checkpoint_path=str(tmp_path / "ref.npz"), chunk=2,
             devices=jax.devices()[:1], **kw)

@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs sixteen phases and fails (non-zero exit) if any fails:
+checkout, then runs eighteen phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
@@ -285,6 +285,31 @@ checkout, then runs sixteen phases and fails (non-zero exit) if any fails:
    histogram bin of the planted 1,425 A); the projection sheets of ten
    256^3 maps (the first against the CPU within 1e-6 of its peak).
    No hand-written kernel: none of these reaches a TPU kernel.
+18. The rest of the public surface, its files under build/phase18/, each
+   part's wall with the card synchronised around it and its peak device
+   memory: (a) io/metadata.assign_beamshifts_to_cluster on 20,000
+   simulated beam shifts (9 holes 2.5 shot spacings apart x 4 shots,
+   jitter 2 % of the spacing) with range_n_clusters=range(2, 200) and
+   min_cluster_size=4, as cryoSPARC's exposure grouping calls it (k-means
+   and the silhouette of clustering.py on the card, timed apart): it must
+   find the 36 positions and recover the truth; on a 2,000-shift subset
+   the card's labels must equal the port's own device="cpu" run; (b)
+   AgglomerativeClusteringWithMinSize (ward, 60 clusters, minimum size 20)
+   on 5,000 points, the card's labels equal to the CPU's; (c) a cold
+   ``import helicon_tpu_torch`` in a subprocess: its time, cache_dir, no
+   jax and no sklearn in sys.modules, one namespace call on numpy whose
+   result is on cuda, and each namespace function of two arrays (calc_fsc,
+   calc_frc_2d, cross_correlation_map, cosine_similarity, ssim_score,
+   r_factor_score, phase_cross_correlation, align_images) on numpy with no
+   device: it must allocate on the card, a tensor result must lie there,
+   and it must equal the device="cpu" call within 1e-4; (d) both web apps booted on tests/_ref_shims (the
+   functional shiny shim of the tests): denovo3D ingests a simulated class
+   average, runs its search on the card to its sorted table (B1's and B2's
+   launches counted on that path) and its top-1 must equal the direct
+   workflow.run_grid_incremental call's; whereIsMyClass loads a synthetic
+   Class2D project and builds its micrograph figure, the micrograph equal
+   to the CPU's within 1e-5 of its range.
+   No hand-written kernel of its own: none of these reaches a TPU kernel.
 
 A line before phase 1 lists which optional host packages the machine
 has. The last two lines of standard output are the card's name and power
@@ -436,7 +461,7 @@ def _amyloid_setup():
     lo, hi = float(ri_all.min()), float(ri_all.max())
     g = derive_task_geometry(img.shape, 2.0, hi, (lo, hi), (0, 0), -1, 110.0, 0.0,
                              3.0 * hi, -1, -1)
-    img = down_scale(img, g["target_apix2d"], 2.0).cpu().numpy()
+    img = down_scale(img, g["target_apix2d"], 2.0, device="cpu").cpu().numpy()
     pg = _pixel_geometry(g, img.shape, hi)
     geom = ReconstructionGeometry(
         d2=pg["d2"], l2=pg["l2"], d3=pg["d3"], l3=pg["l3"], rmin=pg["d3_inner"] / 2,
@@ -4180,7 +4205,7 @@ def phase_xcorr(device, card) -> dict:
     peak_err = float(np.abs(p_card - p_cpu).max() / np.abs(p_cpu).max())
     moved = list(zip(*np.nonzero((s_card != s_cpu).any(-1))))
     for c, s in moved:
-        cc = xcorr.cross_correlation_map(classes[c], segments[s]).numpy()
+        cc = xcorr.cross_correlation_map(classes[c], segments[s], device="cpu").numpy()
         if abs(cc[tuple(s_card[c, s])] - cc[tuple(s_cpu[c, s])]) > 1e-5 * abs(p_cpu[c, s]):
             raise AssertionError(f"phase 15 (b): pair ({c}, {s}) peaks apart")
     own = shift[cls, torch.arange(planted)].cpu().numpy()
@@ -5391,6 +5416,379 @@ def phase_last_commands(device, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the rest of the public surface: the clustering without
+# scikit-learn (clustering.py, io/metadata.assign_beamshifts_to_cluster),
+# the flat namespace's cold import, and the two web apps on the test shim
+# ---------------------------------------------------------------------------
+
+PH18 = ROOT / "build" / "phase18"
+# (a) 9 holes x 4 shots, holes 2.5 shot spacings apart, spacing 0.05,
+# jitter 2 % of it; (b) 40 clusters of 5,000 points plus scattered ones;
+# (d) the app's search grid on a simulated class average (twist 30 deg,
+# rise 6 A), and whereIsMyClass's micrograph
+PH18_BS = dict(seed=18, n=20_000, holes=3, hole_step=5, spacing=0.05, jitter=0.02,
+               subset=2_000, min_cluster_size=4)
+PH18_AGG = dict(seed=181, n=5_000, clusters=40, scattered=60, n_clusters=60, min_size=20)
+PH18_APP = dict(twist=(20.0, 40.0), twist_step=1.0, rise=(5.0, 7.0), rise_step=0.5,
+                ny=64, nx=192, apix=2.0, mic=4096, mic_apix=1.0)
+
+
+def _beamshifts(n, seed):
+    """(shifts (n, 2), true position) of a multi-shot EPU session."""
+    import numpy as np
+
+    c = PH18_BS
+    g = np.random.default_rng(seed)
+    offsets = [(-1, -1), (-1, 1), (1, -1), (1, 1)]
+    pos = np.array([(hx * c["hole_step"] + sx, hy * c["hole_step"] + sy)
+                    for hx in range(c["holes"]) for hy in range(c["holes"])
+                    for sx, sy in offsets], np.float64) * c["spacing"] / 2 + (0.31, -0.17)
+    truth = g.integers(0, len(pos), n)
+    return pos[truth] + g.normal(0, c["jitter"] * c["spacing"], (n, 2)), truth
+
+
+def _recovers(labels, truth) -> bool:
+    """Each true position one label, and each label one position."""
+    pairs = set(zip(truth.tolist(), labels.tolist()))
+    return len(pairs) == len(set(truth.tolist())) == len(set(labels.tolist()))
+
+
+def phase_beamshifts(device, card) -> dict:
+    """Phase 18 (a): see the module docstring."""
+    import numpy as np
+
+    from helicon_tpu_torch import clustering
+    from helicon_tpu_torch.io import metadata
+
+    c = PH18_BS
+    X, truth = _beamshifts(c["n"], c["seed"])
+    kw = dict(range_n_clusters=range(2, 200), min_cluster_size=c["min_cluster_size"])
+    parts, calls = {}, {"kmeans": 0, "silhouette_score": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    _peak_gib(reset=True)
+    with _timed_calls(clustering, list(calls), parts):
+        for n in calls:  # counted around the timing wrappers
+            setattr(clustering, n, counted(n, getattr(clustering, n)))
+        labels, wall = _sync_wall(lambda: metadata.assign_beamshifts_to_cluster(
+            X, device=device, **kw))
+    peak = _peak_gib()
+    found = len(np.unique(labels))
+    ok_truth = _recovers(labels, truth)
+    sub = slice(0, c["subset"])
+    sub_card, sub_s = _sync_wall(lambda: metadata.assign_beamshifts_to_cluster(
+        X[sub], device=device, **kw))
+    t0 = time.perf_counter()
+    sub_cpu = metadata.assign_beamshifts_to_cluster(X[sub], device="cpu", **kw)
+    sub_cpu_s = time.perf_counter() - t0
+    sub_equal = bool(np.array_equal(sub_card, sub_cpu))
+    print(f"phase 18 (a) [assign_beamshifts_to_cluster on {c['n']} beam shifts, "
+          f"{c['holes'] ** 2} holes x 4 shots, jitter {c['jitter']:.0%} of the spacing, "
+          f"range(2, 200), min_cluster_size {c['min_cluster_size']}]: {wall:.3f} s ("
+          f"{calls['kmeans']} k-means {parts.get('kmeans', 0.0):.3f} s, "
+          f"{calls['silhouette_score']} silhouettes {parts.get('silhouette_score', 0.0):.3f} s), "
+          f"peak device memory {peak:.3f} GiB; {found} groups (planted 36), the truth "
+          f"recovered: {ok_truth}; on {c['subset']} shifts {sub_s:.3f} s, the port on the CPU "
+          f"{sub_cpu_s:.3f} s, labels equal: {sub_equal}; {card}", flush=True)
+    if found != 36 or not ok_truth or not sub_equal:
+        raise AssertionError("phase 18 (a): the beam-shift groups miss the planted positions "
+                             "or the card differs from the CPU")
+    return dict(wall_s=wall, kmeans=calls["kmeans"], kmeans_s=parts.get("kmeans", 0.0),
+                silhouette_s=parts.get("silhouette_score", 0.0), peak_gib=peak,
+                subset_s=sub_s, subset_cpu_s=sub_cpu_s)
+
+
+def phase_agglomerative(device, card) -> dict:
+    """Phase 18 (b): see the module docstring."""
+    import numpy as np
+
+    from helicon_tpu_torch.clustering import AgglomerativeClusteringWithMinSize
+
+    c = PH18_AGG
+    g = np.random.default_rng(c["seed"])
+    centres = g.uniform(0, 100, (c["clusters"], 2))
+    n_in = c["n"] - c["scattered"]
+    X = np.concatenate([centres[g.integers(0, c["clusters"], n_in)]
+                        + g.normal(0, 1.0, (n_in, 2)),
+                        g.uniform(0, 100, (c["scattered"], 2))])
+    kw = dict(min_cluster_size=c["min_size"], n_clusters=c["n_clusters"], linkage="ward")
+    _peak_gib(reset=True)
+    card_fit, wall = _sync_wall(lambda: AgglomerativeClusteringWithMinSize(
+        device=device, **kw).fit(X))
+    peak = _peak_gib()
+    t0 = time.perf_counter()
+    cpu_fit = AgglomerativeClusteringWithMinSize(device="cpu", **kw).fit(X)
+    cpu_s = time.perf_counter() - t0
+    equal = bool(np.array_equal(card_fit.labels_, cpu_fit.labels_))
+    sizes = np.bincount(card_fit.labels_)
+    print(f"phase 18 (b) [AgglomerativeClusteringWithMinSize ward, {c['n_clusters']} clusters, "
+          f"minimum size {c['min_size']}, on {c['n']} points]: {wall:.3f} s (CPU {cpu_s:.3f} s), "
+          f"peak device memory {peak:.3f} GiB; {card_fit.n_clusters_} clusters, the smallest "
+          f"{sizes[sizes > 0].min()}; labels equal to the CPU's: {equal}; {card}", flush=True)
+    if not equal or sizes[sizes > 0].min() < c["min_size"]:
+        raise AssertionError("phase 18 (b): the card's clustering differs from the CPU's or "
+                             "keeps an undersized cluster")
+    return dict(wall_s=wall, cpu_s=cpu_s, peak_gib=peak)
+
+
+_COLD_IMPORT = """
+import json, sys, time
+t0 = time.perf_counter()
+import helicon_tpu_torch as ht
+import_s = time.perf_counter() - t0
+import numpy as np
+t0 = time.perf_counter()
+fn = ht.low_high_pass_filter
+namespace_s = time.perf_counter() - t0
+out = fn(np.random.default_rng(0).random((256, 256), dtype=np.float32), low_pass_fraction=0.3)
+import torch
+rng = np.random.default_rng(1)
+img = rng.random((64, 64), dtype=np.float32)
+img2 = np.roll(img, (3, -5), axis=(0, 1)) + 0.1 * rng.random((64, 64), dtype=np.float32)
+vol = rng.random((32, 32, 32), dtype=np.float32)
+vol2 = vol + 0.5 * rng.random((32, 32, 32), dtype=np.float32)
+pairs = dict(  # the namespace's functions of two arrays, on numpy
+    calc_fsc=lambda **d: ht.calc_fsc(vol, vol2, 1.0, **d)[:, 1],
+    calc_frc_2d=lambda **d: ht.calc_frc_2d(img, img2, 1.0, **d)[1],
+    cross_correlation_map=lambda **d: ht.cross_correlation_map(img, img2, **d),
+    cosine_similarity=lambda **d: ht.cosine_similarity(img.ravel(), img2.ravel(), **d),
+    ssim_score=lambda **d: ht.ssim_score(img, img2, **d),
+    r_factor_score=lambda **d: ht.r_factor_score(img, img2, **d),
+    phase_cross_correlation=lambda **d: ht.phase_cross_correlation(img, img2, **d)[0],
+    align_images=lambda **d: [float(v) for x in ht.align_images(img2, img, 0.0, 0.0, **d)[1:]
+                              for v in np.ravel(x)])
+two_arrays = {}
+for name, f in pairs.items():
+    n0 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    card = f()
+    allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0) - n0
+    where = str(card.device) if isinstance(card, torch.Tensor) else "host"
+    card = np.asarray(card.cpu() if isinstance(card, torch.Tensor) else card, np.float64)
+    host = f(device="cpu")
+    host = np.asarray(host if not isinstance(host, torch.Tensor) else host, np.float64)
+    two_arrays[name] = dict(result=where, card_allocations=allocs,
+                            max_abs_diff=float(np.abs(card - host).max()))
+print(json.dumps(dict(import_s=import_s, namespace_s=namespace_s, cache_dir=str(ht.cache_dir),
+                      cache_dir_exists=ht.cache_dir.exists(), device=str(out.device),
+                      two_arrays=two_arrays,
+                      loaded=[m for m in ("jax", "sklearn", "helicon_tpu", "helicon",
+                                          "torch.utils.cpp_extension") if m in sys.modules])))
+"""
+
+# the namespace's two-array functions on numpy, the card's run against the
+# CPU's: results O(1) (correlations, scores, integer shifts, the FSC)
+TWO_ARRAY_TOL = 1e-4
+
+
+def phase_cold_import(card) -> dict:
+    """Phase 18 (c): see the module docstring."""
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-c", _COLD_IMPORT], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if sub.returncode != 0:
+        print(sub.stderr[-3000:], file=sys.stderr)
+        raise AssertionError(f"phase 18 (c): the cold import exited {sub.returncode}")
+    r = json.loads(sub.stdout.strip().splitlines()[-1])
+    print(f"phase 18 (c) [a cold import helicon_tpu_torch in a subprocess]: the import "
+          f"{r['import_s']:.3f} s, the flat namespace at its first name "
+          f"{r['namespace_s']:.3f} s more, the process {wall:.3f} s start to exit; cache_dir "
+          f"{r['cache_dir']} (exists: {r['cache_dir_exists']}); loaded of jax, sklearn, the JAX "
+          f"package, cpp_extension: {r['loaded']}; low_high_pass_filter on numpy gave a tensor "
+          f"on {r['device']}; {card}", flush=True)
+    for name, t in r["two_arrays"].items():
+        print(f"phase 18 (c) [{name} on two numpy arrays, no device]: the result on "
+              f"{t['result']}, {t['card_allocations']} allocations on the card, max |card - "
+              f"device=\"cpu\"| {t['max_abs_diff']:.3e} (tolerance {TWO_ARRAY_TOL:g}); {card}",
+              flush=True)
+    off = sorted(n for n, t in r["two_arrays"].items()
+                 if t["card_allocations"] == 0 or t["result"] not in ("host", "cuda:0")
+                 or not t["max_abs_diff"] <= TWO_ARRAY_TOL)
+    if r["loaded"] or not r["cache_dir_exists"] or not r["device"].startswith("cuda") or off:
+        raise AssertionError("phase 18 (c): the cold import loads what it must not or the "
+                             f"namespace put numpy elsewhere than the card ({off})")
+    return dict(import_s=r["import_s"], namespace_s=r["namespace_s"], wall_s=wall)
+
+
+def _shim_purge():
+    for mod in list(sys.modules):
+        if (mod in ("shiny", "shinywidgets", "plotly") or mod.startswith(("shiny.", "plotly."))
+                or mod.startswith("helicon_tpu_torch.webApps.") and mod.endswith(".app")):
+            sys.modules.pop(mod)
+
+
+def _wimc_project(work: Path):
+    """A RELION Class2D job of 10 filaments x 20 segments on one
+    micrograph, two classes, and the micrograph."""
+    import numpy as np
+    import pandas as pd
+
+    from helicon_tpu_torch.io.metadata import dataframe2file
+    from helicon_tpu_torch.io.mrc import write_mrc
+
+    c = PH18_APP
+    g = np.random.default_rng(PH18_AGG["seed"] + 1)
+    job = work / "Class2D" / "job018"
+    job.mkdir(parents=True)
+    write_mrc(job / "run_it025_classes.mrcs",
+              g.standard_normal((2, 64, 64), dtype=np.float32), apix=2.0)
+    write_mrc(work / "mic_0001.mrc",
+              g.standard_normal((c["mic"], c["mic"]), dtype=np.float32), apix=c["mic_apix"])
+    rows = []
+    for tube in range(1, 11):
+        for seg in range(20):
+            rows.append(dict(rlnImageName=f"{len(rows) + 1:06d}@parts.mrcs",
+                             rlnMicrographName="mic_0001.mrc", rlnHelicalTubeID=tube,
+                             rlnHelicalTrackLengthAngst=seg * 50.0,
+                             rlnClassNumber=1 + (seg % 2), rlnCoordinateX=300.0 + 50 * seg,
+                             rlnCoordinateY=300.0 + 300 * tube, rlnAnglePsi=0.0,
+                             rlnDetectorPixelSize=c["mic_apix"], rlnMagnification=10000.0))
+    df = pd.DataFrame(rows)
+    df.attrs["convention"] = "relion"
+    star = job / "run_it025_data.star"
+    dataframe2file(df, str(star))
+    return star
+
+
+def phase_apps(device, card) -> dict:
+    """Phase 18 (d): see the module docstring."""
+    import importlib
+
+    import numpy as np
+
+    import helicon_tpu_torch.webApps.denovo3D as d3
+    import helicon_tpu_torch.webApps.whereIsMyClass as wimc
+    from helicon_tpu_torch.helix import simulate_helical_projection
+    from helicon_tpu_torch.webApps.denovo3D import pipeline, workflow
+    from helicon_tpu_torch.webApps.whereIsMyClass import compute
+
+    c = PH18_APP
+    shims = str(ROOT / "tests" / "_ref_shims")
+    sys.path.insert(0, shims)
+    saved = (pipeline.get_images_from_url, workflow.run_grid_incremental)
+    out = {}
+    try:
+        d3.DEVICE = wimc.DEVICE = device.type
+        _shim_purge()
+        import shiny
+
+        s = shiny.get_session()
+        s.reset()
+        img = np.squeeze(simulate_helical_projection(
+            n=1, twist=30.0, rise=6.0, csym=1, helical_diameter=40.0, ball_radius=5.0,
+            polymer=0, planarity=1.0, ny=c["ny"], nx=c["nx"], apix=c["apix"], rng=0,
+            device=device)).astype(np.float32)
+        pipeline.get_images_from_url = lambda url: (img[None], c["apix"])
+        calls = []
+        real_run = saved[1]
+
+        def recorded(image, apix, twists, rises, **kwargs):
+            calls.append((np.array(image), apix, np.array(twists), np.array(rises),
+                          {k: v for k, v in kwargs.items()
+                           if k not in ("on_progress", "should_abort")}))
+            return real_run(image, apix, twists, rises, **kwargs)
+
+        workflow.run_grid_incremental = recorded
+        t0 = time.perf_counter()
+        app = importlib.import_module("helicon_tpu_torch.webApps.denovo3D.app")
+        boot_s = time.perf_counter() - t0
+        for key, value in (("twist_range", c["twist"]), ("twist_step", c["twist_step"]),
+                           ("rise_range", c["rise"]), ("rise_step", c["rise_step"]),
+                           ("handedness", "right")):
+            s.set_input(key, value)
+        _peak_gib(reset=True)
+        _zero_counts()
+        _, search_s = _sync_wall(lambda: s.press("run_denovo3D"))
+        launches = _counts()
+        peak = _peak_gib()
+        res = app.grid_result.get()
+        table = s.render("progress_table").text()
+        if res is None or s.errors or "candidates scored" not in table:
+            raise AssertionError(f"phase 18 (d): the denovo3D app's search failed: {s.errors}")
+        image, apix, twists, rises, kwargs = calls[0]
+        direct, direct_s = _sync_wall(lambda: real_run(image, apix, twists, rises, **kwargs))
+        top = (float(res.twists[res.best_index]), float(res.rises[res.best_index]))
+        top_direct = (float(direct.twists[direct.best_index]),
+                      float(direct.rises[direct.best_index]))
+        delta = float(np.abs(direct.scores - res.scores).max())
+        pitch = 360.0 / top[0] * top[1]
+        print(f"phase 18 (d) [the denovo3D app on the shim, DEVICE {app.DEVICE}]: boot "
+              f"{boot_s:.3f} s, its search of {len(twists)} candidates on a simulated "
+              f"{c['ny']} x {c['nx']} class average {search_s:.3f} s (the direct call "
+              f"{direct_s:.3f} s), peak device memory {peak:.3f} GiB, launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}; top-1 {top} (pitch "
+              f"{pitch:.2f} A, planted 72), the direct call's {top_direct}, scores within "
+              f"{delta:.3e}; {card}", flush=True)
+        if (top != top_direct or launches["group_solve"] == 0
+                or not abs(pitch - 72.0) <= 1.0):
+            raise AssertionError("phase 18 (d): the app's top-1 differs from the direct call's, "
+                                 "misses the planted pitch or the search launched no B1")
+        out["denovo3D"] = dict(boot_s=boot_s, search_s=search_s, direct_s=direct_s,
+                               peak_gib=peak, launches=launches)
+
+        _shim_purge()
+        import shiny
+
+        s = shiny.get_session()
+        s.reset()
+        import shutil
+
+        shutil.rmtree(PH18, ignore_errors=True)
+        PH18.mkdir(parents=True)
+        star = _wimc_project(PH18)
+        t0 = time.perf_counter()
+        app = importlib.import_module("helicon_tpu_torch.webApps.whereIsMyClass.app")
+        boot_s = time.perf_counter() - t0
+        _peak_gib(reset=True)
+        s.set_input("param_path", str(star))
+        (_, load_s) = _sync_wall(lambda: s.press("load_param_path"))
+        s.set_input("select_class", 0)
+        (_, mic_s) = _sync_wall(lambda: s.set_input("helices_table_selected_rows", (0,)))
+        fig = s.render("display_micrograph")
+        peak = _peak_gib()
+        shown = app.displayed_micrograph_data.get()
+        if shown is None or fig is None or s.errors:
+            raise AssertionError(f"phase 18 (d): whereIsMyClass built no figure: {s.errors}")
+        cpu = compute.get_micrograph(PH18 / "mic_0001.mrc", 5.0, 20.0, 0.0, device="cpu")[0]
+        err = float(np.abs(shown[0] - cpu).max() / np.ptp(cpu))
+        print(f"phase 18 (d) [the whereIsMyClass app on the shim, DEVICE {app.DEVICE}]: boot "
+              f"{boot_s:.3f} s, the Class2D project loaded in {load_s:.3f} s "
+              f"({len(app.params.get())} segments, {len(app.displayed_class_ids.get())} classes "
+              f"shown), a helix row's {c['mic']}^2 micrograph to its figure in {mic_s:.3f} s "
+              f"({fig.data[0]._kind}, {shown[0].shape}), peak device memory {peak:.3f} GiB, "
+              f"the micrograph against the CPU within {err:.3e} of the range (limit 1e-5); "
+              f"{card}", flush=True)
+        if not err <= 1e-5 or fig.data[0]._kind != "heatmap":
+            raise AssertionError("phase 18 (d): whereIsMyClass's micrograph differs from the "
+                                 "CPU's")
+        out["whereIsMyClass"] = dict(boot_s=boot_s, load_s=load_s, mic_s=mic_s, peak_gib=peak)
+    finally:
+        pipeline.get_images_from_url, workflow.run_grid_incremental = saved
+        d3.DEVICE = wimc.DEVICE = "cuda"
+        _shim_purge()
+        sys.path.remove(shims)
+    return out
+
+
+def phase_surface(device, card) -> dict:
+    """Phase 18 (a)-(d)."""
+    out = {}
+    for key, fn, args in (("a", phase_beamshifts, (device, card)),
+                          ("b", phase_agglomerative, (device, card)),
+                          ("c", phase_cold_import, (card,)),
+                          ("d", phase_apps, (device, card))):
+        t0 = time.perf_counter()
+        out[key] = fn(*args)
+        out[key]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5481,6 +5879,10 @@ def main() -> int:
     last = phase_last_commands(device, card)
     print(f"phase 17: {time.perf_counter() - t17:.1f} s (by part "
           f"{json.dumps({k: round(v['phase_s'], 1) for k, v in last.items()})})", flush=True)
+    t18 = time.perf_counter()
+    surface = phase_surface(device, card)
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s (by part "
+          f"{json.dumps({k: round(v['phase_s'], 1) for k, v in surface.items()})})", flush=True)
     webapp_launches = {k: sum(d["launches"][k] for d in (*webapp.values(), webapp_grid))
                        + sum(d["launches_app"][k] for d in webapp.values()) for k in _counts()}
     webapp_launches["group_solve"] += webapp_fsc["launches"]

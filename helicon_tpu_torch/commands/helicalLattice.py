@@ -1,0 +1,24 @@
+#!/usr/bin/env python
+
+"""A Web app that explores 2D lattice <-> helical lattice relationships"""
+
+import argparse
+import logging
+
+from helicon_tpu_torch.commands._launchers import run_remote_streamlit_app
+
+logger = logging.getLogger(__name__)
+
+
+def main(args):
+    run_remote_streamlit_app("https://raw.githubusercontent.com/jianglab/HelicalLattice/master/helical_lattice.py", "https://jianglab.science.psu.edu/HelicalLattice")
+
+
+def add_args(parser):
+    """No additional CLI arguments for this web app launcher."""
+    return parser
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__)
+    main(add_args(parser).parse_args())

@@ -9,6 +9,12 @@ is for the JAX package's.
   helicon-torch HOM_containerC in.star out.star --filterBad 1
   helicon-torch symmetry_mismatch -i1 a.cs -s1 C5 -i2 b.cs -s2 C12 -of2 out.cs
   helicon-torch cryosparc --csFile J1_particles.cs --extractParticles box_size=384
+  helicon-torch denovo3D          # the web apps, with shiny installed
+  helicon-torch whereIsMyClass
+
+The web-app launchers (``shiny_commands``, ``streamlit_commands``) are
+listed only where shiny or streamlit is installed, as the reference's
+dispatcher lists them.
 """
 
 from __future__ import annotations
@@ -20,11 +26,14 @@ from importlib import import_module
 
 import helicon_tpu_torch
 from helicon_tpu_torch.utils.exceptions import HeliconError, HeliconExit
+from helicon_tpu_torch.utils.system import has_shiny, has_streamlit
 
 logger = logging.getLogger(__name__)
 
 cli_commands = ["cryosparc", "denovo3d_cli", "HOM_containerC", "images2star", "proc3d",
                 "symmetry_mismatch", "trueFSC"]
+shiny_commands = ["denovo3D", "helicalPitch", "helicalProjection", "whereIsMyClass"]
+streamlit_commands = ["ctfSimulation", "helicalLattice", "hi3d", "hill", "map2seq", "procart"]
 
 
 def main(argv=None):
@@ -33,7 +42,11 @@ def main(argv=None):
     parser.add_argument("--version", action="version",
                         version="helicon-torch " + helicon_tpu_torch.__version__)
     subparsers = parser.add_subparsers(title="Choose a command", required=True)
-    for name in cli_commands:
+    for name in cli_commands + sorted(shiny_commands + streamlit_commands):
+        if name in shiny_commands and not has_shiny():
+            continue
+        if name in streamlit_commands and not has_streamlit():
+            continue
         module = import_module(f"helicon_tpu_torch.commands.{name}")
         doc = (module.__doc__ or "").split("\n")
         sub = subparsers.add_parser(name, help=doc[0], description=doc[0],

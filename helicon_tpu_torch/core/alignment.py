@@ -3,7 +3,9 @@ alignment over flip x polarity x (scale, angle) built on it.
 
 Counterpart of ``helicon_tpu/core/alignment.py:22``
 (``phase_cross_correlation``, which the web app's montage registration
-calls) and ``:44`` (``align_images``).
+calls) and ``:44`` (``align_images``). Numpy input goes to the keyword
+``device`` (the card unless the caller asks for the CPU); a tensor keeps
+its own.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.tensors import on_device
 from .analysis import cross_correlation_coefficient
 from .filters import generate_tapering_filter, threshold_data
 from .transforms import pad_to_size, transform_image
@@ -18,13 +21,13 @@ from .transforms import pad_to_size, transform_image
 __all__ = ["align_images", "phase_cross_correlation"]
 
 
-def phase_cross_correlation(reference_image, moving_image):
+def phase_cross_correlation(reference_image, moving_image, *, device="cuda"):
     """Integer-pixel shift maximizing the phase correlation (skimage's
     normalization="phase", no upsampling): the (row, col) shift to apply to
     moving_image to align it with reference_image, each wrapped into
     (-n/2, n/2]. Runs on the device of the tensors given. Returns (shifts
     float64 numpy, None, None)."""
-    ref = torch.as_tensor(reference_image, dtype=torch.float32)
+    ref = on_device(reference_image, device)
     mov = torch.as_tensor(moving_image, dtype=torch.float32, device=ref.device)
     cross = torch.fft.fft2(ref) * torch.conj(torch.fft.fft2(mov))
     cross = cross / torch.clamp_min(torch.abs(cross), 1e-12)
@@ -38,7 +41,8 @@ def phase_cross_correlation(reference_image, moving_image):
 
 
 def align_images(image_moving, image_ref, scale_range, angle_range, check_polarity: bool = True,
-                 check_flip: bool = True, return_aligned_moving_image: bool = False):
+                 check_flip: bool = True, return_aligned_moving_image: bool = False, *,
+                 device="cuda"):
     """Align image_moving to image_ref over flip x polarity x (scale,
     angle), each pose's shift from the phase correlation and its score the
     correlation inside the moved taper (scipy's Nelder-Mead over (log
@@ -50,7 +54,7 @@ def align_images(image_moving, image_ref, scale_range, angle_range, check_polari
     image at the winning pose]); with check_flip a leading bool (flipped)
     is prepended.
     """
-    image_ref = torch.as_tensor(image_ref).to(torch.float32)
+    image_ref = on_device(image_ref, device)
     dev = image_ref.device
     image_moving = torch.as_tensor(image_moving, device=dev).to(torch.float32)
     assert 0 <= scale_range < 1, f"scale_range={scale_range} out of [0, 1)"

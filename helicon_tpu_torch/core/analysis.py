@@ -23,7 +23,9 @@ metadata functions ``estimate_inter_segment_distance`` :586,
 moments and morphology are host numpy and scipy, as in the reference; the
 one rotation runs through the port's ``transform_image`` on the CPU. The
 scores take images (..., h, w) whose leading axes are a batch, and return
-one score per image.
+one score per image. The array functions run on the device of the tensor
+they are given; numpy input goes to the keyword ``device`` (the card
+unless the caller asks for the CPU), and a second array to the first's.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..utils.tensors import on_device
 
 __all__ = [
     "calc_fsc",
@@ -157,7 +161,7 @@ def estimate_helix_rotation_center_diameter(
     if estimate_rotation:
         rotation, _, _ = weighted_params(mask, data)
         rotation = set_to_periodic_range(rotation, min=-180, max=180)
-        data_rot = transform_image(data, rotation=rotation).numpy()
+        data_rot = transform_image(data, rotation=rotation, device="cpu").numpy()
     else:
         rotation = 0.0
         data_rot = data
@@ -245,16 +249,17 @@ def _binned_fsc(F1, F2, labels, nshells: int) -> np.ndarray:
     return np.where(denom > 0, num / np.where(denom > 0, denom, 1.0), 1.0)
 
 
-def calc_fsc(map1, map2, apix, F1=None, F2=None, shell_flat=None, n=None) -> np.ndarray:
+def calc_fsc(map1, map2, apix, F1=None, F2=None, shell_flat=None, n=None, *,
+             device="cuda") -> np.ndarray:
     """FSC between two 3D maps (or their rfftn spectra F1, F2): columns
     (spatial frequency 1/A, fsc), on the maps' device."""
     if n is None:
         n = map1.shape[0] if F1 is None else F1.shape[0]
     df = 1.0 / (apix * n)
-    F1 = torch.fft.rfftn(torch.as_tensor(map1).to(torch.float32)) if F1 is None \
-        else torch.as_tensor(F1)
-    F2 = torch.fft.rfftn(torch.as_tensor(map2).to(torch.float32)) if F2 is None \
-        else torch.as_tensor(F2, device=F1.device)
+    F1 = torch.fft.rfftn(on_device(map1, device)) if F1 is None \
+        else on_device(F1, device, None)
+    F2 = torch.fft.rfftn(torch.as_tensor(map2, device=F1.device).to(torch.float32)) \
+        if F2 is None else torch.as_tensor(F2, device=F1.device)
     if shell_flat is None:
         labels = _shell_labels_3d(n, F1.device)
     else:
@@ -266,14 +271,14 @@ def calc_fsc(map1, map2, apix, F1=None, F2=None, shell_flat=None, n=None) -> np.
     return np.vstack((saxis[idx], fsc[idx])).T
 
 
-def calc_fsc_from_fft(F1, F2, n, apix) -> np.ndarray:
+def calc_fsc_from_fft(F1, F2, n, apix, *, device="cuda") -> np.ndarray:
     """FSC from precomputed rfftn spectra."""
-    return calc_fsc(None, None, apix, F1=F1, F2=F2, n=n)
+    return calc_fsc(None, None, apix, F1=F1, F2=F2, n=n, device=device)
 
 
-def calc_fsc_per_shell(map1, map2, apix) -> np.ndarray:
+def calc_fsc_per_shell(map1, map2, apix, *, device="cuda") -> np.ndarray:
     """EMAN2-style per-shell FSC over the full (fftn) grid; index = shell."""
-    map1 = torch.as_tensor(map1)
+    map1 = on_device(map1, device, None)
     n = map1.shape[0]
     F1 = torch.fft.fftn(map1.to(torch.float32))
     F2 = torch.fft.fftn(torch.as_tensor(map2, device=map1.device).to(torch.float32))
@@ -281,11 +286,11 @@ def calc_fsc_per_shell(map1, map2, apix) -> np.ndarray:
     return _binned_fsc(F1, F2, labels, n // 2 + 1)
 
 
-def calc_frc_2d(img1, img2, apix):
+def calc_frc_2d(img1, img2, apix, *, device="cuda"):
     """2D Fourier ring correlation: (spatial frequencies 1/A, frc curve)."""
     if img1.shape != img2.shape:
         raise ValueError(f"Image shapes must match: {img1.shape} vs {img2.shape}")
-    img1 = torch.as_tensor(img1)
+    img1 = on_device(img1, device, None)
     h, w = img1.shape
     n_shells = min(h, w) // 2
     F1 = torch.fft.fft2(img1.to(torch.float32))
@@ -340,9 +345,9 @@ def _fit_frc_curve(saxis, fsc):
     return best
 
 
-def frc_score(img1, img2, apix, use_fit: bool = False) -> float:
+def frc_score(img1, img2, apix, use_fit: bool = False, *, device="cuda") -> float:
     """Scalar similarity from the FRC curve (mean or fitted-area)."""
-    saxis, fsc = calc_frc_2d(img1, img2, apix)
+    saxis, fsc = calc_frc_2d(img1, img2, apix, device=device)
     if use_fit:
         s_fine, f_fine = _fit_frc_curve(saxis, fsc)
         valid = np.isfinite(f_fine) & (f_fine >= -1) & (f_fine <= 1)
@@ -405,11 +410,11 @@ def _ptp(x: torch.Tensor) -> torch.Tensor:
     return x.amax(dim=(-2, -1)) - x.amin(dim=(-2, -1))
 
 
-def ssim_score_traced(img1, img2) -> torch.Tensor:
+def ssim_score_traced(img1, img2, *, device="cuda") -> torch.Tensor:
     """Mean SSIM of each image pair (win 7, uniform windows, an edge crop
     of 3); a pair whose data range is 0 scores 0, as does an image
     smaller than the window."""
-    a = torch.as_tensor(img1, dtype=torch.float32)
+    a = on_device(img1, device)
     b = torch.as_tensor(img2, dtype=torch.float32, device=a.device)
     win = 7
     if min(a.shape[-2:]) < win:
@@ -445,11 +450,11 @@ def _rescale_half(img: torch.Tensor) -> torch.Tensor:
 _MS_WEIGHTS = np.array([0.0448, 0.2856, 0.3001, 0.2363, 0.1333])
 
 
-def ms_ssim_score_traced(img1, img2) -> torch.Tensor:
+def ms_ssim_score_traced(img1, img2, *, device="cuda") -> torch.Tensor:
     """Multi-scale SSIM of each pair. The scale count is set by the image
     shape; a constant image at any scale scores that scale 0, which zeroes
     the product (the reference's traced rule)."""
-    a = torch.as_tensor(img1, dtype=torch.float32)
+    a = on_device(img1, device)
     b = torch.as_tensor(img2, dtype=torch.float32, device=a.device)
     min_size = 8
     values = []
@@ -487,10 +492,11 @@ def _histogram_bins(v: torch.Tensor, bins: int) -> torch.Tensor:
     return torch.where(v == edges[:, -1:], idx - 1, idx)
 
 
-def mutual_information_score_traced(img1, img2, bins: int = 64) -> torch.Tensor:
+def mutual_information_score_traced(img1, img2, bins: int = 64, *,
+                                    device="cuda") -> torch.Tensor:
     """Normalized mutual information minus 1 of each pair, from a float32
     joint histogram of bins x bins (the reference's traced version)."""
-    a = torch.as_tensor(img1, dtype=torch.float32)
+    a = on_device(img1, device)
     b = torch.as_tensor(img2, dtype=torch.float32, device=a.device)
     lead = a.shape[:-2]
     a = a.reshape(-1, a.shape[-2] * a.shape[-1])
@@ -517,17 +523,17 @@ def mutual_information_score_traced(img1, img2, bins: int = 64) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _pair(img1, img2, what: str = "Image shapes"):
-    if tuple(img1.shape) != tuple(img2.shape):
-        raise ValueError(f"{what} must match: {tuple(img1.shape)} vs {tuple(img2.shape)}")
-    a = torch.as_tensor(img1).to(torch.float32)
+def _pair(img1, img2, device, what: str = "Image shapes"):
+    if tuple(np.shape(img1)) != tuple(np.shape(img2)):
+        raise ValueError(f"{what} must match: {tuple(np.shape(img1))} vs {tuple(np.shape(img2))}")
+    a = on_device(img1, device)
     return a, torch.as_tensor(img2, device=a.device).to(torch.float32)
 
 
-def ssim_score(img1, img2) -> float:
+def ssim_score(img1, img2, *, device="cuda") -> float:
     """Mean SSIM of one pair (win 7, uniform windows, an edge crop of 3);
     0 for a data range of 0 or an image smaller than the window."""
-    a, b = _pair(img1, img2)
+    a, b = _pair(img1, img2, device)
     data_range = max(float(a.max() - a.min()), float(b.max() - b.min()))
     win = 7
     if data_range == 0 or min(a.shape) < win:
@@ -537,11 +543,11 @@ def ssim_score(img1, img2) -> float:
     return float(smap[pad:-pad, pad:-pad].mean())
 
 
-def ms_ssim_score(img1, img2) -> float:
+def ms_ssim_score(img1, img2, *, device="cuda") -> float:
     """Multi-scale SSIM of one pair: per-scale SSIM (clipped at 0) combined
     with the standard weights; the scales stop at an image under 8 pixels
     or a data range of 0."""
-    a, b = _pair(img1, img2)
+    a, b = _pair(img1, img2, device)
     values = []
     for i in range(len(_MS_WEIGHTS)):
         h, w = a.shape
@@ -562,11 +568,11 @@ def ms_ssim_score(img1, img2) -> float:
     return float(result)
 
 
-def mutual_information_score(img1, img2, bins: int = 64) -> float:
+def mutual_information_score(img1, img2, bins: int = 64, *, device="cuda") -> float:
     """Normalized mutual information (Studholme 1999) minus 1, from a
     float64 joint histogram of bins x bins on the host (as the
     reference's numpy histogram2d)."""
-    a, b = _pair(img1, img2)
+    a, b = _pair(img1, img2, device)
     a = a.cpu().numpy().astype(np.float64).ravel()
     b = b.cpu().numpy().astype(np.float64).ravel()
     hist, _, _ = np.histogram2d(a, b, bins=bins)
@@ -582,36 +588,36 @@ def mutual_information_score(img1, img2, bins: int = 64) -> float:
     return float((H(pxy.sum(axis=1)) + H(pxy.sum(axis=0))) / hxy - 1.0)
 
 
-def r_factor_score(img1, img2) -> float:
+def r_factor_score(img1, img2, *, device="cuda") -> float:
     """1 / (1 + R), R = sum |a - b| / sum |b| (crystallographic)."""
-    a, b = _pair(img1, img2, "Shapes")
+    a, b = _pair(img1, img2, device, "Shapes")
     denom = float(torch.abs(b).sum())
     if denom == 0:
         return 0.0
     return float(1.0 / (1.0 + float(torch.abs(a - b).sum()) / denom))
 
 
-def cross_correlation_coefficient(a, b) -> float:
+def cross_correlation_coefficient(a, b, *, device="cuda") -> float:
     """Pearson correlation of two arrays (0 for a constant one)."""
-    a = torch.as_tensor(a).to(torch.float32)
+    a = on_device(a, device)
     b = torch.as_tensor(b, device=a.device).to(torch.float32)
     da, db = a - a.mean(), b - b.mean()
     norm = torch.sqrt((da * da).sum() * (db * db).sum())
     return float(torch.where(norm == 0, 0.0, (da * db).sum() / torch.where(norm == 0, 1.0, norm)))
 
 
-def cosine_similarity(a, b) -> float:
+def cosine_similarity(a, b, *, device="cuda") -> float:
     """Cosine similarity of two vectors (0 when either is zero)."""
-    a = torch.as_tensor(a)
+    a = on_device(a, device, None)
     b = torch.as_tensor(b, device=a.device)
     norm = torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)
     return float(torch.where(norm == 0, 0.0, (a * b).sum() / torch.where(norm == 0, 1.0, norm)))
 
 
-def find_elbow_point(curve) -> int:
+def find_elbow_point(curve, *, device="cuda") -> int:
     """Index of the point farthest from the first-to-last chord (the knee),
     in float64 on the curve's device."""
-    curve = torch.as_tensor(curve).to(torch.float64)
+    curve = on_device(curve, device, torch.float64)
     n = curve.shape[0]
     pts = torch.stack([torch.arange(n, dtype=torch.float64, device=curve.device), curve], dim=1)
     vec = pts[-1] - pts[0]
@@ -621,12 +627,13 @@ def find_elbow_point(curve) -> int:
     return int(torch.argmax(torch.linalg.vector_norm(perp, dim=1)))
 
 
-def line_fit_projection(x, y, w=None, ref_i: int = 0, return_xy_fit: bool = False):
+def line_fit_projection(x, y, w=None, ref_i: int = 0, return_xy_fit: bool = False, *,
+                        device="cuda"):
     """Signed positions of points projected onto their total-least-squares
     line (the principal axis of the weighted covariance, the reference's
     orthogonal regression), from point ref_i, in float64 on x's device.
     With return_xy_fit also the (n, 2) projected points."""
-    x = torch.as_tensor(x).to(torch.float64)
+    x = on_device(x, device, torch.float64)
     y = torch.as_tensor(y, device=x.device).to(torch.float64)
     weights = (torch.ones_like(x) if w is None
                else torch.as_tensor(w, device=x.device).to(torch.float64))

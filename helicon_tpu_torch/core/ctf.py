@@ -19,6 +19,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils.tensors import on_device
+
 __all__ = [
     "ctf_1d",
     "ctf_2d",
@@ -46,11 +48,12 @@ def _f32(v) -> float:
 
 def ctf_1d(s, defocus_um: float = 1.0, voltage_kv: float = 300.0, cs_mm: float = 2.7,
            amp_contrast: float = 0.07, phase_shift_deg: float = 0.0,
-           bfactor: float = 0.0) -> torch.Tensor:
-    """CTF at spatial frequencies s (1/A), float32 on s's device. The
+           bfactor: float = 0.0, *, device="cuda") -> torch.Tensor:
+    """CTF at spatial frequencies s (1/A), float32 on s's device (numpy
+    on ``device``). The
     constants combine in float64 and round to float32 where the
     reference's Python scalars meet its float32 arrays."""
-    s = torch.as_tensor(s, dtype=torch.float32)
+    s = on_device(s, device)
     lam = float(electron_wavelength(voltage_kv))
     df = defocus_um * 1e4  # A
     cs = cs_mm * 1e7  # A
@@ -67,12 +70,12 @@ def ctf_1d(s, defocus_um: float = 1.0, voltage_kv: float = 300.0, cs_mm: float =
 def ctf_2d(shape, apix: float, defocus_u_A=10000.0, defocus_v_A=10000.0,
            astig_angle_deg=0.0, voltage_kv: float = 300.0, cs_mm: float = 2.7,
            amp_contrast: float = 0.07, phase_shift_deg: float = 0.0, bfactor: float = 0.0,
-           device=None) -> torch.Tensor:
-    """2D CTF (ny, nx) in fftfreq layout, float32 on ``device`` (the CPU
-    when None). The defoci and the astigmatism angle may be 1D sequences
+           device="cuda") -> torch.Tensor:
+    """2D CTF (ny, nx) in fftfreq layout, float32 on ``device`` (the card
+    unless the caller asks for the CPU). The defoci and the astigmatism angle may be 1D sequences
     of one length: then a (n, ny, nx) stack, one CTF per entry (the
     reference vmaps over them)."""
-    dev = torch.device("cpu" if device is None else device)
+    dev = torch.device(device)
     ny, nx = (int(v) for v in shape)
     f32 = dict(dtype=torch.float32, device=dev)
     du = torch.as_tensor(np.asarray(defocus_u_A, np.float32), device=dev)

@@ -8,7 +8,9 @@ Counterpart of ``helicon_tpu/core/curvelet.py``, every name of its
 :225 and ``_directional_bands_3d`` :256, the transforms :109-221, the
 denoisers ``denoise_curvelet_2d`` :150, ``denoise_curvelet_3d`` :328 and
 the tiled variants :361 / :475, and the reference-compatible aliases
-:415-509. Each function runs on the device of the tensor it is given.
+:415-509. Each function runs on the device of the tensor it is given;
+numpy input, and the window stacks, which take a shape, go to the keyword
+``device`` (the card unless the caller asks for the CPU).
 
 Where the two differ in form, not in result:
 
@@ -41,6 +43,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.tensors import on_device
 from .analysis import _div, _fftfreq64
 
 __all__ = [
@@ -56,10 +59,6 @@ __all__ = [
 
 # images of a stack denoised together: at most this many pixels a chunk
 BATCH_PIXELS = 1 << 24
-
-
-def _device(device) -> torch.device:
-    return torch.device("cpu") if device is None else torch.device(device)
 
 
 def _meyer_ramp(t: torch.Tensor) -> torch.Tensor:
@@ -120,12 +119,12 @@ def _meta_2d(n_scales: int, n_angles_coarse: int) -> list:
 
 
 @functools.lru_cache(maxsize=16)
-def _windows_2d(ny: int, nx: int, n_scales: int, n_angles_coarse: int, device=None):
+def _windows_2d(ny: int, nx: int, n_scales: int, n_angles_coarse: int, device="cuda"):
     """Tight-frame window stack (K, ny, nx) float32 on device in unshifted
     fft layout (DC at [0, 0]), and its metadata [(scale, wedge)]: band 0
     the lowpass, then per scale j (coarse to fine) n_angles_coarse *
     2^(j // 2) angular wedges."""
-    device = _device(device)
+    device = torch.device(device)
     meta = _meta_2d(n_scales, n_angles_coarse)
     fy = _fftfreq64(ny, device)[:, None]
     fx = _fftfreq64(nx, device)[None, :]
@@ -148,15 +147,15 @@ def _windows_2d(ny: int, nx: int, n_scales: int, n_angles_coarse: int, device=No
     return _normalised(raws, len(meta), (ny, nx), device), meta
 
 
-def curvelet_bands_2d(shape, n_scales: int = 4, n_angles: int = 8, device=None):
+def curvelet_bands_2d(shape, n_scales: int = 4, n_angles: int = 8, device="cuda"):
     """The (K, ny, nx) tight-frame window stack on device and its band
     metadata."""
     ny, nx = shape
-    return _windows_2d(ny, nx, n_scales, n_angles, _device(device))
+    return _windows_2d(ny, nx, n_scales, n_angles, torch.device(device))
 
 
-def _image(image) -> torch.Tensor:
-    return torch.as_tensor(image).to(torch.float32)
+def _image(image, device) -> torch.Tensor:
+    return on_device(image, device)
 
 
 def _coeffs(F: torch.Tensor, U_k: torch.Tensor, dims) -> torch.Tensor:
@@ -174,17 +173,19 @@ def _synthesis(acc: torch.Tensor, dims) -> torch.Tensor:
     return torch.fft.ifftn(acc, dim=dims).real
 
 
-def curvelet_transform_2d(image, n_scales: int = 4, n_angles: int = 8) -> torch.Tensor:
+def curvelet_transform_2d(image, n_scales: int = 4, n_angles: int = 8, *,
+                          device="cuda") -> torch.Tensor:
     """Forward transform: (K, ny, nx) complex band coefficients."""
-    img = _image(image)
+    img = _image(image, device)
     U, _ = _windows_2d(img.shape[0], img.shape[1], n_scales, n_angles, img.device)
     F = torch.fft.fftn(img, dim=(-2, -1))
     return torch.fft.ifftn(F[None] * U, dim=(-2, -1))
 
 
-def curvelet_inverse_2d(coeffs, n_scales: int = 4, n_angles: int = 8) -> torch.Tensor:
+def curvelet_inverse_2d(coeffs, n_scales: int = 4, n_angles: int = 8, *,
+                        device="cuda") -> torch.Tensor:
     """Inverse of curvelet_transform_2d (tight frame: apply U again, sum)."""
-    coeffs = torch.as_tensor(coeffs)
+    coeffs = on_device(coeffs, device, None)
     ny, nx = coeffs.shape[-2:]
     U, _ = _windows_2d(ny, nx, n_scales, n_angles, coeffs.device)
     F = torch.fft.fftn(coeffs, dim=(-2, -1))
@@ -243,6 +244,7 @@ def denoise_curvelet_2d(
     n_angles: int = 8,
     *,
     on_band=None,
+    device="cuda",
 ) -> torch.Tensor:
     """Hard-threshold curvelet denoising of a 2D image or a stack
     (..., ny, nx), each image on its own noise level.
@@ -253,7 +255,7 @@ def denoise_curvelet_2d(
     of the finest band's real part, or, for threshold_sigma <= 0, at the
     elbow of its own sorted magnitudes.
     """
-    img = _image(image)
+    img = _image(image, device)
     lead = img.ndim - 2
     ny, nx = img.shape[-2:]
     dims = (-2, -1)
@@ -283,10 +285,10 @@ def denoise_curvelet_2d(
     return _synthesis(acc, dims)
 
 
-def riesz_transform_2d(image):
+def riesz_transform_2d(image, *, device="cuda"):
     """Riesz x/y components of an image (..., ny, nx): the monogenic
     signal's odd parts."""
-    img = _image(image)
+    img = _image(image, device)
     ny, nx = img.shape[-2:]
     fy = _fftfreq64(ny, img.device).to(torch.float32)[:, None]
     fx = _fftfreq64(nx, img.device).to(torch.float32)[None, :]
@@ -306,10 +308,10 @@ def _radius_3d(nz: int, ny: int, nx: int, device):
 
 
 @functools.lru_cache(maxsize=2)
-def _radial_bands_3d(nz: int, ny: int, nx: int, n_scales: int, device=None) -> torch.Tensor:
+def _radial_bands_3d(nz: int, ny: int, nx: int, n_scales: int, device="cuda") -> torch.Tensor:
     """The isotropic 3D stack (n_scales + 1, nz, ny, nx) float32 on device:
     the lowpass and one Meyer annulus a scale."""
-    device = _device(device)
+    device = torch.device(device)
     *_, r = _radius_3d(nz, ny, nx, device)
     edges = _edges(n_scales)
 
@@ -357,12 +359,12 @@ def _cap_width(u, dirs, on_shell: torch.Tensor) -> float:
 
 
 @functools.lru_cache(maxsize=2)
-def _directional_bands_3d(nz: int, ny: int, nx: int, n_scales: int, n_dirs: int, device=None):
+def _directional_bands_3d(nz: int, ny: int, nx: int, n_scales: int, n_dirs: int, device="cuda"):
     """Directional 3D tight-frame windows (K, nz, ny, nx) float32 on
     device: Meyer annuli x antipodal cos^2 spherical caps around
     n_dirs * 2^(j // 2) Fibonacci directions at scale j, and their
     metadata [(scale, wedge)], scale -1 the lowpass."""
-    device = _device(device)
+    device = torch.device(device)
     fz, fy, fx, r = _radius_3d(nz, ny, nx, device)
     r_safe = torch.where(r > 1e-12, r, 1.0)
     half = 0.5 * r_safe
@@ -396,11 +398,11 @@ def _directional_bands_3d(nz: int, ny: int, nx: int, n_scales: int, n_dirs: int,
     return _normalised(raws, len(meta), (nz, ny, nx), device), meta
 
 
-def curvelet_bands_3d(shape, n_scales: int = 4, n_dirs: int = 6, device=None):
+def curvelet_bands_3d(shape, n_scales: int = 4, n_dirs: int = 6, device="cuda"):
     """The (K, nz, ny, nx) directional 3D window stack on device and its
     metadata; n_dirs <= 0 selects the isotropic radial bands."""
     nz, ny, nx = shape
-    device = _device(device)
+    device = torch.device(device)
     if n_dirs <= 0:
         U = _radial_bands_3d(nz, ny, nx, n_scales, device)
         return U, [(-1, 0)] + [(j, 0) for j in range(n_scales)]
@@ -414,6 +416,7 @@ def denoise_curvelet_3d(
     n_dirs: int = 6,
     *,
     on_band=None,
+    device="cuda",
     **kwargs,
 ) -> torch.Tensor:
     """Directional-band threshold denoising of a 3D map, band by band.
@@ -424,7 +427,7 @@ def denoise_curvelet_3d(
     for threshold_sigma <= 0, at the elbow of its sorted magnitudes.
     n_dirs=0 selects the isotropic radial bands.
     """
-    vol = _image(volume)
+    vol = _image(volume, device)
     dims = (-3, -2, -1)
     U, _ = curvelet_bands_3d(vol.shape, n_scales=n_scales, n_dirs=n_dirs, device=vol.device)
     F = torch.fft.fftn(vol, dim=dims)
@@ -465,13 +468,15 @@ def denoise_curvelet_2d_tiled(
     tile_size: int = 512,
     overlap: int = 64,
     threshold_sigma: float = 3.0,
+    *,
+    device="cuda",
     **kwargs,
 ) -> torch.Tensor:
     """Overlap-add tiled denoising of a large image with cosine tapers:
     each tile denoised alone, weighted by its taper, and the sum divided
     by the summed weights (float64 weights added into float32 sums, as
     the reference's numpy adds them)."""
-    img = _image(image)
+    img = _image(image, device)
     ny, nx = img.shape
     if max(ny, nx) <= tile_size:
         return denoise_curvelet_2d(img, threshold_sigma=threshold_sigma, **kwargs)
@@ -499,22 +504,26 @@ def denoise_curvelet_2d_tiled(
 # ---------------------------------------------------------------------------
 
 
-def curvelet_denoise_udct(data, threshold_sigma: float = 3.0, **kwargs):
-    return denoise_curvelet_2d(data, transform="udct", threshold_sigma=threshold_sigma, **kwargs)
+def curvelet_denoise_udct(data, threshold_sigma: float = 3.0, *, device="cuda", **kwargs):
+    return denoise_curvelet_2d(data, transform="udct", threshold_sigma=threshold_sigma,
+                               device=device, **kwargs)
 
 
-def curvelet_denoise_fdct(data, threshold_sigma: float = 3.0, **kwargs):
-    return denoise_curvelet_2d(data, transform="udct", threshold_sigma=threshold_sigma, **kwargs)
+def curvelet_denoise_fdct(data, threshold_sigma: float = 3.0, *, device="cuda", **kwargs):
+    return denoise_curvelet_2d(data, transform="udct", threshold_sigma=threshold_sigma,
+                               device=device, **kwargs)
 
 
-def curvelet_denoise_mct(data, threshold_sigma: float = 3.0, **kwargs):
-    return denoise_curvelet_2d(data, transform="mct", threshold_sigma=threshold_sigma, **kwargs)
+def curvelet_denoise_mct(data, threshold_sigma: float = 3.0, *, device="cuda", **kwargs):
+    return denoise_curvelet_2d(data, transform="mct", threshold_sigma=threshold_sigma,
+                               device=device, **kwargs)
 
 
 def _tiled(transform):
-    def wrapper(data, tile_size: int = 512, overlap: int = 64, **kwargs):
+    def wrapper(data, tile_size: int = 512, overlap: int = 64, *, device="cuda", **kwargs):
         kwargs.setdefault("transform", transform)
-        return denoise_curvelet_2d_tiled(data, tile_size=tile_size, overlap=overlap, **kwargs)
+        return denoise_curvelet_2d_tiled(data, tile_size=tile_size, overlap=overlap,
+                                         device=device, **kwargs)
 
     return wrapper
 
@@ -525,9 +534,9 @@ curvelet_denoise_mct_tiled = _tiled("mct")
 
 
 def _batch(fn):
-    def wrapper(stack, device=None, **kwargs):
-        """Denoise each image of a stack (n, ny, nx) on ``device`` (by
-        default the stack's own), in chunks of at most BATCH_PIXELS pixels.
+    def wrapper(stack, device="cuda", **kwargs):
+        """Denoise each image of a stack (n, ny, nx) on the stack's device
+        (``device`` for an array), in chunks of at most BATCH_PIXELS pixels.
         A list or tuple of images is denoised one image at a time: an image
         that is not a tensor goes to ``device`` alone and its result comes
         back to the host before the next one goes, so the device holds one
@@ -536,14 +545,14 @@ def _batch(fn):
         if isinstance(stack, (list, tuple)):
             outs = []
             for img in stack:
-                out = fn(_image(img).to(device), **kwargs)
+                out = fn(_image(img, device), **kwargs)
                 outs.append(out if isinstance(img, torch.Tensor) else out.cpu())
             if len({(o.device, tuple(o.shape)) for o in outs}) == 1:
                 return torch.stack(outs)
             return outs
-        stack = _image(stack)
+        stack = _image(stack, device)
         per = max(1, BATCH_PIXELS // (stack.shape[-2] * stack.shape[-1]))
-        return torch.cat([fn(stack[i : i + per].to(device), **kwargs)
+        return torch.cat([fn(stack[i : i + per], **kwargs)
                           for i in range(0, stack.shape[0], per)])
 
     return wrapper
@@ -554,18 +563,19 @@ curvelet_denoise_batch_fdct = _batch(curvelet_denoise_fdct)
 curvelet_denoise_batch_mct = _batch(curvelet_denoise_mct)
 
 
-def curvelet_denoise_3d_udct(data, threshold_sigma: float = 3.0, **kwargs):
-    return denoise_curvelet_3d(data, threshold_sigma=threshold_sigma, **kwargs)
+def curvelet_denoise_3d_udct(data, threshold_sigma: float = 3.0, *, device="cuda", **kwargs):
+    return denoise_curvelet_3d(data, threshold_sigma=threshold_sigma, device=device, **kwargs)
 
 
-def curvelet_denoise_3d_mct(data, threshold_sigma: float = 3.0, **kwargs):
-    return denoise_curvelet_3d(data, threshold_sigma=threshold_sigma, **kwargs)
+def curvelet_denoise_3d_mct(data, threshold_sigma: float = 3.0, *, device="cuda", **kwargs):
+    return denoise_curvelet_3d(data, threshold_sigma=threshold_sigma, device=device, **kwargs)
 
 
 def curvelet_denoise_3d_udct_tiled(data, tile_size: int = 128, overlap: int = 16,
-                                   threshold_sigma: float = 3.0, **kwargs) -> torch.Tensor:
+                                   threshold_sigma: float = 3.0, *, device="cuda",
+                                   **kwargs) -> torch.Tensor:
     """Overlap-add z-chunked 3D denoising with cosine tapers along z."""
-    vol = _image(data)
+    vol = _image(data, device)
     nz = vol.shape[0]
     if nz <= tile_size:
         return denoise_curvelet_3d(vol, threshold_sigma=threshold_sigma, **kwargs)

@@ -9,13 +9,16 @@ along ``axis``::
 with ``f0``/``df`` in cycles/sample, as three FFTs of length
 ``next_fast_len(n + m - 1)``. The chirps are computed in float64 numpy,
 as the reference computes them, and applied in complex64 (complex128 in
-``zoom_fft_2d``) on the device of the tensor given.
+``zoom_fft_2d``) on the device of the tensor given (numpy input on the
+keyword ``device``, the card unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils.tensors import on_device
 
 __all__ = ["czt", "zoom_fft_2d", "zoom_fft_3d"]
 
@@ -45,11 +48,11 @@ def _along(vec: np.ndarray, ndim: int, axis: int, device, dtype) -> torch.Tensor
 
 
 def czt(x: torch.Tensor, m: int, f0: float, df: float, axis: int = -1,
-        dtype=torch.complex64) -> torch.Tensor:
+        dtype=torch.complex64, *, device="cuda") -> torch.Tensor:
     """Chirp-Z transform along one axis at frequencies ``f0 + k*df``,
     computed in ``dtype`` (complex64: the chirps rounded to it first, as
     the reference's)."""
-    x = torch.as_tensor(x)
+    x = on_device(x, device, None)
     axis = axis % x.ndim
     n = x.shape[axis]
     L = _next_fast_len(n + m - 1)
@@ -78,7 +81,7 @@ def czt(x: torch.Tensor, m: int, f0: float, df: float, axis: int = -1,
     return y * _along(post, x.ndim, axis, x.device, dtype)
 
 
-def zoom_fft_2d(data: torch.Tensor, out_shape, zoom) -> torch.Tensor:
+def zoom_fft_2d(data, out_shape, zoom, *, device="cuda") -> torch.Tensor:
     """The 2D DFT on zoomed fftfreq-ordered frequency grids: along each axis
     ``fftfreq(m) * zoom`` cycles per input sample. Leading axes are a
     batch. Each chirp-Z runs along the contiguous last axis (the image
@@ -91,14 +94,15 @@ def zoom_fft_2d(data: torch.Tensor, out_shape, zoom) -> torch.Tensor:
     zy, zx = zoom
     dfy, dfx = zy / my, zx / mx
     c128 = torch.complex128
-    y = czt(torch.as_tensor(data).transpose(-2, -1).contiguous(), my, -(my // 2) * dfy, dfy,
+    y = czt(on_device(data, device, None).transpose(-2, -1).contiguous(), my, -(my // 2) * dfy, dfy,
             axis=-1, dtype=c128)
     y = czt(y.transpose(-2, -1).contiguous(), mx, -(mx // 2) * dfx, dfx, axis=-1, dtype=c128)
     return torch.fft.ifftshift(y, dim=(-2, -1)).to(torch.complex64)
 
 
-def zoom_fft_3d(data: torch.Tensor, out_shape, zoom) -> torch.Tensor:
+def zoom_fft_3d(data, out_shape, zoom, *, device="cuda") -> torch.Tensor:
     """3D analog of :func:`zoom_fft_2d`."""
+    data = on_device(data, device, None)
     mz, my, mx = out_shape
     zz, zy, zx = zoom
     y = czt(data, mz, -(mz // 2) * (zz / mz), zz / mz, axis=-3)

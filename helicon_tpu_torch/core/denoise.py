@@ -4,7 +4,8 @@ threshold and non-local means.
 Counterpart of ``helicon_tpu/core/denoise.py``: ``denoise_tv_chambolle``
 :27, ``denoise_wavelet`` :79 / :90, ``denoise_nl_means`` :131 and
 ``denoise_image`` :180. Each runs on the device of the image it is given
-and returns a float32 tensor there.
+(numpy on the keyword ``device``, the card unless the caller asks for the
+CPU) and returns a float32 tensor there.
 """
 
 from __future__ import annotations
@@ -14,14 +15,17 @@ import math
 
 import torch
 
+from ..utils.tensors import on_device
+
 __all__ = ["denoise_image", "denoise_nl_means", "denoise_tv_chambolle", "denoise_wavelet"]
 
 logger = logging.getLogger(__name__)
 
 
-def denoise_tv_chambolle(image, weight: float = 0.1, n_iter: int = 50) -> torch.Tensor:
+def denoise_tv_chambolle(image, weight: float = 0.1, n_iter: int = 50, *,
+                         device="cuda") -> torch.Tensor:
     """Chambolle 2004 dual projection algorithm (as skimage's default)."""
-    img = torch.as_tensor(image, dtype=torch.float32)
+    img = on_device(image, device)
     tau = 0.25
 
     def grad(u):
@@ -69,12 +73,13 @@ def _median(v: torch.Tensor) -> torch.Tensor:
     return (s[(n - 1) // 2] + s[n // 2]) / 2
 
 
-def denoise_wavelet(image, sigma: float | None = None, levels: int = 3) -> torch.Tensor:
+def denoise_wavelet(image, sigma: float | None = None, levels: int = 3, *,
+                    device="cuda") -> torch.Tensor:
     """Haar-wavelet VisuShrink soft threshold (the universal threshold,
     noise sigma from the finest diagonal detail's MAD unless given). The
     depth is capped so both dimensions keep at least one block; rows and
     columns beyond a multiple of 2^levels pass through unchanged."""
-    img = torch.as_tensor(image, dtype=torch.float32)
+    img = on_device(image, device)
     ny, nx = img.shape
     levels = min(levels, max(1, int(math.floor(math.log2(max(2, min(ny, nx))))) - 1))
     py, px = ny - ny % 2**levels, nx - nx % 2**levels
@@ -121,12 +126,12 @@ def _reflect_pad(img: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def denoise_nl_means(image, h: float = 0.1, patch_size: int = 7,
-                     search_radius: int = 11) -> torch.Tensor:
+                     search_radius: int = 11, *, device="cuda") -> torch.Tensor:
     """Non-local means with a square search window, skimage's defaults as
     the reference pipeline calls it (patch 7, distance 11, absolute h 0.1).
     One pass per shift of the window: the patch distance is a box sum
     (cumulative sums) of the squared difference of shifted images."""
-    img = torch.as_tensor(image, dtype=torch.float32)
+    img = on_device(image, device)
     p, k = patch_size // 2, patch_size
 
     def boxsum(x):
@@ -152,14 +157,14 @@ def denoise_nl_means(image, h: float = 0.1, patch_size: int = 7,
     return num / torch.clamp_min(den, 1e-12)
 
 
-def denoise_image(image, method: str = "tv", **kwargs) -> torch.Tensor:
+def denoise_image(image, method: str = "tv", *, device="cuda", **kwargs) -> torch.Tensor:
     """Dispatch by method name: nl_mean (or nl_means), tv, wavelet; an
     unknown name warns and returns the image unchanged."""
     if method in ("nl_mean", "nl_means"):
-        return denoise_nl_means(image, **kwargs)
+        return denoise_nl_means(image, device=device, **kwargs)
     if method == "tv":
-        return denoise_tv_chambolle(image, **kwargs)
+        return denoise_tv_chambolle(image, device=device, **kwargs)
     if method == "wavelet":
-        return denoise_wavelet(image, **kwargs)
+        return denoise_wavelet(image, device=device, **kwargs)
     logger.warning("unknown denoise method %r; returning the image unchanged", method)
-    return torch.as_tensor(image, dtype=torch.float32)
+    return on_device(image, device)

@@ -11,7 +11,8 @@ Counterpart of ``helicon_tpu/core/filters.py`` whole:
 ``low_high_pass_filter`` :165, ``_gaussian_blur`` :181, ``down_scale``
 :195 / :224, ``generate_tapering_filter`` :244 and
 ``randomize_phases_lowpass`` :266. Each runs on the device of the tensor
-it is given (the taper, which takes none, on ``device``).
+it is given; numpy input, and the taper, which takes none, go to the
+keyword ``device`` (the card unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import _jax_random
+from ..utils.tensors import on_device
 from .analysis import _div, _fftfreq64
 
 __all__ = [
@@ -53,10 +55,10 @@ def _fftfreq_radius(shape, apix: float) -> np.ndarray:
 
 
 def calculate_structural_factor(data, apix: float, thresh=None, mask=None,
-                                return_fft: bool = False):
+                                return_fft: bool = False, *, device="cuda"):
     """1D structural factor: the sum of |F|^2 over radial q bins (a float32
     scatter-add, as the reference's). Returns (qbins numpy, sf[, F])."""
-    data = torch.as_tensor(data).to(torch.float32)
+    data = on_device(data, device)
     work = threshold_data(data, thresh_value=thresh) if thresh else data
     if mask is not None:
         work = work * torch.as_tensor(mask, device=data.device).to(torch.float32)
@@ -97,10 +99,10 @@ def _interp_fill0(xq: torch.Tensor, xp, fp: torch.Tensor) -> torch.Tensor:
 
 
 def set_structural_factors(data, apix: float, target_bins, target_structural_factors,
-                           thresh=None, mask=None) -> torch.Tensor:
+                           thresh=None, mask=None, *, device="cuda") -> torch.Tensor:
     """Rescale the radial amplitudes so that the structural factor matches
     a target (interpolated onto this map's bins, 0 outside its range)."""
-    data = torch.as_tensor(data).to(torch.float32)
+    data = on_device(data, device)
     qbins, sf, fft = calculate_structural_factor(data, apix, thresh=thresh, mask=mask,
                                                  return_fft=True)
     if mask is not None:
@@ -117,17 +119,18 @@ def set_structural_factors(data, apix: float, target_bins, target_structural_fac
 
 
 def match_structural_factors(data, apix: float, data_target, apix_target: float, thresh=None,
-                             thresh_target=None, mask=None) -> torch.Tensor:
+                             thresh_target=None, mask=None, *, device="cuda") -> torch.Tensor:
     """Match the structural factor of *data* to that of *data_target*."""
+    data = on_device(data, device)
     tb, tsf = calculate_structural_factor(data_target, apix_target, thresh=thresh_target,
-                                          mask=mask)
+                                          mask=mask, device=data.device)
     return set_structural_factors(data, apix, tb, tsf.cpu().numpy(), thresh=thresh, mask=mask)
 
 
-def normalize_min_max(data, min: float = 0, max: float = 1) -> torch.Tensor:
+def normalize_min_max(data, min: float = 0, max: float = 1, *, device="cuda") -> torch.Tensor:
     """(max - min) * (data - lo) / (hi - lo); a constant array unchanged
     (the reference's form, which does not add min)."""
-    data = torch.as_tensor(data)
+    data = on_device(data, device, None)
     lo, hi = data.min(), data.max()
     same = hi == lo
     return torch.where(same, data, (max - min) * (data - lo) / torch.where(same, 1.0, hi - lo))
@@ -140,11 +143,11 @@ def _mean(x: torch.Tensor) -> torch.Tensor:
     return x.sum() * torch.tensor(1.0 / x.numel(), dtype=x.dtype, device=x.device)
 
 
-def normalize_mean_std(data, mean: float = 0, std: float = 1) -> torch.Tensor:
+def normalize_mean_std(data, mean: float = 0, std: float = 1, *, device="cuda") -> torch.Tensor:
     """(data - mean(data)) / std(data), the population std, as jnp.std
     forms it (an array whose std is 0 unchanged; the reference's form,
     which ignores mean and std)."""
-    data = torch.as_tensor(data)
+    data = on_device(data, device, None)
     centered = data - _mean(data)
     s = torch.sqrt(_mean(centered * centered))
     return torch.where(s == 0, data, centered / torch.where(s == 0, 1.0, s))
@@ -166,22 +169,22 @@ def _percentiles(data: torch.Tensor, ps) -> list:
     return out
 
 
-def normalize_percentile(data, percentile=(0, 100)) -> torch.Tensor:
+def normalize_percentile(data, percentile=(0, 100), *, device="cuda") -> torch.Tensor:
     """Rescale so the two percentiles map to 0 and 1 (a constant array
     unchanged)."""
-    data = torch.as_tensor(data)
+    data = on_device(data, device, None)
     v = torch.stack(_percentiles(data, percentile))
     vmin, vmax = v.min(), v.max()
     same = vmax == vmin
     return torch.where(same, data, (data - vmin) / torch.where(same, 1.0, vmax - vmin))
 
 
-def threshold_data(data, thresh_fraction=None, thresh_value=None):
+def threshold_data(data, thresh_fraction=None, thresh_value=None, *, device="cuda"):
     """Clip values below a threshold (thresh_fraction >= 0: that fraction of
     the maximum; else thresh_value) and shift so the threshold maps to 0;
     neither given: the data unchanged (counterpart of
     ``helicon_tpu/core/filters.py:139``)."""
-    data = torch.as_tensor(data)
+    data = on_device(data, device, None)
     if thresh_fraction is not None and thresh_fraction >= 0:
         thresh = data.max() * thresh_fraction
     elif thresh_value is not None:
@@ -200,10 +203,11 @@ def _normalized_r2(shape) -> np.ndarray:
             + axes[2][None, None, :] ** 2)
 
 
-def low_high_pass_filter(data, low_pass_fraction: float = 0, high_pass_fraction: float = 0):
+def low_high_pass_filter(data, low_pass_fraction: float = 0, high_pass_fraction: float = 0,
+                         *, device="cuda"):
     """Gaussian low/high-pass of a 2D or 3D image in Fourier space (each
     fraction of Nyquist; outside (0, 1) that filter is off)."""
-    data = torch.as_tensor(data, dtype=torch.float32)
+    data = on_device(data, device)
     if data.ndim not in (2, 3):
         raise ValueError("Input data must be a 2D or 3D array.")
     fft = torch.fft.fftn(data)
@@ -233,7 +237,7 @@ def _gaussian_blur(data: torch.Tensor, sigmas) -> torch.Tensor:
     return torch.fft.ifftn(fft, dim=axes).real
 
 
-def down_scale(data, target_apix: float, apix_orig: float) -> torch.Tensor:
+def down_scale(data, target_apix: float, apix_orig: float, *, device="cuda") -> torch.Tensor:
     """Anti-aliased down-scale of a 2D image to a larger pixel size.
 
     Gaussian prefilter (sigma ``(1/scale - 1)/2``, as skimage), cubic
@@ -242,7 +246,7 @@ def down_scale(data, target_apix: float, apix_orig: float) -> torch.Tensor:
     from .interp import map_coordinates
     from .transforms import pad_to_size
 
-    data = torch.as_tensor(data)
+    data = on_device(data, device, None)
     if target_apix == apix_orig:
         return data
     if target_apix < apix_orig:
@@ -268,7 +272,7 @@ def down_scale(data, target_apix: float, apix_orig: float) -> torch.Tensor:
 
 
 def generate_tapering_filter(image_size, fraction_start=(0.8, 0.8),
-                             fraction_slope: float = 0.1, device=None) -> torch.Tensor:
+                             fraction_slope: float = 0.1, device="cuda") -> torch.Tensor:
     """Cosine edge taper (ny, nx) float32 on device: 1 inside
     fraction_start of each half axis, a cosine fall over fraction_slope,
     0 beyond; an axis whose fraction is outside (0, 1) is not tapered."""
@@ -291,7 +295,7 @@ def generate_tapering_filter(image_size, fraction_start=(0.8, 0.8),
 
 
 def randomize_phases_lowpass(data, apix: float, cutoff_res: float, return_fft: bool = False,
-                             key=None):
+                             key=None, *, device="cuda"):
     """Randomize the phases beyond a resolution cutoff, keeping the
     amplitudes (Chen et al. 2013, the true-FSC noise substitution).
 
@@ -301,7 +305,7 @@ def randomize_phases_lowpass(data, apix: float, cutoff_res: float, return_fft: b
     same key. The draw is JAX's uniform words bit for bit, computed on
     data's device. Returns the rfftn spectrum (return_fft) or the map.
     """
-    data = torch.as_tensor(data).to(torch.float32)
+    data = on_device(data, device)
     F = torch.fft.rfftn(data)
     amp = torch.abs(F)
     phase = torch.angle(F)

@@ -11,7 +11,8 @@ it), nearest (alias edge), mirror, reflect and wrap (periodic, scipy's
 grid-wrap; alias grid-wrap). The scipy conventions are the same.
 ``linear_gather_2d`` :269 and ``trilinear_gather_3d`` :274 are order 1
 with a fill value. The prefilter's recursion is a Python loop over the
-filtered axis.
+filtered axis. Each runs on the device of the tensor given (numpy on the
+keyword ``device``, the card unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..utils.tensors import on_device
 
 __all__ = ["spline_filter1d", "spline_filter", "map_coordinates", "linear_gather_2d",
            "trilinear_gather_3d"]
@@ -63,9 +66,10 @@ def _fix_index(mode: str, idx, n: int):
     return idx.clamp(0, n - 1), (idx >= 0) & (idx <= n - 1)
 
 
-def spline_filter1d(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+def spline_filter1d(x, axis: int = -1, *, device="cuda") -> torch.Tensor:
     """Cubic B-spline prefilter along one axis (mirror boundary), as
     scipy.ndimage.spline_filter1d(order=3, mode='mirror')."""
+    x = on_device(x, device, None)
     z = _CUBIC_POLE
     axis = axis % x.ndim
     n = x.shape[axis]
@@ -95,8 +99,9 @@ def spline_filter1d(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return torch.movedim(torch.stack(out[::-1]), 0, axis)
 
 
-def spline_filter(x: torch.Tensor) -> torch.Tensor:
+def spline_filter(x, *, device="cuda") -> torch.Tensor:
     """Cubic B-spline prefilter along every axis."""
+    x = on_device(x, device, None)
     for ax in range(x.ndim):
         x = spline_filter1d(x, axis=ax)
     return x
@@ -120,6 +125,8 @@ def map_coordinates(
     mode: str = "constant",
     cval: float = 0.0,
     prefilter: bool = True,
+    *,
+    device="cuda",
 ) -> torch.Tensor:
     """Evaluate a float *input* at fractional *coordinates* (scipy
     convention; one coordinate array per input axis).
@@ -137,7 +144,7 @@ def map_coordinates(
         raise ValueError(f"map_coordinates mode={mode!r} (one of {_MODES})")
     if mode == "grid-constant" and order == 3:
         raise ValueError("map_coordinates mode='grid-constant' supports order 0 and 1")
-    x = torch.as_tensor(input)
+    x = on_device(input, device, None)
     work = torch.float64 if x.dtype == torch.float64 else torch.float32
     coords = [torch.as_tensor(c, dtype=work, device=x.device) for c in coordinates]
     if len(coords) != x.ndim:
@@ -204,11 +211,12 @@ def map_coordinates(
     return out.to(x.dtype)
 
 
-def linear_gather_2d(img, yy, xx, fill: float = 0.0) -> torch.Tensor:
+def linear_gather_2d(img, yy, xx, fill: float = 0.0, *, device="cuda") -> torch.Tensor:
     """Bilinear sample of a 2D image at (yy, xx); out of bounds -> fill."""
-    return map_coordinates(img, (yy, xx), order=1, mode="constant", cval=fill)
+    return map_coordinates(img, (yy, xx), order=1, mode="constant", cval=fill, device=device)
 
 
-def trilinear_gather_3d(vol, zz, yy, xx, fill: float = 0.0) -> torch.Tensor:
+def trilinear_gather_3d(vol, zz, yy, xx, fill: float = 0.0, *, device="cuda") -> torch.Tensor:
     """Trilinear sample of a 3D volume at (zz, yy, xx); out of bounds -> fill."""
-    return map_coordinates(vol, (zz, yy, xx), order=1, mode="constant", cval=fill)
+    return map_coordinates(vol, (zz, yy, xx), order=1, mode="constant", cval=fill,
+                           device=device)

@@ -13,7 +13,9 @@ Counterpart of ``helicon_tpu/core/transforms.py:261``, ``:326``, ``:401``,
 (``fft_rescale``), ``:561`` (``flip_hand``), ``:572``
 (``compute_power_spectra``, with a batched form for stacks of images) and
 ``:601`` (``compute_phase_difference_across_meridian``). Each runs on the
-device of the tensor it is given.
+device of the tensor it is given; numpy input goes to the keyword
+``device`` (the card unless the caller asks for the CPU). The padding and
+the crops only index: they return numpy for numpy.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from . import rotation
 from .czt import zoom_fft_2d, zoom_fft_3d
 from .filters import low_high_pass_filter, normalize_percentile
 from .interp import map_coordinates
+from ..utils.tensors import on_device
 
 __all__ = ["transform_image", "rotate_shift_image", "pad_to_size", "crop_center",
            "crop_center_z", "apply_helical_symmetry", "transform_map", "get_clip",
@@ -42,14 +45,14 @@ _WARP_MODES = {"constant": "constant", "edge": "nearest", "symmetric": "reflect"
 
 def transform_image(image, scale=1.0, rotation: float = 0.0, rotation_center=None,
                     pre_translation=(0.0, 0.0), post_translation=(0.0, 0.0),
-                    mode: str = "constant", order: int = 1):
+                    mode: str = "constant", order: int = 1, *, device="cuda"):
     """Centre-referenced affine warp of a 2D image: pre_translation, to the
     centre (ny/2, nx/2 unless given), rotate by ``rotation`` degrees and
     scale (one factor or (sy, sx)), back from the centre, post_translation,
     sampled through the inverse map (the skimage chain of the reference;
     translations and centres are (y, x)). mode: skimage's names
     (constant, edge, symmetric, reflect, wrap)."""
-    image = torch.as_tensor(image, dtype=torch.float32)
+    image = on_device(image, device)
     ny, nx = image.shape
     if rotation_center is None:
         center = np.array([ny, nx], dtype=np.float64) / 2.0
@@ -83,11 +86,11 @@ def transform_image(image, scale=1.0, rotation: float = 0.0, rotation_center=Non
 
 
 def rotate_shift_image(data, angle: float = 0, pre_shift=(0, 0), post_shift=(0, 0),
-                       rotation_center=None, order: int = 1):
+                       rotation_center=None, order: int = 1, *, device="cuda"):
     """Rotate a 2D image by ``angle`` degrees about rotation_center
     (default (ny // 2, nx // 2)) with (y, x) pre/post shifts: the output
     samples the input at m @ out + offset, zeros outside."""
-    data = torch.as_tensor(data, dtype=torch.float32)
+    data = on_device(data, device)
     if angle == 0 and tuple(pre_shift) == (0, 0) and tuple(post_shift) == (0, 0):
         return data * 1.0
     ny, nx = data.shape
@@ -246,14 +249,15 @@ def _sym_accumulate(data, twist_degree, rise_pixel_src, scale, z0, z1, csym, n_h
 
 def apply_helical_symmetry(data, apix: float, twist_degree: float, rise_angstrom: float,
                            csym: int = 1, fraction: float = 1.0, new_size=None,
-                           new_apix: float | None = None, cpu: int = 1) -> torch.Tensor:
+                           new_apix: float | None = None, cpu: int = 1, *,
+                           device="cuda") -> torch.Tensor:
     """Symmetrize a 3D map by averaging its helical and cyclic symmetry
     copies, optionally resampled to new_apix and new_size (a work grid of
     the larger of the two sizes per axis, centre-cropped to new_size). The
     copies span hsym in [-n, n], n = max(1, int(nz * new_apix / rise)),
     and csym; the source's z-range is its slices above 1 % of the peak
     profile, shrunk to ``fraction``. ``cpu`` is accepted and ignored."""
-    data = torch.as_tensor(data, dtype=torch.float32)
+    data = on_device(data, device)
     nz0, ny0, nx0 = data.shape
     new_apix = apix if new_apix is None else new_apix
     new_size = tuple(int(v) for v in (data.shape if new_size is None else new_size))
@@ -274,30 +278,31 @@ def apply_helical_symmetry(data, apix: float, twist_degree: float, rise_angstrom
 
 
 def transform_map(data, scale: float = 1.0, rot: float = 0, tilt: float = 0, psi: float = 0,
-                  dx: float = 0, dy: float = 0, dz: float = 0):
+                  dx: float = 0, dy: float = 0, dz: float = 0, *, device="cuda"):
     """Scale, rotate (intrinsic ZYZ: rot, tilt, psi in degrees) and shift a
     3D volume: each output voxel's centred coordinates, scaled and rotated
     forward, sampled from the input by cubic B-spline with zeros outside.
     The identity returns the data as given."""
     if scale == 1 and rot == 0 and tilt == 0 and psi == 0 and dx == 0 and dy == 0 and dz == 0:
-        return torch.as_tensor(data)
-    data = torch.as_tensor(data, dtype=torch.float32)
+        return on_device(data, device, None)
+    data = on_device(data, device)
     nz, ny, nx = data.shape
     f32 = dict(dtype=torch.float32, device=data.device)
     Z, Y, X = torch.meshgrid(torch.arange(nz, **f32) - nz // 2, torch.arange(ny, **f32) - ny // 2,
                              torch.arange(nx, **f32) - nx // 2, indexing="ij")
     if scale != 1.0:
         Z, Y, X = Z * scale, Y * scale, X * scale
-    R = rotation.euler_matrix("ZYZ", [rot, tilt, psi]).tolist()
+    R = rotation.euler_matrix("ZYZ", [rot, tilt, psi], device="cpu").tolist()
     x = (X * R[0][0] + Y * R[0][1] + Z * R[0][2]) + nx // 2 - dx
     y = (X * R[1][0] + Y * R[1][1] + Z * R[1][2]) + ny // 2 - dy
     z = (X * R[2][0] + Y * R[2][1] + Z * R[2][2]) + nz // 2 - dz
     return map_coordinates(data, (z, y, x), order=3, mode="constant")
 
 
-def get_clip(image, y0: int, x0: int, height: int, width: int) -> torch.Tensor:
+def get_clip(image, y0: int, x0: int, height: int, width: int, *,
+             device="cuda") -> torch.Tensor:
     """Rectangular clip with zero padding outside the image."""
-    image = torch.as_tensor(image)
+    image = on_device(image, device, None)
     clip = torch.zeros((height, width), dtype=image.dtype, device=image.device)
     yc, xc = max(0, y0), max(0, x0)
     y1 = min(y0 + height, image.shape[0])
@@ -307,9 +312,10 @@ def get_clip(image, y0: int, x0: int, height: int, width: int) -> torch.Tensor:
     return clip
 
 
-def get_clip3d(data, z0: int, y0: int, x0: int, nz: int, ny: int, nx: int) -> torch.Tensor:
+def get_clip3d(data, z0: int, y0: int, x0: int, nz: int, ny: int, nx: int, *,
+               device="cuda") -> torch.Tensor:
     """3D clip with zero padding outside the volume."""
-    data = torch.as_tensor(data)
+    data = on_device(data, device, None)
     clip = torch.zeros((nz, ny, nx), dtype=data.dtype, device=data.device)
     zc, yc, xc = max(0, z0), max(0, y0), max(0, x0)
     z1 = min(z0 + nz, data.shape[0])
@@ -334,10 +340,11 @@ def _linspace32(start: float, stop: float, num: int, device) -> torch.Tensor:
     return torch.cat([out, torch.tensor([stop], dtype=torch.float32, device=device)])
 
 
-def get_rotated_clip(image, y0, x0, y1, x1, width: int, order: int = 1) -> torch.Tensor:
+def get_rotated_clip(image, y0, x0, y1, x1, width: int, order: int = 1, *,
+                     device="cuda") -> torch.Tensor:
     """A straightened strip (width, int(length)) along the segment
     (y0, x0) -> (y1, x1), sampled with zeros outside the image."""
-    image = torch.as_tensor(image, dtype=torch.float32)
+    image = on_device(image, device)
     dy, dx = y1 - y0, x1 - x0
     angle = math.atan2(dy, dx)
     length = math.hypot(dy, dx)
@@ -349,14 +356,14 @@ def get_rotated_clip(image, y0, x0, y1, x1, width: int, order: int = 1) -> torch
     return map_coordinates(image, (yr, xr), order=order, mode="constant")
 
 
-def fft_crop(data, output_size=None) -> torch.Tensor:
+def fft_crop(data, output_size=None, *, device="cuda") -> torch.Tensor:
     """Downscale by truncating the Fourier transform (even sizes): the
     rfft's centred block of output_size, inverted over every axis of
     output_size (the reference inverts all axes in 3D too). Axes before
     the last len(output_size) are a batch, each entry cropped alone."""
     if output_size is None or tuple(data.shape) == tuple(output_size):
-        return torch.as_tensor(data)
-    data = torch.as_tensor(data, dtype=torch.float32)
+        return on_device(data, device, None)
+    data = on_device(data, device)
     k = len(output_size)
     sizes = tuple(data.shape[data.ndim - k:])
     assert k in (2, 3) and data.ndim >= k
@@ -399,12 +406,13 @@ def _center_phase(out_sizes, zooms, in_sizes, device) -> torch.Tensor:
     return ph
 
 
-def fft_rescale(data, apix: float = 1.0, cutoff_res=None, output_size=None) -> torch.Tensor:
+def fft_rescale(data, apix: float = 1.0, cutoff_res=None, output_size=None, *,
+                device="cuda") -> torch.Tensor:
     """The Fourier transform evaluated on a rescaled uniform grid, by
     chirp-Z: frequencies ``fftfreq(m) * 2*apix/cutoff`` per axis, with the
     phase that centres the implied real-space origin. Returns complex64
     coefficients in fftfreq layout; ``ifftn`` gives the rescaled image."""
-    data = torch.as_tensor(data)
+    data = on_device(data, device, None)
     if data.ndim not in (2, 3):
         raise ValueError("only 2D images and 3D maps are supported")
     return _fft_rescale(data, data.ndim, apix, cutoff_res, output_size)
@@ -426,23 +434,23 @@ def _fft_rescale(data, ndim: int, apix, cutoff_res, output_size) -> torch.Tensor
     return torch.complex(fr * pr - fi * pi, fr * pi + fi * pr)
 
 
-def flip_hand(data, axis: str = "x") -> torch.Tensor:
+def flip_hand(data, axis: str = "x", *, device="cuda") -> torch.Tensor:
     """Mirror a 3D volume along one axis (handedness flip)."""
     dims = {"x": 2, "y": 1, "z": 0}
     if axis not in dims:
         raise ValueError("axis must be 'x', 'y', or 'z'")
-    return torch.flip(torch.as_tensor(data), (dims[axis],))
+    return torch.flip(on_device(data, device, None), (dims[axis],))
 
 
 def compute_power_spectra(data, apix: float, cutoff_res=None, output_size=None,
                           log: bool = True, low_pass_fraction: float = 0,
-                          high_pass_fraction: float = 0):
+                          high_pass_fraction: float = 0, *, device="cuda"):
     """Power spectrum and phase of a 2D image (or 3D map) on a rescaled
     Fourier grid (fft_rescale), fftshifted: log1p(|F|) (|F| when log is
     False), Gaussian low / high-passed when a fraction lies in (0, 1),
     then scaled to [0, 1]; the phase is angle(F). Returns (pwr, phase).
     An image takes the batched form's path, as a stack of one."""
-    data = torch.as_tensor(data)
+    data = on_device(data, device, None)
     if data.ndim == 2:
         pwr, phase = compute_power_spectra_batch(
             data[None], apix, cutoff_res=cutoff_res, output_size=output_size, log=log,
@@ -459,12 +467,12 @@ def compute_power_spectra(data, apix: float, cutoff_res=None, output_size=None,
 
 def compute_power_spectra_batch(images, apix: float, cutoff_res=None, output_size=None,
                                 log: bool = True, low_pass_fraction: float = 0,
-                                high_pass_fraction: float = 0):
+                                high_pass_fraction: float = 0, *, device="cuda"):
     """compute_power_spectra of each image of a (B, ny, nx) stack in one
     batched chirp-Z; every image's spectra equal its own call's bit for
     bit (the (0, 100) percentiles are each image's exact min and max).
     Returns (pwr, phase), each (B, ony, onx)."""
-    images = torch.as_tensor(images)
+    images = on_device(images, device, None)
     if images.ndim != 3:
         raise ValueError("compute_power_spectra_batch takes a (B, ny, nx) stack")
     fft = torch.fft.fftshift(_fft_rescale(images, 2, apix, cutoff_res, output_size),
@@ -486,10 +494,10 @@ def compute_power_spectra_batch(images, apix: float, cutoff_res=None, output_siz
     return pwr, phase
 
 
-def compute_phase_difference_across_meridian(phase) -> torch.Tensor:
+def compute_phase_difference_across_meridian(phase, *, device="cuda") -> torch.Tensor:
     """The Friedel phase difference across the meridian in degrees, in
     [0, 180] (0: an even Bessel order, 180: an odd one); column 0 is 0."""
-    phase = torch.as_tensor(phase)
+    phase = on_device(phase, device, None)
     diff = torch.zeros_like(phase)
     diff[..., 1:] = phase[..., 1:] - torch.flip(phase[..., 1:], dims=(-1,))
     return torch.rad2deg(torch.arccos(torch.cos(diff)))

@@ -22,10 +22,10 @@ CPU_BUDGET_BYTES = 2**29  # the reference's 2^27 float32 elements a live tensor
 FREE_FRACTION = 16
 
 
-def cross_correlation_map(image_a, image_b) -> torch.Tensor:
+def cross_correlation_map(image_a, image_b, *, device="cuda") -> torch.Tensor:
     """Normalized circular cross-correlation map of two same-size images
     (float32, on image_a's device)."""
-    a = torch.as_tensor(image_a, dtype=torch.float32)
+    a = on_device(image_a, device)
     b = torch.as_tensor(image_b, dtype=torch.float32, device=a.device)
     a = a - a.mean()
     b = b - b.mean()

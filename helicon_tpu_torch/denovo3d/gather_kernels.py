@@ -238,7 +238,7 @@ def _scatter_fixed(acc, taps, r, scale) -> None:
         acc.index_add_(0, idx.reshape(-1), _to_fixed(v.reshape(-1), scale))
 
 
-def rotations(tilt_deg, psi_deg, device="cpu", derivatives: bool = False):
+def rotations(tilt_deg, psi_deg, device="cuda", derivatives: bool = False):
     """The transpose of scipy R.from_euler('yx', (tilt, psi)) for k poses
     (tilt_deg, psi_deg (k,)) as (k, 3, 3) float32: Ry(-tilt) @ Rx(-psi),
     each entry the one nonzero product of the reference's 3 x 3 float32

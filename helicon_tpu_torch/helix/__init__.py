@@ -30,4 +30,7 @@ __all__ = ["LayerLine", "auto_horizontalize", "bessel_first_peak_x", "detect_lay
            "generate_xyz_projections", "helical_lattice_points", "helical_unit_positions",
            "is_vertical", "lattice_vectors_from_parameters", "layer_line_profiles",
            "parameters_from_lattice_vectors", "random_polymer", "simulate_helical_projection",
-           "symmetrize_transform_map", "tilt_psi_dy_str"]
+           "symmetrize_transform_map", "tilt_psi_dy_str",
+           # the submodules, which the flat namespace re-exports as the
+           # reference's star import does
+           "indexing", "lattice", "orient", "pitch", "simulate"]

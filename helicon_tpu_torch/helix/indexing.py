@@ -54,12 +54,12 @@ class LayerLine:
     candidates: list = field(default_factory=list)
 
 
-def layer_line_profiles(pwr):
+def layer_line_profiles(pwr, *, device="cuda"):
     """Per-row reductions of (a batch of) fftshifted spectra (..., ny, nx),
     on their device: the row maximum outside the meridian core (zeroed),
     its first argmax, and the maximum of where(core, pwr, 0). Returns
     (off_prof, off_argmax, merid_prof), each (..., ny)."""
-    pwr = torch.as_tensor(pwr)
+    pwr = on_device(pwr, device, None)
     nx = pwr.shape[-1]
     cx = nx // 2
     col = torch.arange(nx, device=pwr.device)
@@ -71,7 +71,7 @@ def layer_line_profiles(pwr):
 
 
 def detect_layer_lines(pwr, apix: float, min_prominence: float = 3.0, max_lines: int = 10,
-                       radius: float | None = None):
+                       radius: float | None = None, *, device="cuda"):
     """Layer lines of one fftshifted (ny, nx) spectrum (meridian along the
     central column, equator along the central row): the rows whose
     strength stands min_prominence MADs above a median background, +/-Z
@@ -79,7 +79,7 @@ def detect_layer_lines(pwr, apix: float, min_prominence: float = 3.0, max_lines:
     (A), each line gets a Bessel-order estimate. Returns the LayerLines
     sorted by Z (equator excluded). The reductions run on the spectrum's
     device; the meridian profile is the core's true maximum."""
-    pwr = torch.as_tensor(pwr)
+    pwr = on_device(pwr, device, None)
     ny, nx = pwr.shape
     cx = nx // 2
     masked = pwr.clone()

@@ -1232,6 +1232,8 @@ def assign_beamshifts_to_cluster(
     min_cluster_size: int = 1,
     cpu: int = -1,
     verbose: int = 0,
+    *,
+    device="cuda",
 ):
     """Cluster (x, y) beam shifts into exposure groups (io.py:279-350).
 
@@ -1242,29 +1244,31 @@ def assign_beamshifts_to_cluster(
     reference signature (io.py:279): candidate cluster counts for the
     silhouette search, the smallest acceptable cluster (counts whose
     best split produces a smaller cluster are rejected), and
-    accepted-and-ignored parallelism/verbosity knobs (XLA/sklearn own
-    the threading here).
+    accepted-and-ignored parallelism/verbosity knobs.
+
+    The reference's scikit-learn ``KMeans(n_init=3 | 10, random_state=0)``
+    and ``silhouette_score`` are ``clustering.kmeans`` and
+    ``clustering.silhouette_score``: the same labels, Lloyd's iterations
+    and the pair distances in float64 on ``device``.
     """
-    from sklearn.cluster import KMeans
+    from ..clustering import kmeans, silhouette_score
 
     X = np.asarray(beamshifts, float)
     assert X.ndim == 2 and X.shape[1] == 2
     if n_clusters is None:
-        from sklearn.metrics import silhouette_score
-
         if range_n_clusters is None:
             range_n_clusters = range(2, min(50, len(X)))
         best_k, best_s = 1, -1.0
         for k in range_n_clusters:
             if k >= len(X):
                 break
-            km = KMeans(n_clusters=k, n_init=3, random_state=0).fit(X)
+            labels = kmeans(X, k, n_init=3, device=device)[0]
             try:
-                s = silhouette_score(X, km.labels_)
+                s = silhouette_score(X, labels, device=device)
             except ValueError:
                 continue
             if min_cluster_size > 1:
-                sizes = np.bincount(km.labels_)
+                sizes = np.bincount(labels)
                 if sizes[sizes > 0].min() < min_cluster_size:
                     continue
             if s > best_s:
@@ -1272,8 +1276,7 @@ def assign_beamshifts_to_cluster(
             elif s < best_s - 0.1:
                 break
         n_clusters = best_k
-    km = KMeans(n_clusters=n_clusters, n_init=10, random_state=0).fit(X)
-    return km.labels_ + 1
+    return kmeans(X, n_clusters, n_init=10, device=device)[0] + 1
 
 
 def mrc2mrcs(data: pd.DataFrame) -> pd.DataFrame:

@@ -1,10 +1,11 @@
 """MRC2014 reader and writer for the port (no mrcfile dependency).
 
-A copy of ``helicon_tpu/io/mrc.py`` but its matplotlib viewer
-``display_map_orthoslices``: the 1024-byte header (modes 0/1/2/4/6/12,
+A copy of ``helicon_tpu/io/mrc.py``: the 1024-byte header (modes 0/1/2/4/6/12,
 voxel size from the cell and mx), one image of a stack, the whole file
 (memory-mapped on request), the writer, the streaming writer
-``create_mrc_memmap``, the stack sizes and ``change_map_axes_order``.
+``create_mrc_memmap``, the stack sizes, ``change_map_axes_order`` and the
+matplotlib viewer ``display_map_orthoslices`` (matplotlib imported inside
+it, as the reference does).
 tests/test_torch_io.py pins the copy to the original in both directions.
 """
 
@@ -19,6 +20,7 @@ __all__ = [
     "create_mrc_memmap",
     "MrcHeader",
     "change_map_axes_order",
+    "display_map_orthoslices",
     "get_image_number",
     "get_image_size",
     "mrc_header",
@@ -277,3 +279,32 @@ def change_map_axes_order(data, header_or_order="zyx", new_axes=None):
         # untouched — callers use only the permuted data
         header2 = header
     return data2, header2
+
+
+def display_map_orthoslices(data, title: str = "", apix: float = 1.0, show=True):
+    """Matplotlib figure of the three central orthoslices
+    (io_mrc.py:136-173)."""
+    import matplotlib
+
+    if not show:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    data = data.cpu().numpy() if hasattr(data, "cpu") else np.asarray(data)
+    nz, ny, nx = data.shape
+    fig, axes = plt.subplots(1, 3, figsize=(12, 4))
+    for ax, (img, name) in zip(
+        axes,
+        [
+            (data[nz // 2], "XY"),
+            (data[:, ny // 2, :], "XZ"),
+            (data[:, :, nx // 2], "YZ"),
+        ],
+    ):
+        ax.imshow(img, cmap="gray", origin="lower")
+        ax.set_title(f"{title} {name}".strip())
+        ax.axis("off")
+    fig.tight_layout()
+    if show:
+        plt.show()
+    return fig

@@ -236,6 +236,7 @@ def _h_assignByBeamShiftXY(
         check_foilhole_xml_files,
     )
     from ...io.groups import combine_groups, propagate_ctf_median, sync_group_columns
+    from ...commands import command_device
     from ...io.metadata import assign_beamshifts_to_cluster
 
     if param is not None and param != "0":
@@ -270,6 +271,7 @@ def _h_assignByBeamShiftXY(
             min_cluster_size=min_cluster_size,
             cpu=getattr(args, "cpu", -1),
             verbose=getattr(args, "verbose", 0),
+            device=command_device(getattr(args, "device", "cuda")),
         )
         cluster_of = dict(zip(shifts_by_m.keys(), np.asarray(labels)))
 

@@ -187,7 +187,10 @@ def _h_normEulerDist(data, args, index_d, param):
         )
         binAssignments = binAngles.groupby(binAngles, sort=False)
         counts = binAssignments.size().sort_values(ascending=True)
-        elbow = counts.iloc[find_elbow_point(counts.values)]
+        from ...commands import command_device
+
+        elbow = counts.iloc[find_elbow_point(
+            counts.values, device=command_device(getattr(args, "device", "cuda")))]
         if nkeep < 1:
             nkeep = int(elbow)
         indices = []

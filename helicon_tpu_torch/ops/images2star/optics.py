@@ -213,6 +213,7 @@ def _h_assignByBeamShiftXY(data, args, index_d, param):
         EPU_xml_2_beamshift,
         check_foilhole_xml_files,
     )
+    from ...commands import command_device
     from ...io.metadata import assign_beamshifts_to_cluster
     from ...utils.system import parse_param_str
 
@@ -240,7 +241,8 @@ def _h_assignByBeamShiftXY(data, args, index_d, param):
             ]
         )
         labels = assign_beamshifts_to_cluster(
-            shifts, n_clusters=n_clusters, min_cluster_size=min_cluster_size
+            shifts, n_clusters=n_clusters, min_cluster_size=min_cluster_size,
+            device=command_device(getattr(args, "device", "cuda")),
         )
         mapping = dict(zip(unique_names, np.asarray(labels)))
         old_groups = (

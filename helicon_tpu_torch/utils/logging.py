@@ -1,8 +1,9 @@
 """Command-audit and timing helpers of the port.
 
-A copy of ``log_command_line``, ``timedelta2string`` and ``Timer`` from
-``helicon_tpu/utils/logging.py``, without the JAX profiler annotation.
-tests/test_torch_io.py pins the copy to the original.
+A copy of ``color_print``, ``getLogger``, ``log_command_line``,
+``timedelta2string`` and ``Timer`` from ``helicon_tpu/utils/logging.py``,
+without the JAX profiler annotation. tests/test_torch_io.py and
+tests/test_torch_namespace.py pin the copy to the original.
 """
 
 from __future__ import annotations
@@ -13,7 +14,59 @@ import os
 import sys
 import time
 
-__all__ = ["Timer", "log_command_line", "timedelta2string"]
+__all__ = ["Timer", "color_print", "getLogger", "log_command_line", "timedelta2string"]
+
+_COLORS = {
+    "black": 30,
+    "red": 31,
+    "green": 32,
+    "yellow": 33,
+    "blue": 34,
+    "magenta": 35,
+    "cyan": 36,
+    "white": 37,
+}
+
+
+def color_print(*args, color: str = "red", **kwargs) -> None:
+    """Print with ANSI color when stdout is a terminal."""
+    code = _COLORS.get(color, 31)
+    if sys.stdout.isatty():
+        print(f"\033[{code}m", end="")
+        print(*args, **kwargs)
+        print("\033[0m", end="", flush=True)
+    else:
+        print(*args, **kwargs)
+
+
+def getLogger(
+    logfile: str | None = None, verbose: int = 1, name: str = "helicon"
+) -> logging.Logger:
+    """Logger with an optional file handler and a console handler.
+
+    verbose<=0 -> WARNING, 1 -> INFO, >=2 -> DEBUG on the console.
+    """
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.DEBUG)
+    for h in logger.handlers:  # close old file handlers: clear() alone
+        h.close()  # leaks one fd per getLogger(logfile=...) call
+    logger.handlers.clear()
+
+    console = logging.StreamHandler()
+    console.setLevel(
+        logging.WARNING if verbose <= 0 else logging.INFO if verbose == 1 else logging.DEBUG
+    )
+    console.setFormatter(logging.Formatter("%(message)s"))
+    logger.addHandler(console)
+
+    if logfile:
+        fh = logging.FileHandler(logfile)
+        fh.setLevel(logging.DEBUG)
+        fh.setFormatter(
+            logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s")
+        )
+        logger.addHandler(fh)
+    return logger
 
 
 def log_command_line(logfile: str = "helicon.log") -> None:

@@ -1,23 +1,50 @@
-"""Option ordering and the colon parameter mini-language of the option
-pipelines (proc3d, images2star).
+"""System and configuration utilities: the option ordering and the colon
+parameter mini-language of the option pipelines (proc3d, images2star), the
+resource probes, the image encoders, OpenMP thread control and small
+helpers.
 
-A copy of ``get_option_list``, ``resolve_option_abbreviations``,
-``_coerce_value``, ``parse_param_str``, ``validate_param_dict``,
-``optional_loader`` and ``ceil_power_of_10`` from
-``helicon_tpu/utils/system.py``; the JAX device probes stay behind.
-tests/test_torch_proc3d.py and tests/test_torch_metadata.py pin the copy
-to the original.
+A copy of ``helicon_tpu/utils/system.py`` (host code); the JAX probes
+have torch counterparts (``available_devices`` counts the CUDA cards,
+``has_curvelet_udct_gpu`` asks whether there is one). The reference's
+monkeypatch seams ``compat_namespace`` / ``compat_hook`` answer to the
+JAX package's ``helicon`` drop-in package, which the port has no
+counterpart of, so they stay behind. tests/test_torch_proc3d.py,
+tests/test_torch_metadata.py and tests/test_torch_namespace.py pin the
+copy to the original.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import shutil
 from typing import Any
+
+import numpy as np
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ceil_power_of_10", "get_option_list", "optional_loader", "parse_param_str",
-           "resolve_option_abbreviations", "validate_param_dict"]
+__all__ = [
+    "get_context_function_name",
+    "import_with_auto_install",
+    "omp_get_max_threads",
+    "omp_set_num_threads",
+    "get_option_list",
+    "parse_param_str",
+    "validate_param_dict",
+    "available_cpu",
+    "available_devices",
+    "has_shiny",
+    "has_streamlit",
+    "has_curvelet_fdct",
+    "has_curvelet_udct",
+    "has_curvelet_udct_gpu",
+    "get_terminal_size",
+    "bytes2units",
+    "ceil_power_of_10",
+    "encode_numpy",
+    "encode_PIL_Image",
+]
 
 
 def get_option_list(argv: list[str]) -> list[str]:
@@ -136,3 +163,196 @@ def ceil_power_of_10(n: float | int) -> int:
     if n <= 1:
         return 10
     return 10 ** math.ceil(math.log10(n))
+
+
+def available_cpu(mem_gb_per_cpu: float | None = None) -> int:
+    """Number of usable host CPUs (SLURM-aware, load-aware, memory-capped)."""
+    if "SLURM_CPUS_ON_NODE" in os.environ:
+        cpu = int(os.environ["SLURM_CPUS_ON_NODE"])
+    else:
+        try:
+            import psutil
+
+            cpu = max(1, int(psutil.cpu_count() * (1 - psutil.cpu_percent() / 100)))
+        except ImportError:
+            cpu = os.cpu_count() or 1
+    if mem_gb_per_cpu is not None:
+        try:
+            import psutil
+
+            mem = psutil.virtual_memory()
+            cpu = max(1, min(cpu, int(mem.available / 1024**3 / mem_gb_per_cpu)))
+        except ImportError:
+            pass
+    return cpu
+
+
+def available_devices() -> int:
+    """Number of CUDA cards visible to this process."""
+    import torch
+
+    return torch.cuda.device_count()
+
+
+def has_shiny() -> bool:
+    try:
+        import shiny  # noqa: F401
+
+        return True
+    except ImportError:
+        return False
+
+
+def has_streamlit() -> bool:
+    try:
+        import streamlit  # noqa: F401
+
+        return True
+    except ImportError:
+        return False
+
+
+def has_curvelet_fdct() -> bool:
+    """True: the fdct entry points are served by the port's own transform
+    (curvelet_denoise_fdct aliases the tight-frame UDCT path)."""
+    return True
+
+
+def has_curvelet_udct() -> bool:
+    """The port's UDCT curvelets are always available."""
+    return True
+
+
+def has_curvelet_udct_gpu() -> bool:
+    """The curvelets run on a CUDA card when there is one."""
+    import torch
+
+    return torch.cuda.is_available()
+
+
+def get_terminal_size() -> tuple[int, int]:
+    size = shutil.get_terminal_size()
+    return (size.lines, size.columns)
+
+
+def bytes2units(
+    nbytes: float | int, to: str | None = None, bsize: int = 1024
+) -> tuple[float, str]:
+    """Convert a byte count to ``(value, unit)`` like ``(1.5, "GB")``."""
+    order = ["k", "m", "g", "t", "p", "e"]
+    labels = {"k": "kB", "m": "MB", "g": "GB", "t": "TB", "p": "PB", "e": "EB"}
+    if to is not None:
+        u = to
+        x = nbytes / (bsize ** (order.index(to) + 1))
+    else:
+        u = order[-1]
+        x = nbytes
+        for cand in order:
+            x = nbytes / (bsize ** (order.index(cand) + 1))
+            if x < bsize:
+                u = cand
+                break
+    return (x, labels[u])
+
+
+def encode_numpy(img: np.ndarray, hflip: bool = False, vflip: bool = False) -> str:
+    """Encode an array as a base64 JPEG data URL (normalized to uint8)."""
+    if img.dtype != np.uint8:
+        vmin, vmax = float(img.min()), float(img.max())
+        if vmax > vmin:
+            img = (255 * (img - vmin) / (vmax - vmin)).astype(np.uint8)
+        else:
+            img = np.zeros_like(img, dtype=np.uint8)
+    if hflip:
+        img = img[:, ::-1]
+    if vflip:
+        img = img[::-1, :]
+    from PIL import Image
+
+    return encode_PIL_Image(Image.fromarray(img))
+
+
+def encode_PIL_Image(img, hflip: bool = False, vflip: bool = False) -> str:
+    import base64
+    import io
+
+    from PIL import ImageOps
+
+    if hflip:
+        img = ImageOps.mirror(img)
+    if vflip:
+        img = ImageOps.flip(img)
+    buf = io.BytesIO()
+    img.save(buf, format="JPEG")
+    return f"data:image/jpeg;base64, {base64.b64encode(buf.getvalue()).decode()}"
+
+
+# ---------------------------------------------------------------------------
+# OpenMP thread control (reference system.py:248-321) + misc helpers
+# ---------------------------------------------------------------------------
+
+_omp_lib = None
+
+
+def _load_omp_library():
+    """ctypes handle to a loaded OpenMP runtime, if any."""
+    import ctypes.util
+
+    for name in ("gomp", "omp", "iomp5"):
+        path = ctypes.util.find_library(name)
+        if path:
+            try:
+                import ctypes
+
+                return ctypes.CDLL(path)
+            except OSError:
+                continue
+    return None
+
+
+def omp_get_max_threads() -> int:
+    """OpenMP max threads (reference system.py:284-298); 1 if no runtime."""
+    global _omp_lib
+    if _omp_lib is None:
+        _omp_lib = _load_omp_library()
+    if _omp_lib is None:
+        return 1
+    return int(_omp_lib.omp_get_max_threads())
+
+
+def omp_set_num_threads(n: int) -> None:
+    """Set OpenMP threads (reference system.py:300-321); no-op without a
+    runtime."""
+    global _omp_lib
+    if _omp_lib is None:
+        _omp_lib = _load_omp_library()
+    if _omp_lib is not None:
+        _omp_lib.omp_set_num_threads(int(n))
+
+
+def get_context_function_name(level: int = 1) -> str:
+    """Name of the calling function (reference system.py helper)."""
+    import inspect
+
+    # currentframe() is this helper's frame: level=1 means one f_back
+    # hop, the function that called us (reference: inspect.stack()[1])
+    frame = inspect.currentframe()
+    for _ in range(level):
+        if frame is None:
+            return ""
+        frame = frame.f_back
+    return frame.f_code.co_name if frame else ""
+
+
+def import_with_auto_install(package: str, pip_name: str | None = None):
+    """Import a package; the reference pip-installs on failure, here a clear
+    ImportError is raised instead."""
+    import importlib
+
+    try:
+        return importlib.import_module(package)
+    except ImportError as e:
+        raise ImportError(
+            f"package {package!r} is not available in this environment "
+            f"(install {pip_name or package!r})"
+        ) from e

@@ -10,8 +10,9 @@ __all__ = ["on_device"]
 
 
 def on_device(x, device, dtype=torch.float32) -> torch.Tensor:
-    """``x`` as a ``dtype`` tensor: on its own device if it is a tensor,
-    else on ``device`` (which raises where that device does not exist)."""
+    """``x`` as a ``dtype`` tensor (its own dtype where ``dtype`` is None):
+    on its own device if it is a tensor, else on ``device`` (which raises
+    where that device does not exist)."""
     if isinstance(x, torch.Tensor):
-        return x.to(dtype)
+        return x if dtype is None else x.to(dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)

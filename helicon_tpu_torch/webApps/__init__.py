@@ -1,5 +1,6 @@
 """The port's web applications (counterpart of ``helicon_tpu/webApps``).
 
-Only the compute layers are ported; the Shiny UIs (``app.py``) are not
-(ROADMAP A11).
+The compute layers import without shiny; the ``app.py`` UIs need the
+optional ``shiny`` extra and run every computation on their package's
+``DEVICE``.
 """

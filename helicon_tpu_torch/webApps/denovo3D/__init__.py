@@ -3,8 +3,12 @@ class average, on the card.
 
 The algorithmic layers live in ``helicon_tpu_torch.denovo3d`` and
 ``helicon_tpu_torch.helix``; the modules here keep the reference's file
-layout (``pipeline``, ``solver_linear_regression``, ``utils`` facades and
-the shiny-free ``workflow``). ``app.py`` is not ported: it needs ``shiny``.
+layout (``pipeline``, ``solver_linear_regression``, ``utils`` facades,
+the shiny-free ``workflow`` and the Shiny Express ``app``, which needs
+``shiny``).
 """
 
-from . import pipeline, solver_linear_regression, utils, workflow  # noqa: F401
+# the device of the app's computations (``app`` reads it at its import)
+DEVICE = "cuda"
+
+from . import pipeline, solver_linear_regression, utils, workflow  # noqa: F401,E402

@@ -1,15 +1,17 @@
 """Facade matching the reference's ``webApps/denovo3D/pipeline.py``: the
-single-task pipeline and the image loaders.
-
-The URL and EMDB loaders need the cache, path and dataset utilities and a
-network (ROADMAP A13); they raise NotImplementedError.
-"""
+single-task pipeline and the image loaders (a copy of
+``helicon_tpu/webApps/denovo3D/pipeline.py``'s loaders; the URL and EMDB
+ones need a network)."""
 
 from ...denovo3d.pipeline import (  # noqa: F401
     derive_task_geometry,
     prepare_data,
     process_one_task,
 )
+from ...utils.cache import cache, setup_cache_dir
+from ...utils.path_utils import download_file_from_url
+
+_cache_dir = setup_cache_dir()
 
 
 def get_images_from_file(imageFile):
@@ -22,11 +24,25 @@ def get_images_from_file(imageFile):
     return np.asarray(data), round(float(apix), 4)
 
 
+@cache(cache_dir=str(_cache_dir / "denovo3D"), expires_after=7, verbose=0)
 def get_images_from_url(url: str):
-    """Not ported: downloading needs ROADMAP A13's cache and path utilities."""
-    raise NotImplementedError("get_images_from_url is not ported yet (ROADMAP A13)")
+    """Download an image stack from a URL (reference pipeline.py:9-27)."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from ...io.mrc import read_mrc
+
+    tmp = Path(tempfile.mkdtemp()) / Path(url).name
+    download_file_from_url(url, target_file_name=str(tmp))
+    data, apix = read_mrc(tmp)
+    return np.asarray(data), apix
 
 
+@cache(cache_dir=str(_cache_dir / "denovo3D"), expires_after=7, verbose=0)
 def get_images_from_emdb(emd_id: str):
-    """Not ported: EMDB maps need ROADMAP A13's io/dataset."""
-    raise NotImplementedError("get_images_from_emdb is not ported yet (ROADMAP A13)")
+    """EMDB map -> (map, apix) (reference pipeline.py:29-43)."""
+    from ...io.dataset import EMDB
+
+    return EMDB().read_emdb_map(emd_id)

@@ -1,7 +1,10 @@
 """whereIsMyClass: map 2D class members back to micrograph locations.
 
-Only the compute layer is ported; the Shiny UI (``app.py``) is not
-(ROADMAP A11c).
+``compute`` holds the computation; the Shiny Express ``app`` (it needs
+``shiny``) runs it on ``DEVICE``.
 """
 
-from . import compute  # noqa: F401
+# the device of the app's computations (``app`` reads it at its import)
+DEVICE = "cuda"
+
+from . import compute  # noqa: F401,E402

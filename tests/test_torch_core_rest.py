@@ -60,7 +60,8 @@ def test_calculate_structural_factor_matches_reference(name):
     data = _blobs(shape)
     kw = _sf_args(shape, kw)
     qb_w, sf_w, F_w = ref_filters.calculate_structural_factor(data, apix, return_fft=True, **kw)
-    qb, sf, F = filters.calculate_structural_factor(data, apix, return_fft=True, **kw)
+    qb, sf, F = filters.calculate_structural_factor(data, apix, return_fft=True, device="cpu",
+                                                    **kw)
     np.testing.assert_array_equal(qb, qb_w)
     assert sf.dtype == torch.float32 and _rel(sf, sf_w) < 1e-5
     assert _rel(torch.view_as_real(F), np.stack([np.real(F_w), np.imag(F_w)], -1)) < 1e-5
@@ -75,11 +76,11 @@ def test_set_and_match_structural_factors_match_reference(name):
     kw = _sf_args(shape, kw)
     tb, tsf = ref_filters.calculate_structural_factor(target, apix * 1.1)
     want = ref_filters.set_structural_factors(data, apix, tb, np.asarray(tsf), **kw)
-    got = filters.set_structural_factors(data, apix, tb, np.asarray(tsf), **kw)
+    got = filters.set_structural_factors(data, apix, tb, np.asarray(tsf), device="cpu", **kw)
     assert _rel(got, want) < 1e-5
     kw_t = {k: v for k, v in kw.items() if k != "thresh"}
     want = ref_filters.match_structural_factors(data, apix, target, apix * 1.1, **kw_t)
-    got = filters.match_structural_factors(data, apix, target, apix * 1.1, **kw_t)
+    got = filters.match_structural_factors(data, apix, target, apix * 1.1, device="cpu", **kw_t)
     assert _rel(got, want) < 1e-5
 
 

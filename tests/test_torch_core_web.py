@@ -29,18 +29,19 @@ def _rel(got, want) -> float:
 @pytest.mark.parametrize("seq,angles", [("ZYZ", (20.0, 10.0, -15.0)), ("zyz", (20.0, 10.0, -15.0)),
                                         ("YX", (3.0, -1.0)), ("z", (123.4,))])
 def test_euler_matrix_matches_reference(seq, angles):
-    got = rotation.euler_matrix(seq, angles).numpy()
+    got = rotation.euler_matrix(seq, angles, device="cpu").numpy()
     want = np.asarray(ref_rot.euler_matrix(seq, jnp.asarray(angles, jnp.float32)))
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=1e-6)
     for f, rf in ((rotation.rot_x, ref_rot.rot_x), (rotation.rot_y, ref_rot.rot_y),
                   (rotation.rot_z, ref_rot.rot_z)):
-        np.testing.assert_allclose(f(angles[0]).numpy(), np.asarray(rf(angles[0])), atol=1e-6)
+        np.testing.assert_allclose(f(angles[0], device="cpu").numpy(), np.asarray(rf(angles[0])),
+                                   atol=1e-6)
 
 
 def test_euler_matrix_mixed_case_raises():
     with pytest.raises(ValueError):
-        rotation.euler_matrix("Zy", (1.0, 2.0))
+        rotation.euler_matrix("Zy", (1.0, 2.0), device="cpu")
 
 
 # (data maker, keyword arguments): the inputs of tests/test_transforms.py's
@@ -68,13 +69,13 @@ def test_apply_helical_symmetry_matches_reference(name, monkeypatch):
     make, kw = SYM_CASES[name]
     data = make(np.random.default_rng(42))
     want = np.asarray(ref_tf.apply_helical_symmetry(data, **kw))
-    got = transforms.apply_helical_symmetry(data, **kw)
+    got = transforms.apply_helical_symmetry(data, device="cpu", **kw)
     assert tuple(got.shape) == want.shape
     assert _rel(got, want) < 1e-5
     # the copies run in chunks: one copy a chunk gives the same volume
     monkeypatch.setattr(transforms, "SYM_CHUNK_ELEMS", 1)
-    np.testing.assert_array_equal(transforms.apply_helical_symmetry(data, **kw).numpy(),
-                                  got.numpy())
+    np.testing.assert_array_equal(
+        transforms.apply_helical_symmetry(data, device="cpu", **kw).numpy(), got.numpy())
 
 
 def test_apply_helical_symmetry_sparse_source():
@@ -83,7 +84,7 @@ def test_apply_helical_symmetry_sparse_source():
     vol[22:27, 16, 24] = 100.0
     kw = dict(apix=1.0, twist_degree=23.7, rise_angstrom=4.75, csym=2, new_size=(48, 32, 32),
               new_apix=1.0)
-    got = transforms.apply_helical_symmetry(vol, **kw)
+    got = transforms.apply_helical_symmetry(vol, device="cpu", **kw)
     want = np.asarray(ref_tf.apply_helical_symmetry(vol, **kw))
     assert _rel(got, want) < 1e-5 and float(got.max()) > 0
 
@@ -100,14 +101,14 @@ TRANSFORM_CASES = dict(
 def test_transform_map_matches_reference(name):
     data = np.random.default_rng(42).normal(size=(12, 14, 16)).astype(np.float32)
     kw = TRANSFORM_CASES[name]
-    got = transforms.transform_map(data, **kw)
+    got = transforms.transform_map(data, device="cpu", **kw)
     want = np.asarray(ref_tf.transform_map(data, **kw))
     assert _rel(got, want) < 1e-4
 
 
 def test_transform_map_identity():
     data = np.random.default_rng(42).normal(size=(8, 8, 8)).astype(np.float32)
-    np.testing.assert_array_equal(transforms.transform_map(data).numpy(), data)
+    np.testing.assert_array_equal(transforms.transform_map(data, device="cpu").numpy(), data)
 
 
 @pytest.mark.parametrize("shape,offset", [((4, 6), None), ((4, 6), (1, -2)), ((10, 12), None),
@@ -139,7 +140,7 @@ def test_phase_cross_correlation_matches_reference(shift):
     rng = np.random.default_rng(0)
     ref = rng.standard_normal((64, 64)).astype(np.float32)
     mov = np.roll(np.roll(ref, shift[0], axis=0), shift[1], axis=1)
-    got, _, _ = alignment.phase_cross_correlation(ref, mov)
+    got, _, _ = alignment.phase_cross_correlation(ref, mov, device="cpu")
     want, _, _ = ref_align.phase_cross_correlation(ref, mov)
     np.testing.assert_array_equal(got, want)
 
@@ -148,12 +149,12 @@ def test_orient_helpers_match_reference():
     rng = np.random.default_rng(3)
     vol = rng.uniform(size=(20, 16, 16)).astype(np.float32)
     for kw in (dict(), dict(is_amyloid=True, apix=1.5)):
-        for g, w in zip(orient.generate_xyz_projections(vol, **kw),
+        for g, w in zip(orient.generate_xyz_projections(vol, device="cpu", **kw),
                         ref_orient.generate_xyz_projections(vol, **kw)):
             np.testing.assert_allclose(g.numpy(), w, rtol=1e-6)
     kw = dict(apix=2.0, twist_degree=29.4, rise_angstrom=4.75, csym=1, new_size=(24, 20, 20),
               new_apix=2.5, axial_rotation=5.0, tilt=2.0)
-    got = orient.symmetrize_transform_map(vol, **kw)
+    got = orient.symmetrize_transform_map(vol, device="cpu", **kw)
     want = np.asarray(ref_orient.symmetrize_transform_map(vol, **kw))
     assert got.shape == want.shape and _rel(got, want) < 1e-4
     for args in ((0, 0, 0), (2.345, -1.0, 0.5), (0, 3, 0)):

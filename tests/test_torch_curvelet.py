@@ -57,7 +57,7 @@ def _volume(shape=SHAPE_3D, seed=0):
 @pytest.mark.parametrize("n_scales,n_angles", [(4, 8), (3, 4), (2, 1)])
 def test_windows_2d_match_reference(shape, n_scales, n_angles):
     want, meta_w = ref.curvelet_bands_2d(shape, n_scales, n_angles)
-    got, meta = curvelet.curvelet_bands_2d(shape, n_scales, n_angles)
+    got, meta = curvelet.curvelet_bands_2d(shape, n_scales, n_angles, device="cpu")
     assert meta == meta_w and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
 
@@ -66,15 +66,15 @@ def test_windows_2d_match_reference(shape, n_scales, n_angles):
 def test_windows_3d_match_reference(n_scales, n_dirs):
     """The directional stack (nDirs > 0) and the radial one (nDirs 0)."""
     want, meta_w = ref.curvelet_bands_3d(SHAPE_3D, n_scales, n_dirs)
-    got, meta = curvelet.curvelet_bands_3d(SHAPE_3D, n_scales, n_dirs)
+    got, meta = curvelet.curvelet_bands_3d(SHAPE_3D, n_scales, n_dirs, device="cpu")
     assert meta == meta_w and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
     if n_dirs > 0:
         np.testing.assert_allclose(
-            curvelet._directional_bands_3d(*SHAPE_3D, n_scales, n_dirs)[0].numpy(),
+            curvelet._directional_bands_3d(*SHAPE_3D, n_scales, n_dirs, "cpu")[0].numpy(),
             ref._directional_bands_3d(*SHAPE_3D, n_scales, n_dirs)[0], atol=1e-6, rtol=0)
     else:
-        np.testing.assert_allclose(curvelet._radial_bands_3d(*SHAPE_3D, n_scales).numpy(),
+        np.testing.assert_allclose(curvelet._radial_bands_3d(*SHAPE_3D, n_scales, "cpu").numpy(),
                                    ref._radial_bands_3d(*SHAPE_3D, n_scales), atol=1e-6, rtol=0)
 
 
@@ -186,7 +186,7 @@ def test_denoise_curvelet_2d_matches_reference(shape, transform, sigma):
     got = curvelet.denoise_curvelet_2d(torch.as_tensor(img), transform=transform,
                                        threshold_sigma=sigma, on_band=on_band)
     delta = _hold_masks(seen, _ref_bands_2d(img, transform, sigma),
-                        curvelet.curvelet_bands_2d(shape)[0])
+                        curvelet.curvelet_bands_2d(shape, device="cpu")[0])
     assert got.shape == want.shape and got.dtype == torch.float32
     assert _rel(got.numpy() - delta, want) < 1e-5
 
@@ -200,7 +200,7 @@ def test_denoise_curvelet_3d_matches_reference(n_dirs, sigma):
     got = curvelet.denoise_curvelet_3d(torch.as_tensor(vol), threshold_sigma=sigma,
                                        n_dirs=n_dirs, on_band=on_band)
     delta = _hold_masks(seen, _ref_bands_3d(vol, sigma, n_dirs),
-                        curvelet.curvelet_bands_3d(vol.shape, n_dirs=n_dirs)[0])
+                        curvelet.curvelet_bands_3d(vol.shape, n_dirs=n_dirs, device="cpu")[0])
     assert got.shape == want.shape and _rel(got.numpy() - delta, want) < 1e-5
 
 
@@ -268,7 +268,7 @@ def test_batch_aliases_match_reference(name, monkeypatch):
         assert _rel(g, w) < 1e-5
     same = [_image((24, 24), 9), _image((24, 24), 10)]
     want = np.asarray(getattr(ref, name)(same))
-    got = getattr(curvelet, name)(same)
+    got = getattr(curvelet, name)(same, device="cpu")
     assert torch.is_tensor(got) and _rel(got, want) < 1e-5
 
 

@@ -160,7 +160,11 @@ def test_port_imports_no_jax():
             "helicon_tpu_torch.commands.symmetry_mismatch, "
             "helicon_tpu_torch.commands.cryosparc, helicon_tpu_torch.ops.cryosparc, "
             "helicon_tpu_torch.ops.cryosparc.exposure_ops, "
-            "helicon_tpu_torch.ops.cryosparc.extract, helicon_tpu_torch.io.dataset, sys; "
+            "helicon_tpu_torch.ops.cryosparc.extract, helicon_tpu_torch.io.dataset, "
+            "helicon_tpu_torch.clustering, helicon_tpu_torch.utils.shiny, "
+            "helicon_tpu_torch.commands.helicon, helicon_tpu_torch.commands._launchers, "
+            "helicon_tpu_torch.commands.denovo3D, helicon_tpu_torch.commands.whereIsMyClass, "
+            "helicon_tpu_torch.commands.hill, helicon_tpu_torch.commands.map2seq, sys; "
             "assert 'jax' not in sys.modules and 'helicon_tpu' not in sys.modules "
-            "and 'helicon' not in sys.modules")
+            "and 'helicon' not in sys.modules and 'sklearn' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)

@@ -100,7 +100,7 @@ def test_compute_power_spectra_matches_reference(images, kw):
     wrapped (atan2 of coefficients near zero)."""
     img = images[(30, 8, 3)]
     want_pwr, want_phase = _ref_spectra(img, **kw)
-    pwr, phase = transforms.compute_power_spectra(img, apix=APIX, **kw)
+    pwr, phase = transforms.compute_power_spectra(img, apix=APIX, device="cpu", **kw)
     assert pwr.shape == want_pwr.shape and pwr.dtype == torch.float32
     assert np.abs(pwr.numpy() - want_pwr).max() <= 1e-5
     big = np.abs(np.asarray(ref_tf.fft_rescale(img, apix=APIX, **{
@@ -113,7 +113,7 @@ def test_compute_power_spectra_map_matches_reference():
     """A 3D map takes the map path (the reference's fft_rescale in 3D)."""
     vol = np.random.default_rng(3).standard_normal((20, 22, 24)).astype(np.float32)
     want, _ = _ref_spectra(vol)
-    got, _ = transforms.compute_power_spectra(vol, apix=APIX)
+    got, _ = transforms.compute_power_spectra(vol, apix=APIX, device="cpu")
     assert np.abs(got.numpy() - want).max() <= 1e-5
 
 
@@ -123,9 +123,9 @@ def test_compute_power_spectra_map_matches_reference():
 def test_power_spectra_batch_equals_each_image(kw, shape):
     """The batched form: every image bit for bit its own call's."""
     imgs = np.random.default_rng(4).standard_normal(shape).astype(np.float32)
-    pwr, phase = transforms.compute_power_spectra_batch(imgs, apix=APIX, **kw)
+    pwr, phase = transforms.compute_power_spectra_batch(imgs, apix=APIX, device="cpu", **kw)
     for i in range(shape[0]):
-        p1, ph1 = transforms.compute_power_spectra(imgs[i], apix=APIX, **kw)
+        p1, ph1 = transforms.compute_power_spectra(imgs[i], apix=APIX, device="cpu", **kw)
         assert torch.equal(pwr[i], p1) and torch.equal(phase[i], ph1)
 
 
@@ -135,7 +135,7 @@ def test_power_spectra_batch_matches_reference_vmap(images):
     imgs = np.stack([images[g] for g in GEOMETRIES])
     want = np.asarray(jax.jit(jax.vmap(lambda im: ref_tf.compute_power_spectra(im, apix=APIX)[0]))(
         jnp.asarray(imgs)))
-    got, _ = transforms.compute_power_spectra_batch(imgs, apix=APIX)
+    got, _ = transforms.compute_power_spectra_batch(imgs, apix=APIX, device="cpu")
     assert np.abs(got.numpy() - want).max() <= 2e-4
 
 
@@ -259,8 +259,8 @@ def test_electron_wavelength_and_ctf_1d_match_reference():
     s = np.linspace(0, 0.5, 500)
     for kw in (dict(), dict(defocus_um=3.0, bfactor=50.0, phase_shift_deg=30.0),
                dict(defocus_um=0.5, voltage_kv=200.0, amp_contrast=0.1)):
-        np.testing.assert_allclose(ctf.ctf_1d(s, **kw).numpy(), np.asarray(ref_ctf.ctf_1d(s, **kw)),
-                                   atol=2e-7)
+        np.testing.assert_allclose(ctf.ctf_1d(s, device="cpu", **kw).numpy(),
+                                   np.asarray(ref_ctf.ctf_1d(s, **kw)), atol=2e-7)
 
 
 def _gamma_ulps(shape, apix, defocus_A) -> float:
@@ -281,7 +281,7 @@ def _gamma_ulps(shape, apix, defocus_A) -> float:
 ])
 def test_ctf_2d_matches_reference(shape, kw):
     want = np.asarray(ref_ctf.ctf_2d(shape, apix=1.0, **kw))
-    got = ctf.ctf_2d(shape, apix=1.0, **kw)
+    got = ctf.ctf_2d(shape, apix=1.0, device="cpu", **kw)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert np.abs(got.numpy() - want).max() <= _gamma_ulps(shape, 1.0, kw["defocus_u_A"])
 
@@ -292,12 +292,13 @@ def test_ctf_2d_stack_matches_reference_vmap():
     want = np.asarray(jax.vmap(lambda u: ref_ctf.ctf_2d(
         (128, 128), apix=1.3, defocus_u_A=u, defocus_v_A=u * 0.9, astig_angle_deg=30.0))(
         jnp.asarray(d)))
-    got = ctf.ctf_2d((128, 128), 1.3, defocus_u_A=d, defocus_v_A=d * np.float32(0.9),
+    got = ctf.ctf_2d((128, 128), 1.3, defocus_u_A=d, defocus_v_A=d * np.float32(0.9), device="cpu",
                      astig_angle_deg=30.0)
     assert got.shape == (3, 128, 128)
     assert np.abs(got.numpy() - want).max() <= _gamma_ulps((128, 128), 1.3, 20000.0)
     one = ctf.ctf_2d((128, 128), 1.3, defocus_u_A=float(d[1]),
-                     defocus_v_A=float(d[1] * np.float32(0.9)), astig_angle_deg=30.0)
+                     defocus_v_A=float(d[1] * np.float32(0.9)), astig_angle_deg=30.0,
+                     device="cpu")
     assert torch.equal(got[1], one)
 
 
@@ -364,7 +365,7 @@ def test_batched_cross_correlation_chunks_and_shift_rule():
 def test_cross_correlation_map_matches_reference():
     cl, sg = _xcorr_inputs()
     want = np.asarray(ref_xcorr.cross_correlation_map(cl[1], sg[3]))
-    got = xcorr.cross_correlation_map(cl[1], sg[3]).numpy()
+    got = xcorr.cross_correlation_map(cl[1], sg[3], device="cpu").numpy()
     assert np.abs(got - want).max() <= 1e-6
 
 

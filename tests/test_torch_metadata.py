@@ -159,10 +159,7 @@ def test_copy_has_every_public_name(key):
         n for n, v in vars(ref).items()
         if not n.startswith("_") and callable(v) and getattr(v, "__module__", "") == ref.__name__]
     missing = [n for n in names if not hasattr(port, n)]
-    if key == "io.mrc":
-        assert missing == ["display_map_orthoslices"]  # matplotlib viewer, not ported
-    else:
-        assert missing == []
+    assert missing == []
 
 
 # ---------------------------------------------------------------------------
@@ -411,7 +408,9 @@ def test_assign_beamshifts_to_cluster_matches():
     g = np.random.default_rng(0)
     xy = np.concatenate([g.normal(0, 0.001, (6, 2)), g.normal(0.05, 0.001, (6, 2))])
     pytest.importorskip("sklearn")
-    _same("io.metadata", "assign_beamshifts_to_cluster", xy, 2)
+    ref_md, port_md = MODS["io.metadata"]
+    _assert_same(ref_md.assign_beamshifts_to_cluster(xy.copy(), 2),
+                 port_md.assign_beamshifts_to_cluster(xy.copy(), 2, device="cpu"))
 
 
 def test_connect_cryosparc_without_package_matches(monkeypatch):
@@ -422,10 +421,18 @@ def test_connect_cryosparc_without_package_matches(monkeypatch):
 
 
 def test_sklearn_absent_raises_like_reference(monkeypatch):
+    """Without scikit-learn the reference raises; the port's clustering
+    needs none and runs (on the CPU here), with the same labels the
+    reference gives where scikit-learn is present."""
+    xy = np.array([[0.0, 0.0], [0.001, 0.0], [1.0, 1.0], [1.0, 1.001]])
+    want = MODS["io.metadata"][0].assign_beamshifts_to_cluster(xy, 2)
     monkeypatch.setitem(sys.modules, "sklearn", None)
     monkeypatch.setitem(sys.modules, "sklearn.cluster", None)
-    r = _same("io.metadata", "assign_beamshifts_to_cluster", np.zeros((4, 2)), 2)
-    assert r[0] == "raised"
+    monkeypatch.setitem(sys.modules, "sklearn.metrics", None)
+    with pytest.raises(ImportError):
+        MODS["io.metadata"][0].assign_beamshifts_to_cluster(xy, 2)
+    got = MODS["io.metadata"][1].assign_beamshifts_to_cluster(xy, 2, device="cpu")
+    _assert_same(want, got)
 
 
 # ---------------------------------------------------------------------------

@@ -42,19 +42,20 @@ def amyloid():
 @pytest.mark.parametrize("target_apix", [4.0, 3.0])
 def test_down_scale(amyloid, target_apix):
     ref = np.asarray(ref_filters.down_scale(amyloid, target_apix, 2.0))
-    out = port_filters.down_scale(amyloid, target_apix, 2.0).numpy()
+    out = port_filters.down_scale(amyloid, target_apix, 2.0, device="cpu").numpy()
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, atol=1e-5)
 
 
 def test_down_scale_same_pixel_size_is_identity(amyloid):
-    np.testing.assert_array_equal(port_filters.down_scale(amyloid, 2.0, 2.0).numpy(), amyloid)
+    np.testing.assert_array_equal(port_filters.down_scale(amyloid, 2.0, 2.0, device="cpu").numpy(),
+                                  amyloid)
 
 
 @pytest.mark.parametrize("rotation", [7.5, -31.0])
 def test_transform_image_rotation(amyloid, rotation):
     ref = np.asarray(ref_transforms.transform_image(amyloid, rotation=rotation))
-    out = port_transforms.transform_image(amyloid, rotation=rotation).numpy()
+    out = port_transforms.transform_image(amyloid, rotation=rotation, device="cpu").numpy()
     np.testing.assert_allclose(out, ref, atol=1e-5)
 
 
@@ -123,15 +124,15 @@ def test_order0_transforms(amyloid, fn):
     had order 0). Exact where no sample lands within float32 rounding of a
     half-pixel; the count of differing pixels is held at zero."""
     img = amyloid[:, 64:192]
-    calls = dict(transform_image=lambda m: m.transform_image(img, rotation=12.5, mode="edge",
-                                                              order=0),
-                 rotate_shift_image=lambda m: m.rotate_shift_image(img, angle=-7.0,
-                                                                   post_shift=(1.5, -2.0),
-                                                                   order=0),
-                 get_rotated_clip=lambda m: m.get_rotated_clip(img, 10.0, 5.0, 50.0, 120.0, 24,
-                                                               order=0))
-    ref = np.asarray(calls[fn](ref_transforms))
-    out = calls[fn](port_transforms).numpy()
+    calls = dict(transform_image=lambda m, x: m.transform_image(x, rotation=12.5, mode="edge",
+                                                                 order=0),
+                 rotate_shift_image=lambda m, x: m.rotate_shift_image(x, angle=-7.0,
+                                                                      post_shift=(1.5, -2.0),
+                                                                      order=0),
+                 get_rotated_clip=lambda m, x: m.get_rotated_clip(x, 10.0, 5.0, 50.0, 120.0, 24,
+                                                                  order=0))
+    ref = np.asarray(calls[fn](ref_transforms, img))
+    out = calls[fn](port_transforms, torch.as_tensor(np.ascontiguousarray(img))).numpy()
     assert out.shape == ref.shape
     np.testing.assert_array_equal(out, ref)
 

@@ -40,7 +40,7 @@ def helix_image():
         planarity=1.0, ny=32, nx=48, apix=2.0, rng=0))).astype(np.float32)
 
 
-def test_facade_names_match_reference():
+def test_facade_names_match_reference(tmp_path, monkeypatch):
     for mod in ("pipeline", "solver_linear_regression", "utils", "workflow"):
         assert hasattr(port_app, mod)
     assert set(wf.__all__) == set(ref_wf.__all__)
@@ -50,9 +50,33 @@ def test_facade_names_match_reference():
         got = {n for n in dir(getattr(port_app, mod)) if not n.startswith("_")}
         assert want - {"cache", "setup_cache_dir", "download_file_from_url"} <= got, want - got
     assert wf.URLS == ref_wf.URLS and wf.DEFAULT_URL_KEY == ref_wf.DEFAULT_URL_KEY
-    for name in ("get_images_from_url", "get_images_from_emdb"):
-        with pytest.raises(NotImplementedError, match="A13"):
-            getattr(port_app.pipeline, name)("x")
+    # the URL and EMDB loaders (ported; the download and the EMDB read
+    # mocked here, past their disk caches)
+    from helicon_tpu_torch.io import dataset
+    from helicon_tpu_torch.io.mrc import write_mrc
+
+    stack = np.random.default_rng(1).random((3, 8, 10)).astype(np.float32)
+    write_mrc(tmp_path / "src.mrcs", stack, apix=1.5)
+
+    def fake_download(url, target_file_name=None, return_filename=False):
+        import shutil
+
+        shutil.copy(tmp_path / "src.mrcs", target_file_name)
+
+    got = []
+    for mod in (ref_app.pipeline, port_app.pipeline):
+        monkeypatch.setattr(mod, "download_file_from_url", fake_download)
+        load = getattr(mod.get_images_from_url, "func", mod.get_images_from_url)
+        got.append(load("https://example.org/classes/s.mrcs"))
+    for data, apix in got:
+        np.testing.assert_array_equal(data, stack)
+        assert apix == got[0][1]
+    monkeypatch.setattr(dataset.EMDB, "read_emdb_map", lambda self, emd_id: (stack[0], 2.0))
+    load = getattr(port_app.pipeline.get_images_from_emdb, "func",
+                   port_app.pipeline.get_images_from_emdb)
+    data, apix = load("EMD-0000")
+    np.testing.assert_array_equal(data, stack[0])
+    assert apix == 2.0
 
 
 def test_get_images_from_file(tmp_path):

@@ -5,7 +5,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds the port's kernels from the sources in the
-checkout, then runs eighteen phases and fails (non-zero exit) if any fails:
+checkout, then runs nineteen phases and fails (non-zero exit) if any fails:
 
 1. the card's name and power limit, the torch and CUDA versions, the
    kernel build time;
@@ -132,8 +132,10 @@ checkout, then runs eighteen phases and fails (non-zero exit) if any fails:
    process, and at that refined candidate's tables K1-K4, one
    Gauss-Newton step and the whole refinement against plain (phase 10
    (c)'s gates); (c) --imageIndex 0: .batch.json with two equal rows; (d)
-   phase 8 (a)'s wide-rise grid at its iterations in two processes on the
-   one card, with the environment torchrun sets, against one process: in
+   phase 8 (a)'s wide-rise grid cut to its first 45 twists (0.5-11.5 deg,
+   1,485 candidates, the same four rise buckets) at its iterations in two
+   processes on the one card, with the environment torchrun sets, against
+   one process: in
    float32 (the same top-10, scores within 1e-4) and in the CLI's default
    bfloat16 (the same top-10, scores within 1e-3), each rank's wall,
    candidates, launches, peak memory and exchange time; and the one
@@ -310,6 +312,21 @@ checkout, then runs eighteen phases and fails (non-zero exit) if any fails:
    Class2D project and builds its micrograph figure, the micrograph equal
    to the CPU's within 1e-5 of its range.
    No hand-written kernel of its own: none of these reaches a TPU kernel.
+19. Several devices in one process, the analytic cost and a structured
+   tree: (a) phase 4's bf16 grid with devices=[cuda:0, cuda:0] (two
+   shards of the twist groups on the card, each driven by a thread of its
+   own) and, where the machine has several cards, on every card (their
+   names printed): the scores within 1e-3 of phase 4's one-device run
+   with the same top-10, how many equal bit for bit, B1 launched, and
+   each shard's first B1 launch against its plain version on the same
+   card tensors (bf16 gates 1e-3 / 5e-3); the same on the 45-candidate
+   golden in float32 (within 1e-5 of one device; the launches at 1e-4 /
+   1e-3) and on phase 9 (a)'s per-candidate call through B2 (1e-3; each
+   shard's first B2 launch against plain); (b) phase 4's search with
+   cost_analysis=True: its cost and the analytic FLOPs x candidates over
+   the wall as TFLOP/s and as a share of 989 TFLOP/s bf16; (c) phase 18
+   (b)'s ward tree over a 10-nearest-neighbour graph built on the card:
+   the labels equal to the device="cpu" run's, its wall.
 
 A line before phase 1 lists which optional host packages the machine
 has. The last two lines of standard output are the card's name and power
@@ -320,8 +337,9 @@ bucketed path of
 phase 8, B2's on phase 9's per-candidate searches too, with its matvec
 entry and its j-dependent z-Gram; K1-K4's on phases 9 (b) and 10 (d)),
 and on phase 11's CLI runs (launches_cli; B1's and B2's first float32
-launches of (d) against plain, cli_wide_float32) and phase 12's
-(launches_webapp), its error against the
+launches of (d) against plain, cli_wide_float32), phase 12's
+(launches_webapp) and phase 19 (a)'s sharded searches (launches_sharded,
+each counted from 0 just before its search), its error against the
 plain version, its time, the plain version's time and the least time the card could take for the same work
 (inputs larger than the 50 MB L2 counted once per matvec that reads them;
 bound_two_pass_ms counts the stacked operand once per product).
@@ -2580,15 +2598,16 @@ def phase_refine_all(device, card) -> dict:
 # ---------------------------------------------------------------------------
 
 CLI = [sys.executable, "-m", "helicon_tpu_torch.commands.denovo3d_cli"]
-# phase 4's grid (2,327 candidates) and phase 8 (a)'s (5,907) as CLI flags
+# phase 4's grid (2,327 candidates) as CLI flags
 CLI_GRID = "--apix 2 --twist 0.5 45 0.25 --rise 4 5 0.08 --handedness left --tubeDiameter 110"
-# phase 11 (d) at phase 8 (a)'s iterations (the bench's), not the CLI's
+# phase 11 (d) on phase 8 (a)'s rises (its four buckets) over its first 45
+# twists, at its iterations (the bench's), not the CLI's
 # 100 / 40; in float32 and in the CLI's default bfloat16: a process's slice
 # of a bucket holds other twist groups (fewer rises each) than the
 # one-process run, and bf16 sums of other shapes move scores by ~2e-4 (C9;
 # 2.65e-4 with the same top-10 on the card), so the split itself is held
 # at 1e-4 in float32 and bf16 at its own 1e-3
-CLI_WIDE = ("--apix 2 --twist 0.5 45 0.25 --rise 2 10 0.25 --handedness left --tubeDiameter 110 "
+CLI_WIDE = ("--apix 2 --twist 0.5 11.5 0.25 --rise 2 10 0.25 --handedness left --tubeDiameter 110 "
             "--cgIters 10 --fistaIters 16")
 GATHER_KERNELS = ("gather_project", "gather_backproject", "gather_normal", "sample_table",
                   "pose_jacobian", "sym_items", "sym_normal")
@@ -2815,21 +2834,65 @@ def _two_processes(work: Path, tail: str, dtype: str, limit: float, card) -> dic
 
 
 @contextlib.contextmanager
-def _first_call(module, name: str):
-    """module.name wrapped: yields a dict that holds its first call's
-    arguments (args, kw)."""
-    real, first = getattr(module, name), {}
+def _first_calls(module, name: str):
+    """module.name wrapped: yields a dict that holds, by calling thread (a
+    shard of a search on several devices), its first call there: (args,
+    kw, result)."""
+    import threading
+
+    real, first, lock = getattr(module, name), {}, threading.Lock()
 
     def wrapped(*args, **kw):
-        if not first:
-            first.update(args=args, kw=kw)
-        return real(*args, **kw)
+        out = real(*args, **kw)
+        with lock:
+            first.setdefault(threading.get_ident(), (args, kw, out))
+        return out
 
     setattr(module, name, wrapped)
     try:
         yield first
     finally:
         setattr(module, name, real)
+
+
+def _hold_first_launches(label: str, first: dict, kernel: str, card) -> list:
+    """Each shard's first B1 (kernel "B1": group_solve.solve_group, its x
+    and scores) or B2 (solve_candidate_kernel, its x) launch of a sharded
+    search against its plain version on the same card tensors: float32 at
+    phase 2's gates (scores 1e-4, x 1e-3 relative), bfloat16 at its own
+    (1e-3, 5e-3)."""
+    import torch
+
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs
+    from helicon_tpu_torch.denovo3d import group_solve as gs
+
+    if not first:
+        raise AssertionError(f"{label}: no {kernel} launch on the sharded path")
+    out = []
+    for args, kw, got in first.values():
+        inp = args[0]
+        bf16 = inp.a_top.dtype == torch.bfloat16
+        s_tol, x_tol = (1e-3, 5e-3) if bf16 else (1e-4, 1e-3)
+        if kernel == "B1":
+            (x_k, s_k), (x_p, s_p) = got, gs.solve_group_reference(inp, *args[1:], **kw)
+        else:
+            x_k, x_p = got, cs.solve_candidate_reference(inp, *args[1:], **kw)
+            s_k = s_p = None
+        torch.cuda.synchronize()
+        x_rel = float((x_k - x_p).abs().max() / x_p.abs().max().clamp_min(1e-30))
+        s_err = None if s_k is None else float((s_k - s_p).abs().max())
+        ok = (bool(torch.isfinite(x_k).all()) and x_rel <= x_tol
+              and (s_err is None or s_err <= s_tol))
+        print(f"{label}: a shard's first {kernel} launch on {inp.a_top.device}, "
+              f"{inp.a_top.dtype}, shape {tuple(inp.shape)}, against plain x rel err "
+              f"{x_rel:.3e} (limit {x_tol:g})"
+              + ("" if s_err is None else f", score abs err {s_err:.3e} (limit {s_tol:g})")
+              + f"; {card}", flush=True)
+        if not ok:
+            raise AssertionError(f"{label}: a shard's first {kernel} launch differs from plain "
+                                 f"({x_rel}, {s_err})")
+        out.append(dict(x_rel_err=x_rel, score_abs_err=s_err, shape=tuple(inp.shape)))
+    return out
 
 
 def _hold_wide_launches(device, work: Path, tail: str, card) -> dict:
@@ -2843,44 +2906,25 @@ def _hold_wide_launches(device, work: Path, tail: str, card) -> dict:
     from helicon_tpu_torch.denovo3d import candidate_solve as cs
     from helicon_tpu_torch.denovo3d import group_solve as gs
 
-    with _first_call(gs, "solve_group") as b1, _first_call(cs, "solve_candidate_kernel") as b2:
+    with _first_calls(gs, "solve_group") as b1, _first_calls(cs, "solve_candidate_kernel") as b2:
         res, wall = _in_process(work / "amyloid2.mrcs", tail, device)
     out = {}
-    for name, first, kernel, plain in (("B1", b1, gs.solve_group, gs.solve_group_reference),
-                                       ("B2", b2, cs.solve_candidate_kernel,
-                                        cs.solve_candidate_reference)):
-        if not first:
-            raise AssertionError(f"phase 11 (d): the float32 search made no {name} launch")
-        inp, args, kw = first["args"][0], first["args"][1:], first["kw"]
-        if name == "B1":  # (x, scores; None unless the kernel scores)
-            (x_k, s_k), (x_p, s_p) = kernel(inp, *args, **kw), plain(inp, *args, **kw)
-        else:
-            x_k, x_p = kernel(inp, *args, **kw), plain(inp, *args, **kw)
-            s_k = s_p = None
-        torch.cuda.synchronize()
-        x_rel = float((x_k - x_p).abs().max() / x_p.abs().max().clamp_min(1e-30))
-        s_err = None if s_k is None else float((s_k - s_p).abs().max())
-        if name == "B1" and s_err is None:
-            raise AssertionError("phase 11 (d): the float32 B1 launch returned no scores")
-        print(f"phase 11 (d) [float32, in process, {wall:.3f} s: its first {name} launch, "
-              f"{inp.a_top.dtype}, shape {tuple(inp.shape)}]: against plain x rel err "
-              f"{x_rel:.3e} (limit 1e-3)"
-              + ("" if s_err is None else f", score abs err {s_err:.3e} (limit 1e-4)")
-              + f"; {card}", flush=True)
-        if (inp.a_top.dtype != torch.float32 or not bool(torch.isfinite(x_k).all())
-                or not (x_rel <= 1e-3) or (s_err is not None and not (s_err <= 1e-4))):
-            raise AssertionError(f"phase 11 (d): the float32 {name} launch differs from plain "
-                                 f"({x_rel}, {s_err})")
-        out[name] = dict(x_rel_err=x_rel, score_abs_err=s_err, shape=tuple(inp.shape))
-        del x_k, x_p
-    del b1["args"], b2["args"], res
+    for name, first in (("B1", b1), ("B2", b2)):
+        held = _hold_first_launches(f"phase 11 (d) [float32, in process, {wall:.3f} s]", first,
+                                    name, card)[0]
+        inp = next(iter(first.values()))[0][0]
+        if inp.a_top.dtype != torch.float32 or (name == "B1" and held["score_abs_err"] is None):
+            raise AssertionError(f"phase 11 (d): the search's first {name} launch is not a "
+                                 "scored float32 one")
+        out[name] = held
+    del b1, b2, res
     torch.cuda.empty_cache()
     return out
 
 
 def phase_cli_two_processes(device, card) -> dict:
-    """Phase 11 (d): the CLI on phase 8 (a)'s wide-rise grid (5,907
-    candidates, four rise buckets; its iterations, CLI_WIDE) in two
+    """Phase 11 (d): the CLI on phase 8 (a)'s wide-rise grid cut to 45
+    twists (1,485 candidates, four rise buckets; its iterations, CLI_WIDE) in two
     processes on the one card against one process: in float32 (limit 1e-4)
     and in the CLI's default bfloat16 (limit 1e-3, phase 2's bf16 gate),
     then the float32 search's first B1 and B2 launches against plain."""
@@ -5504,6 +5548,19 @@ def phase_beamshifts(device, card) -> dict:
                 subset_s=sub_s, subset_cpu_s=sub_cpu_s)
 
 
+def _agglomerative_points():
+    """Phase 18 (b)'s points: 40 clusters of 2D points plus scattered ones."""
+    import numpy as np
+
+    c = PH18_AGG
+    g = np.random.default_rng(c["seed"])
+    centres = g.uniform(0, 100, (c["clusters"], 2))
+    n_in = c["n"] - c["scattered"]
+    return np.concatenate([centres[g.integers(0, c["clusters"], n_in)]
+                           + g.normal(0, 1.0, (n_in, 2)),
+                           g.uniform(0, 100, (c["scattered"], 2))])
+
+
 def phase_agglomerative(device, card) -> dict:
     """Phase 18 (b): see the module docstring."""
     import numpy as np
@@ -5511,12 +5568,7 @@ def phase_agglomerative(device, card) -> dict:
     from helicon_tpu_torch.clustering import AgglomerativeClusteringWithMinSize
 
     c = PH18_AGG
-    g = np.random.default_rng(c["seed"])
-    centres = g.uniform(0, 100, (c["clusters"], 2))
-    n_in = c["n"] - c["scattered"]
-    X = np.concatenate([centres[g.integers(0, c["clusters"], n_in)]
-                        + g.normal(0, 1.0, (n_in, 2)),
-                        g.uniform(0, 100, (c["scattered"], 2))])
+    X = _agglomerative_points()
     kw = dict(min_cluster_size=c["min_size"], n_clusters=c["n_clusters"], linkage="ward")
     _peak_gib(reset=True)
     card_fit, wall = _sync_wall(lambda: AgglomerativeClusteringWithMinSize(
@@ -5789,6 +5841,181 @@ def phase_surface(device, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: several devices in one process, the analytic cost, and a ward
+# tree over a connectivity graph
+# ---------------------------------------------------------------------------
+
+PH19_KNN = 10  # neighbours a point in (c)'s graph
+
+
+def _same_scores(label, got, want, limit, card, extra="") -> dict:
+    """A sharded run's scores against the one-device run's: every score
+    within limit and the same top-10 (in order); prints the count equal
+    bit for bit."""
+    import numpy as np
+
+    err = float(np.abs(np.float64(got) - np.float64(want)).max())
+    k = min(10, len(want))
+    top_same = np.array_equal(np.argsort(-got, kind="stable")[:k],
+                              np.argsort(-want, kind="stable")[:k])
+    equal = int(np.count_nonzero(got == want))
+    print(f"{label}: against one device{extra}, max |d score| {err:.3e} (limit {limit:g}), "
+          f"top-{k} {'the same' if top_same else 'DIFFERENT'}, {equal} of {len(want)} scores "
+          f"equal bit for bit; {card}", flush=True)
+    if not (err <= limit and top_same and np.all(np.isfinite(got))):
+        raise AssertionError(f"{label}: the sharded scores differ from one device's")
+    return dict(max_abs_err=err, equal=equal, n=len(want))
+
+
+def _shard_sets(device) -> list:
+    """(label, devices): two shards on the card, and where the machine has
+    more than one card, every card."""
+    import torch
+
+    sets = [("two shards on cuda:0", [device, device])]
+    n = torch.cuda.device_count()
+    if n > 1:
+        names = ", ".join(f"cuda:{i} {torch.cuda.get_device_name(i)}" for i in range(n))
+        sets.append((f"every card ({names})", list(range(n))))
+    return sets
+
+
+def phase_devices(device, card, phase4_scores, bucketed) -> dict:
+    """Phase 19 (a): see the module docstring."""
+    import numpy as np
+
+    from helicon_tpu_torch.denovo3d import candidate_solve as cs
+    from helicon_tpu_torch.denovo3d import group_solve as gs
+    from helicon_tpu_torch.denovo3d import reconstruct_grid
+
+    out = {}
+    tw, ri = _real_size_grid()
+    for label, devs in _shard_sets(device):
+        with _first_calls(gs, "solve_group") as first:
+            res, launches, wall, peak = _search(device, tw, ri, devices=devs,
+                                                return_best_volume=False)
+        e = res.effective
+        tag = f"phase 19 (a) [phase 4's grid, {e['compute_dtype']}, {label}]"
+        print(f"{tag}: {len(tw)} candidates in {wall:.3f} s ({len(tw) / wall:.1f}/s), shards "
+              f"{json.dumps(e['shards'])}, {launches} B1 launches, peak {peak:.2f} GiB; "
+              f"{card}", flush=True)
+        if launches <= 0:
+            raise AssertionError(f"{tag}: the sharded search launched no B1")
+        out[label] = dict(_same_scores(tag, res.scores, phase4_scores, 1e-3, card,
+                                       " (phase 4)"),
+                          wall=wall, launches=launches,
+                          held=_hold_first_launches(tag, first, "B1", card))
+        del first, res
+    # the golden in float32, one device and two shards
+    tw_g, ri_g = _golden_grid()
+    one, _, _, _ = _search(device, tw_g, ri_g, compute_dtype="float32", return_best_volume=False)
+    with _first_calls(gs, "solve_group") as first:
+        res, launches, wall, _ = _search(device, tw_g, ri_g, compute_dtype="float32",
+                                         devices=[device, device], return_best_volume=False)
+    tag = "phase 19 (a) [the golden, float32, two shards on cuda:0]"
+    out["golden"] = dict(_same_scores(tag, res.scores, one.scores, 1e-5, card),
+                         launches=launches, held=_hold_first_launches(tag, first, "B1", card))
+    if launches <= 0:
+        raise AssertionError(f"{tag}: the sharded search launched no B1")
+    # phase 9 (a)'s per-candidate call (B2), bfloat16
+    second = [c for c in bucketed["calls"] if not c["volume"] and len(np.unique(c["rises"])) == 1]
+    call = max(second, key=lambda c: len(c["twists"]))
+    img = np.load(AMYLOID)
+    kw = dict(apix=2.0, twists=call["twists"], rises=call["rises"], tube_diameter=110.0,
+              cg_iters=10, fista_iters=16, power_iters=2, device=device,
+              return_best_volume=False)
+    one = reconstruct_grid(img, **kw)
+    with _first_calls(cs, "solve_candidate_kernel") as first:
+        before = _b2_count()
+        res = reconstruct_grid(img, devices=[device, device], **kw)
+        b2 = _b2_count() - before
+    e = res.effective
+    tag = (f"phase 19 (a) [phase 9 (a)'s per-candidate call, {len(call['twists'])} candidates, "
+           f"{e['compute_dtype']}, two shards on cuda:0]")
+    print(f"{tag}: shards {json.dumps(e['shards'])}, {b2} B2 launches; {card}", flush=True)
+    if e["path"] != "percand" or b2 <= 0:
+        raise AssertionError(f"{tag}: not per candidate, or no B2 launch")
+    out["percand"] = dict(_same_scores(tag, res.scores, one.scores, 1e-3, card),
+                          launches=b2, held=_hold_first_launches(tag, first, "B2", card))
+    return out
+
+
+def phase_cost(device, card) -> dict:
+    """Phase 19 (b): see the module docstring."""
+    import numpy as np
+
+    tw, ri = _real_size_grid()
+    res, launches, wall, _ = _search(device, tw, ri, cost_analysis=True,
+                                     return_best_volume=False)
+    c, e = res.cost, res.effective
+    if (c is None or c.get("source") != "analytic" or not c["analytic_flops_per_candidate"] > 0
+            or launches <= 0 or not np.all(np.isfinite(res.scores))):
+        raise AssertionError(f"phase 19 (b): no analytic cost, or the search failed ({c})")
+    total = c["analytic_flops_per_candidate"] * len(tw)
+    rate, rate_search = total / wall, total / e["search_s"]
+    print(f"phase 19 (b) [phase 4's search, cost_analysis=True, {e['compute_dtype']}, "
+          f"{len(tw)} candidates, {launches} B1 launches]: cost {json.dumps(c)}; analytic: "
+          f"{c['analytic_flops_per_candidate']:.4e} FLOP a candidate x {len(tw)} over the "
+          f"{wall:.3f} s wall = {rate / 1e12:.2f} TFLOP/s, {rate / PEAK_BF16:.2%} of "
+          f"{PEAK_BF16 / 1e12:.0f} TFLOP/s bf16 (over the scoring pass alone, "
+          f"{e['search_s']:.3f} s: {rate_search / 1e12:.2f} TFLOP/s, "
+          f"{rate_search / PEAK_BF16:.2%}); {card}", flush=True)
+    return dict(cost=c, wall=wall, search_s=e["search_s"], tflops=rate / 1e12,
+                tflops_search=rate_search / 1e12, launches=launches)
+
+
+def _knn_graph(X, k: int, device):
+    """The k-nearest-neighbour graph of the rows of X (itself excluded) as
+    a scipy CSR matrix of ones, its distances on ``device`` (float64)."""
+    import numpy as np
+    import torch
+    from scipy import sparse
+
+    xd = torch.as_tensor(X, dtype=torch.float64, device=device)
+    sq = (xd * xd).sum(1)
+    n, cols = len(X), []
+    for s in range(0, n, 1024):
+        d = sq[s:s + 1024, None] - 2 * xd[s:s + 1024] @ xd.T + sq[None]
+        d[torch.arange(d.shape[0], device=device), torch.arange(s, s + d.shape[0],
+                                                                 device=device)] = torch.inf
+        cols.append(d.topk(k, largest=False).indices.cpu().numpy())
+    cols = np.concatenate(cols)
+    return sparse.csr_matrix((np.ones(n * k), (np.repeat(np.arange(n), k), cols.ravel())),
+                             shape=(n, n))
+
+
+def phase_structured_ward(device, card) -> dict:
+    """Phase 19 (c): see the module docstring."""
+    import numpy as np
+
+    from helicon_tpu_torch.clustering import AgglomerativeClusteringWithMinSize
+
+    c = PH18_AGG
+    X = _agglomerative_points()
+    graph, graph_s = _sync_wall(lambda: _knn_graph(X, PH19_KNN, device))
+    kw = dict(min_cluster_size=c["min_size"], n_clusters=c["n_clusters"], linkage="ward",
+              connectivity=graph)
+    card_fit, wall = _sync_wall(lambda: AgglomerativeClusteringWithMinSize(
+        device=device, **kw).fit(X))
+    t0 = time.perf_counter()
+    cpu_fit = AgglomerativeClusteringWithMinSize(device="cpu", **kw).fit(X)
+    cpu_s = time.perf_counter() - t0
+    equal = bool(np.array_equal(card_fit.labels_, cpu_fit.labels_))
+    sizes = np.bincount(card_fit.labels_)
+    print(f"phase 19 (c) [AgglomerativeClusteringWithMinSize ward over a {PH19_KNN}-nearest-"
+          f"neighbour graph ({graph.nnz} edges, built on the card in {graph_s:.3f} s), "
+          f"{c['n_clusters']} clusters, minimum size {c['min_size']}, on {c['n']} points]: "
+          f"{wall:.3f} s (CPU {cpu_s:.3f} s); the graph's {card_fit.n_connected_components_} "
+          f"components joined; {card_fit.n_clusters_} clusters, the smallest "
+          f"{sizes[sizes > 0].min()}; labels equal to the CPU's: {equal}; {card}", flush=True)
+    if not equal or sizes[sizes > 0].min() < c["min_size"]:
+        raise AssertionError("phase 19 (c): the card's structured tree differs from the CPU's "
+                             "or keeps an undersized cluster")
+    return dict(wall_s=wall, cpu_s=cpu_s, graph_s=graph_s,
+                components=int(card_fit.n_connected_components_))
+
+
 def main() -> int:
     import torch
 
@@ -5883,6 +6110,15 @@ def main() -> int:
     surface = phase_surface(device, card)
     print(f"phase 18: {time.perf_counter() - t18:.1f} s (by part "
           f"{json.dumps({k: round(v['phase_s'], 1) for k, v in surface.items()})})", flush=True)
+    t19 = time.perf_counter()
+    sharded = phase_devices(device, card, nn_scores, bucketed)
+    t19b = time.perf_counter()
+    phase_cost(device, card)
+    t19c = time.perf_counter()
+    phase_structured_ward(device, card)
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s (by part "
+          f"{json.dumps(dict(a=round(t19b - t19, 1), b=round(t19c - t19b, 1), c=round(time.perf_counter() - t19c, 1)))})",
+          flush=True)
     webapp_launches = {k: sum(d["launches"][k] for d in (*webapp.values(), webapp_grid))
                        + sum(d["launches_app"][k] for d in webapp.values()) for k in _counts()}
     webapp_launches["group_solve"] += webapp_fsc["launches"]
@@ -5941,7 +6177,11 @@ def main() -> int:
               # phase 11 (a): the CLI's run of phase 4's grid; (d): the
               # first float32 launch of the wide-rise search against plain
               launches_cli=cli_runs["a"]["launches"]["group_solve"],
-              cli_wide_float32=wide["held"]["B1"]),
+              cli_wide_float32=wide["held"]["B1"],
+              # phase 19 (a): phase 4's grid on two shards of the card (and
+              # on every card where there are several), the golden's
+              launches_sharded={k: v["launches"] for k, v in sharded.items()
+                                if k != "percand"}),
         entry("solve_candidate", "candidate_solve.cu", "helicon_tpu/denovo3d/pallas_solver.py:100",
               single["launches"]["solve_candidate"], b2,
               bound_two_pass_ms=b2["bound_two_pass_ms"], products=b2["products"],
@@ -5970,7 +6210,9 @@ def main() -> int:
               # phase 11 (a): the CLI's best-volume re-solve; (d): the
               # first float32 launch of the wide-rise search against plain
               launches_cli=cli_runs["a"]["launches"]["solve_candidate"],
-              cli_wide_float32=wide["held"]["B2"]),
+              cli_wide_float32=wide["held"]["B2"],
+              # phase 19 (a): phase 9 (a)'s call on two shards of the card
+              launches_sharded=sharded["percand"]["launches"]),
         entry("score_candidate", "candidate_solve.cu",
               "helicon_tpu/denovo3d/pallas_solver.py:335",
               single["launches"]["score_candidate"], b3,

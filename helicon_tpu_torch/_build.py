@@ -20,7 +20,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["load_kernels", "Launcher", "BUILD_DIR", "SOURCES"]
+__all__ = ["load_kernels", "Launcher", "BUILD_DIR", "SOURCES", "COUNT_LOCK"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "helicon_tpu_torch_kernels"
@@ -72,6 +72,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+# held while a launch counter of the kernels' modules is updated
+COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -127,20 +129,33 @@ def load_kernels() -> ctypes.CDLL:
 
 
 class Launcher:
-    """Calls the library's C entries by name on the current stream of
-    ``device``: tensors go as pointers, None as a null pointer. Each C
-    entry returns cudaGetLastError; ``count`` is given the number of
-    kernels each call launched, and a refused launch raises."""
+    """Calls the library's C entries by name on ``device`` (the card of the
+    tensors), on that card's current stream: tensors go as pointers, None
+    as a null pointer. Each C call runs with ``device`` as the current CUDA
+    device, so its launches go to that card whatever card the calling
+    thread has current. Each C entry returns cudaGetLastError; ``count`` is
+    given the number of kernels each call launched (under COUNT_LOCK, so
+    that threads driving several cards keep the counts exact), and a
+    refused launch raises."""
 
     def __init__(self, device: torch.device, count):
         self.lib = load_kernels()
-        self.stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        self.device = torch.device(device)
+        self.stream = ctypes.c_void_p(torch.cuda.current_stream(self.device).cuda_stream)
         self.count = count
+        # a launcher lives for one solve in one thread: the card is entered
+        # around each call only where it is not that thread's current card
+        self.other_card = self.device.index != torch._C._cuda_getDevice()
 
     def __call__(self, name: str, *args, kernels: int = 1) -> None:
         conv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
                 else ctypes.c_void_p(None) if a is None else a for a in args]
-        err = getattr(self.lib, name)(*conv, self.stream)
-        self.count(kernels)
+        if self.other_card:
+            with torch.cuda.device(self.device):
+                err = getattr(self.lib, name)(*conv, self.stream)
+        else:
+            err = getattr(self.lib, name)(*conv, self.stream)
+        with COUNT_LOCK:
+            self.count(kernels)
         if err != 0:
             raise RuntimeError(f"{name} failed to launch: CUDA error {err}")

@@ -12,9 +12,14 @@ module reproduces them label for label:
   ``scipy.cluster.hierarchy.ward``, ``average`` / ``complete`` by
   ``hierarchy.linkage``, ``single`` by scikit-learn's own minimum spanning
   tree, copied here), and cut in ``_hc_cut``'s heap order, which decides
-  the label numbers;
-- the reassignment of undersized clusters, Lloyd's iterations and the
-  silhouette's pair distances run on ``device`` in float64, with
+  the label numbers; with a connectivity graph, scikit-learn's structured
+  trees (``ward_tree``, ``linkage_tree``: heap merges over the graph in
+  its order, the graph's components joined by their nearest pairs, the
+  early stop under n_clusters) are ported to the host with numpy, scipy
+  and ``heapq``;
+- the reassignment of undersized clusters, the nearest pairs that join a
+  graph's components, Lloyd's iterations and the silhouette's pair
+  distances run on ``device`` in float64, with
   scikit-learn's distance formula ||x||^2 - 2 x.y + ||y||^2;
 - k-means++ draws its seeds from ``numpy.random.RandomState`` in
   scikit-learn's order, so a seed gives scikit-learn's clustering.
@@ -182,6 +187,323 @@ def _hc_cut(n_clusters: int, children: np.ndarray, n_leaves: int) -> np.ndarray:
     return label
 
 
+# ---------------------------------------------------------------------------
+# the structured trees (a connectivity graph), as sklearn/cluster/
+# _agglomerative.py's ward_tree and linkage_tree with _hierarchical_fast.pyx:
+# heap merges on the host over the graph's edges, in scikit-learn's order
+# ---------------------------------------------------------------------------
+
+_PAIRED_METRICS = {"euclidean", "l2", "l1", "manhattan", "cityblock", "cosine", "precomputed"}
+
+
+def _check_connectivity(X, connectivity):
+    """The graph as scikit-learn's fit takes it: a callable is called on X;
+    a sparse matrix stays sparse, anything else becomes a 2D array."""
+    from scipy import sparse
+
+    if callable(connectivity):
+        connectivity = connectivity(X)
+    if sparse.issparse(connectivity):
+        if connectivity.format not in ("csr", "coo", "lil"):
+            connectivity = connectivity.tocsr()
+        return connectivity
+    connectivity = np.asarray(connectivity)
+    if connectivity.ndim != 2:
+        raise ValueError(f"Expected 2D array, got connectivity of shape {connectivity.shape}")
+    return connectivity
+
+
+def _row_norms(X, squared=False):
+    """scikit-learn's ``row_norms`` of a dense float64 array."""
+    norms = np.einsum("ij,ij->i", X, X)
+    return norms if squared else np.sqrt(norms)
+
+
+def _normalize(X):
+    """scikit-learn's ``normalize`` (l2 rows; near-zero norms left as 1)."""
+    norms = _row_norms(X)
+    norms[norms < 10 * np.finfo(norms.dtype).eps] = 1.0
+    return X / norms[:, None]
+
+
+def _nearest_pair(X, idx_i, idx_j, metric, device):
+    """(ii, jj): the first smallest entry, in row-major order, of
+    scikit-learn's pairwise_distances(X[idx_i], X[idx_j], metric). The
+    Euclidean distances (-2 a.b + |a|^2 + |b|^2, clipped at 0, square
+    rooted) run on ``device`` in float64 row chunks; the other metrics as
+    scikit-learn computes them, on the host."""
+    if metric in ("euclidean", "l2"):
+        a_sq, b_sq = (torch.as_tensor(_row_norms(X[ix], squared=True), device=device)
+                      for ix in (idx_i, idx_j))
+        b = torch.as_tensor(X[idx_j], device=device)
+        chunk = _row_chunk(len(idx_j), device)
+        best, at = None, (0, 0)
+        for s in range(0, len(idx_i), chunk):
+            rows = slice(s, s + chunk)
+            a = torch.as_tensor(X[idx_i[rows]], device=device)
+            d = _sq_distances(a, b, a_sq[rows], b_sq).sqrt_()
+            flat = int(d.argmin())
+            v = float(d.view(-1)[flat])
+            if best is None or v < best:
+                best, at = v, (s + flat // d.shape[1], flat % d.shape[1])
+        return at
+    from scipy.spatial.distance import cdist
+
+    Xi, Xj = X[idx_i], X[idx_j]
+    if metric == "precomputed":
+        D = X[np.ix_(idx_i, idx_j)]
+    elif metric == "cosine":
+        D = 1.0 - _normalize(Xi) @ _normalize(Xj).T
+        np.clip(D, 0, 2, out=D)
+    elif callable(metric):
+        D = cdist(Xi, Xj, metric=metric)
+    else:
+        D = cdist(Xi, Xj, metric=_SCIPY_METRIC.get(metric, metric))
+    return np.unravel_index(D.argmin(axis=None), D.shape)
+
+
+def _fix_connectivity(X, connectivity, metric, device):
+    """scikit-learn's ``_fix_connectivity``: the graph made symmetric, as a
+    LIL matrix, its connected components joined by an edge between the
+    nearest pair of points of every two components (with its warning).
+    Returns (graph, the number of components before the join)."""
+    import warnings
+
+    from scipy import sparse
+    from scipy.sparse.csgraph import connected_components
+
+    n = X.shape[0]
+    if connectivity.shape[0] != n or connectivity.shape[1] != n:
+        raise ValueError(f"Wrong shape for connectivity matrix: {connectivity.shape} "
+                         f"when X is {X.shape}")
+    connectivity = connectivity + connectivity.T
+    if not sparse.issparse(connectivity):
+        connectivity = sparse.lil_array(connectivity)
+    if connectivity.format != "lil":
+        connectivity = connectivity.tolil()
+    n_components, labels = connected_components(connectivity)
+    if n_components > 1:
+        warnings.warn(
+            "the number of connected components of the connectivity matrix is "
+            f"{n_components} > 1. Completing it to avoid stopping the tree early.",
+            stacklevel=3)
+        for i in range(n_components):
+            idx_i = np.flatnonzero(labels == i)
+            for j in range(i):
+                idx_j = np.flatnonzero(labels == j)
+                ii, jj = _nearest_pair(X, idx_i, idx_j, metric, device)
+                connectivity[idx_i[ii], idx_j[jj]] = 1
+                connectivity[idx_j[jj], idx_i[ii]] = 1
+    return connectivity, n_components
+
+
+def _ward_dist(m1, m2, rows, cols):
+    """``compute_ward_dist``: the inertia gain of merging each (row, col)
+    pair of clusters from their moments, the squares summed feature by
+    feature in order."""
+    rows, cols = np.asarray(rows, np.intp), np.asarray(cols, np.intp)
+    n = (m1[rows] * m1[cols]) / (m1[rows] + m1[cols])
+    pa = np.zeros(len(rows))
+    for j in range(m2.shape[1]):
+        pa += (m2[rows, j] / m1[rows] - m2[cols, j] / m1[cols]) ** 2
+    return pa * n
+
+
+def _get_parents(nodes, heads, parents, seen):
+    """``_get_parents``: the roots of ``nodes`` not seen yet, appended to
+    heads in order."""
+    for node in nodes:
+        parent = parents[node]
+        while parent != node:
+            node = parent
+            parent = parents[node]
+        if node not in seen:
+            seen.add(node)
+            heads.append(node)
+
+
+def _n_nodes(n_samples, n_clusters):
+    if n_clusters is None:
+        return 2 * n_samples - 1
+    if n_clusters > n_samples:
+        raise ValueError(f"Cannot provide more clusters than samples. {n_clusters} "
+                         f"n_clusters was asked, and there are {n_samples} samples.")
+    return 2 * n_samples - n_clusters
+
+
+def _ward_tree_structured(X, connectivity, n_clusters, device):
+    """``ward_tree`` with a connectivity graph: (children, the graph's
+    component count, parents, distances)."""
+    n_samples = X.shape[0]
+    connectivity, n_components = _fix_connectivity(X, connectivity, "euclidean", device)
+    n_nodes = _n_nodes(n_samples, n_clusters)
+    coord_row, coord_col, A = [], [], []
+    for ind, row in enumerate(connectivity.rows):
+        A.append(list(row))
+        lower = [i for i in row if i < ind]
+        coord_row.extend([ind] * len(lower))
+        coord_col.extend(lower)
+    moments_1 = np.zeros(n_nodes)
+    moments_1[:n_samples] = 1
+    moments_2 = np.zeros((n_nodes, X.shape[1]))
+    moments_2[:n_samples] = X
+    inertia = list(zip(_ward_dist(moments_1, moments_2, coord_row, coord_col).tolist(),
+                       coord_row, coord_col))
+    heapq.heapify(inertia)
+    parent = list(range(n_nodes))
+    used = [True] * n_nodes
+    children, distances = [], np.empty(n_nodes - n_samples)
+    for k in range(n_samples, n_nodes):
+        while True:
+            inert, i, j = heapq.heappop(inertia)
+            if used[i] and used[j]:
+                break
+        parent[i] = parent[j] = k
+        children.append((i, j))
+        used[i] = used[j] = False
+        distances[k - n_samples] = inert
+        moments_1[k] = moments_1[i] + moments_1[j]
+        moments_2[k] = moments_2[i] + moments_2[j]
+        cols, seen = [], {k}
+        _get_parents(A[i], cols, parent, seen)
+        _get_parents(A[j], cols, parent, seen)
+        for col in cols:
+            A[col].append(k)
+        A.append(cols)
+        ini = _ward_dist(moments_1, moments_2, [k] * len(cols), cols).tolist()
+        for d, col in zip(ini, cols):
+            heapq.heappush(inertia, (d, k, col))
+    children = np.array([c[::-1] for c in children])
+    return children, n_components, np.asarray(parent, np.intp), np.sqrt(2.0 * distances)
+
+
+class _Edge:
+    """``WeightedEdge``: ordered by weight alone, so that the heap breaks
+    ties as scikit-learn's does."""
+
+    __slots__ = ("weight", "a", "b")
+
+    def __init__(self, weight, a, b):
+        self.weight, self.a, self.b = weight, a, b
+
+    def __lt__(self, other):
+        return self.weight < other.weight
+
+
+def _merge(a, b, used, n_a, n_b, linkage):
+    """``max_merge`` / ``average_merge``: the live keys of a and of b, a
+    key in both taking the larger, or the size-weighted mean, of the two
+    values; in key order."""
+    out = {key: v for key, v in a.items() if used[key]}
+    for key, v in b.items():
+        if not used[key]:
+            continue
+        if key not in out:
+            out[key] = v
+        elif linkage == "complete":
+            out[key] = max(out[key], v)
+        else:
+            out[key] = (n_a * out[key] + n_b * v) / (n_a + n_b)
+    return dict(sorted(out.items()))
+
+
+def _paired_distances(X, row, col, metric):
+    """``paired_distances(X[row], X[col], metric)`` (or X[row, col] for a
+    precomputed X), on the host as scikit-learn computes them."""
+    if metric == "precomputed":
+        return X[row, col].astype(np.float64, copy=False)
+    a, b = X[row], X[col]
+    if metric in ("euclidean", "l2"):
+        return _row_norms(a - b)
+    if metric in ("l1", "manhattan", "cityblock"):
+        return np.abs(a - b).sum(axis=-1)
+    if metric == "cosine":
+        return 0.5 * _row_norms(_normalize(a) - _normalize(b), squared=True)
+    if callable(metric):
+        return np.array([metric(u, v) for u, v in zip(a, b)], np.float64)
+    raise ValueError(f"Unknown distance {metric}")
+
+
+def _linkage_tree_structured(X, connectivity, linkage, metric, n_clusters, device):
+    """``linkage_tree`` with a connectivity graph (complete, average or
+    single): (children, the graph's component count, parents, distances)."""
+    from scipy.sparse.csgraph import minimum_spanning_tree
+
+    if not (callable(metric) or metric in _PAIRED_METRICS):
+        raise ValueError(f"Unknown distance {metric}")
+    n_samples = X.shape[0]
+    connectivity, n_components = _fix_connectivity(X, connectivity, metric, device)
+    connectivity = connectivity.tocoo()
+    off = connectivity.row != connectivity.col
+    connectivity.row, connectivity.col = connectivity.row[off], connectivity.col[off]
+    connectivity.data = _paired_distances(X, connectivity.row, connectivity.col, metric)
+    n_nodes = _n_nodes(n_samples, n_clusters)
+    if linkage == "single":
+        # _single_linkage_tree: scipy's minimum spanning tree, zero
+        # weights held at eps meanwhile, as a sorted linkage
+        connectivity = connectivity.astype(np.float64, copy=False)
+        eps = np.finfo(connectivity.data.dtype).eps
+        connectivity.data[connectivity.data == 0] = eps
+        mst = minimum_spanning_tree(connectivity.tocsr()).tocoo()
+        mst.data[mst.data == eps] = 0
+        mst = np.vstack([mst.row, mst.col, mst.data]).T
+        mst = mst[np.argsort(mst.T[2], kind="mergesort"), :]
+        tree = _single_linkage_label(mst)
+        children = tree[:, :2].astype(int)
+        parent = np.arange(n_nodes, dtype=np.intp)
+        for i, (left, right) in enumerate(children, n_samples):
+            if n_clusters is not None and i >= n_nodes:
+                break
+            if left < n_nodes:
+                parent[left] = i
+            if right < n_nodes:
+                parent[right] = i
+        return children, n_components, parent, tree[:, 2]
+    connectivity = connectivity.tolil()
+    A: list = [None] * n_nodes
+    inertia = []
+    for ind, (data, row) in enumerate(zip(connectivity.data, connectivity.rows)):
+        A[ind] = dict(sorted(zip(row, map(float, data))))
+        inertia.extend(_Edge(float(d), ind, r) for r, d in zip(row, data) if r < ind)
+    heapq.heapify(inertia)
+    parent = list(range(n_nodes))
+    used = [1] * n_samples + [0] * (n_nodes - n_samples)
+    children, distances = [], np.empty(n_nodes - n_samples)
+    for k in range(n_samples, n_nodes):
+        while True:
+            edge = heapq.heappop(inertia)
+            if used[edge.a] and used[edge.b]:
+                break
+        i, j = edge.a, edge.b
+        distances[k - n_samples] = edge.weight
+        parent[i] = parent[j] = k
+        children.append((i, j))
+        n_i, n_j = used[i], used[j]
+        used[k] = n_i + n_j
+        used[i] = used[j] = 0
+        merged = _merge(A[i], A[j], used, n_i, n_j, linkage)
+        for col, d in merged.items():
+            A[col][k] = d
+            heapq.heappush(inertia, _Edge(d, k, col))
+        A[k] = merged
+        A[i] = A[j] = None
+    children = np.array(children)[:, ::-1]
+    return children, n_components, np.asarray(parent, np.intp), distances
+
+
+def _hc_get_heads(parents):
+    """``hc_get_heads``: each node's root in the forest of parents."""
+    parents = list(parents)
+    for node0 in range(len(parents) - 1, -1, -1):
+        node = node0
+        parent = parents[node]
+        while parent != node:
+            parents[node0] = parent
+            node = parent
+            parent = parents[node]
+    return np.asarray(parents, np.intp)
+
+
 class AgglomerativeClusteringWithMinSize:
     """Agglomerative clustering with a minimum cluster size: points of
     undersized clusters are reassigned to the nearest valid cluster
@@ -192,8 +514,11 @@ class AgglomerativeClusteringWithMinSize:
     ``n_leaves_`` and, with ``distance_threshold``, ``distances_``. The
     reassignment's distances (Euclidean on the rows of X, as the reference's
     ``pairwise_distances(X)``) run on ``device`` in float64; a float32 X is
-    taken in float64. A ``connectivity`` graph needs scikit-learn's
-    structured tree and raises (ROADMAP A12.4b).
+    taken in float64. A ``connectivity`` graph (an array, a sparse matrix
+    or a callable of X) builds scikit-learn's structured tree on the host
+    (heap merges over the graph's edges, its early stop under n_clusters
+    with compute_full_tree "auto" or False), its components joined by their
+    nearest pairs, whose Euclidean distances run on ``device``.
     """
 
     def __init__(self, min_cluster_size: int = 2, n_clusters: int = 2,
@@ -224,20 +549,38 @@ class AgglomerativeClusteringWithMinSize:
             raise ValueError(
                 f"{self.metric} was provided as metric. Ward can only "
                 "work with euclidean distances (i.e. 'euclidean' and 'l2').")
-        if self.connectivity is not None:
-            raise NotImplementedError(
-                "AgglomerativeClusteringWithMinSize: a connectivity graph needs "
-                "scikit-learn's structured tree, not ported yet (ROADMAP A12.4b)")
-        children, distances = _linkage_tree(X, self.linkage, self.metric)
+        connectivity, compute_full_tree = self.connectivity, self.compute_full_tree
+        if connectivity is None:
+            compute_full_tree = True
+        else:
+            connectivity = _check_connectivity(X, connectivity)
+        if compute_full_tree == "auto":
+            # scikit-learn's heuristic: an early stop pays only for many clusters
+            compute_full_tree = (self.distance_threshold is not None
+                                 or self.n_clusters < max(100, 0.02 * len(X)))
+        n_clusters = None if compute_full_tree else self.n_clusters
+        if connectivity is None:
+            children, distances = _linkage_tree(X, self.linkage, self.metric)
+            n_components, parents = 1, None
+        elif self.linkage == "ward":
+            children, n_components, parents, distances = _ward_tree_structured(
+                X, connectivity, n_clusters, self.device)
+        else:
+            children, n_components, parents, distances = _linkage_tree_structured(
+                X, connectivity, self.linkage, self.metric, n_clusters, self.device)
         self.children_ = children
-        self.n_connected_components_ = 1
+        self.n_connected_components_ = n_components
         self.n_leaves_ = len(X)
         if self.distance_threshold is not None:
             self.distances_ = distances
             self.n_clusters_ = int(np.count_nonzero(distances >= self.distance_threshold)) + 1
         else:
             self.n_clusters_ = self.n_clusters
-        return _hc_cut(self.n_clusters_, children, self.n_leaves_)
+        if compute_full_tree:
+            return _hc_cut(self.n_clusters_, children, self.n_leaves_)
+        # the early stop: each sample's root in the partial tree, renumbered
+        labels = _hc_get_heads(parents)[: len(X)]
+        return np.searchsorted(np.unique(labels), labels)
 
     def fit(self, X, y=None):
         X = np.asarray(X, dtype=np.float64)

@@ -682,20 +682,22 @@ def score_candidate_kernel(fin: FullInputs, cg_iters: int, fista_iters: int, pow
 
 
 @_tf32_off
-def validate_on_gpu() -> dict:
+def validate_on_gpu(device="cuda") -> dict:
     """Run both kernels (B2 on prebuilt factors, with l2 and l1; B3 with
-    its own build and score) on the current CUDA device against the
+    its own build and score) on the CUDA device ``device`` against the
     closure path of ``solver`` on a small self-contained problem, the
     geometry of the reference's ``validate_on_device``. The gates are its
     5e-3 (relative on x, absolute on the score): a kernel fault gives
     garbage, not 1e-3. Raises without a card."""
-    if not torch.cuda.is_available():
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("validate_on_gpu needs a CUDA device")
     from .geometry import ReconstructionGeometry, select_copies, select_pair_ops
     from .projector_separable import build_problem_separable
     from .solver import _cg, _cosine, _fista, _power_iteration
 
-    dev = torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device("cuda", torch.cuda.current_device() if device.index is None
+                       else device.index)
     geom = ReconstructionGeometry(d2=12, l2=16, d3=12, l3=8, rmin=0.0, rmax=5.0,
                                   scale2d_to_3d=1.0, csym=1)
     region = np.random.default_rng(0).random((geom.d2, geom.l2)).astype(np.float32)

@@ -136,6 +136,7 @@ def reconstruct_grid_checkpointed(
     aborted = False
     chunks_run = 0
     local_sub = None
+    cost = None  # the first chunk's, as the reference's
     step = max(1, int(chunk))
     for idx in buckets:
         rr = (float(np.min(rises[idx])), float(np.max(rises[idx])))
@@ -147,6 +148,8 @@ def reconstruct_grid_checkpointed(
             m = todo[s : s + step]
             local_sub = run(m, rr)
             scores[m] = local_sub.scores
+            if cost is None:
+                cost = local_sub.cost
             if local_sub.extras:
                 extra_parts.append(tuple(local_sub.extras[k]
                                          for k in ("twists", "rises", "scores")))
@@ -177,6 +180,7 @@ def reconstruct_grid_checkpointed(
             target_apix3d=local_sub.target_apix3d if local_sub is not None else -1.0,
             best_index=-1,
             refined_params=refined(),
+            cost=cost,
             effective=dict(local_sub.effective if local_sub is not None else {},
                            checkpointed=True, chunks_run=chunks_run, aborted=True),
         )
@@ -224,6 +228,7 @@ def reconstruct_grid_checkpointed(
         best_index=best,
         best_volume=win.best_volume if win is not None else None,
         refined_params=refined(),
+        cost=cost,
         effective=dict(local_sub.effective if local_sub is not None else {},
                        checkpointed=True, chunks_run=chunks_run, n_buckets=len(buckets)),
         extras=extras,

@@ -99,6 +99,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <mutex>
 
 namespace {
 
@@ -997,34 +998,48 @@ __global__ void __launch_bounds__(NT) sym_sums_kernel(const int* __restrict__ cp
 
 __global__ void empty_kernel() {}
 
+// the cards a process may hold; the per-card caches below are indexed by
+// cudaGetDevice (a launch runs with its tensors' card current)
+constexpr int MAX_CARDS = 64;
+
+int current_card() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev < 0 || dev >= MAX_CARDS ? 0 : dev;
+}
+
 int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
+  static int n[MAX_CARDS];
+  const int dev = current_card();
+  if (n[dev] == 0) {
+    int v = 0;
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    n[dev] = v > 0 ? v : 132;
   }
-  return n;
+  return n[dev];
 }
 
 // K2's shared memory: `fixed` bytes always (the xr table) and vol_bytes
 // more when they fit in smem_limit (staged set: the private volume's
-// branch), the kernel's limit raised to match.
+// branch), the kernel's limit raised to match on the current card.
 size_t gather_smem(const void* fn, size_t fixed, size_t vol_bytes, int smem_limit, bool& staged) {
   staged = (long)vol_bytes <= (long)smem_limit;
   const size_t need = fixed + (staged ? vol_bytes : 0);
-  // the limits already raised, by kernel (K2's two), so that a call costs
-  // the host no attribute call
-  static const void* fns[4];
-  static size_t raised[4];
-  static int n = 0;
+  // the limits already raised, by card and kernel (K2's two), so that a
+  // call costs the host no attribute call; threads driving several cards
+  // share the table under a lock
+  static std::mutex lock;
+  static const void* fns[MAX_CARDS][4];
+  static size_t raised[MAX_CARDS][4];
+  static int n[MAX_CARDS];
+  const int dev = current_card();
+  std::lock_guard<std::mutex> guard(lock);
   int i = 0;
-  while (i < n && fns[i] != fn) ++i;
-  if (i == n && n < 4) fns[n++] = fn;
-  if (i < 4 && raised[i] >= need) return need;
+  while (i < n[dev] && fns[dev][i] != fn) ++i;
+  if (i == n[dev] && n[dev] < 4) fns[dev][n[dev]++] = fn;
+  if (i < 4 && raised[dev][i] >= need) return need;
   cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
-  if (i < 4) raised[i] = need;
+  if (i < 4) raised[dev][i] = need;
   return need;
 }
 

@@ -49,6 +49,7 @@ nearest-neighbour sample lands on the same voxel (C6).
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -66,6 +67,7 @@ __all__ = ["GatherTables", "gather_tables", "with_live_rays", "rotations", "gath
 # kernel launches made on CUDA tensors, by entry (one a call)
 launches = {"gather_project": 0, "gather_backproject": 0, "gather_normal": 0,
             "sample_table": 0, "pose_jacobian": 0, "sym_items": 0, "sym_normal": 0}
+_COUNT_LOCK = threading.Lock()
 
 # shared memory a block of K2 (and gather_normal's sums) may keep its
 # private 64-bit sums and the validity bytes in; past it they add into
@@ -707,11 +709,24 @@ def _plan(tab: GatherTables, entry: str):
 
 
 def _run(dev: torch.device, fn, *args) -> None:
-    """fn(*args, the current stream of the card dev); raises if its
-    launches were refused."""
-    err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    """fn(*args, the current stream of the card dev), with dev the current
+    CUDA device during the call (entered only where it is not already);
+    raises if its launches were refused."""
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch._C._cuda_getDevice():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
+
+
+def _counted(name: str) -> None:
+    """One more launch of ``name`` in ``launches``, under a lock (threads
+    may drive several cards at once)."""
+    with _COUNT_LOCK:
+        launches[name] += 1
 
 
 def _volumes(tab: GatherTables, x, name: str):
@@ -764,7 +779,7 @@ def sample_table(tab: GatherTables) -> torch.Tensor:
 
     _run(tab.mask.device, load_kernels().hgp_sample_table, _ptr(tab.ok), *map(_ptr, _args(tab)),
          *map(_ptr, lists), _ptr(sidx), *head, n_max, per, rpb)
-    launches["sample_table"] += 1
+    _counted("sample_table")
     return sidx
 
 
@@ -781,7 +796,7 @@ def gather_project(tab: GatherTables, x=None, row_valid: bool = False):
     pred = None if x is None else torch.empty(tab.shape, dtype=torch.float32, device=dev)
     rowv = torch.empty(tab.shape, dtype=torch.bool, device=dev) if row_valid else None
     _project_cuda(tab, x, pred, rowv)
-    launches["gather_project"] += 1
+    _counted("gather_project")
     return (pred, rowv) if row_valid else pred
 
 
@@ -797,7 +812,7 @@ def gather_backproject(tab: GatherTables, r) -> torch.Tensor:
     out = torch.empty((tab.shape[0], tab.l3, tab.d3, tab.d3), dtype=torch.float32,
                       device=tab.mask.device)
     _backproject_cuda(tab, r, out)
-    launches["gather_backproject"] += 1
+    _counted("gather_backproject")
     return out
 
 
@@ -820,7 +835,7 @@ def gather_normal(tab: GatherTables, x, rows) -> torch.Tensor:
     out = torch.empty((tab.shape[0], tab.l3, tab.d3, tab.d3), dtype=torch.float32,
                       device=tab.mask.device)
     _normal_cuda(tab, x, rows, out)
-    launches["gather_normal"] += 1
+    _counted("gather_normal")
     return out
 
 
@@ -855,7 +870,7 @@ def pose_jacobian(tab: GatherTables, x, b):
     _check(tab, x=x, b=b, dR=tab.dR)
     out = torch.empty((k, 13), dtype=torch.float64, device=tab.mask.device)
     _jacobian_cuda(tab, x, b, out)
-    launches["pose_jacobian"] += 1
+    _counted("pose_jacobian")
     return out[:, :9].reshape(k, 3, 3), out[:, 9:12], out[:, 12]
 
 
@@ -1114,7 +1129,7 @@ def sym_items(st: SymTables):
          n)
     iptr = torch.zeros(k + 1, dtype=torch.int32, device=dev)
     iptr[1:] = torch.cumsum(flag.sum(dim=1, dtype=torch.int64), 0)
-    launches["sym_items"] += 1
+    _counted("sym_items")
     return iptr, itap, iw
 
 
@@ -1207,7 +1222,7 @@ def sym_normal(st: SymTables, x) -> torch.Tensor:
         raise ValueError(f"x must be a float32 tensor on {dev}")
     out = torch.empty(vol, dtype=torch.float32, device=dev)
     _sym_cuda(st, x, out)
-    launches["sym_normal"] += 1
+    _counted("sym_normal")
     return out
 
 

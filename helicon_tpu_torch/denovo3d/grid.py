@@ -15,15 +15,16 @@ each bucket's best at per-candidate geometry
 (``_reconstruct_grid_bucketed``).
 
 The port covers any (tilt, psi) with nearest-neighbour or linear
-interpolation on one device, the image prep options, the models lsq,
+interpolation, the image prep options, the models lsq,
 lreg, ridge, lasso, elasticnet (l1 / l2 and the alpha-decay retry) and
 ard, every score metric, thresh_fraction, fsc modes 1-4 (on the grouped
 path three B1 solves a launch, scored in the kernel for lsq + cosine, as
 the reference's kernel, and in torch for lreg, a 2D metric or thresh, as
 its grouped XLA path),
-incremental progress and abort, densify_padding and pose refinement
-(refine_mode "topk" and "all"); cost_analysis and several devices raise
-NotImplementedError naming the ROADMAP item that will port them.
+incremental progress and abort, densify_padding, pose refinement
+(refine_mode "topk" and "all"), several devices in one process (``devices``:
+the scoring pass dealt to one shard per device, each driven by a thread of
+its own) and cost_analysis (an analytic count of the launch shapes).
 The host tables (``_candidate_tables``, ``_group_tables``,
 ``_copy_block``) and the bucket helpers are copies of the reference's
 numpy code; ``tests/test_torch_geometry.py`` and
@@ -33,10 +34,13 @@ numpy code; ``tests/test_torch_geometry.py`` and
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import math
 import os
+import threading
 import time
 
 import numpy as np
@@ -199,54 +203,57 @@ def _group_tables(
 
 
 _COPY_BLOCK_CACHE: collections.OrderedDict = collections.OrderedDict()
+# held around the cache: the shards of a search on several devices share it
+_COPY_BLOCK_LOCK = threading.Lock()
 
 
 def _copy_block(geom, rises_key, n_copies, C_u, R_pad, copy_cache):
     """Rise-only half of the group tables, cached on the rise tuple (copy
     selection is twist-independent, so every group of a Cartesian grid
     shares one block). Returned arrays are read-only."""
-    key = (geom, rises_key, n_copies, C_u, R_pad)
-    hit = _COPY_BLOCK_CACHE.get(key)
-    if hit is not None:
-        _COPY_BLOCK_CACHE.move_to_end(key)
-        return hit
-    R = len(rises_key)
-    sels = []
-    for r in rises_key:
-        if r not in copy_cache:
-            copy_cache[r] = select_copies(geom, r, n_copies)
-        sels.append(copy_cache[r])
-    # canonical union copy table, ordered by (|h|, h, c)
-    union = set()
-    for ch, cc, cv in sels:
-        union.update(zip(ch[cv].tolist(), cc[cv].tolist()))
-    keys = sorted(union, key=lambda x: (abs(x[0]), x[0], x[1]))
-    assert len(keys) <= C_u, (len(keys), C_u)
-    col = {k: i for i, k in enumerate(keys)}
-    ch_u = np.zeros(C_u, np.int32)
-    cc_u = np.zeros(C_u, np.int32)
-    for (h, c), i in col.items():
-        ch_u[i], cc_u[i] = h, c
-    m = np.zeros((R_pad, C_u), np.float32)
-    rank = np.full((R_pad, C_u), -1, np.int32)
-    for ri, (ch, cc, cv) in enumerate(sels):
-        for pos, (h, c) in enumerate(zip(ch[cv].tolist(), cc[cv].tolist())):
-            m[ri, col[(h, c)]] += 1.0  # Halton repeats -> multiplicity
-            rank[ri, col[(h, c)]] = pos  # overwritten -> LAST position
-    for ri in range(R, R_pad):
-        m[ri] = m[R - 1]
-        rank[ri] = rank[R - 1]
-    rises_pad = np.concatenate(
-        [np.asarray(rises_key, np.float32),
-         np.full(R_pad - R, rises_key[-1], np.float32)]
-    )
-    out = (rises_pad, m, ch_u, cc_u, rank)
-    for a in out:
-        a.flags.writeable = False
-    while len(_COPY_BLOCK_CACHE) >= 256:
-        _COPY_BLOCK_CACHE.popitem(last=False)
-    _COPY_BLOCK_CACHE[key] = out
-    return out
+    with _COPY_BLOCK_LOCK:
+        key = (geom, rises_key, n_copies, C_u, R_pad)
+        hit = _COPY_BLOCK_CACHE.get(key)
+        if hit is not None:
+            _COPY_BLOCK_CACHE.move_to_end(key)
+            return hit
+        R = len(rises_key)
+        sels = []
+        for r in rises_key:
+            if r not in copy_cache:
+                copy_cache[r] = select_copies(geom, r, n_copies)
+            sels.append(copy_cache[r])
+        # canonical union copy table, ordered by (|h|, h, c)
+        union = set()
+        for ch, cc, cv in sels:
+            union.update(zip(ch[cv].tolist(), cc[cv].tolist()))
+        keys = sorted(union, key=lambda x: (abs(x[0]), x[0], x[1]))
+        assert len(keys) <= C_u, (len(keys), C_u)
+        col = {k: i for i, k in enumerate(keys)}
+        ch_u = np.zeros(C_u, np.int32)
+        cc_u = np.zeros(C_u, np.int32)
+        for (h, c), i in col.items():
+            ch_u[i], cc_u[i] = h, c
+        m = np.zeros((R_pad, C_u), np.float32)
+        rank = np.full((R_pad, C_u), -1, np.int32)
+        for ri, (ch, cc, cv) in enumerate(sels):
+            for pos, (h, c) in enumerate(zip(ch[cv].tolist(), cc[cv].tolist())):
+                m[ri, col[(h, c)]] += 1.0  # Halton repeats -> multiplicity
+                rank[ri, col[(h, c)]] = pos  # overwritten -> LAST position
+        for ri in range(R, R_pad):
+            m[ri] = m[R - 1]
+            rank[ri] = rank[R - 1]
+        rises_pad = np.concatenate(
+            [np.asarray(rises_key, np.float32),
+             np.full(R_pad - R, rises_key[-1], np.float32)]
+        )
+        out = (rises_pad, m, ch_u, cc_u, rank)
+        for a in out:
+            a.flags.writeable = False
+        while len(_COPY_BLOCK_CACHE) >= 256:
+            _COPY_BLOCK_CACHE.popitem(last=False)
+        _COPY_BLOCK_CACHE[key] = out
+        return out
 
 
 def _group_bytes(geom, C_u: int, n_ops: int, R: int, cdt, fsc: bool = False) -> int:
@@ -390,6 +397,7 @@ def _grouped_scoring(
     geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region,
     dy_pixel, copy_cache, device, solve=None, batch_size=None,
     progress_callback=None, should_abort=None, densify_padding=False, card_processes=1,
+    devices=None,
 ):
     """Score every candidate, G twist groups per solve launch (the
     counterpart of the reference's _solve_group_pallas). ``solve`` is the
@@ -397,19 +405,30 @@ def _grouped_scoring(
     power seed, ``POWER_SEED``; validate_grouped_on_gpu passes the kernel
     and the plain version, each with its own default seed).
 
+    ``devices`` (default [device]): R, the densified padding and C_u are
+    fixed on the whole grid, then the twist groups are dealt to one shard
+    per entry in contiguous slices (parallel.shard_slices), so a group's
+    inputs are those of the one-device run; each shard runs on its device
+    in a thread of its own (_on_shards), sizing G from its card's free
+    memory over the shards and processes on that card. An entry repeated
+    is that many shards on one device.
+
     Incremental mode (progress_callback or should_abort given): unscored
-    candidates hold -inf, should_abort() is polled before each launch
-    (True stops the search), progress_callback(done, n_cand, scores) runs
-    after each, and a launch holds at most batch_size // R groups, where
+    candidates hold -inf, should_abort() is polled before each launch of
+    every shard (True stops every shard), progress_callback(done, n_cand,
+    scores) runs after each launch of any shard with the scores of every
+    shard so far, and a launch holds at most batch_size // R groups, where
     batch_size is the caller's or, when None, the reference's automatic
     one (_dispatch_candidates). Returns (scores (n,) float32 numpy,
     effective dispatch dict, with ``aborted`` and, under densify_padding,
     ``extras``: the padded slots' twists, rise pixels and scores)."""
+    from ..parallel import shard_slices
     from .group_solve import GroupInputs, group_inputs, solve_group
     from .projector_grouped import build_candidate_tensors_grouped, build_group_shared
     from .solver import _image_scores, _pid_split_masks, seed_lreg
 
     solve = solve or functools.partial(solve_group, power_seed=POWER_SEED)
+    devices = list(devices) if devices else [torch.device(device)]
     n_cand = len(twists)
     incremental = progress_callback is not None or should_abort is not None
     # the reference caps R by the caller's batch or its automatic one
@@ -418,12 +437,16 @@ def _grouped_scoring(
                                    auto_batch, densify_padding)
     cdt = getattr(torch, cfg.compute_dtype)
     fsc_masks = _pid_split_masks(geom, cfg.fsc_test) if cfg.fsc_test else None
-    G = _groups_per_launch(_group_bytes(geom, C_u, n_ops, R, cdt, fsc_masks is not None),
-                           len(groups), device, card_processes)
+    per_group = _group_bytes(geom, C_u, n_ops, R, cdt, fsc_masks is not None)
+    shards = shard_slices(len(groups), len(devices))
+    on_card = collections.Counter(devices)
+    Gs = [_groups_per_launch(per_group, max(1, sl.stop - sl.start), dev,
+                             card_processes * on_card[dev])
+          for sl, dev in zip(shards, devices)]
     per_launch = None
     if incremental:
         per_launch = auto_batch
-        G = min(G, max(1, per_launch // R))
+        Gs = [min(G, max(1, per_launch // R)) for G in Gs]
     regularized = cfg.l1_reg > 0 or cfg.l2_reg > 0
     # the kernel's cosine holds for the plain lsq solve; everything else
     # scores the returned volumes in torch
@@ -433,158 +456,233 @@ def _grouped_scoring(
 
     # canonical op enumeration: k = (h + hmax) * csym + c
     hmax_p = (n_ops // geom.csym - 1) // 2
-    ops_h = np.repeat(np.arange(-hmax_p, hmax_p + 1), geom.csym).astype(np.int32)
-    ops_c = np.tile(np.arange(geom.csym), 2 * hmax_p + 1).astype(np.int32)
-
-    def to_dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    # every host table goes to the device once per launch: a copy from
-    # pageable memory waits for the device, so one per group would
-    # serialise the builds with the device
-    ops_h, ops_c = to_dev(ops_h), to_dev(ops_c)
-    mask, cellok = to_dev(geom.cylindrical_mask()), geom.cell_valid_mask()
-    region_t = to_dev(np.asarray(region, np.float32))
-    b2d = region_t.T
+    ops_h_np = np.repeat(np.arange(-hmax_p, hmax_p + 1), geom.csym).astype(np.int32)
+    ops_c_np = np.tile(np.arange(geom.csym), 2 * hmax_p + 1).astype(np.int32)
+    mask_np, cellok = geom.cylindrical_mask(), geom.cell_valid_mask()
+    region_np = np.asarray(region, np.float32)
     row_scale = np.float32(geom.d2 * geom.l2)
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
     scores = np.full(n_cand, -np.inf if incremental else 0.0, np.float32)
-    extra_rows = []
-    build_s = solve_s = score_s = 0.0
-    rounds = done = 0
-    aborted = False
-    for start in range(0, len(groups), G):
-        if should_abort is not None and should_abort():
-            aborted = True
-            break
-        t0 = time.perf_counter()
-        batch = groups[start : start + G]
-        tabs = [
-            _group_tables(geom, t, rise_pixels[g] if ext is None
-                          else np.concatenate([rise_pixels[g], ext]),
-                          n_copies, n_pairs, n_ops, C_u, R, copy_cache)
-            for t, g, ext in batch
-        ]
-        rp, m, ch_u, cc_u, pidx, pval, rank = (to_dev(np.stack(c)) for c in zip(*tabs))
-        twist = to_dev(np.asarray([t for t, _, _ in batch], np.float32))
-        positive = to_dev(np.stack([
-            _positive(cfg, tab[0], t, geom.l3) for (t, _, _), tab in zip(batch, tabs)
-        ]))
-        inp, halves, ctx = None, None, []
-        for gi in range(len(batch)):
-            shared = build_group_shared(
-                geom, twist[gi], ch_u[gi], cc_u[gi], ops_h, ops_c, dy_pixel,
-                cfg.interpolation, mask, cellok, cdt, device,
-            )
-            args = (shared, geom, region_t, rp[gi], torch.sqrt(m[gi]), pidx[gi], pval[gi])
-            tens = build_candidate_tensors_grouped(*args)
-            tens["lb"], tens["ub"] = _box_bounds(positive[gi], tens["ub_raw"])
-            one = group_inputs(shared, tens)
-            if inp is None:
-                inp = GroupInputs.empty(len(batch), one)
-            inp.put(gi, one)
-            if fsc_masks is not None:
-                # the half-set solves differ from the full one only in the
-                # j-dependent z-Gram, the rhs and |b|
-                for h, w in enumerate(fsc_masks):
-                    th = build_candidate_tensors_grouped(*args, pid_mask=w[0])
-                    th["lb"], th["ub"] = tens["lb"], tens["ub"]
-                    oh = group_inputs(shared, th)
-                    if halves is None:
-                        halves = [{k: torch.empty((len(batch),) + getattr(oh, k).shape[1:],
-                                                  device=device) for k in ("gz", "rhs", "bn")}
-                                  for _ in fsc_masks]
-                    for k in ("gz", "rhs", "bn"):
-                        halves[h][k][gi].copy_(getattr(oh, k)[0])
-                    del th, oh
-            if not score_in_kernel:
-                ctx.append({k: shared[k] for k in ("copies_h_u", "xy_any", "linear")})
-            del shared, tens, one
-        sync()
-        t1 = time.perf_counter()
-        x_halves = []
-        if fsc_masks is not None and score_in_kernel:
-            _, s = solve(inp, *iters)
-            s1, s2 = (solve(dataclasses.replace(inp, **hv), *iters)[1] for hv in halves)
-            s = s / 2 + (s1 + s2) / 4
-        else:
-            l1 = l2 = None
-            if regularized:
-                reg = (torch.clamp_min(m.sum(dim=2), 1.0) * float(row_scale)
-                       if cfg.reg_per_row else torch.ones(m.shape[:2], device=device))
-                l1 = reg * float(np.float32(cfg.l1_reg)) if cfg.l1_reg else None
-                l2 = reg * float(np.float32(cfg.l2_reg)) if cfg.l2_reg else None
-            x, s = solve(inp, *iters, l1=l1, l2=l2, with_score=score_in_kernel)
-            if regularized:
-                x, r = _retry_all_zero(solve, inp, x, l1, l2, iters)
-                rounds = max(rounds, r)
-            elif cfg.model == "lreg":
-                x = seed_lreg(x, 2)
-            if fsc_masks is not None:
-                # the halves of an unregularized model, scored in torch:
-                # plain solves without the lreg seed, as the reference's
-                # (its solver.py:644-668); the routing rule keeps l1 / l2
-                # with fsc off this path
-                x_halves = [solve(dataclasses.replace(inp, **hv), *iters, with_score=False)[0]
-                            for hv in halves]
-        sync()
-        t2 = time.perf_counter()
-        if not score_in_kernel:
-            nd = C_u * geom.d2
+    lock, stop = threading.Lock(), threading.Event()
+    progress = dict(done=0)
 
-            def score_launch(x, w=None):
-                cos, img = zip(*(
-                    _score_group(cfg, geom, ctx[gi], inp.a_top[gi, :nd].reshape(C_u, geom.d2, -1),
-                                 rp[gi], m[gi], rank[gi], x[gi], b2d, w)
-                    for gi in range(len(batch))
-                ))
-                s = torch.stack(cos)
-                if cfg.score_metric != "cosine":
-                    s = _image_scores(cfg.score_metric, s.flatten(), torch.cat(img), b2d)
-                    s = s.reshape(len(batch), -1)
-                return s
+    def run_shard(si):
+        device, G, my_groups = devices[si], Gs[si], groups[shards[si]]
 
-            s = score_launch(x)
-            if x_halves:
-                s1, s2 = (score_launch(xh, to_dev(w)) for xh, w in zip(x_halves, fsc_masks))
-                s = s / 2 + (s1 + s2) / 4
+        def to_dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        def sync():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+        # every host table goes to the device once per launch: a copy from
+        # pageable memory waits for the device, so one per group would
+        # serialise the builds with the device
+        ops_h, ops_c = to_dev(ops_h_np), to_dev(ops_c_np)
+        mask = to_dev(mask_np)
+        region_t = to_dev(region_np)
+        b2d = region_t.T
+        extra_rows = []
+        build_s = solve_s = score_s = 0.0
+        rounds = 0
+        aborted = False
+        for start in range(0, len(my_groups), G):
+            if stop.is_set():
+                break
+            if should_abort is not None:
+                with lock:
+                    aborted = bool(should_abort())
+                if aborted:
+                    stop.set()
+                    break
+            t0 = time.perf_counter()
+            batch = my_groups[start : start + G]
+            tabs = [
+                _group_tables(geom, t, rise_pixels[g] if ext is None
+                              else np.concatenate([rise_pixels[g], ext]),
+                              n_copies, n_pairs, n_ops, C_u, R, copy_cache)
+                for t, g, ext in batch
+            ]
+            rp, m, ch_u, cc_u, pidx, pval, rank = (to_dev(np.stack(c)) for c in zip(*tabs))
+            twist = to_dev(np.asarray([t for t, _, _ in batch], np.float32))
+            positive = to_dev(np.stack([
+                _positive(cfg, tab[0], t, geom.l3) for (t, _, _), tab in zip(batch, tabs)
+            ]))
+            inp, halves, ctx = None, None, []
+            for gi in range(len(batch)):
+                shared = build_group_shared(
+                    geom, twist[gi], ch_u[gi], cc_u[gi], ops_h, ops_c, dy_pixel,
+                    cfg.interpolation, mask, cellok, cdt, device,
+                )
+                args = (shared, geom, region_t, rp[gi], torch.sqrt(m[gi]), pidx[gi], pval[gi])
+                tens = build_candidate_tensors_grouped(*args)
+                tens["lb"], tens["ub"] = _box_bounds(positive[gi], tens["ub_raw"])
+                one = group_inputs(shared, tens)
+                if inp is None:
+                    inp = GroupInputs.empty(len(batch), one)
+                inp.put(gi, one)
+                if fsc_masks is not None:
+                    # the half-set solves differ from the full one only in
+                    # the j-dependent z-Gram, the rhs and |b|
+                    for h, w in enumerate(fsc_masks):
+                        th = build_candidate_tensors_grouped(*args, pid_mask=w[0])
+                        th["lb"], th["ub"] = tens["lb"], tens["ub"]
+                        oh = group_inputs(shared, th)
+                        if halves is None:
+                            halves = [{k: torch.empty((len(batch),) + getattr(oh, k).shape[1:],
+                                                      device=device)
+                                       for k in ("gz", "rhs", "bn")} for _ in fsc_masks]
+                        for k in ("gz", "rhs", "bn"):
+                            halves[h][k][gi].copy_(getattr(oh, k)[0])
+                        del th, oh
+                if not score_in_kernel:
+                    ctx.append({k: shared[k] for k in ("copies_h_u", "xy_any", "linear")})
+                del shared, tens, one
             sync()
-        s_np = s.cpu().numpy()  # (len(batch), R)
-        build_s += t1 - t0
-        solve_s += t2 - t1
-        score_s += time.perf_counter() - t2
-        del inp, halves, x_halves
-        for i, (t, g, ext) in enumerate(batch):
-            scores[g] = s_np[i, : len(g)]
-            done += len(g)
-            if ext is not None:
-                extra_rows.extend((t, float(r), float(s_np[i, len(g) + j]))
-                                  for j, r in enumerate(ext))
-        if progress_callback is not None:
-            progress_callback(done, n_cand, scores)
+            t1 = time.perf_counter()
+            x_halves = []
+            if fsc_masks is not None and score_in_kernel:
+                _, s = solve(inp, *iters)
+                s1, s2 = (solve(dataclasses.replace(inp, **hv), *iters)[1] for hv in halves)
+                s = s / 2 + (s1 + s2) / 4
+            else:
+                l1 = l2 = None
+                if regularized:
+                    reg = (torch.clamp_min(m.sum(dim=2), 1.0) * float(row_scale)
+                           if cfg.reg_per_row else torch.ones(m.shape[:2], device=device))
+                    l1 = reg * float(np.float32(cfg.l1_reg)) if cfg.l1_reg else None
+                    l2 = reg * float(np.float32(cfg.l2_reg)) if cfg.l2_reg else None
+                x, s = solve(inp, *iters, l1=l1, l2=l2, with_score=score_in_kernel)
+                if regularized:
+                    x, r = _retry_all_zero(solve, inp, x, l1, l2, iters)
+                    rounds = max(rounds, r)
+                elif cfg.model == "lreg":
+                    x = seed_lreg(x, 2)
+                if fsc_masks is not None:
+                    # the halves of an unregularized model, scored in torch:
+                    # plain solves without the lreg seed, as the reference's
+                    # (its solver.py:644-668); the routing rule keeps l1 / l2
+                    # with fsc off this path
+                    x_halves = [solve(dataclasses.replace(inp, **hv), *iters,
+                                      with_score=False)[0] for hv in halves]
+            sync()
+            t2 = time.perf_counter()
+            if not score_in_kernel:
+                nd = C_u * geom.d2
+
+                def score_launch(x, w=None):
+                    cos, img = zip(*(
+                        _score_group(cfg, geom, ctx[gi],
+                                     inp.a_top[gi, :nd].reshape(C_u, geom.d2, -1),
+                                     rp[gi], m[gi], rank[gi], x[gi], b2d, w)
+                        for gi in range(len(batch))
+                    ))
+                    s = torch.stack(cos)
+                    if cfg.score_metric != "cosine":
+                        s = _image_scores(cfg.score_metric, s.flatten(), torch.cat(img), b2d)
+                        s = s.reshape(len(batch), -1)
+                    return s
+
+                s = score_launch(x)
+                if x_halves:
+                    s1, s2 = (score_launch(xh, to_dev(w)) for xh, w in zip(x_halves, fsc_masks))
+                    s = s / 2 + (s1 + s2) / 4
+                sync()
+            s_np = s.cpu().numpy()  # (len(batch), R)
+            build_s += t1 - t0
+            solve_s += t2 - t1
+            score_s += time.perf_counter() - t2
+            del inp, halves, x_halves
+            for i, (t, g, ext) in enumerate(batch):
+                if ext is not None:
+                    extra_rows.extend((t, float(r), float(s_np[i, len(g) + j]))
+                                      for j, r in enumerate(ext))
+            with lock:
+                for i, (t, g, ext) in enumerate(batch):
+                    scores[g] = s_np[i, : len(g)]
+                    progress["done"] += len(g)
+                if progress_callback is not None:
+                    progress_callback(progress["done"], n_cand, scores)
+        return dict(build_s=build_s, solve_s=solve_s, score_s=score_s, rounds=rounds,
+                    extra_rows=extra_rows, aborted=aborted)
+
+    runs = _on_shards(run_shard, devices, stop)
+    extra_rows = [row for r in runs for row in r["extra_rows"]]
     effective = dict(
-        path="grouped", R=int(R), groups_per_launch=int(G), n_groups=len(groups),
+        path="grouped", R=int(R), groups_per_launch=int(Gs[0]), n_groups=len(groups),
         C_u=int(C_u), n_ops=int(n_ops), compute_dtype=cfg.compute_dtype,
         d3=int(geom.d3), l3=int(geom.l3),
         pad_fraction=round(1.0 - n_cand / (len(groups) * R), 4),
-        densified=sum(len(e) for _, _, e in groups if e is not None), aborted=aborted,
+        densified=sum(len(e) for _, _, e in groups if e is not None),
+        aborted=any(r["aborted"] for r in runs),
         # incremental mode's candidates per launch (None: memory-sized)
         launch_candidates=per_launch,
         score_in_kernel=score_in_kernel,
         # the alpha-decay retry's extra rounds of solves (0: none needed)
-        retry_rounds=int(rounds),
+        retry_rounds=int(max(r["rounds"] for r in runs)),
         # host seconds of the operator builds, the solves and the torch
-        # scoring, each ended by a device synchronisation
-        build_s=build_s, solve_s=solve_s, score_s=score_s,
+        # scoring, each ended by a device synchronisation, summed over the
+        # shards
+        build_s=sum(r["build_s"] for r in runs), solve_s=sum(r["solve_s"] for r in runs),
+        score_s=sum(r["score_s"] for r in runs),
+        n_devices=len(devices),
     )
+    if len(devices) > 1:
+        effective["shards"] = [dict(device=str(d), groups=sl.stop - sl.start,
+                                    groups_per_launch=int(G))
+                               for d, sl, G in zip(devices, shards, Gs)]
     if extra_rows:
         t, r, sc = (np.asarray(c, np.float32) for c in zip(*extra_rows))
         effective["extras"] = dict(twists=t, rise_pixels=r, scores=sc)
     return scores, effective
+
+
+def _on_shards(fn, devices, stop=None) -> list:
+    """[fn(i) for each shard i of ``devices``]: one shard runs inline, in
+    this thread; several run at once, each in a thread of its own with its
+    card the current CUDA device, so that no card waits on another card's
+    host work or synchronisation. A shard that raises sets ``stop`` (the
+    others end at their next launch) and its error is raised here."""
+    if len(devices) == 1:
+        return [fn(0)]
+
+    def run(i):
+        dev = devices[i]
+        try:
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                return fn(i)
+        except BaseException:
+            if stop is not None:
+                stop.set()
+            raise
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(devices)) as pool:
+        futures = [pool.submit(run, i) for i in range(len(devices))]
+        return [f.result() for f in futures]
+
+
+def _resolve_devices(devices) -> list:
+    """reconstruct_grid's ``devices`` as torch.devices: torch.devices,
+    strings or card indices (an index or "cuda" without one names a
+    card); a card this machine lacks raises, nothing falls back to the
+    CPU."""
+    if isinstance(devices, (int, str, torch.device)):
+        devices = [devices]
+    out = []
+    for d in devices:
+        d = torch.device("cuda", d) if isinstance(d, int) else torch.device(d)
+        if d.type == "cuda":
+            n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            index = d.index if d.index is not None else (torch.cuda.current_device() if n else 0)
+            if index >= n:
+                raise ValueError(f"devices names {d}, but this machine has {n} CUDA "
+                                 f"device{'' if n == 1 else 's'}")
+            d = torch.device("cuda", index)
+        out.append(d)
+    if not out:
+        raise ValueError("devices is empty")
+    return out
 
 
 def _group_operator_bytes(geom, n_copies: int, n_ops: int, cfg) -> int:
@@ -594,6 +692,79 @@ def _group_operator_bytes(geom, n_copies: int, n_ops: int, cfg) -> int:
     item = 2 if cfg.compute_dtype in ("bfloat16", "float16") else 4
     rows = n_copies * geom.d2 + n_ops * geom.d3 * geom.d3
     return rows * geom.d3 * geom.d3 * (4 + 2 * item)
+
+
+def _grouped_analytic_flops(geom, cfg, C_u: int, n_ops: int) -> float:
+    """The reference's per-candidate FLOPs of the grouped solve (its
+    grid.py:554-578), copied: per matvec two A_top products (4 * rows *
+    d3^2 * l3), the z-Gram apply (2 * C_u * d2 * l3^2) and two z-shift
+    contractions (4 * n_ops * d3^2 * l3^2), over power_iters + 1 + cg_iters
+    + fista_iters matvecs, plus two data passes (rhs and prediction). The
+    small glue is left out: a few percent low, never high."""
+    d2, d3, l3 = geom.d2, geom.d3, geom.l3
+    rows = C_u * d2 + n_ops * d3 * d3
+    per_matvec = (
+        4.0 * rows * d3 * d3 * l3
+        + 2.0 * C_u * d2 * l3 * l3
+        + 4.0 * n_ops * d3 * d3 * l3 * l3
+    )
+    n_matvec = cfg.power_iters + 1 + cfg.cg_iters + cfg.fista_iters
+    data_pass = 2.0 * C_u * d2 * d3 * d3 * l3
+    return n_matvec * per_matvec + 2.0 * data_pass
+
+
+def _n_matvecs(cfg) -> int:
+    return cfg.power_iters + 1 + cfg.cg_iters + cfg.fista_iters
+
+
+def _grouped_cost(geom, cfg, R: int, C_u: int, n_ops: int) -> dict:
+    """GridResult.cost of the grouped path, for one group of R candidates
+    (the reference's one-group figure): flops R times the per-candidate
+    count (_grouped_analytic_flops); bytes_accessed those B1 moves for the
+    group's solve, counted from its launch shapes on the two-pass floor:
+    A_top streamed once per product, two products a matvec, and each
+    candidate's tensors (z-Gram, z-shifts, op validity and degree, pair
+    counts, rhs, bounds) read once, x and the score written once."""
+    per = _grouped_analytic_flops(geom, cfg, C_u, n_ops)
+    d3sq, l3 = geom.d3 * geom.d3, geom.l3
+    item = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)).element_size()
+    a_top = (C_u * geom.d2 + n_ops * d3sq) * d3sq * item
+    cand = 4 * (C_u * l3 * l3 + n_ops * l3 * l3 + 2 * n_ops * l3 * d3sq + n_ops * n_ops
+                + l3 * d3sq + 3 + l3 * d3sq + 1)
+    nbytes = 2 * _n_matvecs(cfg) * a_top + 4 * l3 * d3sq + R * cand
+    return dict(flops=float(R * per), bytes_accessed=float(nbytes), batch_size=int(R),
+                analytic_flops_per_candidate=float(per), source="analytic")
+
+
+def _percand_cost(geom, cfg, k: int, n_copies: int, n_pairs: int, n_ops: int) -> dict:
+    """GridResult.cost of the per-candidate path, for one launch of k
+    candidates, by the grouped count's rule. On the separable factors (B2):
+    the reference's per-candidate FLOPs with the candidate's n_copies
+    copies for C_u; bytes B2's stacked operand [W2; Mxy] streamed once per
+    product, two products a matvec, and its other inputs (z-Gram, pair
+    fold and validity, rhs, scalars) read once, x and the score written
+    once. On the gather projector (tilt or psi != 0): per matvec P and PT
+    (a multiply-add per interpolation tap of each ray's d3 samples) and the
+    symmetry term's S and ST over the pairs, two data passes; bytes the
+    volume and the rays read and written once a matvec."""
+    d2, d3, l2, l3 = geom.d2, geom.d3, geom.l2, geom.l3
+    d3sq, nm = d3 * d3, _n_matvecs(cfg)
+    if cfg.separable:
+        per = _grouped_analytic_flops(geom, cfg, n_copies, n_ops)
+        item = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)).element_size()
+        operand = (n_copies * d2 + n_ops * d3sq) * d3sq * item
+        other = 4 * (n_copies * l3 * l3 + n_pairs * l3 * n_ops * l3 + n_pairs * l3 * d3sq
+                     + l3 * d3sq + 4 + l3 * d3sq + 1)
+        cand = 2 * nm * operand + other
+    else:
+        taps = 8 if cfg.interpolation.startswith("linear") else 1
+        project = 2.0 * n_copies * l2 * d2 * d3 * taps
+        sym = 4.0 * n_pairs * l3 * d3sq * taps
+        per = nm * (2 * project + sym) + 2 * project
+        cand = 4 * (nm * (2 * l3 * d3sq + 2 * n_copies * l2 * d2) + l3 * d3sq + 1)
+    nbytes = 4 * l3 * d3sq + k * cand
+    return dict(flops=float(k * per), bytes_accessed=float(nbytes), batch_size=int(k),
+                analytic_flops_per_candidate=float(per), source="analytic")
 
 
 def _group_budget_bytes() -> int:
@@ -650,6 +821,7 @@ def _candidate_bytes(geom, cfg, n_copies: int, n_pairs: int, n_ops: int) -> int:
 def _percand_scoring(
     geom, cfg, twists, rise_pixels, n_copies, n_pairs, n_ops, region, pose, copy_cache,
     device, batch_size=None, progress_callback=None, should_abort=None, card_processes=1,
+    devices=None,
 ):
     """Score every candidate in launches of k (the counterpart of the
     reference's _percand_scoring): each launch builds its candidates' padded
@@ -661,58 +833,101 @@ def _percand_scoring(
     the caller's batch_size or the reference's automatic one
     (_dispatch_candidates), unscored candidates hold -inf, should_abort()
     is polled before each launch and progress_callback(done, n_cand,
-    scores) runs after each. Returns (scores (n,) float32 numpy, effective
+    scores) runs after each. ``devices`` (default [device]): the candidate
+    axis is dealt to one shard per entry in contiguous slices, each shard
+    launching its own slice k at a time on its device, in a thread of its
+    own (_on_shards), as the reference shards the candidate axis; k is
+    sized per shard from its card's free memory over the shards and
+    processes on that card. Returns (scores (n,) float32 numpy, effective
     dispatch dict)."""
+    from ..parallel import shard_slices
     from . import candidate_solve
 
+    devices = list(devices) if devices else [torch.device(device)]
     n_cand = len(twists)
     incremental = progress_callback is not None or should_abort is not None
     tilt, psi, dy_pixel = pose
+    shards = shard_slices(n_cand, len(devices))
+    on_card = collections.Counter(devices)
     per_launch = None
     if incremental:
-        k = per_launch = batch_size or _dispatch_candidates(geom, n_copies, n_ops, n_cand)
+        per_launch = batch_size or _dispatch_candidates(geom, n_copies, n_ops, n_cand)
+        ks = [per_launch] * len(devices)
     else:
         per = _candidate_bytes(geom, cfg, n_copies, n_pairs, n_ops)
-        k = _groups_per_launch(per, n_cand, device, card_processes)
-        k = min(k, batch_size or k)
-    k = max(1, min(k, n_cand))
+        ks = [min(_groups_per_launch(per, max(1, sl.stop - sl.start), dev,
+                                     card_processes * on_card[dev]), batch_size or n_cand)
+              for sl, dev in zip(shards, devices)]
+    ks = [max(1, min(k, sl.stop - sl.start)) for k, sl in zip(ks, shards)]
+    if len(devices) > 1:
+        # the shards only read the copy cache
+        for r in np.unique(rise_pixels):
+            if float(r) not in copy_cache:
+                copy_cache[float(r)] = select_copies(geom, float(r), n_copies)
     b2_before = sum(candidate_solve.launches.values())
     scores = np.full(n_cand, -np.inf if incremental else 0.0, np.float32)
-    times: dict = {}
-    aborted = False
-    for start in range(0, n_cand, k):
-        if should_abort is not None and should_abort():
-            aborted = True
-            break
-        sl = slice(start, min(start + k, n_cand))
-        ch, cc, cv, phc, pv, ops_hc, ops_v, pair_idx = _candidate_tables(
-            geom, twists[sl], rise_pixels[sl], n_copies, n_pairs, n_ops, copy_cache
-        )
-        out = solve_candidates(
-            geom, cfg, region, twists[sl], rise_pixels[sl], ch, cc, cv, phc, pv, tilt, psi,
-            dy_pixel, pair_ops=(ops_hc, ops_v, pair_idx) if cfg.separable else None,
-            device=device, times=times,
-        )
-        scores[sl] = out["score"].cpu().numpy()
-        if progress_callback is not None:
-            progress_callback(sl.stop, n_cand, scores)
+    lock, stop = threading.Lock(), threading.Event()
+    progress = dict(done=0)
+
+    def run_shard(si):
+        dev, k, mine = devices[si], ks[si], shards[si]
+        times: dict = {}
+        aborted, n_launches = False, 0
+        for start in range(mine.start, mine.stop, k):
+            if stop.is_set():
+                break
+            if should_abort is not None:
+                with lock:
+                    aborted = bool(should_abort())
+                if aborted:
+                    stop.set()
+                    break
+            sl = slice(start, min(start + k, mine.stop))
+            ch, cc, cv, phc, pv, ops_hc, ops_v, pair_idx = _candidate_tables(
+                geom, twists[sl], rise_pixels[sl], n_copies, n_pairs, n_ops, copy_cache
+            )
+            out = solve_candidates(
+                geom, cfg, region, twists[sl], rise_pixels[sl], ch, cc, cv, phc, pv, tilt,
+                psi, dy_pixel, pair_ops=(ops_hc, ops_v, pair_idx) if cfg.separable else None,
+                device=dev, times=times,
+            )
+            s_np = out["score"].cpu().numpy()
+            n_launches += 1
+            with lock:
+                scores[sl] = s_np
+                progress["done"] += sl.stop - sl.start
+                if progress_callback is not None:
+                    progress_callback(progress["done"], n_cand, scores)
+        return dict(times=times, aborted=aborted, n_launches=n_launches)
+
+    runs = _on_shards(run_shard, devices, stop)
+
+    def total(key):
+        return sum(r["times"].get(key, 0.0) for r in runs)
+
     effective = dict(
-        path="percand", batch_size=int(k), n_launches=-(-n_cand // k),
+        path="percand", batch_size=int(ks[0]), n_launches=sum(r["n_launches"] for r in runs),
         n_copies=int(n_copies), n_pairs=int(n_pairs), n_ops=int(n_ops),
         # the gather projector computes in float32, as the reference's
         compute_dtype=cfg.compute_dtype if cfg.separable else "float32",
-        d3=int(geom.d3), l3=int(geom.l3), separable=bool(cfg.separable), aborted=aborted,
+        d3=int(geom.d3), l3=int(geom.l3), separable=bool(cfg.separable),
+        aborted=any(r["aborted"] for r in runs),
         # incremental mode's candidates per launch (None: memory-sized)
         launch_candidates=per_launch,
         # the alpha-decay retry's extra rounds of solves (0: none needed)
-        retry_rounds=int(times.get("retry_rounds", 0)),
+        retry_rounds=int(max(r["times"].get("retry_rounds", 0) for r in runs)),
         # host seconds of the operator builds, the solves and the torch
-        # scoring, each ended by a device synchronisation
-        build_s=times.get("build_s", 0.0), solve_s=times.get("solve_s", 0.0),
-        score_s=times.get("score_s", 0.0),
+        # scoring, each ended by a device synchronisation, summed over the
+        # shards
+        build_s=total("build_s"), solve_s=total("solve_s"), score_s=total("score_s"),
         # B2's kernel launches (solves and ard's matvecs) on CUDA tensors
         b2_launches=sum(candidate_solve.launches.values()) - b2_before,
+        n_devices=len(devices),
     )
+    if len(devices) > 1:
+        effective["shards"] = [dict(device=str(d), candidates=sl.stop - sl.start,
+                                    batch_size=int(k))
+                               for d, sl, k in zip(devices, shards, ks)]
     return scores, effective
 
 
@@ -736,17 +951,6 @@ def _box_bounds(positive, ub_raw):
     lb = torch.where(pos, 0.0, -torch.inf).to(torch.float32)
     ub = torch.where(pos, ub_raw, torch.inf).to(torch.float32)
     return lb, ub
-
-
-def _raise_out_of_slice(cost_analysis, devices) -> None:
-    """NotImplementedError for every argument the port does not cover yet."""
-    checks = [
-        ("cost_analysis", bool(cost_analysis), "A5c"),
-        ("more than one device", devices is not None and len(devices) > 1, "A10b"),
-    ]
-    for name, on, item in checks:
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
 
 
 @_tf32_off
@@ -818,10 +1022,24 @@ def reconstruct_grid(
     fixed-pose pass unless incremental); ``refined_params`` holds the
     refined (tilt, psi, dy pixels) by candidate index, and the best volume
     is solved at its candidate's refined pose.
+
+    ``devices`` (torch.devices, strings or card indices; default
+    [device]) shards the scoring pass: the grouped path deals whole twist
+    groups, the per-candidate path its candidates, to one shard per entry,
+    each on its device in a thread of its own; an entry repeated is that
+    many shards on one device. compute_dtype "auto" follows devices[0], on
+    which the prep, the refinement and the best-volume re-solve run,
+    unsharded. An entry naming a card this machine lacks raises.
+
+    ``cost_analysis`` fills ``GridResult.cost`` with the reference's keys
+    (flops, bytes_accessed, batch_size, analytic_flops_per_candidate) and
+    source="analytic": the port has no compiler count, so every figure is
+    counted from the launch shapes (_grouped_cost, _percand_cost). Under it
+    refine_mode "all" still runs the fixed-pose pass, as the reference.
     """
     algorithm = algorithm or dict(model="lsq")
-    device = torch.device(device)
-    _raise_out_of_slice(cost_analysis, devices)
+    devices = [torch.device(device)] if devices is None else _resolve_devices(devices)
+    device = devices[0]
     twists = np.asarray(twists, np.float32)
     rises = np.asarray(rises, np.float32)
     if twists.shape != rises.shape or twists.ndim != 1:
@@ -860,7 +1078,7 @@ def reconstruct_grid(
     model = algorithm.get("model", "lsq")
     l1, l2r = regularization_from_algorithm(algorithm, 1)
     if compute_dtype in ("auto", ""):
-        compute_dtype = "bfloat16" if device.type != "cpu" else "float32"
+        compute_dtype = "bfloat16" if devices[0].type != "cpu" else "float32"
     cfg = SolveConfig(
         interpolation=interpolation,
         model=model,
@@ -937,13 +1155,14 @@ def reconstruct_grid(
     copy_cache: dict = {}
     dy_pixel = np.float32(dy / target_apix2d)
     drive = dict(batch_size=batch_size, progress_callback=progress_callback,
-                 should_abort=should_abort, card_processes=card_processes)
+                 should_abort=should_abort, card_processes=card_processes, devices=devices)
     incremental = progress_callback is not None or should_abort is not None
     refine_all = bool(refine_tilt_psi_dy_range) and refine_mode == "all"
     t0 = time.perf_counter()
-    if refine_all and not incremental:
+    if refine_all and not incremental and not cost_analysis:
         # every score is replaced by its refined pose's: the fixed-pose
-        # ranking would go unread (it still runs for incremental progress)
+        # ranking would go unread (it still runs for incremental progress
+        # and under cost_analysis, which counts that pass)
         scores = np.zeros(n_cand, np.float32)
         effective = dict(path="refine_all", aborted=False, d3=int(geom.d3), l3=int(geom.l3),
                          n_copies=int(n_copies), n_pairs=int(n_pairs), n_ops=int(n_ops))
@@ -958,6 +1177,11 @@ def reconstruct_grid(
             (tilt, psi, dy_pixel), copy_cache, device, **drive,
         )
     effective["search_s"] = time.perf_counter() - t0
+    cost = None
+    if cost_analysis:
+        cost = (_grouped_cost(geom, cfg, effective["R"], effective["C_u"], n_ops)
+                if effective["path"] == "grouped" else
+                _percand_cost(geom, cfg, effective["batch_size"], n_copies, n_pairs, n_ops))
     refined_params = None
     if refine_tilt_psi_dy_range and not effective["aborted"]:
         scores, refined_params = _refine(
@@ -978,6 +1202,7 @@ def reconstruct_grid(
         target_apix2d=float(target_apix2d),
         target_apix3d=float(target_apix3d),
         refined_params=refined_params,
+        cost=cost,
         effective=effective,
         extras=extras,
     )
@@ -1156,6 +1381,9 @@ def _reconstruct_grid_bucketed(
     merged_refined: dict = {}
     merged_extras = []
     best_sub, best_score, best_global_idx = None, -np.inf, -1
+    # the first bucket's cost, as the reference's (per-candidate figures
+    # differ between the buckets' geometries)
+    cost = None
     done_off = 0
     aborted = False
     buckets = _rise_buckets(rises, ratio)
@@ -1176,6 +1404,8 @@ def _reconstruct_grid_bucketed(
         )
         scores[idx] = sub.scores
         done_off += len(idx)
+        if cost is None:
+            cost = sub.cost
         if sub.extras:
             merged_extras.append(sub.extras)
         if sub.refined_params:
@@ -1213,6 +1443,7 @@ def _reconstruct_grid_bucketed(
         target_apix2d=best_sub.target_apix2d if best_sub is not None else -1.0,
         target_apix3d=best_sub.target_apix3d if best_sub is not None else -1.0,
         refined_params=merged_refined or None,
+        cost=cost,
         effective=dict(best_sub.effective if best_sub is not None else {},
                        n_buckets=len(buckets), aborted=aborted),
         extras=extras,

@@ -258,6 +258,7 @@ def multihost_reconstruct_grid(
     pose_c = np.zeros((n, 3), np.float32)
     pose_m = np.zeros(n, np.float32)
     local_sub = None
+    cost = None  # this process's first sub-call's, as the reference's
     chunks_run = 0
     scored = 0  # candidates this process scored, in every pass
     shard = None
@@ -294,6 +295,8 @@ def multihost_reconstruct_grid(
                     pose_c[part[k]] = np.asarray(v, np.float32)
                     pose_m[part[k]] = 1.0
             local_sub = sub
+            if cost is None:
+                cost = sub.cost
             chunks_run += 1
             if shard is not None:
                 ck_scores[part] = contrib[part]
@@ -397,6 +400,7 @@ def multihost_reconstruct_grid(
         best_index=best,
         best_volume=best_volume,
         refined_params=refined or None,
+        cost=cost,
         effective=dict(
             (local_sub.effective or {}) if local_sub is not None else {},
             n_processes=n_proc, card_processes=card_processes, n_buckets=len(buckets),

@@ -19,10 +19,11 @@ set it to "cpu" before the import). Reference: webApps/denovo3D/app.py
 - top-N result rendering with reprojections (2526-2579)
 
 The compute logic lives in the shiny-free :mod:`workflow` module (unit
-tested); this file is the reactive wiring. The grid runs on one card in
-launches of candidates instead of the reference's ThreadPool; more than
-one card in one process is not ported (``reconstruct_grid`` raises naming
-ROADMAP A10b, and the result modal shows it).
+tested); this file is the reactive wiring. The grid runs in launches of
+candidates instead of the reference's ThreadPool, on the first "# CUDA
+devices" cards (-1: every visible card, as the reference's default; the
+scoring pass is sharded over them inside this process) or, where
+``DEVICE`` is the CPU, on the CPU.
 
 Control-surface parity: every reference sidebar input id exists here
 either verbatim or as a pure rename —
@@ -41,6 +42,7 @@ import asyncio
 import threading
 
 import numpy as np
+import torch
 
 try:
     import shiny
@@ -302,7 +304,7 @@ with ui.sidebar(width="33vw"):
             )
             ui.input_numeric("sym_oversample", "Symmetry oversample (-1=auto)", -1)
             ui.input_numeric(
-                "n_devices", "# CUDA devices (-1 = one)", -1, min=-1, step=1
+                "n_devices", "# CUDA devices (-1 = all)", -1, min=-1, step=1
             )
             ui.input_numeric("top_n", "Top N results", 10, min=1)
             ui.input_checkbox("plot_scores", "Plot scores", value=True)
@@ -686,10 +688,12 @@ def start_reconstruction():
         refine["dy"] = _num(input.refine_dy())
     devices = None
     nd = _int(input.n_devices(), -1)
-    if nd > 1:
-        # several cards in one process are not ported: reconstruct_grid
-        # raises naming ROADMAP A10b, and collect_result shows it
-        devices = list(range(nd))
+    if torch.device(DEVICE).type == "cuda":
+        # the first nd visible cards, or all of them (the reference's
+        # jax.devices()[:nd] and its default); without a card the search
+        # fails on DEVICE and collect_result shows it
+        cards = list(range(torch.cuda.device_count() if torch.cuda.is_available() else 0))
+        devices = (cards[:nd] if nd > 0 else cards) or None
     kwargs = dict(
         csym=max(1, _int(input.csym(), 1)),
         interpolation=input.interpolation(),

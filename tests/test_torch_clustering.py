@@ -3,7 +3,8 @@ reference runs scikit-learn: ``AgglomerativeClusteringWithMinSize`` (every
 linkage, with n_clusters and with distance_threshold, the sequential
 reassignment of undersized clusters and the merge of the two smallest),
 ``assign_beamshifts_to_cluster`` on seeded multi-shot beam-shift patterns
-(labels exactly equal) and the port's k-means and silhouette against
+(labels exactly equal), the structured trees of a connectivity graph
+against scikit-learn's (labels and children equal, distances within 1e-12) and the port's k-means and silhouette against
 scikit-learn's (labels equal, the silhouette within 1e-9). A subprocess
 checks that none of it imports scikit-learn."""
 
@@ -103,9 +104,106 @@ def test_agglomerative_arguments_raise_as_reference():
             ref_clustering.AgglomerativeClusteringWithMinSize(**kw).fit(X)
         with pytest.raises(ValueError):
             clustering.AgglomerativeClusteringWithMinSize(device="cpu", **kw).fit(X)
-    with pytest.raises(NotImplementedError, match="A12.4b"):
-        clustering.AgglomerativeClusteringWithMinSize(
-            connectivity=np.eye(len(X)), device="cpu").fit(X)
+    # a connectivity graph is ported (ROADMAP A12.4b): one of the wrong
+    # shape raises as scikit-learn's does
+    for cls, kw in ((ref_clustering.AgglomerativeClusteringWithMinSize, {}),
+                    (clustering.AgglomerativeClusteringWithMinSize, dict(device="cpu"))):
+        with pytest.raises(ValueError, match="Wrong shape for connectivity"):
+            cls(connectivity=np.eye(len(X) - 1), **kw).fit(X)
+
+
+def _structured_data(seed=0):
+    """125 points in four blobs of 3D, and a 6-nearest-neighbour graph with
+    the edges between the first 75 points and the rest cut (two
+    components)."""
+    from sklearn.neighbors import kneighbors_graph
+
+    g = np.random.default_rng(seed)
+    X = np.concatenate([g.normal(0, 0.3, (40, 3)), g.normal(3, 0.3, (35, 3)),
+                        g.normal([0, 3, 0], 0.3, (30, 3)), g.normal(6, 0.5, (20, 3))])
+    knn = kneighbors_graph(X, 6, include_self=False)
+    part = np.r_[np.zeros(75, int), np.ones(50, int)]
+    two = knn.tolil()
+    rows, cols = two.nonzero()
+    for r, c in zip(rows, cols):
+        if part[r] != part[c]:
+            two[r, c] = 0
+    two = two.tocsr()
+    two.eliminate_zeros()
+    return X, dict(knn=knn, dense=knn.toarray(), two_components=two,
+                   callable=lambda x: kneighbors_graph(x, 5, include_self=True))
+
+
+STRUCTURED_CUTS = dict(
+    full=dict(n_clusters=5, compute_full_tree=True),
+    early=dict(n_clusters=5, compute_full_tree=False),
+    auto_early=dict(n_clusters=110),  # "auto": an early stop past 100 clusters
+    threshold=dict(n_clusters=None, distance_threshold=1.0),
+)
+
+
+@pytest.mark.parametrize("cut", sorted(STRUCTURED_CUTS))
+@pytest.mark.parametrize("graph", ["knn", "dense", "two_components", "callable"])
+@pytest.mark.parametrize("linkage", ["ward", "complete", "average", "single"])
+def test_structured_tree_matches_sklearn(linkage, graph, cut):
+    """A connectivity graph (sparse, dense, of two components, a callable):
+    scikit-learn's structured tree label for label, children_ equal,
+    distances_ within 1e-12, n_connected_components_ and the warning of a
+    graph of several components."""
+    import warnings
+
+    from sklearn.cluster import AgglomerativeClustering
+
+    X, graphs = _structured_data()
+    kw = dict(linkage=linkage, connectivity=graphs[graph], **STRUCTURED_CUTS[cut])
+    with warnings.catch_warnings(record=True) as w_ref:
+        warnings.simplefilter("always")
+        want = AgglomerativeClustering(**kw).fit(X)
+    with warnings.catch_warnings(record=True) as w_got:
+        warnings.simplefilter("always")
+        got = clustering.AgglomerativeClusteringWithMinSize(min_cluster_size=1, device="cpu",
+                                                            **kw).fit(X)
+    np.testing.assert_array_equal(got.labels_, want.labels_)
+    np.testing.assert_array_equal(got.children_, want.children_)
+    assert got.n_connected_components_ == want.n_connected_components_
+    assert got.n_clusters_ == want.n_clusters_
+    if cut == "threshold":
+        np.testing.assert_allclose(got.distances_, want.distances_, rtol=0, atol=1e-12)
+    several = [str(x.message) for x in w_ref if "connected components" in str(x.message)]
+    assert several == [str(x.message) for x in w_got
+                       if "connected components" in str(x.message)]
+    assert bool(several) == (want.n_connected_components_ > 1)
+
+
+@pytest.mark.parametrize("metric", ["manhattan", "cosine", "precomputed"])
+def test_structured_tree_other_metrics_match_sklearn(metric):
+    """Average linkage over the graph of two components under the other
+    metrics: the pairs that join the components and the edge distances
+    as scikit-learn's."""
+    from sklearn.cluster import AgglomerativeClustering
+
+    X, graphs = _structured_data(1)
+    data = X if metric != "precomputed" else np.sqrt(((X[:, None] - X[None]) ** 2).sum(-1))
+    kw = dict(linkage="average", metric=metric, connectivity=graphs["two_components"],
+              n_clusters=None, distance_threshold=0.5)
+    want = AgglomerativeClustering(**kw).fit(data)
+    got = clustering.AgglomerativeClusteringWithMinSize(min_cluster_size=1, device="cpu",
+                                                        **kw).fit(data)
+    np.testing.assert_array_equal(got.labels_, want.labels_)
+    np.testing.assert_allclose(got.distances_, want.distances_, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("linkage", ["ward", "average"])
+def test_structured_tree_with_min_size_matches_reference(linkage):
+    """The reference class with a graph and a minimum size of 5: the tree's
+    clusters under 5 points reassigned as the reference does."""
+    X, graphs = _structured_data(2)
+    kw = dict(min_cluster_size=5, n_clusters=12, linkage=linkage,
+              connectivity=graphs["two_components"])
+    want = ref_clustering.AgglomerativeClusteringWithMinSize(**kw).fit(X)
+    got = clustering.AgglomerativeClusteringWithMinSize(device="cpu", **kw).fit(X)
+    np.testing.assert_array_equal(got.labels_, want.labels_)
+    assert got.n_clusters_ == want.n_clusters_
 
 
 @pytest.mark.parametrize("k", [2, 3, 7, 12, 36, 40])
@@ -166,7 +264,8 @@ def test_assign_beamshifts_matches_reference(name):
 
 def test_no_sklearn_import():
     """Importing clustering and io.metadata and calling both functions
-    leaves scikit-learn out of sys.modules."""
+    (the clustering with and without a connectivity graph) leaves
+    scikit-learn out of sys.modules."""
     code = (
         "import sys, numpy as np\n"
         "from helicon_tpu_torch import clustering\n"
@@ -177,5 +276,8 @@ def test_no_sklearn_import():
         "print(metadata.assign_beamshifts_to_cluster(X, device='cpu').tolist())\n"
         "print(clustering.AgglomerativeClusteringWithMinSize(n_clusters=3, device='cpu')"
         ".fit(X).labels_.tolist())\n"
+        "chain = np.eye(18, k=1) + np.eye(18, k=-1)\n"
+        "print(clustering.AgglomerativeClusteringWithMinSize(n_clusters=3, device='cpu', "
+        "connectivity=chain).fit(X).labels_.tolist())\n"
         "assert 'sklearn' not in sys.modules and 'jax' not in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)

@@ -760,3 +760,68 @@ def test_cli_matches_the_call_in_process(cuda, tmp_path):
         (round(float(res.twists[i]), 4), round(float(res.rises[i]), 4)) for i in order]
     np.testing.assert_allclose([float(r[2]) for r in rows], res.scores[order], rtol=0,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# several devices in one process
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("config", ["grouped", "percand", "tilt"])
+def test_sharded_search_matches_one_device(cuda, config):
+    """reconstruct_grid on two shards of the card (and on every card where
+    there are several) in float32: the one-device scores within 1e-5 and
+    its winner, B1 (grouped) or B2 (per candidate) launched by the shards."""
+    from helicon_tpu_torch.helix import simulate_helical_projection
+
+    img = simulate_helical_projection(
+        n=1, twist=30.0, rise=6.0, csym=1, helical_diameter=40.0, ball_radius=5.0, polymer=0,
+        planarity=1.0, ny=48, nx=96, apix=2.0, rng=0, device="cpu")
+    if config == "grouped":
+        tw = np.repeat(np.linspace(20.0, 55.0, 8).astype(np.float32), 2)
+        ri = np.tile(np.asarray([5.6, 6.0], np.float32), 8)
+    else:
+        tw, ri = np.linspace(20.0, 55.0, 8).astype(np.float32), np.full(8, 6.0, np.float32)
+    kw = dict(apix=2.0, twists=tw, rises=ri, cg_iters=10, fista_iters=16, power_iters=2,
+              compute_dtype="float32", return_best_volume=False,
+              tilt=3.0 if config == "tilt" else 0.0)
+    one = grid.reconstruct_grid(img, device=cuda, **kw)
+    sets = [[cuda, cuda]] + ([list(range(torch.cuda.device_count()))]
+                             if torch.cuda.device_count() > 1 else [])
+    for devices in sets:
+        b1, b2 = gs.launches, sum(cs.launches.values())
+        res = grid.reconstruct_grid(img, devices=devices, **kw)
+        assert res.effective["path"] == one.effective["path"]
+        assert res.effective["n_devices"] == len(devices)
+        np.testing.assert_allclose(res.scores, one.scores, rtol=0, atol=1e-5)
+        assert res.best_index == one.best_index
+        if config == "grouped":
+            assert gs.launches > b1
+        elif config == "percand":
+            assert sum(cs.launches.values()) > b2
+
+
+def test_kernels_launch_on_their_tensors_card(cuda):
+    """Tensors on card 1 while card 0 is current: B1, B2 and the gather
+    kernels launch there and agree with their plain versions. Needs two
+    cards."""
+    from helicon_tpu_torch.denovo3d import gather_kernels as gk
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        inp = _group(dev, torch.float32, *CASES[0], seed=0)
+        x_k, s_k = gs.solve_group(inp, *ITERS)
+        x_p, s_p = gs.solve_group_reference(inp, *ITERS)
+        assert float((s_k - s_p).abs().max()) <= 1e-4
+        (geom, _, _, ops, _), = _candidates(dev, "nn", [1.5])
+        rhs, scal = _rhs_scal(ops, 0.01, 0.001)
+        c_inp = cs.candidate_inputs(ops["factors"], torch.float32, rhs, scal)
+        x_k = cs.solve_candidate_kernel(c_inp, *ITERS)
+        x_p = cs.solve_candidate_reference(c_inp, *ITERS)
+        assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= 1e-3
+        tab, x, r, _ = _gather_case(dev, GATHER_GEOMS[1][1], 2, "nn", seed=1)
+        assert torch.equal(gk.gather_backproject(tab, r), gk.gather_backproject_reference(tab, r))
+        assert torch.equal(gk.gather_project(tab, x), gk.gather_project_reference(tab, x))
+    torch.cuda.synchronize(dev)

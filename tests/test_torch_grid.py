@@ -1,7 +1,7 @@
 """The PyTorch port's grid search end to end against the JAX package, on
 the committed amyloid class average: the estimated tube diameter, the
-solver envelope, the arguments that still raise, TF32 and the port's
-imports. The golden of
+solver envelope, the arguments that raised until they were ported, TF32
+and the port's imports. The golden of
 tests/test_denovo3d_pipeline.py::test_golden_amyloid_class_average_recovers_params
 is in tests/test_torch_grid_golden.py, fsc on the grouped path in
 tests/test_torch_grid_fsc.py and the formerly out-of-slice arguments in
@@ -81,14 +81,12 @@ def test_envelope_matches_reference(amyloid, name):
 
 
 OUT_OF_SLICE = dict(
-    # tilt, psi, ard, ridge, ssim, fsc, thresh and refinement are ported
-    # (the refine rows: tests/test_torch_refine.py's
-    # test_refine_rows_match_reference; fsc with lreg, a 2D metric or thresh
-    # on the grouped path: test_grouped_fsc_options_match_reference); each
-    # case keeps its name on a combination that still raises: several
-    # devices (ROADMAP A10b), cost_analysis (A5c)
-    ard=dict(algorithm=dict(model="ard"), devices=["cuda:0", "cuda:1"]),
-    devices=dict(devices=["cuda:0", "cuda:1"]),
+    # the arguments that raised until several devices (ROADMAP A10b) and
+    # cost_analysis (A5c's count) were ported; each case keeps its name and
+    # now holds the working behaviour: ard on two shards equals one device,
+    # a card this machine lacks still raises, cost_analysis fills the cost
+    ard=dict(algorithm=dict(model="ard"), devices=["cpu", "cpu"]),
+    devices=dict(devices=["cpu", "cuda:7"]),
     cost_analysis=dict(cost_analysis=True),
 )
 
@@ -96,10 +94,23 @@ OUT_OF_SLICE = dict(
 @pytest.mark.parametrize("name", sorted(OUT_OF_SLICE))
 def test_out_of_slice_arguments_raise(amyloid, name):
     kw = dict(apix=2.0, twists=np.asarray([2.0, 2.0], np.float32),
-              rises=np.asarray([4.6, 4.75], np.float32), tube_diameter=110.0, device="cpu")
-    kw.update(OUT_OF_SLICE[name])
-    with pytest.raises(NotImplementedError):
-        reconstruct_grid(amyloid, **kw)
+              rises=np.asarray([4.6, 4.75], np.float32), tube_diameter=110.0, device="cpu",
+              cg_iters=4, fista_iters=4, power_iters=2, return_best_volume=False,
+              target_apix2d=6.0)
+    if name == "devices":
+        if torch.cuda.is_available() and torch.cuda.device_count() > 7:
+            pytest.skip("this machine has eight cards")
+        with pytest.raises(ValueError, match="CUDA device"):
+            reconstruct_grid(amyloid, **kw, **OUT_OF_SLICE[name])
+        return
+    res = reconstruct_grid(amyloid, **kw, **OUT_OF_SLICE[name])
+    if name == "ard":
+        one = reconstruct_grid(amyloid, **kw, algorithm=dict(model="ard"))
+        assert res.effective["path"] == "percand" and res.effective["n_devices"] == 2
+        np.testing.assert_array_equal(res.scores, one.scores)
+    else:
+        assert res.cost["source"] == "analytic" and res.cost["flops"] > 0
+        assert res.cost["batch_size"] == res.effective["R"]
 
 
 def test_tf32_off_during_search_and_restored_after():

@@ -233,13 +233,34 @@ class TestDenovo3DBoot:
         assert int(ref.best_index) == res.best_index
 
     def test_more_than_one_device_names_a10b(self, shiny_shim, monkeypatch):
-        """Two cards in one process: reconstruct_grid raises naming ROADMAP
-        A10b and the result modal shows it; the session lives on."""
-        app, s, _ = _boot_denovo3d(shiny_shim, monkeypatch)
-        s.set_input("n_devices", 2)
-        _run_small_grid(s)
-        assert app.grid_result.get() is None
-        assert any("A10b" in m.text() for m in s.modals), s.modals
+        """"# CUDA devices" on the CPU app (DEVICE "cpu"): 2 takes the one
+        CPU device, as -1 does, and both searches run to the same result,
+        no modal (several cards in one process are ported, ROADMAP A10b);
+        on the card the field takes the first n visible cards, -1 all."""
+        calls = []
+        app, s, _ = _boot_denovo3d(shiny_shim, monkeypatch, calls=calls)
+        modals, results = len(s.modals), []
+        for nd in (2, -1):
+            s.set_input("n_devices", nd)
+            _run_small_grid(s)
+            results.append(app.grid_result.get())
+        assert all(r is not None for r in results)
+        np.testing.assert_array_equal(results[0].scores, results[1].scores)
+        assert results[0].best_index == results[1].best_index
+        assert [c[4].get("devices") for c in calls] == [None, None]
+        assert len(s.modals) == modals and not s.errors, ([m.text() for m in s.modals],
+                                                          s.errors)
+        # the card's rule, on three visible cards, with the search replaced
+        monkeypatch.setattr(app, "DEVICE", "cuda")
+        monkeypatch.setattr(app.torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(app.torch.cuda, "device_count", lambda: 3)
+        seen = []
+        monkeypatch.setattr(app, "reconstruction_task",
+                            lambda img, apix, tw, ri, kwargs: seen.append(kwargs.get("devices")))
+        for nd in (2, -1, 5):
+            s.set_input("n_devices", nd)
+            _run_small_grid(s)
+        assert seen == [[0, 1], [0, 1, 2], [0, 1, 2]]
 
     def test_invalid_steps_notify_instead_of_crashing(self, shiny_shim, monkeypatch):
         app, s, _ = _boot_denovo3d(shiny_shim, monkeypatch)
